@@ -3,15 +3,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from qgemm_tpu_torch/csrc, holds each one
-against its plain PyTorch version at GPT_6_7B shapes, times them, serves
-16 greedy requests through ContinuousBatchingEngine on the full-width,
-full-depth int8 GPT_6_7B (random weights from a seed) with an int8 KV
-cache, checks that the serving run went through every kernel, and compares
-a 2-layer full-width model's prefill logits between the CPU (float32,
-plain versions) and the GPU (bf16, kernels). Each phase prints one JSON
-line; the last line is {"ok": true, "device": {...}}. Any failure raises,
-so the exit code is nonzero. Needs one CUDA device; exits nonzero without
-one. Uses no JAX.
+against its plain PyTorch version at GPT_6_7B shapes, times them, runs
+bench.py's GEMM protocol at 2048^3, and serves 16 greedy requests through
+ContinuousBatchingEngine on the full-width, full-depth GPT_6_7B (random
+weights from a seed, int8 KV cache) three times: int8 weights, int4 (W4A8)
+weights, and int8 weights with the LLM.int8() outlier split (outlier
+feature dims planted in the LayerNorm gains). Each serving run checks that
+it went through its kernels. Then it compares a 2-layer full-width
+model's prefill logits between the CPU (float32, plain versions) and the
+GPU (bf16, kernels), and the logits' quantization error with and without
+the outlier split. Each phase prints one JSON line; the last line is
+{"ok": true, "device": {...}}. Any failure raises, so the exit code is
+nonzero. Needs one CUDA device; exits nonzero without one. Uses no JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ import torch
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
+
+
+# GEMM shapes of a GPT_6_7B decode step: QKV / W_O, FFN up, FFN down, lm_head
+GEMM_SHAPES = [(4096, 4096), (4096, 16384), (16384, 4096), (4096, 50272)]
+# the six feature dims whose LayerNorm gains the outlier phases set to 20
+OUTLIER_DIMS = [13, 781, 1550, 2402, 3119, 3990]
 
 
 def emit(obj) -> None:
@@ -94,13 +103,17 @@ def phase_parity() -> dict:
     from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
                                                           flash_attention_plain)
     from qgemm_tpu_torch.ops.kv_cache import quantize_kv
-    from qgemm_tpu_torch.ops.quantize import (quantize_weights, quantized_matmul_plain,
-                                              quantized_matmul_prequant)
+    from qgemm_tpu_torch.ops.quantize import (dequantize_weights_int4, quantize_weights,
+                                              quantize_weights_int4, quantized_matmul_plain,
+                                              quantized_matmul_prequant,
+                                              quantized_matmul_prequant_outlier,
+                                              quantized_matmul_prequant_w4, w4a8_matmul_plain)
     dev = "cuda"
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     errs = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0}
-            for name in ("quantized_matmul", "decode_attention", "flash_attention")}
+            for name in ("quantized_matmul", "decode_attention", "flash_attention",
+                         "w4a8_matmul")}
     report = []
 
     def record(name, got, ref, **row):
@@ -112,7 +125,7 @@ def phase_parity() -> dict:
 
     # K1: identical int8 codes on both sides, so only the f32 epilogue's
     # association differs: |err| <= 1e-6 * max|ref| (a few f32 ulps)
-    for k, n in [(4096, 4096), (4096, 16384), (16384, 4096), (4096, 50272)]:
+    for k, n in GEMM_SHAPES:
         w = torch.randn((k, n), generator=g, device=dev).to(torch.bfloat16) * 0.02
         wq = quantize_weights(w)
         x = torch.randn((512, k), generator=g, device=dev).to(torch.bfloat16)
@@ -130,6 +143,54 @@ def phase_parity() -> dict:
             if not torch.equal(rows[m], rows[1]):
                 raise AssertionError(f"K1 row 0 differs between m=1 and m={m} (k={k}, n={n})")
         del w, wq, x
+
+    # K4: identical int8 codes and int32 group sums, and both kernels fold
+    # groups and slabs in the plain version's order with correctly rounded
+    # f32 steps: |err| <= 1e-6 * max|ref| (a few f32 ulps; expected 0). The
+    # first K slab is 8x larger, so per-slab scales differ within a row.
+    for k, n in GEMM_SHAPES:
+        wq4 = quantize_weights_int4(torch.randn((k, n), generator=g, device=dev) * 0.02)
+        x = torch.randn((512, k), generator=g, device=dev)
+        x[:, :2048] *= 8.0
+        x = x.to(torch.bfloat16)
+        rows = {}
+        for m in (1, 8, 300, 512):
+            got = quantized_matmul_prequant_w4(x[:m], wq4)
+            ref = w4a8_matmul_plain(x[:m], wq4)
+            tol = 1e-6 * float(ref.abs().max())
+            e = record("w4a8_matmul", got, ref, m=m, k=k, n=n, tol=tol)
+            if not e <= tol:
+                raise AssertionError(f"K4 m={m} k={k} n={n}: max err {e} > {tol}")
+            rows[m] = got[0]
+        for m in (8, 300, 512):
+            if not torch.equal(rows[m], rows[1]):
+                raise AssertionError(f"K4 row 0 differs between m=1 and m={m} (k={k}, n={n})")
+        del wq4, x
+
+    # the outlier split at the GEMM level, on planted-outlier activations
+    # (three columns x60, as tests/test_outlier_serving.py builds them): the
+    # decomposed product's error against the exact one is under half of the
+    # plain quantized product's, for int8 (K1) and int4 (K4) weights
+    k, n = 4096, 4096
+    x = torch.randn((64, k), generator=g, device=dev)
+    x[:, [5, 40, 100]] *= 60.0
+    x = x.to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device=dev) / 64.0
+    outlier_checks = []
+    for bits in (8, 4):
+        wq = quantize_weights_int4(w) if bits == 4 else quantize_weights(w)
+        wf = dequantize_weights_int4(wq, k=k) if bits == 4 else w
+        exact = torch.matmul(x.float(), wf)
+        plain = quantized_matmul_prequant_w4(x, wq) if bits == 4 \
+            else quantized_matmul_prequant(x, wq)
+        dec = quantized_matmul_prequant_outlier(x, wq, threshold=6.0, capacity=32)
+        e_plain = float((plain - exact).norm() / exact.norm())
+        e_dec = float((dec - exact).norm() / exact.norm())
+        outlier_checks.append({"bits": bits, "rel_err_plain": e_plain, "rel_err_outlier": e_dec})
+        if not e_dec < e_plain / 2:
+            raise AssertionError(f"outlier split, bits={bits}: error {e_dec} not under "
+                                 f"half of the plain {e_plain}")
+    del x, w, wq, wf
 
     # K2: p rounds to bf16 on both sides at slightly different running
     # maxima (a one-ulp flip of a probability moves an output by <= ~4e-3),
@@ -169,7 +230,7 @@ def phase_parity() -> dict:
         if not (excess(o, ro, 2 ** -7) <= 1e-2 and el <= 1e-4):
             raise AssertionError(f"K3 sq={sq} causal={causal}: O err {e}, lse err {el}")
     torch.cuda.synchronize()
-    emit({"phase": "parity", "checks": report})
+    emit({"phase": "parity", "checks": report, "outlier_gemm": outlier_checks})
     return errs
 
 
@@ -186,8 +247,9 @@ def phase_timing(errs: dict) -> dict:
                                                           flash_attention_plain)
     from qgemm_tpu_torch.ops.kv_cache import quantize_kv
     from qgemm_tpu_torch.ops.quantize import (absmax_quantize, dequantize, quantize_weights,
-                                              quantized_matmul_plain,
-                                              quantized_matmul_prequant)
+                                              quantize_weights_int4, quantized_matmul_plain,
+                                              quantized_matmul_prequant,
+                                              quantized_matmul_prequant_w4, w4a8_matmul_plain)
     from qgemm_tpu_torch.utils.profiling import bench_ms
     dev = "cuda"
     g = torch.Generator(device=dev)
@@ -206,7 +268,7 @@ def phase_timing(errs: dict) -> dict:
 
     k1_rows = []
     for m in (8, 512):
-        for k, n in [(4096, 4096), (4096, 16384), (16384, 4096), (4096, 50272)]:
+        for k, n in GEMM_SHAPES:
             wq = quantize_weights(torch.randn((k, n), generator=g, device=dev) * 0.02)
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
             ms = bench_ms(lambda: quantized_matmul_prequant(x, wq))
@@ -225,6 +287,33 @@ def phase_timing(errs: dict) -> dict:
     head = k1_rows[1]          # m=8, k=4096, n=16384: the FFN-up GEMM of a decode step
     out["quantized_matmul"] = dict(head, **errs["quantized_matmul"],
                                    shape=f"m={head['m']} k={head['k']} n={head['n']}")
+
+    # K4 with K1 beside it at the same shape (the int8 point of comparison,
+    # not a yardstick: K1 computes another function). No single PyTorch
+    # call computes W4A8: torch._weight_int4pack_mm takes bf16 activations
+    # (A16W4), so library_ms is null.
+    k4_rows = []
+    for m in (8, 512):
+        for k, n in GEMM_SHAPES:
+            w = torch.randn((k, n), generator=g, device=dev) * 0.02
+            wq4, wq = quantize_weights_int4(w), quantize_weights(w)
+            del w
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            ms = bench_ms(lambda: quantized_matmul_prequant_w4(x, wq4))
+            # the plain version launches ~8 kernels per 128-row group:
+            # more than the launch queue holds, so timed without the sleep
+            plain = bench_ms(lambda: w4a8_matmul_plain(x, wq4), queue_ahead=False)
+            k1 = bench_ms(lambda: quantized_matmul_prequant(x, wq))
+            bms, by = bound(m * k * 2 + k * n // 2 + (k // 128) * n * 4 + m * n * 4,
+                            2 * m * n * k, INT8_OPS)
+            k4_rows.append({"m": m, "k": k, "n": n, "ms": ms, "plain_ms": plain,
+                            "library_ms": None, "bound_ms": bms, "bound_by": by,
+                            "k1_ms": k1})
+            del wq4, wq, x
+    emit({"phase": "timing_k4_shapes", "rows": k4_rows})
+    head = k4_rows[1]
+    out["w4a8_matmul"] = dict(head, **errs["w4a8_matmul"],
+                              shape=f"m={head['m']} k={head['k']} n={head['n']}")
 
     b, h, s, d = 8, 32, 1024, 128
     lengths = torch.tensor([150, 210, 260, 330, 400, 450, 500, 550], device=dev,
@@ -317,16 +406,50 @@ def profile_decode(engine, rng, n_steps: int = 10) -> dict:
             "top_kernels_ms_per_step": {n[:80]: v / 1e3 / n_steps for n, v in top}}
 
 
-def phase_serving() -> dict:
-    """The main path: GPT_6_7B int8 through the continuous-batching engine."""
+def plant_outlier_dims(model) -> None:
+    """Systematic outlier features, as LLM.int8() reports for OPT-6.7B:
+    ln1 and ln2 gain 20 at six fixed dims in every block. LayerNorm
+    outputs are about N(0, 1) with random weights, so without this no
+    activation would pass the 6.0 threshold."""
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.ln1.gamma[OUTLIER_DIMS] = 20.0
+            blk.ln2.gamma[OUTLIER_DIMS] = 20.0
+
+
+def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = False) -> dict:
+    """One pass of the main path: GPT_6_7B (full width and depth, weights
+    quantized with ``qkw``) serving 16 greedy requests through the
+    continuous-batching engine with an int8 KV cache. The launch counts are
+    set to 0 just before the run and read just after it: every kernel in
+    ``used`` must have launched and none in ``unused``. With ``outliers``
+    the outlier dims are planted, a forward pre-hook on every quantized
+    linear adds its input's count of columns above the threshold into a
+    device tensor (read once, after the run), and the transcripts are not
+    held to isolated generation: outlier selection runs over every row of
+    a step, so a request's tokens may depend on what shares its step."""
     from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.models.linear import QuantizedLinear
     from qgemm_tpu_torch.ops import cuda as kernels
     from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda", **qkw)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    above = torch.zeros((), dtype=torch.int64, device="cuda")
+    hooks = []
+    if outliers:
+        plant_outlier_dims(model)
+
+        def count_above(mod, args):
+            x = args[0]
+            above.add_((x.abs().amax(dim=tuple(range(x.ndim - 1)))
+                        > mod.outlier_threshold).sum())
+
+        hooks = [mod.register_forward_pre_hook(count_above) for mod in model.modules()
+                 if isinstance(mod, QuantizedLinear)]
     rng = np.random.default_rng(0)
     plens = rng.integers(128, 501, size=16)
     news = rng.integers(16, 49, size=16)
@@ -356,34 +479,52 @@ def phase_serving() -> dict:
     counts = kernels.launch_counts()
     engine.run_to_completion()
     stats = engine.stats
+    for hook in hooks:
+        hook.remove()
+    columns_above = int(above)
 
     bad = [(r.id, r.error) for r in reqs if not r.done or r.error is not None]
     if bad:
-        raise AssertionError(f"requests failed or unfinished: {bad}")
+        raise AssertionError(f"{label}: requests failed or unfinished: {bad}")
     for r in reqs:
         if len(r.generated) != r.max_new_tokens:
-            raise AssertionError(f"request {r.id}: {len(r.generated)} tokens, "
+            raise AssertionError(f"{label}: request {r.id}: {len(r.generated)} tokens, "
                                  f"wanted {r.max_new_tokens}")
-    if not all(v > 0 for v in counts.values()):
-        raise AssertionError(f"a kernel never launched during serving: {counts}")
+    if not all(counts[k] > 0 for k in used):
+        raise AssertionError(f"{label}: a kernel of the path never launched: {counts}")
+    if any(counts[k] for k in unused):
+        raise AssertionError(f"{label}: a kernel off the path launched: {counts}")
+    if outliers and not columns_above > 0:
+        raise AssertionError(f"{label}: no activation column passed the outlier threshold")
     per_decode = decode_only[0] if decode_only else None
     if any(dd != per_decode for dd in decode_only):
-        raise AssertionError("decode steps launched different kernel counts")
+        raise AssertionError(f"{label}: decode steps launched different kernel counts")
     per_prefill = None
     if admit_steps and per_decode is not None:
         n, dd = admit_steps[0]
         per_prefill = {kk: (dd[kk] - per_decode[kk]) // n for kk in dd}
+    n_gemms = 4 * GPT_6_7B.n_layers + 2 * GPT_6_7B.n_layers + 1
+    for k in used:
+        if k in ("quantized_matmul", "w4a8_matmul") and not (
+                per_decode[k] == n_gemms and per_prefill[k] == n_gemms):
+            raise AssertionError(f"{label}: {k} launched {per_decode[k]} times per decode "
+                                 f"step and {per_prefill[k]} per prefill, not {n_gemms}")
 
-    # two transcripts against the model's own isolated greedy generation
-    for r in reqs[:2]:
-        iso = model.generate(torch.tensor([r.prompt], device="cuda"), r.max_new_tokens,
-                             quantized_cache=True)[0].tolist()
-        if iso != r.generated:
-            raise AssertionError(f"request {r.id}: engine {r.generated} != generate {iso}")
+    matched = 0
+    if not outliers:     # rows are independent: two transcripts equal generate
+        for r in reqs[:2]:
+            iso = model.generate(torch.tensor([r.prompt], device="cuda"), r.max_new_tokens,
+                                 quantized_cache=True)[0].tolist()
+            if iso != r.generated:
+                raise AssertionError(f"{label}: request {r.id}: engine {r.generated} "
+                                     f"!= generate {iso}")
+            matched += 1
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     profile = profile_decode(engine, rng)
-    res = {"phase": "serving", "model": "GPT_6_7B int8 weights, int8 KV cache",
-           "layers": GPT_6_7B.n_layers, "d_model": GPT_6_7B.d_model,
+    res = {"phase": f"serving_{label}",
+           "model": f"GPT_6_7B {label} weights, int8 KV cache",
+           "quantize": qkw, "layers": GPT_6_7B.n_layers, "d_model": GPT_6_7B.d_model,
            "vocab": GPT_6_7B.vocab_size, "init_s": round(init_s, 2),
            "requests": len(reqs), "prompt_tokens": int(plens.sum()),
            "stats": stats, "decode_steps_timed": len(step_ms),
@@ -391,11 +532,65 @@ def phase_serving() -> dict:
            "decode_step_ms_median": float(np.median(step_ms)) if step_ms else None,
            "launches": counts, "launches_per_decode_step": per_decode,
            "launches_per_prefill": per_prefill,
-           "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 2**30, 2),
-           "transcripts_match_generate": 2, "decode_profile": profile}
+           "peak_mem_gb": round(peak / 2**30, 2),
+           "transcripts_match_generate": matched, "decode_profile": profile}
+    if outliers:
+        res["outlier_dims_planted"] = OUTLIER_DIMS
+        res["columns_above_threshold"] = columns_above
     emit(res)
     del engine, model
     torch.cuda.empty_cache()
+    return res
+
+
+def phase_gemm_protocol() -> dict:
+    """bench.py's protocol on the card: M = N = K = 2048, uniform(-1, 1)
+    f32 operands; the signed mean error of the dynamic int8 path against
+    the exact f32 product; bench_ms times of f32 (TF32 off) and bf16
+    torch.matmul, the dynamic int8 path (torch column-quantize of W, then
+    K1: TPU kernel row 3), the prequantized int8 path (K1) and W4A8 (K4).
+    Row 3's library time is one torch pipeline of the same function:
+    row- and column-quantize, torch._int_mm, dequant."""
+    from qgemm_tpu_torch.ops.quantize import (absmax_quantize, dequantize, quantize_weights,
+                                              quantize_weights_int4, quantized_matmul,
+                                              quantized_matmul_plain,
+                                              quantized_matmul_prequant,
+                                              quantized_matmul_prequant_w4)
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    m = n = k = 2048
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    x = torch.rand((m, k), generator=g, device="cuda") * 2 - 1
+    w = torch.rand((k, n), generator=g, device="cuda") * 2 - 1
+    exact = torch.matmul(x, w)
+    err = quantized_matmul(x, w) - exact
+    wq, wq4 = quantize_weights(w), quantize_weights_int4(w)
+    err4 = quantized_matmul_prequant_w4(x, wq4) - exact
+
+    def int_mm_dynamic():
+        xq, cx = absmax_quantize(x, axis=-1)
+        wqd = quantize_weights(w)
+        return dequantize(torch._int_mm(xq, wqd.q), cx, wqd.c)
+
+    t = {"f32_ms": bench_ms(lambda: torch.matmul(x, w)),
+         "bf16_ms": bench_ms(lambda: torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))),
+         "int8_dynamic_ms": bench_ms(lambda: quantized_matmul(x, w)),
+         "int8_dynamic_plain_ms": bench_ms(
+             lambda: quantized_matmul_plain(x, quantize_weights(w))),
+         "int8_dynamic_library_ms": bench_ms(int_mm_dynamic),
+         "int8_prequant_ms": bench_ms(lambda: quantized_matmul_prequant(x, wq)),
+         "w4a8_ms": bench_ms(lambda: quantized_matmul_prequant_w4(x, wq4))}
+    bms, by = bound(4 * (m * k + k * n + m * n), 2 * m * n * k, INT8_OPS)
+    res = {"phase": "gemm_protocol", "m": m, "n": n, "k": k,
+           "operands": "uniform(-1, 1) float32",
+           "int8_dynamic_signed_mean_err": float(err.mean()),
+           "int8_dynamic_mean_abs_err": float(err.abs().mean()),
+           "w4a8_signed_mean_err": float(err4.mean()),
+           "w4a8_mean_abs_err": float(err4.abs().mean()),
+           **t, "int8_dynamic_bound_ms": bms, "int8_dynamic_bound_by": by,
+           "speedup_int8_dynamic_vs_f32": t["f32_ms"] / t["int8_dynamic_ms"],
+           "speedup_int8_dynamic_vs_bf16": t["bf16_ms"] / t["int8_dynamic_ms"]}
+    emit(res)
     return res
 
 
@@ -433,6 +628,35 @@ def phase_numerics() -> None:
         raise AssertionError(f"top-1 differs: cpu {top_cpu} gpu {top_gpu} gap {tie_gap}")
 
 
+def phase_outlier_numerics() -> dict:
+    """2 layers at full width, float32, outlier dims planted: the relative
+    RMS error of the last position's logits against the unquantized model,
+    for int8 and int4 weights, without and with the outlier split
+    (threshold 6.0). The split must bring the error down for both."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    cfg = dataclasses.replace(GPT_6_7B, n_layers=2, dtype="float32")
+    model = GPT.init(cfg, seed=5, device="cuda")
+    plant_outlier_dims(model)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, size=(1, 128))).cuda()
+    ref = model.forward(tokens)[0, -1].double()
+    errs = {}
+    for label, qkw in (("int8", {}), ("int8_outlier", {"outlier_threshold": 6.0}),
+                       ("int4", {"bits": 4}),
+                       ("int4_outlier", {"bits": 4, "outlier_threshold": 6.0})):
+        got = model.quantize(**qkw).forward(tokens)[0, -1].double()
+        errs[label] = float((got - ref).norm() / ref.norm())
+    res = {"phase": "outlier_numerics", "layers": 2, "outlier_dims_planted": OUTLIER_DIMS,
+           "rel_rms_err_vs_float": errs}
+    emit(res)
+    for bits in ("int8", "int4"):
+        if not errs[f"{bits}_outlier"] < errs[bits]:
+            raise AssertionError(f"outlier split did not lower the {bits} logits' error: {errs}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -442,19 +666,31 @@ def main() -> None:
     phase_build()
     errs = phase_parity()
     timing = phase_timing(errs)
-    serving = phase_serving()
+    phase_gemm_protocol()
+    int8 = serve("int8", {}, used=("quantized_matmul", "decode_attention", "flash_attention"),
+                 unused=("w4a8_matmul",))
+    w4a8 = serve("w4a8", {"bits": 4}, used=("w4a8_matmul", "decode_attention",
+                                            "flash_attention"),
+                 unused=("quantized_matmul",))
+    serve("int8_outlier", {"outlier_threshold": 6.0},
+          used=("quantized_matmul", "decode_attention", "flash_attention"),
+          unused=("w4a8_matmul",), outliers=True)
     phase_numerics()
+    phase_outlier_numerics()
     replaces = {"quantized_matmul": "qgemm_tpu/ops/pallas/quantized_matmul.py:107",
                 "decode_attention": "qgemm_tpu/ops/pallas/decode_attention.py:44",
-                "flash_attention": "qgemm_tpu/ops/pallas/flash_attention.py:41"}
+                "flash_attention": "qgemm_tpu/ops/pallas/flash_attention.py:41",
+                "w4a8_matmul": "qgemm_tpu/ops/pallas/w4a8_matmul.py:72"}
     kernels = []
     for name in _build.KERNELS:
         t = timing[name]
+        path = w4a8 if name == "w4a8_matmul" else int8
         entry = {"name": name, "route": "cuda",
                  "source": f"qgemm_tpu_torch/csrc/{name}.cu",
-                 "replaces": replaces[name], "launches": serving["launches"][name],
-                 "launches_per_decode_step": serving["launches_per_decode_step"][name],
-                 "launches_per_prefill": serving["launches_per_prefill"][name],
+                 "replaces": replaces[name], "launches": path["launches"][name],
+                 "launches_counted_in": path["phase"],
+                 "launches_per_decode_step": path["launches_per_decode_step"][name],
+                 "launches_per_prefill": path["launches_per_prefill"][name],
                  "max_abs_err": t["max_abs_err"], "max_rel_err": t["max_rel_err"],
                  "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -464,6 +700,10 @@ def main() -> None:
                  "around each, L2 flushed by a read before each", "card": smi}
         if name == "quantized_matmul":
             entry["also_replaces"] = "qgemm_tpu/ops/pallas/quantized_matmul.py:139"
+        if name == "w4a8_matmul":
+            entry["library_note"] = ("no single PyTorch call computes W4A8: "
+                                     "torch._weight_int4pack_mm takes bf16 activations")
+            entry["k1_ms_same_shape"] = t["k1_ms"]
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

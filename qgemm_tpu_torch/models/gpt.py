@@ -1,7 +1,8 @@
 """Decoder-only transformer, the serving-path model family (port of
 ``qgemm_tpu/models/gpt.py``; ``beam_search`` and MoE blocks are not ported
 yet): pre-LN causal LM, KV-cache decoding with per-slot positions, offline
-int8 quantization of every GEMM.
+int8 or int4 (W4A8) quantization of every GEMM, optionally with the
+LLM.int8() outlier split.
 
 Caches are updated in place: ``decode_step``, ``prefill`` and
 ``prefill_chunk`` write into the cache tensors they are given and return
@@ -116,9 +117,10 @@ class GPT(nn.Module):
     @classmethod
     def init_quantized(cls, cfg: GPTConfig, seed: int = 0, device: DeviceLike = None,
                        **qkw) -> "GPT":
-        """Initialize straight into int8: each block is built, quantized and
-        its float weights dropped before the next is built, so peak memory
-        is the int8 model plus one float block."""
+        """Initialize straight into quantized weights (``qkw`` as for
+        ``quantize``): each block is built, quantized and its float weights
+        dropped before the next is built, so peak memory is the quantized
+        model plus one float block."""
         check_quantize_options(**qkw)
         gen = _generator(resolve_device(device), seed)
         d = cfg.tdtype
@@ -134,8 +136,9 @@ class GPT(nn.Module):
                    lm_head, cfg)
 
     def quantize(self, **qkw) -> "GPT":
-        """int8 weights for every GEMM (``bits=4`` and the outlier split
-        raise: not ported)."""
+        """Quantize every GEMM, ``lm_head`` included: int8 weights, or int4
+        with ``bits=4``; ``outlier_threshold=6.0`` (and ``outlier_capacity``)
+        turns on the LLM.int8() outlier split (BASELINE config 5)."""
         check_quantize_options(**qkw)
         return GPT(self.embed, [b.quantize(**qkw) for b in self.blocks], self.ln_f,
                    self.lm_head.quantize(**qkw), self.cfg)

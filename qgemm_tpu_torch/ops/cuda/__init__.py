@@ -4,25 +4,28 @@ Each wrapper runs its kernel on CUDA tensors (or raises) and its plain
 PyTorch version on CPU tensors, and counts its kernel launches in the
 ``launches`` attribute of the function that launches, so a run can show
 which path it took. K1's wrapper is ``ops.quantize.quantized_matmul_prequant``
-(its launch is ``quantized_matmul.quantized_matmul_cuda``); K2's and K3's
-are ``decode_attention.decode_attention`` and ``flash_attention.flash_attention_fwd``.
+(its launch is ``quantized_matmul.quantized_matmul_cuda``); K4's is
+``ops.quantize.quantized_matmul_prequant_w4`` (its launch is
+``w4a8_matmul.w4a8_matmul_cuda``); K2's and K3's are
+``decode_attention.decode_attention`` and ``flash_attention.flash_attention_fwd``.
 """
 
 from __future__ import annotations
 
 
-def reset_launch_counts() -> None:
+def _launchers() -> dict:
     from qgemm_tpu_torch.ops.cuda import (decode_attention, flash_attention,
-                                          quantized_matmul)
-    for fn in (quantized_matmul.quantized_matmul_cuda,
-               decode_attention.decode_attention,
-               flash_attention.flash_attention_fwd):
+                                          quantized_matmul, w4a8_matmul)
+    return {"quantized_matmul": quantized_matmul.quantized_matmul_cuda,
+            "decode_attention": decode_attention.decode_attention,
+            "flash_attention": flash_attention.flash_attention_fwd,
+            "w4a8_matmul": w4a8_matmul.w4a8_matmul_cuda}
+
+
+def reset_launch_counts() -> None:
+    for fn in _launchers().values():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    from qgemm_tpu_torch.ops.cuda import (decode_attention, flash_attention,
-                                          quantized_matmul)
-    return {"quantized_matmul": quantized_matmul.quantized_matmul_cuda.launches,
-            "decode_attention": decode_attention.decode_attention.launches,
-            "flash_attention": flash_attention.flash_attention_fwd.launches}
+    return {name: fn.launches for name, fn in _launchers().items()}

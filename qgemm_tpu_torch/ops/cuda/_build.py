@@ -22,7 +22,7 @@ from typing import Dict, Iterable, List, Optional
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "qgemm_tpu_torch"
-KERNELS = ("quantized_matmul", "decode_attention", "flash_attention")
+KERNELS = ("quantized_matmul", "decode_attention", "flash_attention", "w4a8_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -15,6 +15,13 @@ multi-step decode, tensor parallelism, over-commit, overlapped admission,
 int4 KV and the native scheduler raise ``NotImplementedError``; so does
 nothing else. A decode-step fault propagates to the caller (the JAX
 engine's engine-level recovery is not ported yet).
+
+The engine calls only the model's ``init_cache``, ``prefill`` and
+``decode_step``, so int8, W4A8 (``bits=4``) and outlier-split models serve
+alike. With the outlier split a layer selects its outlier dims over every
+row it is given — the prompt's bucket padding at prefill, every slot
+(inactive ones too) at decode — so a request's tokens can depend on what
+shares its step, as in the JAX engine.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ _SLEEP_HZ = 2.0e9
 
 
 def bench_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
-             flush_l2: bool = True) -> float:
+             flush_l2: bool = True, queue_ahead: bool = True) -> float:
     """Median device milliseconds of one ``fn()`` call over ``iters`` calls,
     after ``warmup`` untimed ones.
 
@@ -31,6 +31,11 @@ def bench_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
     weights are read from device memory as a serving step reads them.
     Raises without a GPU (a CPU time is never reported as a device time)
     and if the host could not queue the calls before the sleep ended.
+
+    ``queue_ahead=False`` is for a function that launches more kernels
+    than the device's launch queue holds (a plain version that loops over
+    groups in Python): no sleep, so each call's events also take in the
+    time the device waits for the host to launch the call's kernels.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("bench_ms times on a CUDA device; none is available")
@@ -55,6 +60,10 @@ def bench_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if not queue_ahead:
+        pairs = enqueue()
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
     t = time.perf_counter()
     enqueue()                   # the host's time to enqueue every call
     torch.cuda.synchronize()

@@ -44,6 +44,28 @@ def model_pair(seed: int, quantize: bool, **overrides):
                                    device="cpu")
 
 
+def plant_outlier_dims(jm, dims, gain: float = 20.0):
+    """Set ln1/ln2 gamma to ``gain`` at feature ``dims`` in every block:
+    systematic outlier features, as LLM.int8() reports for OPT-6.7B."""
+    def plant(path, leaf):
+        key = _path_key(path)
+        if key.endswith("ln1/gamma") or key.endswith("ln2/gamma"):
+            return leaf.at[jnp.asarray(dims)].set(gain)
+        return leaf
+    return jax.tree_util.tree_map_with_path(plant, jm)
+
+
+def quantized_pair(seed: int, plant_dims=(), **qkw):
+    """A JAX GPT quantized with ``qkw`` (bits, outlier options), outlier
+    dims planted, and the port's GPT carried over from its leaves."""
+    jm = JGPT.init(JConfig(**SIZES), key=jax.random.PRNGKey(seed)).quantize(**qkw)
+    if plant_dims:
+        jm = plant_outlier_dims(jm, plant_dims)
+    outliers = {k: qkw[k] for k in ("outlier_threshold", "outlier_capacity") if k in qkw}
+    return jm, gpt_from_jax_params(jax_params(jm), GPTConfig(**SIZES), device="cpu",
+                                   **outliers)
+
+
 def test_interop_weights_bit_exact():
     jm, tm = model_pair(0, quantize=True)
     jp = jax_params(jm)
@@ -129,8 +151,10 @@ def test_generate_matches_jax(quantize, n_kv_heads, quantized_cache):
 
 
 def test_quantize_unported_options_raise():
+    """Weights are int8 or int4 (both ported): any other width raises,
+    before a layer is touched."""
     _, tm = model_pair(6, quantize=False)
-    with pytest.raises(NotImplementedError, match="bits=4"):
-        tm.quantize(bits=4)
-    with pytest.raises(NotImplementedError, match="outlier_threshold"):
-        tm.quantize(outlier_threshold=6.0)
+    with pytest.raises(ValueError, match="bits=3"):
+        tm.quantize(bits=3)
+    with pytest.raises(ValueError, match="bits=16"):
+        GPT.init_quantized(GPTConfig(**SIZES), device="cpu", bits=16)

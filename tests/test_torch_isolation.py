@@ -16,7 +16,10 @@ from qgemm_tpu_torch.ops import cuda as kernels
 from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention
 from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
 from qgemm_tpu_torch.ops.kv_cache import quantize_kv
-from qgemm_tpu_torch.ops.quantize import quantize_weights, quantized_matmul_prequant
+from qgemm_tpu_torch.ops.quantize import (quantize_weights, quantize_weights_int4,
+                                          quantized_matmul_prequant,
+                                          quantized_matmul_prequant_outlier,
+                                          quantized_matmul_prequant_w4)
 from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine
 from qgemm_tpu_torch.utils.interop import gpt_from_jax_params
 from qgemm_tpu_torch.utils.profiling import bench_ms
@@ -70,6 +73,10 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     x = torch.randn(4, 64, generator=g)
     wq = quantize_weights(torch.randn(64, 24, generator=g))
     assert quantized_matmul_prequant(x, wq).shape == (4, 24)
+    wq4 = quantize_weights_int4(torch.randn(64, 24, generator=g))
+    assert quantized_matmul_prequant_w4(x, wq4).shape == (4, 24)
+    for w in (wq, wq4):
+        assert quantized_matmul_prequant_outlier(x * 10, w, threshold=6.0).shape == (4, 24)
     (kq, kc), (vq, vc) = quantize_kv(torch.randn(2, 2, 9, 64, generator=g)), \
         quantize_kv(torch.randn(2, 2, 9, 64, generator=g))
     out = decode_attention(torch.randn(2, 4, 1, 64, generator=g), kq, vq,
@@ -79,7 +86,7 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     o, lse = flash_attention_fwd(q, q, q, causal=True)
     assert o.shape == q.shape and lse.shape == (1, 2, 5)
     assert kernels.launch_counts() == {"quantized_matmul": 0, "decode_attention": 0,
-                                       "flash_attention": 0}
+                                       "flash_attention": 0, "w4a8_matmul": 0}
 
 
 def test_model_cpu_path_launches_no_kernel():
@@ -87,4 +94,11 @@ def test_model_cpu_path_launches_no_kernel():
     model = GPT.init(CFG, seed=1, device="cpu").quantize()
     assert model.generate(torch.tensor([[1, 2, 3]]), 4, quantized_cache=True).shape == (1, 4)
     assert model.forward(torch.tensor([[4, 5]])).shape == (1, 2, 97)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_w4a8_outlier_model_cpu_path_launches_no_kernel():
+    kernels.reset_launch_counts()
+    model = GPT.init(CFG, seed=2, device="cpu").quantize(bits=4, outlier_threshold=6.0)
+    assert model.generate(torch.tensor([[1, 2, 3]]), 4, quantized_cache=True).shape == (1, 4)
     assert sum(kernels.launch_counts().values()) == 0
