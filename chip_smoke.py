@@ -6,15 +6,26 @@ Builds the port's CUDA kernels from qgemm_tpu_torch/csrc, holds each one
 against its plain PyTorch version at GPT_6_7B shapes, times them, runs
 bench.py's GEMM protocol at 2048^3, and serves 16 greedy requests through
 ContinuousBatchingEngine on the full-width, full-depth GPT_6_7B (random
-weights from a seed, int8 KV cache) three times: int8 weights, int4 (W4A8)
-weights, and int8 weights with the LLM.int8() outlier split (outlier
-feature dims planted in the LayerNorm gains). Each serving run checks that
-it went through its kernels. Then it compares a 2-layer full-width
-model's prefill logits between the CPU (float32, plain versions) and the
-GPU (bf16, kernels), and the logits' quantization error with and without
-the outlier split. Each phase prints one JSON line; the last line is
-{"ok": true, "device": {...}}. Any failure raises, so the exit code is
-nonzero. Needs one CUDA device; exits nonzero without one. Uses no JAX.
+weights from a seed) five times. Three runs use the int8 KV cache: int8
+weights, int4 (W4A8) weights, and int8 weights with the LLM.int8() outlier
+split (outlier feature dims planted in the LayerNorm gains). Two use the
+paged KV tier with int8 weights, a 256-token prefix shared by half the
+requests and chunked admission: int8 pools, then int4 pools in an
+undersized pool with over-commit and overlapped admission. Each serving
+run checks that it went through its kernels. Then it compares a 2-layer
+full-width model's prefill logits between the CPU (float32, plain
+versions) and the GPU (bf16, kernels), and the logits' quantization error
+with and without the outlier split. Each phase prints one JSON line; the
+last line is {"ok": true, "device": {...}}. Any failure raises, so the
+exit code is nonzero. Needs one CUDA device; exits nonzero without one.
+Uses no JAX.
+
+    python3 chip_smoke.py --dense-step-ab OTHER_CHECKOUT [ROUNDS]
+
+serves the dense int8 run alone, with another checkout's package (an
+earlier commit unpacked by ``git archive``) and this one's, in turns
+(other, this, this, other; ROUNDS times, default 1), each in its own
+process, and prints both sides' decode step times.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -65,6 +77,75 @@ def excess(got: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
     (rtol 2^-7 covers one bf16 rounding of an output on each side)."""
     g, r = got.float(), ref.float()
     return float(((g - r).abs() - rtol * r.abs()).max())
+
+
+def paged_kv_bytes(lengths, hkv: int, d: int, page: int, bits: int) -> int:
+    """Bytes of K and V that attending positions j < length of each slot
+    reads from a paged pool: codes (int8 rows; an int4 byte row r holds
+    positions r and r + page/2, so a slot's last page of fill f needs
+    min(f, page/2) byte rows) and one f32 scale per position."""
+    total = 0
+    for n in map(int, lengths):
+        full, fill = divmod(n, page)
+        rows = n if bits == 8 else full * (page // 2) + min(fill, page // 2)
+        total += hkv * 2 * (rows * d + n * 4)
+    return total
+
+
+def random_paged_cache(seed: int, lengths, hkv: int, page: int, bits: int, pps: int,
+                       d: int = 128):
+    """A paged cache on the card holding random codes (any byte: int4 nibbles
+    span [-8, 7]) and positive scales for ``lengths`` tokens per slot, in
+    pages of a shuffled physical order, with the step tables the engine
+    would build. Returns (cache, resident page count)."""
+    from qgemm_tpu_torch.serving.paged_cache import PagedKVCache, build_step_tables
+    cpu = torch.Generator().manual_seed(seed)
+    counts = [-(-int(n) // page) for n in lengths]
+    n_pages = 1 + sum(counts) + 2
+    perm = (torch.randperm(n_pages - 1, generator=cpu) + 1).tolist()
+    pt = torch.zeros((len(lengths), pps), dtype=torch.int32)
+    for s, n in enumerate(counts):
+        pt[s, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rows = page if bits == 8 else page // 2
+    lo = -127 if bits == 8 else -128
+    codes = lambda: torch.randint(lo, 128, (n_pages, hkv, rows, d), generator=g,
+                                  device="cuda", dtype=torch.int8)
+    scales = lambda: torch.rand((n_pages, hkv, 1, page), generator=g, device="cuda") * 2 + 0.05
+    ss, sp = build_step_tables(counts, pps)
+    cache = PagedKVCache(kq=codes(), kc=scales(), vq=codes(), vc=scales(),
+                         page_table=pt.cuda(), step_slot=torch.from_numpy(ss),
+                         step_page=torch.from_numpy(sp), page_size=page, kv_bits=bits)
+    return cache, sum(counts)
+
+
+def dense_requests(cfg, rng) -> list:
+    """The dense serving runs' 16 requests as (prompt, max_new_tokens):
+    random prompts of 128-500 tokens, max_new_tokens 16-48."""
+    plens = rng.integers(128, 501, size=16)
+    news = rng.integers(16, 49, size=16)
+    return [(rng.integers(0, cfg.vocab_size, size=int(p)).tolist(), int(n))
+            for p, n in zip(plens, news)]
+
+
+def paged_requests(vocab: int, rng) -> tuple:
+    """The paged serving runs' 16 requests, alternating: 8 share a 256-token
+    prefix (a system prompt of two pages) followed by a random suffix of
+    32-300 tokens; 8 are random prompts of 128-500 tokens, the first two of
+    at most 256 (no prefix hit, one chunk: the whole-prompt prefill).
+    max_new_tokens 16-48. Returns (prompts, max_new, indices of the two
+    short random prompts)."""
+    prefix = rng.integers(0, vocab, size=256).tolist()
+    shared = [prefix + rng.integers(0, vocab, size=int(n)).tolist()
+              for n in rng.integers(32, 301, size=8)]
+    plens = rng.integers(128, 501, size=8)
+    plens[:2] = rng.integers(128, 257, size=2)
+    own = [rng.integers(0, vocab, size=int(n)).tolist() for n in plens]
+    prompts = [p for pair in zip(shared, own) for p in pair]
+    news = [int(n) for n in rng.integers(16, 49, size=16)]
+    return prompts, news, (1, 3)
 
 
 # ------------------------------------------------------------------ phases
@@ -113,7 +194,7 @@ def phase_parity() -> dict:
     g.manual_seed(1)
     errs = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0}
             for name in ("quantized_matmul", "decode_attention", "flash_attention",
-                         "w4a8_matmul")}
+                         "w4a8_matmul", "paged_decode_attention", "paged_context_attention")}
     report = []
 
     def record(name, got, ref, **row):
@@ -229,6 +310,58 @@ def phase_parity() -> dict:
                    lse_max_abs_err=el, tol=1e-2)
         if not (excess(o, ro, 2 ** -7) <= 1e-2 and el <= 1e-4):
             raise AssertionError(f"K3 sq={sq} causal={causal}: O err {e}, lse err {el}")
+
+    # K5, both entries, and K6 against their plain versions in bf16 (q and
+    # p * vc/127 rounded where the kernels round): K2's tolerance and
+    # reasoning. GPT_6_7B is MHA (Hkv 32); GQA (Hkv 8, g 4) runs too. Page
+    # tables take pages in a shuffled physical order; a slot of length 0
+    # must come out as zeros (the plain version averages V there, junk the
+    # engine never reads).
+    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_ragged)
+    from qgemm_tpu_torch.serving.paged_cache import (paged_attention_reference,
+                                                     paged_context_attention_reference)
+    bf16 = torch.bfloat16
+    lengths = torch.tensor([0, 1, 128, 257, 500, 640, 1000, 1024], device=dev,
+                           dtype=torch.int32)
+    live = lengths > 0
+    for hkv in (32, 8):
+        for page in (128, 32):
+            for bits in (8, 4):
+                cache, _ = random_paged_cache(10 + hkv + page + bits, lengths.tolist(), hkv,
+                                              page, bits, pps=1024 // page)
+                rect = dataclasses.replace(cache, step_slot=None, step_page=None)
+                q = torch.randn((8, 32, 1, 128), generator=g, device=dev).to(bf16)
+                ref = paged_attention_reference(q, cache, lengths, compute_dtype=bf16)
+                for entry, c in (("rectangular", rect), ("ragged", cache)):
+                    fn = paged_decode_attention if entry == "rectangular" \
+                        else paged_decode_attention_ragged
+                    got = fn(q, c, lengths)
+                    e = record("paged_decode_attention", got[live], ref[live], entry=entry,
+                               hkv=hkv, page=page, bits=bits, tol=5e-3)
+                    if not (excess(got[live], ref[live], 2 ** -7) <= 5e-3
+                            and not bool(got[~live].any())):
+                        raise AssertionError(f"K5 {entry} hkv={hkv} page={page} bits={bits}: "
+                                             f"max err {e}")
+                del cache, rect
+    c = 256
+    for bits in (8, 4):
+        for hkv in (32, 8):
+            for offs in ([0], [768], [300], [0, 768, 300, 129]):
+                lens = torch.tensor([o + c for o in offs], device=dev, dtype=torch.int32)
+                cache, _ = random_paged_cache(20 + hkv + bits + offs[0], lens.tolist(), hkv,
+                                              128, bits, pps=8)
+                q = torch.randn((len(offs), 32, c, 128), generator=g, device=dev).to(bf16)
+                off = offs[0] if len(offs) == 1 else torch.tensor(offs, device=dev)
+                got = paged_context_attention(q, cache, lens, off)
+                ref = paged_context_attention_reference(q, cache, lens, off, compute_dtype=bf16)
+                e = record("paged_context_attention", got, ref, b=len(offs), offsets=offs,
+                           hkv=hkv, bits=bits, tol=5e-3)
+                if not excess(got, ref, 2 ** -7) <= 5e-3:
+                    raise AssertionError(f"K6 offsets={offs} hkv={hkv} bits={bits}: "
+                                         f"max err {e}")
+                del cache
     torch.cuda.synchronize()
     emit({"phase": "parity", "checks": report, "outlier_gemm": outlier_checks})
     return errs
@@ -342,6 +475,59 @@ def phase_timing(errs: dict) -> dict:
                               "bound_ms": bms, "bound_by": by,
                               **errs["flash_attention"],
                               "shape": f"B=1 H={h} S={sq} D={d} causal"}
+
+    # K5 at row 5's shape (K2's above), through the engine's ragged entry,
+    # and K6 at one 256-row chunk after 768 resident positions, beside the
+    # plain gather (JAX's default route for chunks). Bounds count, read
+    # once, the K/V bytes the lengths need (``paged_kv_bytes``, as K2's
+    # bound counts exact positions), q, the page table, the lengths and the
+    # output; no single PyTorch call attends over a paged int8 pool, so
+    # library_ms is null.
+    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention_ragged
+    from qgemm_tpu_torch.serving.paged_cache import (paged_attention_reference,
+                                                     paged_context_attention_reference)
+    no_library = "no single PyTorch call attends over a paged int8 or int4 pool"
+    page, pps = 128, 8
+    q = torch.randn((b, h, 1, d), generator=g, device=dev).to(torch.bfloat16)
+    for bits in (8, 4):
+        cache, resident = random_paged_cache(30 + bits, lengths.tolist(), h, page, bits, pps)
+        ms = bench_ms(lambda: paged_decode_attention_ragged(q, cache, lengths))
+        # the plain versions launch more kernels than the launch queue
+        # holds ahead of bench_ms's sleep, so they are timed without it
+        plain = bench_ms(lambda: paged_attention_reference(q, cache, lengths,
+                                                           compute_dtype=torch.bfloat16),
+                         queue_ahead=False)
+        moved = 2 * b * h * d * 2 + b * (pps * 4 + 4) + paged_kv_bytes(
+            lengths.tolist(), h, d, page, bits)
+        bms, by = bound(moved, tot * h * 4 * d, BF16_FLOPS)
+        key = "paged_decode_attention" if bits == 8 else "paged_decode_attention_int4"
+        out[key] = {"ms": ms, "plain_ms": plain, "library_ms": None, "library_note": no_library,
+                    "bound_ms": bms, "bound_by": by, "k2_ms_same_lengths":
+                    out["decode_attention"]["ms"], "resident_pages": resident,
+                    **errs["paged_decode_attention"],
+                    "shape": f"B={b} H={h} D={d} page={page} kv_bits={bits} "
+                             f"lengths={lengths.tolist()} (ragged entry)"}
+        del cache
+    c, off = 256, 768
+    q = torch.randn((1, h, c, d), generator=g, device=dev).to(torch.bfloat16)
+    lens = torch.tensor([off + c], device=dev, dtype=torch.int32)
+    pairs = c * off + c * (c + 1) // 2            # (row, attended position) pairs
+    for bits in (8, 4):
+        cache, resident = random_paged_cache(40 + bits, lens.tolist(), h, page, bits, pps)
+        ms = bench_ms(lambda: paged_context_attention(q, cache, lens, off))
+        plain = bench_ms(lambda: paged_context_attention_reference(
+            q, cache, lens, off, compute_dtype=torch.bfloat16), queue_ahead=False)
+        moved = 2 * c * h * d * 2 + pps * 4 + 8 + paged_kv_bytes(lens.tolist(), h, d, page, bits)
+        bms, by = bound(moved, h * pairs * 4 * d, BF16_FLOPS)
+        key = "paged_context_attention" if bits == 8 else "paged_context_attention_int4"
+        out[key] = {"ms": ms, "plain_ms": plain, "library_ms": None, "library_note": no_library,
+                    "bound_ms": bms, "bound_by": by, "resident_pages": resident,
+                    **errs["paged_context_attention"],
+                    "shape": f"B=1 H={h} C={c} D={d} offset={off} page={page} "
+                             f"kv_bits={bits}"}
+        del cache
+    emit({"phase": "timing_paged", **{k: out[k] for k in out if k.startswith("paged")}})
     return out
 
 
@@ -417,11 +603,69 @@ def plant_outlier_dims(model) -> None:
             blk.ln2.gamma[OUTLIER_DIMS] = 20.0
 
 
+def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
+    """Serve ``reqs`` to completion one step at a time, the launch counts set
+    to 0 just before the run and read just after it. Per step: the kernels
+    launched, and (decode-only steps) the wall time; with the paged tier,
+    the pages reserved and used. Fails unless every request finished, with
+    no error, with its max_new_tokens tokens, within ``max_steps`` engine
+    steps."""
+    from qgemm_tpu_torch.ops import cuda as kernels
+    for r in reqs:
+        engine.submit(r)
+    kernels.reset_launch_counts()
+    decode_only, admit_steps, step_ms, pages = [], [], [], []
+    while engine.book.num_waiting or engine.book.num_active:
+        if engine.steps >= max_steps:
+            raise AssertionError(f"{label}: not done after {max_steps} engine steps")
+        before = kernels.launch_counts()
+        n_adm = len(engine._admit_times)
+        t = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        delta = {kk: v - before[kk] for kk, v in kernels.launch_counts().items()}
+        admitted = len(engine._admit_times) - n_adm
+        if admitted:
+            admit_steps.append((admitted, delta))
+        else:
+            decode_only.append(delta)
+            step_ms.append(dt)
+        if getattr(engine, "paged", False):  # an earlier checkout's engine has no paged mode
+            st = engine.stats
+            pages.append((st["pages_reserved"], st["pages_used"], engine.book.num_active))
+    counts = kernels.launch_counts()
+    engine.run_to_completion()
+    bad = [(r.id, r.error) for r in reqs if not r.done or r.error is not None]
+    if bad:
+        raise AssertionError(f"{label}: requests failed or unfinished: {bad}")
+    for r in reqs:
+        if len(r.generated) != r.max_new_tokens:
+            raise AssertionError(f"{label}: request {r.id}: {len(r.generated)} tokens, "
+                                 f"wanted {r.max_new_tokens}")
+    per_decode = decode_only[0] if decode_only else None
+    if any(dd != per_decode for dd in decode_only):
+        raise AssertionError(f"{label}: decode steps launched different kernel counts")
+    return {"counts": counts, "per_decode": per_decode, "admit_steps": admit_steps,
+            "step_ms": step_ms, "pages": pages}
+
+
+def transcripts_match_generate(label: str, model, reqs) -> int:
+    """Each request's greedy transcript equals the model's own generation
+    with the dense int8 cache (K3 prefill, K2 decode). Returns the count."""
+    for r in reqs:
+        iso = model.generate(torch.tensor([r.prompt], device="cuda"), r.max_new_tokens,
+                             quantized_cache=True)[0].tolist()
+        if iso != r.generated:
+            raise AssertionError(f"{label}: request {r.id}: engine {r.generated} "
+                                 f"!= generate {iso}")
+    return len(reqs)
+
+
 def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = False) -> dict:
     """One pass of the main path: GPT_6_7B (full width and depth, weights
     quantized with ``qkw``) serving 16 greedy requests through the
-    continuous-batching engine with an int8 KV cache. The launch counts are
-    set to 0 just before the run and read just after it: every kernel in
+    continuous-batching engine with an int8 KV cache. Every kernel in
     ``used`` must have launched and none in ``unused``. With ``outliers``
     the outlier dims are planted, a forward pre-hook on every quantized
     linear adds its input's count of columns above the threshold into a
@@ -430,7 +674,6 @@ def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = Fa
     a step, so a request's tokens may depend on what shares its step."""
     from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
     from qgemm_tpu_torch.models.linear import QuantizedLinear
-    from qgemm_tpu_torch.ops import cuda as kernels
     from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
 
     torch.cuda.reset_peak_memory_stats()
@@ -451,57 +694,25 @@ def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = Fa
         hooks = [mod.register_forward_pre_hook(count_above) for mod in model.modules()
                  if isinstance(mod, QuantizedLinear)]
     rng = np.random.default_rng(0)
-    plens = rng.integers(128, 501, size=16)
-    news = rng.integers(16, 49, size=16)
-    reqs = [Request(prompt=rng.integers(0, GPT_6_7B.vocab_size, size=int(p)).tolist(),
-                    max_new_tokens=int(nn)) for p, nn in zip(plens, news)]
+    reqs = [Request(prompt=p, max_new_tokens=n) for p, n in dense_requests(GPT_6_7B, rng)]
     engine = ContinuousBatchingEngine(model, max_slots=8, max_seq_len=1024,
                                       quantized_cache=True, device="cuda")
-    for r in reqs:
-        engine.submit(r)
-
-    kernels.reset_launch_counts()
-    decode_only, admit_steps, step_ms = [], [], []
-    while engine.book.num_waiting or engine.book.num_active:
-        before = kernels.launch_counts()
-        n_adm = len(engine._admit_times)
-        t = time.perf_counter()
-        engine.step()
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t) * 1e3
-        delta = {kk: v - before[kk] for kk, v in kernels.launch_counts().items()}
-        admitted = len(engine._admit_times) - n_adm
-        if admitted:
-            admit_steps.append((admitted, delta))
-        else:
-            decode_only.append(delta)
-            step_ms.append(dt)
-    counts = kernels.launch_counts()
-    engine.run_to_completion()
+    run = drive(engine, reqs, label)
+    counts, per_decode, step_ms = run["counts"], run["per_decode"], run["step_ms"]
     stats = engine.stats
     for hook in hooks:
         hook.remove()
     columns_above = int(above)
 
-    bad = [(r.id, r.error) for r in reqs if not r.done or r.error is not None]
-    if bad:
-        raise AssertionError(f"{label}: requests failed or unfinished: {bad}")
-    for r in reqs:
-        if len(r.generated) != r.max_new_tokens:
-            raise AssertionError(f"{label}: request {r.id}: {len(r.generated)} tokens, "
-                                 f"wanted {r.max_new_tokens}")
     if not all(counts[k] > 0 for k in used):
         raise AssertionError(f"{label}: a kernel of the path never launched: {counts}")
     if any(counts[k] for k in unused):
         raise AssertionError(f"{label}: a kernel off the path launched: {counts}")
     if outliers and not columns_above > 0:
         raise AssertionError(f"{label}: no activation column passed the outlier threshold")
-    per_decode = decode_only[0] if decode_only else None
-    if any(dd != per_decode for dd in decode_only):
-        raise AssertionError(f"{label}: decode steps launched different kernel counts")
     per_prefill = None
-    if admit_steps and per_decode is not None:
-        n, dd = admit_steps[0]
+    if run["admit_steps"] and per_decode is not None:
+        n, dd = run["admit_steps"][0]
         per_prefill = {kk: (dd[kk] - per_decode[kk]) // n for kk in dd}
     n_gemms = 4 * GPT_6_7B.n_layers + 2 * GPT_6_7B.n_layers + 1
     for k in used:
@@ -510,15 +721,8 @@ def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = Fa
             raise AssertionError(f"{label}: {k} launched {per_decode[k]} times per decode "
                                  f"step and {per_prefill[k]} per prefill, not {n_gemms}")
 
-    matched = 0
-    if not outliers:     # rows are independent: two transcripts equal generate
-        for r in reqs[:2]:
-            iso = model.generate(torch.tensor([r.prompt], device="cuda"), r.max_new_tokens,
-                                 quantized_cache=True)[0].tolist()
-            if iso != r.generated:
-                raise AssertionError(f"{label}: request {r.id}: engine {r.generated} "
-                                     f"!= generate {iso}")
-            matched += 1
+    # rows are independent: two transcripts equal generate
+    matched = 0 if outliers else transcripts_match_generate(label, model, reqs[:2])
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     profile = profile_decode(engine, rng)
@@ -526,7 +730,7 @@ def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = Fa
            "model": f"GPT_6_7B {label} weights, int8 KV cache",
            "quantize": qkw, "layers": GPT_6_7B.n_layers, "d_model": GPT_6_7B.d_model,
            "vocab": GPT_6_7B.vocab_size, "init_s": round(init_s, 2),
-           "requests": len(reqs), "prompt_tokens": int(plens.sum()),
+           "requests": len(reqs), "prompt_tokens": sum(len(r.prompt) for r in reqs),
            "stats": stats, "decode_steps_timed": len(step_ms),
            "decode_step_ms_mean": float(np.mean(step_ms)) if step_ms else None,
            "decode_step_ms_median": float(np.median(step_ms)) if step_ms else None,
@@ -541,6 +745,168 @@ def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = Fa
     del engine, model
     torch.cuda.empty_cache()
     return res
+
+
+def paged_prefill_launches(run: dict, per_decode: dict, n_layers: int, n_gemms: int,
+                           label: str) -> dict:
+    """What the paged run's prefills launched: each admission step's counts
+    less its one decode step's. A whole-prompt prefill launches K3 once per
+    layer, a chunk (a 256-row piece of a long prompt, or the suffix after a
+    prefix hit) K6 once per layer, and each runs the model's 193 GEMMs; no
+    prefill launches K5."""
+    tot = {k: sum(d[k] - per_decode[k] for _, d in run["admit_steps"]) for k in per_decode}
+    whole, rem3 = divmod(tot["flash_attention"], n_layers)
+    chunks, rem6 = divmod(tot["paged_context_attention"], n_layers)
+    k5 = tot["paged_decode_attention"] + tot["paged_decode_attention_ragged"]
+    if rem3 or rem6 or k5 or tot["quantized_matmul"] != n_gemms * (whole + chunks):
+        raise AssertionError(f"{label}: prefill launches {tot} are not {n_layers} per "
+                             f"layer pass and {n_gemms} GEMMs per prefill")
+    return {"totals": tot, "whole_prompt_prefills": whole, "chunks": chunks,
+            "per_whole_prompt_prefill": {"flash_attention": n_layers,
+                                         "quantized_matmul": n_gemms},
+            "per_chunk": {"paged_context_attention": n_layers, "quantized_matmul": n_gemms}}
+
+
+def decode_ab(engines: dict, rng, n_steps: int = 10) -> dict:
+    """Host wall time per steady decode step of two engines on one model,
+    each with the same 8 busy slots of 300-token prompts, timed in turns
+    (a, b, b, a) so that drift of the host's speed falls on both alike.
+    Each engine's two windows cover the same positions as the other's."""
+    from qgemm_tpu_torch.serving.engine import Request
+    (a, ea), (b, eb) = engines.items()
+    vocab = ea.model.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, size=300).tolist() for _ in range(ea.max_slots)]
+    for eng in (ea, eb):
+        for p in prompts:
+            eng.submit(Request(prompt=p, max_new_tokens=2 * n_steps + 8))
+        for _ in range(3):          # admits every slot, then two warm steps
+            eng.step()
+        if eng.book.num_active != eng.max_slots:
+            raise AssertionError("decode A/B: not every slot is decoding")
+
+    def window(eng) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n_steps
+
+    ms = {a: [], b: []}
+    for name, eng in ((a, ea), (b, eb), (b, eb), (a, ea)):
+        ms[name].append(window(eng))
+    for eng in (ea, eb):
+        eng.run_to_completion()
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
+    return {"order": [a, b, b, a], "steps_per_window": n_steps,
+            "wall_ms_per_step_windows": ms, "wall_ms_per_step_mean": mean,
+            f"ratio_{b}_over_{a}": mean[b] / mean[a]}
+
+
+# The over-commit run: over-commit admits a request only while one free
+# page per resident slot remains, and a slot crosses at most one page
+# boundary while it decodes fewer than 128 tokens, so with max_new_tokens
+# of 16-48 no growth can find the pool dry. Its requests therefore decode
+# 200 tokens more (two or three boundaries each), in a pool of 24 pages of
+# 128 positions (and the null page), far below the 8 residents' worst
+# cases: decode growth preempts.
+OVERCOMMIT_PAGES = 25
+OVERCOMMIT_EXTRA_NEW = 200
+
+
+def serve_paged() -> tuple:
+    """The paged tier on the main path: int8 GPT_6_7B, full width and depth,
+    8 slots x 1024 positions in pages of 128, prefix cache on, chunked
+    admission of 256 rows, serving the 16 ``paged_requests``. Run
+    ``paged_int8`` (int8 pools, full pool) must decode through K5 only (32
+    launches per decode step, K1 193, no K2 or K4), launch K3 (whole-prompt
+    prefills) and K6 (chunks and prefix-hit suffixes), hit the prefix
+    cache, and give the two short random prompts the transcripts of
+    ``generate``. Run ``paged_int4_overcommit`` (int4 pools, over-commit,
+    overlapped admission, an undersized pool, the same prompts decoding
+    ``OVERCOMMIT_EXTRA_NEW`` tokens more) must preempt at least once and
+    still finish every request, through K5 and K6 on int4 pools. Returns
+    both phases' results."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts, news, short = paged_requests(GPT_6_7B.vocab_size, np.random.default_rng(7))
+    n_gemms = 6 * GPT_6_7B.n_layers + 1
+    k5 = ("paged_decode_attention", "paged_decode_attention_ragged")
+    results = []
+    for label, extra, kw in (("paged_int8", 0, {}),
+                             ("paged_int4_overcommit", OVERCOMMIT_EXTRA_NEW,
+                              dict(kv_bits=4, overcommit=True, overlap_admission=True,
+                                   n_pages=OVERCOMMIT_PAGES))):
+        reqs = [Request(prompt=p, max_new_tokens=n + extra) for p, n in zip(prompts, news)]
+        engine = ContinuousBatchingEngine(model, max_slots=8, max_seq_len=1024, paged=True,
+                                          page_size=128, prefix_cache=True,
+                                          chunked_prefill=256, device="cuda", **kw)
+        run = drive(engine, reqs, label)
+        counts, per_decode = run["counts"], run["per_decode"]
+        stats = engine.stats
+        k5_launches = sum(counts[k] for k in k5)
+        if not (k5_launches > 0 and counts["paged_context_attention"] > 0):
+            raise AssertionError(f"{label}: K5 or K6 never launched: {counts}")
+        if any(c.kv_bits != (4 if "int4" in label else 8) for c in engine.caches):
+            raise AssertionError(f"{label}: the pools are not of the run's kv_bits")
+        if not (stats["prefix_hits"] > 0 and stats["prefill_tokens_skipped"] > 0):
+            raise AssertionError(f"{label}: the prefix cache was never hit: {stats}")
+        matched = 0
+        if label == "paged_int8":
+            if not (per_decode is not None
+                    and sum(per_decode[k] for k in k5) == GPT_6_7B.n_layers
+                    and per_decode["quantized_matmul"] == n_gemms
+                    and per_decode["decode_attention"] == 0 == per_decode["w4a8_matmul"]
+                    and counts["flash_attention"] > 0):
+                raise AssertionError(f"{label}: launches per decode step {per_decode}, "
+                                     f"in all {counts}")
+            prefill = paged_prefill_launches(run, per_decode, GPT_6_7B.n_layers, n_gemms,
+                                             label)
+            matched = transcripts_match_generate(label, model, [reqs[i] for i in short])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            profile = profile_decode(engine, np.random.default_rng(8))
+            ab = decode_ab({"dense_int8": ContinuousBatchingEngine(
+                                model, max_slots=8, max_seq_len=1024, quantized_cache=True,
+                                device="cuda"),
+                            "paged_int8": ContinuousBatchingEngine(
+                                model, max_slots=8, max_seq_len=1024, paged=True,
+                                page_size=128, prefix_cache=True, chunked_prefill=256,
+                                device="cuda")}, np.random.default_rng(9))
+        elif not stats["preemptions"] >= 1:
+            raise AssertionError(f"{label}: no preemption in an undersized pool: {stats}")
+        reserved = max(p[0] for p in run["pages"])
+        res = {"phase": f"serving_{label}",
+               "model": "GPT_6_7B int8 weights, paged KV cache", "engine": kw,
+               "layers": GPT_6_7B.n_layers, "init_s": round(init_s, 2),
+               "requests": len(reqs), "prompt_tokens": sum(map(len, prompts)),
+               "max_new_tokens": [r.max_new_tokens for r in reqs],
+               "stats": stats, "decode_steps_timed": len(run["step_ms"]),
+               "decode_step_ms_mean": float(np.mean(run["step_ms"])),
+               "decode_step_ms_median": float(np.median(run["step_ms"])),
+               "launches": counts, "launches_per_decode_step": per_decode,
+               "admission_steps": len(run["admit_steps"]),
+               "pages_total": stats["pages_total"], "pages_reserved_max": reserved,
+               "pages_used_at_max_reserved": next(p[1] for p in run["pages"]
+                                                  if p[0] == reserved),
+               "pages_used_max": max(p[1] for p in run["pages"]),
+               "transcripts_match_generate": matched}
+        if label == "paged_int8":
+            res.update(peak_mem_gb=round(peak / 2**30, 2), prefill_launches=prefill,
+                       decode_profile=profile, decode_ab=ab)
+        emit(res)
+        results.append(res)
+        del engine
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return tuple(results)
 
 
 def phase_gemm_protocol() -> dict:
@@ -657,9 +1023,75 @@ def phase_outlier_numerics() -> dict:
     return res
 
 
+def dense_step_child(tree: str) -> None:
+    """One side of ``--dense-step-ab``: ``serve``'s int8 run (the same
+    model, engine and 16 requests, without its checks of launches and
+    transcripts) and its steady decode windows (``profile_decode``), with
+    the kernels and the qgemm_tpu_torch package of checkout ``tree``.
+    Prints one JSON line."""
+    root = Path(tree).resolve()
+    sys.path.insert(0, str(root))
+    import qgemm_tpu_torch
+    if Path(qgemm_tpu_torch.__file__).resolve().parents[1] != root:
+        raise AssertionError(f"imported {qgemm_tpu_torch.__file__}, not {root}'s package")
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.ops.cuda import _build
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    _build.build()
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=p, max_new_tokens=n) for p, n in dense_requests(GPT_6_7B, rng)]
+    engine = ContinuousBatchingEngine(model, max_slots=8, max_seq_len=1024,
+                                      quantized_cache=True, device="cuda")
+    run = drive(engine, reqs, f"dense_step {root}")
+    stats = engine.stats
+    emit({"tree": str(root), "decode_step_ms_mean": float(np.mean(run["step_ms"])),
+          "decode_step_ms_median": float(np.median(run["step_ms"])), "stats": stats,
+          "decode_profile": profile_decode(engine, rng)})
+
+
+def dense_step_ab(other: str, rounds: int = 1) -> None:
+    """The dense int8 serving run of checkout ``other`` (an earlier commit,
+    unpacked by ``git archive``) against this one's: each side in its own
+    process (``dense_step_child``), in turns (other, this, this, other,
+    ``rounds`` times) so that drift of the host's speed falls on both
+    alike. Prints each run and the means as JSON lines; fails if a run
+    fails."""
+    here = Path(__file__).resolve()
+    trees = {"other": Path(other).resolve(), "this": here.parent}
+    runs = {"other": [], "this": []}
+    order = ["other", "this", "this", "other"] * rounds
+    for name in order:
+        proc = subprocess.run([sys.executable, str(here), "--dense-step-child",
+                               str(trees[name])], capture_output=True, text=True,
+                              timeout=600, check=False)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            raise AssertionError(f"dense step run of {trees[name]} exited {proc.returncode}")
+        runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        emit({"phase": "dense_step_run", "side": name, **runs[name][-1]})
+    keys = {"decode_step_ms_mean": lambda r: r["decode_step_ms_mean"],
+            "steady_wall_ms_per_step": lambda r: r["decode_profile"]["wall_ms_per_step_untraced"],
+            "steady_kernel_ms_per_step": lambda r: r["decode_profile"]["kernel_ms_per_step"],
+            "tokens_per_s": lambda r: r["stats"]["tokens_per_s"]}
+    res = {"phase": "dense_step_ab", "order": order,
+           "trees": {k: str(v) for k, v in trees.items()}}
+    for stat in ("mean", "median"):
+        agg = {side: {k: float(getattr(np, stat)([f(r) for r in rs])) for k, f in keys.items()}
+               for side, rs in runs.items()}
+        res[stat] = agg
+        res[f"ratio_this_over_other_{stat}"] = {k: agg["this"][k] / agg["other"][k]
+                                                for k in keys}
+    emit(res)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
+    if sys.argv[1:2] == ["--dense-step-child"]:
+        return dense_step_child(sys.argv[2])
+    if sys.argv[1:2] == ["--dense-step-ab"]:
+        return dense_step_ab(sys.argv[2], *map(int, sys.argv[3:4]))
     from qgemm_tpu_torch.ops.cuda import _build   # fails outside the repository
 
     smi = phase_device()
@@ -675,22 +1107,34 @@ def main() -> None:
     serve("int8_outlier", {"outlier_threshold": 6.0},
           used=("quantized_matmul", "decode_attention", "flash_attention"),
           unused=("w4a8_matmul",), outliers=True)
+    paged8, paged4 = serve_paged()
     phase_numerics()
     phase_outlier_numerics()
     replaces = {"quantized_matmul": "qgemm_tpu/ops/pallas/quantized_matmul.py:107",
                 "decode_attention": "qgemm_tpu/ops/pallas/decode_attention.py:44",
                 "flash_attention": "qgemm_tpu/ops/pallas/flash_attention.py:41",
-                "w4a8_matmul": "qgemm_tpu/ops/pallas/w4a8_matmul.py:72"}
+                "w4a8_matmul": "qgemm_tpu/ops/pallas/w4a8_matmul.py:72",
+                "paged_decode_attention": "qgemm_tpu/ops/pallas/paged_attention.py:49",
+                "paged_context_attention": "qgemm_tpu/ops/pallas/paged_attention.py:328"}
+    # each kernel's wrappers: K5 has two entries, each with its own count
+    wrappers = {"paged_decode_attention": ("paged_decode_attention",
+                                           "paged_decode_attention_ragged")}
     kernels = []
     for name in _build.KERNELS:
         t = timing[name]
-        path = w4a8 if name == "w4a8_matmul" else int8
+        path = {"w4a8_matmul": w4a8, "paged_decode_attention": paged8,
+                "paged_context_attention": paged8}.get(name, int8)
+        ws = wrappers.get(name, (name,))
+        per_prefill = path.get("launches_per_prefill")
         entry = {"name": name, "route": "cuda",
                  "source": f"qgemm_tpu_torch/csrc/{name}.cu",
-                 "replaces": replaces[name], "launches": path["launches"][name],
+                 "replaces": replaces[name],
+                 "launches": sum(path["launches"][w] for w in ws),
                  "launches_counted_in": path["phase"],
-                 "launches_per_decode_step": path["launches_per_decode_step"][name],
-                 "launches_per_prefill": path["launches_per_prefill"][name],
+                 "launches_per_decode_step": sum(path["launches_per_decode_step"][w]
+                                                 for w in ws),
+                 "launches_per_prefill": (sum(per_prefill[w] for w in ws)
+                                          if per_prefill else None),
                  "max_abs_err": t["max_abs_err"], "max_rel_err": t["max_rel_err"],
                  "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -704,6 +1148,19 @@ def main() -> None:
             entry["library_note"] = ("no single PyTorch call computes W4A8: "
                                      "torch._weight_int4pack_mm takes bf16 activations")
             entry["k1_ms_same_shape"] = t["k1_ms"]
+        if name.startswith("paged"):
+            t4 = timing[name + "_int4"]
+            entry.update(launches_per_prefill=paged8["prefill_launches"]["per_chunk"].get(name, 0),
+                         prefill_unit="one prefill chunk (a 256-row piece of a long prompt, "
+                                      "or the suffix after a prefix hit)",
+                         library_note=t["library_note"], int4_ms=t4["ms"],
+                         int4_plain_ms=t4["plain_ms"], int4_bound_ms=t4["bound_ms"],
+                         int4_bound_by=t4["bound_by"],
+                         launches_int4_overcommit_run=sum(paged4["launches"][w] for w in ws))
+        if name == "paged_decode_attention":
+            entry.update(also_replaces="qgemm_tpu/ops/pallas/paged_attention.py:160",
+                         launches_by_entry={w: path["launches"][w] for w in ws},
+                         k2_ms_same_lengths=t["k2_ms_same_lengths"])
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

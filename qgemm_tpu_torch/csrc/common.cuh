@@ -46,6 +46,19 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[8]) {
   }
 }
 
+// The value of one paged-pool KV code, from the low byte of ``byte``: an
+// int8 code (BITS 8), or one sign-extended nibble of an int4 byte (BITS 4;
+// ``hi`` picks the high nibble, the page's second half).
+template <int BITS>
+__device__ __forceinline__ float kv_code(uint32_t byte, bool hi) {
+  const int v = static_cast<int>(static_cast<int8_t>(byte & 0xffu));
+  if constexpr (BITS == 8) {
+    return static_cast<float>(v);
+  } else {
+    return static_cast<float>(hi ? (v >> 4) : (((v & 15) ^ 8) - 8));
+  }
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

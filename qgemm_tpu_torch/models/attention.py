@@ -1,6 +1,7 @@
 """Attention (port of ``scaled_dot_product_attention``, ``MultiHeadAttention``
-and ``_dispatch_attention`` of ``qgemm_tpu/models/attention.py``; the paged,
-tensor-parallel and cross-attention branches are not ported yet).
+and ``_dispatch_attention`` of ``qgemm_tpu/models/attention.py``; the
+tensor-parallel and cross-attention branches, and the paged verify chunk at
+per-slot offsets, are not ported yet).
 
 Dispatch by device, mirroring the JAX package's by backend:
   * full-sequence attention — kernel K3 (flash) on CUDA at any length,
@@ -10,7 +11,13 @@ Dispatch by device, mirroring the JAX package's by backend:
     just written (re-read int8 rows for an int8 cache), as JAX does there;
   * one decode step over an int8 cache — kernel K2 on CUDA, MHA or GQA;
     on the CPU the bf16-product composition the JAX package runs there;
-  * a float cache — the plain composition on both.
+  * a float cache — the plain composition on both;
+  * a paged cache (``serving/paged_cache.PagedKVCache``, detected as JAX
+    detects it, by its page table): a decode step writes its row and runs
+    kernel K5 (the ragged entry when the cache carries step tables); a
+    per-slot chunk (B == 1, page-aligned int offset) writes its pages and
+    runs kernel K6. On the CPU both wrappers run their plain versions in
+    float32, the JAX package's CPU path.
 Cache rows are written in place.
 """
 
@@ -25,8 +32,12 @@ from torch import nn
 from qgemm_tpu_torch.models.linear import Linear
 from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention
 from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention
+from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+from qgemm_tpu_torch.ops.cuda.paged_decode_attention import (paged_decode_attention,
+                                                             paged_decode_attention_ragged)
 from qgemm_tpu_torch.ops.kv_cache import QRANGE, QuantizedKVCache, quantize_kv
 from qgemm_tpu_torch.ops.softmax import softmax
+from qgemm_tpu_torch.serving.paged_cache import paged_write_prompt, paged_write_step
 
 _NEG = -1e30
 
@@ -122,10 +133,10 @@ class MultiHeadAttention(nn.Module):
                 cache_index=None):
         """x_q [B, Sq, D]; x_kv [B, Sk, D] or None (self-attention).
 
-        With ``kv_cache`` ((k, v) float [B, Hkv, S, Dh] or a
-        ``QuantizedKVCache``) and ``cache_index`` (an int, or [B] per-slot
-        positions), the new K/V rows are written at cache_index in place and
-        (out, kv_cache) is returned."""
+        With ``kv_cache`` ((k, v) float [B, Hkv, S, Dh], a
+        ``QuantizedKVCache`` or a ``PagedKVCache``) and ``cache_index`` (an
+        int, or [B] per-slot positions), the new K/V rows are written at
+        cache_index in place and (out, kv_cache) is returned."""
         q = self._split(self.wqkv_q(x_q), self.n_heads)
         if x_kv is None:
             x_kv = x_q
@@ -137,7 +148,36 @@ class MultiHeadAttention(nn.Module):
         out = _dispatch_attention(q, self._repeat_kv(k), self._repeat_kv(v), causal)
         return self.w_o(self._merge(out))
 
+    def _paged(self, q, k, v, cache, cache_index):
+        """The paged branch (JAX's ``models/attention.py:212-284``): a decode
+        step (Sq == 1, per-slot positions) or a per-slot chunk prefill."""
+        sq = q.shape[2]
+        if sq > 1:
+            if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+                raise NotImplementedError(
+                    "a paged chunk at per-slot offsets (the speculative verify chunk) "
+                    "is not ported to qgemm_tpu_torch yet")
+            offset = int(cache_index)
+            ps = cache.page_size
+            if q.shape[0] != 1 or offset % ps:
+                raise ValueError(f"paged chunk prefill is per slot (B == 1) at a page-"
+                                 f"aligned offset; got B={q.shape[0]}, offset {offset}, "
+                                 f"page {ps}")
+            paged_write_prompt(cache, 0, k[0], v[0], first_page=offset // ps)
+            lengths = torch.full((1,), offset + sq, dtype=torch.int32, device=q.device)
+            return paged_context_attention(q, cache, lengths, offset)
+        positions = (cache_index.to(q.device) if isinstance(cache_index, torch.Tensor)
+                     else torch.full((q.shape[0],), int(cache_index), device=q.device))
+        positions = positions.reshape(-1).expand(q.shape[0])
+        paged_write_step(cache, k, v, positions)
+        lengths = (positions + 1).to(torch.int32)
+        attend = (paged_decode_attention_ragged if cache.step_slot is not None
+                  else paged_decode_attention)
+        return attend(q, cache, lengths)
+
     def _cached(self, q, k, v, kv_cache, cache_index, causal: bool):
+        if getattr(kv_cache, "page_table", None) is not None:
+            return self._paged(q, k, v, kv_cache, cache_index)
         g = self.n_heads // self.kv_heads
         quantized = isinstance(kv_cache, QuantizedKVCache)
         if quantized:

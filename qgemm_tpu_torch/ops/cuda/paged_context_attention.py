@@ -1,0 +1,74 @@
+"""Wrapper of kernel K6 (``csrc/paged_context_attention.cu``): chunk attention
+over the paged int8 or int4 KV cache, causal at a per-slot offset.
+
+Replaces ``paged_context_attention`` / ``_context_kernel`` of
+``qgemm_tpu/ops/pallas/paged_attention.py``. The TPU kernel takes int8 pools
+only, and the JAX model path keeps its gather oracle for chunks; in the
+port K6 serves every paged chunk, int8 and int4 pools alike, so no plain
+version runs on the card's main path. The source note in the .cu file says
+what bounds it and how it is built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from qgemm_tpu_torch.ops.cuda import _build
+from qgemm_tpu_torch.ops.cuda.paged_decode_attention import check_args, check_kernel_args
+from qgemm_tpu_torch.ops.validation import check
+from qgemm_tpu_torch.serving.paged_cache import (PagedKVCache,
+                                                 paged_context_attention_reference)
+
+
+def _lib():
+    fn = _build.library("paged_context_attention").qgemm_paged_context_attention
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i
+    return fn
+
+
+def paged_context_attention(q: torch.Tensor, cache: PagedKVCache, lengths: torch.Tensor,
+                            offset) -> torch.Tensor:
+    """q [B, Hq, C, D], rows at positions offset..offset+C-1 (``offset`` an
+    int or [B]), attend every cached position <= their own and <
+    lengths[b]; the chunk's K/V must already be written. Hq a multiple of
+    the pool heads (GQA). Returns [B, Hq, C, D] in q's dtype. CPU tensors
+    run the plain version in float32 (the JAX package's CPU path); CUDA
+    tensors launch K6 (D in {64, 128}) or raise."""
+    check_args(q, cache, lengths)
+    b, hq, c, d = q.shape
+    hkv = cache.kq.shape[1]
+    if not q.is_cuda:
+        return paged_context_attention_reference(q, cache, lengths, offset,
+                                                 compute_dtype=torch.float32)
+    if isinstance(offset, torch.Tensor):
+        check(offset.numel() in (1, b), f"offset: expected 1 or {b} values, got "
+              f"{tuple(offset.shape)}")
+        offs = offset.reshape(-1).to(device=q.device, dtype=torch.int32).expand(b).contiguous()
+    else:
+        offs = torch.full((b,), int(offset), dtype=torch.int32, device=q.device)
+    pt = cache.page_table
+    check_kernel_args(q, cache, (cache.kq, cache.kc, cache.vq, cache.vc, pt, lengths))
+    check(pt.dtype == torch.int32 and pt.is_contiguous(),
+          "page_table: K6 reads a contiguous int32 table")
+    check(b * hkv <= 65535, f"K6 takes at most 65535 slots x KV heads, got {b * hkv}")
+    rows = (hq // hkv) * c
+    qf = q.to(torch.float32).reshape(b, hkv, rows, d).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    kq, kc, vq, vc = (t.contiguous() for t in (cache.kq, cache.kc, cache.vq, cache.vc))
+    out = torch.empty((b, hkv, rows, d), dtype=torch.float32, device=q.device)
+    rc = _lib()(qf.data_ptr(), kq.data_ptr(), kc.data_ptr(), vq.data_ptr(), vc.data_ptr(),
+                pt.data_ptr(), lens.data_ptr(), offs.data_ptr(), out.data_ptr(),
+                cache.kv_bits, b, hkv, c, rows, d, cache.page_size, pt.shape[1],
+                1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch("qgemm_paged_context_attention", rc)
+    paged_context_attention.launches += 1
+    return out.reshape(b, hq, c, d).to(q.dtype)
+
+
+paged_context_attention.launches = 0

@@ -1,31 +1,53 @@
-"""Continuous batching inference engine, dense-cache mode (port of
-``qgemm_tpu/serving/engine.py``).
+"""Continuous batching inference engine (port of
+``qgemm_tpu/serving/engine.py``): dense and paged cache modes.
 
-A fixed pool of ``max_slots`` batch slots, each with its own position in a
-shared [slots, H, S, D] KV cache. Every ``step()`` admits waiting requests
-into free slots (one prefill each, the prompt padded to a power-of-two
-bucket) and then runs ONE decode step over all slots; inactive slots decode
-junk that the host discards. Finished sequences free their slot at once.
+A fixed pool of ``max_slots`` batch slots. Every ``step()`` admits waiting
+requests into free slots (one prefill each) and then runs ONE decode step
+over all slots; inactive slots decode junk that the host discards.
+Finished sequences free their slot at once.
+
+Dense mode keeps a shared [slots, H, S, D] cache (float, or int8 with
+``quantized_cache=True``); a prompt is padded to a power-of-two bucket.
+
+Paged mode (``paged=True``) keeps one page pool per layer
+(``serving/paged_cache.py``; int8, or int4 with ``kv_bits=4``) and a page
+table per slot, so cache memory scales with resident tokens. An admission
+reserves its request's worst case (prompt + max_new_tokens) in pages, or
+with ``overcommit=True`` only what it needs now, preempting the youngest
+slot (its continuation requeues at the front) when decode growth finds the
+pool dry. Requests that do not fit yet wait in FIFO order; one that can
+never fit finishes with an error. ``prefix_cache`` shares full prompt pages
+between requests by a sha1 hash chain over their token chunks, and a hit
+skips their prefill: only the suffix runs, attending the shared pages
+(kernel K6). ``chunked_prefill`` admits long prompts in page-granular
+chunks through the same path, and ``overlap_admission`` runs one decode
+step for the resident slots between chunks, the admitting slot parked on a
+never-allocated page-table column. Page and step tables live on the host
+and go to the device only when an allocation changes, as one page table
+shared by every layer (the step tables stay on the host: K5 does not read
+them).
 
 Ported here: ``Request``, the Python bookkeeper, greedy/sampled decoding
-with per-request temperature/top-k/top-p, stop tokens, logprobs, ``cancel``,
-``stats``, per-request prefill error isolation, and the int8 cache
-(``quantized_cache=True``). The paged cache, speculation, chunked prefill,
-multi-step decode, tensor parallelism, over-commit, overlapped admission,
-int4 KV and the native scheduler raise ``NotImplementedError``; so does
-nothing else. A decode-step fault propagates to the caller (the JAX
-engine's engine-level recovery is not ported yet).
+with per-request temperature/top-k/top-p, stop tokens, logprobs,
+``cancel``, ``stats``, per-request prefill error isolation, the int8 cache
+and the paged tier. Speculation (``draft_model``), dense chunked prefill,
+multi-step decode, tensor parallelism (``mesh``) and the native scheduler
+raise ``NotImplementedError``. A decode-step fault propagates to the caller
+(the JAX engine's engine-level recovery is not ported yet), also from a
+decode step run between admission chunks.
 
-The engine calls only the model's ``init_cache``, ``prefill`` and
-``decode_step``, so int8, W4A8 (``bits=4``) and outlier-split models serve
-alike. With the outlier split a layer selects its outlier dims over every
-row it is given — the prompt's bucket padding at prefill, every slot
-(inactive ones too) at decode — so a request's tokens can depend on what
-shares its step, as in the JAX engine.
+The engine calls only the model's ``init_cache``, ``prefill``,
+``prefill_chunk`` and ``decode_step``, so int8, W4A8 (``bits=4``) and
+outlier-split models serve alike. With the outlier split a layer selects
+its outlier dims over every row it is given — the prompt's bucket padding
+at prefill, every slot (inactive ones too) at decode — so a request's
+tokens can depend on what shares its step, as in the JAX engine.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import itertools
 import time
 from dataclasses import dataclass, field
@@ -37,6 +59,10 @@ import torch
 from qgemm_tpu_torch.device import DeviceLike, resolve_device
 from qgemm_tpu_torch.ops.kv_cache import QuantizedKVCache
 from qgemm_tpu_torch.ops.sampling import sample_logits, token_logprob
+from qgemm_tpu_torch.serving.paged_cache import (PAGE_SIZE, PageAllocator,
+                                                 build_step_tables, check_kv_bits,
+                                                 check_step_tables, init_paged_cache,
+                                                 paged_write_prompt)
 
 
 @dataclass
@@ -195,29 +221,109 @@ def _slot_view(cache, slot: int):
         else tuple(sliced)
 
 
-class ContinuousBatchingEngine:
+class _DecodeFault(Exception):
+    """A decode step run between admission chunks failed: carries the error
+    past the admission's per-request isolation, so it propagates."""
+
+    def __init__(self, error: BaseException):
+        super().__init__(str(error))
+        self.error = error
+
+
+class _PagedPoolOps:
+    """Host-side paged-pool plumbing: page-table sync, per-slot growth and
+    release. Expects ``self.alloc`` (PageAllocator), ``self._pt_host``
+    [slots, pps + 1] int32, ``self._pt_dev`` (the device page table every
+    layer's cache shares), ``self.caches``, ``self._page_size``,
+    ``self.book`` and ``self.overcommit``."""
+
+    def _sync_page_tables(self):
+        """Copy the host page table into the shared device table (one copy
+        for every layer, queued behind the work already on the stream) and
+        rebuild (and check) the host step tables. Runs only when an
+        allocation changed."""
+        src = torch.from_numpy(self._pt_host)
+        if self._pt_dev.is_cuda:
+            src = src.pin_memory()
+        self._pt_dev.copy_(src, non_blocking=True)
+        b, pps = self._pt_host.shape
+        ss, sp = build_step_tables([len(p) for p in self.alloc.slot_pages], pps)
+        check_step_tables(ss, sp, b, pps)
+        ss, sp = torch.from_numpy(ss), torch.from_numpy(sp)
+        for c in self.caches:
+            c.step_slot, c.step_page = ss, sp
+
+    def _grow_slot(self, slot: int, n_tokens: int) -> bool:
+        """Ensure pages for ``n_tokens``; True if the tables need a sync."""
+        new = self.alloc.grow(slot, n_tokens, self._page_size)
+        for j, p in new:
+            self._pt_host[slot, j] = p
+        return bool(new)
+
+    def _release_slot_pages(self, slot: int):
+        self.alloc.release(slot)
+        self._pt_host[slot, :] = 0
+
+    def _grow_active_slots(self, active: np.ndarray):
+        """Before a decode step: give every active slot a page for its next
+        position (within its worst case, since a slot finishes before it;
+        with ``overcommit`` a dry pool preempts the youngest other slot, or
+        the slot itself, and retries). Positions come from the bookkeeper,
+        not the device. A slot that an earlier slot's growth preempted is
+        skipped: the JAX engine grows from the stale ``active`` snapshot and
+        can hand pages to a slot it just freed. Syncs the tables if any slot
+        grew."""
+        dirty = False
+        for slot in np.flatnonzero(active):
+            slot = int(slot)
+            if not self.book.active_mask()[slot]:
+                continue
+            want = int(self.book.pos[slot]) + 1
+            while True:
+                try:
+                    dirty |= self._grow_slot(slot, want)
+                    break
+                except RuntimeError:
+                    if not self.overcommit or not self._preempt_for_pages(slot):
+                        raise
+                    dirty = True
+                    if not self.book.active_mask()[slot]:
+                        break            # the slot preempted itself
+        if dirty:
+            self._sync_page_tables()
+
+
+class ContinuousBatchingEngine(_PagedPoolOps):
     def __init__(self, model, max_slots: int = 8, max_seq_len: Optional[int] = None,
                  scheduler: str = "auto", quantized_cache: bool = False,
                  top_k: int = 0, seed: int = 0, mesh=None, paged: bool = False,
-                 chunked_prefill: Optional[int] = None, multi_step: int = 0,
-                 draft_model=None, overcommit: bool = False,
+                 n_pages: Optional[int] = None, chunked_prefill: Optional[int] = None,
+                 prefix_cache: bool = True, multi_step: int = 0, draft_model=None,
+                 overcommit: bool = False, page_size: Optional[int] = None,
                  overlap_admission: bool = False, kv_bits: int = 8,
                  device: DeviceLike = None):
         """Options as in the JAX engine; those of modes not ported yet raise
         ``NotImplementedError``. ``scheduler`` "auto" and "python" run the
         Python bookkeeper. ``device`` is where the engine runs (default: the
-        GPU — raises without one); the model must be there. The paged and
-        speculative modes' own knobs (``n_pages``, ``page_size``,
-        ``prefix_cache``, ``spec_gamma``) come with those modes."""
+        GPU — raises without one); the model must be there.
+
+        Paged mode (``paged=True``): ``n_pages`` sizes the pool (default:
+        every slot's full table, plus the null page), ``page_size`` (default
+        128; on the GPU a multiple of 16 from 16 to 256) the pages,
+        ``kv_bits`` 8 or 4 the pools (int4 needs an even page).
+        ``prefix_cache`` (default on) shares full prompt pages between
+        requests; ``overcommit`` reserves pages needed now instead of the
+        worst case and preempts on exhaustion; ``chunked_prefill`` (rounded
+        up to whole pages) admits long prompts chunk by chunk, and
+        ``overlap_admission`` runs a decode step between those chunks. The
+        options of paged mode, ``prefix_cache=False`` among them, raise a
+        ``ValueError`` without ``paged=True``; ``quantized_cache`` has no
+        effect there (pools are always quantized)."""
         for name, value, used in (
-                ("paged", paged, paged),
                 ("draft_model", draft_model, draft_model is not None),
-                ("chunked_prefill", chunked_prefill, bool(chunked_prefill)),
+                ("chunked_prefill", chunked_prefill, bool(chunked_prefill) and not paged),
                 ("multi_step", multi_step, multi_step > 1),
                 ("mesh", mesh, mesh is not None),
-                ("overcommit", overcommit, overcommit),
-                ("overlap_admission", overlap_admission, overlap_admission),
-                ("kv_bits", kv_bits, kv_bits != 8),
                 ("scheduler", scheduler, scheduler == "native")):
             if used:
                 raise NotImplementedError(
@@ -225,6 +331,17 @@ class ContinuousBatchingEngine:
                     "to qgemm_tpu_torch yet")
         if scheduler not in ("auto", "python"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
+        if not paged:
+            for name, value, used in (("n_pages", n_pages, n_pages is not None),
+                                      ("page_size", page_size, page_size is not None),
+                                      ("kv_bits", kv_bits, kv_bits != 8),
+                                      ("overcommit", overcommit, overcommit),
+                                      ("overlap_admission", overlap_admission,
+                                       overlap_admission),
+                                      ("prefix_cache", prefix_cache, not prefix_cache)):
+                if used:
+                    raise ValueError(f"ContinuousBatchingEngine({name}={value!r}) "
+                                     "needs paged=True")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
@@ -237,8 +354,46 @@ class ContinuousBatchingEngine:
         self.book = _PyBookkeeper(max_slots, self.max_seq_len)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self.caches = model.init_cache(max_slots, self.max_seq_len,
-                                       quantized=quantized_cache)
+
+        self.paged = paged
+        self.overcommit = overcommit
+        self.overlap_admission = overlap_admission
+        self.prefix_cache = prefix_cache and paged
+        self.preemptions = 0
+        # preempted requests: id -> {"req": the original Request, "gen" and
+        # "lps": what it produced before its (latest) preemption}
+        self._preempted: Dict[int, dict] = {}
+        self._admit_seq: Dict[int, int] = {}   # slot -> admission counter
+        self._admit_counter = 0
+        self.prefill_tokens_skipped = 0
+        self._paged_chunk: Optional[int] = None
+        if paged:
+            ps = page_size or PAGE_SIZE
+            check_kv_bits(kv_bits, ps)
+            cfg = model.cfg
+            pps = -(-self.max_seq_len // ps)
+            self.max_seq_len = pps * ps
+            npg = n_pages or (1 + max_slots * pps)
+            dh = cfg.d_model // cfg.n_heads
+            hkv = cfg.n_kv_heads or cfg.n_heads
+            # +1 PARKING column, never allocated (always the null page): an
+            # admitting slot parked there during overlapped admission writes
+            # its junk decode rows to page 0, not into its prompt pages
+            self._pt_host = np.zeros((max_slots, pps + 1), np.int32)
+            self.caches = [init_paged_cache(hkv, dh, npg, max_slots, pps + 1, page_size=ps,
+                                            kv_bits=kv_bits, device=self.device)
+                           for _ in model.blocks]
+            self._pt_dev = self.caches[0].page_table
+            for c in self.caches:
+                c.page_table = self._pt_dev
+            self.alloc = PageAllocator(npg, max_slots, pps)
+            self._page_size = ps
+            self._park_pos = pps * ps
+            if chunked_prefill:
+                self._paged_chunk = -(-chunked_prefill // ps) * ps
+        else:
+            self.caches = model.init_cache(max_slots, self.max_seq_len,
+                                           quantized=quantized_cache)
         self.positions = torch.zeros((max_slots,), dtype=torch.int64, device=self.device)
         self.cur_tokens = torch.zeros((max_slots, 1), dtype=torch.int64,
                                       device=self.device)
@@ -264,6 +419,13 @@ class ContinuousBatchingEngine:
                              torch.as_tensor(topks, device=dev),
                              torch.as_tensor(topps, device=dev))
 
+    def _sample_first(self, last: torch.Tensor, temp: float, topp: float, topk: int):
+        """The first generated token and its logprob from the last prompt
+        position's logits [1, V]."""
+        tok = self._sample(last, np.asarray([temp], np.float32),
+                           np.asarray([topp], np.float32), np.asarray([topk], np.int64))
+        return int(tok[0]), float(token_logprob(last, tok)[0])
+
     @torch.no_grad()
     def _prefill_impl(self, prompt: torch.Tensor, plen_true: int, slot: int,
                       temp: float, topp: float, topk: int):
@@ -273,10 +435,35 @@ class ContinuousBatchingEngine:
         masks by per-slot position."""
         views = [_slot_view(c, slot) for c in self.caches]
         logits, _ = self.model.prefill(prompt, views)
-        last = logits[0, plen_true - 1][None]
-        tok = self._sample(last, np.asarray([temp], np.float32),
-                           np.asarray([topp], np.float32), np.asarray([topk], np.int64))
-        return int(tok[0]), float(token_logprob(last, tok)[0])
+        return self._sample_first(logits[0, plen_true - 1][None], temp, topp, topk)
+
+    @torch.no_grad()
+    def _prefill_paged_impl(self, prompt: torch.Tensor, plen_true: int, slot: int,
+                            temp: float, topp: float, topk: int):
+        """Paged prefill: the bucket-padded prompt runs through the model with
+        a throwaway dense float cache (batch 1, so the full-prompt prefill
+        path), then its K/V go into the slot's pages. Logical pages past the
+        allocation point at the null page, which is never read."""
+        tmp = self.model.init_cache(1, prompt.shape[1])
+        logits, tmp = self.model.prefill(prompt, tmp)
+        for pc, (k, v) in zip(self.caches, tmp):
+            paged_write_prompt(pc, slot, k[0], v[0])
+        return self._sample_first(logits[0, plen_true - 1][None], temp, topp, topk)
+
+    @torch.no_grad()
+    def _prefill_paged_suffix_impl(self, suffix: torch.Tensor, slot: int,
+                                   skip_pages: int) -> torch.Tensor:
+        """One page-aligned chunk of a prompt from logical page
+        ``skip_pages`` on: each layer writes the chunk's K/V into the slot's
+        pages and attends everything up to its own positions (kernel K6),
+        the prefix-cache pages before it included. The per-slot views share
+        the engine's pools, so the writes land in its cache. Returns the
+        chunk's logits [1, C, V]."""
+        views = [dataclasses.replace(c, page_table=c.page_table[slot:slot + 1],
+                                     step_slot=None, step_page=None)
+                 for c in self.caches]
+        logits, _ = self.model.prefill_chunk(suffix, skip_pages * self._page_size, views)
+        return logits
 
     @torch.no_grad()
     def _decode_impl(self):
@@ -288,6 +475,107 @@ class ContinuousBatchingEngine:
     def submit(self, req: Request):
         self.book.submit(req)
 
+    def _unadmit(self, req: Request):
+        """Undo an admission: free the slot, keep any OTHER requests the
+        bookkeeper finished in the meantime."""
+        self.book.cancel(req.id)
+        for r in self.book.drain_finished():
+            if r.id != req.id:
+                self.finished.append(self._finalize(r))
+
+    def _reserve_pages(self, slot: int, req: Request, plen: int):
+        """The paged half of an admission's checks, as the JAX engine makes
+        them. Returns (hashes, skip_pages) once the slot holds its pages, or
+        "wait" after requeueing the request at the front (backpressure: stop
+        admitting), or "never" after finishing it with an error (it could
+        not fit even in an empty pool)."""
+        ps = self._page_size
+        worst = min(plen + req.max_new_tokens, self.max_seq_len)
+        need = self.alloc.pages_needed(worst, ps)
+        if self.overcommit:
+            # pages needed now (prompt + the first decode position); one
+            # page of headroom per active slot damps admit/preempt thrash
+            now_tokens = min(plen + 1, worst)
+            need_res = self.alloc.pages_needed(now_tokens, ps)
+            headroom = self.book.num_active
+        else:
+            now_tokens, need_res, headroom = worst, need, 0
+        # the hash chain over the prompt's full pages; peek only: the checks
+        # below may still reject or requeue this admission
+        hashes = []
+        if self.prefix_cache:
+            h = b""
+            for j in range(plen // ps):
+                chunk = np.asarray(req.prompt[j * ps:(j + 1) * ps], np.int64).tobytes()
+                h = hashlib.sha1(h + chunk).digest()
+                hashes.append(h)
+        n_match = self.alloc.peek_prefix(hashes)
+        # the last prompt token is always recomputed (its logits give the
+        # first token), and a shared page is never rewritten: acquire only
+        # the pages the admission will not recompute
+        skip_pages = min(n_match, (plen - 1) // ps)
+        pool_cap = self.caches[0].n_pages - 1                   # page 0 reserved
+        if need > self.alloc.pages_per_slot or need_res > pool_cap:
+            req.error = (f"request needs {need} pages > "
+                         f"{min(self.alloc.pages_per_slot, pool_cap)} available per request")
+            req.done = True
+            self._unadmit(req)
+            self.finished.append(self._finalize(req))
+            return "never"
+        # matched pages idle in the LRU count in n_free but acquiring them
+        # consumes them
+        resurrect = self.alloc.peek_prefix_cached(hashes, skip_pages)
+        if need_res - skip_pages > self.alloc.n_free - resurrect - headroom:
+            self._unadmit(req)
+            req.done = False
+            self.book.submit(req, front=True)
+            return "wait"
+        try:
+            for j in range(skip_pages):
+                self._pt_host[slot, j] = self.alloc.acquire_shared(slot, hashes[j])
+            grew = self._grow_slot(slot, now_tokens)
+        except RuntimeError:
+            # accounting drift must never kill the batch: give back what
+            # this admission took and requeue it
+            self._release_slot_pages(slot)
+            self._unadmit(req)
+            req.done = False
+            self.book.submit(req, front=True)
+            return "wait"
+        if grew or skip_pages:
+            self._sync_page_tables()
+        self._admit_counter += 1
+        self._admit_seq[slot] = self._admit_counter
+        return hashes, skip_pages
+
+    def _prefill_paged(self, req: Request, slot: int, plen: int, skip_pages: int,
+                       prompt: torch.Tensor, eff_topk: int):
+        """Run a paged admission's prefill by the JAX engine's rules: chunk by
+        chunk when the prompt (after the skipped prefix) is longer than one
+        chunk and its padded chunks fit the slot's table; the suffix alone
+        after a prefix-cache hit; else the whole bucket-padded prompt."""
+        ps = self._page_size
+        start = skip_pages * ps
+        rem = plen - start
+        chunk_fits = False
+        if self._paged_chunk:
+            n_ch = -(-rem // self._paged_chunk)
+            chunk_fits = start + n_ch * self._paged_chunk <= self.alloc.pages_per_slot * ps
+        if self._paged_chunk and chunk_fits and rem > self._paged_chunk:
+            first = self._admit_paged_chunked(req, slot, plen, skip_pages, eff_topk)
+        elif skip_pages > 0:
+            sbucket = -(-rem // ps) * ps
+            suffix = torch.as_tensor(np.pad(np.asarray(req.prompt[start:], np.int64),
+                                            (0, sbucket - rem))[None, :], device=self.device)
+            logits = self._prefill_paged_suffix_impl(suffix, slot, skip_pages)
+            first = self._sample_first(logits[0, rem - 1][None], req.temperature,
+                                       req.top_p, eff_topk)
+        else:
+            return self._prefill_paged_impl(prompt, plen, slot, req.temperature,
+                                            req.top_p, eff_topk)
+        self.prefill_tokens_skipped += start
+        return first
+
     def _admit(self):
         while True:
             adm = self.book.next_admission()
@@ -295,26 +583,47 @@ class ContinuousBatchingEngine:
                 return
             slot, req = adm
             plen = len(req.prompt)
-            # pow-2 prompt bucket (>= 8), clamped to the cache extent
-            bucket = min(max(8, 1 << (plen - 1).bit_length()), self.max_seq_len)
+            # pow-2 prompt bucket (>= 8, or a whole number of pages), clamped
+            # to the cache extent
+            bucket = max(self._page_size if self.paged else 8, 1 << (plen - 1).bit_length())
+            if self.paged:
+                bucket = -(-bucket // self._page_size) * self._page_size
+            bucket = min(bucket, self.max_seq_len)
             prompt = torch.as_tensor(
                 np.pad(np.asarray(req.prompt, np.int64), (0, bucket - plen))[None, :],
                 device=self.device)
             eff_topk = self.top_k if req.top_k is None else req.top_k
+            hashes = []
+            if self.paged:
+                reserved = self._reserve_pages(slot, req, plen)
+                if reserved == "wait":
+                    return
+                if reserved == "never":
+                    continue
+                hashes, skip_pages = reserved
             t_adm = time.perf_counter()
             try:
-                first_tok, first_lp = self._prefill_impl(
-                    prompt, plen, slot, req.temperature, req.top_p, eff_topk)
+                if self.paged:
+                    first_tok, first_lp = self._prefill_paged(req, slot, plen, skip_pages,
+                                                              prompt, eff_topk)
+                else:
+                    first_tok, first_lp = self._prefill_impl(
+                        prompt, plen, slot, req.temperature, req.top_p, eff_topk)
+            except _DecodeFault as f:
+                raise f.error
             except Exception as e:  # noqa: BLE001 — per-request isolation:
                 # a failing prefill must not kill the batch
-                req.error = f"{type(e).__name__}: {e}"
                 req.done = True
-                self.book.cancel(req.id)        # frees the slot
+                self._cancel_slot(slot, f"{type(e).__name__}: {e}")
                 for r in self.book.drain_finished():
                     if r.id != req.id:
-                        self.finished.append(r)
-                self.finished.append(req)
+                        self.finished.append(self._finalize(r))
+                self.finished.append(self._finalize(req))
                 continue
+            for j, h in enumerate(hashes):
+                # publish the prompt's full pages for later admissions (a
+                # no-op for pages that were themselves acquired shared)
+                self.alloc.publish(slot, j, h)
             self.positions[slot] = plen
             self.cur_tokens[slot, 0] = first_tok
             self.temps[slot] = req.temperature
@@ -326,15 +635,77 @@ class ContinuousBatchingEngine:
                 self._lp_slots[slot] = req
             self.book.admitted(slot, first_tok)
             if not self.book.active_mask()[slot]:
-                # finished at admission (stop token, or max_new_tokens == 1)
+                # finished at admission (stop token, or max_new_tokens == 1):
+                # drop the logprobs subscription and free the pages now
                 self._lp_slots.pop(slot, None)
-                self.finished.extend(self.book.drain_finished())
+                if self.paged:
+                    self._release_slot_pages(slot)
+                self.finished.extend(self._drain_finished())
             self._admit_times.append(time.perf_counter() - t_adm)
+
+    def _admit_paged_chunked(self, req: Request, slot: int, plen: int, skip_pages: int,
+                             eff_topk: int):
+        """Admit a long prompt into the paged cache chunk by chunk (whole
+        pages, the tail padded to the chunk size), each chunk through
+        ``_prefill_paged_suffix_impl``, starting after the ``skip_pages``
+        shared pages. Only the last chunk's logits are sampled. With
+        ``overlap_admission`` the slot is parked (its device position on the
+        parking column, suspended in the bookkeeper) and the resident slots
+        take one decode step between chunks."""
+        ps = self._page_size
+        chunk = self._paged_chunk
+        start = skip_pages * ps
+        total = plen - start
+        n_chunks = -(-total // chunk)
+        padded = np.pad(np.asarray(req.prompt[start:], np.int64),
+                        (0, n_chunks * chunk - total))
+        overlap = self.overlap_admission and n_chunks > 1
+        if overlap:
+            self.positions[slot] = self._park_pos
+            self.book.suspend_slot(slot)
+        try:
+            return self._run_admission_chunks(req, slot, skip_pages, eff_topk, padded,
+                                              n_chunks, total, chunk, ps, overlap)
+        finally:
+            if overlap:
+                self.book.resume_slot(slot)
+
+    def _run_admission_chunks(self, req, slot, skip_pages, eff_topk, padded, n_chunks,
+                              total, chunk, ps, overlap):
+        for c in range(n_chunks):
+            toks = torch.as_tensor(padded[None, c * chunk:(c + 1) * chunk],
+                                   device=self.device)
+            logits = self._prefill_paged_suffix_impl(toks, slot, skip_pages + (c * chunk) // ps)
+            if c == n_chunks - 1:
+                return self._sample_first(logits[0, total - 1 - c * chunk][None],
+                                          req.temperature, req.top_p, eff_topk)
+            if overlap:
+                try:
+                    self._decode_tick()
+                except Exception as e:  # noqa: BLE001 — re-raised by _admit
+                    raise _DecodeFault(e) from e
+
+    def _decode_tick(self):
+        """One decode step over the active slots between admission chunks
+        (``overlap_admission``); the admitting slot is parked and
+        suspended, so it neither writes its pages nor advances."""
+        active = self.book.active_mask()
+        if not active.any():
+            return
+        self._grow_active_slots(active)
+        if self.overcommit:
+            active = active & self.book.active_mask()
+            if not active.any():
+                return
+        nxt, lps = self._decode_impl()
+        act = torch.as_tensor(active, device=self.device)
+        self.cur_tokens = torch.where(act[:, None], nxt[:, None], self.cur_tokens)
+        self._record_decode(active, act, nxt, lps)
 
     def cancel(self, req_id: int) -> bool:
         """Cancel a request by id: a waiting request is dropped; an active
-        one frees its slot at once (its partial transcript is kept).
-        Returns False when the id is unknown or already finished."""
+        one frees its slot (and pages) at once, its partial transcript
+        kept. Returns False when the id is unknown or already finished."""
         res = self.book.cancel(req_id)
         if res is None:
             return False
@@ -342,15 +713,85 @@ class ContinuousBatchingEngine:
         if kind == "waiting":
             info.done = True
             info.cancelled = True
-            self.finished.append(info)
+            self.finished.append(self._finalize(info))
         else:
             self._lp_slots.pop(info, None)
+            if self.paged:
+                self._release_slot_pages(info)
             for r in self.book.drain_finished():
                 r.done = True
                 if r.id == req_id:
                     r.cancelled = True
-                self.finished.append(r)
+                self.finished.append(self._finalize(r))
         return True
+
+    # ------------------------------------------------------------ over-commit
+    def _slot_request(self, slot: int) -> Optional[Request]:
+        """The Request occupying ``slot``, if any."""
+        return self.book.slot_req.get(slot)
+
+    def _finalize(self, r: Request) -> Request:
+        """Merge a finished continuation back into the ORIGINAL Request: a
+        preempted request finishes as a continuation whose transcript holds
+        only its post-preemption tokens."""
+        info = self._preempted.pop(r.id, None)
+        if info is None:
+            return r
+        orig = info["req"]
+        orig.generated = info["gen"] + list(r.generated)
+        orig.token_logprobs = info["lps"] + list(r.token_logprobs)
+        orig.done, orig.error = r.done, r.error
+        orig.cancelled = r.cancelled
+        return orig
+
+    def _drain_finished(self) -> List[Request]:
+        return [self._finalize(r) for r in self.book.drain_finished()]
+
+    def _preempt_for_pages(self, needy_slot: int) -> bool:
+        """Over-commit pool pressure: preempt the YOUNGEST-admitted active
+        slot (other than ``needy_slot`` if there is one), free its pages and
+        requeue its continuation (prompt + tokens so far, max_new reduced)
+        at the front. Returns False when nothing is active to preempt."""
+        act = [int(s) for s in np.flatnonzero(self.book.active_mask())]
+        cands = [s for s in act if s != needy_slot] or \
+            ([needy_slot] if needy_slot in act else [])
+        if not cands:
+            return False
+        victim = max(cands, key=lambda s: self._admit_seq.get(s, -1))
+        req = self._slot_request(victim)
+        if req is None:
+            return False
+        res = self.book.preempt(req.id)
+        if res is None:
+            return False
+        _, gen = res
+        prev = self._preempted.get(req.id)
+        orig = prev["req"] if prev else req
+        pre_gen = (prev["gen"] if prev else []) + [int(t) for t in gen]
+        pre_lps = list(prev["lps"] if prev else []) + list(req.token_logprobs)
+        cont = Request(prompt=list(req.prompt) + [int(t) for t in gen],
+                       max_new_tokens=req.max_new_tokens - len(gen),
+                       eos_token=req.eos_token, temperature=req.temperature,
+                       top_p=req.top_p, top_k=req.top_k, stop_tokens=req.stop_tokens,
+                       logprobs=req.logprobs)
+        cont.id = req.id
+        self._preempted[req.id] = {"req": orig, "gen": pre_gen, "lps": pre_lps}
+        self._lp_slots.pop(victim, None)
+        self._release_slot_pages(victim)
+        self.book.submit(cont, front=True)
+        self.preemptions += 1
+        return True
+
+    def _cancel_slot(self, slot: int, error_msg: str):
+        """Cancel whatever request occupies ``slot`` (if any), tagging it
+        with ``error_msg``, and free its pages."""
+        req = self._slot_request(slot)
+        if req is None:
+            return
+        req.error = error_msg
+        self.book.cancel(req.id)
+        if self.paged:
+            self._release_slot_pages(slot)
 
     # ----------------------------------------------------------------- run
     @property
@@ -359,7 +800,9 @@ class ContinuousBatchingEngine:
 
     @property
     def stats(self) -> Dict[str, float]:
-        """Throughput counters, admission latency and inter-token latency."""
+        """Throughput counters, admission latency, inter-token latency and,
+        in paged mode, pool occupancy, prefix-cache and over-commit
+        counters."""
         wall = (time.perf_counter() - self._t_start) if self._t_start else 0.0
         st = {"tokens_generated": self.tokens_generated, "steps": int(self.steps),
               "wall_s": round(wall, 3),
@@ -369,6 +812,21 @@ class ContinuousBatchingEngine:
             st["admit_p50_ms"] = round(float(np.percentile(at, 50)) * 1e3, 2)
             st["admit_p95_ms"] = round(float(np.percentile(at, 95)) * 1e3, 2)
             st["admissions"] = len(at)
+        if self.paged:
+            total = self.caches[0].n_pages - 1          # page 0 reserved
+            ps = self._page_size
+            act = self.book.active_mask()
+            st.update(
+                pages_in_use=total - self.alloc.n_free, pages_total=total,
+                prefix_hits=self.alloc.prefix_hits,
+                prefix_cached_pages=len(self.alloc.cached),
+                prefill_tokens_skipped=self.prefill_tokens_skipped,
+                # pages held by slots vs pages their positions occupy: the
+                # worst-case reservation strands the difference
+                pages_reserved=sum(len(p) for p in self.alloc.slot_pages),
+                pages_used=int(sum(-(-(int(self.book.pos[s]) + 1) // ps)
+                                   for s in np.flatnonzero(act))),
+                preemptions=self.preemptions)
         if self._itl:
             it = np.asarray(self._itl)
             st["itl_p50_ms"] = round(float(np.percentile(it, 50)) * 1e3, 2)
@@ -385,18 +843,10 @@ class ContinuousBatchingEngine:
             self._itl.append(now - self._last_tick_t)
         self._last_tick_t = now
 
-    def step(self) -> bool:
-        """Admit waiting requests, then run one decode step for all slots."""
-        if self._t_start is None:
-            self._t_start = time.perf_counter()
-        self._admit()
-        active = self.book.active_mask()
-        if not active.any():
-            return False
-        nxt, lps = self._decode_impl()
-        act = torch.as_tensor(active, device=self.device)
+    def _record_decode(self, active: np.ndarray, act: torch.Tensor, nxt: torch.Tensor,
+                       lps: torch.Tensor):
+        """Host bookkeeping after a decode step over the ``active`` slots."""
         self.positions += act.to(torch.int64)
-        self.cur_tokens = nxt[:, None]
         nxt_host = nxt.cpu().numpy()
         if self._lp_slots:
             lps_host = lps.cpu().numpy()
@@ -407,13 +857,35 @@ class ContinuousBatchingEngine:
         self.tokens_generated += int(active.sum())
         for slot in np.flatnonzero(active & ~self.book.active_mask()):
             self._lp_slots.pop(int(slot), None)
-        self.finished.extend(self.book.drain_finished())
+            if self.paged:
+                self._release_slot_pages(int(slot))
+        self.finished.extend(self._drain_finished())
         self._record_itl()
+
+    def step(self) -> bool:
+        """Admit waiting requests, then run one decode step for all slots."""
+        if self._t_start is None:
+            self._t_start = time.perf_counter()
+        self._admit()
+        active = self.book.active_mask()
+        if not active.any():
+            return False
+        if self.paged:
+            # pool exhaustion raises here (size the pool for the resident
+            # tokens, or lower max_slots) or, with overcommit, preempts
+            self._grow_active_slots(active)
+            if self.overcommit:
+                active = active & self.book.active_mask()
+                if not active.any():
+                    return True
+        nxt, lps = self._decode_impl()
+        self.cur_tokens = nxt[:, None]
+        self._record_decode(active, torch.as_tensor(active, device=self.device), nxt, lps)
         return True
 
     def run_to_completion(self, max_steps: int = 100000) -> List[Request]:
         while ((self.book.num_waiting or self.book.num_active)
                and self.steps < max_steps):
             self.step()
-        self.finished.extend(self.book.drain_finished())
+        self.finished.extend(self._drain_finished())
         return self.finished

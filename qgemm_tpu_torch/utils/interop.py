@@ -1,4 +1,5 @@
-"""Carry a ``qgemm_tpu`` model's weights into the port.
+"""Carry a ``qgemm_tpu`` model's weights, and a paged cache's state, into
+the port.
 
 The JAX package's checkpoints (``qgemm_tpu/utils/checkpoint.py``) are
 ``.npz`` files keyed by pytree path — ``embed/table``,
@@ -10,12 +11,14 @@ returns the port's ``GPT``: float weights as they are, int8 codes
 (``.../wq/q``), packed int4 codes (``.../wq/qp``) and their scales bit for
 bit (codes transposed once to the port's K-major layout). The outlier
 options are meta fields, which checkpoints do not hold, so they are
-arguments. It reads numpy only; it never imports JAX.
+arguments. ``paged_cache_from_numpy`` builds the port's ``PagedKVCache``
+from a JAX ``PagedKVCache``'s arrays. Both read numpy only; they never
+import JAX.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -27,6 +30,7 @@ from qgemm_tpu_torch.models.gpt import GPT, GPTBlock, GPTConfig
 from qgemm_tpu_torch.models.linear import Linear, QuantizedLinear
 from qgemm_tpu_torch.models.transformer import FeedForward, LayerNorm
 from qgemm_tpu_torch.ops.quantize import QuantizedWeight, QuantizedWeight4
+from qgemm_tpu_torch.serving.paged_cache import PAGE_SIZE, PagedKVCache, check_kv_bits
 
 DTYPE_TAG = ".__dtype__"
 _TAGGED = {"bfloat16": torch.bfloat16}
@@ -87,3 +91,23 @@ def gpt_from_jax_params(params: Mapping[str, np.ndarray], cfg: GPTConfig,
     embed = Embedding(to_tensor(params, "embed/table", dev),
                       to_tensor(params, "embed/pos", dev))
     return GPT(embed, blocks, _layernorm(params, "ln_f", dev), linear("lm_head"), cfg)
+
+
+def paged_cache_from_numpy(kq: np.ndarray, kc: np.ndarray, vq: np.ndarray, vc: np.ndarray,
+                           page_table: np.ndarray, step_slot: Optional[np.ndarray] = None,
+                           step_page: Optional[np.ndarray] = None,
+                           page_size: int = PAGE_SIZE, kv_bits: int = 8,
+                           device: DeviceLike = None) -> PagedKVCache:
+    """The port's ``PagedKVCache`` from a JAX ``PagedKVCache``'s arrays (the
+    pools, scales and page table, and the step tables if it has them) and
+    meta fields, in the same layout. Pools, scales and page table go to
+    ``device`` (default: the GPU); the step tables stay on the host, where
+    the port's engine keeps them (kernel K5 does not read them)."""
+    check_kv_bits(kv_bits, page_size)
+    dev = resolve_device(device)
+    put = lambda a, dtype: torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+    host = lambda a: None if a is None else torch.from_numpy(np.array(a, dtype=np.int32))
+    return PagedKVCache(kq=put(kq, np.int8), kc=put(kc, np.float32), vq=put(vq, np.int8),
+                        vc=put(vc, np.float32), page_table=put(page_table, np.int32),
+                        step_slot=host(step_slot), step_page=host(step_page),
+                        page_size=page_size, kv_bits=kv_bits)

@@ -116,20 +116,30 @@ def test_engine_sampling_and_prefill_error_isolation():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("paged", True), ("draft_model", object()), ("chunked_prefill", 16),
-    ("multi_step", 4), ("mesh", object()), ("overcommit", True),
-    ("overlap_admission", True), ("kv_bits", 4), ("scheduler", "native")])
+    ("scheduler", "native"), ("draft_model", object()), ("chunked_prefill", 16),
+    ("multi_step", 4), ("mesh", object())])
 def test_engine_unported_options_raise(option, value):
+    """Speculation, dense chunked prefill, multi-step decode, tensor
+    parallelism and the native scheduler are not ported yet."""
     _, tm = model_pair(11, quantize=True)
     with pytest.raises(NotImplementedError, match=option):
         ContinuousBatchingEngine(tm, device="cpu", **{option: value})
 
 
 @pytest.mark.parametrize("option,value", [
-    ("n_pages", 64), ("page_size", 128), ("prefix_cache", False), ("spec_gamma", 2)])
+    ("draft_model", object()), ("multi_step", 4), ("mesh", object())])
+def test_paged_engine_unported_options_raise(option, value):
+    """The same options raise in paged mode (whose chunked prefill is
+    ported)."""
+    _, tm = model_pair(11, quantize=True)
+    with pytest.raises(NotImplementedError, match=option):
+        ContinuousBatchingEngine(tm, device="cpu", paged=True, **{option: value})
+
+
+@pytest.mark.parametrize("option,value", [("spec_gamma", 2)])
 def test_engine_rejects_knobs_of_unported_modes(option, value):
-    """The paged and speculative modes' knobs are not accepted and ignored:
-    passing one is an error."""
+    """The speculative mode's knob is not accepted and ignored: passing it
+    is an error."""
     _, tm = model_pair(11, quantize=True)
     with pytest.raises(TypeError, match=option):
         ContinuousBatchingEngine(tm, device="cpu", **{option: value})

@@ -15,12 +15,15 @@ from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
 from qgemm_tpu_torch.ops import cuda as kernels
 from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention
 from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention
 from qgemm_tpu_torch.ops.kv_cache import quantize_kv
 from qgemm_tpu_torch.ops.quantize import (quantize_weights, quantize_weights_int4,
                                           quantized_matmul_prequant,
                                           quantized_matmul_prequant_outlier,
                                           quantized_matmul_prequant_w4)
-from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine
+from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+from qgemm_tpu_torch.serving.paged_cache import init_paged_cache, paged_write_step
 from qgemm_tpu_torch.utils.interop import gpt_from_jax_params
 from qgemm_tpu_torch.utils.profiling import bench_ms
 from qgemm_tpu_torch.utils.testing import use_test_threads
@@ -65,6 +68,10 @@ def test_default_device_raises_without_gpu():
         GPT.init(CFG, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_ms(lambda: None)   # never a CPU time under a device metric's name
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatchingEngine(model, paged=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_paged_cache(2, 64, 4, 2, 2)
 
 
 def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
@@ -85,8 +92,18 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     q = torch.randn(1, 2, 5, 64, generator=g)
     o, lse = flash_attention_fwd(q, q, q, causal=True)
     assert o.shape == q.shape and lse.shape == (1, 2, 5)
+    cache = init_paged_cache(2, 64, 4, 2, 2, page_size=16, kv_bits=4, device="cpu")
+    cache.page_table[0, 0], cache.page_table[1, 0] = 1, 2
+    paged_write_step(cache, kq[:, :, :1].float(), vq[:, :, :1].float(), torch.tensor([3, 0]))
+    q1 = torch.randn(2, 4, 1, 64, generator=g)
+    assert paged_decode_attention(q1, cache, torch.tensor([4, 1])).shape == (2, 4, 1, 64)
+    q2 = torch.cat([q, q])
+    assert paged_context_attention(q2, cache, torch.tensor([5, 5]), 0).shape == q2.shape
     assert kernels.launch_counts() == {"quantized_matmul": 0, "decode_attention": 0,
-                                       "flash_attention": 0, "w4a8_matmul": 0}
+                                       "flash_attention": 0, "w4a8_matmul": 0,
+                                       "paged_decode_attention": 0,
+                                       "paged_decode_attention_ragged": 0,
+                                       "paged_context_attention": 0}
 
 
 def test_model_cpu_path_launches_no_kernel():
@@ -101,4 +118,24 @@ def test_w4a8_outlier_model_cpu_path_launches_no_kernel():
     kernels.reset_launch_counts()
     model = GPT.init(CFG, seed=2, device="cpu").quantize(bits=4, outlier_threshold=6.0)
     assert model.generate(torch.tensor([[1, 2, 3]]), 4, quantized_cache=True).shape == (1, 4)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_paged_engine_cpu_run_launches_no_kernel():
+    """A paged CPU run through every paged path (prefix hit, chunked and
+    overlapped admission, int4 pools, over-commit) launches no kernel."""
+    kernels.reset_launch_counts()
+    model = GPT.init(CFG, seed=3, device="cpu").quantize()
+    eng = ContinuousBatchingEngine(model, max_slots=2, max_seq_len=48, paged=True,
+                                   page_size=8, kv_bits=4, chunked_prefill=8,
+                                   overlap_admission=True, overcommit=True, n_pages=9,
+                                   device="cpu")
+    system = list(range(1, 17))
+    reqs = [Request(prompt=system + [20 + i] * (1 + 9 * i), max_new_tokens=12)
+            for i in range(3)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    assert all(r.error is None and len(r.generated) == 12 for r in reqs)
+    assert eng.stats["prefix_hits"] > 0
     assert sum(kernels.launch_counts().values()) == 0
