@@ -15,7 +15,13 @@ undersized pool with over-commit and overlapped admission. Each serving
 run checks that it went through its kernels. Then it compares a 2-layer
 full-width model's prefill logits between the CPU (float32, plain
 versions) and the GPU (bf16, kernels), and the logits' quantization error
-with and without the outlier split. Each phase prints one JSON line; the
+with and without the outlier split. Then the training path: kernel K7 (the
+flash backward) was held against its plain version and timed with the
+other kernels; ``train`` takes Adam steps on GPT_6_7B's widths at 4 layers
+(bf16, 4 x 2048 tokens) through K3 and K7; ``train_induction`` trains the
+example's small GPT on the copy task to convergence; ``train_serve``
+quantizes the trained model to int8 and serves held-out copy prompts
+through the engine. Each phase prints one JSON line; the
 last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is nonzero. Needs one CUDA device; exits nonzero without one.
 Uses no JAX.
@@ -194,7 +200,8 @@ def phase_parity() -> dict:
     g.manual_seed(1)
     errs = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0}
             for name in ("quantized_matmul", "decode_attention", "flash_attention",
-                         "w4a8_matmul", "paged_decode_attention", "paged_context_attention")}
+                         "w4a8_matmul", "paged_decode_attention", "paged_context_attention",
+                         "flash_attention_bwd", "flash_attention_autograd")}
     report = []
 
     def record(name, got, ref, **row):
@@ -362,9 +369,84 @@ def phase_parity() -> dict:
                     raise AssertionError(f"K6 offsets={offs} hkv={hkv} bits={bits}: "
                                          f"max err {e}")
                 del cache
+    k7_checks(g, record)
     torch.cuda.synchronize()
     emit({"phase": "parity", "checks": report, "outlier_gemm": outlier_checks})
     return errs
+
+
+# K7 parity cases (B, H, Sq, Sk, D, causal, dtype): the training slice's
+# shape first, then ragged lengths (not multiples of the 64-row blocks or
+# the 32-row tiles), Sq != Sk both ways, float32, head_dim 64
+K7_CASES = [(4, 32, 2048, 2048, 128, True, "bfloat16"),
+            (1, 8, 200, 200, 128, True, "bfloat16"),
+            (1, 8, 72, 200, 128, False, "bfloat16"),
+            (1, 8, 72, 200, 128, True, "bfloat16"),
+            (1, 8, 200, 72, 128, True, "bfloat16"),
+            (1, 8, 300, 300, 128, True, "float32"),
+            (2, 4, 333, 333, 64, True, "bfloat16"),
+            (1, 8, 130, 97, 64, False, "float32")]
+
+
+def k7_checks(g: torch.Generator, record) -> None:
+    """Kernel K7 against its plain version at ``K7_CASES``, then the
+    differentiable ``flash_attention`` (K3 forward + K7 backward) against
+    torch autograd through ``scaled_dot_product_attention`` in float32, MHA
+    and a GQA model's repeated heads (dK/dV summed back over each group).
+
+    Tolerances: bf16 dQ/dK/dV round once on each side (2^-7 relative), and
+    P and dS round to bf16 at the same points on both sides from f32 values
+    summed in different orders, so an entry can land one bf16 ulp apart:
+    the error beyond 2^-7 relative must stay under 1e-3 * max|ref|. f32:
+    summation order and expf over at most 2048 terms, |err| <= 1e-5 *
+    max|ref|. Against SDPA (another algorithm, its own summation order and
+    exp): |err| <= 1e-4 * max|ref|."""
+    import torch.nn.functional as F
+
+    from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_fwd
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import (flash_attention_bwd,
+                                                              flash_attention_bwd_plain)
+    for b, h, sq, sk, d, causal, dt in K7_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, h, sq, d), generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn((b, h, sk, d), generator=g, device="cuda").to(dtype)
+                for _ in range(2))
+        dout = torch.randn((b, h, sq, d), generator=g, device="cuda").to(dtype)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        got = flash_attention_bwd(q, k, v, o, lse, dout, causal)
+        ref = flash_attention_bwd_plain(q, k, v, o, lse, dout, causal)
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            scale = float(r.float().abs().max())
+            if dt == "bfloat16":
+                tol, beyond = 1e-3 * scale, excess(a, r, 2 ** -7)
+            else:
+                tol, beyond = 1e-5 * scale, max_err(a, r)
+            e = record("flash_attention_bwd", a, r, grad=name, b=b, h=h, sq=sq, sk=sk, d=d,
+                       causal=causal, dtype=dt, tol=tol, excess=beyond)
+            if not (beyond <= tol and bool(torch.isfinite(a).all())):
+                raise AssertionError(f"K7 {name} b={b} h={h} sq={sq} sk={sk} d={d} "
+                                     f"causal={causal} {dt}: max err {e}, beyond the "
+                                     f"allowance {beyond} > {tol}")
+        del q, k, v, dout, o, lse, got, ref
+        torch.cuda.empty_cache()
+
+    for hq, hkv, s_len, d in ((8, 8, 300, 128), (8, 2, 257, 64)):
+        q = torch.randn((2, hq, s_len, d), generator=g, device="cuda", requires_grad=True)
+        k, v = (torch.randn((2, hkv, s_len, d), generator=g, device="cuda",
+                            requires_grad=True) for _ in range(2))
+        w = torch.randn((2, hq, s_len, d), generator=g, device="cuda")
+        rep = lambda t: torch.repeat_interleave(t, hq // hkv, dim=1)
+        got = torch.autograd.grad((flash_attention(q, rep(k), rep(v), True) * w).sum(),
+                                  (q, k, v))
+        ref = torch.autograd.grad((F.scaled_dot_product_attention(
+            q, rep(k), rep(v), is_causal=True) * w).sum(), (q, k, v))
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            tol = 1e-4 * float(r.abs().max())
+            e = record("flash_attention_autograd", a, r, grad=name, check="vs_sdpa_f32",
+                       hq=hq, hkv=hkv, s=s_len, d=d, tol=tol)
+            if not e <= tol:
+                raise AssertionError(f"flash_attention autograd {name} hq={hq} hkv={hkv}: "
+                                     f"max err {e} > {tol} against SDPA")
 
 
 def phase_timing(errs: dict) -> dict:
@@ -476,6 +558,8 @@ def phase_timing(errs: dict) -> dict:
                               **errs["flash_attention"],
                               "shape": f"B=1 H={h} S={sq} D={d} causal"}
 
+    out["flash_attention_bwd"] = k7_timing(g, errs)
+
     # K5 at row 5's shape (K2's above), through the engine's ragged entry,
     # and K6 at one 256-row chunk after 768 resident positions, beside the
     # plain gather (JAX's default route for chunks). Bounds count, read
@@ -531,6 +615,66 @@ def phase_timing(errs: dict) -> dict:
     return out
 
 
+def k7_timing(g: torch.Generator, errs: dict) -> dict:
+    """K7 at the training slice's attention shape (B 4, H 32, S 2048, D 128,
+    causal, bf16: one layer of the ``train`` phase), beside its plain
+    version, the library's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` on a kept graph, a yardstick only) and
+    K3's forward at the same shape. Bound: five products of 2 * D flops per
+    attended (query, key) pair, against q, k, v, O, dO and lse read once
+    and dQ, dK, dV written once."""
+    import torch.nn.functional as F
+
+    from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import (flash_attention_bwd,
+                                                              flash_attention_bwd_plain)
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    b, h, s, d = 4, 32, 2048, 128
+    q, k, v, dout = (torch.randn((b, h, s, d), generator=g, device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    ms = bench_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, True))
+    plain = bench_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, dout, True))
+    fwd = bench_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout, retain_graph=True)
+    try:
+        lib, lib_timing = bench_ms(sdpa_bwd), "queued behind the sleep"
+    except RuntimeError as e:   # the autograd engine held the host back
+        print(f"SDPA backward could not be queued ahead: {e}", file=sys.stderr)
+        lib, lib_timing = bench_ms(sdpa_bwd, queue_ahead=False), "not queued ahead"
+    pairs = s * (s + 1) // 2
+    bms, by = bound(8 * b * h * s * d * 2 + b * h * s * 4, 10 * b * h * pairs * d, BF16_FLOPS)
+    res = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by,
+           "library_timing": lib_timing,
+           "k3_fwd_ms_same_shape": fwd, "bwd_over_fwd": ms / fwd,
+           "achieved_tflops": 10 * b * h * pairs * d / ms / 1e9,
+           **errs["flash_attention_bwd"],
+           "shape": f"B={b} H={h} S={s} D={d} causal bf16"}
+    emit({"phase": "timing_k7", **res})
+    del q, k, v, dout, o, lse, qg, kg, vg, sdpa_out
+    torch.cuda.empty_cache()
+    return res
+
+
+def device_spans(prof) -> tuple:
+    """(microseconds in the union of the device kernels' intervals, time by
+    kernel name, kernel count) of a torch.profiler trace; fails if the trace
+    holds no device kernel."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("torch.profiler recorded no device kernel in the window")
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for s, e, name in spans:        # union of the kernels' intervals
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    return busy_us, by_name, len(spans)
+
+
 def profile_decode(engine, rng, n_steps: int = 10) -> dict:
     """Where a steady decode step's time goes, with 8 busy slots: three
     windows of ``n_steps`` steps back to back, the middle one traced by
@@ -567,17 +711,8 @@ def profile_decode(engine, rng, n_steps: int = 10) -> dict:
     after = window()
     if engine.book.num_active != engine.max_slots:
         raise AssertionError("profile window: a slot finished inside the windows")
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
     engine.run_to_completion()
-    if not spans:
-        raise AssertionError("torch.profiler recorded no device kernel in the window")
-    busy_us, end, by_name = 0.0, float("-inf"), {}
-    for s, e, name in spans:        # union of the kernels' intervals
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    busy_us, by_name, n_spans = device_spans(prof)
     kernel_ms = busy_us / 1e3 / n_steps
     untraced_ms = (before + after) / 2
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -588,7 +723,7 @@ def profile_decode(engine, rng, n_steps: int = 10) -> dict:
             "kernel_ms_per_step": kernel_ms,
             "idle_share_untraced": 1.0 - kernel_ms / untraced_ms,
             "idle_share_traced": 1.0 - kernel_ms / traced_ms,
-            "device_events_per_step": len(spans) / n_steps,
+            "device_events_per_step": n_spans / n_steps,
             "top_kernels_ms_per_step": {n[:80]: v / 1e3 / n_steps for n, v in top}}
 
 
@@ -971,11 +1106,8 @@ def phase_numerics() -> None:
     cpu = GPT.init(cfg, seed=3, device="cpu").quantize()
     gpu = copy.deepcopy(cpu)
     gpu.cfg = dataclasses.replace(cfg, dtype="bfloat16")
-    for mod in gpu.modules():
-        for name, p in list(mod.named_parameters(recurse=False)):
-            p.data = p.data.to(torch.bfloat16)
-        if hasattr(mod, "pos"):
-            mod.pos = mod.pos.to(torch.bfloat16)
+    for p in gpu.parameters():
+        p.data = p.data.to(torch.bfloat16)
     gpu = gpu.to("cuda")
     prompt = np.random.default_rng(4).integers(0, cfg.vocab_size, size=(1, 128))
     lc, _ = cpu.prefill(torch.from_numpy(prompt), cpu.init_cache(1, 128, quantized=True))
@@ -1005,13 +1137,14 @@ def phase_outlier_numerics() -> dict:
     plant_outlier_dims(model)
     tokens = torch.from_numpy(np.random.default_rng(6).integers(
         0, cfg.vocab_size, size=(1, 128))).cuda()
-    ref = model.forward(tokens)[0, -1].double()
     errs = {}
-    for label, qkw in (("int8", {}), ("int8_outlier", {"outlier_threshold": 6.0}),
-                       ("int4", {"bits": 4}),
-                       ("int4_outlier", {"bits": 4, "outlier_threshold": 6.0})):
-        got = model.quantize(**qkw).forward(tokens)[0, -1].double()
-        errs[label] = float((got - ref).norm() / ref.norm())
+    with torch.no_grad():
+        ref = model.forward(tokens)[0, -1].double()
+        for label, qkw in (("int8", {}), ("int8_outlier", {"outlier_threshold": 6.0}),
+                           ("int4", {"bits": 4}),
+                           ("int4_outlier", {"bits": 4, "outlier_threshold": 6.0})):
+            got = model.quantize(**qkw).forward(tokens)[0, -1].double()
+            errs[label] = float((got - ref).norm() / ref.norm())
     res = {"phase": "outlier_numerics", "layers": 2, "outlier_dims_planted": OUTLIER_DIMS,
            "rel_rms_err_vs_float": errs}
     emit(res)
@@ -1019,6 +1152,228 @@ def phase_outlier_numerics() -> dict:
         if not errs[f"{bits}_outlier"] < errs[bits]:
             raise AssertionError(f"outlier split did not lower the {bits} logits' error: {errs}")
     del model
+    torch.cuda.empty_cache()
+    return res
+
+
+# The training phase: GPT_6_7B's widths at 4 of its 32 layers (32 layers of
+# bf16 weights and gradients with f32 Adam moments need ~80 GB before any
+# activation), one fixed batch of 4 x 2048 tokens
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 4, 2048, 1e-4
+TRAIN_TIMED_STEPS = 5
+
+# The induction runs of ``train_model`` (the example's defaults: batch 16,
+# seq_len 128, vocab 64, 2 layers, d_ff 512, lr 3e-3; 1,500 steps) at head
+# widths K3 and K7 take. ``jax_cpu_acc``: the held-out copy accuracy of the
+# JAX package's examples/train_gpt_lm.py with the same flags on the CPU.
+# d256_h4 stalls at the uniform loss there (ln 64 for 1,500 steps); d128_h2
+# is the example's own width with head_dim 64, and learns the task.
+INDUCTION_STEPS = 1500
+INDUCTION_RUNS = {"d256_h4": {"d_model": 256, "n_heads": 4, "jax_cpu_acc": 0.0159},
+                  "d128_h2": {"d_model": 128, "n_heads": 2, "jax_cpu_acc": 0.9995}}
+
+
+def train_kernel_counts(per_step: list, n_layers: int, label: str) -> dict:
+    """Every training step launched K3 and K7 once per layer and no other
+    kernel of the port (a float model trains through cuBLAS GEMMs)."""
+    want = {k: 0 for k in per_step[0]}
+    want.update(flash_attention=n_layers, flash_attention_bwd=n_layers)
+    bad = [d for d in per_step if d != want]
+    if bad:
+        raise AssertionError(f"{label}: a step launched {bad[0]}, not {want}")
+    return want
+
+
+def step_profile(fn) -> dict:
+    """One call of ``fn`` (a training step) traced by torch.profiler (CUDA
+    activity): its host wall time (synchronised; it carries the profiler's
+    host cost, so the idle share is an upper bound), the union of its
+    device kernels' intervals, and the time by kernel family."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    busy_us, by_name, n_spans = device_spans(prof)
+    families = {"k7_flash_bwd": ("flash_bwd", "delta_kernel"), "k3_flash_fwd": ("flash_fwd",),
+                "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
+                "elementwise": ("elementwise",), "reduce": ("reduce",),
+                "index_scatter_sort": ("index", "scatter", "gather", "sort", "Sort"),
+                "layer_norm": ("layer_norm",)}
+    fam_ms = {f: 0.0 for f in (*families, "other")}
+    for name, us in by_name.items():
+        f = next((f for f, keys in families.items() if any(kk in name for kk in keys)),
+                 "other")
+        fam_ms[f] += us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms_traced": wall_ms, "kernel_ms": busy_us / 1e3,
+            "idle_share_traced": 1.0 - busy_us / 1e3 / wall_ms, "device_events": n_spans,
+            "kernel_ms_by_family": fam_ms,
+            "top_kernels_ms": {n[:80]: v / 1e3 for n, v in top}}
+
+
+def phase_train() -> dict:
+    """The training path at full width: GPT_6_7B's widths (vocab 50272,
+    d_model 4096, 32 heads x 128, d_ff 16384, bf16, max_seq_len 2048) at
+    ``TRAIN_LAYERS`` layers, random weights from seed 0, one fixed batch of
+    4 x 2048 random tokens (and their next tokens), Adam at lr 1e-4 through
+    the example's ``train_step`` (GPT.forward, the bf16 cross-entropy and
+    its analytic gradient, backward through K7, Adam in place): one warm-up
+    step, ``TRAIN_TIMED_STEPS`` steps timed on the host clock (each
+    synchronised), then one step traced for the device's idle share. The
+    launch counts are set to 0 just before the steps and read just after.
+    Fails unless every loss is finite, the loss falls, and every step
+    launched K3 and K7 once per layer and no other kernel."""
+    from qgemm_tpu_torch.examples.train_gpt_lm import train_step
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.models.optim import Adam
+    from qgemm_tpu_torch.ops import cuda as kernels
+    cfg = dataclasses.replace(GPT_6_7B, n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GPT.init(cfg, seed=0, device="cuda")
+    params = [p for _, p in model.named_trainable()]
+    opt = Adam(lr=TRAIN_LR)
+    box = {"state": opt.init(params)}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    seqs = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=g,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def step():
+        box["state"], box["loss"] = train_step(model, params, opt, box["state"], seqs)
+
+    losses, step_ms, per_step = [], [], []
+    kernels.reset_launch_counts()
+    for i in range(1 + TRAIN_TIMED_STEPS + 1):
+        before = kernels.launch_counts()
+        if i <= TRAIN_TIMED_STEPS:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if i:
+                step_ms.append((time.perf_counter() - t) * 1e3)
+        else:
+            prof = step_profile(step)
+        losses.append(float(box["loss"]))
+        per_step.append({k: v - before[k] for k, v in kernels.launch_counts().items()})
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_ms))
+    res = {"phase": "train",
+           "model": f"GPT_6_7B widths, {TRAIN_LAYERS} of 32 layers, bf16, random weights",
+           "params": sum(p.numel() for p in params), "init_s": round(init_s, 2),
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "optimizer": f"Adam lr {TRAIN_LR}",
+           "losses": losses, "loss_steps": "warm-up, 5 timed, traced",
+           "step_ms": step_ms, "step_ms_median": med,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+           "peak_mem_gb": round(peak / 2**30, 2), "launches": counts,
+           "launches_per_step": per_step[0], "traced_step": prof}
+    emit(res)
+    train_kernel_counts(per_step, TRAIN_LAYERS, "train")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if not (losses[TRAIN_TIMED_STEPS] < losses[1] and losses[-1] < losses[0]):
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    del model, params, opt, box, seqs
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_induction() -> tuple:
+    """``train_model`` to convergence on the copy task, on the card, for each
+    of ``INDUCTION_RUNS``: loss first -> last, held-out copy accuracy and
+    wall time, launch counts set to 0 just before each run and read just
+    after (K3 and K7 once per layer per step, K3 again for the held-out
+    forward). Fails if a run's accuracy is below the JAX package's at the
+    same flags minus 0.05. Returns (results, the d128_h2 model)."""
+    from qgemm_tpu_torch.examples.train_gpt_lm import train_model
+    from qgemm_tpu_torch.ops import cuda as kernels
+    results, served = {}, None
+    for label, run in INDUCTION_RUNS.items():
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, st = train_model(steps=INDUCTION_STEPS, d_model=run["d_model"],
+                                n_heads=run["n_heads"], device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = kernels.launch_counts()
+        n_layers = model.cfg.n_layers
+        res = {"phase": f"train_induction_{label}", "steps": INDUCTION_STEPS,
+               "config": {"d_model": run["d_model"], "n_heads": run["n_heads"],
+                          "head_dim": run["d_model"] // run["n_heads"], "layers": n_layers,
+                          "d_ff": model.cfg.d_ff, "batch": 16, "seq_len": 128, "vocab": 64,
+                          "lr": 3e-3},
+               **st, "jax_cpu_heldout_acc": run["jax_cpu_acc"], "wall_s": wall,
+               "steps_per_s": INDUCTION_STEPS / wall, "launches": counts}
+        emit(res)
+        if not (counts["flash_attention_bwd"] == n_layers * INDUCTION_STEPS
+                and counts["flash_attention"] == n_layers * (INDUCTION_STEPS + 1)):
+            raise AssertionError(f"{label}: launches {counts}, not {n_layers} K3 and K7 "
+                                 f"per step")
+        if not (np.isfinite(st["loss_last"]) and st["heldout_acc"] >= run["jax_cpu_acc"] - 0.05):
+            raise AssertionError(f"{label}: held-out copy accuracy {st['heldout_acc']} below "
+                                 f"the JAX package's {run['jax_cpu_acc']} - 0.05")
+        results[label] = res
+        if label == "d128_h2":
+            served = model
+        else:
+            del model
+    return results, served
+
+
+def phase_train_serve(model) -> dict:
+    """The trained copy model quantized to int8 (``.quantize()``) and served
+    by ``ContinuousBatchingEngine(quantized_cache=True)``: 16 held-out copy
+    sequences, each prompt the first half and the first token of the second
+    half, the rest of the second half decoded greedily. Prints the served
+    copy accuracy and the float model's (its greedy ``generate``), and how
+    many transcripts equal the float model's. Fails unless the engine went
+    through K1, K2 and K3, its transcripts equal the int8 model's own
+    ``generate`` (int8 cache), and its accuracy is within 0.05 of the
+    float model's."""
+    from qgemm_tpu_torch.examples.train_gpt_lm import batch_iter
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    seq_len, vocab = 128, 64
+    half = (seq_len + 1) // 2
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    seqs = next(batch_iter(g, 16, seq_len, vocab))
+    prompts, targets = seqs[:, :half + 1], seqs[:, half + 1:]
+    n_new = targets.shape[1]
+    qm = model.quantize()
+    engine = ContinuousBatchingEngine(qm, max_slots=8, max_seq_len=model.cfg.max_seq_len,
+                                      quantized_cache=True, device="cuda")
+    reqs = [Request(prompt=p.tolist(), max_new_tokens=n_new) for p in prompts]
+    run = drive(engine, reqs, "train_serve")
+    served = torch.tensor([r.generated for r in reqs], device="cuda")
+    acc = float((served == targets).float().mean())
+    matched_int8 = transcripts_match_generate("train_serve", qm, reqs)
+    flt = model.generate(prompts, n_new)
+    float_acc = float((flt == targets).float().mean())
+    same_as_float = int((flt == served).all(dim=1).sum())
+    counts = run["counts"]
+    res = {"phase": "train_serve", "model": "train_induction d128_h2, int8 weights",
+           "requests": len(reqs), "prompt_tokens": half + 1, "new_tokens": n_new,
+           "served_copy_acc_int8": acc, "float_generate_copy_acc": float_acc,
+           "transcripts_equal_float_generate": same_as_float,
+           "transcripts_equal_int8_generate": matched_int8,
+           "launches": counts, "launches_per_decode_step": run["per_decode"],
+           "stats": engine.stats,
+           "transcripts_first_two": [r.generated for r in reqs[:2]]}
+    emit(res)
+    if not all(counts[k] > 0 for k in ("quantized_matmul", "decode_attention",
+                                       "flash_attention")):
+        raise AssertionError(f"train_serve: a kernel of the path never launched: {counts}")
+    if not acc >= float_acc - 0.05:
+        raise AssertionError(f"train_serve: served accuracy {acc} vs float {float_acc}")
+    del engine, qm
     torch.cuda.empty_cache()
     return res
 
@@ -1110,12 +1465,16 @@ def main() -> None:
     paged8, paged4 = serve_paged()
     phase_numerics()
     phase_outlier_numerics()
+    train = phase_train()
+    induction, copy_model = phase_train_induction()
+    phase_train_serve(copy_model)
     replaces = {"quantized_matmul": "qgemm_tpu/ops/pallas/quantized_matmul.py:107",
                 "decode_attention": "qgemm_tpu/ops/pallas/decode_attention.py:44",
                 "flash_attention": "qgemm_tpu/ops/pallas/flash_attention.py:41",
                 "w4a8_matmul": "qgemm_tpu/ops/pallas/w4a8_matmul.py:72",
                 "paged_decode_attention": "qgemm_tpu/ops/pallas/paged_attention.py:49",
-                "paged_context_attention": "qgemm_tpu/ops/pallas/paged_attention.py:328"}
+                "paged_context_attention": "qgemm_tpu/ops/pallas/paged_attention.py:328",
+                "flash_attention_bwd": "qgemm_tpu/ops/pallas/flash_attention.py:267"}
     # each kernel's wrappers: K5 has two entries, each with its own count
     wrappers = {"paged_decode_attention": ("paged_decode_attention",
                                            "paged_decode_attention_ragged")}
@@ -1123,16 +1482,18 @@ def main() -> None:
     for name in _build.KERNELS:
         t = timing[name]
         path = {"w4a8_matmul": w4a8, "paged_decode_attention": paged8,
-                "paged_context_attention": paged8}.get(name, int8)
+                "paged_context_attention": paged8,
+                "flash_attention_bwd": train}.get(name, int8)
         ws = wrappers.get(name, (name,))
+        per_decode = path.get("launches_per_decode_step")
         per_prefill = path.get("launches_per_prefill")
         entry = {"name": name, "route": "cuda",
                  "source": f"qgemm_tpu_torch/csrc/{name}.cu",
                  "replaces": replaces[name],
                  "launches": sum(path["launches"][w] for w in ws),
                  "launches_counted_in": path["phase"],
-                 "launches_per_decode_step": sum(path["launches_per_decode_step"][w]
-                                                 for w in ws),
+                 "launches_per_decode_step": (sum(per_decode[w] for w in ws)
+                                              if per_decode else None),
                  "launches_per_prefill": (sum(per_prefill[w] for w in ws)
                                           if per_prefill else None),
                  "max_abs_err": t["max_abs_err"], "max_rel_err": t["max_rel_err"],
@@ -1161,6 +1522,18 @@ def main() -> None:
             entry.update(also_replaces="qgemm_tpu/ops/pallas/paged_attention.py:160",
                          launches_by_entry={w: path["launches"][w] for w in ws},
                          k2_ms_same_lengths=t["k2_ms_same_lengths"])
+        if name in ("flash_attention", "flash_attention_bwd"):
+            entry.update(launches_per_train_step=train["launches_per_step"][name],
+                         launches_train_induction={k: r["launches"][name]
+                                                   for k, r in induction.items()})
+        if name == "flash_attention_bwd":
+            entry.update(also_replaces="qgemm_tpu/ops/pallas/flash_attention.py:302",
+                         library_note="the backward of torch.nn.functional."
+                                      "scaled_dot_product_attention (torch.autograd.grad "
+                                      "on a kept graph), a yardstick only",
+                         library_timing=t["library_timing"],
+                         k3_fwd_ms_same_shape=t["k3_fwd_ms_same_shape"],
+                         achieved_tflops=t["achieved_tflops"])
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ tensor-parallel and cross-attention branches, and the paged verify chunk at
 per-slot offsets, are not ported yet).
 
 Dispatch by device, mirroring the JAX package's by backend:
-  * full-sequence attention — kernel K3 (flash) on CUDA at any length,
-    the plain composition on the CPU;
+  * full-sequence attention — kernel K3 (flash forward) on CUDA at any
+    length, differentiable through kernel K7 (the blockwise backward); on
+    the CPU the plain composition under autograd (GQA gradients flow back
+    through ``_repeat_kv``);
   * full-prompt prefill (cache index 0, causal, Sq == Sk) — K3 on the
     unquantized K/V on CUDA; on the CPU the prompt attends the cache rows
     just written (re-read int8 rows for an int8 cache), as JAX does there;
@@ -61,7 +63,8 @@ def scaled_dot_product_attention(q, k, v, causal: bool = False,
 
 
 def _dispatch_attention(q, k, v, causal: bool) -> torch.Tensor:
-    """Full-sequence attention: K3 on CUDA, the plain composition on CPU."""
+    """Full-sequence attention: K3 (backward K7) on CUDA, the plain
+    composition on CPU; differentiable on both."""
     if q.is_cuda:
         return flash_attention(q, k, v, causal=causal)
     return scaled_dot_product_attention(q, k, v, causal=causal)

@@ -1,5 +1,10 @@
 """Token embedding + sinusoidal positional encoding (port of
-``qgemm_tpu/models/embedding.py``)."""
+``qgemm_tpu/models/embedding.py``).
+
+Both tables are trainable parameters. The positional table is a fixed
+sinusoid by convention, but the JAX package keeps it as a data field of the
+model's pytree, so training there updates it too; the port follows.
+"""
 
 from __future__ import annotations
 
@@ -26,8 +31,8 @@ def sinusoidal_positions(max_len: int, d_model: int,
 class Embedding(nn.Module):
     def __init__(self, table: torch.Tensor, pos: torch.Tensor):
         super().__init__()
-        self.table = nn.Parameter(table, requires_grad=False)  # [vocab, d]
-        self.register_buffer("pos", pos)                       # [max_len, d]
+        self.table = nn.Parameter(table)  # [vocab, d]
+        self.pos = nn.Parameter(pos)      # [max_len, d]
 
     @classmethod
     def init(cls, generator: torch.Generator, vocab_size: int, d_model: int,

@@ -4,6 +4,9 @@ yet): pre-LN causal LM, KV-cache decoding with per-slot positions, offline
 int8 or int4 (W4A8) quantization of every GEMM, optionally with the
 LLM.int8() outlier split.
 
+``forward`` is differentiable (the training path: the float leaves are
+trainable parameters, listed in the JAX package's pytree order by
+``named_trainable``); the decoding entry points run under ``no_grad``.
 Caches are updated in place: ``decode_step``, ``prefill`` and
 ``prefill_chunk`` write into the cache tensors they are given and return
 the same objects. The cache extent is exactly what the caller asks for (the
@@ -14,7 +17,7 @@ port's kernels mask by length and need no such padding).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -146,8 +149,15 @@ class GPT(nn.Module):
     def num_params(self) -> int:
         return sum(t.numel() for t in self.state_dict().values())
 
+    def named_trainable(self) -> List[Tuple[str, nn.Parameter]]:
+        """The trainable parameters (every float leaf of a float model: the
+        embedding and positional tables, weights, biases, LayerNorm gains
+        and shifts), keyed by their JAX pytree path (``blocks/0/attn/
+        wqkv_q/w``) and in the order of ``jax.tree_util.tree_leaves``."""
+        return [(name.replace(".", "/"), p) for name, p in self.named_parameters()
+                if p.requires_grad]
+
     # ------------------------------------------------------------------ fwd
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, S] -> logits [B, S, vocab] (causal, teacher forcing)."""
         x = self.embed(tokens)

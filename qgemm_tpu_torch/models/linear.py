@@ -6,7 +6,10 @@ weights quantized offline: int8 with per-column absmax scales (stored
 K-major for kernel K1), or with ``bits=4`` int4 with per-(128-row group,
 column) scales (packed K-major for kernel K4). Its forward quantizes the
 activations per call and runs K1 or K4 on CUDA tensors (their plain
-versions on CPU tensors). ``outlier_threshold > 0`` adds the LLM.int8()
+versions on CPU tensors). A ``Linear``'s weight and bias are trainable
+parameters; a ``QuantizedLinear`` holds its codes and scales as buffers and
+its bias frozen (the quantized product has no gradient).
+``outlier_threshold > 0`` adds the LLM.int8()
 outlier split: activation dims above the threshold (up to
 ``outlier_capacity`` of them) bypass the quantized product and multiply
 the dequantized weight rows in bf16 (f32 on the CPU).
@@ -27,6 +30,10 @@ from qgemm_tpu_torch.ops.quantize import (QuantizedWeight, QuantizedWeight4,
 from qgemm_tpu_torch.utils.prng import uniform_init
 
 
+def _trainable(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
+    return None if t is None else nn.Parameter(t)
+
+
 def _frozen(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
     return None if t is None else nn.Parameter(t, requires_grad=False)
 
@@ -41,8 +48,8 @@ def check_quantize_options(outlier_threshold: float = 0.0,
 class Linear(nn.Module):
     def __init__(self, w: torch.Tensor, b: Optional[torch.Tensor] = None):
         super().__init__()
-        self.w = _frozen(w)    # [in_dim, out_dim]
-        self.b = _frozen(b)    # [out_dim] or None
+        self.w = _trainable(w)    # [in_dim, out_dim]
+        self.b = _trainable(b)    # [out_dim] or None
 
     @classmethod
     def init(cls, generator: torch.Generator, in_dim: int, out_dim: int,

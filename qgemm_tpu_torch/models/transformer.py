@@ -13,8 +13,8 @@ from qgemm_tpu_torch.ops.layernorm import layernorm
 class LayerNorm(nn.Module):
     def __init__(self, gamma: torch.Tensor, beta: torch.Tensor):
         super().__init__()
-        self.gamma = nn.Parameter(gamma, requires_grad=False)
-        self.beta = nn.Parameter(beta, requires_grad=False)
+        self.gamma = nn.Parameter(gamma)
+        self.beta = nn.Parameter(beta)
 
     @classmethod
     def init(cls, d: int, dtype: torch.dtype = torch.float32, device=None) -> "LayerNorm":

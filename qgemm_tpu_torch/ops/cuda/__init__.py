@@ -7,7 +7,9 @@ which path it took. K1's wrapper is ``ops.quantize.quantized_matmul_prequant``
 (its launch is ``quantized_matmul.quantized_matmul_cuda``); K4's is
 ``ops.quantize.quantized_matmul_prequant_w4`` (its launch is
 ``w4a8_matmul.w4a8_matmul_cuda``); K2's and K3's are
-``decode_attention.decode_attention`` and ``flash_attention.flash_attention_fwd``.
+``decode_attention.decode_attention`` and ``flash_attention.flash_attention_fwd``;
+K7's is ``flash_attention_bwd.flash_attention_bwd`` (K3 and K7 together are
+the differentiable ``flash_attention.flash_attention``).
 K5 has two wrappers, ``paged_decode_attention.paged_decode_attention`` and
 ``paged_decode_attention.paged_decode_attention_ragged``, each with its own
 count; K6's is ``paged_context_attention.paged_context_attention``.
@@ -18,8 +20,9 @@ from __future__ import annotations
 
 def _launchers() -> dict:
     from qgemm_tpu_torch.ops.cuda import (decode_attention, flash_attention,
-                                          paged_context_attention, paged_decode_attention,
-                                          quantized_matmul, w4a8_matmul)
+                                          flash_attention_bwd, paged_context_attention,
+                                          paged_decode_attention, quantized_matmul,
+                                          w4a8_matmul)
     return {"quantized_matmul": quantized_matmul.quantized_matmul_cuda,
             "decode_attention": decode_attention.decode_attention,
             "flash_attention": flash_attention.flash_attention_fwd,
@@ -27,7 +30,8 @@ def _launchers() -> dict:
             "paged_decode_attention": paged_decode_attention.paged_decode_attention,
             "paged_decode_attention_ragged":
                 paged_decode_attention.paged_decode_attention_ragged,
-            "paged_context_attention": paged_context_attention.paged_context_attention}
+            "paged_context_attention": paged_context_attention.paged_context_attention,
+            "flash_attention_bwd": flash_attention_bwd.flash_attention_bwd}
 
 
 def reset_launch_counts() -> None:

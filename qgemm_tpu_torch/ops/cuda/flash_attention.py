@@ -3,9 +3,11 @@ forward returning O and the per-row logsumexp.
 
 Replaces ``_flash_attention_fwd_impl`` / ``_flash_kernel`` of
 ``qgemm_tpu/ops/pallas/flash_attention.py``. ``flash_attention_fwd`` is the
-forward alone, so a later port of the blockwise backward can wrap it in a
-``torch.autograd.Function`` that saves (q, k, v, O, lse). The source note in
-the .cu file says what bounds it and how it is built.
+forward alone; ``flash_attention`` is differentiable (JAX's ``custom_vjp``):
+a ``torch.autograd.Function`` whose forward is K3 and saves (q, k, v, O,
+lse) and whose backward is kernel K7 (``flash_attention_bwd.py``). CPU
+tensors run the two plain versions. The source note in the .cu file says
+what bounds it and how it is built.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import math
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
+from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
 from qgemm_tpu_torch.ops.validation import check, check_attention_4d
 
 _NEG_INF = -1e30
@@ -87,7 +90,25 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K3 forward saving (q, k, v, O, lse); K7 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, causal: bool = False) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v, blockwise (``qgemm_tpu``'s
-    ``flash_attention``, forward only)."""
-    return flash_attention_fwd(q, k, v, causal)[0]
+    """softmax(q k^T / sqrt(D)) v, blockwise and differentiable
+    (``qgemm_tpu``'s ``flash_attention``)."""
+    return _FlashAttention.apply(q, k, v, causal)

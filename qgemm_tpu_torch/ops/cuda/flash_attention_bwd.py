@@ -1,0 +1,101 @@
+"""Wrapper of kernel K7 (``csrc/flash_attention_bwd.cu``): the blockwise
+(FlashAttention-2) attention backward from the forward's O and logsumexp.
+
+Replaces ``_flash_attention_bwd_impl`` (``_flash_bwd_dq_kernel``,
+``_flash_bwd_dkv_kernel``) of ``qgemm_tpu/ops/pallas/flash_attention.py``.
+``ops/cuda/flash_attention.py`` wraps K3 and K7 in one
+``torch.autograd.Function``. The source note in the .cu file says what
+bounds it and how it is built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from qgemm_tpu_torch.ops.cuda import _build
+from qgemm_tpu_torch.ops.validation import check, check_attention_4d
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                              causal: bool = False):
+    """Plain PyTorch version of K7 (the TPU kernels' math without their
+    blocking): P = exp(s * scale - lse) with the forward's causal mask,
+    delta = rowsum(dO * O) and dP = dO V^T in f32, dS = P (dP - delta) scale;
+    P is cast to dO's dtype for dV = P^T dO and dS to the input dtype for
+    dQ = dS K and dK = dS^T Q, each product summed in f32. Returns
+    (dQ, dK, dV) in the dtypes of q, k and v."""
+    f32 = torch.float32
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, gf = (t.to(f32) for t in (q, k, v, g))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.to(f32)[..., None])
+    if causal:
+        mask = (torch.arange(sk, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None])
+        p = torch.where(mask, p, torch.zeros_like(p))
+    delta = (gf * out.to(f32)).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - delta) * scale
+    dv = torch.matmul(p.to(g.dtype).to(f32).transpose(-1, -2), gf)
+    dsr = ds.to(q.dtype).to(f32)
+    dq = torch.matmul(dsr, kf)
+    dk = torch.matmul(dsr.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _lib():
+    fn = _build.library("flash_attention_bwd").qgemm_flash_attention_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, p]
+        fn.restype = i
+    return fn
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                        causal: bool = False):
+    """q [B, H, Sq, D], k/v [B, H, Sk, D], out and its gradient g
+    [B, H, Sq, D], lse f32 [B, H, Sq] (the forward's) -> (dQ, dK, dV).
+    CPU tensors run the plain version; CUDA tensors launch K7 (f32 or bf16,
+    D in {64, 128}, Dv == D, at most 65535 batch*heads) or raise."""
+    check_attention_4d(q, k, v)
+    check(tuple(out.shape) == tuple(q.shape[:3]) + (v.shape[3],)
+          and tuple(g.shape) == tuple(out.shape),
+          f"flash_attention_bwd: out {tuple(out.shape)} and g {tuple(g.shape)} must "
+          f"be [B, H, Sq, Dv] for q {tuple(q.shape)}, v {tuple(v.shape)}")
+    check(tuple(lse.shape) == tuple(q.shape[:3]) and lse.dtype == torch.float32,
+          f"flash_attention_bwd: lse must be float32 {tuple(q.shape[:3])}, got "
+          f"{lse.dtype} {tuple(lse.shape)}")
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, out, lse, g, causal)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    check(q.dtype in _DTYPES and all(t.dtype == q.dtype for t in (k, v, out, g)),
+          f"K7 takes float32 or bfloat16 q/k/v/out/g of one dtype, got "
+          f"{q.dtype}/{k.dtype}/{v.dtype}/{out.dtype}/{g.dtype}")
+    check(d in (64, 128) and v.shape[3] == d,
+          f"K7 takes head_dim 64 or 128 with Dv == D, got {d}/{v.shape[3]}")
+    check(all(t.is_cuda and t.device == q.device for t in (k, v, out, lse, g)),
+          "flash_attention_bwd: every tensor must lie on q's CUDA device")
+    check(b * h <= 65535, f"K7 takes at most 65535 batch*heads, got {b * h}")
+    q, k, v, out, lse, g = (t.contiguous() for t in (q, k, v, out, lse, g))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                delta.data_ptr(), _DTYPES[q.dtype], b * h, sq, sk, d, int(causal),
+                1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch("qgemm_flash_attention_bwd", rc)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

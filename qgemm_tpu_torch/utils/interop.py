@@ -11,14 +11,16 @@ returns the port's ``GPT``: float weights as they are, int8 codes
 (``.../wq/q``), packed int4 codes (``.../wq/qp``) and their scales bit for
 bit (codes transposed once to the port's K-major layout). The outlier
 options are meta fields, which checkpoints do not hold, so they are
-arguments. ``paged_cache_from_numpy`` builds the port's ``PagedKVCache``
-from a JAX ``PagedKVCache``'s arrays. Both read numpy only; they never
-import JAX.
+arguments. ``gpt_to_numpy_params`` is the reverse: the port's GPT (float,
+int8 or int4) as the same path-keyed numpy leaves, so a model trained by
+the port loads into the JAX package. ``paged_cache_from_numpy`` builds the
+port's ``PagedKVCache`` from a JAX ``PagedKVCache``'s arrays. All of them
+read and write numpy only; they never import JAX.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -47,6 +49,60 @@ def to_tensor(params: Mapping[str, np.ndarray], key: str, device) -> torch.Tenso
         bits = torch.from_numpy(np.array(arr).view(np.int16))
         return bits.view(_TAGGED[name]).to(device)
     return torch.from_numpy(np.array(arr)).to(device)
+
+
+def to_numpy_leaves(key: str, t: torch.Tensor) -> Dict[str, np.ndarray]:
+    """One tensor as ``save_checkpoint`` stores a leaf: native numpy dtypes
+    as they are, bf16 as its uint16 bits beside a ``<key>.__dtype__`` tag."""
+    t = t.detach().to("cpu").contiguous()
+    inv = {v: k for k, v in _TAGGED.items()}
+    if t.dtype in inv:
+        return {key: t.view(torch.int16).numpy().view(np.uint16),
+                key + DTYPE_TAG: np.array(inv[t.dtype])}
+    return {key: t.numpy()}
+
+
+def _linear_leaves(mod, prefix: str) -> Dict[str, torch.Tensor]:
+    if isinstance(mod, QuantizedLinear):
+        wq = mod.wq
+        out = ({f"{prefix}/wq/qp": wq.qp} if mod.bits == 4 else {f"{prefix}/wq/q": wq.q})
+        out[f"{prefix}/wq/c"] = wq.c
+    else:
+        out = {f"{prefix}/w": mod.w}
+    if mod.b is not None:
+        out[f"{prefix}/b"] = mod.b
+    return out
+
+
+def gpt_leaves(model: GPT) -> Dict[str, torch.Tensor]:
+    """The port's GPT as its JAX pytree's leaves, keyed by path in the
+    pytree's order, as tensors (int8 and packed int4 codes as ``[k, n]``
+    views of the K-major buffers; nothing is copied)."""
+    out: Dict[str, torch.Tensor] = {"embed/table": model.embed.table,
+                                    "embed/pos": model.embed.pos}
+    for i, blk in enumerate(model.blocks):
+        p = f"blocks/{i}"
+        for n in ("wqkv_q", "wqkv_k", "wqkv_v", "w_o"):
+            out.update(_linear_leaves(getattr(blk.attn, n), f"{p}/attn/{n}"))
+        out.update(_linear_leaves(blk.ffn.up, f"{p}/ffn/up"))
+        out.update(_linear_leaves(blk.ffn.down, f"{p}/ffn/down"))
+        for n in ("ln1", "ln2"):
+            ln = getattr(blk, n)
+            out.update({f"{p}/{n}/gamma": ln.gamma, f"{p}/{n}/beta": ln.beta})
+    out.update({"ln_f/gamma": model.ln_f.gamma, "ln_f/beta": model.ln_f.beta})
+    out.update(_linear_leaves(model.lm_head, "lm_head"))
+    return out
+
+
+def gpt_to_numpy_params(model: GPT) -> Dict[str, np.ndarray]:
+    """The port's GPT as the path-keyed leaves ``gpt_from_jax_params`` reads
+    and the JAX package's ``load_checkpoint`` restores: bf16 as uint16 bits
+    + a dtype tag, int8 codes (``wq/q``) and packed int4 codes (``wq/qp``)
+    back in JAX's ``[k, n]`` layout, scales as they are."""
+    out: Dict[str, np.ndarray] = {}
+    for key, t in gpt_leaves(model).items():
+        out.update(to_numpy_leaves(key, t))
+    return out
 
 
 def _linear(params, prefix: str, device, **outliers):

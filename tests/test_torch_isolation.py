@@ -15,6 +15,7 @@ from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
 from qgemm_tpu_torch.ops import cuda as kernels
 from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention
 from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
 from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
 from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention
 from qgemm_tpu_torch.ops.kv_cache import quantize_kv
@@ -39,6 +40,10 @@ def test_port_imports_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(qgemm_tpu_torch.__path__,
                                                         "qgemm_tpu_torch."))
     assert "qgemm_tpu_torch.serving.engine" in mods and len(mods) >= 20
+    for m in ("qgemm_tpu_torch.ops.cuda.flash_attention_bwd", "qgemm_tpu_torch.ops.cross_entropy",
+              "qgemm_tpu_torch.models.optim", "qgemm_tpu_torch.utils.checkpoint",
+              "qgemm_tpu_torch.examples.train_gpt_lm"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
@@ -99,11 +104,14 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     assert paged_decode_attention(q1, cache, torch.tensor([4, 1])).shape == (2, 4, 1, 64)
     q2 = torch.cat([q, q])
     assert paged_context_attention(q2, cache, torch.tensor([5, 5]), 0).shape == q2.shape
+    dq, dk, dv = flash_attention_bwd(q, q, q, o, lse, torch.ones_like(o), causal=True)
+    assert dq.shape == dk.shape == dv.shape == q.shape
     assert kernels.launch_counts() == {"quantized_matmul": 0, "decode_attention": 0,
                                        "flash_attention": 0, "w4a8_matmul": 0,
                                        "paged_decode_attention": 0,
                                        "paged_decode_attention_ragged": 0,
-                                       "paged_context_attention": 0}
+                                       "paged_context_attention": 0,
+                                       "flash_attention_bwd": 0}
 
 
 def test_model_cpu_path_launches_no_kernel():
@@ -138,4 +146,26 @@ def test_paged_engine_cpu_run_launches_no_kernel():
     eng.run_to_completion()
     assert all(r.error is None and len(r.generated) == 12 for r in reqs)
     assert eng.stats["prefix_hits"] > 0
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_training_step_cpu_path_launches_no_kernel():
+    """A CPU training step (forward, the cross-entropy's backward, the
+    attention backward, Adam) launches no kernel, MHA and GQA; the serving
+    entry points keep no autograd graph."""
+    from qgemm_tpu_torch.examples.train_gpt_lm import train_step
+    from qgemm_tpu_torch.models.optim import Adam
+    kernels.reset_launch_counts()
+    for n_kv in (0, 2):
+        model = GPT.init(GPTConfig(**{**CFG.__dict__, "n_kv_heads": n_kv}), seed=4,
+                         device="cpu")
+        params = [p for _, p in model.named_trainable()]
+        opt = Adam(lr=1e-3)
+        state, loss = train_step(model, params, opt, opt.init(params),
+                                 torch.randint(0, 97, (2, 9)))
+        assert state.t == 1 and torch.isfinite(loss)
+        assert all(p.grad is not None for p in params)
+        logits, _ = model.prefill(torch.tensor([[1, 2, 3]]), model.init_cache(1, 8))
+        assert not logits.requires_grad
+        assert not model.generate(torch.tensor([[1, 2]]), 3).requires_grad
     assert sum(kernels.launch_counts().values()) == 0
