@@ -3,19 +3,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from qgemm_tpu_torch/csrc, holds each one
-against its plain PyTorch version at GPT_6_7B shapes, times them, runs
-bench.py's GEMM protocol at 2048^3, and serves 16 greedy requests through
+against its plain PyTorch version at GPT_6_7B shapes (K8 and K9 at the MoE
+model's, bit for bit), times them, runs bench.py's GEMM protocol at 2048^3
+(the dynamic path through K9 and K1), and serves 16 greedy requests through
 ContinuousBatchingEngine on the full-width, full-depth GPT_6_7B (random
 weights from a seed) five times. Three runs use the int8 KV cache: int8
 weights, int4 (W4A8) weights, and int8 weights with the LLM.int8() outlier
 split (outlier feature dims planted in the LayerNorm gains). Two use the
 paged KV tier with int8 weights, a 256-token prefix shared by half the
 requests and chunked admission: int8 pools, then int4 pools in an
-undersized pool with over-commit and overlapped admission. Each serving
-run checks that it went through its kernels. Then it compares a 2-layer
-full-width model's prefill logits between the CPU (float32, plain
-versions) and the GPU (bf16, kernels), and the logits' quantization error
-with and without the outlier split. Then the training path: kernel K7 (the
+undersized pool with over-commit and overlapped admission. ``serve_moe``
+serves the same 16-request mix on the MoE GPT of scripts/bench_moe.py
+(top-2 of 8 experts, 24 layers, d_model 2048, int8 weights quantized by
+kernel K9, every expert FFN through kernel K8). Each serving run checks
+that it went through its kernels. Then it compares a 2-layer full-width
+model's prefill logits between the CPU (float32, plain versions) and the
+GPU (bf16, kernels), the same for a 2-layer MoE model (float32 on both
+sides, with greedy tokens), and the logits' quantization error with and
+without the outlier split. Then the training path: kernel K7 (the
 flash backward) was held against its plain version and timed with the
 other kernels; ``train`` takes Adam steps on GPT_6_7B's widths at 4 layers
 (bf16, 4 x 2048 tokens) through K3 and K7; ``train_induction`` trains the
@@ -57,6 +62,15 @@ BF16_FLOPS = 989e12
 GEMM_SHAPES = [(4096, 4096), (4096, 16384), (16384, 4096), (4096, 50272)]
 # the six feature dims whose LayerNorm gains the outlier phases set to 20
 OUTLIER_DIMS = [13, 781, 1550, 2402, 3119, 3990]
+# The MoE serving configuration of scripts/bench_moe.py (its defaults): top-2
+# of 8 experts, 24 layers, d_model 2048, 16 heads x 128, expert d_ff 4096,
+# vocab 50272, bf16. The JAX package names no constant for it.
+MOE_CFG = dict(vocab_size=50272, d_model=2048, n_heads=16, d_ff=4096, n_layers=24,
+               max_seq_len=1024, dtype="bfloat16", n_experts=8, moe_top_k=2)
+# K8's products in that model: up (K 2048 -> N 4096, ReLU) and down (K 4096
+# -> N 2048), over E 8 experts of C capacity rows: C 8 at a decode step of 8
+# slots, 168 and 328 at prefill buckets of 512 and 1024 tokens
+MOE_GEMMS = [(2048, 4096), (4096, 2048)]
 
 
 def emit(obj) -> None:
@@ -83,6 +97,43 @@ def excess(got: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
     (rtol 2^-7 covers one bf16 rounding of an output on each side)."""
     g, r = got.float(), ref.float()
     return float(((g - r).abs() - rtol * r.abs()).max())
+
+
+def bench_queued_or_not(fn) -> tuple:
+    """bench_ms of ``fn`` queued behind the device sleep, or, where the host
+    cannot queue its calls ahead (too many launches), without the sleep:
+    (ms, how it was timed)."""
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    try:
+        return bench_ms(fn), "queued behind the sleep"
+    except RuntimeError as e:
+        print(f"bench_ms could not queue ahead ({e}); timing without the sleep",
+              file=sys.stderr)
+        return bench_ms(fn, queue_ahead=False), "not queued ahead (host launches inside)"
+
+
+def expert_int_mm_loop(x, wt, cw):
+    """K8's yardstick (not a route of the port): per expert, torch
+    row-quantize, torch._int_mm (rows padded to >= 17) and dequant."""
+    from qgemm_tpu_torch.ops.quantize import absmax_quantize, dequantize
+    outs = []
+    for e in range(x.shape[0]):
+        xq, cx = absmax_quantize(x[e].float(), axis=-1)
+        m = xq.shape[0]
+        if m < 17:
+            xq = torch.cat([xq, xq.new_zeros((17 - m, xq.shape[1]))])
+        outs.append(dequantize(torch._int_mm(xq, wt[e].t())[:m], cx, cw[e]))
+    return torch.stack(outs)
+
+
+def torch_col_quantize(w):
+    """K9's yardstick (not a route of the port): the torch f32 column
+    quantize the port ran before K9 (``quantize_weights`` of the f32
+    weight, then the K-major copy), per expert for a stacked weight."""
+    from qgemm_tpu_torch.ops.quantize import quantize_weights
+    if w.ndim == 2:
+        return quantize_weights(w.float())
+    return [quantize_weights(w[e].float()) for e in range(w.shape[0])]
 
 
 def paged_kv_bytes(lengths, hkv: int, d: int, page: int, bits: int) -> int:
@@ -201,7 +252,8 @@ def phase_parity() -> dict:
     errs = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0}
             for name in ("quantized_matmul", "decode_attention", "flash_attention",
                          "w4a8_matmul", "paged_decode_attention", "paged_context_attention",
-                         "flash_attention_bwd", "flash_attention_autograd")}
+                         "flash_attention_bwd", "flash_attention_autograd",
+                         "expert_matmul", "col_quantize")}
     report = []
 
     def record(name, got, ref, **row):
@@ -254,6 +306,8 @@ def phase_parity() -> dict:
             if not torch.equal(rows[m], rows[1]):
                 raise AssertionError(f"K4 row 0 differs between m=1 and m={m} (k={k}, n={n})")
         del wq4, x
+
+    k8_k9_checks(g, record)
 
     # the outlier split at the GEMM level, on planted-outlier activations
     # (three columns x60, as tests/test_outlier_serving.py builds them): the
@@ -373,6 +427,62 @@ def phase_parity() -> dict:
     torch.cuda.synchronize()
     emit({"phase": "parity", "checks": report, "outlier_gemm": outlier_checks})
     return errs
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape, dtype and bytes (f32 compared as int32 bit patterns)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def k8_k9_checks(g: torch.Generator, record) -> None:
+    """K8 and K9 against their plain versions, bit for bit (both compute
+    the same f32 steps; K8's int32 sums are exact, and its plain version
+    sums in float64 on the card, exact for K * 127^2 < 2^53). K8 at the MoE
+    model's products (``MOE_GEMMS``, E 8): decode C 8 with f32 and bf16
+    x, five of eight rows empty in every expert and one expert all empty
+    (as most capacity rows are at a decode step: 16 choices over 64 slots);
+    prefill C 168 and 328; the up product with its fused ReLU. K9 at the
+    expert weights ([8, 2048, 4096] and [8, 4096, 2048] bf16) and at the
+    dynamic GEMM's 2048^2 f32, both roundings."""
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize, col_quantize_plain
+    from qgemm_tpu_torch.ops.cuda.expert_matmul import (grouped_quantized_matmul,
+                                                        grouped_quantized_matmul_plain)
+    e = MOE_CFG["n_experts"]
+    for k, n in MOE_GEMMS:
+        wt, cw = col_quantize(torch.randn((e, k, n), generator=g, device="cuda") * 0.02)
+        relu = k == MOE_CFG["d_model"]
+        for c, dt in ((8, "float32"), (8, "bfloat16"), (168, "float32"), (328, "float32")):
+            x = torch.randn((e, c, k), generator=g, device="cuda")
+            if c == 8:
+                x[:, 3:] = 0.0
+                x[5] = 0.0
+            x = x.to(getattr(torch, dt))
+            got = grouped_quantized_matmul(x, wt, cw, relu=relu)
+            ref = grouped_quantized_matmul_plain(x, wt, cw, relu=relu)
+            err = record("expert_matmul", got, ref, e=e, c=c, k=k, n=n, x_dtype=dt,
+                         relu=relu, tol=0.0)
+            empty_ok = c != 8 or not bool(got[:, 3:].any() or got[5].any())
+            if not (bits_equal(got, ref) and empty_ok and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"K8 c={c} k={k} n={n} {dt}: not bit-equal to its plain "
+                                     f"version (max err {err}) or empty rows not 0")
+        del wt, cw
+    for shape, dt in (((e, 2048, 4096), "bfloat16"), ((e, 4096, 2048), "bfloat16"),
+                      ((2048, 2048), "float32")):
+        w = (torch.randn(shape, generator=g, device="cuda") * 0.02).to(getattr(torch, dt))
+        for rounding in ("nearest", "truncate"):
+            qt, c = col_quantize(w, rounding)
+            rq, rc = col_quantize_plain(w, rounding)
+            err = record("col_quantize", qt.float(), rq.float(), shape=list(shape), dtype=dt,
+                         rounding=rounding, scales_max_abs_err=max_err(c, rc), tol=0.0)
+            if not (bits_equal(qt, rq) and bits_equal(c, rc)):
+                raise AssertionError(f"K9 {shape} {dt} {rounding}: not bit-equal to its "
+                                     f"plain version (codes max err {err}, scales "
+                                     f"{max_err(c, rc)})")
+        del w
 
 
 # K7 parity cases (B, H, Sq, Sk, D, causal, dtype): the training slice's
@@ -530,6 +640,8 @@ def phase_timing(errs: dict) -> dict:
     out["w4a8_matmul"] = dict(head, **errs["w4a8_matmul"],
                               shape=f"m={head['m']} k={head['k']} n={head['n']}")
 
+    out.update(k8_k9_timing(g, errs))
+
     b, h, s, d = 8, 32, 1024, 128
     lengths = torch.tensor([150, 210, 260, 330, 400, 450, 500, 550], device=dev,
                            dtype=torch.int32)
@@ -613,6 +725,65 @@ def phase_timing(errs: dict) -> dict:
         del cache
     emit({"phase": "timing_paged", **{k: out[k] for k in out if k.startswith("paged")}})
     return out
+
+
+def k8_k9_timing(g: torch.Generator, errs: dict) -> dict:
+    """K8 at the MoE model's products (``MOE_GEMMS``, E 8) and
+    ``k8_k9_checks``' shapes: decode C 8 (five of eight rows empty) with
+    f32 x, as on the model path, and bf16 x; prefill C 168 and 328 (buckets
+    of 512 and 1024 tokens); K9 at the expert weights and at
+    2048^2 f32. Each beside its plain version and a yardstick: no single
+    PyTorch call computes either function, so ``library_ms`` times a torch
+    pipeline of the same function that the port never runs
+    (``expert_int_mm_loop``, ``torch_col_quantize``). Bounds: each input
+    read once and each output written once over 3.35 TB/s, or 2 * E * C *
+    N * K int8 operations over 1,979 TOP/s."""
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize, col_quantize_plain
+    from qgemm_tpu_torch.ops.cuda.expert_matmul import (grouped_quantized_matmul,
+                                                        grouped_quantized_matmul_plain)
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    e = MOE_CFG["n_experts"]
+    k8_rows = []
+    for c, dt in ((8, "float32"), (8, "bfloat16"), (168, "float32"), (328, "float32")):
+        for k, n in MOE_GEMMS:
+            wt, cw = col_quantize(torch.randn((e, k, n), generator=g, device="cuda") * 0.02)
+            x = torch.randn((e, c, k), generator=g, device="cuda")
+            if c == 8:
+                x[:, 3:] = 0.0
+            x = x.to(getattr(torch, dt))
+            relu = k == MOE_CFG["d_model"]
+            ms = bench_ms(lambda: grouped_quantized_matmul(x, wt, cw, relu=relu))
+            plain = bench_ms(lambda: grouped_quantized_matmul_plain(x, wt, cw, relu=relu))
+            lib, lib_timing = bench_queued_or_not(lambda: expert_int_mm_loop(x, wt, cw))
+            bms, by = bound(x.numel() * x.element_size() + e * n * k + e * n * 4 + e * c * n * 4,
+                            2 * e * c * n * k, INT8_OPS)
+            k8_rows.append({"e": e, "c": c, "k": k, "n": n, "x_dtype": dt, "ms": ms,
+                            "plain_ms": plain,
+                            "library_ms": lib, "library_timing": lib_timing,
+                            "bound_ms": bms, "bound_by": by})
+            del wt, cw, x
+    emit({"phase": "timing_k8_shapes", "rows": k8_rows})
+    k9_rows = []
+    for shape, dt in (((e, 2048, 4096), "bfloat16"), ((e, 4096, 2048), "bfloat16"),
+                      ((2048, 2048), "float32")):
+        w = (torch.randn(shape, generator=g, device="cuda") * 0.02).to(getattr(torch, dt))
+        ms = bench_ms(lambda: col_quantize(w))
+        plain = bench_ms(lambda: col_quantize_plain(w))
+        lib, lib_timing = bench_queued_or_not(lambda: torch_col_quantize(w))
+        n_out = w.shape[-1] * (w.shape[0] if w.ndim == 3 else 1)
+        bms, by = bound(w.numel() * w.element_size() + w.numel() + n_out * 4, 0, INT8_OPS)
+        k9_rows.append({"shape": list(shape), "dtype": dt, "ms": ms, "plain_ms": plain,
+                        "library_ms": lib, "library_timing": lib_timing, "bound_ms": bms,
+                        "bound_by": by})
+        del w
+    emit({"phase": "timing_k9_shapes", "rows": k9_rows})
+    head8, head9 = k8_rows[0], k9_rows[0]
+    return {"expert_matmul": dict(head8, **errs["expert_matmul"],
+                                  shape=f"E={e} C={head8['c']} K={head8['k']} "
+                                        f"N={head8['n']} f32 x, ReLU (decode up)"),
+            "col_quantize": dict(head9, **errs["col_quantize"],
+                                 shape=f"{head9['shape']} {head9['dtype']} (w_up of "
+                                       f"one MoE layer)")}
 
 
 def k7_timing(g: torch.Generator, errs: dict) -> dict:
@@ -1044,17 +1215,190 @@ def serve_paged() -> tuple:
     return tuple(results)
 
 
+def serve_moe() -> dict:
+    """The MoE GPT (``MOE_CFG``: scripts/bench_moe.py's configuration at
+    full width and depth, random weights from seed 0) built straight into
+    int8 by ``GPT.init_quantized`` — which must launch K9 twice per layer
+    (w_up and w_down, all experts each) and no other kernel — then serving
+    the 16 ``dense_requests`` through the engine (8 slots x 1024 positions,
+    int8 KV cache). Every decode step must launch K8 48 times (up and down
+    per layer), K1 97 (four attention projections per layer and lm_head),
+    K2 24 and nothing else; every prefill K8 48, K3 24 and K1 97. The
+    transcripts equal to isolated ``generate`` are counted, not required:
+    the prompt's bucket padding competes for expert capacity in the
+    engine's prefill, and not in ``generate``'s."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    cfg = GPTConfig(**MOE_CFG)
+    n_layers = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = GPT.init_quantized(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_launches = kernels.launch_counts()
+    want = {kk: 0 for kk in init_launches}
+    if init_launches != dict(want, col_quantize=2 * n_layers):
+        raise AssertionError(f"moe init: launches {init_launches}, not K9 {2 * n_layers}")
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=p, max_new_tokens=n) for p, n in dense_requests(cfg, rng)]
+    engine = ContinuousBatchingEngine(model, max_slots=8, max_seq_len=1024,
+                                      quantized_cache=True, device="cuda")
+    run = drive(engine, reqs, "moe_int8")
+    counts, per_decode, step_ms = run["counts"], run["per_decode"], run["step_ms"]
+    stats = engine.stats
+    n_gemms = 4 * n_layers + 1
+    want_decode = dict(want, expert_matmul=2 * n_layers, quantized_matmul=n_gemms,
+                       decode_attention=n_layers)
+    want_prefill = dict(want, expert_matmul=2 * n_layers, quantized_matmul=n_gemms,
+                        flash_attention=n_layers)
+    if per_decode != want_decode:
+        raise AssertionError(f"moe_int8: launches per decode step {per_decode}, not "
+                             f"{want_decode}")
+    for n_adm, dd in run["admit_steps"]:
+        prefill = {kk: dd[kk] - per_decode[kk] for kk in dd}
+        if prefill != {kk: n_adm * v for kk, v in want_prefill.items()}:
+            raise AssertionError(f"moe_int8: an admission step of {n_adm} prefills "
+                                 f"launched {prefill} beside its decode step")
+    matched = 0
+    for r in reqs:
+        iso = model.generate(torch.tensor([r.prompt], device="cuda"), r.max_new_tokens,
+                             quantized_cache=True)[0].tolist()
+        matched += iso == r.generated
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    drops = prefill_capacity_drops(model, [r.prompt for r in reqs])
+    profile = profile_decode(engine, rng)
+    res = {"phase": "serving_moe_int8",
+           "model": "MoE GPT (scripts/bench_moe.py), int8 weights, int8 KV cache",
+           "config": MOE_CFG, "params": model.num_params(), "init_s": round(init_s, 2),
+           "init_launches": {kk: v for kk, v in init_launches.items() if v},
+           "requests": len(reqs), "prompt_tokens": sum(len(r.prompt) for r in reqs),
+           "stats": stats, "decode_steps_timed": len(step_ms),
+           "decode_step_ms_mean": float(np.mean(step_ms)),
+           "decode_step_ms_median": float(np.median(step_ms)),
+           "launches": counts, "launches_per_decode_step": per_decode,
+           "launches_per_prefill": want_prefill, "admission_steps": len(run["admit_steps"]),
+           "peak_mem_gb": round(peak / 2**30, 2),
+           "transcripts_match_generate": matched, "prefill_capacity_drops": drops,
+           "decode_profile": profile}
+    emit(res)
+    del engine, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def prefill_capacity_drops(model, prompts) -> dict:
+    """Why engine transcripts can differ from ``generate``'s: each prompt
+    prefilled as the engine prefills it (zero-padded to its power-of-two
+    bucket) and as ``generate`` does (its exact length), counting in every
+    MoE layer the prompt tokens' expert choices that found their expert's
+    capacity full. Summed over the prompts and layers."""
+    from qgemm_tpu_torch.models.moe import _capacity, route_slots
+    dropped = torch.zeros((), dtype=torch.int64, device="cuda")
+    plen = {"n": 0}
+
+    def count(mod, args):
+        xf = args[0].reshape(-1, args[0].shape[-1]).float()
+        cap = _capacity(xf.shape[0], mod.n_experts, mod.top_k, mod.capacity_factor)
+        slot, _ = route_slots(xf, mod.router_w, mod.top_k, cap)
+        full = slot.reshape(mod.top_k, -1)[:, :plen["n"]] == mod.n_experts * cap
+        dropped.add_(full.sum())
+
+    hooks = [blk.ffn.register_forward_pre_hook(count) for blk in model.blocks]
+    out = {"prompts": len(prompts), "choices": 0}
+    try:
+        for label in ("bucket", "exact"):
+            dropped.zero_()
+            for p in prompts:
+                plen["n"] = len(p)
+                width = len(p) if label == "exact" else max(8, 1 << (len(p) - 1).bit_length())
+                toks = torch.tensor([p + [0] * (width - len(p))], device="cuda")
+                model.prefill(toks, model.init_cache(1, width, quantized=True))
+            out[f"dropped_{label}"] = int(dropped)
+        out["choices"] = sum(map(len, prompts)) * model.cfg.moe_top_k * len(model.blocks)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return out
+
+
+def phase_numerics_moe() -> dict:
+    """A 2-layer MoE model at ``MOE_CFG``'s widths, int8, float32 on both
+    sides: the CPU's plain versions against the GPU's kernels (K1, K3, K8;
+    K9 quantized the GPU copy's experts from the same float weights, and
+    its codes must equal the CPU's). Prefill logits of a 64-token prompt
+    and 4 greedy tokens. The two sides differ only in f32 summation order
+    outside the int8 products (LayerNorm, attention, the router): a flipped
+    activation code moves a logit by ~1e-3, a routing choice flipped at a
+    near-tie changes that token's FFN output outright (the prefill's
+    expert choices that differ are counted). The logits must agree as the dense
+    phase's do (0.15 max abs, 3% relative RMS); the greedy tokens are
+    reported."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig(**dict(MOE_CFG, n_layers=2, dtype="float32"))
+    cpu_f = GPT.init(cfg, seed=3, device="cpu")
+    gpu = copy.deepcopy(cpu_f).to("cuda").quantize()
+    cpu = cpu_f.quantize()
+    del cpu_f
+    for bc, bg in zip(cpu.blocks, gpu.blocks):
+        for name in ("w_up_qt", "w_up_c", "w_down_qt", "w_down_c"):
+            if not bits_equal(getattr(bc.ffn, name), getattr(bg.ffn, name).cpu()):
+                raise AssertionError(f"numerics_moe: K9's {name} differs from the CPU's")
+    from qgemm_tpu_torch.models.moe import _capacity, route_slots
+    slots = {"cpu": [], "gpu": []}
+
+    def keep_slots(side):
+        def hook(mod, args):
+            xf = args[0].reshape(-1, args[0].shape[-1]).float()
+            cap = _capacity(xf.shape[0], mod.n_experts, mod.top_k, mod.capacity_factor)
+            slot = route_slots(xf, mod.router_w, mod.top_k, cap)[0]
+            slots[side].append(torch.div(slot, cap, rounding_mode="floor").cpu())   # expert
+        return hook
+
+    hooks = [blk.ffn.register_forward_pre_hook(keep_slots(side))
+             for side, model in (("cpu", cpu), ("gpu", gpu)) for blk in model.blocks]
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab_size, size=(1, 64))
+    lc, _ = cpu.prefill(torch.from_numpy(prompt), cpu.init_cache(1, 64, quantized=True))
+    lg, _ = gpu.prefill(torch.from_numpy(prompt).cuda(), gpu.init_cache(1, 64, quantized=True))
+    for hook in hooks:
+        hook.remove()
+    differ = sum(int((a != b).sum()) for a, b in zip(slots["cpu"], slots["gpu"]))
+    a, b_ = lc[0, -1].double(), lg[0, -1].double().cpu()
+    err = float((a - b_).abs().max())
+    tc = cpu.generate(torch.from_numpy(prompt), 4, quantized_cache=True)[0].tolist()
+    tg = gpu.generate(torch.from_numpy(prompt).cuda(), 4, quantized_cache=True)[0].tolist()
+    rel_rms = float((a - b_).norm() / a.norm())
+    res = {"phase": "numerics_moe", "layers": 2, "dtype": "float32", "max_abs_err": err,
+           "rel_rms_err": rel_rms, "prefill_expert_choices_differ": differ,
+           "prefill_expert_choices": sum(t.numel() for t in slots["cpu"]),
+           "greedy_cpu": tc, "greedy_gpu": tg,
+           "greedy_equal": sum(x == y for x, y in zip(tc, tg))}
+    emit(res)
+    if not (err <= 0.15 and rel_rms <= 0.03):
+        raise AssertionError(f"numerics_moe: CPU/GPU logits differ: max {err}, "
+                             f"rel rms {rel_rms}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_gemm_protocol() -> dict:
     """bench.py's protocol on the card: M = N = K = 2048, uniform(-1, 1)
     f32 operands; the signed mean error of the dynamic int8 path against
     the exact f32 product; bench_ms times of f32 (TF32 off) and bf16
-    torch.matmul, the dynamic int8 path (torch column-quantize of W, then
-    K1: TPU kernel row 3), the prequantized int8 path (K1) and W4A8 (K4).
-    Row 3's library time is one torch pipeline of the same function:
-    row- and column-quantize, torch._int_mm, dequant."""
-    from qgemm_tpu_torch.ops.quantize import (absmax_quantize, dequantize, quantize_weights,
-                                              quantize_weights_int4, quantized_matmul,
-                                              quantized_matmul_plain,
+    torch.matmul, the dynamic int8 path (K9 column-quantizes W, then K1:
+    TPU kernel row 3; one launch of each, checked by the launch counts),
+    the prequantized int8 path (K1) and W4A8 (K4). Row 3's plain time runs
+    both plain versions; its library time is one torch pipeline of the
+    same function: row- and column-quantize, torch._int_mm, dequant."""
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize_plain
+    from qgemm_tpu_torch.ops.quantize import (QuantizedWeight, absmax_quantize, dequantize,
+                                              quantize_weights, quantize_weights_int4,
+                                              quantized_matmul, quantized_matmul_plain,
                                               quantized_matmul_prequant,
                                               quantized_matmul_prequant_w4)
     from qgemm_tpu_torch.utils.profiling import bench_ms
@@ -1064,7 +1408,12 @@ def phase_gemm_protocol() -> dict:
     x = torch.rand((m, k), generator=g, device="cuda") * 2 - 1
     w = torch.rand((k, n), generator=g, device="cuda") * 2 - 1
     exact = torch.matmul(x, w)
+    kernels.reset_launch_counts()
     err = quantized_matmul(x, w) - exact
+    dynamic_launches = {kk: v for kk, v in kernels.launch_counts().items() if v}
+    if dynamic_launches != {"col_quantize": 1, "quantized_matmul": 1}:
+        raise AssertionError(f"gemm_protocol: the dynamic path launched {dynamic_launches}, "
+                             f"not K9 and K1 once each")
     wq, wq4 = quantize_weights(w), quantize_weights_int4(w)
     err4 = quantized_matmul_prequant_w4(x, wq4) - exact
 
@@ -1077,13 +1426,14 @@ def phase_gemm_protocol() -> dict:
          "bf16_ms": bench_ms(lambda: torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))),
          "int8_dynamic_ms": bench_ms(lambda: quantized_matmul(x, w)),
          "int8_dynamic_plain_ms": bench_ms(
-             lambda: quantized_matmul_plain(x, quantize_weights(w))),
+             lambda: quantized_matmul_plain(x, QuantizedWeight(*col_quantize_plain(w)))),
          "int8_dynamic_library_ms": bench_ms(int_mm_dynamic),
          "int8_prequant_ms": bench_ms(lambda: quantized_matmul_prequant(x, wq)),
          "w4a8_ms": bench_ms(lambda: quantized_matmul_prequant_w4(x, wq4))}
     bms, by = bound(4 * (m * k + k * n + m * n), 2 * m * n * k, INT8_OPS)
     res = {"phase": "gemm_protocol", "m": m, "n": n, "k": k,
            "operands": "uniform(-1, 1) float32",
+           "int8_dynamic_launches": dynamic_launches,
            "int8_dynamic_signed_mean_err": float(err.mean()),
            "int8_dynamic_mean_abs_err": float(err.abs().mean()),
            "w4a8_signed_mean_err": float(err4.mean()),
@@ -1453,7 +1803,7 @@ def main() -> None:
     phase_build()
     errs = phase_parity()
     timing = phase_timing(errs)
-    phase_gemm_protocol()
+    gemm = phase_gemm_protocol()
     int8 = serve("int8", {}, used=("quantized_matmul", "decode_attention", "flash_attention"),
                  unused=("w4a8_matmul",))
     w4a8 = serve("w4a8", {"bits": 4}, used=("w4a8_matmul", "decode_attention",
@@ -1463,7 +1813,9 @@ def main() -> None:
           used=("quantized_matmul", "decode_attention", "flash_attention"),
           unused=("w4a8_matmul",), outliers=True)
     paged8, paged4 = serve_paged()
+    moe = serve_moe()
     phase_numerics()
+    phase_numerics_moe()
     phase_outlier_numerics()
     train = phase_train()
     induction, copy_model = phase_train_induction()
@@ -1474,7 +1826,9 @@ def main() -> None:
                 "w4a8_matmul": "qgemm_tpu/ops/pallas/w4a8_matmul.py:72",
                 "paged_decode_attention": "qgemm_tpu/ops/pallas/paged_attention.py:49",
                 "paged_context_attention": "qgemm_tpu/ops/pallas/paged_attention.py:328",
-                "flash_attention_bwd": "qgemm_tpu/ops/pallas/flash_attention.py:267"}
+                "flash_attention_bwd": "qgemm_tpu/ops/pallas/flash_attention.py:267",
+                "expert_matmul": "qgemm_tpu/ops/pallas/expert_matmul.py:47",
+                "col_quantize": "qgemm_tpu/ops/pallas/quantized_matmul.py:65"}
     # each kernel's wrappers: K5 has two entries, each with its own count
     wrappers = {"paged_decode_attention": ("paged_decode_attention",
                                            "paged_decode_attention_ragged")}
@@ -1482,15 +1836,18 @@ def main() -> None:
     for name in _build.KERNELS:
         t = timing[name]
         path = {"w4a8_matmul": w4a8, "paged_decode_attention": paged8,
-                "paged_context_attention": paged8,
-                "flash_attention_bwd": train}.get(name, int8)
+                "paged_context_attention": paged8, "flash_attention_bwd": train,
+                "expert_matmul": moe, "col_quantize": moe}.get(name, int8)
         ws = wrappers.get(name, (name,))
         per_decode = path.get("launches_per_decode_step")
         per_prefill = path.get("launches_per_prefill")
+        # K9 runs where the MoE model is built (GPT.init_quantized), not in
+        # the engine: its launches are those of serve_moe's init
+        launched = path["init_launches"] if name == "col_quantize" else path["launches"]
         entry = {"name": name, "route": "cuda",
                  "source": f"qgemm_tpu_torch/csrc/{name}.cu",
                  "replaces": replaces[name],
-                 "launches": sum(path["launches"][w] for w in ws),
+                 "launches": sum(launched.get(w, 0) for w in ws),
                  "launches_counted_in": path["phase"],
                  "launches_per_decode_step": (sum(per_decode[w] for w in ws)
                                               if per_decode else None),
@@ -1526,6 +1883,19 @@ def main() -> None:
             entry.update(launches_per_train_step=train["launches_per_step"][name],
                          launches_train_induction={k: r["launches"][name]
                                                    for k, r in induction.items()})
+        if name == "expert_matmul":
+            entry.update(also_replaces="qgemm_tpu/ops/pallas/expert_matmul.py:108",
+                         library_note="yardstick, not a route: per expert, torch "
+                                      "row-quantize + torch._int_mm + dequant",
+                         library_timing=t["library_timing"])
+        if name == "col_quantize":
+            entry.update(launches_counted_in="serving_moe_int8 (GPT.init_quantized)",
+                         launches_at_init=path["init_launches"].get(name, 0),
+                         launches_per_decode_step=0, launches_per_prefill=0,
+                         launches_gemm_protocol=gemm["int8_dynamic_launches"].get(name, 0),
+                         library_note="yardstick, not a route: the torch f32 column "
+                                      "quantize the port ran before K9",
+                         library_timing=t["library_timing"])
         if name == "flash_attention_bwd":
             entry.update(also_replaces="qgemm_tpu/ops/pallas/flash_attention.py:302",
                          library_note="the backward of torch.nn.functional."

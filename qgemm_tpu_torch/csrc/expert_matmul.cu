@@ -1,0 +1,34 @@
+// Kernel K8: grouped (per-expert) fused row-quantize -> int8 GEMM ->
+// dequant, for Hopper (sm_90a): the two products of the int8 MoE expert
+// FFN.
+//
+// Replaces the TPU kernel _expert_qmm_kernel of
+// qgemm_tpu/ops/pallas/expert_matmul.py, behind
+// grouped_quantized_matmul_pallas (and quantized_expert_ffn_pallas, its
+// up -> ReLU -> down composition). Same contract and the same epilogue
+// order, (acc * (cx / 127^2)) * cw, so it equals its plain version
+// (grouped_quantized_matmul_plain) bit for bit.
+//
+// What bounds it on the H100: at decode every expert holds C = 8 capacity
+// slots (most of them empty), so each call streams all E experts' int8
+// weights once for ~2 int8 operations per byte — the weight stream (67 MB
+// per call at E 8, 2048 x 4096). At prefill (C = 168 for a 512-token
+// bucket) it is the int8 tensor-core rate.
+//
+// Design: K1's kernels (int8_gemm.cuh) with the expert as a grid
+// dimension — the __dp4a GEMV for C <= 16, mma.sync m16n8k32 tiles
+// above; the row scales of all E * C rows come from one pre-pass. The
+// ReLU between the two products is fused into the first call's epilogue
+// (relu = 1); its output stays f32, because the second call row-quantizes
+// it. Empty capacity rows (all zeros) give cx = 1e-12, codes 0 and an
+// output of exactly 0.
+#include "int8_gemm.cuh"
+
+// x [e, c, k] (x_dtype 0 = f32, 1 = bf16), wt int8 [e, n, k], cw f32 [e, n],
+// cx f32 [e * c] scratch, out f32 [e, c, n]. Returns cudaGetLastError().
+extern "C" int qgemm_grouped_quantized_matmul(const void* x, int x_dtype, const void* wt,
+                                              const void* cw, void* cx, void* out, int e,
+                                              int c, int n, int k, int relu, void* stream) {
+  return static_cast<int>(qg::gemm::launch_any(x, x_dtype, wt, cw, cx, out, e, c, n, k, 0,
+                                               relu, static_cast<cudaStream_t>(stream)));
+}

@@ -1,8 +1,10 @@
 """Decoder-only transformer, the serving-path model family (port of
-``qgemm_tpu/models/gpt.py``; ``beam_search`` and MoE blocks are not ported
-yet): pre-LN causal LM, KV-cache decoding with per-slot positions, offline
-int8 or int4 (W4A8) quantization of every GEMM, optionally with the
-LLM.int8() outlier split.
+``qgemm_tpu/models/gpt.py``; ``beam_search`` is not ported yet): pre-LN
+causal LM, KV-cache decoding with per-slot positions, offline int8 or int4
+(W4A8) quantization of every GEMM, optionally with the LLM.int8() outlier
+split. ``GPTConfig(n_experts > 0)`` swaps every block's FFN for a top-k
+routed ``MoEFeedForward`` (``models/moe.py``), whose experts quantize to
+int8 whatever ``bits`` and outlier options the rest of the model takes.
 
 ``forward`` is differentiable (the training path: the float leaves are
 trainable parameters, listed in the JAX package's pytree order by
@@ -26,6 +28,7 @@ from qgemm_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from qgemm_tpu_torch.models.attention import MultiHeadAttention
 from qgemm_tpu_torch.models.embedding import Embedding
 from qgemm_tpu_torch.models.linear import Linear, check_quantize_options
+from qgemm_tpu_torch.models.moe import MoEFeedForward
 from qgemm_tpu_torch.models.transformer import FeedForward, LayerNorm
 from qgemm_tpu_torch.ops.kv_cache import init_quantized_kv_cache
 
@@ -61,19 +64,22 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, attn: MultiHeadAttention, ffn: FeedForward, ln1: LayerNorm,
+    def __init__(self, attn: MultiHeadAttention, ffn: nn.Module, ln1: LayerNorm,
                  ln2: LayerNorm):
+        """``ffn`` is a ``FeedForward`` or a ``MoEFeedForward``."""
         super().__init__()
         self.attn, self.ffn, self.ln1, self.ln2 = attn, ffn, ln1, ln2
 
     @classmethod
     def init(cls, generator: torch.Generator, cfg: GPTConfig) -> "GPTBlock":
-        if cfg.n_experts > 0:
-            raise NotImplementedError("GPTConfig(n_experts > 0): MoE blocks are not ported")
         d = cfg.tdtype
         attn = MultiHeadAttention.init(generator, cfg.d_model, cfg.n_heads, dtype=d,
                                        n_kv_heads=cfg.n_kv_heads)
-        ffn = FeedForward.init(generator, cfg.d_model, cfg.d_ff, dtype=d)
+        if cfg.n_experts > 0:
+            ffn = MoEFeedForward.init(generator, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                      top_k=cfg.moe_top_k, dtype=d)
+        else:
+            ffn = FeedForward.init(generator, cfg.d_model, cfg.d_ff, dtype=d)
         return cls(attn, ffn, LayerNorm.init(cfg.d_model, d, generator.device),
                    LayerNorm.init(cfg.d_model, d, generator.device))
 
@@ -141,19 +147,23 @@ class GPT(nn.Module):
     def quantize(self, **qkw) -> "GPT":
         """Quantize every GEMM, ``lm_head`` included: int8 weights, or int4
         with ``bits=4``; ``outlier_threshold=6.0`` (and ``outlier_capacity``)
-        turns on the LLM.int8() outlier split (BASELINE config 5)."""
+        turns on the LLM.int8() outlier split (BASELINE config 5). MoE
+        experts become int8 and ignore both options, as in JAX."""
         check_quantize_options(**qkw)
         return GPT(self.embed, [b.quantize(**qkw) for b in self.blocks], self.ln_f,
                    self.lm_head.quantize(**qkw), self.cfg)
 
     def num_params(self) -> int:
+        """Elements of every leaf (weights, codes, scales, tables), as JAX's
+        ``num_params`` counts the pytree's leaves."""
         return sum(t.numel() for t in self.state_dict().values())
 
     def named_trainable(self) -> List[Tuple[str, nn.Parameter]]:
         """The trainable parameters (every float leaf of a float model: the
         embedding and positional tables, weights, biases, LayerNorm gains
-        and shifts), keyed by their JAX pytree path (``blocks/0/attn/
-        wqkv_q/w``) and in the order of ``jax.tree_util.tree_leaves``."""
+        and shifts; an MoE block's ``router_w``, ``w_up`` and ``w_down``),
+        keyed by their JAX pytree path (``blocks/0/attn/wqkv_q/w``) and in
+        the order of ``jax.tree_util.tree_leaves``."""
         return [(name.replace(".", "/"), p) for name, p in self.named_parameters()
                 if p.requires_grad]
 

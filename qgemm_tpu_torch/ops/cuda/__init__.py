@@ -12,17 +12,19 @@ K7's is ``flash_attention_bwd.flash_attention_bwd`` (K3 and K7 together are
 the differentiable ``flash_attention.flash_attention``).
 K5 has two wrappers, ``paged_decode_attention.paged_decode_attention`` and
 ``paged_decode_attention.paged_decode_attention_ragged``, each with its own
-count; K6's is ``paged_context_attention.paged_context_attention``.
+count; K6's is ``paged_context_attention.paged_context_attention``;
+K8's is ``expert_matmul.grouped_quantized_matmul`` and K9's
+``col_quantize.col_quantize``.
 """
 
 from __future__ import annotations
 
 
 def _launchers() -> dict:
-    from qgemm_tpu_torch.ops.cuda import (decode_attention, flash_attention,
-                                          flash_attention_bwd, paged_context_attention,
-                                          paged_decode_attention, quantized_matmul,
-                                          w4a8_matmul)
+    from qgemm_tpu_torch.ops.cuda import (col_quantize, decode_attention, expert_matmul,
+                                          flash_attention, flash_attention_bwd,
+                                          paged_context_attention, paged_decode_attention,
+                                          quantized_matmul, w4a8_matmul)
     return {"quantized_matmul": quantized_matmul.quantized_matmul_cuda,
             "decode_attention": decode_attention.decode_attention,
             "flash_attention": flash_attention.flash_attention_fwd,
@@ -31,7 +33,9 @@ def _launchers() -> dict:
             "paged_decode_attention_ragged":
                 paged_decode_attention.paged_decode_attention_ragged,
             "paged_context_attention": paged_context_attention.paged_context_attention,
-            "flash_attention_bwd": flash_attention_bwd.flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd.flash_attention_bwd,
+            "expert_matmul": expert_matmul.grouped_quantized_matmul,
+            "col_quantize": col_quantize.col_quantize}
 
 
 def reset_launch_counts() -> None:

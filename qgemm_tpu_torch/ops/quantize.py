@@ -18,7 +18,9 @@ weight rows.
 
 On CUDA tensors the serving matmuls run kernel K1
 (``ops/cuda/quantized_matmul.py``) and kernel K4
-(``ops/cuda/w4a8_matmul.py``); on CPU tensors their plain versions.
+(``ops/cuda/w4a8_matmul.py``), and the dynamic matmul column-quantizes its
+weight with kernel K9 (``ops/cuda/col_quantize.py``); on CPU tensors their
+plain versions.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from qgemm_tpu_torch.ops.cuda import quantized_matmul as _k1
 from qgemm_tpu_torch.ops.cuda import w4a8_matmul as _k4
+from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize
 from qgemm_tpu_torch.ops.validation import (check, check_dtype, check_float,
                                             check_matmul_2d, check_rank)
 
@@ -132,14 +135,16 @@ def quantized_matmul_prequant(x: torch.Tensor, wq: QuantizedWeight,
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
                      rounding: str = "nearest") -> torch.Tensor:
     """Dynamic quantized matmul: quantizes BOTH operands on the fly. W is
-    column-quantized in torch (in f32, as the JAX Pallas path does), then
-    K1 runs as on the serving path. x [m, k], w [k, n] float."""
+    column-quantized in f32, as the JAX Pallas path does (K9 on CUDA
+    tensors), then K1 runs as on the serving path. x [m, k], w [k, n]
+    float."""
     check_matmul_2d(x, w)
     check_float("x", x)
     check_float("w", w)
-    return quantized_matmul_prequant(
-        x, quantize_weights(w.to(torch.float32), rounding=rounding),
-        rounding=rounding)
+    # K9 reads f32 or bf16 and upcasts in registers; other floats go to f32 here
+    qt, c = col_quantize(w if w.dtype == torch.bfloat16 else w.to(torch.float32),
+                         rounding=rounding)
+    return quantized_matmul_prequant(x, QuantizedWeight(qt=qt, c=c), rounding=rounding)
 
 
 # ---------------------------------------------------------------------------

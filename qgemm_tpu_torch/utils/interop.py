@@ -9,7 +9,9 @@ bits beside a ``<key>.__dtype__`` tag. ``gpt_from_jax_params`` takes that
 mapping (``np.load`` of such a file, or the same dict built in memory) and
 returns the port's ``GPT``: float weights as they are, int8 codes
 (``.../wq/q``), packed int4 codes (``.../wq/qp``) and their scales bit for
-bit (codes transposed once to the port's K-major layout). The outlier
+bit (codes transposed once to the port's K-major layout). An MoE block's
+FFN holds ``ffn/router_w`` and ``ffn/w_up``, ``ffn/w_down`` (float), or
+``ffn/w_up/q`` and ``ffn/w_up/c`` (and ``w_down``'s) when int8. The outlier
 options are meta fields, which checkpoints do not hold, so they are
 arguments. ``gpt_to_numpy_params`` is the reverse: the port's GPT (float,
 int8 or int4) as the same path-keyed numpy leaves, so a model trained by
@@ -30,6 +32,7 @@ from qgemm_tpu_torch.models.attention import MultiHeadAttention
 from qgemm_tpu_torch.models.embedding import Embedding
 from qgemm_tpu_torch.models.gpt import GPT, GPTBlock, GPTConfig
 from qgemm_tpu_torch.models.linear import Linear, QuantizedLinear
+from qgemm_tpu_torch.models.moe import MoEFeedForward, QuantizedExpertWeight
 from qgemm_tpu_torch.models.transformer import FeedForward, LayerNorm
 from qgemm_tpu_torch.ops.quantize import QuantizedWeight, QuantizedWeight4
 from qgemm_tpu_torch.serving.paged_cache import PAGE_SIZE, PagedKVCache, check_kv_bits
@@ -74,6 +77,19 @@ def _linear_leaves(mod, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _ffn_leaves(ffn, prefix: str) -> Dict[str, torch.Tensor]:
+    if not isinstance(ffn, MoEFeedForward):
+        return {**_linear_leaves(ffn.up, f"{prefix}/up"),
+                **_linear_leaves(ffn.down, f"{prefix}/down")}
+    out = {f"{prefix}/router_w": ffn.router_w}
+    for name, w in zip(("w_up", "w_down"), ffn.expert_weights()):
+        if ffn.is_quantized:
+            out.update({f"{prefix}/{name}/q": w.q, f"{prefix}/{name}/c": w.c})
+        else:
+            out[f"{prefix}/{name}"] = w
+    return out
+
+
 def gpt_leaves(model: GPT) -> Dict[str, torch.Tensor]:
     """The port's GPT as its JAX pytree's leaves, keyed by path in the
     pytree's order, as tensors (int8 and packed int4 codes as ``[k, n]``
@@ -84,8 +100,7 @@ def gpt_leaves(model: GPT) -> Dict[str, torch.Tensor]:
         p = f"blocks/{i}"
         for n in ("wqkv_q", "wqkv_k", "wqkv_v", "w_o"):
             out.update(_linear_leaves(getattr(blk.attn, n), f"{p}/attn/{n}"))
-        out.update(_linear_leaves(blk.ffn.up, f"{p}/ffn/up"))
-        out.update(_linear_leaves(blk.ffn.down, f"{p}/ffn/down"))
+        out.update(_ffn_leaves(blk.ffn, f"{p}/ffn"))
         for n in ("ln1", "ln2"):
             ln = getattr(blk, n)
             out.update({f"{p}/{n}/gamma": ln.gamma, f"{p}/{n}/beta": ln.beta})
@@ -116,6 +131,16 @@ def _linear(params, prefix: str, device, **outliers):
     return Linear(to_tensor(params, f"{prefix}/w", device), b)
 
 
+def _moe(params, prefix: str, device, top_k: int) -> MoEFeedForward:
+    def experts(name):
+        if f"{prefix}/{name}/q" in params:
+            return QuantizedExpertWeight.from_kn(to_tensor(params, f"{prefix}/{name}/q", device),
+                                                 to_tensor(params, f"{prefix}/{name}/c", device))
+        return to_tensor(params, f"{prefix}/{name}", device)
+    return MoEFeedForward(to_tensor(params, f"{prefix}/router_w", device), experts("w_up"),
+                          experts("w_down"), top_k=top_k)
+
+
 def _layernorm(params, prefix: str, device) -> LayerNorm:
     return LayerNorm(to_tensor(params, f"{prefix}/gamma", device),
                      to_tensor(params, f"{prefix}/beta", device))
@@ -141,7 +166,10 @@ def gpt_from_jax_params(params: Mapping[str, np.ndarray], cfg: GPTConfig,
         attn = MultiHeadAttention(*(linear(f"{p}/attn/{n}")
                                     for n in ("wqkv_q", "wqkv_k", "wqkv_v", "w_o")),
                                   n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
-        ffn = FeedForward(linear(f"{p}/ffn/up"), linear(f"{p}/ffn/down"))
+        if cfg.n_experts > 0:
+            ffn = _moe(params, f"{p}/ffn", dev, cfg.moe_top_k)
+        else:
+            ffn = FeedForward(linear(f"{p}/ffn/up"), linear(f"{p}/ffn/down"))
         blocks.append(GPTBlock(attn, ffn, _layernorm(params, f"{p}/ln1", dev),
                                _layernorm(params, f"{p}/ln2", dev)))
     embed = Embedding(to_tensor(params, "embed/table", dev),

@@ -12,15 +12,18 @@ import torch
 
 import qgemm_tpu_torch
 from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
+from qgemm_tpu_torch.models.moe import MoEFeedForward
 from qgemm_tpu_torch.ops import cuda as kernels
+from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize
 from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention
+from qgemm_tpu_torch.ops.cuda.expert_matmul import grouped_quantized_matmul
 from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
 from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
 from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
 from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention
 from qgemm_tpu_torch.ops.kv_cache import quantize_kv
 from qgemm_tpu_torch.ops.quantize import (quantize_weights, quantize_weights_int4,
-                                          quantized_matmul_prequant,
+                                          quantized_matmul, quantized_matmul_prequant,
                                           quantized_matmul_prequant_outlier,
                                           quantized_matmul_prequant_w4)
 from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
@@ -34,6 +37,7 @@ use_test_threads()
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = GPTConfig(vocab_size=97, d_model=32, n_heads=4, d_ff=64, n_layers=2,
                 max_seq_len=64)
+MOE = GPTConfig(**{**CFG.__dict__, "n_experts": 4})
 
 
 def test_port_imports_no_jax():
@@ -42,7 +46,8 @@ def test_port_imports_no_jax():
     assert "qgemm_tpu_torch.serving.engine" in mods and len(mods) >= 20
     for m in ("qgemm_tpu_torch.ops.cuda.flash_attention_bwd", "qgemm_tpu_torch.ops.cross_entropy",
               "qgemm_tpu_torch.models.optim", "qgemm_tpu_torch.utils.checkpoint",
-              "qgemm_tpu_torch.examples.train_gpt_lm"):
+              "qgemm_tpu_torch.examples.train_gpt_lm", "qgemm_tpu_torch.models.moe",
+              "qgemm_tpu_torch.ops.cuda.expert_matmul", "qgemm_tpu_torch.ops.cuda.col_quantize"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -63,7 +68,10 @@ def test_default_device_raises_without_gpu():
         pytest.skip("a GPU is present: the default device is valid here")
     for make in (lambda: GPT.init(CFG),
                  lambda: GPT.init_quantized(CFG),
-                 lambda: gpt_from_jax_params({}, CFG)):
+                 lambda: gpt_from_jax_params({}, CFG),
+                 lambda: GPT.init(MOE),
+                 lambda: GPT.init_quantized(MOE),
+                 lambda: gpt_from_jax_params({}, MOE)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     model = GPT.init(CFG, device="cpu").quantize()
@@ -106,12 +114,18 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     assert paged_context_attention(q2, cache, torch.tensor([5, 5]), 0).shape == q2.shape
     dq, dk, dv = flash_attention_bwd(q, q, q, o, lse, torch.ones_like(o), causal=True)
     assert dq.shape == dk.shape == dv.shape == q.shape
+    qt, c = col_quantize(torch.randn(3, 64, 24, generator=g))
+    assert qt.shape == (3, 24, 64) and c.shape == (3, 1, 24)
+    assert grouped_quantized_matmul(torch.randn(3, 5, 64, generator=g), qt, c,
+                                    relu=True).shape == (3, 5, 24)
+    assert quantized_matmul(x, torch.randn(64, 24, generator=g)).shape == (4, 24)
     assert kernels.launch_counts() == {"quantized_matmul": 0, "decode_attention": 0,
                                        "flash_attention": 0, "w4a8_matmul": 0,
                                        "paged_decode_attention": 0,
                                        "paged_decode_attention_ragged": 0,
                                        "paged_context_attention": 0,
-                                       "flash_attention_bwd": 0}
+                                       "flash_attention_bwd": 0, "expert_matmul": 0,
+                                       "col_quantize": 0}
 
 
 def test_model_cpu_path_launches_no_kernel():
@@ -119,6 +133,24 @@ def test_model_cpu_path_launches_no_kernel():
     model = GPT.init(CFG, seed=1, device="cpu").quantize()
     assert model.generate(torch.tensor([[1, 2, 3]]), 4, quantized_cache=True).shape == (1, 4)
     assert model.forward(torch.tensor([[4, 5]])).shape == (1, 2, 97)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_moe_model_cpu_path_launches_no_kernel():
+    """An int8 MoE GPT on the CPU (K9 quantizes its experts, K8 runs its
+    expert FFN on CUDA tensors) serves through the engine, dense and paged,
+    and launches no kernel."""
+    kernels.reset_launch_counts()
+    model = GPT.init_quantized(MOE, seed=5, device="cpu")
+    assert all(isinstance(b.ffn, MoEFeedForward) and b.ffn.is_quantized
+               for b in model.blocks)
+    for kw in ({}, {"paged": True, "page_size": 8}):
+        eng = ContinuousBatchingEngine(model, max_slots=2, max_seq_len=48, device="cpu", **kw)
+        reqs = [Request(prompt=list(range(1, 11 + 3 * i)), max_new_tokens=4) for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        assert all(r.error is None and len(r.generated) == 4 for r in reqs)
     assert sum(kernels.launch_counts().values()) == 0
 
 
