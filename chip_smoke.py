@@ -3,9 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from qgemm_tpu_torch/csrc, holds each one
-against its plain PyTorch version at GPT_6_7B shapes (K8 and K9 at the MoE
-model's, bit for bit), times them, runs bench.py's GEMM protocol at 2048^3
-(the dynamic path through K9 and K1), and serves 16 greedy requests through
+against its plain PyTorch version at the shapes the port once raised on
+(``shape_limits``: K1, K8 and the dynamic GEMM at K not a multiple of 16,
+the attention kernels at head_dim 32 and 2 and Dv != D) and at GPT_6_7B
+shapes (K8 and K9 at the MoE model's, bit for bit), times them, drives the
+op layer's three kernels (row softmax, fused residual LayerNorm, int8
+flash attention) at GPT_6_7B's widths with their launch counts
+(``ops_layer``), times them beside their bounds and library calls, runs
+bench.py's GEMM protocol at 2048^3 (the dynamic path through K9 and K1),
+and serves 16 greedy requests through
 ContinuousBatchingEngine on the full-width, full-depth GPT_6_7B (random
 weights from a seed) five times. Three runs use the int8 KV cache: int8
 weights, int4 (W4A8) weights, and int8 weights with the LLM.int8() outlier
@@ -24,12 +30,18 @@ without the outlier split. Then the training path: kernel K7 (the
 flash backward) was held against its plain version and timed with the
 other kernels; ``train`` takes Adam steps on GPT_6_7B's widths at 4 layers
 (bf16, 4 x 2048 tokens) through K3 and K7; ``train_induction`` trains the
-example's small GPT on the copy task to convergence; ``train_serve``
+example's small GPT on the copy task to convergence, its default head_dim
+32 among the widths; ``train_serve``
 quantizes the trained model to int8 and serves held-out copy prompts
 through the engine. Each phase prints one JSON line; the
 last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is nonzero. Needs one CUDA device; exits nonzero without one.
 Uses no JAX.
+
+    python3 chip_smoke.py --only PHASE[,PHASE...]
+
+builds the kernels and runs only the named phases (``shape_limits``,
+``ops_layer``, ...), for a short first run of new kernels.
 
     python3 chip_smoke.py --dense-step-ab OTHER_CHECKOUT [ROUNDS]
 
@@ -44,6 +56,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1513,13 +1526,14 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 4, 2048, 1e-4
 TRAIN_TIMED_STEPS = 5
 
 # The induction runs of ``train_model`` (the example's defaults: batch 16,
-# seq_len 128, vocab 64, 2 layers, d_ff 512, lr 3e-3; 1,500 steps) at head
-# widths K3 and K7 take. ``jax_cpu_acc``: the held-out copy accuracy of the
-# JAX package's examples/train_gpt_lm.py with the same flags on the CPU.
-# d256_h4 stalls at the uniform loss there (ln 64 for 1,500 steps); d128_h2
-# is the example's own width with head_dim 64, and learns the task.
+# seq_len 128, vocab 64, 2 layers, d_ff 512, lr 3e-3; 1,500 steps).
+# ``jax_cpu_acc``: the held-out copy accuracy of the JAX package's
+# examples/train_gpt_lm.py with the same flags on the CPU. d128_h4 is the
+# example's own default (head_dim 32); d256_h4 stalls at the uniform loss
+# there (ln 64 for 1,500 steps); d128_h2 (head_dim 64) learns the task.
 INDUCTION_STEPS = 1500
-INDUCTION_RUNS = {"d256_h4": {"d_model": 256, "n_heads": 4, "jax_cpu_acc": 0.0159},
+INDUCTION_RUNS = {"d128_h4": {"d_model": 128, "n_heads": 4, "jax_cpu_acc": 1.0},
+                  "d256_h4": {"d_model": 256, "n_heads": 4, "jax_cpu_acc": 0.0159},
                   "d128_h2": {"d_model": 128, "n_heads": 2, "jax_cpu_acc": 0.9995}}
 
 
@@ -1728,6 +1742,338 @@ def phase_train_serve(model) -> dict:
     return res
 
 
+# ------------------------------------------------------- shape limits (C-a, C-b)
+def k1_epilogue_plain(x: torch.Tensor, qt: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """K1's function in its own epilogue order, (acc * (cx / 127^2)) * cw:
+    K8's plain version on one expert (the two share int8_gemm.cuh)."""
+    from qgemm_tpu_torch.ops.cuda.expert_matmul import grouped_quantized_matmul_plain
+    return grouped_quantized_matmul_plain(x[None], qt[None], c.reshape(1, 1, -1))[0]
+
+
+def phase_shape_limits() -> dict:
+    """The shapes the port's kernels once raised on (K not a multiple of 16,
+    head widths other than 64 and 128, Dv != D), each kernel against its
+    plain version on the card. K1 (and the dynamic K9 + K1) at k 3, 17 and
+    784, the reference quantize demo's 3x3 @ 3x2 first, and K8 at K 17: the
+    wrappers zero-pad K, so each equals its plain version bit for bit. K2,
+    K5 and K6 at head_dim 32 and 2 (the caches at their true width), K3 and
+    K7 at head_dim 32 and 2 and at D 32 / Dv 64: the parity phase's
+    tolerances and reasons for each."""
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize_plain
+    from qgemm_tpu_torch.ops.cuda.decode_attention import (decode_attention,
+                                                           decode_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.expert_matmul import (grouped_quantized_matmul,
+                                                        grouped_quantized_matmul_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
+                                                          flash_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import (flash_attention_bwd,
+                                                              flash_attention_bwd_plain)
+    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention_ragged
+    from qgemm_tpu_torch.ops.kv_cache import quantize_kv
+    from qgemm_tpu_torch.ops.quantize import (quantize_weights, quantized_matmul,
+                                              quantized_matmul_prequant)
+    from qgemm_tpu_torch.serving.paged_cache import (paged_attention_reference,
+                                                     paged_context_attention_reference)
+    dev, bf16 = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    checks = []
+
+    def held(ok: bool, what: str, got, ref, **row):
+        checks.append(dict(check=what, max_abs_err=max_err(got, ref), **row))
+        if not ok:
+            raise AssertionError(f"shape_limits {what} {row}: max err {max_err(got, ref)}")
+
+    # C-a: the demo's matrices (the reference's test_quantize.cu), then random
+    x = torch.tensor([[2.0, -1.0, -1.0], [0.0, 3.0, 2.0], [-1.0, -1.0, 0.0]], device=dev)
+    w = torch.tensor([[-1.0, 0.0], [0.0, -2.0], [-1.0, 2.0]], device=dev)
+    qt, c = col_quantize_plain(w)
+    got = quantized_matmul(x, w)
+    held(bits_equal(got, k1_epilogue_plain(x, qt, c)), "dynamic_k9_k1_demo", got,
+         k1_epilogue_plain(x, qt, c), k=3, exact=(x @ w).tolist(), quantized=got.tolist())
+    for k in (3, 17, 784):
+        w = torch.randn((k, 96), generator=g, device=dev) * 0.1
+        wq = quantize_weights(w)
+        qt, c = col_quantize_plain(w)
+        for m, dt in ((3, "float32"), (8, "bfloat16"), (40, "float32"), (40, "bfloat16")):
+            x = torch.randn((m, k), generator=g, device=dev).to(getattr(torch, dt))
+            got, ref = quantized_matmul_prequant(x, wq), k1_epilogue_plain(x, wq.qt, wq.c)
+            held(bits_equal(got, ref), "k1", got, ref, m=m, k=k, x_dtype=dt)
+            got, ref = quantized_matmul(x, w), k1_epilogue_plain(x, qt, c)
+            held(bits_equal(got, ref), "dynamic_k9_k1", got, ref, m=m, k=k, x_dtype=dt)
+    for c_rows in (8, 40):
+        x = torch.randn((4, c_rows, 17), generator=g, device=dev)
+        wt = torch.randint(-127, 128, (4, 48, 17), generator=g, device=dev, dtype=torch.int8)
+        cw = torch.rand((4, 1, 48), generator=g, device=dev) + 0.1
+        got = grouped_quantized_matmul(x, wt, cw, relu=True)
+        ref = grouped_quantized_matmul_plain(x, wt, cw, relu=True)
+        held(bits_equal(got, ref), "k8", got, ref, c=c_rows, k=17)
+
+    # C-b: K2 over an int8 and a bf16 cache, MHA and GQA
+    lengths = torch.tensor([1, 37, 200, 64], device=dev, dtype=torch.int32)
+    for d in (32, 2):
+        for hkv, cache in ((8, "int8"), (2, "int8"), (8, "bfloat16")):
+            q = torch.randn((4, 8, 1, d), generator=g, device=dev).to(bf16)
+            kf, vf = (torch.randn((4, hkv, 200, d), generator=g, device=dev) for _ in range(2))
+            if cache == "int8":
+                (kq, kc), (vq, vc) = quantize_kv(kf), quantize_kv(vf)
+                args, kw = (q, kq, vq, lengths), {"kc": kc, "vc": vc}
+            else:
+                args, kw = (q, kf.to(bf16), vf.to(bf16), lengths), {}
+            got, ref = decode_attention(*args, **kw), decode_attention_plain(*args, **kw)
+            held(excess(got, ref, 2 ** -7) <= 5e-3, "k2", got, ref, d=d, hkv=hkv, cache=cache)
+        # K5 (ragged entry) and K6 on int8 and int4 pools of width d
+        for bits in (8, 4):
+            lens = torch.tensor([0, 1, 130, 300], device=dev, dtype=torch.int32)
+            cache, _ = random_paged_cache(60 + d + bits, lens.tolist(), 4, 32, bits, pps=12, d=d)
+            q = torch.randn((4, 8, 1, d), generator=g, device=dev).to(bf16)
+            live = lens > 0
+            got = paged_decode_attention_ragged(q, cache, lens)
+            ref = paged_attention_reference(q, cache, lens, compute_dtype=bf16)
+            held(excess(got[live], ref[live], 2 ** -7) <= 5e-3 and not bool(got[~live].any()),
+                 "k5", got[live], ref[live], d=d, bits=bits)
+            offs = [0, 77]
+            lens = torch.tensor([o + 64 for o in offs], device=dev, dtype=torch.int32)
+            cache, _ = random_paged_cache(70 + d + bits, lens.tolist(), 4, 32, bits, pps=6, d=d)
+            q = torch.randn((2, 8, 64, d), generator=g, device=dev).to(bf16)
+            off = torch.tensor(offs, device=dev)
+            got = paged_context_attention(q, cache, lens, off)
+            ref = paged_context_attention_reference(q, cache, lens, off, compute_dtype=bf16)
+            held(excess(got, ref, 2 ** -7) <= 5e-3, "k6", got, ref, d=d, bits=bits)
+    # K3 forward and K7 backward: K3's and K7's parity tolerances
+    for d, dv in ((32, 32), (2, 2), (32, 64)):
+        for causal, dt in ((True, "bfloat16"), (False, "bfloat16"), (True, "float32")):
+            dtype = getattr(torch, dt)
+            q = torch.randn((2, 4, 150, d), generator=g, device=dev).to(dtype)
+            k = torch.randn((2, 4, 170, d), generator=g, device=dev).to(dtype)
+            v = torch.randn((2, 4, 170, dv), generator=g, device=dev).to(dtype)
+            dout = torch.randn((2, 4, 150, dv), generator=g, device=dev).to(dtype)
+            o, lse = flash_attention_fwd(q, k, v, causal=causal)
+            ro, rl = flash_attention_plain(q, k, v, causal=causal)
+            fwd_ok = (excess(o, ro, 2 ** -7) <= 1e-2 if dt == "bfloat16"
+                      else max_err(o, ro) <= 1e-5) and max_err(lse, rl) <= 1e-4
+            held(fwd_ok and tuple(o.shape) == (2, 4, 150, dv), "k3", o, ro, d=d, dv=dv,
+                 causal=causal, dtype=dt, lse_max_abs_err=max_err(lse, rl))
+            got = flash_attention_bwd(q, k, v, o, lse, dout, causal)
+            ref = flash_attention_bwd_plain(q, k, v, o, lse, dout, causal)
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                scale = float(r.float().abs().max())
+                ok = (excess(a, r, 2 ** -7) <= 1e-3 * scale if dt == "bfloat16"
+                      else max_err(a, r) <= 1e-5 * scale)
+                held(ok and a.shape == r.shape, "k7", a, r, grad=name, d=d, dv=dv,
+                     causal=causal, dtype=dt)
+    torch.cuda.synchronize()
+    res = {"phase": "shape_limits", "n_checks": len(checks), "checks": checks}
+    emit(res)
+    return res
+
+
+# ------------------------------------------------------------ the op layer
+# GPT_6_7B's widths: 8192 tokens of d_model 4096 (scripts/sol_report.py's
+# row-op shape), its 32 heads of 128 on a 2048-token prompt
+ROW_SHAPE = (8192, 4096)
+RAGGED_ROW_SHAPE = (33, 4100)
+ATTN_SHAPE = (1, 32, 2048, 128)
+
+
+def phase_ops_layer() -> dict:
+    """The op layer's kernels (rows 14, 13 and 12) driven through their
+    entry points at GPT_6_7B's widths, launch counts set to 0 just before
+    and read just after; then each output held against its plain version
+    and each kernel timed beside its bound, its plain version and the
+    library call. Tolerances: softmax and LayerNorm in f32 at the JAX tests'
+    own (rtol 1e-5 / atol 1e-6; rtol 1e-4 / atol 1e-5), in bf16 one bf16
+    rounding on each side (2^-7 relative) beyond them. The int8 flash
+    kernel against its plain version at the kernel's 64-key tiles (the same
+    P codes up to an exp rounding; two bf16 roundings of the output, 2^-6
+    relative, plus 2e-3), and, at JAX's key block and against f32
+    attention, within JAX's own 5e-2 beyond the two bf16 roundings of a
+    bf16 output (2^-7 relative), or, where the reference algorithm itself
+    (the plain version at JAX's key block) is further off f32 attention on
+    the same inputs, no further off than it; at the JAX tests' own case,
+    5e-2 as they hold it."""
+    import torch.nn.functional as F
+
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
+                                                          flash_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.int8_flash_attention import (
+        KERNEL_KEY_TILE, flash_attention_int8, flash_attention_int8_plain,
+        int8_flash_attention_cuda, int8_flash_prepass)
+    from qgemm_tpu_torch.ops.cuda.layernorm import layernorm_residual, layernorm_residual_plain
+    from qgemm_tpu_torch.ops.cuda.softmax import softmax, softmax_plain
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    dev, bf16 = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    rows = {}
+    for shape in (ROW_SHAPE, RAGGED_ROW_SHAPE):
+        x = torch.randn(shape, generator=g, device=dev) * 3.0
+        r = torch.randn(shape, generator=g, device=dev)
+        gam = torch.randn(shape[-1], generator=g, device=dev)
+        bet = torch.randn(shape[-1], generator=g, device=dev)
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            rows[(shape, dt)] = (x.to(dtype), r.to(dtype), gam, bet)
+    b, h, s, d = ATTN_SHAPE
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(bf16) for _ in range(3))
+    rq = torch.randn((1, 8, 100, 32), generator=g, device=dev)
+    rk = torch.randn((1, 8, 130, 32), generator=g, device=dev)
+    rv = torch.randn((1, 8, 130, 64), generator=g, device=dev)
+    # tests/test_pallas_kernels.py's int8 flash case, its inputs as it makes
+    # them: 1 x 2 x 256 x 64 f32 from numpy's generator at seed 5, then K
+    # with a heavy per-channel mean
+    rng = np.random.default_rng(5)
+    jq, jk, jv = (torch.from_numpy(rng.normal(size=(1, 2, 256, 64)).astype(np.float32)).to(dev)
+                  for _ in range(3))
+    jk_off = jk + torch.from_numpy(rng.normal(size=(1, 1, 1, 64)) * 8.0).float().to(dev)
+    jax_cases = [(jq, jk, jv, False), (jq, jk, jv, True), (jq, jk_off, jv, True)]
+
+    # the path: every call through the op layer's entry points
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    outs = {}
+    for key, (x, r, gam, bet) in rows.items():
+        outs[("softmax",) + key] = softmax(x)
+        outs[("layernorm_full",) + key] = layernorm_residual(x, r, gam, bet)
+        outs[("layernorm_bare",) + key] = layernorm_residual(x)
+    for qk_only in (False, True):
+        outs[("int8_flash", qk_only)] = flash_attention_int8(q, k, v, causal=True,
+                                                             qk_only=qk_only)
+        for causal in (True, False):
+            outs[("int8_flash_ragged", qk_only, causal)] = flash_attention_int8(
+                rq, rk, rv, causal=causal, qk_only=qk_only)
+    for i, (jq_, jk_, jv_, causal) in enumerate(jax_cases):
+        outs[("int8_flash_jax_case", i)] = flash_attention_int8(jq_, jk_, jv_, causal=causal)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {name: 0 for name in counts}
+    want.update(softmax=len(rows), layernorm=2 * len(rows),
+                int8_flash_attention=6 + len(jax_cases))
+    if counts != want:
+        raise AssertionError(f"ops_layer launches {counts}, expected {want}")
+
+    checks = []
+    errs = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0}
+            for n in ("softmax", "layernorm", "int8_flash_attention")}
+
+    def held(name, ok, got, ref, **row):
+        e, rel = max_err(got, ref), rel_err(got, ref)
+        errs[name]["max_abs_err"] = max(errs[name]["max_abs_err"], e)
+        errs[name]["max_rel_err"] = max(errs[name]["max_rel_err"], rel)
+        checks.append(dict(kernel=name, max_abs_err=e, **row))
+        if not (ok and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"ops_layer {name} {row}: max err {e}")
+
+    def rowop_ok(got, ref, dt, rtol, atol):
+        if dt == "float32":
+            return excess(got, ref, rtol) <= atol
+        return excess(got, ref, 2 ** -7 + rtol) <= atol
+
+    for (shape, dt), (x, r, gam, bet) in rows.items():
+        got, ref = outs[("softmax", shape, dt)], softmax_plain(x)
+        held("softmax", rowop_ok(got, ref, dt, 1e-5, 1e-6), got, ref, shape=list(shape), dtype=dt)
+        for kind, args in (("full", (x, r, gam, bet)), ("bare", (x,))):
+            got, ref = outs[("layernorm_" + kind, shape, dt)], layernorm_residual_plain(*args)
+            held("layernorm", rowop_ok(got, ref, dt, 1e-4, 1e-5), got, ref, shape=list(shape),
+                 dtype=dt, residual_gamma_beta=kind == "full")
+
+    def flash_checks(qq, kk, vv, causal, qk_only, got, **row):
+        tiles = flash_attention_int8_plain(qq, kk, vv, causal, qk_only, block_k=KERNEL_KEY_TILE)
+        default = flash_attention_int8_plain(qq, kk, vv, causal, qk_only)
+        f32, _ = flash_attention_plain(qq.float(), kk.float(), vv.float(), causal)
+        tight = excess(got, tiles, 2 ** -6) <= 2e-3 if got.dtype == bf16 \
+            else max_err(got, tiles) <= 2e-3
+        held("int8_flash_attention", tight, got, tiles, against="plain_at_kernel_key_tile",
+             causal=causal, qk_only=qk_only, **row)
+        # JAX's 5e-2 is for f32 outputs; a bf16 output rounds once in the
+        # kernel and once in the epilogue (2^-7 relative together). Against
+        # f32 attention, the int8 rounding's tail over millions of outputs
+        # can pass 5e-2 in the reference algorithm itself (the plain
+        # version at JAX's key block): the kernel may not be further off
+        # than that, and its own tests' case below holds 5e-2 as they do
+        rtol = 2 ** -7 if got.dtype == bf16 else 0.0
+        held("int8_flash_attention", excess(got, default, rtol) < 5e-2, got, default,
+             against="plain_at_jax_key_block", causal=causal, qk_only=qk_only, **row)
+        jax_err = excess(default, f32, rtol)
+        held("int8_flash_attention", excess(got, f32, rtol) < max(5e-2, jax_err), got, f32,
+             against="f32_attention", causal=causal, qk_only=qk_only,
+             plain_at_jax_key_block_excess=jax_err, **row)
+
+    for qk_only in (False, True):
+        flash_checks(q, k, v, True, qk_only, outs[("int8_flash", qk_only)],
+                     shape=list(ATTN_SHAPE), dtype="bfloat16")
+        for causal in (True, False):
+            flash_checks(rq, rk, rv, causal, qk_only,
+                         outs[("int8_flash_ragged", qk_only, causal)],
+                         shape="B1 H8 Sq100 Sk130 D32 Dv64", dtype="float32")
+    for i, (jq_, jk_, jv_, causal) in enumerate(jax_cases):
+        got = outs[("int8_flash_jax_case", i)]
+        f32, _ = flash_attention_plain(jq_, jk_, jv_, causal)
+        held("int8_flash_attention", max_err(got, f32) < 5e-2, got, f32, against="f32_attention",
+             case="tests/test_pallas_kernels.py's", causal=causal, k_mean=i == 2)
+    del outs
+
+    # timing at GPT_6_7B's widths
+    x, r, gam, bet = rows[(ROW_SHAPE, "float32")]
+    n_el = x.numel()
+    t_sm = {"ms": bench_ms(lambda: softmax(x)), "plain_ms": bench_ms(lambda: softmax_plain(x)),
+            "library_ms": bench_ms(lambda: torch.softmax(x, dim=-1))}
+    xb = rows[(ROW_SHAPE, "bfloat16")][0]
+    t_sm.update(bf16_ms=bench_ms(lambda: softmax(xb)),
+                bf16_library_ms=bench_ms(lambda: torch.softmax(xb, dim=-1)))
+    bms, by = bound(2 * n_el * 4, 5 * n_el, BF16_FLOPS)
+    t_sm.update(bound_ms=bms, bound_by=by, bf16_bound_ms=bound(2 * n_el * 2, 0, 1)[0],
+                library_note="torch.softmax over the last axis",
+                shape=f"[{ROW_SHAPE[0]}, {ROW_SHAPE[1]}] f32", **errs["softmax"])
+    n = ROW_SHAPE[1]
+    t_ln = {"ms": bench_ms(lambda: layernorm_residual(x, r, gam, bet)),
+            "plain_ms": bench_ms(lambda: layernorm_residual_plain(x, r, gam, bet)),
+            "library_ms": bench_ms(lambda: F.layer_norm(x, (n,), gam, bet)),
+            "library_add_then_ln_ms": bench_ms(lambda: F.layer_norm(x + r, (n,), gam, bet)),
+            "no_residual_ms": bench_ms(lambda: layernorm_residual(x, None, gam, bet))}
+    bms, by = bound(3 * n_el * 4 + 2 * n * 4, 10 * n_el, BF16_FLOPS)
+    t_ln.update(bound_ms=bms, bound_by=by,
+                no_residual_bound_ms=bound(2 * n_el * 4 + 2 * n * 4, 0, 1)[0],
+                library_note="F.layer_norm without the residual (one call); "
+                             "library_add_then_ln_ms is F.layer_norm(x + r), two calls",
+                shape=f"[{ROW_SHAPE[0]}, {ROW_SHAPE[1]}] f32, residual, gamma and beta",
+                **errs["layernorm"])
+    scale = 1.0 / math.sqrt(d)
+    pairs = h * s * (s + 1) // 2
+    t_fa = {}
+    for qk_only in (False, True):
+        prep = int8_flash_prepass(q, k, v, qk_only)
+        kern = bench_ms(lambda: int8_flash_attention_cuda(prep, True, scale, bf16))
+        pre = bench_ms(lambda: int8_flash_prepass(q, k, v, qk_only))
+        whole = bench_ms(lambda: flash_attention_int8(q, k, v, True, qk_only))
+        plain = bench_ms(lambda: flash_attention_int8_plain(q, k, v, True, qk_only),
+                         queue_ahead=False)
+        v_bytes = (2 if qk_only else 1) * b * h * s * d
+        t_bytes = (2 * b * h * s * d + v_bytes + b * h * s * d * 2 + 2 * b * h * s * 4) \
+            / HBM_BPS * 1e3
+        t_ops = (2 * pairs * d / INT8_OPS + 2 * pairs * d / (BF16_FLOPS if qk_only else INT8_OPS)) \
+            * 1e3
+        t_fa[qk_only] = {"ms": kern, "prepass_ms": pre, "wrapper_ms": whole, "plain_ms": plain,
+                         "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                         "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops}
+        del prep
+    t_fa = dict(t_fa[False], qk_only=t_fa[True])
+    t_fa.update(library_ms=bench_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                           is_causal=True)),
+                library_note="F.scaled_dot_product_attention, causal, bf16: a yardstick of the "
+                             "same attention in other numerics (bf16 products, no quantization)",
+                k3_ms_same_shape=bench_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
+                plain_timing="not queued ahead (host launches inside), at JAX's key block",
+                shape=f"B={b} H={h} S={s} D={d} causal bf16", **errs["int8_flash_attention"])
+    res = {"phase": "ops_layer", "launches": counts, "checks": checks,
+           "softmax": t_sm, "layernorm": t_ln, "int8_flash_attention": t_fa}
+    emit(res)
+    return res
+
+
 def dense_step_child(tree: str) -> None:
     """One side of ``--dense-step-ab``: ``serve``'s int8 run (the same
     model, engine and 16 requests, without its checks of launches and
@@ -1801,8 +2147,15 @@ def main() -> None:
 
     smi = phase_device()
     phase_build()
+    if sys.argv[1:2] == ["--only"]:   # a quick first run of some phases
+        for name in sys.argv[2].split(","):
+            globals()[f"phase_{name}"]()
+        return
+    phase_shape_limits()
     errs = phase_parity()
     timing = phase_timing(errs)
+    ops = phase_ops_layer()
+    timing.update({name: ops[name] for name in ("softmax", "layernorm", "int8_flash_attention")})
     gemm = phase_gemm_protocol()
     int8 = serve("int8", {}, used=("quantized_matmul", "decode_attention", "flash_attention"),
                  unused=("w4a8_matmul",))
@@ -1828,7 +2181,10 @@ def main() -> None:
                 "paged_context_attention": "qgemm_tpu/ops/pallas/paged_attention.py:328",
                 "flash_attention_bwd": "qgemm_tpu/ops/pallas/flash_attention.py:267",
                 "expert_matmul": "qgemm_tpu/ops/pallas/expert_matmul.py:47",
-                "col_quantize": "qgemm_tpu/ops/pallas/quantized_matmul.py:65"}
+                "col_quantize": "qgemm_tpu/ops/pallas/quantized_matmul.py:65",
+                "softmax": "qgemm_tpu/ops/pallas/softmax.py:30",
+                "layernorm": "qgemm_tpu/ops/pallas/layernorm.py:30",
+                "int8_flash_attention": "qgemm_tpu/ops/pallas/int8_flash_attention.py:45"}
     # each kernel's wrappers: K5 has two entries, each with its own count
     wrappers = {"paged_decode_attention": ("paged_decode_attention",
                                            "paged_decode_attention_ragged")}
@@ -1837,7 +2193,8 @@ def main() -> None:
         t = timing[name]
         path = {"w4a8_matmul": w4a8, "paged_decode_attention": paged8,
                 "paged_context_attention": paged8, "flash_attention_bwd": train,
-                "expert_matmul": moe, "col_quantize": moe}.get(name, int8)
+                "expert_matmul": moe, "col_quantize": moe, "softmax": ops, "layernorm": ops,
+                "int8_flash_attention": ops}.get(name, int8)
         ws = wrappers.get(name, (name,))
         per_decode = path.get("launches_per_decode_step")
         per_prefill = path.get("launches_per_prefill")
@@ -1904,6 +2261,9 @@ def main() -> None:
                          library_timing=t["library_timing"],
                          k3_fwd_ms_same_shape=t["k3_fwd_ms_same_shape"],
                          achieved_tflops=t["achieved_tflops"])
+        if name in ("softmax", "layernorm", "int8_flash_attention"):
+            entry.update({k: t[k] for k in t if k not in entry and k not in
+                          ("max_abs_err", "max_rel_err", "shape")})
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

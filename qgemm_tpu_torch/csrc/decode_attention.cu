@@ -25,6 +25,13 @@
 // partial (max, sum, acc) states merge in a fixed order at the end; the
 // split depends only on position indices, so a slot's result does not
 // depend on the cache extent S or on the other slots.
+//
+// Head widths: the kernel is compiled for D in {32, 64, 128} and reads a
+// cache of any true width d <= D (rows d elements apart): at d == D with
+// vector loads, below it element by element with the columns past d read
+// as zeros. The wrapper zero-pads the per-call q to D and slices the
+// output, and passes the softmax scale of the true d; the cache, which
+// persists across steps, is never copied.
 #include <type_traits>
 
 #include "common.cuh"
@@ -40,7 +47,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
               const KT* __restrict__ vcache, const float* __restrict__ kc,
               const float* __restrict__ vc, const int* __restrict__ lengths,
-              float* __restrict__ out, int hkv, int S, float scale) {
+              float* __restrict__ out, int hkv, int S, int d, float scale) {
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr bool kRound = !std::is_same<KT, float>::value;  // bf16 products
   constexpr int VPL = D / 32;                               // columns per lane
@@ -59,8 +66,9 @@ decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
   __syncthreads();
 
   const int len = min(lengths[b], S);
-  const KT* kbase = kcache + static_cast<size_t>(bh) * S * D;
-  const KT* vbase = vcache + static_cast<size_t>(bh) * S * D;
+  const bool full = d == D;                                 // vector loads
+  const KT* kbase = kcache + static_cast<size_t>(bh) * S * d;
+  const KT* vbase = vcache + static_cast<size_t>(bh) * S * d;
   float m_run[G], l_run[G], acc[G][VPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -77,11 +85,14 @@ decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
 #pragma unroll
     for (int g = 0; g < G; ++g) s[g] = 0.f;
     if (valid) {
-      const KT* kr = kbase + static_cast<size_t>(j) * D;
+      const KT* kr = kbase + static_cast<size_t>(j) * d;
 #pragma unroll 4
       for (int d0 = 0; d0 < D; d0 += 8) {
         float kv[8];
-        if constexpr (kQuant) {
+        if (!full) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) kv[e] = d0 + e < d ? qg::to_f32(kr[d0 + e]) : 0.f;
+        } else if constexpr (kQuant) {
           const uint2 u = *reinterpret_cast<const uint2*>(kr + d0);
           const uint32_t w[2] = {u.x, u.y};
 #pragma unroll
@@ -124,10 +135,10 @@ decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
       for (int i = 0; i < VPL; ++i) acc[g][i] *= alpha[g];
     const int nrow = min(kTile, len - t0);
     for (int jj = 0; jj < nrow; ++jj) {
-      const KT* vr = vbase + static_cast<size_t>(t0 + jj) * D + lane * VPL;
+      const KT* vr = vbase + static_cast<size_t>(t0 + jj) * d + lane * VPL;
       float vv[VPL];
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) vv[i] = qg::to_f32(vr[i]);
+      for (int i = 0; i < VPL; ++i) vv[i] = lane * VPL + i < d ? qg::to_f32(vr[i]) : 0.f;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float pj = pbuf[warp][g][jj];
@@ -149,7 +160,7 @@ decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
   }
   __syncthreads();
   for (int i = threadIdx.x; i < G * D; i += kWarps * 32) {
-    const int g = i / D, d = i % D;
+    const int g = i / D, c = i % D;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w][g]);
@@ -158,7 +169,7 @@ decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
     for (int w = 0; w < kWarps; ++w) {
       const float f = expf(wm[w][g] - mx);
       l += wl[w][g] * f;
-      o += wacc[w][g][d] * f;
+      o += wacc[w][g][c] * f;
     }
     out[static_cast<size_t>(bh) * G * D + i] = o / fmaxf(l, 1e-30f);
   }
@@ -167,15 +178,15 @@ decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
 template <typename KT, int D>
 cudaError_t launch_d(const float* q, const void* k, const void* v, const float* kc,
                      const float* vc, const int* len, float* out, int B, int hkv, int G,
-                     int S, float scale, cudaStream_t s) {
+                     int S, int d, float scale, cudaStream_t s) {
   const KT* kk = static_cast<const KT*>(k);
   const KT* vv = static_cast<const KT*>(v);
   const dim3 grid(B * hkv), block(kWarps * 32);
   switch (G) {
-    case 1: decode_kernel<KT, D, 1><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, scale); break;
-    case 2: decode_kernel<KT, D, 2><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, scale); break;
-    case 4: decode_kernel<KT, D, 4><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, scale); break;
-    case 8: decode_kernel<KT, D, 8><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, scale); break;
+    case 1: decode_kernel<KT, D, 1><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, d, scale); break;
+    case 2: decode_kernel<KT, D, 2><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, d, scale); break;
+    case 4: decode_kernel<KT, D, 4><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, d, scale); break;
+    case 8: decode_kernel<KT, D, 8><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, d, scale); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -184,21 +195,24 @@ cudaError_t launch_d(const float* q, const void* k, const void* v, const float* 
 template <typename KT>
 cudaError_t launch_t(const float* q, const void* k, const void* v, const float* kc,
                      const float* vc, const int* len, float* out, int B, int hkv, int G,
-                     int S, int D, float scale, cudaStream_t s) {
-  if (D == 64) return launch_d<KT, 64>(q, k, v, kc, vc, len, out, B, hkv, G, S, scale, s);
-  if (D == 128) return launch_d<KT, 128>(q, k, v, kc, vc, len, out, B, hkv, G, S, scale, s);
+                     int S, int D, int d, float scale, cudaStream_t s) {
+  if (d < 1 || d > D) return cudaErrorInvalidValue;
+  if (D == 32) return launch_d<KT, 32>(q, k, v, kc, vc, len, out, B, hkv, G, S, d, scale, s);
+  if (D == 64) return launch_d<KT, 64>(q, k, v, kc, vc, len, out, B, hkv, G, S, d, scale, s);
+  if (D == 128) return launch_d<KT, 128>(q, k, v, kc, vc, len, out, B, hkv, G, S, d, scale, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q f32 [B, Hkv*G, D]; k/v [B, Hkv, S, D] (kv_dtype 0 = int8 with kc/vc f32
-// [B, Hkv, S], 1 = bf16, 2 = f32, kc/vc unused); lengths int32 [B];
-// out f32 [B, Hkv*G, D]. Returns cudaGetLastError().
+// q f32 [B, Hkv*G, D] (D in {32, 64, 128}, zero past d); k/v [B, Hkv, S, d]
+// with d <= D (kv_dtype 0 = int8 with kc/vc f32 [B, Hkv, S], 1 = bf16,
+// 2 = f32, kc/vc unused); lengths int32 [B]; out f32 [B, Hkv*G, D].
+// Returns cudaGetLastError().
 extern "C" int qgemm_decode_attention(const void* q, const void* k, const void* v,
                                       const void* kc, const void* vc, const void* lengths,
                                       void* out, int kv_dtype, int B, int hkv, int G,
-                                      int S, int D, float scale, void* stream) {
+                                      int S, int D, int d, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || hkv <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
@@ -208,11 +222,11 @@ extern "C" int qgemm_decode_attention(const void* q, const void* k, const void* 
   float* o = static_cast<float*>(out);
   cudaError_t e;
   if (kv_dtype == 0)
-    e = launch_t<int8_t>(qf, k, v, kcf, vcf, len, o, B, hkv, G, S, D, scale, s);
+    e = launch_t<int8_t>(qf, k, v, kcf, vcf, len, o, B, hkv, G, S, D, d, scale, s);
   else if (kv_dtype == 1)
-    e = launch_t<__nv_bfloat16>(qf, k, v, kcf, vcf, len, o, B, hkv, G, S, D, scale, s);
+    e = launch_t<__nv_bfloat16>(qf, k, v, kcf, vcf, len, o, B, hkv, G, S, D, d, scale, s);
   else if (kv_dtype == 2)
-    e = launch_t<float>(qf, k, v, kcf, vcf, len, o, B, hkv, G, S, D, scale, s);
+    e = launch_t<float>(qf, k, v, kcf, vcf, len, o, B, hkv, G, S, D, d, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

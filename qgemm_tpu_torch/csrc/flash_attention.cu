@@ -22,6 +22,11 @@
 // Causal blocks above the diagonal are never visited (the K loop stops at
 // the tile holding the block's last valid row). Scores never reach device
 // memory: O(S * D) traffic.
+//
+// Head widths: compiled for D in {32, 64, 128} with Dv == D. The wrapper
+// zero-pads q, k and v (per-call tensors) to the D that holds both the
+// true d and dv, passes the softmax scale of the true d, and slices O to
+// dv: zero columns add nothing to a score, and O's padded columns are 0.
 #include <type_traits>
 
 #include "common.cuh"
@@ -206,7 +211,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 }  // namespace
 
-// q [BH, Sq, D], k/v [BH, Sk, D], o [BH, Sq, D] (dtype 0 = f32, 1 = bf16);
+// q [BH, Sq, D], k/v [BH, Sk, D], o [BH, Sq, D], D in {32, 64, 128} (dtype 0 = f32, 1 = bf16);
 // lse f32 [BH, Sq]. Returns cudaGetLastError().
 extern "C" int qgemm_flash_attention_fwd(const void* q, const void* k, const void* v,
                                          void* o, void* lse, int dtype, int bh, int sq,
@@ -215,6 +220,8 @@ extern "C" int qgemm_flash_attention_fwd(const void* q, const void* k, const voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535) return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse);
+  if (dtype == 0 && D == 32) return launch<float, 32>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
+  if (dtype == 1 && D == 32) return launch<__nv_bfloat16, 32>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
   if (dtype == 0 && D == 64) return launch<float, 64>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
   if (dtype == 0 && D == 128) return launch<float, 128>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
   if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(q, k, v, o, l, bh, sq, sk, causal, scale, s);

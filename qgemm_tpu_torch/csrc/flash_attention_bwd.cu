@@ -33,6 +33,10 @@
 // atomics, so the result does not depend on scheduling.
 #include <type_traits>
 
+//
+// Head widths: compiled for D in {32, 64, 128} with Dv == D; the wrapper
+// zero-pads q, k, v, O and dO to one such D and slices dQ, dK and dV to
+// the true widths (the padded columns of every product are zeros).
 #include "common.cuh"
 
 namespace {
@@ -353,6 +357,8 @@ extern "C" int qgemm_flash_attention_bwd(const void* q, const void* k, const voi
   float* dl = static_cast<float*>(delta);
 #define QG_BWD(T, DD) \
   launch<T, DD>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, sq, sk, causal, scale, s)
+  if (dtype == 0 && D == 32) return QG_BWD(float, 32);
+  if (dtype == 1 && D == 32) return QG_BWD(__nv_bfloat16, 32);
   if (dtype == 0 && D == 64) return QG_BWD(float, 64);
   if (dtype == 0 && D == 128) return QG_BWD(float, 128);
   if (dtype == 1 && D == 64) return QG_BWD(__nv_bfloat16, 64);

@@ -25,8 +25,10 @@
 //   * int32 accumulation is exact, so every tiling gives the same bits —
 //     a row's result does not depend on m or on which kernel ran;
 //   * ragged m and n edges are masked in the kernels (the 50272 vocab is
-//     not a multiple of the tile); k must be a multiple of 16 (checked by
-//     the wrappers). W is never padded per call. A row of zeros (an empty
+//     not a multiple of the tile); k must be a multiple of 16: the
+//     wrappers zero-pad x and W along K on the calls where it is not (no
+//     model of the repo takes that path at full width), since zeros
+//     change neither the row absmax nor the int32 sums. A row of zeros (an empty
 //     expert capacity slot) has cx = 1e-12, codes 0 and output exactly 0.
 #pragma once
 

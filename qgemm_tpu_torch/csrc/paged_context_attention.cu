@@ -29,6 +29,11 @@
 // output. One warp per 8 rows runs the online-softmax update. The block's
 // page walk stops at its rows' last causal position (the TPU kernel's
 // "tight" bound) and at the slot's length, so later pages are never read.
+//
+// Head widths: compiled for D in {32, 64, 128}; the pools' rows hold the
+// true width d <= D (vector loads at d == D, element loads below it, the
+// columns past d staged as zeros). The wrapper pads the per-call q to D
+// and slices the output; the pools are never copied.
 #include "common.cuh"
 
 namespace {
@@ -50,7 +55,7 @@ paged_context_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
                      const float* __restrict__ vc, const int* __restrict__ page_table,
                      const int* __restrict__ lengths, const int* __restrict__ offsets,
                      float* __restrict__ out, int hkv, int C, int R, int page, int pps,
-                     float scale) {
+                     int dt, float scale) {
   constexpr int LD = ld<D>();
   constexpr int CPT = D / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -110,14 +115,24 @@ paged_context_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
         const int logical = pos / page, w = pos - logical * page;
         const size_t ph = static_cast<size_t>(pt[logical]) * hkv + h;
         const bool hi = BITS == 4 && w >= rows;
-        const size_t o = (ph * rows + (hi ? w - rows : w)) * D + d;
-        const uint2 uk = *reinterpret_cast<const uint2*>(kq + o);
-        const uint2 uv = *reinterpret_cast<const uint2*>(vq + o);
+        const size_t o = (ph * rows + (hi ? w - rows : w)) * dt + d;
+        if (dt == D) {
+          const uint2 uk = *reinterpret_cast<const uint2*>(kq + o);
+          const uint2 uv = *reinterpret_cast<const uint2*>(vq + o);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int sh = 8 * (e % 4);
-          kv[e] = qg::kv_code<BITS>((e < 4 ? uk.x : uk.y) >> sh, hi);
-          vv[e] = qg::kv_code<BITS>((e < 4 ? uv.x : uv.y) >> sh, hi);
+          for (int e = 0; e < 8; ++e) {
+            const int sh = 8 * (e % 4);
+            kv[e] = qg::kv_code<BITS>((e < 4 ? uk.x : uk.y) >> sh, hi);
+            vv[e] = qg::kv_code<BITS>((e < 4 ? uv.x : uv.y) >> sh, hi);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (d + e < dt) {
+              kv[e] = qg::kv_code<BITS>(static_cast<uint8_t>(kq[o + e]), hi);
+              vv[e] = qg::kv_code<BITS>(static_cast<uint8_t>(vq[o + e]), hi);
+            }
+          }
         }
       }
 #pragma unroll
@@ -230,8 +245,8 @@ paged_context_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
 template <int BITS, int D>
 cudaError_t launch(const void* q, const void* kq, const void* kc, const void* vq,
                    const void* vc, const void* pt, const void* len, const void* off,
-                   void* out, int B, int hkv, int C, int R, int page, int pps, float scale,
-                   cudaStream_t s) {
+                   void* out, int B, int hkv, int C, int R, int page, int pps, int dt,
+                   float scale, cudaStream_t s) {
   const size_t smem = smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(paged_context_kernel<BITS, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -243,32 +258,34 @@ cudaError_t launch(const void* q, const void* kq, const void* kc, const void* vq
       static_cast<const float*>(kc), static_cast<const int8_t*>(vq),
       static_cast<const float*>(vc), static_cast<const int*>(pt),
       static_cast<const int*>(len), static_cast<const int*>(off), static_cast<float*>(out),
-      hkv, C, R, page, pps, scale);
+      hkv, C, R, page, pps, dt, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q f32 [B, Hkv, R = G*C, D] (query heads folded into rows); kq/vq int8
-// [P, Hkv, rows, D] (rows = page for bits 8, page/2 for bits 4); kc/vc f32
+// q f32 [B, Hkv, R = G*C, D] (query heads folded into rows; D in {32, 64,
+// 128}, zero past d); kq/vq int8 [P, Hkv, rows, d], d <= D (rows = page for bits 8, page/2 for bits 4); kc/vc f32
 // [P, Hkv, 1, page]; page_table int32 [B, pps]; lengths, offsets int32 [B];
 // out f32 [B, Hkv, R, D]. page a multiple of 16. Returns cudaGetLastError().
 extern "C" int qgemm_paged_context_attention(const void* q, const void* kq, const void* kc,
                                              const void* vq, const void* vc,
                                              const void* page_table, const void* lengths,
                                              const void* offsets, void* out, int bits, int B,
-                                             int hkv, int C, int R, int D, int page, int pps,
-                                             float scale, void* stream) {
+                                             int hkv, int C, int R, int D, int d, int page,
+                                             int pps, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || hkv <= 0 || C <= 0 || R <= 0 || R % C || pps <= 0 || page < 16 ||
-      page % 16 || B * hkv > 65535)
+      page % 16 || B * hkv > 65535 || d < 1 || d > D)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto go = [&](auto fn) {
     return static_cast<int>(fn(q, kq, kc, vq, vc, page_table, lengths, offsets, out, B, hkv,
-                               C, R, page, pps, scale, s));
+                               C, R, page, pps, d, scale, s));
   };
+  if (bits == 8 && D == 32) return go(launch<8, 32>);
   if (bits == 8 && D == 64) return go(launch<8, 64>);
   if (bits == 8 && D == 128) return go(launch<8, 128>);
+  if (bits == 4 && D == 32) return go(launch<4, 32>);
   if (bits == 4 && D == 64) return go(launch<4, 64>);
   if (bits == 4 && D == 128) return go(launch<4, 128>);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -34,6 +34,11 @@
 // Later performance work: split long slots across blocks by the step
 // tables (flash-decoding), and read each int4 byte once for both of its
 // positions.
+//
+// Head widths: compiled for D in {32, 64, 128}; the pools' rows hold the
+// true width d <= D (vector loads at d == D, element loads below it, the
+// columns past d read as zeros). The wrapper pads the per-call q to D and
+// slices the output; the pools are never copied.
 #include "common.cuh"
 
 namespace {
@@ -48,7 +53,7 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
                     const float* __restrict__ kc, const int8_t* __restrict__ vq,
                     const float* __restrict__ vc, const int* __restrict__ page_table,
                     const int* __restrict__ lengths, float* __restrict__ out, int hkv,
-                    int page, int pps, float scale) {
+                    int page, int pps, int d, float scale) {
   constexpr int VPL = D / 32;                               // columns per lane
   __shared__ __align__(16) float qs[G][D];
   __shared__ float pbuf[kWarps][G][kTile];
@@ -84,7 +89,7 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
       const int logical = j / page, r = j - logical * page;
       const size_t ph = static_cast<size_t>(pt[logical]) * hkv + h;
       hi = BITS == 4 && r >= rows;
-      row_off = (ph * rows + (hi ? r - rows : r)) * D;
+      row_off = (ph * rows + (hi ? r - rows : r)) * d;
       scale_off = ph * page + r;
     }
     float s[G];
@@ -94,11 +99,17 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
       const int8_t* kr = kq + row_off;
 #pragma unroll 4
       for (int d0 = 0; d0 < D; d0 += 8) {
-        const uint2 u = *reinterpret_cast<const uint2*>(kr + d0);
-        const uint32_t w[2] = {u.x, u.y};
         float kv[8];
+        if (d == D) {
+          const uint2 u = *reinterpret_cast<const uint2*>(kr + d0);
+          const uint32_t w[2] = {u.x, u.y};
 #pragma unroll
-        for (int e = 0; e < 8; ++e) kv[e] = qg::kv_code<BITS>(w[e / 4] >> (8 * (e % 4)), hi);
+          for (int e = 0; e < 8; ++e) kv[e] = qg::kv_code<BITS>(w[e / 4] >> (8 * (e % 4)), hi);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            kv[e] = d0 + e < d ? qg::kv_code<BITS>(static_cast<uint8_t>(kr[d0 + e]), hi) : 0.f;
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -137,7 +148,8 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
       const int8_t* vr = vq + off + lane * VPL;
       float vv[VPL];
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) vv[i] = qg::kv_code<BITS>(static_cast<uint8_t>(vr[i]), rhi);
+      for (int i = 0; i < VPL; ++i)
+        vv[i] = lane * VPL + i < d ? qg::kv_code<BITS>(static_cast<uint8_t>(vr[i]), rhi) : 0.f;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float pj = pbuf[warp][g][jj];
@@ -159,7 +171,7 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
   }
   __syncthreads();
   for (int i = threadIdx.x; i < G * D; i += kWarps * 32) {
-    const int g = i / D, d = i % D;
+    const int g = i / D, c = i % D;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w][g]);
@@ -168,7 +180,7 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
     for (int w = 0; w < kWarps; ++w) {
       const float f = expf(wm[w][g] - mx);
       l += wl[w][g] * f;
-      o += wacc[w][g][d] * f;
+      o += wacc[w][g][c] * f;
     }
     out[static_cast<size_t>(bh) * G * D + i] = o / fmaxf(l, 1e-30f);
   }
@@ -177,13 +189,13 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
 template <int BITS, int D>
 cudaError_t launch_d(const float* q, const int8_t* kq, const float* kc, const int8_t* vq,
                      const float* vc, const int* pt, const int* len, float* out, int B,
-                     int hkv, int G, int page, int pps, float scale, cudaStream_t s) {
+                     int hkv, int G, int page, int pps, int d, float scale, cudaStream_t s) {
   const dim3 grid(B * hkv), block(kWarps * 32);
   switch (G) {
-    case 1: paged_decode_kernel<BITS, D, 1><<<grid, block, 0, s>>>(q, kq, kc, vq, vc, pt, len, out, hkv, page, pps, scale); break;
-    case 2: paged_decode_kernel<BITS, D, 2><<<grid, block, 0, s>>>(q, kq, kc, vq, vc, pt, len, out, hkv, page, pps, scale); break;
-    case 4: paged_decode_kernel<BITS, D, 4><<<grid, block, 0, s>>>(q, kq, kc, vq, vc, pt, len, out, hkv, page, pps, scale); break;
-    case 8: paged_decode_kernel<BITS, D, 8><<<grid, block, 0, s>>>(q, kq, kc, vq, vc, pt, len, out, hkv, page, pps, scale); break;
+    case 1: paged_decode_kernel<BITS, D, 1><<<grid, block, 0, s>>>(q, kq, kc, vq, vc, pt, len, out, hkv, page, pps, d, scale); break;
+    case 2: paged_decode_kernel<BITS, D, 2><<<grid, block, 0, s>>>(q, kq, kc, vq, vc, pt, len, out, hkv, page, pps, d, scale); break;
+    case 4: paged_decode_kernel<BITS, D, 4><<<grid, block, 0, s>>>(q, kq, kc, vq, vc, pt, len, out, hkv, page, pps, d, scale); break;
+    case 8: paged_decode_kernel<BITS, D, 8><<<grid, block, 0, s>>>(q, kq, kc, vq, vc, pt, len, out, hkv, page, pps, d, scale); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -192,24 +204,27 @@ cudaError_t launch_d(const float* q, const int8_t* kq, const float* kc, const in
 template <int BITS>
 cudaError_t launch_bits(const float* q, const int8_t* kq, const float* kc, const int8_t* vq,
                         const float* vc, const int* pt, const int* len, float* out, int B,
-                        int hkv, int G, int D, int page, int pps, float scale,
+                        int hkv, int G, int D, int page, int pps, int d, float scale,
                         cudaStream_t s) {
-  if (D == 64) return launch_d<BITS, 64>(q, kq, kc, vq, vc, pt, len, out, B, hkv, G, page, pps, scale, s);
-  if (D == 128) return launch_d<BITS, 128>(q, kq, kc, vq, vc, pt, len, out, B, hkv, G, page, pps, scale, s);
+  if (d < 1 || d > D) return cudaErrorInvalidValue;
+  if (D == 32) return launch_d<BITS, 32>(q, kq, kc, vq, vc, pt, len, out, B, hkv, G, page, pps, d, scale, s);
+  if (D == 64) return launch_d<BITS, 64>(q, kq, kc, vq, vc, pt, len, out, B, hkv, G, page, pps, d, scale, s);
+  if (D == 128) return launch_d<BITS, 128>(q, kq, kc, vq, vc, pt, len, out, B, hkv, G, page, pps, d, scale, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q f32 [B, Hkv*G, D]; kq/vq int8 [P, Hkv, rows, D] (rows = page for bits 8,
-// page/2 for bits 4); kc/vc f32 [P, Hkv, 1, page]; page_table int32
+// q f32 [B, Hkv*G, D] (D in {32, 64, 128}, zero past d); kq/vq int8
+// [P, Hkv, rows, d], d <= D (rows = page for bits 8, page/2 for bits 4); kc/vc f32 [P, Hkv, 1, page]; page_table int32
 // [B, pps]; lengths int32 [B]; out f32 [B, Hkv*G, D]. page a multiple of 16.
 // Returns cudaGetLastError().
 extern "C" int qgemm_paged_decode_attention(const void* q, const void* kq, const void* kc,
                                             const void* vq, const void* vc,
                                             const void* page_table, const void* lengths,
                                             void* out, int bits, int B, int hkv, int G, int D,
-                                            int page, int pps, float scale, void* stream) {
+                                            int d, int page, int pps, float scale,
+                                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || hkv <= 0 || pps <= 0 || page < 16 || page % 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -223,9 +238,9 @@ extern "C" int qgemm_paged_decode_attention(const void* q, const void* kq, const
   float* o = static_cast<float*>(out);
   cudaError_t e;
   if (bits == 8)
-    e = launch_bits<8>(qf, k8, kcf, v8, vcf, pt, len, o, B, hkv, G, D, page, pps, scale, s);
+    e = launch_bits<8>(qf, k8, kcf, v8, vcf, pt, len, o, B, hkv, G, D, page, pps, d, scale, s);
   else if (bits == 4)
-    e = launch_bits<4>(qf, k8, kcf, v8, vcf, pt, len, o, B, hkv, G, D, page, pps, scale, s);
+    e = launch_bits<4>(qf, k8, kcf, v8, vcf, pt, len, o, B, hkv, G, D, page, pps, d, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -13,12 +13,11 @@ the model's device unless the caller hands them in (``batches``).
 
 Usage (on the GPU; ``--device cpu`` runs the plain PyTorch path):
 
-    python -m qgemm_tpu_torch.examples.train_gpt_lm --d-model 128 --heads 2 \\
+    python -m qgemm_tpu_torch.examples.train_gpt_lm [--d-model 128 --heads 4] \\
         [--steps 1500] [--seq-len 128] [--ckpt model.npz]
 
-The defaults are the JAX example's: ``--d-model 128 --heads 4`` gives a
-head_dim of 32, which kernels K3 and K7 do not take (64 or 128), so on the
-GPU that configuration raises.
+The defaults are the JAX example's: ``--d-model 128 --heads 4``, a head_dim
+of 32, which K3 and K7 take at their 32-wide instantiation.
 """
 
 from __future__ import annotations

@@ -14,7 +14,11 @@ K5 has two wrappers, ``paged_decode_attention.paged_decode_attention`` and
 ``paged_decode_attention.paged_decode_attention_ragged``, each with its own
 count; K6's is ``paged_context_attention.paged_context_attention``;
 K8's is ``expert_matmul.grouped_quantized_matmul`` and K9's
-``col_quantize.col_quantize``.
+``col_quantize.col_quantize``. The op layer's row kernels are
+``softmax.softmax`` (row 14) and ``layernorm.layernorm_residual`` (row 13);
+the int8 flash attention's wrapper is
+``int8_flash_attention.flash_attention_int8`` (row 12; its launch is
+``int8_flash_attention.int8_flash_attention_cuda``).
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ from __future__ import annotations
 def _launchers() -> dict:
     from qgemm_tpu_torch.ops.cuda import (col_quantize, decode_attention, expert_matmul,
                                           flash_attention, flash_attention_bwd,
+                                          int8_flash_attention, layernorm,
                                           paged_context_attention, paged_decode_attention,
-                                          quantized_matmul, w4a8_matmul)
+                                          quantized_matmul, softmax, w4a8_matmul)
     return {"quantized_matmul": quantized_matmul.quantized_matmul_cuda,
             "decode_attention": decode_attention.decode_attention,
             "flash_attention": flash_attention.flash_attention_fwd,
@@ -35,7 +40,10 @@ def _launchers() -> dict:
             "paged_context_attention": paged_context_attention.paged_context_attention,
             "flash_attention_bwd": flash_attention_bwd.flash_attention_bwd,
             "expert_matmul": expert_matmul.grouped_quantized_matmul,
-            "col_quantize": col_quantize.col_quantize}
+            "col_quantize": col_quantize.col_quantize,
+            "softmax": softmax.softmax,
+            "layernorm": layernorm.layernorm_residual,
+            "int8_flash_attention": int8_flash_attention.int8_flash_attention_cuda}
 
 
 def reset_launch_counts() -> None:

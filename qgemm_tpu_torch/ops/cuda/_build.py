@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "qgemm_tpu_torch"
 KERNELS = ("quantized_matmul", "decode_attention", "flash_attention", "w4a8_matmul",
            "paged_decode_attention", "paged_context_attention", "flash_attention_bwd",
-           "expert_matmul", "col_quantize")
+           "expert_matmul", "col_quantize", "softmax", "layernorm", "int8_flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

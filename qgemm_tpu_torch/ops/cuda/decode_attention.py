@@ -16,7 +16,7 @@ import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
 from qgemm_tpu_torch.ops.kv_cache import QRANGE
-from qgemm_tpu_torch.ops.validation import check, check_rank
+from qgemm_tpu_torch.ops.validation import check, check_rank, pad_last, padded_head_dim
 
 _NEG_INF = -1e30
 _KV_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -39,11 +39,12 @@ def _check(q, k_cache, v_cache, lengths, kc, vc):
           "an int8 cache needs kc/vc scales; a float cache takes none")
 
 
-def decode_attention_plain(q, k_cache, v_cache, lengths, kc=None, vc=None):
+def decode_attention_plain(q, k_cache, v_cache, lengths, kc=None, vc=None, scale=None):
     """Plain PyTorch version of K2 (and of the TPU kernel's math, without
     its blocking): products in bf16 (int8 cache) or the cache's float
     dtype with f32 sums, per-position scales, length mask, softmax in f32,
-    p * vc/127 cast to the product dtype before the V product."""
+    p * vc/127 cast to the product dtype before the V product; ``scale``
+    defaults to 1/sqrt(D)."""
     b, hq, _, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -52,7 +53,7 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, kc=None, vc=None):
     qg = q[:, :, 0].to(cd).to(torch.float32).reshape(b, hkv, g, d)
     kf = k_cache.to(cd).to(torch.float32)
     vf = v_cache.to(cd).to(torch.float32)
-    sc = torch.matmul(qg, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))  # [B,Hkv,G,S]
+    sc = torch.matmul(qg, kf.transpose(-1, -2)) * (scale or 1.0 / math.sqrt(d))  # [B,Hkv,G,S]
     if quantized:
         sc = sc * (kc[..., 0] * (1.0 / QRANGE))[:, :, None, :]
     pos = torch.arange(s, device=q.device)
@@ -72,7 +73,7 @@ def _lib():
     fn = _build.library("decode_attention").qgemm_decode_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -85,7 +86,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     multiple of Hkv (GQA: query heads i*g..(i+1)*g-1 share KV head i);
     lengths [B] — position j of slot b attends iff j < lengths[b].
     Returns [B, Hq, 1, D] in q's dtype. CPU tensors run the plain version;
-    CUDA tensors launch K2 (D in {64, 128}, g in {1, 2, 4, 8}) or raise."""
+    CUDA tensors launch K2 (D <= 128, g in {1, 2, 4, 8}) or raise."""
     _check(q, k_cache, v_cache, lengths, kc, vc)
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, lengths, kc, vc)
@@ -94,12 +95,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     g = hq // hkv
     check(k_cache.dtype in _KV_DTYPES, f"k_cache: K2 takes int8, bfloat16 or "
           f"float32, got {k_cache.dtype}")
-    check(d in (64, 128), f"K2 takes head_dim 64 or 128, got {d}")
     check(g in (1, 2, 4, 8), f"K2 takes GQA groups 1, 2, 4 or 8, got {g}")
     tensors = [q, k_cache, v_cache, lengths] + ([kc, vc] if kc is not None else [])
     check(all(t.is_cuda and t.device == q.device for t in tensors),
           "decode_attention: all tensors must lie on q's CUDA device")
-    qf = q[:, :, 0].to(torch.float32).contiguous()
+    dp = padded_head_dim(d)
+    qf = pad_last(q[:, :, 0].to(torch.float32), dp)   # the per-call q; never the cache
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     if kc is not None:
@@ -108,14 +109,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         kc_ptr, vc_ptr = kc.data_ptr(), vc.data_ptr()
     else:
         kc_ptr = vc_ptr = None
-    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, hq, dp), dtype=torch.float32, device=q.device)
     rc = _lib()(qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kc_ptr,
                 vc_ptr, lens.data_ptr(), out.data_ptr(), _KV_DTYPES[k_cache.dtype],
-                b, hkv, g, s, d, 1.0 / math.sqrt(d),
+                b, hkv, g, s, dp, d, 1.0 / math.sqrt(d),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("qgemm_decode_attention", rc)
     decode_attention.launches += 1
-    return out[:, :, None, :].to(q.dtype)
+    return out[:, :, None, :d].to(q.dtype)
 
 
 decode_attention.launches = 0

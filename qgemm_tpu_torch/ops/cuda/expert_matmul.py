@@ -18,8 +18,9 @@ import ctypes
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
-from qgemm_tpu_torch.ops.quantize import QRANGE, absmax_quantize, int8_matmul
-from qgemm_tpu_torch.ops.validation import check, check_dtype, check_float, check_rank
+from qgemm_tpu_torch.ops.quantize import QRANGE, absmax_quantize, int8_matmul, k_tile
+from qgemm_tpu_torch.ops.validation import (check, check_dtype, check_float, check_rank,
+                                            pad_last)
 
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,7 +51,8 @@ def grouped_quantized_matmul(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor
     """x [E, C, K] (f32 or bf16) @ per-expert int8 weights (K-major wt
     [E, N, K], scales cw [E, 1, N]) -> f32 [E, C, N], ReLU applied in the
     epilogue with ``relu``. CPU tensors run the plain version; CUDA tensors
-    launch K8 (K a multiple of 16) or raise. Counts each launch in
+    launch K8 or raise (a K that is not a multiple of 16 is zero-padded,
+    x and the weight codes, on that call only). Counts each launch in
     ``grouped_quantized_matmul.launches``."""
     check_rank("x", x, 3)
     check_rank("wt", wt, 3)
@@ -65,15 +67,14 @@ def grouped_quantized_matmul(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor
     if not x.is_cuda:
         return grouped_quantized_matmul_plain(x, wt, cw, relu)
     check(x.dtype in X_DTYPES, f"x: K8 takes float32 or bfloat16, got {x.dtype}")
-    check(k % 16 == 0, f"K8 needs K % 16 == 0, got K={k}")
     check(x.device == wt.device == cw.device, "x, wt and cw must lie on one CUDA device")
     out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
     if c == 0:
         return out
-    x = x.contiguous()
+    k = k_tile(k)
+    x, wt = pad_last(x, k), pad_last(wt, k)
     if x.data_ptr() % 16:
         x = x.clone()
-    wt = wt.contiguous()
     cw = cw.to(torch.float32).contiguous()
     cx = torch.empty((e * c,), dtype=torch.float32, device=x.device)
     rc = _lib()(x.data_ptr(), X_DTYPES[x.dtype], wt.data_ptr(), cw.data_ptr(), cx.data_ptr(),

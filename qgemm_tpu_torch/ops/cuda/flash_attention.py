@@ -14,27 +14,29 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
 from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
-from qgemm_tpu_torch.ops.validation import check, check_attention_4d
+from qgemm_tpu_torch.ops.validation import (check, check_attention_4d, pad_last,
+                                            padded_head_dim)
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = False):
+                          causal: bool = False, scale: Optional[float] = None):
     """Plain PyTorch version of K3 (the TPU kernel's math without its
     blocking): products in the input dtype with f32 sums, masked entries
     p = 0 (k >= Sk; k > q when causal), P cast to V's dtype for the second
-    product. Returns (O [B, H, Sq, Dv] in q's dtype, lse f32 [B, H, Sq])."""
-    d = q.shape[-1]
+    product; ``scale`` defaults to 1/sqrt(D). Returns (O [B, H, Sq, Dv] in
+    q's dtype, lse f32 [B, H, Sq])."""
     sq, sk = q.shape[2], k.shape[2]
     s = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) \
-        * (1.0 / math.sqrt(d))
+        * (scale or 1.0 / math.sqrt(q.shape[-1]))
     if causal:
         mask = (torch.arange(sk, device=q.device)[None, :]
                 <= torch.arange(sq, device=q.device)[:, None])
@@ -59,10 +61,11 @@ def _lib():
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False):
-    """q [B, H, Sq, D], k/v [B, H, Sk, D] -> (O [B, H, Sq, D], lse f32
-    [B, H, Sq]); causal means key j attends query i iff j <= i. CPU tensors
-    run the plain version; CUDA tensors launch K3 (f32 or bf16, D in
-    {64, 128}, Dv == D) or raise."""
+    """q [B, H, Sq, D], k [B, H, Sk, D], v [B, H, Sk, Dv] -> (O [B, H, Sq, Dv],
+    lse f32 [B, H, Sq]); causal means key j attends query i iff j <= i. CPU
+    tensors run the plain version; CUDA tensors launch K3 (f32 or bf16, D
+    and Dv up to 128: q, k and v are zero-padded to the kernel's width
+    when D or Dv is not 32, 64 or 128, or they differ) or raise."""
     check_attention_4d(q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
@@ -71,20 +74,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check(q.dtype in _DTYPES and k.dtype == v.dtype == q.dtype,
           f"K3 takes float32 or bfloat16 q/k/v of one dtype, got "
           f"{q.dtype}/{k.dtype}/{v.dtype}")
-    check(d in (64, 128) and v.shape[3] == d,
-          f"K3 takes head_dim 64 or 128 with Dv == D, got {d}/{v.shape[3]}")
     check(k.is_cuda and v.is_cuda and q.device == k.device == v.device,
           "flash_attention: q, k and v must lie on one CUDA device")
     check(b * h <= 65535, f"K3 takes at most 65535 batch*heads, got {b * h}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dv = v.shape[3]
+    dp = padded_head_dim(max(d, dv))
+    q, k, v = (pad_last(t, dp) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), _DTYPES[q.dtype], b * h, sq, sk, d, int(causal),
+                lse.data_ptr(), _DTYPES[q.dtype], b * h, sq, sk, dp, int(causal),
                 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("qgemm_flash_attention_fwd", rc)
     flash_attention_fwd.launches += 1
-    return o, lse
+    return (o if dp == dv else o[..., :dv].contiguous()), lse
 
 
 flash_attention_fwd.launches = 0

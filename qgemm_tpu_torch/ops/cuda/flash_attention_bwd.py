@@ -12,27 +12,29 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
-from qgemm_tpu_torch.ops.validation import check, check_attention_4d
+from qgemm_tpu_torch.ops.validation import (check, check_attention_4d, pad_last,
+                                            padded_head_dim)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
-                              causal: bool = False):
+                              causal: bool = False, scale: Optional[float] = None):
     """Plain PyTorch version of K7 (the TPU kernels' math without their
     blocking): P = exp(s * scale - lse) with the forward's causal mask,
     delta = rowsum(dO * O) and dP = dO V^T in f32, dS = P (dP - delta) scale;
     P is cast to dO's dtype for dV = P^T dO and dS to the input dtype for
     dQ = dS K and dK = dS^T Q, each product summed in f32. Returns
-    (dQ, dK, dV) in the dtypes of q, k and v."""
+    (dQ, dK, dV) in the dtypes of q, k and v; ``scale`` defaults to 1/sqrt(D)."""
     f32 = torch.float32
-    sq, sk, d = q.shape[2], k.shape[2], q.shape[-1]
-    scale = 1.0 / math.sqrt(d)
+    sq, sk = q.shape[2], k.shape[2]
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, gf = (t.to(f32) for t in (q, k, v, g))
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse.to(f32)[..., None])
@@ -65,7 +67,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, H, Sq, D], k/v [B, H, Sk, D], out and its gradient g
     [B, H, Sq, D], lse f32 [B, H, Sq] (the forward's) -> (dQ, dK, dV).
     CPU tensors run the plain version; CUDA tensors launch K7 (f32 or bf16,
-    D in {64, 128}, Dv == D, at most 65535 batch*heads) or raise."""
+    D and Dv up to 128, zero-padded as K3's wrapper pads them, at most
+    65535 batch*heads) or raise."""
     check_attention_4d(q, k, v)
     check(tuple(out.shape) == tuple(q.shape[:3]) + (v.shape[3],)
           and tuple(g.shape) == tuple(out.shape),
@@ -81,21 +84,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check(q.dtype in _DTYPES and all(t.dtype == q.dtype for t in (k, v, out, g)),
           f"K7 takes float32 or bfloat16 q/k/v/out/g of one dtype, got "
           f"{q.dtype}/{k.dtype}/{v.dtype}/{out.dtype}/{g.dtype}")
-    check(d in (64, 128) and v.shape[3] == d,
-          f"K7 takes head_dim 64 or 128 with Dv == D, got {d}/{v.shape[3]}")
     check(all(t.is_cuda and t.device == q.device for t in (k, v, out, lse, g)),
           "flash_attention_bwd: every tensor must lie on q's CUDA device")
     check(b * h <= 65535, f"K7 takes at most 65535 batch*heads, got {b * h}")
-    q, k, v, out, lse, g = (t.contiguous() for t in (q, k, v, out, lse, g))
+    dv_width = v.shape[3]
+    dp = padded_head_dim(max(d, dv_width))
+    q, k, v, out, g = (pad_last(t, dp) for t in (q, k, v, out, g))
+    lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                delta.data_ptr(), _DTYPES[q.dtype], b * h, sq, sk, d, int(causal),
+                delta.data_ptr(), _DTYPES[q.dtype], b * h, sq, sk, dp, int(causal),
                 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("qgemm_flash_attention_bwd", rc)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    if dp != d:
+        dq, dk = dq[..., :d].contiguous(), dk[..., :d].contiguous()
+    return dq, dk, (dv if dp == dv_width else dv[..., :dv_width].contiguous())
 
 
 flash_attention_bwd.launches = 0

@@ -1,0 +1,206 @@
+"""Wrapper of the int8 flash-attention kernel
+(``csrc/int8_flash_attention.cu``), row 12 of the TPU kernel table.
+
+Replaces ``flash_attention_int8`` / ``_int8_flash_kernel`` of
+``qgemm_tpu/ops/pallas/int8_flash_attention.py``: forward-only attention
+whose two dots are int8. The pre-pass is JAX's, in torch ops outside the
+kernel: K less its per-channel mean over the sequence (softmax-invariant),
+Q and K quantized per row on their absmax (floored at 1e-6), V per
+channel, 1/127 folded into the row scales; ``qk_only`` leaves P and V in
+bf16. The kernel's output times V's channel scale is the result.
+
+P is quantized against the running row max at the end of each key tile,
+so its codes depend on the tile width: the kernel's tile is
+``KERNEL_KEY_TILE`` keys, JAX's ``jax_key_block(Sk)``. The plain version
+runs the same blockwise algorithm at a given ``block_k`` (JAX's by
+default). The source note in the .cu file says what bounds the kernel and
+how it is built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from qgemm_tpu_torch.ops.cuda import _build
+from qgemm_tpu_torch.ops.quantize import int8_matmul
+from qgemm_tpu_torch.ops.validation import (check, check_attention_4d, pad_last,
+                                            padded_head_dim)
+
+KERNEL_KEY_TILE = 64
+_NEG_INF = -1e30
+_EPS = 1e-6
+_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def jax_key_block(sk: int) -> int:
+    """The TPU kernel's key block: min(1024, Sk rounded up to 128)."""
+    return min(1024, -(-sk // 128) * 128)
+
+
+class Int8FlashInputs(NamedTuple):
+    """The pre-pass's output: q8, k8 int8 [B, H, S, D]; v8 int8 (or bf16
+    with ``qk_only``) [B, H, Sk, Dv]; sq, sk f32 [B, H, S, 1] row scales
+    with 1/127 folded in; vc f32 [B, H, 1, Dv] (None with ``qk_only``)."""
+    q8: torch.Tensor
+    k8: torch.Tensor
+    v8: torch.Tensor
+    sq: torch.Tensor
+    sk: torch.Tensor
+    vc: Optional[torch.Tensor]
+
+
+def _absmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.clamp_min(x.abs().amax(dim=dim, keepdim=True), _EPS)
+
+
+def _codes(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    return torch.round(x / c * 127.0).to(torch.int8)
+
+
+def center_keys(k: torch.Tensor) -> torch.Tensor:
+    """K in f32 less its per-channel mean over the sequence."""
+    kf = k.to(torch.float32)
+    return kf - kf.mean(dim=2, keepdim=True)
+
+
+def quantize_centered(q: torch.Tensor, kc: torch.Tensor, v: torch.Tensor,
+                      qk_only: bool = False) -> Int8FlashInputs:
+    """The pre-pass after the centering, given the centered K ``kc`` (f32).
+    x / 127 is a multiplication by 1/127, as XLA compiles JAX's division by
+    the constant."""
+    qf = q.to(torch.float32)
+    sq, sk = _absmax(qf, -1), _absmax(kc, -1)
+    q8, k8 = _codes(qf, sq), _codes(kc, sk)
+    if qk_only:
+        v8, vc = v.to(torch.bfloat16), None
+    else:
+        vf = v.to(torch.float32)
+        vc = _absmax(vf, 2)
+        v8 = _codes(vf, vc)
+    return Int8FlashInputs(q8, k8, v8, sq * (1.0 / 127.0), sk * (1.0 / 127.0), vc)
+
+
+def int8_flash_prepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       qk_only: bool = False) -> Int8FlashInputs:
+    """JAX's pre-pass in torch ops (on the tensors' device)."""
+    return quantize_centered(q, center_keys(k), v, qk_only)
+
+
+def int8_flash_blockwise(x: Int8FlashInputs, causal: bool, qk_only: bool, scale: float,
+                         block_k: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's algorithm in plain torch, one key block of ``block_k``
+    keys at a time; returns the kernel's output (before V's channel scale)
+    in ``out_dtype``."""
+    sq_len, sk_len = x.q8.shape[2], x.k8.shape[2]
+    dev = x.q8.device
+    qscale = x.sq * scale                                        # [B, H, Sq, 1]
+    m = torch.full(x.q8.shape[:3] + (1,), _NEG_INF, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(x.q8.shape[:3] + (x.v8.shape[3],), device=dev)
+    qi = torch.arange(sq_len, device=dev)[:, None]
+    for k0 in range(0, sk_len, block_k):
+        k1 = min(sk_len, k0 + block_k)
+        s32 = int8_matmul(x.q8, x.k8[:, :, k0:k1].transpose(-1, -2))
+        s = s32.to(torch.float32) * qscale * x.sk[:, :, k0:k1].transpose(-1, -2)
+        mask = torch.ones((sq_len, k1 - k0), dtype=torch.bool, device=dev)
+        if causal:
+            mask = torch.arange(k0, k1, device=dev)[None, :] <= qi
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), torch.zeros_like(s))
+        alpha = torch.exp(m - m_new)
+        vb = x.v8[:, :, k0:k1]
+        if qk_only:
+            pv = torch.matmul(p.to(torch.bfloat16).to(torch.float32), vb.to(torch.float32))
+            lsum = p.sum(dim=-1, keepdim=True)
+        else:
+            p8 = torch.round(p * 127.0).to(torch.int8)
+            pv = int8_matmul(p8, vb).to(torch.float32)
+            lsum = p8.to(torch.float32).sum(dim=-1, keepdim=True)
+        l = l * alpha + lsum
+        m = m_new
+        acc = acc * alpha + pv
+    o = acc / torch.clamp_min(l, _EPS)
+    if not qk_only:
+        o = o * (1.0 / 127.0)
+    return o.to(out_dtype)
+
+
+def _epilogue(o: torch.Tensor, x: Int8FlashInputs, dtype: torch.dtype) -> torch.Tensor:
+    """V's channel scale, applied once outside the kernel (with int8 V)."""
+    return o if x.vc is None else (o.to(torch.float32) * x.vc).to(dtype)
+
+
+def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               causal: bool = False, qk_only: bool = False,
+                               block_k: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version: the pre-pass, the blockwise algorithm at key
+    blocks of ``block_k`` (default ``jax_key_block(Sk)``), the epilogue.
+    q [B, H, Sq, D], k [B, H, Sk, D], v [B, H, Sk, Dv] -> [B, H, Sq, Dv]
+    in q's dtype."""
+    check_attention_4d(q, k, v)
+    x = int8_flash_prepass(q, k, v, qk_only)
+    o = int8_flash_blockwise(x, causal, qk_only, 1.0 / math.sqrt(q.shape[3]),
+                             block_k or jax_key_block(k.shape[2]), q.dtype)
+    return _epilogue(o, x, q.dtype)
+
+
+def _lib():
+    fn = _build.library("int8_flash_attention").qgemm_int8_flash_attention
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i
+    return fn
+
+
+def int8_flash_attention_cuda(x: Int8FlashInputs, causal: bool, scale: float,
+                              out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch the kernel on a pre-pass's CUDA tensors: the codes are padded
+    to the kernel's head widths (32, 64 or 128) here; returns its output
+    [B, H, Sq, Dv] in ``out_dtype`` (before V's channel scale). Counts each
+    launch in ``int8_flash_attention_cuda.launches``."""
+    b, h, sq_len, d = x.q8.shape
+    sk_len, dv = x.k8.shape[2], x.v8.shape[3]
+    check(out_dtype in _OUT_DTYPES, f"the int8 flash kernel writes float32 or bfloat16, "
+          f"got {out_dtype}")
+    check(b * h <= 65535, f"the int8 flash kernel takes at most 65535 batch*heads, got {b * h}")
+    dp, dvp = padded_head_dim(d), padded_head_dim(dv)
+    q8, k8 = pad_last(x.q8, dp), pad_last(x.k8, dp)
+    v8 = pad_last(x.v8, dvp)
+    sqs, sks = x.sq.contiguous(), x.sk.contiguous()
+    out = torch.empty((b, h, sq_len, dv), dtype=out_dtype, device=q8.device)
+    rc = _lib()(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), sqs.data_ptr(), sks.data_ptr(),
+                out.data_ptr(), _OUT_DTYPES[out_dtype], int(x.vc is not None), b * h,
+                sq_len, sk_len, dp, dvp, dv, int(causal), scale,
+                torch.cuda.current_stream(q8.device).cuda_stream)
+    _build.check_launch("qgemm_int8_flash_attention", rc)
+    int8_flash_attention_cuda.launches += 1
+    return out
+
+
+int8_flash_attention_cuda.launches = 0
+
+
+def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = False, qk_only: bool = False) -> torch.Tensor:
+    """q [B, H, Sq, D], k [B, H, Sk, D], v [B, H, Sk, Dv] (f32 or bf16) ->
+    [B, H, Sq, Dv] in q's dtype: int8 flash attention, causal (key j
+    attends query i iff j <= i) or full; ``qk_only`` quantizes only QK^T.
+    CPU tensors run the plain version; CUDA tensors run the pre-pass and
+    launch the kernel (D, Dv up to 128) or raise."""
+    check_attention_4d(q, k, v)
+    if not q.is_cuda:
+        return flash_attention_int8_plain(q, k, v, causal, qk_only)
+    check(q.dtype in _OUT_DTYPES and k.dtype == v.dtype == q.dtype,
+          f"the int8 flash kernel takes float32 or bfloat16 q/k/v of one dtype, got "
+          f"{q.dtype}/{k.dtype}/{v.dtype}")
+    check(k.is_cuda and v.is_cuda and q.device == k.device == v.device,
+          "flash_attention_int8: q, k and v must lie on one CUDA device")
+    x = int8_flash_prepass(q, k, v, qk_only)
+    o = int8_flash_attention_cuda(x, causal, 1.0 / math.sqrt(q.shape[3]), q.dtype)
+    return _epilogue(o, x, q.dtype)

@@ -18,7 +18,7 @@ import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
 from qgemm_tpu_torch.ops.cuda.paged_decode_attention import check_args, check_kernel_args
-from qgemm_tpu_torch.ops.validation import check
+from qgemm_tpu_torch.ops.validation import check, pad_last, padded_head_dim
 from qgemm_tpu_torch.serving.paged_cache import (PagedKVCache,
                                                  paged_context_attention_reference)
 
@@ -27,7 +27,7 @@ def _lib():
     fn = _build.library("paged_context_attention").qgemm_paged_context_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -39,7 +39,7 @@ def paged_context_attention(q: torch.Tensor, cache: PagedKVCache, lengths: torch
     lengths[b]; the chunk's K/V must already be written. Hq a multiple of
     the pool heads (GQA). Returns [B, Hq, C, D] in q's dtype. CPU tensors
     run the plain version in float32 (the JAX package's CPU path); CUDA
-    tensors launch K6 (D in {64, 128}) or raise."""
+    tensors launch K6 (D <= 128) or raise."""
     check_args(q, cache, lengths)
     b, hq, c, d = q.shape
     hkv = cache.kq.shape[1]
@@ -58,17 +58,18 @@ def paged_context_attention(q: torch.Tensor, cache: PagedKVCache, lengths: torch
           "page_table: K6 reads a contiguous int32 table")
     check(b * hkv <= 65535, f"K6 takes at most 65535 slots x KV heads, got {b * hkv}")
     rows = (hq // hkv) * c
-    qf = q.to(torch.float32).reshape(b, hkv, rows, d).contiguous()
+    dp = padded_head_dim(d)
+    qf = pad_last(q.to(torch.float32).reshape(b, hkv, rows, d), dp)   # never the pools
     lens = lengths.to(torch.int32).contiguous()
     kq, kc, vq, vc = (t.contiguous() for t in (cache.kq, cache.kc, cache.vq, cache.vc))
-    out = torch.empty((b, hkv, rows, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, hkv, rows, dp), dtype=torch.float32, device=q.device)
     rc = _lib()(qf.data_ptr(), kq.data_ptr(), kc.data_ptr(), vq.data_ptr(), vc.data_ptr(),
                 pt.data_ptr(), lens.data_ptr(), offs.data_ptr(), out.data_ptr(),
-                cache.kv_bits, b, hkv, c, rows, d, cache.page_size, pt.shape[1],
+                cache.kv_bits, b, hkv, c, rows, dp, d, cache.page_size, pt.shape[1],
                 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("qgemm_paged_context_attention", rc)
     paged_context_attention.launches += 1
-    return out.reshape(b, hq, c, d).to(q.dtype)
+    return out[..., :d].reshape(b, hq, c, d).to(q.dtype)
 
 
 paged_context_attention.launches = 0

@@ -21,7 +21,7 @@ import math
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
-from qgemm_tpu_torch.ops.validation import check, check_rank
+from qgemm_tpu_torch.ops.validation import check, check_rank, pad_last, padded_head_dim
 from qgemm_tpu_torch.serving.paged_cache import PagedKVCache, paged_attention_reference
 
 
@@ -45,8 +45,7 @@ def check_kernel_args(q: torch.Tensor, cache: PagedKVCache, tensors) -> None:
     """What K5 and K6 take on the card, beyond the shapes: raises on the
     rest rather than running wrong."""
     ps = cache.page_size
-    check(q.shape[3] in (64, 128), f"the paged kernels take head_dim 64 or 128, "
-          f"got {q.shape[3]}")
+    padded_head_dim(q.shape[3])
     check(ps % 16 == 0 and 16 <= ps <= 256,
           f"the paged kernels take page sizes that are multiples of 16 from 16 to "
           f"256, got {ps}")
@@ -78,7 +77,7 @@ def _lib():
     fn = _build.library("paged_decode_attention").qgemm_paged_decode_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -92,17 +91,18 @@ def _launch(q: torch.Tensor, cache: PagedKVCache, lengths: torch.Tensor, entry) 
     check_kernel_args(q, cache, (cache.kq, cache.kc, cache.vq, cache.vc, pt, lengths))
     check(pt.dtype == torch.int32 and pt.is_contiguous(),
           "page_table: K5 reads a contiguous int32 table")
-    qf = q[:, :, 0].to(torch.float32).contiguous()
+    dp = padded_head_dim(d)
+    qf = pad_last(q[:, :, 0].to(torch.float32), dp)   # the per-call q; never the pools
     lens = lengths.to(torch.int32).contiguous()
     kq, kc, vq, vc = (t.contiguous() for t in (cache.kq, cache.kc, cache.vq, cache.vc))
-    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, hq, dp), dtype=torch.float32, device=q.device)
     rc = _lib()(qf.data_ptr(), kq.data_ptr(), kc.data_ptr(), vq.data_ptr(), vc.data_ptr(),
-                pt.data_ptr(), lens.data_ptr(), out.data_ptr(), cache.kv_bits, b, hkv, g, d,
-                cache.page_size, pt.shape[1], 1.0 / math.sqrt(d),
+                pt.data_ptr(), lens.data_ptr(), out.data_ptr(), cache.kv_bits, b, hkv, g, dp,
+                d, cache.page_size, pt.shape[1], 1.0 / math.sqrt(d),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("qgemm_paged_decode_attention", rc)
     entry.launches += 1
-    return out[:, :, None, :].to(q.dtype)
+    return out[:, :, None, :d].to(q.dtype)
 
 
 def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
@@ -111,7 +111,7 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     pool heads (GQA); lengths [B], position j of slot b attends iff j <
     lengths[b]. Returns [B, Hq, 1, D] in q's dtype. CPU tensors run the
     plain version in float32 (the JAX package's CPU path); CUDA tensors
-    launch K5 (D in {64, 128}, g in {1, 2, 4, 8}) or raise."""
+    launch K5 (D <= 128, g in {1, 2, 4, 8}) or raise."""
     _check(q, cache, lengths)
     if not q.is_cuda:
         return paged_attention_reference(q, cache, lengths, compute_dtype=torch.float32)

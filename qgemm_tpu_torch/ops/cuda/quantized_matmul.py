@@ -35,7 +35,7 @@ def _lib():
 def quantized_matmul_cuda(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor,
                           rounding: str) -> torch.Tensor:
     """Launch K1 on checked CUDA tensors: x [m, k] f32/bf16, K-major int8
-    weights wt [n, k] (k % 16 == 0), per-column scales cw [1, n] -> f32
+    weights wt [n, k] (k % 16 == 0: the caller pads K), per-column scales cw [1, n] -> f32
     [m, n]. Counts each launch in ``quantized_matmul_cuda.launches``."""
     if not (x.is_cuda and x.device == wt.device == cw.device):
         raise ValueError("x, wt and cw must lie on one CUDA device")

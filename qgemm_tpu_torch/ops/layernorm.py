@@ -26,3 +26,11 @@ def layernorm_residual(x: torch.Tensor, residual: torch.Tensor, gamma=None,
                        beta=None, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm(x + residual) — the transformer block's add+norm."""
     return layernorm(x + residual, gamma=gamma, beta=beta, eps=eps)
+
+
+def layernorm_reference_semantics(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """The reference kernel's own math, (x - mean) / var (population
+    variance, no eps, no affine), for parity tests only."""
+    mean = x.mean(dim=axis, keepdim=True)
+    var = torch.square(x - mean).mean(dim=axis, keepdim=True)
+    return (x - mean) / var

@@ -33,7 +33,7 @@ from qgemm_tpu_torch.ops.cuda import quantized_matmul as _k1
 from qgemm_tpu_torch.ops.cuda import w4a8_matmul as _k4
 from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize
 from qgemm_tpu_torch.ops.validation import (check, check_dtype, check_float,
-                                            check_matmul_2d, check_rank)
+                                            check_matmul_2d, check_rank, pad_last)
 
 QRANGE = 127.0
 W4RANGE = 7.0
@@ -113,11 +113,29 @@ def quantized_matmul_plain(x: torch.Tensor, wq: QuantizedWeight,
     return dequantize(int8_matmul(xq, wq.q), cx, wq.c)
 
 
+def k_tile(k: int) -> int:
+    """K rounded up to the 16 that K1 and K8 step by. The wrappers zero-pad
+    x and the weight codes to it: a zero changes neither a row's absmax nor
+    an int32 sum, so the product keeps its bits."""
+    return -(-k // 16) * 16
+
+
+def quantized_matmul_xla(x: torch.Tensor, w: torch.Tensor, rounding: str = "nearest",
+                         qrange: float = QRANGE) -> torch.Tensor:
+    """The composition of the pipeline's steps in plain torch (JAX's
+    ``quantized_matmul_xla``, the oracle of its kernels): both operands
+    quantized in their own dtype, an exact int32 product, the dequant."""
+    xq, cx = absmax_quantize(x, axis=-1, rounding=rounding, qrange=qrange)
+    wq, cw = absmax_quantize(w, axis=0, rounding=rounding, qrange=qrange)
+    return dequantize(int8_matmul(xq, wq), cx, cw, qrange)
+
+
 def quantized_matmul_prequant(x: torch.Tensor, wq: QuantizedWeight,
                               rounding: str = "nearest") -> torch.Tensor:
     """Serving path: weights already int8, activations quantized per call.
     x [m, k] float -> f32 [m, n]. CPU tensors run the plain version; CUDA
-    tensors launch K1 (x f32 or bf16, k a multiple of 16) or raise."""
+    tensors launch K1 (x f32 or bf16) or raise. A k that is not a multiple
+    of 16 is zero-padded (x and the weight codes) on that call only."""
     check_matmul_2d(x, wq.q, "x", "wq.q")
     check_float("x", x)
     check_dtype("wq.q", wq.qt, torch.int8)
@@ -128,8 +146,8 @@ def quantized_matmul_prequant(x: torch.Tensor, wq: QuantizedWeight,
     if not x.is_cuda:
         return quantized_matmul_plain(x, wq, rounding)
     check(x.dtype in _k1.X_DTYPES, f"x: K1 takes float32 or bfloat16, got {x.dtype}")
-    check(x.shape[1] % 16 == 0, f"K1 needs k % 16 == 0, got k={x.shape[1]}")
-    return _k1.quantized_matmul_cuda(x, wq.qt, wq.c, rounding)
+    kp = k_tile(x.shape[1])
+    return _k1.quantized_matmul_cuda(pad_last(x, kp), pad_last(wq.qt, kp), wq.c, rounding)
 
 
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor,

@@ -49,3 +49,19 @@ def check_attention_4d(q, k, v) -> None:
     check(k.shape[2] == v.shape[2],
           f"k length {k.shape[2]} != v length {v.shape[2]}")
 
+
+def padded_head_dim(d: int) -> int:
+    """The head width an attention kernel is compiled for that holds ``d``:
+    32, 64 or 128 (the kernels take any d up to 128; above it they raise)."""
+    check(1 <= d <= 128, f"the attention kernels take head_dim 1 to 128, got {d}")
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` contiguous with its last axis zero-padded to ``width`` (no copy
+    beyond ``contiguous`` when it already has that width): how the
+    wrappers widen K for K1/K8 and head widths for the attention kernels,
+    as the JAX wrappers pad before their kernels."""
+    if t.shape[-1] != width:
+        t = torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+    return t.contiguous()

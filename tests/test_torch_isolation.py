@@ -19,8 +19,11 @@ from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention
 from qgemm_tpu_torch.ops.cuda.expert_matmul import grouped_quantized_matmul
 from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
 from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
+from qgemm_tpu_torch.ops.cuda.int8_flash_attention import flash_attention_int8
+from qgemm_tpu_torch.ops.cuda.layernorm import layernorm_residual
 from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
 from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention
+from qgemm_tpu_torch.ops.cuda.softmax import softmax
 from qgemm_tpu_torch.ops.kv_cache import quantize_kv
 from qgemm_tpu_torch.ops.quantize import (quantize_weights, quantize_weights_int4,
                                           quantized_matmul, quantized_matmul_prequant,
@@ -47,7 +50,10 @@ def test_port_imports_no_jax():
     for m in ("qgemm_tpu_torch.ops.cuda.flash_attention_bwd", "qgemm_tpu_torch.ops.cross_entropy",
               "qgemm_tpu_torch.models.optim", "qgemm_tpu_torch.utils.checkpoint",
               "qgemm_tpu_torch.examples.train_gpt_lm", "qgemm_tpu_torch.models.moe",
-              "qgemm_tpu_torch.ops.cuda.expert_matmul", "qgemm_tpu_torch.ops.cuda.col_quantize"):
+              "qgemm_tpu_torch.ops.cuda.expert_matmul", "qgemm_tpu_torch.ops.cuda.col_quantize",
+              "qgemm_tpu_torch.ops.cuda.softmax", "qgemm_tpu_torch.ops.cuda.layernorm",
+              "qgemm_tpu_torch.ops.cuda.int8_flash_attention", "qgemm_tpu_torch.ops.elemwise",
+              "qgemm_tpu_torch.ops.reduction", "qgemm_tpu_torch.ops.matmul"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -119,13 +125,19 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     assert grouped_quantized_matmul(torch.randn(3, 5, 64, generator=g), qt, c,
                                     relu=True).shape == (3, 5, 24)
     assert quantized_matmul(x, torch.randn(64, 24, generator=g)).shape == (4, 24)
+    assert quantized_matmul(x[:, :3], torch.randn(3, 2, generator=g)).shape == (4, 2)
+    assert softmax(x).shape == layernorm_residual(x, x, torch.ones(64)).shape == (4, 64)
+    q32 = torch.randn(1, 2, 5, 32, generator=g)
+    assert flash_attention_int8(q32, q32, torch.randn(1, 2, 5, 48, generator=g),
+                                causal=True).shape == (1, 2, 5, 48)
     assert kernels.launch_counts() == {"quantized_matmul": 0, "decode_attention": 0,
                                        "flash_attention": 0, "w4a8_matmul": 0,
                                        "paged_decode_attention": 0,
                                        "paged_decode_attention_ragged": 0,
                                        "paged_context_attention": 0,
                                        "flash_attention_bwd": 0, "expert_matmul": 0,
-                                       "col_quantize": 0}
+                                       "col_quantize": 0, "softmax": 0, "layernorm": 0,
+                                       "int8_flash_attention": 0}
 
 
 def test_model_cpu_path_launches_no_kernel():
