@@ -5,8 +5,12 @@
 Builds the port's CUDA kernels from qgemm_tpu_torch/csrc, holds each one
 against its plain PyTorch version at the shapes the port once raised on
 (``shape_limits``: K1, K8 and the dynamic GEMM at K not a multiple of 16,
-the attention kernels at head_dim 32 and 2 and Dv != D) and at GPT_6_7B
-shapes (K8 and K9 at the MoE model's, bit for bit), times them, drives the
+the attention kernels at head_dim 32 and 2 and Dv != D), K3 and K7 on
+their bf16 tensor-core route at the tile edges (``flash_edges``: Sq, Sk in
+{1, 63, 64, 65, 129}, D 32, 64, 128, causal and not) and every kernel at
+GPT_6_7B shapes (K8 and K9 at the MoE model's, bit for bit), times them
+(K3 and K7 with their launch plans, SDPA beside them and K7 split into
+its three kernels: ``timing_flash``), drives the
 op layer's three kernels (row softmax, fused residual LayerNorm, int8
 flash attention) at GPT_6_7B's widths with their launch counts
 (``ops_layer``), times them beside their bounds and library calls, runs
@@ -49,6 +53,13 @@ serves the dense int8 run alone, with another checkout's package (an
 earlier commit unpacked by ``git archive``) and this one's, in turns
 (other, this, this, other; ROUNDS times, default 1), each in its own
 process, and prints both sides' decode step times.
+
+    python3 chip_smoke.py --flash-ab OTHER_CHECKOUT [ROUNDS]
+
+times K3 (B 1, H 32, S 512 and B 4, H 32, S 2048; D 128, causal, bf16),
+K7 (B 4, H 32, S 2048) and the ``train`` step with another checkout's
+package and this one's in the same turns, one process each, runs the bf16
+edge grid on both, and prints each run, the medians and their ratios.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -251,8 +263,6 @@ def phase_parity() -> dict:
     """Each kernel against its plain version at the serving shapes."""
     from qgemm_tpu_torch.ops.cuda.decode_attention import (decode_attention,
                                                            decode_attention_plain)
-    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
-                                                          flash_attention_plain)
     from qgemm_tpu_torch.ops.kv_cache import quantize_kv
     from qgemm_tpu_torch.ops.quantize import (dequantize_weights_int4, quantize_weights,
                                               quantize_weights_int4, quantized_matmul_plain,
@@ -371,19 +381,7 @@ def phase_parity() -> dict:
         if not excess(got, ref, 2 ** -7 if cache != "float32" else 0.0) <= tol:
             raise AssertionError(f"K2 {cache} hkv={hkv}: max err {e} > {tol}")
 
-    # K3: bf16 O rounds once on each side (2^-7 relative), p rounds to bf16
-    # relative to a running max (rare one-ulp flips, atol 1e-2); lse sums
-    # unrounded p in f32 (atol 1e-4)
-    for sq, causal in [(8, True), (300, True), (512, True), (2048, True), (300, False)]:
-        q, k, v = (torch.randn((1, 32, sq, 128), generator=g, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
-        o, lse = flash_attention_fwd(q, k, v, causal=causal)
-        ro, rl = flash_attention_plain(q, k, v, causal=causal)
-        el = max_err(lse, rl)
-        e = record("flash_attention", o, ro, sq=sq, causal=causal,
-                   lse_max_abs_err=el, tol=1e-2)
-        if not (excess(o, ro, 2 ** -7) <= 1e-2 and el <= 1e-4):
-            raise AssertionError(f"K3 sq={sq} causal={causal}: O err {e}, lse err {el}")
+    k3_checks(g, record)
 
     # K5, both entries, and K6 against their plain versions in bf16 (q and
     # p * vc/127 rounded where the kernels round): K2's tolerance and
@@ -499,8 +497,9 @@ def k8_k9_checks(g: torch.Generator, record) -> None:
 
 
 # K7 parity cases (B, H, Sq, Sk, D, causal, dtype): the training slice's
-# shape first, then ragged lengths (not multiples of the 64-row blocks or
-# the 32-row tiles), Sq != Sk both ways, float32, head_dim 64
+# shape first, then ragged lengths (not multiples of the 64-row blocks and
+# tiles, nor of the f32 route's 32-row tiles), Sq != Sk both ways, float32,
+# head_dim 64
 K7_CASES = [(4, 32, 2048, 2048, 128, True, "bfloat16"),
             (1, 8, 200, 200, 128, True, "bfloat16"),
             (1, 8, 72, 200, 128, False, "bfloat16"),
@@ -509,6 +508,25 @@ K7_CASES = [(4, 32, 2048, 2048, 128, True, "bfloat16"),
             (1, 8, 300, 300, 128, True, "float32"),
             (2, 4, 333, 333, 64, True, "bfloat16"),
             (1, 8, 130, 97, 64, False, "float32")]
+
+
+def k3_checks(g: torch.Generator, record) -> None:
+    """Kernel K3 (bf16, the tensor-core route) against its plain version at
+    GPT_6_7B's heads. Tolerances: bf16 O rounds once on each side (2^-7
+    relative), p rounds to bf16 relative to a running max (rare one-ulp
+    flips, atol 1e-2); lse sums unrounded p in f32 (atol 1e-4)."""
+    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
+                                                          flash_attention_plain)
+    for sq, causal in [(8, True), (300, True), (512, True), (2048, True), (300, False)]:
+        q, k, v = (torch.randn((1, 32, sq, 128), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        ro, rl = flash_attention_plain(q, k, v, causal=causal)
+        el = max_err(lse, rl)
+        e = record("flash_attention", o, ro, sq=sq, causal=causal,
+                   lse_max_abs_err=el, tol=1e-2)
+        if not (excess(o, ro, 2 ** -7) <= 1e-2 and el <= 1e-4):
+            raise AssertionError(f"K3 sq={sq} causal={causal}: O err {e}, lse err {el}")
 
 
 def k7_checks(g: torch.Generator, record) -> None:
@@ -577,12 +595,8 @@ def phase_timing(errs: dict) -> dict:
     shapes: bench_ms, the median of 20 calls queued back to back behind a
     device sleep, each between its own CUDA events, L2 flushed by a read
     before each."""
-    import torch.nn.functional as F
-
     from qgemm_tpu_torch.ops.cuda.decode_attention import (decode_attention,
                                                            decode_attention_plain)
-    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
-                                                          flash_attention_plain)
     from qgemm_tpu_torch.ops.kv_cache import quantize_kv
     from qgemm_tpu_torch.ops.quantize import (absmax_quantize, dequantize, quantize_weights,
                                               quantize_weights_int4, quantized_matmul_plain,
@@ -670,20 +684,7 @@ def phase_timing(errs: dict) -> dict:
                                **errs["decode_attention"],
                                "shape": f"B={b} H={h} S={s} D={d} lengths={lengths.tolist()}"}
 
-    sq = 512
-    q, k, v = (torch.randn((1, h, sq, d), generator=g, device=dev).to(torch.bfloat16)
-               for _ in range(3))
-    ms = bench_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
-    plain = bench_ms(lambda: flash_attention_plain(q, k, v, causal=True))
-    lib = bench_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    pairs = sq * (sq + 1) // 2
-    bms, by = bound(4 * h * sq * d * 2 + h * sq * 4, h * pairs * 4 * d, BF16_FLOPS)
-    out["flash_attention"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                              "bound_ms": bms, "bound_by": by,
-                              **errs["flash_attention"],
-                              "shape": f"B=1 H={h} S={sq} D={d} causal"}
-
-    out["flash_attention_bwd"] = k7_timing(g, errs)
+    out.update(phase_flash_timing(errs))
 
     # K5 at row 5's shape (K2's above), through the engine's ragged entry,
     # and K6 at one 256-row chunk after 768 resident positions, beside the
@@ -799,27 +800,54 @@ def k8_k9_timing(g: torch.Generator, errs: dict) -> dict:
                                        f"one MoE layer)")}
 
 
-def k7_timing(g: torch.Generator, errs: dict) -> dict:
-    """K7 at the training slice's attention shape (B 4, H 32, S 2048, D 128,
-    causal, bf16: one layer of the ``train`` phase), beside its plain
-    version, the library's backward (``torch.autograd.grad`` through
-    ``scaled_dot_product_attention`` on a kept graph, a yardstick only) and
-    K3's forward at the same shape. Bound: five products of 2 * D flops per
-    attended (query, key) pair, against q, k, v, O, dO and lse read once
-    and dQ, dK, dV written once."""
+def phase_flash_timing(errs: Optional[dict] = None) -> dict:
+    """K3 and K7 on the bf16 tensor-core route, at the main path's shapes:
+    K3 at a prefill (B 1, H 32, S 512, D 128, causal: row 6's shape) and at
+    the ``train`` phase's attention (B 4, H 32, S 2048), each at both query
+    blocks of its plan (the plan's choice is its ``ms``); K7 at the
+    ``train`` shape, split into its three kernels by one profiler trace.
+    Each beside its plain version, SDPA (its forward, or its backward on a
+    kept graph: yardsticks only), its bound and its achieved rate. Bounds:
+    K3 two products and K7 five of 2 * D flops per attended (query, key)
+    pair over 989 TFLOP/s (K7 runs seven, ``flash_attention_bwd.cu``'s
+    note), against each input read once and each output written once over
+    3.35 TB/s."""
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
-    from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
+                                                          flash_attention_plain, flash_fwd_plan)
     from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import (flash_attention_bwd,
-                                                              flash_attention_bwd_plain)
+                                                              flash_attention_bwd_plain,
+                                                              flash_bwd_plan)
     from qgemm_tpu_torch.utils.profiling import bench_ms
-    b, h, s, d = 4, 32, 2048, 128
-    q, k, v, dout = (torch.randn((b, h, s, d), generator=g, device="cuda").to(torch.bfloat16)
+    errs = errs or {}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    bf16, h, d = torch.bfloat16, 32, 128
+    k3 = {}
+    for b, s in ((1, 512), (4, 2048)):
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda").to(bf16)
+                   for _ in range(3))
+        plan = flash_fwd_plan(bf16, b * h, s, s, d)
+        ms = bench_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
+        sdpa = bench_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        flops = 4 * d * b * h * s * (s + 1) // 2
+        bms, by = bound(4 * b * h * s * d * 2 + b * h * s * 4, flops, BF16_FLOPS)
+        k3[s] = {"ms": ms, "plan": plan, "library_ms": sdpa,
+                 "over_sdpa": ms / sdpa, "bound_ms": bms, "bound_by": by,
+                 "bound_share": bms / ms, "achieved_tflops": flops / ms / 1e9,
+                 "shape": f"B={b} H={h} S={s} D={d} causal bf16"}
+        if s == 512:
+            k3[s]["plain_ms"] = bench_ms(lambda: flash_attention_plain(q, k, v, causal=True))
+        del q, k, v
+
+    b, s = 4, 2048
+    q, k, v, dout = (torch.randn((b, h, s, d), generator=g, device="cuda").to(bf16)
                      for _ in range(4))
     o, lse = flash_attention_fwd(q, k, v, causal=True)
     ms = bench_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, True))
     plain = bench_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, dout, True))
-    fwd = bench_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout, retain_graph=True)
@@ -828,18 +856,32 @@ def k7_timing(g: torch.Generator, errs: dict) -> dict:
     except RuntimeError as e:   # the autograd engine held the host back
         print(f"SDPA backward could not be queued ahead: {e}", file=sys.stderr)
         lib, lib_timing = bench_ms(sdpa_bwd, queue_ahead=False), "not queued ahead"
-    pairs = s * (s + 1) // 2
-    bms, by = bound(8 * b * h * s * d * 2 + b * h * s * 4, 10 * b * h * pairs * d, BF16_FLOPS)
-    res = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by,
-           "library_timing": lib_timing,
-           "k3_fwd_ms_same_shape": fwd, "bwd_over_fwd": ms / fwd,
-           "achieved_tflops": 10 * b * h * pairs * d / ms / 1e9,
-           **errs["flash_attention_bwd"],
-           "shape": f"B={b} H={h} S={s} D={d} causal bf16"}
-    emit({"phase": "timing_k7", **res})
+    # K7's time by kernel, from one trace of a few calls (L2 warm)
+    calls = 5
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flash_attention_bwd(q, k, v, o, lse, dout, True)
+        torch.cuda.synchronize()
+    _, by_name, _ = device_spans(prof)
+    split = {part: sum(us for n, us in by_name.items() if key in n) / calls / 1e3
+             for part, key in (("dq_kernel", "flash_bwd_dq"), ("dkv_kernel", "flash_bwd_dkv"),
+                               ("delta_kernel", "delta_kernel"))}
+    flops = 10 * d * b * h * s * (s + 1) // 2
+    bms, by = bound(8 * b * h * s * d * 2 + b * h * s * 4, flops, BF16_FLOPS)
+    k7 = {"ms": ms, "plain_ms": plain, "library_ms": lib, "library_timing": lib_timing,
+          "over_sdpa": ms / lib, "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+          # the rate of the bound's 5 products, and of the 7 the kernels run
+          "achieved_tflops": flops / ms / 1e9, "achieved_tflops_executed": 7 / 5 * flops / ms / 1e9,
+          "plan": flash_bwd_plan(bf16, b * h, s, s, d), "ms_by_kernel_traced": split,
+          "k3_fwd_ms_same_shape": k3[2048]["ms"], "bwd_over_fwd": ms / k3[2048]["ms"],
+          "sdpa_fwd_ms_same_shape": k3[2048]["library_ms"],
+          **errs.get("flash_attention_bwd", {}), "shape": f"B={b} H={h} S={s} D={d} causal bf16"}
     del q, k, v, dout, o, lse, qg, kg, vg, sdpa_out
     torch.cuda.empty_cache()
-    return res
+    row6 = dict(k3[512], **errs.get("flash_attention", {}), at_train_shape=k3[2048])
+    emit({"phase": "timing_flash", "flash_attention": row6, "flash_attention_bwd": k7})
+    return {"flash_attention": row6, "flash_attention_bwd": k7}
 
 
 def device_spans(prof) -> tuple:
@@ -1578,7 +1620,7 @@ def step_profile(fn) -> dict:
             "top_kernels_ms": {n[:80]: v / 1e3 for n, v in top}}
 
 
-def phase_train() -> dict:
+def train_run() -> tuple:
     """The training path at full width: GPT_6_7B's widths (vocab 50272,
     d_model 4096, 32 heads x 128, d_ff 16384, bf16, max_seq_len 2048) at
     ``TRAIN_LAYERS`` layers, random weights from seed 0, one fixed batch of
@@ -1588,8 +1630,7 @@ def phase_train() -> dict:
     step, ``TRAIN_TIMED_STEPS`` steps timed on the host clock (each
     synchronised), then one step traced for the device's idle share. The
     launch counts are set to 0 just before the steps and read just after.
-    Fails unless every loss is finite, the loss falls, and every step
-    launched K3 and K7 once per layer and no other kernel."""
+    Returns (the result line, each step's launches)."""
     from qgemm_tpu_torch.examples.train_gpt_lm import train_step
     from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
     from qgemm_tpu_torch.models.optim import Adam
@@ -1638,14 +1679,22 @@ def phase_train() -> dict:
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
            "peak_mem_gb": round(peak / 2**30, 2), "launches": counts,
            "launches_per_step": per_step[0], "traced_step": prof}
+    del model, params, opt, box, seqs
+    torch.cuda.empty_cache()
+    return res, per_step
+
+
+def phase_train() -> dict:
+    """``train_run``, failing unless every loss is finite, the loss falls,
+    and every step launched K3 and K7 once per layer and no other kernel."""
+    res, per_step = train_run()
     emit(res)
+    losses = res["losses"]
     train_kernel_counts(per_step, TRAIN_LAYERS, "train")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train: a loss is not finite: {losses}")
     if not (losses[TRAIN_TIMED_STEPS] < losses[1] and losses[-1] < losses[0]):
         raise AssertionError(f"train: the loss did not fall: {losses}")
-    del model, params, opt, box, seqs
-    torch.cuda.empty_cache()
     return res
 
 
@@ -1866,6 +1915,101 @@ def phase_shape_limits() -> dict:
     torch.cuda.synchronize()
     res = {"phase": "shape_limits", "n_checks": len(checks), "checks": checks}
     emit(res)
+    return res
+
+
+# K3 and K7 edge cases on the bf16 route: lengths at the tensor-core
+# kernels' tile edges (16-row warps, 64-row blocks and key tiles, 128-row
+# query blocks), every pair of them (Sq != Sk both ways), at each compiled
+# head width, causal and not
+FLASH_EDGE_LENGTHS = (1, 63, 64, 65, 129)
+
+
+def attention_grads_f64(q, k, v, dout, causal: bool) -> tuple:
+    """dQ, dK, dV of sum(attention(q, k, v) * dout) in float64 through torch
+    autograd: the gradient without any of the kernels' bf16 roundings."""
+    q, k, v = (t.double().requires_grad_() for t in (q, k, v))
+    s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        keep = (torch.arange(sk, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None])
+        s = s.masked_fill(~keep, float("-inf"))
+    o = torch.matmul(torch.softmax(s, dim=-1), v)
+    return torch.autograd.grad((o * dout.double()).sum(), (q, k, v))
+
+
+def flash_edge_checks() -> dict:
+    """K3 and K7 (bf16) against their plain versions at every (Sq, Sk) of
+    ``FLASH_EDGE_LENGTHS``, D 32, 64 and 128, causal and not (B 2, H 3),
+    at the parity phase's bf16 tolerances: O beyond 2^-7 relative at most
+    1e-2 and lse at most 1e-4 (``k3_checks``); dQ, dK and dV beyond 2^-7
+    relative at most 1e-3 * max|ref| (``k7_checks``).
+
+    Two cases need more than that rule. Where every row attends one key
+    (Sk 1, or causal at Sq 1) dQ and dK are 0 in exact arithmetic and a
+    tolerance relative to their own max means nothing: there both sides'
+    |dQ| and |dK| must stay under 1e-3 * max|dV|. In short causal rows P is
+    O(1), so one bf16 rounding flip of a dS entry (both sides round dS from
+    f32 values summed in different orders) moves dQ or dK by more than
+    1e-3 * max|ref|: a gradient beyond the rule passes only if its max error
+    against the float64 gradient (``attention_grads_f64``) is no larger than
+    the plain version's plus 1e-3 * max|ref|, i.e. the kernel is as exact as
+    the plain version. Each such pass is listed."""
+    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
+                                                          flash_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import (flash_attention_bwd,
+                                                              flash_attention_bwd_plain)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    bf16, worst, failed, by_f64, n = torch.bfloat16, {}, [], [], 0
+    for d in (32, 64, 128):
+        for sq in FLASH_EDGE_LENGTHS:
+            for sk in FLASH_EDGE_LENGTHS:
+                for causal in (True, False):
+                    q = torch.randn((2, 3, sq, d), generator=g, device="cuda").to(bf16)
+                    k, v = (torch.randn((2, 3, sk, d), generator=g, device="cuda").to(bf16)
+                            for _ in range(2))
+                    dout = torch.randn((2, 3, sq, d), generator=g, device="cuda").to(bf16)
+                    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+                    ro, rl = flash_attention_plain(q, k, v, causal=causal)
+                    errs = {"o": (excess(o, ro, 2 ** -7), 1e-2), "lse": (max_err(lse, rl), 1e-4)}
+                    got = flash_attention_bwd(q, k, v, o, lse, dout, causal)
+                    ref = flash_attention_bwd_plain(q, k, v, o, lse, dout, causal)
+                    exact = attention_grads_f64(q, k, v, dout, causal)
+                    one_key = sk == 1 or (causal and sq == 1)
+                    dv_scale = float(ref[2].float().abs().max())
+                    case = {"sq": sq, "sk": sk, "d": d, "causal": causal}
+                    for name, a, r, x in zip(("dq", "dk", "dv"), got, ref, exact):
+                        if one_key and name != "dv":
+                            errs[name] = (max(float(a.float().abs().max()),
+                                              float(r.float().abs().max())), 1e-3 * dv_scale)
+                            continue
+                        tol = 1e-3 * float(r.float().abs().max())
+                        errs[name] = (excess(a, r, 2 ** -7), tol)
+                        if errs[name][0] > tol:
+                            k_err = float((a.double() - x).abs().max())
+                            p_err = float((r.double() - x).abs().max())
+                            if k_err <= p_err + tol:
+                                by_f64.append(dict(case, out=name, err=errs[name][0], tol=tol,
+                                                   kernel_vs_f64=k_err, plain_vs_f64=p_err))
+                                errs[name] = (k_err - p_err, tol)
+                    for name, (e, tol) in errs.items():
+                        n += 1
+                        worst[name] = max(worst.get(name, float("-inf")), e - tol)
+                        if not e <= tol:
+                            failed.append(dict(case, out=name, err=e, tol=tol))
+    return {"phase": "flash_edges", "checks": n, "lengths": list(FLASH_EDGE_LENGTHS),
+            "worst_err_minus_tol": worst, "held_by_f64": by_f64, "failed": failed}
+
+
+def phase_flash_edges() -> dict:
+    """``flash_edge_checks``, failing if any check failed."""
+    res = flash_edge_checks()
+    emit(res)
+    if res["failed"]:
+        raise AssertionError(f"flash_edges: {len(res['failed'])} of {res['checks']} checks "
+                             f"failed, first {res['failed'][0]}")
     return res
 
 
@@ -2101,32 +2245,39 @@ def dense_step_child(tree: str) -> None:
           "decode_profile": profile_decode(engine, rng)})
 
 
-def dense_step_ab(other: str, rounds: int = 1) -> None:
-    """The dense int8 serving run of checkout ``other`` (an earlier commit,
-    unpacked by ``git archive``) against this one's: each side in its own
-    process (``dense_step_child``), in turns (other, this, this, other,
-    ``rounds`` times) so that drift of the host's speed falls on both
-    alike. Prints each run and the means as JSON lines; fails if a run
-    fails."""
+def ab_runs(child: str, label: str, other: str, rounds: int, timeout: int) -> tuple:
+    """Run ``chip_smoke.py CHILD TREE`` for checkout ``other`` (an earlier
+    commit, unpacked by ``git archive``) and this one, each in its own
+    process, in turns (other, this, this, other, ``rounds`` times) so that
+    drift of the host's or the card's speed falls on both alike. Emits each
+    run (the child's last line) as a JSON line of phase ``label``; fails if
+    a run fails.
+    Returns (the two trees, the order, each side's runs)."""
     here = Path(__file__).resolve()
     trees = {"other": Path(other).resolve(), "this": here.parent}
     runs = {"other": [], "this": []}
     order = ["other", "this", "this", "other"] * rounds
     for name in order:
-        proc = subprocess.run([sys.executable, str(here), "--dense-step-child",
-                               str(trees[name])], capture_output=True, text=True,
-                              timeout=600, check=False)
+        proc = subprocess.run([sys.executable, str(here), child, str(trees[name])],
+                              capture_output=True, text=True, timeout=timeout, check=False)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
-            raise AssertionError(f"dense step run of {trees[name]} exited {proc.returncode}")
+            raise AssertionError(f"{child} run of {trees[name]} exited {proc.returncode}")
         runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        emit({"phase": "dense_step_run", "side": name, **runs[name][-1]})
+        emit({"phase": label, "side": name, **runs[name][-1]})
+    return {k: str(v) for k, v in trees.items()}, order, runs
+
+
+def dense_step_ab(other: str, rounds: int = 1) -> None:
+    """The dense int8 serving run of checkout ``other`` against this one's
+    (``dense_step_child`` in ``ab_runs``' turns). Prints each run and the
+    means, medians and their ratios as JSON lines."""
+    trees, order, runs = ab_runs("--dense-step-child", "dense_step_run", other, rounds, 600)
     keys = {"decode_step_ms_mean": lambda r: r["decode_step_ms_mean"],
             "steady_wall_ms_per_step": lambda r: r["decode_profile"]["wall_ms_per_step_untraced"],
             "steady_kernel_ms_per_step": lambda r: r["decode_profile"]["kernel_ms_per_step"],
             "tokens_per_s": lambda r: r["stats"]["tokens_per_s"]}
-    res = {"phase": "dense_step_ab", "order": order,
-           "trees": {k: str(v) for k, v in trees.items()}}
+    res = {"phase": "dense_step_ab", "order": order, "trees": trees}
     for stat in ("mean", "median"):
         agg = {side: {k: float(getattr(np, stat)([f(r) for r in rs])) for k, f in keys.items()}
                for side, rs in runs.items()}
@@ -2136,6 +2287,62 @@ def dense_step_ab(other: str, rounds: int = 1) -> None:
     emit(res)
 
 
+def flash_child(tree: str) -> None:
+    """One side of ``--flash-ab``: with the kernels and the qgemm_tpu_torch
+    package of checkout ``tree``, K3 at B 1, H 32, S 512 and at B 4, H 32,
+    S 2048 (D 128, causal, bf16), K7 at the latter, the ``train`` step
+    (``train_run``: median wall time of the timed steps and the traced
+    step's device time) and the bf16 edge grid (``flash_edge_checks``,
+    reported, not raised). Prints one JSON line."""
+    root = Path(tree).resolve()
+    sys.path.insert(0, str(root))
+    import qgemm_tpu_torch
+    if Path(qgemm_tpu_torch.__file__).resolve().parents[1] != root:
+        raise AssertionError(f"imported {qgemm_tpu_torch.__file__}, not {root}'s package")
+    from qgemm_tpu_torch.ops.cuda import _build
+    from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    _build.build(["flash_attention", "flash_attention_bwd"])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    res = {"tree": str(root)}
+    for b, s in ((1, 512), (4, 2048)):
+        q, k, v, dout = (torch.randn((b, 32, s, 128), generator=g, device="cuda")
+                         .to(torch.bfloat16) for _ in range(4))
+        res[f"k3_ms_b{b}_s{s}"] = bench_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
+        if s == 2048:
+            o, lse = flash_attention_fwd(q, k, v, causal=True)
+            res["k7_ms_b4_s2048"] = bench_ms(
+                lambda: flash_attention_bwd(q, k, v, o, lse, dout, True))
+            del o, lse
+        del q, k, v, dout
+    torch.cuda.empty_cache()
+    train, _ = train_run()
+    res.update(train_step_wall_ms_median=train["step_ms_median"],
+               train_step_device_ms=train["traced_step"]["kernel_ms"],
+               train_step_wall_ms_traced=train["traced_step"]["wall_ms_traced"],
+               train_kernel_ms_by_family=train["traced_step"]["kernel_ms_by_family"],
+               train_losses=train["losses"])
+    edges = flash_edge_checks()
+    res["edges"] = {k: edges[k] for k in ("checks", "worst_err_minus_tol", "held_by_f64",
+                                          "failed")}
+    emit(res)
+
+
+def flash_ab(other: str, rounds: int = 1) -> None:
+    """K3, K7 and the ``train`` step of checkout ``other`` against this
+    one's (``flash_child`` in ``ab_runs``' turns). Prints each run, the
+    medians and the speed-ups."""
+    trees, order, runs = ab_runs("--flash-child", "flash_run", other, rounds, 900)
+    keys = ("k3_ms_b1_s512", "k3_ms_b4_s2048", "k7_ms_b4_s2048", "train_step_wall_ms_median",
+            "train_step_device_ms")
+    med = {side: {k: float(np.median([r[k] for r in rs])) for k in keys}
+           for side, rs in runs.items()}
+    emit({"phase": "flash_ab", "order": order, "trees": trees, "median": med,
+          "speedup_other_over_this": {k: med["other"][k] / med["this"][k] for k in keys}})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -2143,6 +2350,10 @@ def main() -> None:
         return dense_step_child(sys.argv[2])
     if sys.argv[1:2] == ["--dense-step-ab"]:
         return dense_step_ab(sys.argv[2], *map(int, sys.argv[3:4]))
+    if sys.argv[1:2] == ["--flash-child"]:
+        return flash_child(sys.argv[2])
+    if sys.argv[1:2] == ["--flash-ab"]:
+        return flash_ab(sys.argv[2], *map(int, sys.argv[3:4]))
     from qgemm_tpu_torch.ops.cuda import _build   # fails outside the repository
 
     smi = phase_device()
@@ -2152,6 +2363,7 @@ def main() -> None:
             globals()[f"phase_{name}"]()
         return
     phase_shape_limits()
+    phase_flash_edges()
     errs = phase_parity()
     timing = phase_timing(errs)
     ops = phase_ops_layer()
@@ -2253,14 +2465,22 @@ def main() -> None:
                          library_note="yardstick, not a route: the torch f32 column "
                                       "quantize the port ran before K9",
                          library_timing=t["library_timing"])
+        if name == "flash_attention":
+            entry.update(library_note="torch.nn.functional.scaled_dot_product_attention, "
+                                      "causal, bf16: a yardstick only",
+                         plan=t["plan"], achieved_tflops=t["achieved_tflops"],
+                         at_train_shape=t["at_train_shape"])
         if name == "flash_attention_bwd":
             entry.update(also_replaces="qgemm_tpu/ops/pallas/flash_attention.py:302",
                          library_note="the backward of torch.nn.functional."
                                       "scaled_dot_product_attention (torch.autograd.grad "
                                       "on a kept graph), a yardstick only",
-                         library_timing=t["library_timing"],
+                         library_timing=t["library_timing"], plan=t["plan"],
                          k3_fwd_ms_same_shape=t["k3_fwd_ms_same_shape"],
-                         achieved_tflops=t["achieved_tflops"])
+                         sdpa_fwd_ms_same_shape=t["sdpa_fwd_ms_same_shape"],
+                         ms_by_kernel_traced=t["ms_by_kernel_traced"],
+                         achieved_tflops=t["achieved_tflops"],
+                         achieved_tflops_executed=t["achieved_tflops_executed"])
         if name in ("softmax", "layernorm", "int8_flash_attention"):
             entry.update({k: t[k] for k in t if k not in entry and k not in
                           ("max_abs_err", "max_rel_err", "shape")})

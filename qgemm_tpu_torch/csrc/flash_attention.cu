@@ -2,26 +2,56 @@
 // (sm_90a). Returns O and the per-row logsumexp.
 //
 // Replaces _flash_kernel / _flash_attention_fwd_impl of
-// qgemm_tpu/ops/pallas/flash_attention.py. Same math: s = (q . k) * (1/sqrt(D))
-// with products in the input dtype and f32 sums; masked entries (k >= Sk,
-// and k > q when causal) get p = 0; online softmax in f32; P is cast to V's
-// dtype before the second product; O = acc / max(l, 1e-30);
-// lse = m + log(max(l, 1e-30)).
+// qgemm_tpu/ops/pallas/flash_attention.py (pallas_call at :193). Same math
+// and rounding points: s = (q . k) * (1/sqrt(D)) with products exact in f32
+// (bf16 x bf16, or f32 x f32 on the f32 route) and f32 sums, s * scale
+// rounded; masked entries (k >= Sk, and k > q when causal; no offset when
+// Sq != Sk) get p = 0, and the row max starts at -1e30; p = exp(s - m) in
+// f32 and l sums the unrounded p; P is cast to V's dtype before the second
+// product; O = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30)).
 //
-// What bounds it on the H100: at prefill lengths (Sq = Sk = 128..2048,
-// D = 128) the flops — ~4 * Sq * Sk * D per head (half of it when causal)
-// against 3 * S * D input bytes per head. This first kernel runs its two
-// products on the f32 SIMT units, not the tensor cores, so it is far from
-// that bound; wgmma is later work.
+// What bounds it on the H100: the operations at training lengths and
+// nearly so at prefill. Two products of 2 * D flops per attended (query,
+// key) pair against 4 * S * D input and output elements per head: at
+// S 2048, D 128, causal, ~1,000 flops per byte, far above the bf16 ridge
+// (~295); at S 512 the byte bound is the larger, by less than 2x.
 //
-// Design: one block per (64 query rows, batch*head). Q is staged once in
-// shared memory as f32; K and V stream through shared memory in 32-row
-// tiles; each thread owns a 4 x 2 patch of the score tile and a 4 x (D/16)
-// patch of the output accumulator (kept in registers across K tiles). One
-// warp per 8 rows runs the online-softmax update between the products.
-// Causal blocks above the diagonal are never visited (the K loop stops at
-// the tile holding the block's last valid row). Scores never reach device
-// memory: O(S * D) traffic.
+// Two routes, chosen by the wrapper's launch plan (flash_fwd_plan in
+// ops/cuda/flash_attention.py), which passes the route and the dynamic
+// shared memory; the entry refuses a plan that does not match a compiled
+// instantiation.
+//
+//  * bf16, the "mma" route (FlashAttention-2 on mma.sync): one block of 4
+//    warps per (64 query rows, batch*head), the last query blocks (the most
+//    keys when causal) first; each warp owns 16 query rows. Q is copied
+//    once and its A fragments held in registers (ldmatrix). K and V stream
+//    through a two-stage ring of 64-key tiles in shared memory, kept in
+//    bf16, by 16-byte cp.async; the next tile's copies are issued before
+//    this tile's products. Rows are padded by 16 B so that ldmatrix's eight
+//    row addresses fall on distinct banks. S = Q K^T runs on mma.sync
+//    m16n8k16 bf16 -> f32 (K's B fragments by ldmatrix); the online softmax
+//    runs on the accumulator fragments, a row's max and sum reduced over
+//    its quad by __shfl_xor_sync; alpha rescales the O accumulator in
+//    registers; P, rounded to bf16, is the A operand of P V directly (V's
+//    B fragments by ldmatrix.trans). Neither S nor P touches shared memory.
+//    The softmax is what the tensor cores wait on, so exp is one ex2.approx
+//    of (s - m) * log2 e (qg::exp_approx, ~2 ulp; exp(-inf) = 0 gives the
+//    masked p), and only tiles that hold the Sk tail or cross the causal
+//    diagonal compute a mask. Causal: tiles above the block's last row are
+//    never loaded, and a warp whose 16 rows precede a tile skips it (its p
+//    would all be 0, alpha 1). 64-row blocks beat 128-row blocks of 8 warps
+//    at S 512 and at S 2048 on the H100 (PERF.md §6).
+//  * f32, the "simt" route: the first design, unchanged. The tensor cores
+//    take f32 only as TF32 (a 10-bit mantissa), which would break the
+//    port's f32 parity (1e-5 * max; JAX computes f32 products in f32 here
+//    too). One block of 256 threads per (64 query rows, batch*head); Q is
+//    staged once, K and V stream through shared memory in 32-row tiles;
+//    each thread owns a 4 x 2 patch of the score tile and a 4 x (D/16)
+//    patch of O, and one warp per 8 rows runs the online softmax with
+//    expf. It serves the copy-task trainer (GPTConfig's default dtype is
+//    float32) and the f32 parity cases.
+//
+// Scores never reach device memory: O(S * D) traffic on both routes.
 //
 // Head widths: compiled for D in {32, 64, 128} with Dv == D. The wrapper
 // zero-pads q, k and v (per-call tensors) to the D that holds both the
@@ -30,9 +60,11 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
+// ------------------------------------------------------------ f32: SIMT
 constexpr int kBQ = 64, kBK = 32, kThreads = 256;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -209,22 +241,248 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------ bf16: mma.sync
+using bf16 = __nv_bfloat16;
+constexpr int kTileK = 64;   // keys per K/V tile
+
+template <int D> __host__ __device__ constexpr int mma_ld() { return D + 8; }  // bf16 row stride (+16 B)
+constexpr int kMmaBQ = 64, kMmaWarps = 4;   // 4 warps of 16 query rows
+template <int D> constexpr size_t mma_smem_bytes() {
+  // Q, then two stages of K and V tiles
+  return sizeof(bf16) * static_cast<size_t>(mma_ld<D>()) * (kMmaBQ + 4 * kTileK);
+}
+
+// cp.async of rows r0 .. r0 + ROWS - 1 of a [n, D] bf16 matrix into a
+// shared tile of row stride mma_ld<D>(); rows at or past n are zero-filled.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int r0, int n) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  static_assert((ROWS * CH) % NT == 0, "tile copy must divide evenly over the block");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / NT; ++it) {
+    const int i = it * NT + static_cast<int>(threadIdx.x);
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r0 + r < n;
+    qg::cp_async16(qg::smem_addr(dst + r * mma_ld<D>() + c),
+                   src + static_cast<size_t>(ok ? r0 + r : 0) * D + c, ok ? 16 : 0);
+  }
+}
+
+// s *= scale over a warp's 16 x (8 * NS) score fragments (columns from
+// key0 = the tile's first key + 2t); with MASK, keys at or past sk, or past
+// the row when causal, become -inf. mx0 / mx1: this thread's maxima of rows
+// qi0 and qi1.
+template <bool MASK, int NS>
+__device__ __forceinline__ void scale_scores(float (&s)[NS][4], float scale, int key0, int qi0,
+                                             int qi1, int sk, int causal, float& mx0,
+                                             float& mx1) {
+  mx0 = mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * scale;
+      if (MASK) {
+        const int key = key0 + j * 8 + (e & 1), qi = e < 2 ? qi0 : qi1;
+        if (!(key < sk && (!causal || key <= qi))) x = -INFINITY;
+      }
+      s[j][e] = x;
+      if (e < 2) mx0 = fmaxf(mx0, x);
+      else mx1 = fmaxf(mx1, x);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int sq, int sk, int causal, float scale) {
+  constexpr int BQ = kMmaBQ, NT = kMmaWarps * 32, LD = mma_ld<D>();
+  constexpr int KD = D / 16;       // k16 chunks of the head width
+  constexpr int NS = kTileK / 8;   // n8 tiles of a warp's scores
+  constexpr int NO = D / 8;        // n8 tiles of a warp's output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BQ * LD;          // [2][kTileK][LD]
+  bf16* Vs = Ks + 2 * kTileK * LD;  // [2][kTileK][LD]
+
+  // the last query blocks, which attend the most keys when causal, first
+  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int w0 = q0 + warp * 16;                 // the warp's first query row
+  const int qi0 = w0 + (lane >> 2), qi1 = qi0 + 8;  // this thread's two rows
+  const bf16* qb = q + static_cast<size_t>(bh) * sq * D;
+  const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
+
+  int nk = (sk + kTileK - 1) / kTileK;
+  if (causal) nk = min(nk, (min(q0 + BQ, sq) - 1) / kTileK + 1);
+
+  cp_tile<D, BQ, NT>(Qs, qb, q0, sq);
+  cp_tile<D, kTileK, NT>(Ks, kb, 0, sk);
+  cp_tile<D, kTileK, NT>(Vs, vb, 0, sk);
+  qg::cp_async_commit();
+
+  uint32_t qf[KD][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;
+  // ldmatrix row offsets of this lane: A from 16 rows, B from 16 keys
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3), t_col = (lane >> 4) * 8;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1, k0 = kt * kTileK;
+    if (kt + 1 < nk) {
+      cp_tile<D, kTileK, NT>(Ks + (st ^ 1) * kTileK * LD, kb, k0 + kTileK, sk);
+      cp_tile<D, kTileK, NT>(Vs + (st ^ 1) * kTileK * LD, vb, k0 + kTileK, sk);
+    }
+    qg::cp_async_commit();
+    qg::cp_async_wait<1>();   // this tile (and Q) have landed
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        qg::ldmatrix_x4(qf[kk], qg::smem_addr(Qs + (warp * 16 + a_row) * LD + kk * 16 + a_col));
+    }
+    // a warp whose rows all precede the tile (causal) or lie past Sq skips it
+    if (w0 < sq && !(causal && w0 + 15 < k0)) {
+      const bf16* Kt = Ks + st * kTileK * LD;
+      const bf16* Vt = Vs + st * kTileK * LD;
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t b[4];
+          qg::ldmatrix_x4(b, qg::smem_addr(Kt + (jp * 16 + b_row) * LD + kk * 16 + b_col));
+          qg::mma_bf16(s[2 * jp], qf[kk], b);
+          qg::mma_bf16(s[2 * jp + 1], qf[kk], b + 2);
+        }
+      // scale, and mask where the tile holds the Sk tail or crosses the
+      // diagonal; the rows' maxima over the quad
+      float mx0, mx1;
+      if (k0 + kTileK > sk || (causal && k0 + kTileK - 1 > w0))
+        scale_scores<true>(s, scale, k0 + 2 * t, qi0, qi1, sk, causal, mx0, mx1);
+      else
+        scale_scores<false>(s, scale, k0 + 2 * t, qi0, qi1, sk, causal, mx0, mx1);
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = qg::exp_approx(m0 - mn0), a1 = qg::exp_approx(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // p = exp(s - m) in f32, summed unrounded; P rounded to bf16 as the
+      // A fragments of P V (n-tiles 2c and 2c + 1 are k-chunk c)
+      uint32_t pa[NS / 2][4];
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = qg::exp_approx(s[j][e] - (e < 2 ? mn0 : mn1));   // masked: exp(-inf) = 0
+        ps0 += p[0] + p[1];
+        ps1 += p[2] + p[3];
+        pa[j / 2][(j & 1) * 2] = qg::pack_bf16(p[0], p[1]);
+        pa[j / 2][(j & 1) * 2 + 1] = qg::pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        ps0 += __shfl_xor_sync(0xffffffffu, ps0, off);
+        ps1 += __shfl_xor_sync(0xffffffffu, ps1, off);
+      }
+      l0 = l0 * a0 + ps0;
+      l1 = l1 * a1 + ps1;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        acc[j][0] *= a0;
+        acc[j][1] *= a0;
+        acc[j][2] *= a1;
+        acc[j][3] *= a1;
+      }
+#pragma unroll
+      for (int c = 0; c < NS / 2; ++c)
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t b[4];
+          qg::ldmatrix_x4_trans(b, qg::smem_addr(Vt + (c * 16 + t_row) * LD + dp * 16 + t_col));
+          qg::mma_bf16(acc[2 * dp], pa[c], b);
+          qg::mma_bf16(acc[2 * dp + 1], pa[c], b + 2);
+        }
+    }
+    __syncthreads();   // every warp is done with this stage before it is refilled
+  }
+
+  const float l0c = fmaxf(l0, 1e-30f), l1c = fmaxf(l1, 1e-30f);
+  bf16* ob = o + static_cast<size_t>(bh) * sq * D;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (qi0 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(qi0) * D + col) =
+          __floats2bfloat162_rn(acc[j][0] / l0c, acc[j][1] / l0c);
+    if (qi1 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(qi1) * D + col) =
+          __floats2bfloat162_rn(acc[j][2] / l1c, acc[j][3] / l1c);
+  }
+  if (t == 0) {
+    if (qi0 < sq) lse[static_cast<size_t>(bh) * sq + qi0] = m0 + logf(l0c);
+    if (qi1 < sq) lse[static_cast<size_t>(bh) * sq + qi1] = m1 + logf(l1c);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int bh, int sq, int sk, int causal, float scale, int smem,
+                       cudaStream_t s) {
+  constexpr size_t want = mma_smem_bytes<D>();
+  if (static_cast<size_t>(smem) != want) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(want));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((sq + kMmaBQ - 1) / kMmaBQ, bh);
+  flash_fwd_mma_kernel<D><<<grid, kMmaWarps * 32, want, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, sq, sk, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q [BH, Sq, D], k/v [BH, Sk, D], o [BH, Sq, D], D in {32, 64, 128} (dtype 0 = f32, 1 = bf16);
-// lse f32 [BH, Sq]. Returns cudaGetLastError().
+// q [BH, Sq, D], k/v [BH, Sk, D], o [BH, Sq, D], D in {32, 64, 128}; lse f32
+// [BH, Sq]. The launch plan: route 0 (SIMT) takes dtype 0 (f32), route 1
+// (mma) dtype 1 (bf16), both 64 query rows per block; smem is the plan's
+// dynamic shared memory, checked against the
+// instantiation's. Returns cudaGetLastError() (cudaErrorInvalidValue for a
+// plan or shape no instantiation takes).
 extern "C" int qgemm_flash_attention_fwd(const void* q, const void* k, const void* v,
                                          void* o, void* lse, int dtype, int bh, int sq,
-                                         int sk, int D, int causal, float scale,
-                                         void* stream) {
+                                         int sk, int D, int causal, float scale, int route,
+                                         int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535) return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0 && D == 32) return launch<float, 32>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
-  if (dtype == 1 && D == 32) return launch<__nv_bfloat16, 32>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
-  if (dtype == 0 && D == 64) return launch<float, 64>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
-  if (dtype == 0 && D == 128) return launch<float, 128>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
-  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
+  if (route == 0 && dtype == 0) {
+    if (D == 32 && static_cast<size_t>(smem) == smem_bytes<32>())
+      return launch<float, 32>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
+    if (D == 64 && static_cast<size_t>(smem) == smem_bytes<64>())
+      return launch<float, 64>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
+    if (D == 128 && static_cast<size_t>(smem) == smem_bytes<128>())
+      return launch<float, 128>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
+  }
+  if (route == 1 && dtype == 1) {
+    if (D == 32) return launch_mma<32>(q, k, v, o, l, bh, sq, sk, causal, scale, smem, s);
+    if (D == 64) return launch_mma<64>(q, k, v, o, l, bh, sq, sk, causal, scale, smem, s);
+    if (D == 128) return launch_mma<128>(q, k, v, o, l, bh, sq, sk, causal, scale, smem, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,43 +3,76 @@
 // and dO, it computes dQ, dK and dV.
 //
 // Replaces _flash_attention_bwd_impl (_flash_bwd_dq_kernel,
-// _flash_bwd_dkv_kernel, _mask_and_p) of qgemm_tpu/ops/pallas/flash_attention.py.
-// Same math and rounding points: delta = rowsum(dO * O) in f32;
-// P = exp(s * scale - lse) recomputed with the forward's masks (keys >= Sk,
-// query rows >= Sq, and k > q when causal get p = 0); dP = dO V^T in f32;
+// _flash_bwd_dkv_kernel, _mask_and_p; pallas_calls at :372 and :399) of
+// qgemm_tpu/ops/pallas/flash_attention.py. Same math and rounding points:
+// delta = rowsum(dO * O) in f32; P = exp(s * scale - lse) recomputed with
+// the forward's masks (keys >= Sk, query rows >= Sq, and k > q when causal
+// get p = 0), s * scale rounded before the subtraction; dP = dO V^T in f32;
 // dS = P * (dP - delta) * scale in f32, cast to the input dtype before
 // dQ += dS K and dK += dS^T Q; P cast to dO's dtype before dV += P^T dO.
 // Products take input-dtype values and sum in f32.
 //
-// What bounds it on the H100: the flops. Five products of 2 * Sq * Sk * D
-// per head (S recomputed, dP, dV, dQ, dK; about half of the pairs when
-// causal) against 8 * S * D input and output elements per head, so at
-// training lengths (S = 2048, D = 128) it sits far above the bf16 ridge.
-// This first kernel runs the products on the f32 SIMT units, as K3 does,
-// not the tensor cores; wgmma/TMA are later work.
+// What bounds it on the H100: the operations. Five products of 2 * D flops
+// per attended (query, key) pair (S recomputed, dP, dV, dQ, dK; about half
+// of the pairs when causal) against 8 * S * D input and output elements per
+// head: at training lengths (S = 2048, D = 128) far above the bf16 ridge.
+// This kernel does 7 products per pair, not 5: the dQ kernel recomputes S
+// and dP, which the dK/dV kernel computes too. That buys one writer per
+// output element and no atomics, so the result does not depend on
+// scheduling; the bound counts 5, and at best the kernel reaches 5/7 of it.
 //
-// Design, three launches on the caller's stream:
-//   * delta_kernel: one warp per query row, delta = rowsum(dO * O);
-//   * flash_bwd_dq_kernel: one block per (64 query rows, batch*head). Q and
-//     dO are staged once as f32; K and V stream through shared memory in
-//     32-row tiles up to the causal limit; dS goes through shared memory and
-//     each thread keeps a 4 x (D/16) patch of dQ in registers;
-//   * flash_bwd_dkv_kernel: one block per (64 key rows, batch*head). K and V
-//     are staged once; Q, dO, lse and delta stream in 32-row tiles from the
-//     first tile that can attend the block's keys; P and dS go through shared
-//     memory and each thread keeps 4 x (D/16) patches of dK and dV.
-// The tile layout (4 x 2 score patch per thread, f32 rows padded to D + 4)
-// is K3's. Every output element is written by exactly one block: no
-// atomics, so the result does not depend on scheduling.
-#include <type_traits>
-
+// Three launches on the caller's stream, chosen by the wrapper's launch
+// plan (flash_bwd_plan in ops/cuda/flash_attention_bwd.py), which passes
+// the route and both kernels' dynamic shared memory; the entry refuses a
+// plan that does not match a compiled instantiation:
+//   * delta_kernel: one warp per query row, delta = rowsum(dO * O) (about
+//     3 % of the backward at the training shape);
+//   * the dQ kernel: one block per (64 query rows, batch*head), K and V
+//     streamed up to the causal limit, the last query blocks first;
+//   * the dK/dV kernel: one block per (64 key rows, batch*head), Q, dO, lse
+//     and delta streamed from the first query tile that can attend the
+//     block's keys (the first key blocks, which the most queries attend,
+//     come first in the grid).
+//
+//  * bf16, the "mma" route (FlashAttention-2 backward on mma.sync), 4 warps
+//    of 16 rows per block. dQ kernel: Q's and dO's A fragments are held in
+//    registers (ldmatrix); K and V tiles of 64 keys stream through a
+//    two-stage ring in shared memory, kept in bf16, by 16-byte cp.async,
+//    the next tile's copies issued before this tile's products; per half
+//    tile of 32 keys S = Q K^T and dP = dO V^T run on mma.sync m16n8k16 into
+//    registers, dS is formed there and, rounded to bf16, is the A operand of
+//    dQ += dS K (K's B fragments by ldmatrix.trans). dK/dV kernel: K's and
+//    V's A fragments in registers (with both f32 accumulators, ~230-255
+//    registers a thread at D 128 and no spills); Q and dO tiles of 64
+//    queries and their lse and delta stream through the ring; per 16
+//    queries S^T = K Q^T and dP^T = V dO^T on mma.sync, P^T and dS^T in
+//    registers, then dV += bf16(P^T) dO and dK += bf16(dS^T) Q from the
+//    register A operands (dO's and Q's B fragments by ldmatrix.trans).
+//    Rows are padded by 16 B so that ldmatrix's row addresses fall on
+//    distinct banks. Nothing of S, P, dP or dS touches shared memory. A
+//    warp skips the pieces that the causal mask or Sq / Sk empty; only
+//    pieces on the diagonal or a ragged edge compute a mask, and exp is
+//    one ex2.approx (qg::exp_approx), as in K3.
+//  * f32, the "simt" route: the first design, unchanged. The tensor cores
+//    take f32 only as TF32 (a 10-bit mantissa), which would break the
+//    port's f32 parity (1e-5 * max; JAX computes f32 products in f32 here
+//    too); it serves the copy-task trainer (GPTConfig's default dtype is
+//    float32) and the f32 parity cases. 256 threads per block; each thread
+//    owns a 4 x 2 patch of a 64 x 32 score tile and 4 x (D/16) patches of
+//    the outputs; operands are staged as f32 (K3's SIMT layout), and P and
+//    dS go through shared memory.
 //
 // Head widths: compiled for D in {32, 64, 128} with Dv == D; the wrapper
 // zero-pads q, k, v, O and dO to one such D and slices dQ, dK and dV to
 // the true widths (the padded columns of every product are zeros).
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+// ------------------------------------------------------------ f32: SIMT
 
 constexpr int kBR = 64, kBC = 32, kThreads = 256;
 
@@ -339,30 +372,429 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------ bf16: mma.sync
+using bf16 = __nv_bfloat16;
+constexpr int kMmaRows = 64, kMmaThreads = 128;   // 4 warps of 16 rows
+
+template <int D> __host__ __device__ constexpr int mma_ld() { return D + 8; }  // bf16 row stride (+16 B)
+// the resident pair (Q and dO, or K and V), then two stages of the streamed pair
+template <int D> constexpr size_t mma_dq_smem_bytes() {
+  return sizeof(bf16) * static_cast<size_t>(mma_ld<D>()) * 6 * kMmaRows;
+}
+// ... plus two stages of the streamed tile's lse and delta
+template <int D> constexpr size_t mma_dkv_smem_bytes() {
+  return mma_dq_smem_bytes<D>() + sizeof(float) * 4 * kMmaRows;
+}
+
+// cp.async of rows r0 .. r0 + kMmaRows - 1 of a [n, D] bf16 matrix into a
+// shared tile of row stride mma_ld<D>(); rows at or past n are zero-filled.
+template <int D>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int r0, int n) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  static_assert((kMmaRows * CH) % kMmaThreads == 0, "tile copy must divide evenly");
+#pragma unroll
+  for (int it = 0; it < kMmaRows * CH / kMmaThreads; ++it) {
+    const int i = it * kMmaThreads + static_cast<int>(threadIdx.x);
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r0 + r < n;
+    qg::cp_async16(qg::smem_addr(dst + r * mma_ld<D>() + c),
+                   src + static_cast<size_t>(ok ? r0 + r : 0) * D + c, ok ? 16 : 0);
+  }
+}
+
+// ldmatrix row and column offsets of this lane: an A fragment from 16 rows
+// (x4: rows 0-15, columns 0-7 then 8-15), two n8 B fragments from 16 rows
+// of a [n][k] tile, and two n8 B fragments from 16 rows of a [k][n] tile
+// (ldmatrix.trans).
+struct Lane {
+  int a_row, a_col, b_row, b_col, t_row, t_col;
+  __device__ explicit Lane(int lane)
+      : a_row(lane & 15), a_col((lane >> 4) * 8),
+        b_row((lane & 7) + ((lane >> 4) << 3)), b_col(((lane >> 3) & 1) * 8),
+        t_row((lane & 7) + (((lane >> 3) & 1) << 3)), t_col((lane >> 4) * 8) {}
+};
+
+// A warp's two fragment rows (this thread's r0 and r0 + 8) and what masks a
+// (row, column) pair: rows index queries in the dQ kernel and keys in the
+// dK/dV kernel (columns the other), so the causal test flips with them.
+struct Rows {
+  int r0, r1, n_rows, n_cols, causal;
+};
+
+__device__ __forceinline__ bool attends(const Rows& r, int row, int col, bool rows_are_queries) {
+  const int qi = rows_are_queries ? row : col, key = rows_are_queries ? col : row;
+  return row < r.n_rows && col < r.n_cols && (!r.causal || key <= qi);
+}
+
+// dQ kernel: from S and dP fragments (rows are queries; columns col0 + 8j
+// + {0, 1} are keys) the bf16(dS) A fragments, dS = P (dP - delta) * scale
+// with P = exp(s * scale - lse) (s * scale rounded first); with MASK,
+// pairs that do not attend get P = 0.
+template <bool MASK, int NJ>
+__device__ __forceinline__ void ds_fragments(const float (&s)[NJ][4], const float (&dp)[NJ][4],
+                                             uint32_t (&da)[NJ / 2][4], const Rows& r,
+                                             int col0, const float (&lse)[2],
+                                             const float (&dl)[2], float scale) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float p = qg::exp_approx(__fmul_rn(s[j][e], scale) - lse[h]);
+      if (MASK && !attends(r, h ? r.r1 : r.r0, col0 + j * 8 + (e & 1), true)) p = 0.f;
+      ds[e] = p * (dp[j][e] - dl[h]) * scale;
+    }
+    da[j / 2][(j & 1) * 2] = qg::pack_bf16(ds[0], ds[1]);
+    da[j / 2][(j & 1) * 2 + 1] = qg::pack_bf16(ds[2], ds[3]);
+  }
+}
+
+// dK/dV kernel: from S^T and dP^T fragments of 16 keys x 16 queries (rows
+// keys; columns col0 + {0, 1, 8, 9} queries, whose lse and delta are
+// given in that order) the bf16(P^T) and bf16(dS^T) A fragments.
+template <bool MASK>
+__device__ __forceinline__ void pds_fragments(const float (&s)[2][4], const float (&dp)[2][4],
+                                              uint32_t (&pa)[4], uint32_t (&da)[4],
+                                              const Rows& r, int col0, const float (&lse)[4],
+                                              const float (&dl)[4], float scale) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 2 * j + (e & 1);   // index of the column's lse and delta
+      p[e] = qg::exp_approx(__fmul_rn(s[j][e], scale) - lse[c]);
+      if (MASK && !attends(r, e < 2 ? r.r0 : r.r1, col0 + j * 8 + (e & 1), false)) p[e] = 0.f;
+      ds[e] = p[e] * (dp[j][e] - dl[c]) * scale;
+    }
+    pa[2 * j] = qg::pack_bf16(p[0], p[1]);
+    pa[2 * j + 1] = qg::pack_bf16(p[2], p[3]);
+    da[2 * j] = qg::pack_bf16(ds[0], ds[1]);
+    da[2 * j + 1] = qg::pack_bf16(ds[2], ds[3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int sq, int sk, int causal, float scale) {
+  constexpr int LD = mma_ld<D>(), KD = D / 16, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + kMmaRows * LD;
+  bf16* Ks = dOs + kMmaRows * LD;     // [2][kMmaRows][LD]
+  bf16* Vs = Ks + 2 * kMmaRows * LD;  // [2][kMmaRows][LD]
+
+  // the last query blocks, which attend the most keys when causal, first
+  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int w0 = q0 + warp * 16, qi0 = w0 + (lane >> 2), qi1 = qi0 + 8;
+  const Lane ln(lane);
+  const size_t qoff = static_cast<size_t>(bh) * sq * D, koff = static_cast<size_t>(bh) * sk * D;
+  const size_t roff = static_cast<size_t>(bh) * sq;
+
+  int nk = (sk + kMmaRows - 1) / kMmaRows;
+  if (causal) nk = min(nk, (min(q0 + kMmaRows, sq) - 1) / kMmaRows + 1);
+  cp_tile<D>(Qs, q + qoff, q0, sq);
+  cp_tile<D>(dOs, dout + qoff, q0, sq);
+  cp_tile<D>(Ks, k + koff, 0, sk);
+  cp_tile<D>(Vs, v + koff, 0, sk);
+  qg::cp_async_commit();
+  const float lse0 = qi0 < sq ? lse[roff + qi0] : 0.f, lse1 = qi1 < sq ? lse[roff + qi1] : 0.f;
+  const float dl0 = qi0 < sq ? delta[roff + qi0] : 0.f, dl1 = qi1 < sq ? delta[roff + qi1] : 0.f;
+
+  uint32_t qf[KD][4], gf[KD][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1, k0 = kt * kMmaRows;
+    if (kt + 1 < nk) {
+      cp_tile<D>(Ks + (st ^ 1) * kMmaRows * LD, k + koff, k0 + kMmaRows, sk);
+      cp_tile<D>(Vs + (st ^ 1) * kMmaRows * LD, v + koff, k0 + kMmaRows, sk);
+    }
+    qg::cp_async_commit();
+    qg::cp_async_wait<1>();
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const int off = (warp * 16 + ln.a_row) * LD + kk * 16 + ln.a_col;
+        qg::ldmatrix_x4(qf[kk], qg::smem_addr(Qs + off));
+        qg::ldmatrix_x4(gf[kk], qg::smem_addr(dOs + off));
+      }
+    }
+    const bf16* Kt = Ks + st * kMmaRows * LD;
+    const bf16* Vt = Vs + st * kMmaRows * LD;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {      // halves of 32 keys
+      const int kh = k0 + h * 32;
+      if (w0 >= sq || kh >= sk || (causal && w0 + 15 < kh)) continue;
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          const int off = (h * 32 + jp * 16 + ln.b_row) * LD + kk * 16 + ln.b_col;
+          uint32_t b[4];
+          qg::ldmatrix_x4(b, qg::smem_addr(Kt + off));
+          qg::mma_bf16(s[2 * jp], qf[kk], b);
+          qg::mma_bf16(s[2 * jp + 1], qf[kk], b + 2);
+          qg::ldmatrix_x4(b, qg::smem_addr(Vt + off));
+          qg::mma_bf16(dp[2 * jp], gf[kk], b);
+          qg::mma_bf16(dp[2 * jp + 1], gf[kk], b + 2);
+        }
+      uint32_t da[2][4];   // bf16(dS) as the A fragments of dS K
+      const Rows r{qi0, qi1, sq, sk, causal};
+      const float lse2[2] = {lse0, lse1}, dl2[2] = {dl0, dl1};
+      if (w0 + 15 >= sq || kh + 32 > sk || (causal && kh + 31 > w0))
+        ds_fragments<true, 4>(s, dp, da, r, kh + 2 * t, lse2, dl2, scale);
+      else
+        ds_fragments<false, 4>(s, dp, da, r, kh + 2 * t, lse2, dl2, scale);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int dp2 = 0; dp2 < NO / 2; ++dp2) {
+          uint32_t b[4];
+          qg::ldmatrix_x4_trans(b, qg::smem_addr(Kt + (h * 32 + c * 16 + ln.t_row) * LD +
+                                                 dp2 * 16 + ln.t_col));
+          qg::mma_bf16(acc[2 * dp2], da[c], b);
+          qg::mma_bf16(acc[2 * dp2 + 1], da[c], b + 2);
+        }
+    }
+    __syncthreads();
+  }
+
+  bf16* db = dq + qoff;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (qi0 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(db + static_cast<size_t>(qi0) * D + col) =
+          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    if (qi1 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(db + static_cast<size_t>(qi1) * D + col) =
+          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                         int causal, float scale) {
+  constexpr int LD = mma_ld<D>(), KD = D / 16, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kMmaRows * LD;
+  bf16* Qs = Vs + kMmaRows * LD;       // [2][kMmaRows][LD]
+  bf16* dOs = Qs + 2 * kMmaRows * LD;  // [2][kMmaRows][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * kMmaRows * LD);  // [2][kMmaRows]
+  float* Dl = Ls + 2 * kMmaRows;                                  // [2][kMmaRows]
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * kMmaRows, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int kw0 = k0 + warp * 16, ki0 = kw0 + (lane >> 2), ki1 = ki0 + 8;
+  const Lane ln(lane);
+  const size_t qoff = static_cast<size_t>(bh) * sq * D, koff = static_cast<size_t>(bh) * sk * D;
+  const float* lb = lse + static_cast<size_t>(bh) * sq;
+  const float* db = delta + static_cast<size_t>(bh) * sq;
+
+  // the query tiles that can attend this block's keys (causal: from k0)
+  const int nq = (sq + kMmaRows - 1) / kMmaRows, qt0 = causal ? k0 / kMmaRows : 0;
+  auto load_q_tile = [&](int qt, int st) {
+    const int qs0 = qt * kMmaRows;
+    cp_tile<D>(Qs + st * kMmaRows * LD, q + qoff, qs0, sq);
+    cp_tile<D>(dOs + st * kMmaRows * LD, dout + qoff, qs0, sq);
+    const int r = tid & (kMmaRows - 1), qi = qs0 + r;
+    const bool ok = qi < sq;
+    const float* src = (tid < kMmaRows ? lb : db) + (ok ? qi : 0);
+    float* dst = (tid < kMmaRows ? Ls : Dl) + st * kMmaRows + r;
+    qg::cp_async4(qg::smem_addr(dst), src, ok ? 4 : 0);
+  };
+  static_assert(kMmaThreads == 2 * kMmaRows, "one thread per lse and per delta row");
+  cp_tile<D>(Ks, k + koff, k0, sk);
+  cp_tile<D>(Vs, v + koff, k0, sk);
+  if (qt0 < nq) load_q_tile(qt0, 0);
+  qg::cp_async_commit();
+
+  uint32_t kf[KD][4], vf[KD][4];
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int st = (qt - qt0) & 1, qs0 = qt * kMmaRows;
+    if (qt + 1 < nq) load_q_tile(qt + 1, st ^ 1);
+    qg::cp_async_commit();
+    qg::cp_async_wait<1>();
+    __syncthreads();
+    if (qt == qt0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const int off = (warp * 16 + ln.a_row) * LD + kk * 16 + ln.a_col;
+        qg::ldmatrix_x4(kf[kk], qg::smem_addr(Ks + off));
+        qg::ldmatrix_x4(vf[kk], qg::smem_addr(Vs + off));
+      }
+    }
+    const bf16* Qt = Qs + st * kMmaRows * LD;
+    const bf16* dOt = dOs + st * kMmaRows * LD;
+    const float* Lt = Ls + st * kMmaRows;
+    const float* Dt = Dl + st * kMmaRows;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {      // pieces of 16 queries
+      const int qh = qs0 + h * 16;
+      if (kw0 >= sk || qh >= sq || (causal && qh + 15 < kw0)) continue;
+      // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t b[4];
+        const int off = (h * 16 + ln.b_row) * LD + kk * 16 + ln.b_col;
+        qg::ldmatrix_x4(b, qg::smem_addr(Qt + off));
+        qg::mma_bf16(s[0], kf[kk], b);
+        qg::mma_bf16(s[1], kf[kk], b + 2);
+        qg::ldmatrix_x4(b, qg::smem_addr(dOt + off));
+        qg::mma_bf16(dp[0], vf[kk], b);
+        qg::mma_bf16(dp[1], vf[kk], b + 2);
+      }
+      // bf16(P^T) and bf16(dS^T) as A fragments; rows are keys here
+      uint32_t pa[4], da[4];
+      const Rows r{ki0, ki1, sk, sq, causal};
+      const int c0 = h * 16 + 2 * t;
+      const float lse2[4] = {Lt[c0], Lt[c0 + 1], Lt[c0 + 8], Lt[c0 + 9]};
+      const float dl2[4] = {Dt[c0], Dt[c0 + 1], Dt[c0 + 8], Dt[c0 + 9]};
+      if (qh + 16 > sq || kw0 + 16 > sk || (causal && kw0 + 15 > qh))
+        pds_fragments<true>(s, dp, pa, da, r, qs0 + c0, lse2, dl2, scale);
+      else
+        pds_fragments<false>(s, dp, pa, da, r, qs0 + c0, lse2, dl2, scale);
+      // dV += P^T dO and dK += dS^T Q over these 16 queries
+#pragma unroll
+      for (int dp2 = 0; dp2 < NO / 2; ++dp2) {
+        const int off = (h * 16 + ln.t_row) * LD + dp2 * 16 + ln.t_col;
+        uint32_t b[4];
+        qg::ldmatrix_x4_trans(b, qg::smem_addr(dOt + off));
+        qg::mma_bf16(dva[2 * dp2], pa, b);
+        qg::mma_bf16(dva[2 * dp2 + 1], pa, b + 2);
+        qg::ldmatrix_x4_trans(b, qg::smem_addr(Qt + off));
+        qg::mma_bf16(dka[2 * dp2], da, b);
+        qg::mma_bf16(dka[2 * dp2 + 1], da, b + 2);
+      }
+    }
+    __syncthreads();
+  }
+  qg::cp_async_wait<0>();   // a block with no query tile still has K/V copies in flight
+
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (ki0 < sk) {
+      const size_t o = koff + static_cast<size_t>(ki0) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(dka[j][0], dka[j][1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(dva[j][0], dva[j][1]);
+    }
+    if (ki1 < sk) {
+      const size_t o = koff + static_cast<size_t>(ki1) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(dka[j][2], dka[j][3]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(dva[j][2], dva[j][3]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* o,
+                       const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                       float* delta, int bh, int sq, int sk, int causal, float scale,
+                       int smem_dq, int smem_dkv, cudaStream_t s) {
+  constexpr size_t want_q = mma_dq_smem_bytes<D>(), want_kv = mma_dkv_smem_bytes<D>();
+  if (static_cast<size_t>(smem_dq) != want_q || static_cast<size_t>(smem_dkv) != want_kv)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(want_q));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(want_kv));
+  if (e != cudaSuccess) return e;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(dout);
+  const long long rows = static_cast<long long>(bh) * sq;
+  const unsigned delta_blocks = static_cast<unsigned>((rows * 32 + kThreads - 1) / kThreads);
+  delta_kernel<bf16, D><<<delta_blocks, kThreads, 0, s>>>(static_cast<const bf16*>(o), gt,
+                                                         delta, static_cast<int>(rows));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_mma_kernel<D><<<dim3((sq + kMmaRows - 1) / kMmaRows, bh), kMmaThreads, want_q,
+                               s>>>(qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), sq, sk,
+                                    causal, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkv_mma_kernel<D><<<dim3((sk + kMmaRows - 1) / kMmaRows, bh), kMmaThreads,
+                                want_kv, s>>>(qt, kt, vt, gt, lse, delta,
+                                              static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                              sq, sk, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q, o, dout, dq [BH, Sq, D]; k, v, dk, dv [BH, Sk, D] (dtype 0 = f32,
-// 1 = bf16); lse f32 [BH, Sq] from the forward; delta f32 [BH, Sq] scratch.
-// Returns cudaGetLastError().
+// q, o, dout, dq [BH, Sq, D]; k, v, dk, dv [BH, Sk, D]; lse f32 [BH, Sq]
+// from the forward; delta f32 [BH, Sq] scratch. The launch plan: route 0
+// (SIMT) takes dtype 0 (f32), route 1 (mma) dtype 1 (bf16); smem_dq and
+// smem_dkv are the two kernels' dynamic shared memory, checked against the
+// instantiation's. Returns cudaGetLastError() (cudaErrorInvalidValue for a
+// plan or shape no instantiation takes).
 extern "C" int qgemm_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* lse, const void* dout,
                                          void* dq, void* dk, void* dv, void* delta,
                                          int dtype, int bh, int sq, int sk, int D,
-                                         int causal, float scale, void* stream) {
+                                         int causal, float scale, int route, int smem_dq,
+                                         int smem_dkv, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535 ||
       static_cast<long long>(bh) * sq > 0x7fffffffLL / 32)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-#define QG_BWD(T, DD) \
-  launch<T, DD>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, sq, sk, causal, scale, s)
-  if (dtype == 0 && D == 32) return QG_BWD(float, 32);
-  if (dtype == 1 && D == 32) return QG_BWD(__nv_bfloat16, 32);
-  if (dtype == 0 && D == 64) return QG_BWD(float, 64);
-  if (dtype == 0 && D == 128) return QG_BWD(float, 128);
-  if (dtype == 1 && D == 64) return QG_BWD(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) return QG_BWD(__nv_bfloat16, 128);
+  if (route == 0 && dtype == 0) {
+#define QG_BWD(DD)                                                                  \
+  (static_cast<size_t>(smem_dq) == dq_smem_bytes<DD>() &&                           \
+           static_cast<size_t>(smem_dkv) == dkv_smem_bytes<DD>()                    \
+       ? launch<float, DD>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, sq, sk, causal, \
+                           scale, s)                                                \
+       : cudaErrorInvalidValue)
+    if (D == 32) return QG_BWD(32);
+    if (D == 64) return QG_BWD(64);
+    if (D == 128) return QG_BWD(128);
 #undef QG_BWD
+  }
+  if (route == 1 && dtype == 1) {
+#define QG_BWD(DD)                                                                      \
+  launch_mma<DD>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, sq, sk, causal, scale, smem_dq, \
+                 smem_dkv, s)
+    if (D == 32) return QG_BWD(32);
+    if (D == 64) return QG_BWD(64);
+    if (D == 128) return QG_BWD(128);
+#undef QG_BWD
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

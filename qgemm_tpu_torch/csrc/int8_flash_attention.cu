@@ -40,6 +40,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -47,22 +48,6 @@ constexpr int kBQ = 64, kBK = 64, kThreads = 128;
 constexpr int kPad8 = 16;   // bytes of padding per int8 smem row
 constexpr int kPadB = 8;    // bf16 elements of padding per bf16 smem row
 constexpr float kNegBig = -1e30f;
-
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <int D, int DV, bool P8> struct Smem {
   static constexpr int LQ = D + kPad8;                   // Q and K rows, bytes
@@ -164,7 +149,7 @@ int8_flash_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
         const int8_t* kr = &Ks[(j * 8 + g) * S::LQ + kk * 32];
         const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr + t * 4),
                                *reinterpret_cast<const uint32_t*>(kr + 16 + t * 4)};
-        mma_s8(s32[j], qa[kk], b);
+        qg::mma_s8(s32[j], qa[kk], b);
       }
     }
     // scores, masks and the two rows' maxima
@@ -237,7 +222,7 @@ int8_flash_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
           const VT* vr = &Vt[(j * 8 + g) * S::LV + kk * 32];
           const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(vr + t * 4),
                                  *reinterpret_cast<const uint32_t*>(vr + 16 + t * 4)};
-          mma_s8(pv, pa[kk], b);
+          qg::mma_s8(pv, pa[kk], b);
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -260,7 +245,7 @@ int8_flash_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
           const VT* vr = &Vt[(j * 8 + g) * S::LV + kk * 16];
           const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(vr + t * 2),
                                  *reinterpret_cast<const uint32_t*>(vr + 8 + t * 2)};
-          mma_bf16(pv, pa[kk], b);
+          qg::mma_bf16(pv, pa[kk], b);
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e)

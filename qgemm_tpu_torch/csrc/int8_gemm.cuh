@@ -33,6 +33,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace qg {
 namespace gemm {
@@ -160,14 +161,6 @@ qmm_small_m_kernel(const T* __restrict__ x, const float* __restrict__ cx,
 // ------------------------------------------------------------ m > 16 rows
 constexpr int kBM = 64, kBN = 128, kBK = 64, kPad = 16;
 constexpr int kMmaThreads = 128;   // 4 warps as 2 x 2, each a 32 x 64 tile
-
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // grid (ceil(n / kBN), ceil(m / kBM), E)
 template <typename T>

@@ -37,6 +37,7 @@
 //     shared memory, mma.sync m16n8k32 s8 -> s32 per group, folded into f32;
 //   * ragged m, n and k are masked in the kernels; W is never padded per call.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -191,14 +192,6 @@ w4a8_small_m_kernel(const int8_t* __restrict__ xq, const float* __restrict__ ds,
 constexpr int kTM = 64, kTN = 128, kTPad = 16;
 constexpr int kTThreads = 256;   // 8 warps as 2 x 4, each a 32 x 32 tile
 
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __global__ void __launch_bounds__(kTThreads)
 w4a8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ ds,
                 const int8_t* __restrict__ wp, const float* __restrict__ cw,
@@ -279,7 +272,7 @@ w4a8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ ds,
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
+        for (int nt = 0; nt < 4; ++nt) qg::mma_s8(acc[mt][nt], a[mt], b[nt]);
     }
     // fold the group's exact sums into the slab's f32 sum
 #pragma unroll

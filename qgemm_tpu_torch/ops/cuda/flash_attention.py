@@ -19,9 +19,9 @@ from typing import Optional
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
-from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
-from qgemm_tpu_torch.ops.validation import (check, check_attention_4d, pad_last,
-                                            padded_head_dim)
+from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import ROUTES, flash_attention_bwd
+from qgemm_tpu_torch.ops.validation import (check, check_aligned16, check_attention_4d,
+                                            pad_last, padded_head_dim)
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,11 +50,40 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
+_MMA_KEY_TILE = 64
+
+
+def flash_fwd_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int) -> dict:
+    """K3's launch plan for ``bh`` batch*heads of ``sq`` queries over ``sk``
+    keys at the kernel width ``d`` (32, 64 or 128): the route ("mma", the
+    bf16 tensor-core kernel; "simt", the f32 kernel), the query rows per
+    block, the keys per streamed tile, threads per block, the grid and the
+    dynamic shared memory in bytes. Both routes take 64 query rows per
+    block: on the H100, 128-row blocks of the mma route (8 warps) were
+    slower at S 512 and at S 2048 (PERF.md §6). Pure: the CPU tests
+    check it, and the C entry refuses a plan that matches no compiled
+    kernel."""
+    check(dtype in _DTYPES, f"K3 takes float32 or bfloat16, got {dtype}")
+    check(d in (32, 64, 128), f"K3 is compiled for widths 32, 64 and 128, got {d}")
+    check(0 < bh <= 65535, f"K3 takes 1 to 65535 batch*heads, got {bh}")
+    check(sq > 0 and sk > 0, f"K3 needs sq and sk > 0, got {sq}, {sk}")
+    if dtype == torch.bfloat16:
+        plan = {"route": "mma", "block_q": 64, "block_k": _MMA_KEY_TILE, "threads": 128,
+                # Q, then two stages of K and V tiles, bf16 rows padded by 16 B
+                "smem": 2 * (d + 8) * (64 + 4 * _MMA_KEY_TILE)}
+    else:
+        plan = {"route": "simt", "block_q": 64, "block_k": 32, "threads": 256,
+                # Q, K and V tiles in f32 (rows padded by 16 B), scores, row stats
+                "smem": 4 * ((64 + 2 * 32) * (d + 4) + 64 * 33 + 3 * 64)}
+    plan["grid"] = (-(-sq // plan["block_q"]), bh)
+    return plan
+
+
 def _lib():
     fn = _build.library("flash_attention").qgemm_flash_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = i
     return fn
 
@@ -63,9 +92,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False):
     """q [B, H, Sq, D], k [B, H, Sk, D], v [B, H, Sk, Dv] -> (O [B, H, Sq, Dv],
     lse f32 [B, H, Sq]); causal means key j attends query i iff j <= i. CPU
-    tensors run the plain version; CUDA tensors launch K3 (f32 or bf16, D
-    and Dv up to 128: q, k and v are zero-padded to the kernel's width
-    when D or Dv is not 32, 64 or 128, or they differ) or raise."""
+    tensors run the plain version; CUDA tensors launch K3 (bf16 on the
+    tensor-core route, f32 on the SIMT route; D and Dv up to 128: q, k and
+    v are zero-padded to the kernel's width when D or Dv is not 32, 64 or
+    128, or they differ) or raise."""
     check_attention_4d(q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
@@ -76,15 +106,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           f"{q.dtype}/{k.dtype}/{v.dtype}")
     check(k.is_cuda and v.is_cuda and q.device == k.device == v.device,
           "flash_attention: q, k and v must lie on one CUDA device")
-    check(b * h <= 65535, f"K3 takes at most 65535 batch*heads, got {b * h}")
     dv = v.shape[3]
     dp = padded_head_dim(max(d, dv))
+    plan = flash_fwd_plan(q.dtype, b * h, sq, sk, dp)
     q, k, v = (pad_last(t, dp) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    check_aligned16("K3", q, k, v, o)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), _DTYPES[q.dtype], b * h, sq, sk, dp, int(causal),
-                1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+                1.0 / math.sqrt(d), ROUTES[plan["route"]], plan["smem"],
+                torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("qgemm_flash_attention_fwd", rc)
     flash_attention_fwd.launches += 1
     return (o if dp == dv else o[..., :dv].contiguous()), lse

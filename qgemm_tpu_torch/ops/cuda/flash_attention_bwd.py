@@ -17,10 +17,13 @@ from typing import Optional
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
-from qgemm_tpu_torch.ops.validation import (check, check_attention_4d, pad_last,
-                                            padded_head_dim)
+from qgemm_tpu_torch.ops.validation import (check, check_aligned16, check_attention_4d,
+                                            pad_last, padded_head_dim)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entries' route codes (K3's and K7's): the f32 SIMT kernels and the
+# bf16 tensor-core (mma.sync) kernels
+ROUTES = {"simt": 0, "mma": 1}
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,11 +55,43 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int) -> dict:
+    """K7's launch plan for ``bh`` batch*heads of ``sq`` queries over ``sk``
+    keys at the kernel width ``d`` (32, 64 or 128): the route ("mma" for
+    bf16, "simt" for f32), the query rows per dQ block (``block_q``), the
+    key rows per dK/dV block (``block_k``), the rows of each streamed tile,
+    threads per block, the three grids (delta pre-pass, dQ, dK/dV) and the
+    two kernels' dynamic shared memory in bytes. Pure: the CPU tests check
+    it, and the C entry refuses a plan that matches no compiled kernel."""
+    check(dtype in _DTYPES, f"K7 takes float32 or bfloat16, got {dtype}")
+    check(d in (32, 64, 128), f"K7 is compiled for widths 32, 64 and 128, got {d}")
+    check(0 < bh <= 65535, f"K7 takes 1 to 65535 batch*heads, got {bh}")
+    check(sq > 0 and sk > 0, f"K7 needs sq and sk > 0, got {sq}, {sk}")
+    check(bh * sq <= 0x7FFFFFFF // 32, f"K7's delta pre-pass takes at most 2^26 rows, "
+                                       f"got {bh * sq}")
+    if dtype == torch.bfloat16:
+        # the resident pair and two stages of the streamed pair, bf16 rows
+        # padded by 16 B; the dK/dV kernel adds two stages of lse and delta
+        tile = 2 * (d + 8) * 6 * 64
+        plan = {"route": "mma", "block_q": 64, "block_k": 64, "tile": 64, "threads": 128,
+                "smem_dq": tile, "smem_dkv": tile + 4 * 4 * 64}
+    else:
+        # f32 rows padded by 16 B: the resident pair, one streamed pair of
+        # 32-row tiles, the score tile(s) and the row statistics
+        rows = 4 * (2 * 64 + 2 * 32) * (d + 4)
+        plan = {"route": "simt", "block_q": 64, "block_k": 64, "tile": 32, "threads": 256,
+                "smem_dq": rows + 4 * (64 * 33 + 2 * 64),
+                "smem_dkv": rows + 4 * (2 * 64 * 33 + 2 * 32)}
+    plan.update(grid_delta=(-(-bh * sq * 32 // 256),), grid_dq=(-(-sq // plan["block_q"]), bh),
+                grid_dkv=(-(-sk // plan["block_k"]), bh))
+    return plan
+
+
 def _lib():
     fn = _build.library("flash_attention_bwd").qgemm_flash_attention_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -66,9 +101,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False):
     """q [B, H, Sq, D], k/v [B, H, Sk, D], out and its gradient g
     [B, H, Sq, D], lse f32 [B, H, Sq] (the forward's) -> (dQ, dK, dV).
-    CPU tensors run the plain version; CUDA tensors launch K7 (f32 or bf16,
-    D and Dv up to 128, zero-padded as K3's wrapper pads them, at most
-    65535 batch*heads) or raise."""
+    CPU tensors run the plain version; CUDA tensors launch K7 (bf16 on the
+    tensor-core route, f32 on the SIMT route; D and Dv up to 128,
+    zero-padded as K3's wrapper pads them; at most 65535 batch*heads) or
+    raise."""
     check_attention_4d(q, k, v)
     check(tuple(out.shape) == tuple(q.shape[:3]) + (v.shape[3],)
           and tuple(g.shape) == tuple(out.shape),
@@ -86,17 +122,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           f"{q.dtype}/{k.dtype}/{v.dtype}/{out.dtype}/{g.dtype}")
     check(all(t.is_cuda and t.device == q.device for t in (k, v, out, lse, g)),
           "flash_attention_bwd: every tensor must lie on q's CUDA device")
-    check(b * h <= 65535, f"K7 takes at most 65535 batch*heads, got {b * h}")
     dv_width = v.shape[3]
     dp = padded_head_dim(max(d, dv_width))
+    plan = flash_bwd_plan(q.dtype, b * h, sq, sk, dp)
     q, k, v, out, g = (pad_last(t, dp) for t in (q, k, v, out, g))
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    check_aligned16("K7", q, k, v, out, g, dq, dk, dv)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 delta.data_ptr(), _DTYPES[q.dtype], b * h, sq, sk, dp, int(causal),
-                1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+                1.0 / math.sqrt(d), ROUTES[plan["route"]], plan["smem_dq"],
+                plan["smem_dkv"], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("qgemm_flash_attention_bwd", rc)
     flash_attention_bwd.launches += 1
     if dp != d:

@@ -50,6 +50,14 @@ def check_attention_4d(q, k, v) -> None:
           f"k length {k.shape[2]} != v length {v.shape[2]}")
 
 
+def check_aligned16(name: str, *tensors: torch.Tensor) -> None:
+    """Every tensor's data starts on a 16-byte boundary: the kernels copy
+    rows with 16-byte ``cp.async``, which faults on anything less."""
+    for t in tensors:
+        check(t.data_ptr() % 16 == 0,
+              f"{name}: tensor data at {t.data_ptr():#x} is not 16-byte aligned")
+
+
 def padded_head_dim(d: int) -> int:
     """The head width an attention kernel is compiled for that holds ``d``:
     32, 64 or 128 (the kernels take any d up to 128; above it they raise)."""
