@@ -75,4 +75,38 @@ __device__ __forceinline__ int warp_sum_int(int v) {
   return v;
 }
 
+// Programmatic dependent launch (sm_90). A kernel launched by launch_pdl may
+// start while the kernel ahead of it in the stream still runs:
+// grid_dependency_wait() blocks until that kernel has finished and its
+// writes are visible (a no-op in a kernel launched without the attribute),
+// and launch_dependents() lets the next kernel start before this one ends.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Prefetch [p, p + bytes) from device memory into L2 (p 16-byte aligned,
+// bytes a positive multiple of 16); no registers are written.
+__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                       cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
 }  // namespace qg

@@ -10,21 +10,43 @@
 // [E, m, k] (f32 or bf16), K-major weights wt [E, n, k] int8, cw [E, n],
 // out [E, m, n]; E = 1 is K1's single matrix.
 //
+// What bounds it on the H100: at decode (m <= 16) the weight stream, every
+// int8 weight byte read once for ~2 int8 operations per byte, far under the
+// card's 1979 TOP/s : 3.35 TB/s balance; at prefill the tensor-core rate.
+// Measured on an H100 80GB HBM3 at 700 W at m 8 (PERF.md), the decode call
+// (pre-pass and GEMV) reaches 0.35 of the byte bound at k = n = 4096, where
+// two launches' latency outweighs the 5 us stream, 0.57-0.66 at the FFN
+// shapes and 0.81 at the lm_head; the GEMV alone streams at 72-87 % of
+// 3.35 TB/s at the larger shapes.
+//
 // Design:
-//   * a row-absmax pre-pass writes cx for all E * m rows; X itself is never
-//     written back as int8 — each GEMM block quantizes its X tile in
-//     registers on the way into shared memory, with the same f32 ops as
-//     the TPU kernels (scale 127/c first, then x * scale, round half to
-//     even with __float2int_rn), so the int8 codes match bit for bit;
-//   * weights are stored K-major ([n, k], the tensor cores' "col" B
-//     operand), so both operands load as 16-byte vectors along K;
-//   * m <= 16: a GEMV-shaped kernel — each warp streams whole weight
-//     columns with 16-byte loads and __dp4a against the quantized X rows
-//     held in shared memory, many loads in flight per SM to keep HBM busy;
+//   * one pre-pass (row_quantize.cuh, one block per row) writes cx and the
+//     int8 codes xq [E * m, k] with the plain version's f32 operations; both
+//     GEMM kernels read only codes;
+//   * weights are stored K-major ([n, k]), so W and X load as 16-byte
+//     vectors along K;
+//   * m <= 16, the decode GEMV (qmm_gemv_kernel): mma.sync m16n8k32 with W
+//     as the A operand (16 output columns x 32 K) and X^T as B (8 rows; two
+//     n8 tiles for m 9-16). The int32 sum does not depend on the order of K,
+//     so a lane loads 16 contiguous bytes of a column straight from device
+//     memory into its A registers (bytes 16t..16t+15 of each 64-code step
+//     stand for the fragment's k 4t..4t+3 and 16+4t..16+4t+3 of two k32
+//     products) and the X fragment is one 16-byte load of the same bytes of
+//     its row: no shared-memory staging of W, no shuffles. A block holds 16
+//     output columns; each warp owns a K slice (a multiple of 64 codes) and
+//     walks it in batches of 256 codes, 8 weight and 4 X loads of 16 bytes
+//     per lane in flight at a time (4 KB of weights a warp; at m <= 8, 74
+//     registers, three blocks and ~96 KB a SM);
+//     no block barrier stands in the K loop. The warps' int32 partials meet
+//     once in shared memory. The GEMV is launched with programmatic
+//     dependent launch: it starts while the pre-pass runs, prefetches its
+//     first batch of weights into L2 and waits for the codes with
+//     griddepcontrol.wait. The launch plan (warps, K slice, shared memory)
+//     comes from ops/cuda/gemv_plan.py and is checked here;
 //   * m > 16: 64x128x64 block tiles, mma.sync m16n8k32 s8 -> s32;
 //   * int32 accumulation is exact, so every tiling gives the same bits —
 //     a row's result does not depend on m or on which kernel ran;
-//   * ragged m and n edges are masked in the kernels (the 50272 vocab is
+//   * ragged m, n and k edges are masked in the kernels (the 50272 vocab is
 //     not a multiple of the tile); k must be a multiple of 16: the
 //     wrappers zero-pad x and W along K on the calls where it is not (no
 //     model of the repo takes that path at full width), since zeros
@@ -32,129 +54,99 @@
 //     expert capacity slot) has cx = 1e-12, codes 0 and output exactly 0.
 #pragma once
 
-#include "common.cuh"
 #include "mma.cuh"
+#include "row_quantize.cuh"
 
 namespace qg {
 namespace gemm {
-
-constexpr float kQRange = 127.f;
-constexpr float kEps = 1e-12f;
-
-__device__ __forceinline__ int quant(float x, float s, int truncate) {
-  const float y = x * s;
-  const int q = truncate ? static_cast<int>(truncf(y)) : __float2int_rn(y);
-  return max(-127, min(127, q));
-}
-
-// pack 8 quantized values into two 32-bit words (byte i = element i)
-__device__ __forceinline__ uint2 quant8(const float v[8], float s, int truncate) {
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    w[i / 4] |= (static_cast<uint32_t>(quant(v[i], s, truncate)) & 0xffu) << (8 * (i % 4));
-  return make_uint2(w[0], w[1]);
-}
 
 __device__ __forceinline__ float epilogue(int acc, float cx, float cw, int relu) {
   const float v = (static_cast<float>(acc) * (cx * (1.0f / (kQRange * kQRange)))) * cw;
   return relu ? fmaxf(v, 0.f) : v;
 }
 
-template <typename T>
-__global__ void row_absmax_kernel(const T* __restrict__ x, float* __restrict__ cx,
-                                  int rows, int k) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const T* xr = x + static_cast<size_t>(row) * k;
-  float mx = 0.f;
-  for (int i = lane * 8; i < k; i += 32 * 8) {
-    float v[8];
-    load8(xr + i, v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fabsf(v[j]));
-  }
-  mx = warp_max(mx);
-  if (lane == 0) cx[row] = fmaxf(mx, kEps);
-}
+__device__ __forceinline__ uint32_t u32(int v) { return static_cast<uint32_t>(v); }
 
-// ----------------------------------------------------------- m <= 16 rows
-constexpr int kSmThreads = 256;                       // 8 warps
-constexpr int kSmColsPerWarp = 2;
-constexpr int kSmCols = (kSmThreads / 32) * kSmColsPerWarp;  // 16 per block
-constexpr int kSmKc = 1024;                           // K chunk staged in smem
+// ------------------------------------------------------- m <= 16 rows: GEMV
+constexpr int kGvStep = 64;        // K codes per lane step: two k32 products
+constexpr int kGvBatch = 4;        // steps whose X fragments a warp holds (256 codes)
+constexpr int kGvMaxWarps = 8;
 
-// grid (ceil(n / kSmCols), E)
-template <typename T, int MR>
-__global__ void __launch_bounds__(kSmThreads)
-qmm_small_m_kernel(const T* __restrict__ x, const float* __restrict__ cx,
-                   const int8_t* __restrict__ wt, const float* __restrict__ cw,
-                   float* __restrict__ out, int m, int n, int k, int truncate, int relu) {
-  __shared__ __align__(16) int8_t xs[MR][kSmKc];
-  __shared__ float sx[MR];
+// grid (ceil(n / 16), E), 32 * warps threads; warp w takes K codes
+// [w * k_slice, min(k, (w + 1) * k_slice)) of the block's 16 columns.
+// Dynamic shared memory: int32 partials [warps][16 columns][8 * NR rows].
+template <int NR>
+__global__ void __launch_bounds__(32 * kGvMaxWarps)
+qmm_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ cx,
+                const int8_t* __restrict__ wt, const float* __restrict__ cw,
+                float* __restrict__ out, int m, int n, int k, int k_slice, int relu) {
+  constexpr int R = 8 * NR;
+  extern __shared__ int part[];
   const size_t e = blockIdx.y;
-  x += e * m * k;
+  xq += e * m * k;
   cx += e * m;
   wt += e * n * k;
   cw += e * n;
   out += e * m * n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col0 = blockIdx.x * kSmCols + warp * kSmColsPerWarp;
-  if (threadIdx.x < MR) sx[threadIdx.x] = threadIdx.x < m ? kQRange / cx[threadIdx.x] : 0.f;
-  int acc[kSmColsPerWarp][MR];
-#pragma unroll
-  for (int c = 0; c < kSmColsPerWarp; ++c)
-#pragma unroll
-    for (int r = 0; r < MR; ++r) acc[c][r] = 0;
-  __syncthreads();
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = blockIdx.x * 16, col = col0 + g;
+  const int kb = warp * k_slice, ke = min(k, kb + k_slice);
+  // while the pre-pass may still run: the warp's first batch of weights into L2
+  if (lane < 16 && col0 + lane < n && kb < ke)
+    prefetch_l2(wt + static_cast<size_t>(col0 + lane) * k + kb,
+                min(kGvBatch * kGvStep, ke - kb));
+  grid_dependency_wait();   // the pre-pass's codes and scales are written
 
-  for (int k0 = 0; k0 < k; k0 += kSmKc) {
-    const int kc = min(kSmKc, k - k0);
-    // stage the quantized X chunk: rows >= m and k >= kc are zeros
-    for (int i = threadIdx.x; i < MR * (kSmKc / 8); i += kSmThreads) {
-      const int r = i / (kSmKc / 8), kk = (i % (kSmKc / 8)) * 8;
-      uint2 packed = make_uint2(0u, 0u);
-      if (r < m && kk < kc) {
-        float v[8];
-        load8(x + static_cast<size_t>(r) * k + k0 + kk, v);
-        packed = quant8(v, sx[r], truncate);
-      }
-      *reinterpret_cast<uint2*>(&xs[r][kk]) = packed;
+  int acc[NR][4];
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] = 0;
+  const int8_t* wa = wt + static_cast<size_t>(col) * k;   // columns g and g + 8
+  const int8_t* wb = wa + static_cast<size_t>(8) * k;
+  for (int k0 = kb; k0 < ke; k0 += kGvBatch * kGvStep) {
+    // A fragments: bytes [16t, 16t + 16) of each step of columns g and g + 8;
+    // B fragments: the same bytes of rows g and g + 8
+    int4 va[kGvBatch], vb[kGvBatch], xf[NR][kGvBatch];
+#pragma unroll
+    for (int s = 0; s < kGvBatch; ++s) {
+      const int kk = k0 + s * kGvStep + 16 * t;
+      va[s] = load16(wa + kk, col < n && kk < ke);
+      vb[s] = load16(wb + kk, col + 8 < n && kk < ke);
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        xf[r][s] = load16(xq + static_cast<size_t>(g + 8 * r) * k + kk, g + 8 * r < m && kk < ke);
     }
-    __syncthreads();
 #pragma unroll
-    for (int c = 0; c < kSmColsPerWarp; ++c) {
-      const int col = col0 + c;
-      if (col < n) {
-        const int8_t* wcol = wt + static_cast<size_t>(col) * k + k0;
-        for (int v = lane * 16; v < kc; v += 32 * 16) {
-          const int4 w4 = __ldg(reinterpret_cast<const int4*>(wcol + v));
+    for (int s = 0; s < kGvBatch; ++s) {
+      const uint32_t a0[4] = {u32(va[s].x), u32(vb[s].x), u32(va[s].y), u32(vb[s].y)};
+      const uint32_t a1[4] = {u32(va[s].z), u32(vb[s].z), u32(va[s].w), u32(vb[s].w)};
 #pragma unroll
-          for (int r = 0; r < MR; ++r) {
-            const int4 x4 = *reinterpret_cast<const int4*>(&xs[r][v]);
-            int a = acc[c][r];
-            a = __dp4a(x4.x, w4.x, a);
-            a = __dp4a(x4.y, w4.y, a);
-            a = __dp4a(x4.z, w4.z, a);
-            a = __dp4a(x4.w, w4.w, a);
-            acc[c][r] = a;
-          }
-        }
+      for (int r = 0; r < NR; ++r) {
+        const uint32_t b0[2] = {u32(xf[r][s].x), u32(xf[r][s].y)};
+        const uint32_t b1[2] = {u32(xf[r][s].z), u32(xf[r][s].w)};
+        mma_s8(acc[r], a0, b0);
+        mma_s8(acc[r], a1, b1);
       }
     }
-    __syncthreads();
   }
 
+  // C fragment: (column g, rows 2t, 2t + 1) and (column g + 8, the same rows)
 #pragma unroll
-  for (int c = 0; c < kSmColsPerWarp; ++c) {
-    const int col = col0 + c;
-#pragma unroll
-    for (int r = 0; r < MR; ++r) {
-      const int s = warp_sum_int(acc[c][r]);
-      if (lane == 0 && col < n && r < m)
-        out[static_cast<size_t>(r) * n + col] = epilogue(s, cx[r], cw[col], relu);
-    }
+  for (int r = 0; r < NR; ++r) {
+    int* p = part + (static_cast<size_t>(warp) * 16 + g) * R + 8 * r + 2 * t;
+    *reinterpret_cast<int2*>(p) = make_int2(acc[r][0], acc[r][1]);
+    *reinterpret_cast<int2*>(p + 8 * R) = make_int2(acc[r][2], acc[r][3]);
+  }
+  __syncthreads();
+  const int warps = blockDim.x >> 5;
+  for (int i = threadIdx.x; i < 16 * m; i += blockDim.x) {
+    const int cl = i / m, row = i % m, c = col0 + cl;
+    if (c >= n) continue;
+    int sum = 0;
+    for (int w = 0; w < warps; ++w) sum += part[(static_cast<size_t>(w) * 16 + cl) * R + row];
+    out[static_cast<size_t>(row) * n + c] = epilogue(sum, cx[row], cw[c], relu);
   }
 }
 
@@ -163,16 +155,14 @@ constexpr int kBM = 64, kBN = 128, kBK = 64, kPad = 16;
 constexpr int kMmaThreads = 128;   // 4 warps as 2 x 2, each a 32 x 64 tile
 
 // grid (ceil(n / kBN), ceil(m / kBM), E)
-template <typename T>
 __global__ void __launch_bounds__(kMmaThreads)
-qmm_mma_kernel(const T* __restrict__ x, const float* __restrict__ cx,
+qmm_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ cx,
                const int8_t* __restrict__ wt, const float* __restrict__ cw,
-               float* __restrict__ out, int m, int n, int k, int truncate, int relu) {
+               float* __restrict__ out, int m, int n, int k, int relu) {
   __shared__ __align__(16) int8_t As[kBM][kBK + kPad];
   __shared__ __align__(16) int8_t Bs[kBN][kBK + kPad];
-  __shared__ float sx[kBM];
   const size_t e = blockIdx.z;
-  x += e * m * k;
+  xq += e * m * k;
   cx += e * m;
   wt += e * n * k;
   cw += e * n;
@@ -181,7 +171,6 @@ qmm_mma_kernel(const T* __restrict__ x, const float* __restrict__ cx,
   const int wm = warp >> 1, wn = warp & 1;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  if (tid < kBM) sx[tid] = row0 + tid < m ? kQRange / cx[row0 + tid] : 0.f;
   int acc[2][8][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -189,28 +178,21 @@ qmm_mma_kernel(const T* __restrict__ x, const float* __restrict__ cx,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
-  __syncthreads();
 
   for (int k0 = 0; k0 < k; k0 += kBK) {
-    // A tile: quantize 8 X values per step into shared memory
-    for (int i = tid; i < kBM * (kBK / 8); i += kMmaThreads) {
-      const int r = i / (kBK / 8), kv = (i % (kBK / 8)) * 8;
+    // A tile: 16-byte vectors of the pre-pass's codes
+    for (int i = tid; i < kBM * (kBK / 16); i += kMmaThreads) {
+      const int r = i / (kBK / 16), kv = (i % (kBK / 16)) * 16;
       const int gr = row0 + r, gk = k0 + kv;
-      uint2 packed = make_uint2(0u, 0u);
-      if (gr < m && gk < k) {
-        float v[8];
-        load8(x + static_cast<size_t>(gr) * k + gk, v);
-        packed = quant8(v, sx[r], truncate);
-      }
-      *reinterpret_cast<uint2*>(&As[r][kv]) = packed;
+      *reinterpret_cast<int4*>(&As[r][kv]) =
+          load16(xq + static_cast<size_t>(gr) * k + gk, gr < m && gk < k);
     }
     // B tile: 16-byte vectors of the K-major weights
     for (int i = tid; i < kBN * (kBK / 16); i += kMmaThreads) {
       const int r = i / (kBK / 16), kv = (i % (kBK / 16)) * 16;
       const int gn = col0 + r, gk = k0 + kv;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (gn < n && gk < k) v = __ldg(reinterpret_cast<const int4*>(wt + static_cast<size_t>(gn) * k + gk));
-      *reinterpret_cast<int4*>(&Bs[r][kv]) = v;
+      *reinterpret_cast<int4*>(&Bs[r][kv]) =
+          load16(wt + static_cast<size_t>(gn) * k + gk, gn < n && gk < k);
     }
     __syncthreads();
 #pragma unroll
@@ -251,47 +233,67 @@ qmm_mma_kernel(const T* __restrict__ x, const float* __restrict__ cx,
       }
 }
 
-// E batches of [m, k] x [k, n]; cx is scratch for E * m row scales.
-template <typename T>
-cudaError_t launch(const T* x, const int8_t* wt, const float* cw, float* cx, float* out,
-                   int batches, int m, int n, int k, int truncate, int relu, cudaStream_t s) {
-  const int rows = batches * m;
-  row_absmax_kernel<T><<<(rows + 7) / 8, 256, 0, s>>>(x, cx, rows, k);
-  if (m <= 16) {
-    const dim3 grid((n + kSmCols - 1) / kSmCols, batches);
-#define QG_SMALL(MR)                                                              \
-  qmm_small_m_kernel<T, MR><<<grid, kSmThreads, 0, s>>>(x, cx, wt, cw, out, m, n, k, \
-                                                         truncate, relu)
-    if (m <= 1) QG_SMALL(1);
-    else if (m <= 2) QG_SMALL(2);
-    else if (m <= 4) QG_SMALL(4);
-    else if (m <= 8) QG_SMALL(8);
-    else QG_SMALL(16);
-#undef QG_SMALL
-  } else {
-    const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, batches);
-    qmm_mma_kernel<T><<<grid, kMmaThreads, 0, s>>>(x, cx, wt, cw, out, m, n, k, truncate,
-                                                   relu);
-  }
-  return cudaGetLastError();
+// The GEMV's launch plan (ops/cuda/gemv_plan.py): warps per block, K codes
+// per warp, dynamic shared memory in bytes.
+struct GemvPlan {
+  int warps, k_slice, smem;
+};
+
+inline bool plan_ok(const GemvPlan& p, int m, int k) {
+  const int nr = m <= 8 ? 1 : 2;
+  return p.warps >= 1 && p.warps <= kGvMaxWarps && p.k_slice > 0 && p.k_slice % kGvStep == 0 &&
+         static_cast<long long>(p.k_slice) * p.warps >= k &&
+         static_cast<long long>(p.k_slice) * (p.warps - 1) < k &&
+         p.smem == 4 * p.warps * 16 * 8 * nr;
 }
 
-// x_dtype 0 = f32, 1 = bf16
+template <int NR>
+cudaError_t launch_gemv(const int8_t* xq, const float* cx, const int8_t* wt, const float* cw,
+                        float* out, int batches, int m, int n, int k, int relu,
+                        const GemvPlan& p, cudaStream_t s) {
+  const dim3 grid((n + 15) / 16, batches);
+  return launch_pdl(qmm_gemv_kernel<NR>, grid, dim3(32 * p.warps), p.smem, s, xq, cx, wt, cw,
+                    out, m, n, k, p.k_slice, relu);
+}
+
+// E batches of [m, k] x [k, n]; xq [E * m, k] and cx [E * m] are scratch for
+// the pre-pass's codes and row scales.
+template <typename T>
+cudaError_t launch(const T* x, const int8_t* wt, const float* cw, int8_t* xq, float* cx,
+                   float* out, int batches, int m, int n, int k, int truncate, int relu,
+                   const GemvPlan& p, cudaStream_t s) {
+  if (m <= 16 && !plan_ok(p, m, k)) return cudaErrorInvalidValue;
+  row_quantize_kernel<T><<<batches * m, quant_threads(k), 0, s>>>(x, xq, cx, k, k, k, 1, 1,
+                                                                  truncate, 1.f);
+  cudaError_t e = cudaSuccess;
+  if (m > 16) {
+    const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, batches);
+    qmm_mma_kernel<<<grid, kMmaThreads, 0, s>>>(xq, cx, wt, cw, out, m, n, k, relu);
+  } else if (m <= 8) {
+    e = launch_gemv<1>(xq, cx, wt, cw, out, batches, m, n, k, relu, p, s);
+  } else {
+    e = launch_gemv<2>(xq, cx, wt, cw, out, batches, m, n, k, relu, p, s);
+  }
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// x_dtype 0 = f32, 1 = bf16; x 16-byte aligned
 inline cudaError_t launch_any(const void* x, int x_dtype, const void* wt, const void* cw,
-                              void* cx, void* out, int batches, int m, int n, int k,
-                              int truncate, int relu, cudaStream_t s) {
+                              void* xq, void* cx, void* out, int batches, int m, int n, int k,
+                              int truncate, int relu, const GemvPlan& p, cudaStream_t s) {
   if (batches <= 0 || batches > 65535 || m <= 0 || n <= 0 || k <= 0 || k % 16 != 0)
     return cudaErrorInvalidValue;
   const auto* w8 = static_cast<const int8_t*>(wt);
   const auto* cwf = static_cast<const float*>(cw);
+  auto* x8 = static_cast<int8_t*>(xq);
   auto* cxf = static_cast<float*>(cx);
   auto* of = static_cast<float*>(out);
   if (x_dtype == 0)
-    return launch(static_cast<const float*>(x), w8, cwf, cxf, of, batches, m, n, k, truncate,
-                  relu, s);
+    return launch(static_cast<const float*>(x), w8, cwf, x8, cxf, of, batches, m, n, k,
+                  truncate, relu, p, s);
   if (x_dtype == 1)
-    return launch(static_cast<const __nv_bfloat16*>(x), w8, cwf, cxf, of, batches, m, n, k,
-                  truncate, relu, s);
+    return launch(static_cast<const __nv_bfloat16*>(x), w8, cwf, x8, cxf, of, batches, m, n,
+                  k, truncate, relu, p, s);
   return cudaErrorInvalidValue;
 }
 

@@ -9,17 +9,30 @@
 // stream — every int8 weight byte is read once per call and the card does
 // ~2 int8 operations per byte, far under its 1979 TOP/s : 3.35 TB/s
 // balance; at prefill (m = prompt bucket) it is the int8 tensor-core rate.
+// A decode call is two launches, the pre-pass and the GEMV, so at the
+// small GPT_6_7B shape (k = n = 4096, 16.8 MB, 5 us at the byte bound) their
+// latency rather than the stream sets its time.
 //
-// The kernels, their arithmetic and their design are in int8_gemm.cuh,
-// shared with K8 (expert_matmul.cu); K1 runs them on one matrix.
+// Design: the pre-pass writes the int8 codes once; the decode GEMV feeds W
+// from device memory straight into mma.sync fragments, holds X's codes in
+// registers, splits K across a block's warps and is launched with
+// programmatic dependent launch, its first weights prefetched into L2
+// while the pre-pass runs. Measured on an H100 80GB HBM3 at 700 W at m 8
+// (PERF.md): 0.35 of the byte bound at k = n = 4096, 0.57-0.66 at the FFN
+// shapes, 0.81 at the lm_head. The kernels, their arithmetic and their
+// design are in int8_gemm.cuh, shared with K8 (expert_matmul.cu); K1 runs
+// them on one matrix.
 #include "int8_gemm.cuh"
 
-// x [m, k] (x_dtype 0 = f32, 1 = bf16), wt int8 [n, k], cw f32 [n],
-// cx f32 [m] scratch, out f32 [m, n]. Returns cudaGetLastError().
+// x [m, k] (x_dtype 0 = f32, 1 = bf16), wt int8 [n, k], cw f32 [n], xq int8
+// [m, k] and cx f32 [m] scratch, out f32 [m, n]; for m <= 16 the GEMV's plan
+// (warps, k_slice, smem: ops/cuda/gemv_plan.py), refused unless it
+// matches a compiled instantiation. Returns cudaGetLastError().
 extern "C" int qgemm_quantized_matmul(const void* x, int x_dtype, const void* wt,
-                                      const void* cw, void* cx, void* out, int m,
-                                      int n, int k, int truncate, void* stream) {
-  return static_cast<int>(qg::gemm::launch_any(x, x_dtype, wt, cw, cx, out, 1, m, n, k,
-                                               truncate, 0,
+                                      const void* cw, void* xq, void* cx, void* out, int m,
+                                      int n, int k, int truncate, int warps, int k_slice,
+                                      int smem, void* stream) {
+  return static_cast<int>(qg::gemm::launch_any(x, x_dtype, wt, cw, xq, cx, out, 1, m, n, k,
+                                               truncate, 0, {warps, k_slice, smem},
                                                static_cast<cudaStream_t>(stream)));
 }

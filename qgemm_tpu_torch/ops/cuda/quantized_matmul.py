@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
+from qgemm_tpu_torch.ops.cuda.gemv_plan import gemv_args
 
 ROUNDING = {"nearest": 0, "truncate": 1}
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -27,7 +28,7 @@ def _lib():
     fn = lib.qgemm_quantized_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -36,7 +37,9 @@ def quantized_matmul_cuda(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor,
                           rounding: str) -> torch.Tensor:
     """Launch K1 on checked CUDA tensors: x [m, k] f32/bf16, K-major int8
     weights wt [n, k] (k % 16 == 0: the caller pads K), per-column scales cw [1, n] -> f32
-    [m, n]. Counts each launch in ``quantized_matmul_cuda.launches``."""
+    [m, n]. The pre-pass writes x's int8 codes into ``xq``; m <= 16 runs the
+    GEMV on ``gemv_plan``'s launch plan. Counts each launch in
+    ``quantized_matmul_cuda.launches``."""
     if not (x.is_cuda and x.device == wt.device == cw.device):
         raise ValueError("x, wt and cw must lie on one CUDA device")
     m, k = x.shape
@@ -49,9 +52,13 @@ def quantized_matmul_cuda(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
-    cx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    # one scratch allocation: the pre-pass's int8 codes xq [m, k], then its
+    # f32 row scales cx [m] (m * k is a multiple of 16)
+    xq = torch.empty((m * k + 4 * m,), dtype=torch.int8, device=x.device)
     rc = _lib()(x.data_ptr(), X_DTYPES[x.dtype], wt.data_ptr(), cw.data_ptr(),
-                cx.data_ptr(), out.data_ptr(), m, n, k, ROUNDING[rounding],
+                xq.data_ptr(), xq.data_ptr() + m * k, out.data_ptr(), m, n, k,
+                ROUNDING[rounding],
+                *gemv_args("int8", 1, m, n, k),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch("qgemm_quantized_matmul", rc)
     quantized_matmul_cuda.launches += 1
