@@ -71,6 +71,16 @@ time, idle share) with another checkout's package and this one's in the
 same turns, and prints the medians, their ratios and the shares of the
 byte bounds.
 
+    python3 chip_smoke.py --tile-ab OTHER_CHECKOUT [ROUNDS]
+
+times the tile kernels (K1 and K4 at the four GPT_6_7B shapes and m 32,
+128, 512; K8 at its two MoE products and C 168, 328; row 3's dynamic
+2048^3) and one full-depth GPT_6_7B prefill per bucket (128, 256, 512
+tokens; int8 and W4A8 weights: wall time, device time, the tile kernels'
+and pre-pass's time) with another checkout's package and this one's in the
+same turns, and prints the medians, their ratios and the shares of the
+kernels' bounds.
+
     python3 chip_smoke.py --k6-draws N
 
 runs K6's edge case (offsets [0], Hkv 8, int8 pool) on the q draws of
@@ -112,6 +122,17 @@ MOE_CFG = dict(vocab_size=50272, d_model=2048, n_heads=16, d_ff=4096, n_layers=2
 # -> N 2048), over E 8 experts of C capacity rows: C 8 at a decode step of 8
 # slots, 168 and 328 at prefill buckets of 512 and 1024 tokens
 MOE_GEMMS = [(2048, 4096), (4096, 2048)]
+
+
+# rows of the K1 and K4 parity checks: the decode GEMV's (1, 8), the tile
+# kernel's 64-row edges, a ragged 300, the prefill buckets 128 and 512 and
+# 2048; the ragged n 4100 runs at m 300 beside them
+PARITY_ROWS = (1, 8, 17, 32, 63, 64, 65, 128, 300, 512, 2048)
+RAGGED_ROWS = (1, 17, 300)
+# K8's capacities on the tile kernel: the smallest, a 512- and a 1024-token prefill
+K8_TILE_ROWS = (17, 168, 328)
+# rows of the K1 and K4 timing tables: decode (the GEMVs), prefill buckets
+TIMING_ROWS = (1, 8, 16, 32, 128, 256, 512)
 
 
 def emit(obj) -> None:
@@ -303,13 +324,21 @@ def phase_parity() -> dict:
         return e
 
     # K1: identical int8 codes on both sides, so only the f32 epilogue's
-    # association differs: |err| <= 1e-6 * max|ref| (a few f32 ulps)
-    for k, n in GEMM_SHAPES:
-        w = torch.randn((k, n), generator=g, device=dev).to(torch.bfloat16) * 0.02
+    # association differs: |err| <= 1e-6 * max|ref| (a few f32 ulps). The
+    # rows past the first 512 and the ragged n 4100 draw from a generator of
+    # their own, so the other checks keep their inputs.
+    g_tile = torch.Generator(device=dev)
+    g_tile.manual_seed(11)
+    for k, n in GEMM_SHAPES + [(4096, 4100)]:
+        ragged = n == 4100
+        gw = g_tile if ragged else g
+        w = torch.randn((k, n), generator=gw, device=dev).to(torch.bfloat16) * 0.02
         wq = quantize_weights(w)
-        x = torch.randn((512, k), generator=g, device=dev).to(torch.bfloat16)
+        x = torch.randn((512, k), generator=gw, device=dev).to(torch.bfloat16)
+        x = torch.cat([x, torch.randn((PARITY_ROWS[-1] - 512, k), generator=g_tile,
+                                      device=dev).to(torch.bfloat16)])
         rows = {}
-        for m in (1, 8, 300, 512):
+        for m in RAGGED_ROWS if ragged else PARITY_ROWS:
             got = quantized_matmul_prequant(x[:m], wq)
             ref = quantized_matmul_plain(x[:m], wq)
             tol = 1e-6 * float(ref.abs().max())
@@ -317,36 +346,41 @@ def phase_parity() -> dict:
             if not e <= tol:
                 raise AssertionError(f"K1 m={m} k={k} n={n}: max err {e} > {tol}")
             rows[m] = got[0]
-        # a row's result may not depend on how many rows share the call
-        for m in (8, 300, 512):
-            if not torch.equal(rows[m], rows[1]):
+        # a row's result may not depend on how many rows share the call, nor
+        # on the route (the GEMV at m <= 16, the tile kernel's plans above)
+        for m, row in rows.items():
+            if not torch.equal(row, rows[1]):
                 raise AssertionError(f"K1 row 0 differs between m=1 and m={m} (k={k}, n={n})")
         del w, wq, x
 
     # K4: identical int8 codes and int32 group sums, and both kernels fold
     # groups and slabs in the plain version's order with correctly rounded
-    # f32 steps: |err| <= 1e-6 * max|ref| (a few f32 ulps; expected 0). The
-    # first K slab is 8x larger, so per-slab scales differ within a row.
-    for k, n in GEMM_SHAPES:
-        wq4 = quantize_weights_int4(torch.randn((k, n), generator=g, device=dev) * 0.02)
-        x = torch.randn((512, k), generator=g, device=dev)
+    # f32 steps: bit-equal to the plain version. The first K slab is 8x
+    # larger, so per-slab scales differ within a row.
+    for k, n in GEMM_SHAPES + [(4096, 4100)]:
+        ragged = n == 4100
+        gw = g_tile if ragged else g
+        wq4 = quantize_weights_int4(torch.randn((k, n), generator=gw, device=dev) * 0.02)
+        x = torch.randn((512, k), generator=gw, device=dev)
+        x = torch.cat([x, torch.randn((PARITY_ROWS[-1] - 512, k), generator=g_tile, device=dev)])
         x[:, :2048] *= 8.0
         x = x.to(torch.bfloat16)
         rows = {}
-        for m in (1, 8, 300, 512):
+        for m in RAGGED_ROWS if ragged else PARITY_ROWS:
             got = quantized_matmul_prequant_w4(x[:m], wq4)
             ref = w4a8_matmul_plain(x[:m], wq4)
-            tol = 1e-6 * float(ref.abs().max())
-            e = record("w4a8_matmul", got, ref, m=m, k=k, n=n, tol=tol)
-            if not e <= tol:
-                raise AssertionError(f"K4 m={m} k={k} n={n}: max err {e} > {tol}")
+            e = record("w4a8_matmul", got, ref, m=m, k=k, n=n, tol=0.0)
+            if not bits_equal(got, ref):
+                raise AssertionError(f"K4 m={m} k={k} n={n}: not bit-equal to its plain "
+                                     f"version (max err {e})")
             rows[m] = got[0]
-        for m in (8, 300, 512):
-            if not torch.equal(rows[m], rows[1]):
+        for m, row in rows.items():
+            if not torch.equal(row, rows[1]):
                 raise AssertionError(f"K4 row 0 differs between m=1 and m={m} (k={k}, n={n})")
         del wq4, x
 
     k8_k9_checks(g, record)
+    k8_tile_checks(record)
     gemv_parity(record)
 
     # the outlier split at the GEMM level, on planted-outlier activations
@@ -639,6 +673,45 @@ def gemv_parity(record) -> None:
         del wt, cw
 
 
+def k8_tile_checks(record) -> None:
+    """K8 on its tile kernel at the MoE model's products (``MOE_GEMMS``, E 8)
+    and C 17, 168 and 328 (the smallest tile route and the capacities of
+    512- and 1024-token prefills), f32 and bf16 x, one expert empty, on a
+    generator of its own: bit-equal to its plain version, and each expert's
+    first rows bit-equal across C and across routes (C 1 and 8 run the
+    GEMV)."""
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize
+    from qgemm_tpu_torch.ops.cuda.expert_matmul import (grouped_quantized_matmul,
+                                                        grouped_quantized_matmul_plain)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    e = MOE_CFG["n_experts"]
+    for k, n in MOE_GEMMS:
+        wt, cw = col_quantize(torch.randn((e, k, n), generator=g, device="cuda") * 0.02)
+        relu = k == MOE_CFG["d_model"]
+        for dt in ("float32", "bfloat16"):
+            x = torch.randn((e, K8_TILE_ROWS[-1], k), generator=g, device="cuda")
+            x[5] = 0.0
+            x = x.to(getattr(torch, dt))
+            first = None
+            for c in (1, 8) + K8_TILE_ROWS:
+                got = grouped_quantized_matmul(x[:, :c], wt, cw, relu=relu)
+                if c > 8:
+                    ref = grouped_quantized_matmul_plain(x[:, :c], wt, cw, relu=relu)
+                    err = record("expert_matmul", got, ref, e=e, c=c, k=k, n=n, x_dtype=dt,
+                                 relu=relu, tol=0.0)
+                    if not (bits_equal(got, ref) and not bool(got[5].any())):
+                        raise AssertionError(f"K8 c={c} k={k} n={n} {dt}: not bit-equal to its "
+                                             f"plain version (max err {err}) or the empty "
+                                             f"expert not 0")
+                if first is None:
+                    first = got[:, :1]
+                elif not bits_equal(got[:, :1], first):
+                    raise AssertionError(f"K8 k={k} n={n} {dt}: first rows differ between "
+                                         f"C=1 and C={c}")
+        del wt, cw
+
+
 def k8_k9_checks(g: torch.Generator, record) -> None:
     """K8 and K9 against their plain versions, bit for bit (both compute
     the same f32 steps; K8's int32 sums are exact, and its plain version
@@ -814,7 +887,7 @@ def phase_timing(errs: dict) -> dict:
         return dequantize(acc, cx, wq.c)
 
     k1_rows = []
-    for m in (1, 8, 16, 512):
+    for m in TIMING_ROWS:
         for k, n in GEMM_SHAPES:
             wq = quantize_weights(torch.randn((k, n), generator=g, device=dev) * 0.02)
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -826,9 +899,14 @@ def phase_timing(errs: dict) -> dict:
                 print(f"torch._int_mm unavailable at m={m} k={k} n={n}: {e}",
                       file=sys.stderr)
                 lib = None
+            row = {}
+            if m > 16:   # cuBLAS's int8 product alone, no quantize, no dequant
+                xq = absmax_quantize(x.float(), axis=-1)[0]
+                row["int_mm_alone_ms"] = bench_ms(lambda: torch._int_mm(xq, wq.q))
+                del xq
             bms, by = bound(m * k * 2 + k * n + n * 4 + m * n * 4, 2 * m * n * k, INT8_OPS)
             k1_rows.append({"m": m, "k": k, "n": n, "ms": ms, "plain_ms": plain,
-                            "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                            "library_ms": lib, **row, "bound_ms": bms, "bound_by": by,
                             "share_of_bound": bms / ms})
             del wq, x
     emit({"phase": "timing_k1_shapes", "rows": k1_rows})
@@ -841,7 +919,7 @@ def phase_timing(errs: dict) -> dict:
     # call computes W4A8: torch._weight_int4pack_mm takes bf16 activations
     # (A16W4), so library_ms is null.
     k4_rows = []
-    for m in (1, 8, 16, 512):
+    for m in TIMING_ROWS:
         for k, n in GEMM_SHAPES:
             w = torch.randn((k, n), generator=g, device=dev) * 0.02
             wq4, wq = quantize_weights_int4(w), quantize_weights(w)
@@ -2660,6 +2738,147 @@ def gemv_ab(other: str, rounds: int = 1) -> None:
                              for side in med}})
 
 
+TILE_AB_ROWS = (32, 128, 512)
+PREFILL_BUCKETS = (128, 256, 512)
+# kernel families of a prefill, by substrings of the kernels' names (the
+# tile kernels' names before and after their redesign, so an A/B can read
+# either tree; at 128 rows and more no GEMV runs)
+PREFILL_FAMILIES = {"gemm_tiles": ("qmm_wgmma_kernel", "w4a8_wgmma_kernel", "qmm_mma_kernel",
+                                   "w4a8_mma_kernel"),
+                    "gemm_prepass": ("row_quantize_kernel",)}
+
+
+def profile_prefill(model, bucket: int, runs: int = 5) -> dict:
+    """One full-depth prefill of a ``bucket``-token prompt into a fresh
+    int8 KV cache: the median wall time of ``runs`` prefills (each between
+    synchronisations), and one traced by torch.profiler (CUDA activity):
+    the device time (union of kernel intervals), the GEMM tile kernels' and
+    pre-pass's time, and the device operations."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda")
+    g.manual_seed(bucket)
+    tokens = torch.randint(0, model.cfg.vocab_size, (1, bucket), generator=g, device="cuda")
+    caches = model.init_cache(1, 1024, quantized=True)
+    model.prefill(tokens, caches)       # warm
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.prefill(tokens, caches)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.prefill(tokens, caches)
+        torch.cuda.synchronize()
+    busy_us, by_name, n_spans = device_spans(prof)
+    fams = {f: sum(us for name, us in by_name.items() if any(pt in name for pt in pats)) / 1e3
+            for f, pats in PREFILL_FAMILIES.items()}
+    return {"wall_ms": float(np.median(walls)), "wall_ms_runs": walls,
+            "device_ms": busy_us / 1e3, "device_ops": n_spans,
+            **{f"{f}_ms": v for f, v in fams.items()}}
+
+
+def tile_child(tree: str) -> None:
+    """One side of ``--tile-ab``: with the kernels and the qgemm_tpu_torch
+    package of checkout ``tree``, bench_ms of K1 and K4 at the GPT_6_7B
+    shapes (``GEMM_SHAPES``) and m 32, 128, 512 (bf16 x), of K8 at its two
+    MoE products at C 168 and 328 (E 8, f32 x), of row 3's dynamic 2048^3
+    (K9 + K1 on f32 operands), and one prefill of each bucket (128, 256, 512
+    tokens) of the full-depth GPT_6_7B with int8 and with W4A8 weights
+    (``profile_prefill``). Prints one JSON line."""
+    root = use_tree(tree)
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.ops.cuda import _build
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize
+    from qgemm_tpu_torch.ops.cuda.expert_matmul import grouped_quantized_matmul
+    from qgemm_tpu_torch.ops.quantize import (quantize_weights, quantize_weights_int4,
+                                              quantized_matmul, quantized_matmul_prequant,
+                                              quantized_matmul_prequant_w4)
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    _build.build()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    res = {"tree": str(root), "k1_ms": {}, "k4_ms": {}, "k8_ms": {}}
+    for k, n in GEMM_SHAPES:
+        w = torch.randn((k, n), generator=g, device="cuda") * 0.02
+        wq, wq4 = quantize_weights(w), quantize_weights_int4(w)
+        del w
+        for m in TILE_AB_ROWS:
+            x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+            res["k1_ms"][f"m{m}_k{k}_n{n}"] = bench_ms(lambda: quantized_matmul_prequant(x, wq))
+            res["k4_ms"][f"m{m}_k{k}_n{n}"] = bench_ms(
+                lambda: quantized_matmul_prequant_w4(x, wq4))
+        del wq, wq4
+    e = MOE_CFG["n_experts"]
+    for k, n in MOE_GEMMS:
+        wt, cw = col_quantize(torch.randn((e, k, n), generator=g, device="cuda") * 0.02)
+        relu = k == MOE_CFG["d_model"]
+        for c in K8_TILE_ROWS[1:]:
+            x = torch.randn((e, c, k), generator=g, device="cuda")
+            res["k8_ms"][f"e{e}_c{c}_k{k}_n{n}"] = bench_ms(
+                lambda: grouped_quantized_matmul(x, wt, cw, relu=relu))
+        del wt, cw
+    x = torch.rand((2048, 2048), generator=g, device="cuda") * 2 - 1
+    w = torch.rand((2048, 2048), generator=g, device="cuda") * 2 - 1
+    res["row3_ms"] = {"m2048_k2048_n2048": bench_ms(lambda: quantized_matmul(x, w))}
+    del x, w
+    for label, qkw in (("int8", {}), ("w4a8", {"bits": 4})):
+        model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda", **qkw)
+        res[f"prefill_{label}"] = {f"s{b}": profile_prefill(model, b) for b in PREFILL_BUCKETS}
+        del model
+        torch.cuda.empty_cache()
+    emit(res)
+
+
+def tile_bounds() -> dict:
+    """Bounds (ms) of ``tile_child``'s timed kernels, by the timing phases'
+    formulas: each input read once and each output written once over 3.35
+    TB/s, or 2 m n k int8 operations over 1,979 TOP/s."""
+    out = {}
+    for k, n in GEMM_SHAPES:
+        for m in TILE_AB_ROWS:
+            key = f"m{m}_k{k}_n{n}"
+            out[f"k1_ms {key}"] = bound(m * k * 2 + k * n + n * 4 + m * n * 4, 2 * m * n * k,
+                                        INT8_OPS)[0]
+            out[f"k4_ms {key}"] = bound(m * k * 2 + k * n // 2 + (k // 128) * n * 4 + m * n * 4,
+                                        2 * m * n * k, INT8_OPS)[0]
+    e = MOE_CFG["n_experts"]
+    for k, n in MOE_GEMMS:
+        for c in K8_TILE_ROWS[1:]:
+            out[f"k8_ms e{e}_c{c}_k{k}_n{n}"] = bound(
+                e * c * k * 4 + e * n * k + e * n * 4 + e * c * n * 4, 2 * e * c * n * k,
+                INT8_OPS)[0]
+    out["row3_ms m2048_k2048_n2048"] = bound(4 * 3 * 2048 * 2048, 2 * 2048 ** 3, INT8_OPS)[0]
+    return out
+
+
+def tile_ab(other: str, rounds: int = 1) -> None:
+    """The tile kernels (K1, K4, K8 at m > 16, row 3) and the GPT_6_7B
+    prefills of checkout ``other`` against this one's (``tile_child`` in
+    ``ab_runs``' turns). Prints each run, the medians, the speed-ups and
+    each side's share of the kernels' bounds."""
+    trees, order, runs = ab_runs("--tile-child", "tile_run", other, rounds, 900)
+
+    def flat(r: dict) -> dict:
+        out = {f"{fam} {key}": v for fam in ("k1_ms", "k4_ms", "k8_ms", "row3_ms")
+               for key, v in r[fam].items()}
+        for label in ("int8", "w4a8"):
+            for b, pr in r[f"prefill_{label}"].items():
+                for stat in ("wall_ms", "device_ms", "gemm_tiles_ms", "gemm_prepass_ms"):
+                    out[f"prefill_{label} {b} {stat}"] = pr[stat]
+        return out
+
+    med = {side: {key: float(np.median([flat(r)[key] for r in rs])) for key in flat(rs[0])}
+           for side, rs in runs.items()}
+    bounds = tile_bounds()
+    emit({"phase": "tile_ab", "order": order, "trees": trees, "median": med,
+          "speedup_other_over_this": {k: med["other"][k] / med["this"][k]
+                                      for k in med["this"]},
+          "bound_ms": bounds,
+          "share_of_bound": {side: {k: b / med[side][k] for k, b in bounds.items()}
+                             for side in med}})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -2675,6 +2894,10 @@ def main() -> None:
         return gemv_child(sys.argv[2])
     if sys.argv[1:2] == ["--gemv-ab"]:
         return gemv_ab(sys.argv[2], *map(int, sys.argv[3:4]))
+    if sys.argv[1:2] == ["--tile-child"]:
+        return tile_child(sys.argv[2])
+    if sys.argv[1:2] == ["--tile-ab"]:
+        return tile_ab(sys.argv[2], *map(int, sys.argv[3:4]))
     if sys.argv[1:2] == ["--k6-draws"]:
         return k6_draws(int(sys.argv[2]))
     from qgemm_tpu_torch.ops.cuda import _build   # fails outside the repository

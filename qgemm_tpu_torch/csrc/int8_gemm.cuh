@@ -12,12 +12,18 @@
 //
 // What bounds it on the H100: at decode (m <= 16) the weight stream, every
 // int8 weight byte read once for ~2 int8 operations per byte, far under the
-// card's 1979 TOP/s : 3.35 TB/s balance; at prefill the tensor-core rate.
-// Measured on an H100 80GB HBM3 at 700 W at m 8 (PERF.md), the decode call
-// (pre-pass and GEMV) reaches 0.35 of the byte bound at k = n = 4096, where
-// two launches' latency outweighs the 5 us stream, 0.57-0.66 at the FFN
-// shapes and 0.81 at the lm_head; the GEMV alone streams at 72-87 % of
-// 3.35 TB/s at the larger shapes.
+// card's 1979 TOP/s : 3.35 TB/s balance; at prefill (m = a prompt bucket of
+// 128-512 rows) the tensor-core rate. Measured on an H100 80GB HBM3 at 700
+// W at m 8 (PERF.md), the decode call (pre-pass and GEMV) reaches 0.35 of
+// the byte bound at k = n = 4096, where two launches' latency outweighs the
+// 5 us stream, 0.57-0.66 at the FFN shapes and 0.81 at the lm_head; the
+// GEMV alone streams at 72-87 % of 3.35 TB/s at the larger shapes. At m 512
+// the call (pre-pass and tile kernel) reaches 0.27 of the operations bound
+// at k = n = 4096 and 0.39-0.44 at the FFN shapes and the lm_head, 1.0-1.1x
+// the time of cuBLAS's int8 product alone (torch._int_mm, no quantize, no
+// dequant); the tile kernel alone runs at 700-1050 TOP/s. Neither its K
+// ring's depth nor the bytes it brings in set that: halving the bytes (X's
+// tiles only) or the ring (4 stages) moved it by 0-13 %.
 //
 // Design:
 //   * one pre-pass (row_quantize.cuh, one block per row) writes cx and the
@@ -43,11 +49,20 @@
 //     first batch of weights into L2 and waits for the codes with
 //     griddepcontrol.wait. The launch plan (warps, K slice, shared memory)
 //     comes from ops/cuda/gemv_plan.py and is checked here;
-//   * m > 16: 64x128x64 block tiles, mma.sync m16n8k32 s8 -> s32;
+//   * m > 16, the tile kernel (qmm_wgmma_kernel<BM, BN>): wgmma m64nBNk32
+//     s8 -> s32 from shared memory, one consumer warpgroup per 64 rows, fed
+//     by one producer warp through a ring of up to 8 stages of 128 K codes
+//     (TMA loads of X's codes and W's, 128-byte swizzle, full and empty
+//     mbarriers); the int32 accumulator stays in registers over all of K,
+//     and the epilogue applies the f32 steps to it once. Tiles 64 x 32 to
+//     128 x 256; the plan (ops/cuda/tile_plan.py) takes the fewest stage
+//     bytes per wave of blocks, and row blocks are fastest in the grid, so a
+//     weight tile is read from device memory once per call;
 //   * int32 accumulation is exact, so every tiling gives the same bits —
 //     a row's result does not depend on m or on which kernel ran;
-//   * ragged m, n and k edges are masked in the kernels (the 50272 vocab is
-//     not a multiple of the tile); k must be a multiple of 16: the
+//   * ragged m, n and k edges are masked in the GEMV and zero-filled by TMA
+//     in the tile kernel (the 50272 vocab is not a multiple of the tile); k
+//     must be a multiple of 16 (TMA's 16-byte row pitch): the
 //     wrappers zero-pad x and W along K on the calls where it is not (no
 //     model of the repo takes that path at full width), since zeros
 //     change neither the row absmax nor the int32 sums. A row of zeros (an empty
@@ -56,6 +71,7 @@
 
 #include "mma.cuh"
 #include "row_quantize.cuh"
+#include "wgmma.cuh"
 
 namespace qg {
 namespace gemm {
@@ -151,86 +167,172 @@ qmm_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ cx,
 }
 
 // ------------------------------------------------------------ m > 16 rows
-constexpr int kBM = 64, kBN = 128, kBK = 64, kPad = 16;
-constexpr int kMmaThreads = 128;   // 4 warps as 2 x 2, each a 32 x 64 tile
+// The tile kernel: a block computes BM rows x BN columns of one batch
+// (expert) with BM / 64 consumer warpgroups (warps 0 .. 4 BM/64 - 1, each 64
+// rows on wgmma m64nBNk32, the whole accumulator in registers) and one
+// producer warp (the last). The producer's lane 0 keeps a ring of STAGES
+// stages full: each stage is the X codes' tile [BM rows x 128 codes] and the
+// weights' tile [BN columns x 128 codes], both by TMA in the 128-byte
+// swizzle, completing on the stage's full barrier; each consumer warp
+// arrives on the stage's empty barrier once its products have read it.
+// TMA reads zeros outside the tensors, so ragged m, n and k need no masks
+// in the main loop; the 3-D maps [E, rows, k] keep a tile inside its
+// expert.
+template <int BM, int BN> struct TileCfg {
+  static constexpr int kConsumers = BM / 64;
+  static constexpr int kThreads = 128 * kConsumers + 32;
+  static constexpr int kStage = (BM + BN) * sm90::kStepK;
+  static constexpr int kStages = sm90::ring_stages(kStage);
+  static constexpr int kSmem = sm90::kAlign + kStages * kStage;
+};
 
-// grid (ceil(n / kBN), ceil(m / kBM), E)
-__global__ void __launch_bounds__(kMmaThreads)
-qmm_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ cx,
-               const int8_t* __restrict__ wt, const float* __restrict__ cw,
-               float* __restrict__ out, int m, int n, int k, int relu) {
-  __shared__ __align__(16) int8_t As[kBM][kBK + kPad];
-  __shared__ __align__(16) int8_t Bs[kBN][kBK + kPad];
-  const size_t e = blockIdx.z;
-  xq += e * m * k;
-  cx += e * m;
-  wt += e * n * k;
-  cw += e * n;
-  out += e * m * n;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  int acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
-
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    // A tile: 16-byte vectors of the pre-pass's codes
-    for (int i = tid; i < kBM * (kBK / 16); i += kMmaThreads) {
-      const int r = i / (kBK / 16), kv = (i % (kBK / 16)) * 16;
-      const int gr = row0 + r, gk = k0 + kv;
-      *reinterpret_cast<int4*>(&As[r][kv]) =
-          load16(xq + static_cast<size_t>(gr) * k + gk, gr < m && gk < k);
+// grid (ceil(m / BM), ceil(n / BN), E): the row blocks of one column block
+// are neighbours in launch order, so they run together and read each weight
+// tile from device memory once (a weight matrix of 64-206 MB does not stay
+// in the 50 MB L2 between waves). TileCfg<BM, BN>::kSmem bytes of dynamic
+// shared memory. Launched with programmatic dependent launch: the producer
+// asks for the first stages' weights before it waits for the pre-pass's
+// codes.
+template <int BM, int BN>
+__global__ void __launch_bounds__(TileCfg<BM, BN>::kThreads, 1)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                 const float* __restrict__ cx, const float* __restrict__ cw,
+                 float* __restrict__ out, int m, int n, int k, int relu) {
+  using C = TileCfg<BM, BN>;
+  constexpr int S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[S], empty[S];
+  uint8_t* tiles = sm90::aligned_smem(smem_raw);   // stage s: X tile, then W tile
+  const int e = blockIdx.z, row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const int steps = (k + sm90::kStepK - 1) / sm90::kStepK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4 * C::kConsumers);
     }
-    // B tile: 16-byte vectors of the K-major weights
-    for (int i = tid; i < kBN * (kBK / 16); i += kMmaThreads) {
-      const int r = i / (kBK / 16), kv = (i % (kBK / 16)) * 16;
-      const int gn = col0 + r, gk = k0 + kv;
-      *reinterpret_cast<int4*>(&Bs[r][kv]) =
-          load16(wt + static_cast<size_t>(gn) * k + gk, gn < n && gk < k);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t a[2][4], b[8][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(&As[r][kk + t * 4]);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + t * 4]);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 16 + t * 4]);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c = wn * 64 + nt * 8 + g;
-        b[nt][0] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + t * 4]);
-        b[nt][1] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
-    }
-    __syncthreads();
+    sm90::mbar_fence_init();
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = row0 + wm * 32 + mt * 16 + g + (q >= 2 ? 8 : 0);
-        const int c = col0 + wn * 64 + nt * 8 + t * 2 + (q & 1);
-        if (r < m && c < n)
-          out[static_cast<size_t>(r) * n + c] = epilogue(acc[mt][nt][q], cx[r], cw[c], relu);
+  if (warp == 4 * C::kConsumers) {   // producer
+    if (lane == 0) {
+      auto x_tile = [&](int s) { return tiles + s * C::kStage; };
+      auto w_tile = [&](int s) { return tiles + s * C::kStage + BM * sm90::kStepK; };
+      const int pre = min(steps, S);
+      for (int i = 0; i < pre; ++i) {   // weights first: they do not wait for the pre-pass
+        sm90::mbar_expect_tx(&full[i], C::kStage);
+        sm90::tma_load_3d(w_tile(i), &tw, &full[i], i * sm90::kStepK, col0, e);
       }
+      grid_dependency_wait();
+      for (int i = 0; i < pre; ++i)
+        sm90::tma_load_3d(x_tile(i), &tx, &full[i], i * sm90::kStepK, row0, e);
+      for (int i = pre; i < steps; ++i) {
+        const int s = i % S;
+        sm90::mbar_wait(&empty[s], ((i / S) + 1) & 1);   // its previous load was read
+        sm90::mbar_expect_tx(&full[s], C::kStage);
+        sm90::tma_load_3d(w_tile(s), &tw, &full[s], i * sm90::kStepK, col0, e);
+        sm90::tma_load_3d(x_tile(s), &tx, &full[s], i * sm90::kStepK, row0, e);
+      }
+    }
+  } else {
+    // consumer warpgroup wg: rows [64 wg, 64 wg + 64) of the block's tile
+    const int wg = warp >> 2;
+    grid_dependency_wait();   // cx is the pre-pass's
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % S;
+      sm90::mbar_wait(&full[s], (i / S) & 1);
+      const uint8_t* stage = tiles + s * C::kStage;
+      const uint64_t da = sm90::desc_sw128(stage + 64 * wg * sm90::kStepK);
+      const uint64_t db = sm90::desc_sw128(stage + BM * sm90::kStepK);
+      sm90::wgmma_fence();
+      sm90::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_ss(acc, sm90::desc_k32(da, kk), sm90::desc_k32(db, kk), i > 0 || kk > 0);
+      sm90::wgmma_commit();
+      sm90::fence_regs(acc);
+      // one step's products stay in flight; the step before them has read its stage
+      sm90::wgmma_wait<1>();
+      if (i > 0) {
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[(i - 1) % S]);
+      }
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+
+    // epilogue: d[4j + q] is (row g + 8 (q >> 1), column 8j + 2t + (q & 1))
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = row0 + 64 * wg + 16 * (warp & 3) + g;
+    const size_t base = static_cast<size_t>(e) * m;
+    const float* cwe = cw + static_cast<size_t>(e) * n;
+    float* oute = out + base * n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= m) continue;
+      const float c = cx[base + r];
+      float* orow = oute + static_cast<size_t>(r) * n;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = col0 + 8 * j + 2 * t;
+        if (col >= n) continue;
+        const float v0 = epilogue(acc[4 * j + 2 * h], c, __ldg(cwe + col), relu);
+        if (col + 1 < n) {
+          const float v1 = epilogue(acc[4 * j + 2 * h + 1], c, __ldg(cwe + col + 1), relu);
+          if (n % 2 == 0)
+            *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+          else {
+            orow[col] = v0;
+            orow[col + 1] = v1;
+          }
+        } else {
+          orow[col] = v0;
+        }
+      }
+    }
+  }
+}
+
+// The tile kernel's compiled instantiations (rows, columns), as
+// ops/cuda/tile_plan.py lists them: its plan names one and its shared memory.
+struct TilePlan {
+  int bm, bn, smem;
+};
+
+template <int BM, int BN>
+cudaError_t launch_tile(const int8_t* xq, const float* cx, const int8_t* wt, const float* cw,
+                        float* out, int batches, int m, int n, int k, int relu, cudaStream_t s) {
+  using C = TileCfg<BM, BN>;
+  cudaError_t e =
+      sm90::allow_smem(reinterpret_cast<const void*>(qmm_wgmma_kernel<BM, BN>), C::kSmem);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tx, tw;
+  if (!sm90::int8_map(&tx, xq, k, m, batches, k, sm90::kStepK, BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !sm90::int8_map(&tw, wt, k, n, batches, k, sm90::kStepK, BN, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, batches);
+  return launch_pdl(qmm_wgmma_kernel<BM, BN>, grid, dim3(C::kThreads), C::kSmem, s, tx, tw, cx,
+                    cw, out, m, n, k, relu);
+}
+
+#define QG_INT8_TILES(X) X(64, 32) X(64, 64) X(64, 128) X(64, 256) X(128, 128) X(128, 256)
+
+inline cudaError_t launch_tile(const TilePlan& p, const int8_t* xq, const float* cx,
+                               const int8_t* wt, const float* cw, float* out, int batches, int m,
+                               int n, int k, int relu, cudaStream_t s) {
+#define QG_TILE(BM, BN)                                                                   \
+  if (p.bm == BM && p.bn == BN)                                                           \
+    return p.smem == TileCfg<BM, BN>::kSmem                                               \
+               ? launch_tile<BM, BN>(xq, cx, wt, cw, out, batches, m, n, k, relu, s)      \
+               : cudaErrorInvalidValue;
+  QG_INT8_TILES(QG_TILE)
+#undef QG_TILE
+  return cudaErrorInvalidValue;
 }
 
 // The GEMV's launch plan (ops/cuda/gemv_plan.py): warps per block, K codes
@@ -261,14 +363,13 @@ cudaError_t launch_gemv(const int8_t* xq, const float* cx, const int8_t* wt, con
 template <typename T>
 cudaError_t launch(const T* x, const int8_t* wt, const float* cw, int8_t* xq, float* cx,
                    float* out, int batches, int m, int n, int k, int truncate, int relu,
-                   const GemvPlan& p, cudaStream_t s) {
+                   const GemvPlan& p, const TilePlan& tp, cudaStream_t s) {
   if (m <= 16 && !plan_ok(p, m, k)) return cudaErrorInvalidValue;
   row_quantize_kernel<T><<<batches * m, quant_threads(k), 0, s>>>(x, xq, cx, k, k, k, 1, 1,
                                                                   truncate, 1.f);
   cudaError_t e = cudaSuccess;
   if (m > 16) {
-    const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, batches);
-    qmm_mma_kernel<<<grid, kMmaThreads, 0, s>>>(xq, cx, wt, cw, out, m, n, k, relu);
+    e = launch_tile(tp, xq, cx, wt, cw, out, batches, m, n, k, relu, s);
   } else if (m <= 8) {
     e = launch_gemv<1>(xq, cx, wt, cw, out, batches, m, n, k, relu, p, s);
   } else {
@@ -280,7 +381,8 @@ cudaError_t launch(const T* x, const int8_t* wt, const float* cw, int8_t* xq, fl
 // x_dtype 0 = f32, 1 = bf16; x 16-byte aligned
 inline cudaError_t launch_any(const void* x, int x_dtype, const void* wt, const void* cw,
                               void* xq, void* cx, void* out, int batches, int m, int n, int k,
-                              int truncate, int relu, const GemvPlan& p, cudaStream_t s) {
+                              int truncate, int relu, const GemvPlan& p, const TilePlan& tp,
+                              cudaStream_t s) {
   if (batches <= 0 || batches > 65535 || m <= 0 || n <= 0 || k <= 0 || k % 16 != 0)
     return cudaErrorInvalidValue;
   const auto* w8 = static_cast<const int8_t*>(wt);
@@ -290,10 +392,10 @@ inline cudaError_t launch_any(const void* x, int x_dtype, const void* wt, const 
   auto* of = static_cast<float*>(out);
   if (x_dtype == 0)
     return launch(static_cast<const float*>(x), w8, cwf, x8, cxf, of, batches, m, n, k,
-                  truncate, relu, p, s);
+                  truncate, relu, p, tp, s);
   if (x_dtype == 1)
     return launch(static_cast<const __nv_bfloat16*>(x), w8, cwf, x8, cxf, of, batches, m, n,
-                  k, truncate, relu, p, s);
+                  k, truncate, relu, p, tp, s);
   return cudaErrorInvalidValue;
 }
 

@@ -17,22 +17,31 @@
 // from device memory straight into mma.sync fragments, holds X's codes in
 // registers, splits K across a block's warps and is launched with
 // programmatic dependent launch, its first weights prefetched into L2
-// while the pre-pass runs. Measured on an H100 80GB HBM3 at 700 W at m 8
-// (PERF.md): 0.35 of the byte bound at k = n = 4096, 0.57-0.66 at the FFN
-// shapes, 0.81 at the lm_head. The kernels, their arithmetic and their
+// while the pre-pass runs. The prefill tile kernel runs wgmma on tiles of
+// up to 128 x 256 that a producer warp brings into a shared-memory ring by
+// TMA, on tensor maps built per call (cuTensorMapEncodeTiled, reached
+// through the runtime, so no -lcuda). Measured on an H100 80GB HBM3 at 700
+// W (PERF.md): at m 8, 0.35 of the byte bound at k = n = 4096, 0.57-0.66 at
+// the FFN shapes, 0.81 at the lm_head; at m 512, 0.27 of the operations
+// bound at k = n = 4096 and ~0.4 at the FFN shapes and the lm_head, level
+// with cuBLAS's int8 product alone. The kernels, their arithmetic and their
 // design are in int8_gemm.cuh, shared with K8 (expert_matmul.cu); K1 runs
 // them on one matrix.
 #include "int8_gemm.cuh"
 
 // x [m, k] (x_dtype 0 = f32, 1 = bf16), wt int8 [n, k], cw f32 [n], xq int8
 // [m, k] and cx f32 [m] scratch, out f32 [m, n]; for m <= 16 the GEMV's plan
-// (warps, k_slice, smem: ops/cuda/gemv_plan.py), refused unless it
-// matches a compiled instantiation. Returns cudaGetLastError().
+// (warps, k_slice, smem: ops/cuda/gemv_plan.py), for more rows the tile
+// kernel's (tile_bm, tile_bn, tile_smem: ops/cuda/tile_plan.py), each
+// refused unless it matches a compiled instantiation. Returns
+// cudaGetLastError().
 extern "C" int qgemm_quantized_matmul(const void* x, int x_dtype, const void* wt,
                                       const void* cw, void* xq, void* cx, void* out, int m,
                                       int n, int k, int truncate, int warps, int k_slice,
-                                      int smem, void* stream) {
+                                      int smem, int tile_bm, int tile_bn, int tile_smem,
+                                      void* stream) {
   return static_cast<int>(qg::gemm::launch_any(x, x_dtype, wt, cw, xq, cx, out, 1, m, n, k,
                                                truncate, 0, {warps, k_slice, smem},
+                                               {tile_bm, tile_bn, tile_smem},
                                                static_cast<cudaStream_t>(stream)));
 }

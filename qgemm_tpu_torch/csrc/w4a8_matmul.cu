@@ -14,12 +14,18 @@
 // What bounds it on the H100: at decode (m <= 16 rows) the weight stream —
 // k * n / 2 bytes of codes plus (k / 128) * n * 4 bytes of scales, half of
 // K1's bytes — at about 4 int8 operations per weight byte, far under the
-// card's 1979 TOP/s : 3.35 TB/s balance; at prefill the int8 tensor-core rate.
-// Half the bytes make the latency of a decode call's two launches (pre-pass,
-// GEMV) and of the GEMV's one ordered fold per block a larger share: measured
-// on an H100 80GB HBM3 at 700 W at m 8 (PERF.md), ~0.2 of the byte bound at
-// k = n = 4096, ~0.5 at the FFN shapes, ~0.6 at the lm_head, and faster than
-// K1 at every decode shape.
+// card's 1979 TOP/s : 3.35 TB/s balance; at prefill the int8 tensor-core rate,
+// and with it the f32 fold of every group's sums: per output element and
+// group it issues as many instructions (convert, multiply, add) as the
+// tensor cores take clocks for the group's 128 products, so the fold, not
+// the products, sets the prefill time. Half the bytes make the latency of a
+// decode call's two launches (pre-pass, GEMV) and of the GEMV's one ordered
+// fold per block a larger share: measured on an H100 80GB HBM3 at 700 W at m
+// 8 (PERF.md), ~0.2 of the byte bound at k = n = 4096, ~0.5 at the FFN
+// shapes, ~0.6 at the lm_head, and faster than K1 at every decode shape; at
+// m 512 the tile kernel alone runs at ~530 TOP/s and a call reaches ~0.21-
+// 0.28 of the operations bound, 1.3-1.8x K1's time (without the fold the
+// same kernel ran 1.5x faster).
 //
 // Design:
 //   * a pre-pass (row_quantize.cuh), one block per (row, slab), takes the
@@ -54,11 +60,17 @@
 //     between them. Launched with programmatic dependent launch, its first
 //     weights and group scales prefetched into L2 while the pre-pass runs.
 //     The plan comes from ops/cuda/gemv_plan.py;
-//   * m > 16: 64 x 128 block tiles, one group (K = 128) per step unpacked into
-//     shared memory, mma.sync m16n8k32 s8 -> s32 per group, folded into f32;
-//   * ragged m, n and k are masked in the kernels; W is never padded per call.
+//   * m > 16, the tile kernel (w4a8_wgmma_kernel<WGS, XR>, below): wgmma with
+//     W as the A operand from registers, unpacked straight from the packed
+//     tile that TMA brought into shared memory, X's codes as B, one group a
+//     ring stage; its note gives the fold's order and the exact scaling by
+//     16 that lets a nibble be unpacked with one mask. The plan comes from
+//     ops/cuda/tile_plan.py;
+//   * ragged m, n and k are masked in the GEMV and zero-filled by TMA in the
+//     tile kernel; W is never padded per call.
 #include "mma.cuh"
 #include "row_quantize.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -210,129 +222,259 @@ w4a8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ ds,
 }
 
 // ------------------------------------------------------------ m > 16 rows
-constexpr int kTM = 64, kTN = 128, kTPad = 16;
-constexpr int kTThreads = 256;   // 8 warps as 2 x 4, each a 32 x 32 tile
+// The tile kernel computes out^T = W X^T group by group: W is wgmma's A
+// operand from registers, X's codes its B operand from shared memory, so a
+// group's column scale is one value per accumulator row and a slab's
+// activation scale one per accumulator column. A block holds XR x rows (64
+// or 128: the wgmma N) and 64 WGS output columns: WGS consumer warpgroups
+// (warps 0 .. 4 WGS - 1, each 64 columns of W as the m64 side of wgmma
+// m64nXRk32) and one producer warp (the last). A ring stage is one group:
+// the X codes' tile [XR rows x 128 codes] in the 128-byte swizzle and the
+// packed weights' tile [64 WGS columns x 64 bytes] in the 64-byte swizzle,
+// both by TMA (zeros outside the tensors). A thread reads its A fragments'
+// packed words straight from the stage: byte j of a column's group holds k
+// j (low nibble) and 64 + j (high nibble), so the four words at bytes 16c +
+// 4t (c = 0..3) are the fragments of all four k32 slices. A nibble goes to
+// the high half of its byte ((w << 4) & 0xF0F0F0F0 for k < 64, w &
+// 0xF0F0F0F0 above): the code times 16, exact in int8, and so is the int32
+// sum, 16 isum with |16 isum| < 2^21, exact in f32. The fold then takes the plain version's f32 steps
+// on values 16 times larger, which scales every rounded result by exactly
+// 16 (no f32 step comes near the subnormal range: |cw| >= 5e-13), and the
+// slab scale is taken as ds / 16 (exact), so the bits are the plain
+// version's. A group's int32 sums can be read only after wgmma.wait_group.
+// At 64 x rows two accumulator sets take turns, so the tensor cores compute
+// group g + 1 while a warpgroup folds group g. At 128 x rows (half the
+// shared-memory reads of X per product: at 64 the products of two
+// warpgroups read ~128 bytes a clock, all the SM has) one set fits, and the
+// other warpgroup's products fill the tensor cores while one folds. A
+// consumer thread keeps its accumulators, slab sums and A fragments in
+// registers; its f32 totals (read and written once a slab) and its rows'
+// slab scales (brought by cp.async a slab ahead) wait in shared memory, so
+// that two consumer warpgroups fit the 168 registers a thread of such a
+// block may have.
+template <int WGS, int XR> struct W4TileCfg {
+  static constexpr int kRows = XR;               // x rows: the wgmma N
+  static constexpr int kCols = 64 * WGS;         // output columns: W rows
+  static constexpr int kSets = XR == 64 ? 2 : 1; // accumulator sets a thread holds
+  static constexpr int kAcc = XR / 2;            // int32 accumulators a set
+  static constexpr int kConsumerThreads = 128 * WGS;
+  static constexpr int kThreads = kConsumerThreads + 32;
+  static constexpr int kXBytes = kRows * kGroup;
+  static constexpr int kStage = kXBytes + kCols * (kGroup / 2);
+  static constexpr int kFold = kConsumerThreads * (kAcc + XR / 4) * 4;   // totals, slab scales
+  static constexpr int kStages = qg::sm90::ring_stages(kStage, kFold);
+  static constexpr int kSmem = qg::sm90::kAlign + kStages * kStage + kFold;
+};
 
-__global__ void __launch_bounds__(kTThreads)
-w4a8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ ds,
-                const int8_t* __restrict__ wp, const float* __restrict__ cw,
-                float* __restrict__ out, int m, int n, int kp, int bk, int ns) {
-  __shared__ __align__(16) int8_t As[kTM][kGroup + kTPad];
-  __shared__ __align__(16) int8_t Bs[kTN][kGroup + kTPad];
-  __shared__ float cws[kTN];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
+// grid (ceil(m / XR), ceil(n / (64 WGS))): the row blocks of one column
+// block run together and read its weights from device memory once.
+// W4TileCfg<WGS, XR>::kSmem bytes of dynamic shared memory; launched with
+// programmatic dependent launch.
+template <int WGS, int XR>
+__global__ void __launch_bounds__(W4TileCfg<WGS, XR>::kThreads, 1)
+w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                  const float* __restrict__ ds, const float* __restrict__ cw,
+                  float* __restrict__ out, int m, int n, int kp, int bk, int ns) {
+  namespace h = qg::sm90;
+  using C = W4TileCfg<WGS, XR>;
+  constexpr int S = C::kStages, A = C::kAcc;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[S], empty[S];
+  uint8_t* tiles = h::aligned_smem(smem_raw);   // stage s: X tile, then W tile
+  const int ng = kp / kGroup, gps = bk / kGroup;
+  const int row0 = blockIdx.x * C::kRows, col0 = blockIdx.y * C::kCols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      h::mbar_init(&full[s], 1);
+      h::mbar_init(&empty[s], 4 * WGS);
+    }
+    h::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * WGS) {   // producer
+    if (lane == 0) {
+      const int pre = min(ng, S);
+      for (int i = 0; i < pre; ++i) {   // weights first: they do not wait for the pre-pass
+        h::mbar_expect_tx(&full[i], C::kStage);
+        h::tma_load_3d(tiles + i * C::kStage + C::kXBytes, &tw, &full[i], i * (kGroup / 2), col0, 0);
+      }
+      qg::grid_dependency_wait();
+      for (int i = 0; i < pre; ++i)
+        h::tma_load_3d(tiles + i * C::kStage, &tx, &full[i], i * kGroup, row0, 0);
+      for (int i = pre; i < ng; ++i) {
+        const int s = i % S;
+        h::mbar_wait(&empty[s], ((i / S) + 1) & 1);   // its previous group was read
+        h::mbar_expect_tx(&full[s], C::kStage);
+        h::tma_load_3d(tiles + s * C::kStage + C::kXBytes, &tw, &full[s], i * (kGroup / 2), col0, 0);
+        h::tma_load_3d(tiles + s * C::kStage, &tx, &full[s], i * kGroup, row0, 0);
+      }
+    }
+    return;
+  }
+
+  // consumer: W rows (output columns) wl and wl + 8 of the block's tile
   const int g8 = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * kTM, col0 = blockIdx.x * kTN;
-  const size_t wstride = static_cast<size_t>(kp) / 2;
-  const int ng = kp / kGroup;
-  float sacc[2][4][4], tot[2][4][4];
+  const int wl = 64 * (warp >> 2) + 16 * (warp & 3) + g8;
+  const int col = col0 + wl;
+  // the thread's totals fold[i][tid] (i < A) and its x rows' slab scales
+  // fold[A + i][tid] (i < XR / 4, row 8 (i >> 1) + 2t + (i & 1))
+  float* fold_s = reinterpret_cast<float*>(tiles + S * C::kStage) + threadIdx.x;
+  constexpr int CT = C::kConsumerThreads;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[i][j][e] = tot[i][j][e] = 0.f;
+  for (int i = 0; i < A; ++i) fold_s[i * CT] = 0.f;
+  qg::grid_dependency_wait();   // ds is the pre-pass's
 
-  for (int g = 0; g < ng; ++g) {
-    // A: 64 rows x 128 codes
-    for (int i = tid; i < kTM * (kGroup / 16); i += kTThreads) {
-      const int r = i / (kGroup / 16), kv = (i % (kGroup / 16)) * 16;
-      const int gr = row0 + r;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (gr < m)
-        v = *reinterpret_cast<const int4*>(xq + static_cast<size_t>(gr) * kp + g * kGroup + kv);
-      *reinterpret_cast<int4*>(&As[r][kv]) = v;
-    }
-    // B: 128 columns x 64 packed bytes, each 16-byte vector unpacked to the
-    // group's rows [q*16, q*16+16) (low nibbles) and [64+q*16, 64+q*16+16)
-    for (int i = tid; i < kTN * 4; i += kTThreads) {
-      const int c = i / 4, q = i % 4;
-      const int gn = col0 + c;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (gn < n)
-        v = __ldg(reinterpret_cast<const int4*>(wp + gn * wstride + g * (kGroup / 2) + q * 16));
-      const uint32_t w[4] = {static_cast<uint32_t>(v.x), static_cast<uint32_t>(v.y),
-                             static_cast<uint32_t>(v.z), static_cast<uint32_t>(v.w)};
-      int lo[4], hi[4];
+  auto load_ds = [&](int slab) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        lo[j] = sext4(w[j] & 0x0F0F0F0Fu);
-        hi[j] = sext4((w[j] >> 4) & 0x0F0F0F0Fu);
-      }
-      *reinterpret_cast<int4*>(&Bs[c][q * 16]) = make_int4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<int4*>(&Bs[c][64 + q * 16]) = make_int4(hi[0], hi[1], hi[2], hi[3]);
+    for (int i = 0; i < XR / 4; ++i) {
+      const int r = row0 + 8 * (i >> 1) + 2 * t + (i & 1);
+      qg::cp_async4(qg::smem_addr(fold_s + (A + i) * CT),
+                    ds + static_cast<size_t>(min(r, m - 1)) * ns + slab, r < m ? 4 : 0);
     }
-    if (tid < kTN) cws[tid] = col0 + tid < n ? cw[static_cast<size_t>(g) * n + col0 + tid] : 0.f;
-    __syncthreads();
+    qg::cp_async_commit();
+  };
+  auto issue = [&](int gi, int (&acc)[A], uint32_t (&a)[4][4], float (&cwv)[2]) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)   // read ahead of the fold that needs them
+      cwv[hh] = col + 8 * hh < n ? __ldg(cw + static_cast<size_t>(gi) * n + col + 8 * hh) : 0.f;
+    const int s = gi % S;
+    h::mbar_wait(&full[s], (gi / S) & 1);
+    const uint8_t* stage = tiles + s * C::kStage;
+    const uint8_t* wtile = stage + C::kXBytes;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = wl + 8 * hh;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            wtile + r * (kGroup / 2) + ((c ^ ((r >> 1) & 3)) << 4) + 4 * t);
+        a[c >> 1][2 * (c & 1) + hh] = (w << 4) & 0xF0F0F0F0u;
+        a[2 + (c >> 1)][2 * (c & 1) + hh] = w & 0xF0F0F0F0u;
+      }
+    const uint64_t db = h::desc_sw128(stage);
+    h::wgmma_fence();
+    h::fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) h::wgmma_rs(acc, a[kk], h::desc_k32(db, kk), kk > 0);
+    h::wgmma_commit();
+    h::fence_regs(acc);
+  };
+  auto release = [&](int gi) {
+    __syncwarp();
+    if (lane == 0) h::mbar_arrive(&empty[gi % S]);
+  };
+  float sacc[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) sacc[i] = 0.f;
+  // acc[4j + q]: W row wl + 8 (q >> 1), x row 8j + 2t + (q & 1)
+  auto fold = [&](int gi, int (&acc)[A], const float (&cwv)[2]) {
+    h::fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < A; ++i)
+      sacc[i] = __fadd_rn(sacc[i], __fmul_rn(__int2float_rn(acc[i]), cwv[(i >> 1) & 1]));
+    if ((gi + 1) % gps == 0 || gi + 1 == ng) {   // the slab ends
+      qg::cp_async_wait<0>();
+#pragma unroll
+      for (int i = 0; i < A; ++i) {
+        const float d = fold_s[(A + 2 * (i >> 2) + (i & 1)) * CT] * 0.0625f;
+        fold_s[i * CT] = __fadd_rn(fold_s[i * CT], __fmul_rn(sacc[i], d));
+        sacc[i] = 0.f;
+      }
+      if (gi + 1 < ng) load_ds((gi + 1) / gps);
+    }
+  };
 
-    int acc[2][4][4];
+  int acc0[A];
+  uint32_t a0[4][4];
+  float cw0[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-#pragma unroll
-    for (int kk = 0; kk < kGroup; kk += 32) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g8;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(&As[r][kk + t * 4]);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + t * 4]);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 16 + t * 4]);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = wn * 32 + nt * 8 + g8;
-        b[nt][0] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + t * 4]);
-        b[nt][1] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) qg::mma_s8(acc[mt][nt], a[mt], b[nt]);
+  for (int i = 0; i < A; ++i) acc0[i] = 0;
+  load_ds(0);
+  if constexpr (C::kSets == 1) {
+    for (int gi = 0; gi < ng; ++gi) {
+      issue(gi, acc0, a0, cw0);
+      h::wgmma_wait<0>();
+      release(gi);
+      fold(gi, acc0, cw0);
     }
-    // fold the group's exact sums into the slab's f32 sum
+  } else {
+    int acc1[A];
+    uint32_t a1[4][4];
+    float cw1[2];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sacc[mt][nt][e] = __fadd_rn(sacc[mt][nt][e],
-                                      __fmul_rn(__int2float_rn(acc[mt][nt][e]),
-                                                cws[wn * 32 + nt * 8 + t * 2 + (e & 1)]));
-    if ((g + 1) * kGroup % bk == 0 || g + 1 == ng) {
-      const int s = g * kGroup / bk;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = row0 + wm * 32 + mt * 16 + g8 + (e >= 2 ? 8 : 0);
-          const float d = r < m ? ds[static_cast<size_t>(r) * ns + s] : 0.f;
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            tot[mt][nt][e] = __fadd_rn(tot[mt][nt][e], __fmul_rn(sacc[mt][nt][e], d));
-            sacc[mt][nt][e] = 0.f;
-          }
-        }
+    for (int i = 0; i < A; ++i) acc1[i] = 0;
+    issue(0, acc0, a0, cw0);
+    for (int gi = 1;; gi += 2) {   // group gi - 1 is in flight in acc0
+      if (gi >= ng) {
+        h::wgmma_wait<0>();
+        release(gi - 1);
+        fold(gi - 1, acc0, cw0);
+        break;
+      }
+      issue(gi, acc1, a1, cw1);
+      h::wgmma_wait<1>();
+      release(gi - 1);
+      fold(gi - 1, acc0, cw0);
+      if (gi + 1 >= ng) {
+        h::wgmma_wait<0>();
+        release(gi);
+        fold(gi, acc1, cw1);
+        break;
+      }
+      issue(gi + 1, acc0, a0, cw0);
+      h::wgmma_wait<1>();
+      release(gi);
+      fold(gi, acc1, cw1);
     }
-    __syncthreads();
   }
 
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + wm * 32 + mt * 16 + g8 + (e >= 2 ? 8 : 0);
-        const int c = col0 + wn * 32 + nt * 8 + t * 2 + (e & 1);
-        if (r < m && c < n) out[static_cast<size_t>(r) * n + c] = tot[mt][nt][e];
-      }
+  for (int i = 0; i < A; ++i) {
+    const int r = row0 + 8 * (i >> 2) + 2 * t + (i & 1), c = col + 8 * ((i >> 1) & 1);
+    if (r < m && c < n) out[static_cast<size_t>(r) * n + c] = fold_s[i * CT];
+  }
+}
+
+// The tile kernel's plan (ops/cuda/tile_plan.py): x rows and output columns
+// of a block, and its dynamic shared memory.
+struct TilePlan {
+  int bm, bn, smem;
+};
+
+template <int WGS, int XR>
+cudaError_t launch_tile(const int8_t* xq, const float* ds, const int8_t* wp, const float* cw,
+                        float* out, int m, int n, int kp, int bk, int ns, cudaStream_t s) {
+  using C = W4TileCfg<WGS, XR>;
+  cudaError_t e =
+      qg::sm90::allow_smem(reinterpret_cast<const void*>(w4a8_wgmma_kernel<WGS, XR>), C::kSmem);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tx, tw;
+  if (!qg::sm90::int8_map(&tx, xq, kp, m, 1, kp, kGroup, C::kRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !qg::sm90::int8_map(&tw, wp, kp / 2, n, 1, kp / 2, kGroup / 2, C::kCols,
+                          CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  const dim3 grid((m + C::kRows - 1) / C::kRows, (n + C::kCols - 1) / C::kCols);
+  return qg::launch_pdl(w4a8_wgmma_kernel<WGS, XR>, grid, dim3(C::kThreads), C::kSmem, s, tx, tw,
+                        ds, cw, out, m, n, kp, bk, ns);
+}
+
+// the compiled tiles (x rows, output columns), as ops/cuda/tile_plan.py lists them
+cudaError_t launch_tile(const TilePlan& p, const int8_t* xq, const float* ds, const int8_t* wp,
+                        const float* cw, float* out, int m, int n, int kp, int bk, int ns,
+                        cudaStream_t s) {
+#define QG_TILE(WGS, XR)                                                                 \
+  if (p.bm == W4TileCfg<WGS, XR>::kRows && p.bn == W4TileCfg<WGS, XR>::kCols)            \
+    return p.smem == W4TileCfg<WGS, XR>::kSmem                                           \
+               ? launch_tile<WGS, XR>(xq, ds, wp, cw, out, m, n, kp, bk, ns, s)           \
+               : cudaErrorInvalidValue;
+  QG_TILE(1, 64)
+  QG_TILE(2, 64)
+  QG_TILE(1, 128)
+  QG_TILE(2, 128)
+#undef QG_TILE
+  return cudaErrorInvalidValue;
 }
 
 // The GEMV's launch plan (ops/cuda/gemv_plan.py): warps per block, groups
@@ -353,15 +495,9 @@ template <int NR, int CT>
 cudaError_t launch_gemv(const int8_t* xq, const float* ds, const int8_t* wp, const float* cw,
                         float* out, int m, int n, int kp, int bk, int ns, const GemvPlan& p,
                         cudaStream_t s) {
-  if (p.smem > 48 * 1024) {   // once per device: allow this kernel the block's limit
-    static unsigned long long allowed = 0;
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess && !(allowed >> dev & 1ull)) {
-      e = cudaFuncSetAttribute(w4a8_gemv_kernel<NR, CT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-      if (e == cudaSuccess) allowed |= 1ull << dev;
-    }
+  if (p.smem > 48 * 1024) {   // allow this kernel the block's limit
+    const cudaError_t e = qg::sm90::allow_smem(
+        reinterpret_cast<const void*>(w4a8_gemv_kernel<NR, CT>), kSmemLimit);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((n + 16 * CT - 1) / (16 * CT));
@@ -372,7 +508,7 @@ cudaError_t launch_gemv(const int8_t* xq, const float* ds, const int8_t* wp, con
 template <typename T>
 cudaError_t launch(const T* x, const int8_t* wp, const float* cw, int8_t* xq, float* ds,
                    float* out, int m, int n, int k, int kp, int bk, const GemvPlan& p,
-                   cudaStream_t s) {
+                   const TilePlan& tp, cudaStream_t s) {
   if (m <= 16 && !plan_ok(p, m, kp)) return cudaErrorInvalidValue;
   const int ns = (kp + bk - 1) / bk;
   const int vec = k % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
@@ -380,8 +516,7 @@ cudaError_t launch(const T* x, const int8_t* wp, const float* cw, int8_t* xq, fl
       x, xq, ds, k, kp, bk, ns, vec, 0, qg::kQRange * kW4Range);
   cudaError_t e = cudaSuccess;
   if (m > 16) {
-    const dim3 grid((n + kTN - 1) / kTN, (m + kTM - 1) / kTM);
-    w4a8_mma_kernel<<<grid, kTThreads, 0, s>>>(xq, ds, wp, cw, out, m, n, kp, bk, ns);
+    e = launch_tile(tp, xq, ds, wp, cw, out, m, n, kp, bk, ns, s);
   } else {
 #define QG_GEMV(NR, CT) e = launch_gemv<NR, CT>(xq, ds, wp, cw, out, m, n, kp, bk, ns, p, s)
     if (m <= 8) {
@@ -404,25 +539,28 @@ cudaError_t launch(const T* x, const int8_t* wp, const float* cw, int8_t* xq, fl
 // cw f32 [kp/128, n], xq int8 [m, kp] and ds f32 [m, ceil(kp/bk)] scratch,
 // out f32 [m, n]; kp = k rounded up to 128, bk the slab width (a multiple of
 // 128); for m <= 16 the GEMV's plan (warps, gs, ct, smem:
-// ops/cuda/gemv_plan.py), refused unless it matches a compiled
-// instantiation. Returns cudaGetLastError().
+// ops/cuda/gemv_plan.py), for more rows the tile kernel's (tile_bm x rows,
+// tile_bn columns, tile_smem: ops/cuda/tile_plan.py), each refused unless it
+// matches a compiled instantiation. Returns cudaGetLastError().
 extern "C" int qgemm_w4a8_matmul(const void* x, int x_dtype, const void* wp, const void* cw,
                                  void* xq, void* ds, void* out, int m, int n, int k, int kp,
-                                 int bk, int warps, int gs, int ct, int smem, void* stream) {
+                                 int bk, int warps, int gs, int ct, int smem, int tile_bm,
+                                 int tile_bn, int tile_smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || n <= 0 || k <= 0 || kp % kGroup != 0 || kp < k || kp - k >= kGroup ||
       bk <= 0 || bk % kGroup != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const GemvPlan p{warps, gs, ct, smem};
+  const TilePlan tp{tile_bm, tile_bn, tile_smem};
   cudaError_t e;
   if (x_dtype == 0)
     e = launch(static_cast<const float*>(x), static_cast<const int8_t*>(wp),
                static_cast<const float*>(cw), static_cast<int8_t*>(xq), static_cast<float*>(ds),
-               static_cast<float*>(out), m, n, k, kp, bk, p, s);
+               static_cast<float*>(out), m, n, k, kp, bk, p, tp, s);
   else if (x_dtype == 1)
     e = launch(static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(wp),
                static_cast<const float*>(cw), static_cast<int8_t*>(xq), static_cast<float*>(ds),
-               static_cast<float*>(out), m, n, k, kp, bk, p, s);
+               static_cast<float*>(out), m, n, k, kp, bk, p, tp, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

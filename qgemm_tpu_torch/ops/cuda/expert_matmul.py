@@ -19,6 +19,7 @@ import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
 from qgemm_tpu_torch.ops.cuda.gemv_plan import gemv_args
+from qgemm_tpu_torch.ops.cuda.tile_plan import tile_args
 from qgemm_tpu_torch.ops.quantize import QRANGE, absmax_quantize, int8_matmul, k_tile
 from qgemm_tpu_torch.ops.validation import (check, check_dtype, check_float, check_rank,
                                             pad_last)
@@ -42,7 +43,7 @@ def _lib():
     fn = _build.library("expert_matmul").qgemm_grouped_quantized_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -52,7 +53,8 @@ def grouped_quantized_matmul(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor
     """x [E, C, K] (f32 or bf16) @ per-expert int8 weights (K-major wt
     [E, N, K], scales cw [E, 1, N]) -> f32 [E, C, N], ReLU applied in the
     epilogue with ``relu``. CPU tensors run the plain version; CUDA tensors
-    launch K8 (C <= 16 on ``gemv_plan``'s GEMV) or raise (a K that is not a
+    launch K8 (C <= 16 on ``gemv_plan``'s GEMV, more rows on
+    ``tile_plan``'s tile kernel) or raise (a K that is not a
     multiple of 16 is zero-padded, x and the weight codes, on that call
     only). Counts each launch in ``grouped_quantized_matmul.launches``."""
     check_rank("x", x, 3)
@@ -76,13 +78,16 @@ def grouped_quantized_matmul(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor
     x, wt = pad_last(x, k), pad_last(wt, k)
     if x.data_ptr() % 16:
         x = x.clone()
+    wt = wt.contiguous()
+    if wt.data_ptr() % 16:   # TMA reads the weights from a 16-byte aligned base
+        wt = wt.clone()
     cw = cw.to(torch.float32).contiguous()
     # one scratch allocation: the pre-pass's int8 codes [E * C, K], then its
     # f32 row scales [E * C] (E * C * K is a multiple of 16)
     xq = torch.empty((e * c * k + 4 * e * c,), dtype=torch.int8, device=x.device)
     rc = _lib()(x.data_ptr(), X_DTYPES[x.dtype], wt.data_ptr(), cw.data_ptr(), xq.data_ptr(),
                 xq.data_ptr() + e * c * k, out.data_ptr(), e, c, n, k, int(relu),
-                *gemv_args("int8", e, c, n, k),
+                *gemv_args("int8", e, c, n, k), *tile_args("int8", e, c, n, k),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch("qgemm_grouped_quantized_matmul", rc)
     grouped_quantized_matmul.launches += 1

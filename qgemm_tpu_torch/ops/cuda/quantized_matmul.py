@@ -18,6 +18,7 @@ import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
 from qgemm_tpu_torch.ops.cuda.gemv_plan import gemv_args
+from qgemm_tpu_torch.ops.cuda.tile_plan import tile_args
 
 ROUNDING = {"nearest": 0, "truncate": 1}
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -28,7 +29,7 @@ def _lib():
     fn = lib.qgemm_quantized_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -48,6 +49,8 @@ def quantized_matmul_cuda(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor,
     if x.data_ptr() % 16:
         x = x.clone()
     wt = wt.contiguous()
+    if wt.data_ptr() % 16:   # TMA reads the weights from a 16-byte aligned base
+        wt = wt.clone()
     cw = cw.to(torch.float32).contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
@@ -58,7 +61,7 @@ def quantized_matmul_cuda(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor,
     rc = _lib()(x.data_ptr(), X_DTYPES[x.dtype], wt.data_ptr(), cw.data_ptr(),
                 xq.data_ptr(), xq.data_ptr() + m * k, out.data_ptr(), m, n, k,
                 ROUNDING[rounding],
-                *gemv_args("int8", 1, m, n, k),
+                *gemv_args("int8", 1, m, n, k), *tile_args("int8", 1, m, n, k),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch("qgemm_quantized_matmul", rc)
     quantized_matmul_cuda.launches += 1
