@@ -81,6 +81,34 @@ and pre-pass's time) with another checkout's package and this one's in the
 same turns, and prints the medians, their ratios and the shares of the
 kernels' bounds.
 
+    python3 chip_smoke.py --paged-ab OTHER_CHECKOUT [ROUNDS]
+
+times K5 (int8 and int4 pools; B 8, H 32, D 128, page 128 at row 9's
+lengths 150-550 and at the decode profile's ~316), K6 (B 1, H 32, C 256,
+D 128; int8 and int4; Hkv 32 and 8; after 0 and 768 positions), the paged
+int8 engine's steady decode window (device time, K5's family, wall time,
+idle share) and one full-depth GPT_6_7B prompt of 1024 tokens admitted in
+256-row chunks (wall, device, K6's time) with another checkout's package
+and this one's in the same turns, and prints the medians, their ratios and
+the shares of the kernels' bounds.
+
+    python3 chip_smoke.py --paged-logits N
+
+serves the paged run's two short prompts and N more random ones (128-500
+tokens) one at a time through the paged int8 engine on the full-depth
+GPT_6_7B and prints, per request, how far its logits stray from
+``generate``'s (dense int8 cache, K2 decode) at each step of their shared
+history, relative to the largest logit: the readings ``serve_paged``
+holds to ``PAGED_LOGIT_RTOL``.
+
+    python3 chip_smoke.py --paged-faults N
+
+runs ``--paged-logits N`` with this checkout's kernels and, with each of
+three faults planted in K5's merge (in copies of the script and package
+in a temporary directory), ``--only paged`` and ``--paged-logits N``, and
+prints whether K5's parity fails each fault and ``PAGED_LOGIT_RTOL`` lies
+above every sound reading and below each fault's.
+
     python3 chip_smoke.py --k6-draws N
 
 runs K6's edge case (offsets [0], Hkv 8, int8 pool) on the q draws of
@@ -94,8 +122,10 @@ import copy
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -434,57 +464,7 @@ def phase_parity() -> dict:
 
     k3_checks(g, record)
 
-    # K5, both entries, and K6 against their plain versions in bf16 (q and
-    # p * vc/127 rounded where the kernels round): K2's tolerance and
-    # reasoning. GPT_6_7B is MHA (Hkv 32); GQA (Hkv 8, g 4) runs too. Page
-    # tables take pages in a shuffled physical order; a slot of length 0
-    # must come out as zeros (the plain version averages V there, junk the
-    # engine never reads).
-    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
-    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import (
-        paged_decode_attention, paged_decode_attention_ragged)
-    from qgemm_tpu_torch.serving.paged_cache import (paged_attention_reference,
-                                                     paged_context_attention_reference)
-    bf16 = torch.bfloat16
-    lengths = torch.tensor([0, 1, 128, 257, 500, 640, 1000, 1024], device=dev,
-                           dtype=torch.int32)
-    live = lengths > 0
-    for hkv in (32, 8):
-        for page in (128, 32):
-            for bits in (8, 4):
-                cache, _ = random_paged_cache(10 + hkv + page + bits, lengths.tolist(), hkv,
-                                              page, bits, pps=1024 // page)
-                rect = dataclasses.replace(cache, step_slot=None, step_page=None)
-                q = torch.randn((8, 32, 1, 128), generator=g, device=dev).to(bf16)
-                ref = paged_attention_reference(q, cache, lengths, compute_dtype=bf16)
-                for entry, c in (("rectangular", rect), ("ragged", cache)):
-                    fn = paged_decode_attention if entry == "rectangular" \
-                        else paged_decode_attention_ragged
-                    got = fn(q, c, lengths)
-                    e = record("paged_decode_attention", got[live], ref[live], entry=entry,
-                               hkv=hkv, page=page, bits=bits, tol=5e-3)
-                    if not (excess(got[live], ref[live], 2 ** -7) <= 5e-3
-                            and not bool(got[~live].any())):
-                        raise AssertionError(f"K5 {entry} hkv={hkv} page={page} bits={bits}: "
-                                             f"max err {e}")
-                del cache, rect
-    c = 256
-    for bits in (8, 4):
-        for hkv in (32, 8):
-            for offs in ([0], [768], [300], [0, 768, 300, 129]):
-                lens = torch.tensor([o + c for o in offs], device=dev, dtype=torch.int32)
-                cache, _ = random_paged_cache(20 + hkv + bits + offs[0], lens.tolist(), hkv,
-                                              128, bits, pps=8)
-                q = torch.randn((len(offs), 32, c, 128), generator=g, device=dev).to(bf16)
-                off = offs[0] if len(offs) == 1 else torch.tensor(offs, device=dev)
-                got = paged_context_attention(q, cache, lens, off)
-                ref = paged_context_attention_reference(q, cache, lens, off, compute_dtype=bf16)
-                e = record("paged_context_attention", got, ref, b=len(offs), offsets=offs,
-                           hkv=hkv, bits=bits, tol=5e-3)
-                if not excess(got, ref, 2 ** -7) <= 5e-3:
-                    raise AssertionError(f"K6 offsets={offs} hkv={hkv} bits={bits}: "
-                                         f"max err {e}")
-                del cache
+    paged_parity(g, record)
     k6_edges = k6_edge_checks(record)
     k7_checks(g, record)
     torch.cuda.synchronize()
@@ -493,11 +473,108 @@ def phase_parity() -> dict:
     return errs
 
 
+def paged_parity(g: torch.Generator, record) -> None:
+    """K5, both entries, and K6 against their plain versions in bf16 (q and
+    p * vc/127 rounded where the kernels round): K2's tolerance and
+    reasoning. GPT_6_7B is MHA (Hkv 32); GQA (Hkv 8, g 4) runs too. Page
+    tables take pages in a shuffled physical order; a slot of length 0
+    must come out as zeros (the plain version averages V there, junk the
+    engine never reads). Pages of 128 and 32 draw from ``g``; pages of 16
+    (K6's 64-key tiles straddle four pages, K5's splits hold eight) and
+    K6 at pages of 32 draw from a generator of their own, so the older
+    checks keep their draws, as do a float32 q (the kernels' other input
+    and output dtype) and a float16 q (which the wrappers pass through
+    float32)."""
+    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_ragged)
+    from qgemm_tpu_torch.serving.paged_cache import (paged_attention_reference,
+                                                     paged_context_attention_reference)
+    dev, bf16 = "cuda", torch.bfloat16
+    g16 = torch.Generator(device=dev)
+    g16.manual_seed(16)
+    lengths = torch.tensor([0, 1, 128, 257, 500, 640, 1000, 1024], device=dev,
+                           dtype=torch.int32)
+    live = lengths > 0
+
+    def k5_case(gen, hkv, page, bits, qdt=bf16):
+        cache, _ = random_paged_cache(10 + hkv + page + bits, lengths.tolist(), hkv,
+                                      page, bits, pps=1024 // page)
+        rect = dataclasses.replace(cache, step_slot=None, step_page=None)
+        q = torch.randn((8, 32, 1, 128), generator=gen, device=dev).to(bf16).to(qdt)
+        ref = paged_attention_reference(q, cache, lengths, compute_dtype=bf16)
+        for entry, c in (("rectangular", rect), ("ragged", cache)):
+            fn = paged_decode_attention if entry == "rectangular" \
+                else paged_decode_attention_ragged
+            got = fn(q, c, lengths)
+            e = record("paged_decode_attention", got[live], ref[live], entry=entry,
+                       hkv=hkv, page=page, bits=bits, q_dtype=str(qdt), tol=5e-3)
+            if not (got.dtype == qdt and excess(got[live], ref[live], 2 ** -7) <= 5e-3
+                    and not bool(got[~live].any())):
+                raise AssertionError(f"K5 {entry} hkv={hkv} page={page} bits={bits} "
+                                     f"q {qdt}: max err {e}")
+
+    def k6_case(gen, hkv, page, bits, offs, qdt=bf16):
+        c = 256
+        lens = torch.tensor([o + c for o in offs], device=dev, dtype=torch.int32)
+        cache, _ = random_paged_cache(20 + hkv + bits + offs[0], lens.tolist(), hkv,
+                                      page, bits, pps=1024 // page)
+        q = torch.randn((len(offs), 32, c, 128), generator=gen, device=dev).to(bf16).to(qdt)
+        off = offs[0] if len(offs) == 1 else torch.tensor(offs, device=dev)
+        got = paged_context_attention(q, cache, lens, off)
+        ref = paged_context_attention_reference(q, cache, lens, off, compute_dtype=bf16)
+        e = record("paged_context_attention", got, ref, b=len(offs), offsets=offs,
+                   hkv=hkv, page=page, bits=bits, q_dtype=str(qdt), tol=5e-3)
+        if not (got.dtype == qdt and excess(got, ref, 2 ** -7) <= 5e-3):
+            raise AssertionError(f"K6 offsets={offs} hkv={hkv} page={page} bits={bits} "
+                                 f"q {qdt}: max err {e}")
+
+    for hkv in (32, 8):
+        for page in (128, 32):
+            for bits in (8, 4):
+                k5_case(g, hkv, page, bits)
+    for bits in (8, 4):
+        for hkv in (32, 8):
+            for offs in ([0], [768], [300], [0, 768, 300, 129]):
+                k6_case(g, hkv, 128, bits, offs)
+    for hkv in (32, 8):
+        for bits in (8, 4):
+            k5_case(g16, hkv, 16, bits)
+            for page in (16, 32):
+                for offs in ([768], [0, 768, 300, 129]):
+                    k6_case(g16, hkv, page, bits, offs)
+    k5_case(g16, 8, 16, 4, torch.float32)
+    k6_case(g16, 8, 16, 4, [0, 768, 300, 129], torch.float32)
+    k5_case(g16, 8, 128, 8, torch.float16)
+    k6_case(g16, 8, 32, 8, [0, 768, 300, 129], torch.float16)
+
+
+def phase_paged() -> None:
+    """K5 and K6 alone: ``paged_parity`` and ``k6_edge_checks`` (a short
+    first run of changed paged kernels, through ``--only paged``)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    report = []
+
+    def record(name, got, ref, **row):
+        report.append(dict(kernel=name, max_abs_err=max_err(got, ref),
+                           max_rel_err=rel_err(got, ref), **row))
+        return report[-1]["max_abs_err"]
+
+    paged_parity(g, record)
+    edges = k6_edge_checks(record)
+    torch.cuda.synchronize()
+    emit({"phase": "paged", "checks": report, "k6_edges": edges})
+
+
 # q draws of K6's edge case (``k6_edge_checks``), found by a search of
-# seeds 0-255 on the H100: 31 of the 256 draws exceed the parity rule
-# there; 44 by the most (excess 0.0075) and 5 among them, 68 passes it with
-# the kernel furthest off the float64 result (0.0099, the plain version
-# 0.0076)
+# seeds 0-255 on the H100 with the first (SIMT) K6: 31 of the 256 draws
+# exceeded the parity rule; 44 by the most (excess 0.0075) and 5 among
+# them, 68 passed it with the kernel furthest off the float64 result
+# (0.0099, the plain version 0.0076). The mma.sync K6 normalizes a chunk's
+# first causal rows before rounding, as the plain version does: in the
+# same search every draw passes the rule (worst excess 0.0027, seed 29),
+# the kernel as far from float64 as the plain version on each.
 K6_EDGE_SEEDS = (5, 44, 68)
 
 
@@ -1179,7 +1256,8 @@ def device_spans(prof) -> tuple:
 # GEMVs' names before and after their redesign, so an A/B can read either tree)
 DECODE_FAMILIES = {"gemv": ("gemv_kernel", "small_m_kernel"),
                    "gemm_prepass": ("row_quantize_kernel", "row_absmax_kernel",
-                                    "slab_quantize_kernel")}
+                                    "slab_quantize_kernel"),
+                   "paged_decode": ("paged_decode",)}
 
 
 def profile_decode(engine, rng, n_steps: int = 10) -> dict:
@@ -1305,6 +1383,110 @@ def transcripts_match_generate(label: str, model, reqs) -> int:
             raise AssertionError(f"{label}: request {r.id}: engine {r.generated} "
                                  f"!= generate {iso}")
     return len(reqs)
+
+
+def greedy_logits(model, prompt: list, n_new: int) -> tuple:
+    """One request alone, greedy, through ``generate``'s calls with the
+    dense int8 cache (K3 prefill, K2 decode), every step's logits kept.
+    Returns (tokens, logits per step)."""
+    plen = len(prompt)
+    tokens = torch.tensor([prompt], device="cuda")
+    caches = model.init_cache(1, plen + n_new, quantized=True)
+    logits, caches = model.prefill(tokens, caches)
+    steps = [logits[0, plen - 1].float()]
+    tok = logits[:, plen - 1, :].argmax(dim=-1, keepdim=True)
+    out = [int(tok)]
+    for t in range(n_new - 1):
+        logits, caches = model.decode_step(tok, plen + t, caches)
+        steps.append(logits[0].float())
+        tok = logits.argmax(dim=-1, keepdim=True)
+        out.append(int(tok))
+    return out, steps
+
+
+def engine_alone_logits(model, prompt: list, n_new: int) -> tuple:
+    """One request served alone, greedy, by a new ContinuousBatchingEngine
+    with ``PAGED_ENGINE``'s options (slot 0 of 8), every step's logits of
+    its slot kept as the engine samples them. Returns (tokens, logits per
+    step)."""
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    engine = ContinuousBatchingEngine(model, **PAGED_ENGINE)
+    seen, sample = [], engine._sample
+
+    def observed(logits, *args):      # the first token's [1, V], then [slots, V]
+        seen.append(logits[0].float().clone())
+        return sample(logits, *args)
+
+    engine._sample = observed
+    req = Request(prompt=prompt, max_new_tokens=n_new)
+    engine.submit(req)
+    engine.run_to_completion()
+    if req.error is not None or len(seen) != n_new or len(req.generated) != n_new:
+        raise AssertionError(f"the engine alone: {req.error}, {len(seen)} samplings and "
+                             f"{len(req.generated)} tokens for {n_new}")
+    return list(req.generated), seen
+
+
+def paged_logit_reading(model, prompt: list, n_new: int) -> dict:
+    """A request's greedy run alone through the paged engine (K5 decode,
+    ``engine_alone_logits``) against ``generate`` (K2 decode; its logits
+    from ``greedy_logits``, whose tokens must be generate's). At every step
+    of the two runs' shared history (each step up to and including the
+    first where their tokens differ; every step where none does) the
+    reading is max |dense - paged| over the vocabulary relative to the
+    dense step's largest |logit|. Returns the tokens, the first differing
+    step and the two runs' margins there, and the readings: the prefill's
+    (step 0, no K5 yet), the largest (and its step) and the median."""
+    iso = model.generate(torch.tensor([prompt], device="cuda"), n_new,
+                         quantized_cache=True)[0].tolist()
+    dense, d_logits = greedy_logits(model, prompt, n_new)
+    if dense != iso:
+        raise AssertionError(f"the dense loop {dense} is not generate's {iso}")
+    paged, p_logits = engine_alone_logits(model, prompt, n_new)
+    t = next((i for i, (a, b) in enumerate(zip(iso, paged)) if a != b), None)
+    shared = n_new if t is None else t + 1
+    rel = [float((d_logits[i] - p_logits[i]).abs().max() / d_logits[i].abs().max())
+           for i in range(shared)]
+    res = {"prompt_tokens": len(prompt), "new_tokens": n_new, "generate": iso,
+           "paged_alone": paged, "steps_compared": shared,
+           "logit_rel_diff_prefill": rel[0], "logit_rel_diff_max": max(rel),
+           "logit_rel_diff_max_step": int(np.argmax(rel)),
+           "logit_rel_diff_median": float(np.median(rel)), "first_difference": None}
+    if t is not None:
+        ld, lp = d_logits[t], p_logits[t]
+        res["first_difference"] = {"step": t, "dense_token": iso[t], "paged_token": paged[t],
+                                   "dense_margin": float(ld[iso[t]] - ld[paged[t]]),
+                                   "paged_margin": float(lp[paged[t]] - lp[iso[t]])}
+    return res
+
+
+def paged_transcripts_match(label: str, model, reqs) -> dict:
+    """The paged engine's greedy transcripts of ``reqs`` against the model's
+    own generation. Each must equal, bit for bit, the request served alone
+    by the engine (``engine_alone_logits``): batching, paging and admission
+    change nothing. Against ``generate`` (dense int8 cache, K2 decode), at
+    every step of their shared history the logits must agree within
+    ``PAGED_LOGIT_RTOL`` of the largest (``paged_logit_reading``). For
+    prompts prefilled whole (K3 on both paths) the two differ only in the
+    order of K5's and K2's f32 sums, which the bf16 model carries into its
+    logits by a few bf16 steps; a transcript leaves generate's where that
+    flips a greedy near-tie, and is not required to equal it. Returns how
+    many transcripts equal generate's, each request's readings, and the
+    bound; raises on anything else."""
+    readings = []
+    for r in reqs:
+        w = paged_logit_reading(model, r.prompt, r.max_new_tokens)
+        if w["paged_alone"] != r.generated:
+            raise AssertionError(f"{label}: request {r.id}: engine {r.generated} != the "
+                                 f"request served alone {w['paged_alone']}")
+        readings.append({"request": r.id, **{k: v for k, v in w.items()
+                                             if k not in ("generate", "paged_alone")}})
+        if not w["logit_rel_diff_max"] <= PAGED_LOGIT_RTOL:
+            raise AssertionError(f"{label}: request {r.id}: the paged and dense logits "
+                                 f"differ beyond {PAGED_LOGIT_RTOL} of the largest: "
+                                 f"{readings[-1]}")
+    return {"equal_to_generate": sum(w["first_difference"] is None for w in readings),
+            "requests": len(reqs), "rtol": PAGED_LOGIT_RTOL, "readings": readings}
 
 
 def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = False) -> dict:
@@ -1457,6 +1639,17 @@ def decode_ab(engines: dict, rng, n_steps: int = 10) -> dict:
 # cases: decode growth preempts.
 OVERCOMMIT_PAGES = 25
 OVERCOMMIT_EXTRA_NEW = 200
+# The paged runs' engine: 8 slots x 1024 positions in int8 pages of 128,
+# prefix cache on, chunked admission of 256 rows.
+PAGED_ENGINE = dict(max_slots=8, max_seq_len=1024, paged=True, page_size=128,
+                    prefix_cache=True, chunked_prefill=256, device="cuda")
+# How far the paged engine's logits (K5 decode) may stray from generate's
+# (K2 decode), relative to the largest, at any step of a request's shared
+# history: K5's f32 sums, in another order than K2's, move the bf16
+# model's logits by a few bf16 steps. PERF.md gives the readings of sound
+# kernels and of planted K5 faults (``--paged-faults``) between which it
+# lies.
+PAGED_LOGIT_RTOL = 0.04
 
 
 def serve_paged() -> tuple:
@@ -1466,8 +1659,9 @@ def serve_paged() -> tuple:
     ``paged_int8`` (int8 pools, full pool) must decode through K5 only (32
     launches per decode step, K1 193, no K2 or K4), launch K3 (whole-prompt
     prefills) and K6 (chunks and prefix-hit suffixes), hit the prefix
-    cache, and give the two short random prompts the transcripts of
-    ``generate``. Run ``paged_int4_overcommit`` (int4 pools, over-commit,
+    cache, and give the two short random prompts the transcripts they get
+    served alone, within ``PAGED_LOGIT_RTOL`` of ``generate``'s logits
+    (``paged_transcripts_match``). Run ``paged_int4_overcommit`` (int4 pools, over-commit,
     overlapped admission, an undersized pool, the same prompts decoding
     ``OVERCOMMIT_EXTRA_NEW`` tokens more) must preempt at least once and
     still finish every request, through K5 and K6 on int4 pools. Returns
@@ -1489,9 +1683,7 @@ def serve_paged() -> tuple:
                               dict(kv_bits=4, overcommit=True, overlap_admission=True,
                                    n_pages=OVERCOMMIT_PAGES))):
         reqs = [Request(prompt=p, max_new_tokens=n + extra) for p, n in zip(prompts, news)]
-        engine = ContinuousBatchingEngine(model, max_slots=8, max_seq_len=1024, paged=True,
-                                          page_size=128, prefix_cache=True,
-                                          chunked_prefill=256, device="cuda", **kw)
+        engine = ContinuousBatchingEngine(model, **PAGED_ENGINE, **kw)
         run = drive(engine, reqs, label)
         counts, per_decode = run["counts"], run["per_decode"]
         stats = engine.stats
@@ -1502,7 +1694,6 @@ def serve_paged() -> tuple:
             raise AssertionError(f"{label}: the pools are not of the run's kv_bits")
         if not (stats["prefix_hits"] > 0 and stats["prefill_tokens_skipped"] > 0):
             raise AssertionError(f"{label}: the prefix cache was never hit: {stats}")
-        matched = 0
         if label == "paged_int8":
             if not (per_decode is not None
                     and sum(per_decode[k] for k in k5) == GPT_6_7B.n_layers
@@ -1513,17 +1704,15 @@ def serve_paged() -> tuple:
                                      f"in all {counts}")
             prefill = paged_prefill_launches(run, per_decode, GPT_6_7B.n_layers, n_gemms,
                                              label)
-            matched = transcripts_match_generate(label, model, [reqs[i] for i in short])
+            match = paged_transcripts_match(label, model, [reqs[i] for i in short])
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
             profile = profile_decode(engine, np.random.default_rng(8))
             ab = decode_ab({"dense_int8": ContinuousBatchingEngine(
                                 model, max_slots=8, max_seq_len=1024, quantized_cache=True,
                                 device="cuda"),
-                            "paged_int8": ContinuousBatchingEngine(
-                                model, max_slots=8, max_seq_len=1024, paged=True,
-                                page_size=128, prefix_cache=True, chunked_prefill=256,
-                                device="cuda")}, np.random.default_rng(9))
+                            "paged_int8": ContinuousBatchingEngine(model, **PAGED_ENGINE)},
+                           np.random.default_rng(9))
         elif not stats["preemptions"] >= 1:
             raise AssertionError(f"{label}: no preemption in an undersized pool: {stats}")
         reserved = max(p[0] for p in run["pages"])
@@ -1540,11 +1729,11 @@ def serve_paged() -> tuple:
                "pages_total": stats["pages_total"], "pages_reserved_max": reserved,
                "pages_used_at_max_reserved": next(p[1] for p in run["pages"]
                                                   if p[0] == reserved),
-               "pages_used_max": max(p[1] for p in run["pages"]),
-               "transcripts_match_generate": matched}
+               "pages_used_max": max(p[1] for p in run["pages"])}
         if label == "paged_int8":
-            res.update(peak_mem_gb=round(peak / 2**30, 2), prefill_launches=prefill,
-                       decode_profile=profile, decode_ab=ab)
+            res.update(transcripts_equal_generate=match["equal_to_generate"],
+                       transcripts_vs_generate=match, peak_mem_gb=round(peak / 2**30, 2),
+                       prefill_launches=prefill, decode_profile=profile, decode_ab=ab)
         emit(res)
         results.append(res)
         del engine
@@ -2879,6 +3068,260 @@ def tile_ab(other: str, rounds: int = 1) -> None:
                              for side in med}})
 
 
+# K5's timed lengths: row 9's (8 slots of 150-550 positions) and the steady
+# decode window's (``profile_decode``: 8 slots of 300-token prompts, ~316
+# positions in its traced window)
+PAGED_AB_K5 = {"row9": [150, 210, 260, 330, 400, 450, 500, 550], "profile": [316] * 8}
+PAGED_AB_CHUNK = 256        # K6's chunk rows, and the prompt's admission chunk
+PAGED_AB_PROMPT = 1024      # the chunked prompt's tokens
+
+
+def profile_chunked_prompt(model, runs: int = 3) -> dict:
+    """One full-depth prompt of ``PAGED_AB_PROMPT`` tokens admitted into an
+    int8 paged cache (pages of 128) in ``PAGED_AB_CHUNK``-row chunks, as the
+    engine's chunked admission runs them (``GPT.prefill_chunk`` at offsets
+    0, 256, ...; K6 in every layer of every chunk): the median wall time of
+    ``runs`` prompts (each between synchronisations), and one traced by
+    torch.profiler: device time (union of kernel intervals), K6's time and
+    the device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qgemm_tpu_torch.serving.paged_cache import init_paged_cache
+    cfg = model.cfg
+    ps = 128
+    pps = PAGED_AB_PROMPT // ps
+    hkv = cfg.n_kv_heads or cfg.n_heads
+    caches = [init_paged_cache(hkv, cfg.d_model // cfg.n_heads, pps + 1, 1, pps, page_size=ps,
+                               device="cuda") for _ in range(cfg.n_layers)]
+    table = torch.arange(1, pps + 1, dtype=torch.int32, device="cuda")[None]
+    for c in caches:
+        c.page_table.copy_(table)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(PAGED_AB_PROMPT)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PAGED_AB_PROMPT), generator=g, device="cuda")
+
+    def prompt():
+        for c0 in range(0, PAGED_AB_PROMPT, PAGED_AB_CHUNK):
+            model.prefill_chunk(tokens[:, c0:c0 + PAGED_AB_CHUNK], c0, caches)
+
+    prompt()        # warm
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prompt()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prompt()
+        torch.cuda.synchronize()
+    busy_us, by_name, n_spans = device_spans(prof)
+    k6_us = sum(us for name, us in by_name.items() if "paged_context" in name)
+    return {"wall_ms": float(np.median(walls)), "wall_ms_runs": walls,
+            "device_ms": busy_us / 1e3, "device_ops": n_spans, "paged_context_ms": k6_us / 1e3}
+
+
+def paged_child(tree: str) -> None:
+    """One side of ``--paged-ab``: with the kernels and the qgemm_tpu_torch
+    package of checkout ``tree``, bench_ms of K5 (ragged entry; int8 and
+    int4 pools of pages of 128; B 8, H 32, D 128, bf16 q) at
+    ``PAGED_AB_K5``'s lengths, of K6 (B 1, H 32, C 256, D 128; int8 and int4;
+    Hkv 32 and a GQA Hkv 8) after 0 and after 768 resident positions, the
+    paged int8 engine's steady decode window (``profile_decode``: device
+    time, K5's family, wall time, idle share) and one chunked GPT_6_7B
+    prompt (``profile_chunked_prompt``). Prints one JSON line."""
+    root = use_tree(tree)
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.ops.cuda import _build
+    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention_ragged
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    _build.build()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(10)
+    res = {"tree": str(root), "k5_ms": {}, "k6_ms": {}}
+    for label, lengths in PAGED_AB_K5.items():
+        lens = torch.tensor(lengths, device="cuda", dtype=torch.int32)
+        q = torch.randn((8, 32, 1, 128), generator=g, device="cuda").to(torch.bfloat16)
+        for bits in (8, 4):
+            cache, _ = random_paged_cache(30 + bits, lengths, 32, 128, bits, 8)
+            res["k5_ms"][f"{label}_int{bits}"] = bench_ms(
+                lambda: paged_decode_attention_ragged(q, cache, lens))
+            del cache
+    for hkv in (32, 8):
+        for off in (0, 768):
+            lens = torch.tensor([off + PAGED_AB_CHUNK], device="cuda", dtype=torch.int32)
+            q = torch.randn((1, 32, PAGED_AB_CHUNK, 128), generator=g,
+                            device="cuda").to(torch.bfloat16)
+            for bits in (8, 4):
+                cache, _ = random_paged_cache(40 + bits, lens.tolist(), hkv, 128, bits, 8)
+                res["k6_ms"][f"hkv{hkv}_off{off}_int{bits}"] = bench_ms(
+                    lambda: paged_context_attention(q, cache, lens, off))
+                del cache
+    torch.cuda.empty_cache()
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    engine = ContinuousBatchingEngine(model, **PAGED_ENGINE)
+    prof = profile_decode(engine, np.random.default_rng(0))
+    res["decode_paged_int8"] = {**{k: prof[k] for k in DECODE_KEYS},
+                                **{f"{f}_ms_per_step": v
+                                   for f, v in prof["family_ms_per_step"].items()}}
+    del engine
+    torch.cuda.empty_cache()
+    res["chunked_prompt"] = profile_chunked_prompt(model)
+    emit(res)
+
+
+def paged_bounds() -> dict:
+    """Bounds (ms) of ``paged_child``'s timed kernels, by the timing phase's
+    formulas: the K/V bytes the lengths need read once (``paged_kv_bytes``),
+    q, the page table, the lengths and the output (bf16), or the bf16
+    products (4 d operations per query head and attended position)."""
+    out, h, d, page, pps = {}, 32, 128, 128, 8
+    for label, lengths in PAGED_AB_K5.items():
+        tot = sum(lengths)
+        for bits in (8, 4):
+            moved = 2 * 8 * h * d * 2 + 8 * (pps * 4 + 4) + paged_kv_bytes(lengths, h, d, page,
+                                                                           bits)
+            out[f"k5_ms {label}_int{bits}"] = bound(moved, tot * h * 4 * d, BF16_FLOPS)[0]
+    c = PAGED_AB_CHUNK
+    for hkv in (32, 8):
+        for off in (0, 768):
+            pairs = c * off + c * (c + 1) // 2
+            for bits in (8, 4):
+                moved = 2 * c * h * d * 2 + pps * 4 + 8 + paged_kv_bytes([off + c], hkv, d,
+                                                                         page, bits)
+                out[f"k6_ms hkv{hkv}_off{off}_int{bits}"] = bound(moved, h * pairs * 4 * d,
+                                                                   BF16_FLOPS)[0]
+    return out
+
+
+def paged_ab(other: str, rounds: int = 1) -> None:
+    """K5, K6, the paged decode step and a chunked prompt of checkout
+    ``other`` against this one's (``paged_child`` in ``ab_runs``' turns).
+    Prints each run, the medians, the speed-ups and each side's share of
+    the kernels' bounds."""
+    trees, order, runs = ab_runs("--paged-child", "paged_run", other, rounds, 900)
+
+    def flat(r: dict) -> dict:
+        out = {f"{fam} {key}": v for fam in ("k5_ms", "k6_ms", "decode_paged_int8")
+               for key, v in r[fam].items()}
+        out.update({f"chunked_prompt {k}": r["chunked_prompt"][k]
+                    for k in ("wall_ms", "device_ms", "paged_context_ms")})
+        return out
+
+    med = {side: {key: float(np.median([flat(r)[key] for r in rs])) for key in flat(rs[0])}
+           for side, rs in runs.items()}
+    bounds = paged_bounds()
+    emit({"phase": "paged_ab", "order": order, "trees": trees, "median": med,
+          "speedup_other_over_this": {k: med["other"][k] / med["this"][k]
+                                      for k in med["this"]},
+          "bound_ms": bounds,
+          "share_of_bound": {side: {k: b / med[side][k] for k, b in bounds.items()}
+                             for side in med}})
+
+
+# K5 faults that ``--paged-faults`` plants, each in its own copy of the
+# checkout's package: a line of csrc/paged_decode_attention.cu's merge and
+# its faulty form (the first split's state left out of the sums, the last
+# split's, or the states summed without their exp(m_s - m) rescale).
+K5_MERGE_LOOP = "    for (int s = 0; s < nsplit_live; ++s) {\n"
+K5_FAULTS = {
+    "drop_first_split": (K5_MERGE_LOOP, "    for (int s = 1; s < nsplit_live; ++s) {\n"),
+    "drop_last_split": (K5_MERGE_LOOP, "    for (int s = 0; s < nsplit_live - 1; ++s) {\n"),
+    "merge_without_rescale": ("      const float f = expf(__ldcg(ss + G * D + g) - mx);\n",
+                              "      const float f = 1.f;\n"),
+}
+
+
+def paged_logits(n: int) -> None:
+    """``--paged-logits``: ``paged_logit_reading`` for the two short prompts
+    of ``paged_requests`` and ``n`` more random prompts of 128-500 tokens
+    (those past 256 admitted in 256-row chunks, through K6), max_new_tokens
+    16-48, on the full-depth int8 GPT_6_7B. Prints one JSON line per
+    request, then the largest readings (of all, and of the two short
+    prompts) beside ``PAGED_LOGIT_RTOL``."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.ops.cuda import _build
+    _build.build()
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    vocab = GPT_6_7B.vocab_size
+    prompts, news, short = paged_requests(vocab, np.random.default_rng(7))
+    rng = np.random.default_rng(11)
+    todo = [(prompts[i], news[i]) for i in short]
+    for _ in range(n):
+        plen, m = int(rng.integers(128, 501)), int(rng.integers(16, 49))
+        todo.append((rng.integers(0, vocab, size=plen).tolist(), m))
+    worst = []
+    for k, (prompt, m) in enumerate(todo):
+        w = paged_logit_reading(model, prompt, m)
+        emit({"phase": "paged_logits", "request": k, "short": k < len(short),
+              **{key: v for key, v in w.items() if key not in ("generate", "paged_alone")}})
+        worst.append(w["logit_rel_diff_max"])
+    emit({"phase": "paged_logits_summary", "requests": len(todo),
+          "logit_rel_diff_max": max(worst), "short_prompts_max": max(worst[:len(short)]),
+          "by_request": worst, "rtol": PAGED_LOGIT_RTOL})
+
+
+def paged_faults(n: int) -> None:
+    """``--paged-faults``: ``--paged-logits`` with this checkout's kernels,
+    then, for each of ``K5_FAULTS`` planted in a copy of this script and
+    its package in a temporary directory (the kernels the fault leaves
+    alone copied as built), ``--only paged`` (K5's parity, which must fail)
+    and ``--paged-logits``, one process each. Prints each run's lines, then
+    the sound run's largest reading beside each fault's on the two short
+    prompts (those the default run checks) and whether ``PAGED_LOGIT_RTOL``
+    lies between them; fails if it does not, or if a fault passes the
+    parity."""
+    here = Path(__file__).resolve()
+    src = here.parent
+    summary, parity = {}, {}
+
+    def run(name: str, script: Path, *args: str) -> subprocess.CompletedProcess:
+        proc = subprocess.run([sys.executable, str(script), *args], capture_output=True,
+                              text=True, timeout=900, check=False)
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                emit({"fault": name, "mode": args[0], **json.loads(line)})
+        return proc
+
+    def logits(name: str, script: Path) -> None:
+        proc = run(name, script, "--paged-logits", str(n))
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            raise AssertionError(f"--paged-logits of {name} exited {proc.returncode}")
+        summary[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    logits("sound", here)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (old, new) in K5_FAULTS.items():
+            root = Path(tmp) / name
+            shutil.copytree(src / "qgemm_tpu_torch", root / "qgemm_tpu_torch",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copytree(src / "build" / "qgemm_tpu_torch", root / "build" / "qgemm_tpu_torch")
+            shutil.copy2(here, root / here.name)
+            cu = root / "qgemm_tpu_torch" / "csrc" / "paged_decode_attention.cu"
+            text = cu.read_text()
+            if text.count(old) != 1:
+                raise AssertionError(f"fault {name}: its line is not once in K5's source")
+            cu.write_text(text.replace(old, new))
+            proc = run(name, root / here.name, "--only", "paged")
+            tail = proc.stderr.strip().splitlines()
+            parity[name] = {"exit": proc.returncode, "error": tail[-1] if tail else ""}
+            logits(name, root / here.name)
+    sound = summary.pop("sound")["logit_rel_diff_max"]
+    faults = {k: v["short_prompts_max"] for k, v in summary.items()}
+    ok = sound <= PAGED_LOGIT_RTOL < min(faults.values())
+    emit({"phase": "paged_faults", "sound_max": sound, "fault_short_prompts_max": faults,
+          "fault_max": {k: v["logit_rel_diff_max"] for k, v in summary.items()},
+          "rtol": PAGED_LOGIT_RTOL, "rtol_separates": ok, "fault_parity": parity})
+    if not ok:
+        raise AssertionError("PAGED_LOGIT_RTOL does not lie between the sound and the "
+                             "faulty readings")
+    if any(v["exit"] == 0 for v in parity.values()):
+        raise AssertionError(f"a planted K5 fault passed K5's parity: {parity}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -2898,8 +3341,16 @@ def main() -> None:
         return tile_child(sys.argv[2])
     if sys.argv[1:2] == ["--tile-ab"]:
         return tile_ab(sys.argv[2], *map(int, sys.argv[3:4]))
+    if sys.argv[1:2] == ["--paged-child"]:
+        return paged_child(sys.argv[2])
+    if sys.argv[1:2] == ["--paged-ab"]:
+        return paged_ab(sys.argv[2], *map(int, sys.argv[3:4]))
     if sys.argv[1:2] == ["--k6-draws"]:
         return k6_draws(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--paged-logits"]:
+        return paged_logits(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--paged-faults"]:
+        return paged_faults(int(sys.argv[2]))
     from qgemm_tpu_torch.ops.cuda import _build   # fails outside the repository
 
     smi = phase_device()

@@ -7,286 +7,473 @@
 // the row axis: q [B, Hq, C, D] is read as [B, Hkv, R = G*C, D], row r being
 // query head-group r / C at chunk position r % C. Row r attends position k
 // iff k <= offset[b] + r % C and k < lengths[b]. Same math as K5:
-//   s = (bf16(q) . K_k) * (1/sqrt(D)) * (kc_k / 127); online softmax in f32;
+//   s = (bf16(q) . K_k) * (1/sqrt(d)) * (kc_k / 127); online softmax in f32;
 //   p * (vc_k / 127) rounded to bf16 before the V product;
-//   out = acc / max(l, 1e-30).
+//   out = acc / max(l, 1e-30), written once in q's dtype.
 // The TPU kernel asserts int8 pools (the JAX model sends int4 chunks through
-// its gather oracle); this kernel unpacks int4 pools as K5 does, so both
-// pool types run it.
+// its gather oracle); this kernel unpacks int4 pools too, so both pool types
+// run it.
 //
-// What bounds it on the H100: at the engine's chunks (C = 256 rows after
-// ~1024 resident positions, D = 128) the operations, ~4 * D per (row,
-// attended position), against one read of the attended K/V pages. This
-// first kernel runs its products on the f32 SIMT units, not the tensor
-// cores, so it is far from that bound; mma/wgmma is later work.
+// What bounds it on the H100: at the engine's chunks (C = 256 rows after up
+// to ~1024 resident positions, D = 128, MHA) the bf16 products, ~4 * D
+// operations per (row, attended position), and the one read of the
+// attended K/V pages take about the same least time (~0.004 ms each at one
+// 256-row chunk after 768 positions). The first kernel ran both products as
+// f32 FMAs on the CUDA cores over a shared-memory score tile (~96x that
+// bound); this one puts them on the tensor cores and keeps S and P in
+// registers.
 //
-// Design: K3's, with the page indirection and the scales added. One block
-// per (64 folded rows, slot * KV head). The rows are staged once in shared
-// memory (bf16-rounded, as f32); K and V stream through shared memory in
-// 32-position tiles, each position's page resolved through the slot's page
-// table and its int8 (or int4 nibble) codes widened to f32; each thread
-// owns a 4 x 2 patch of the score tile and a 4 x (D/16) patch of the
-// output. One warp per 8 rows runs the online-softmax update. The block's
-// page walk stops at its rows' last causal position (the TPU kernel's
-// "tight" bound) and at the slot's length, so later pages are never read.
+// Design: K3's bf16 route (flash_fwd_mma_kernel, FlashAttention-2 on
+// mma.sync m16n8k16) with the page walk and the per-key scales added. One
+// block per (64 folded rows, slot * KV head), the last row blocks (the most
+// keys) first: at one chunk of one slot that is only ~128 blocks, one an
+// SM, so the block holds two groups of 4 warps (16 rows a warp) over the
+// same rows, group g taking key tiles g, g + 2, ... Each group runs its own
+// pipeline on a named barrier of its 128 threads, so one group converts a
+// tile while the other runs its products, and the two merge their (m, l,
+// acc) through shared memory at the end. q is rounded to bf16 as it is
+// staged and held as A fragments in registers. Every operand of both
+// products is exact in bf16 (q after that rounding, the int8 and int4
+// codes, p * vc/127 after its rounding), so the products are the plain
+// version's and only their f32 sums differ in order. K/V codes arrive in
+// 64-position tiles through each group's two-stage cp.async ring; each
+// 16-position sub-tile lies in one page (pages are multiples of 16), whose
+// physical page is resolved once, so a tile straddles pages at page 16 and
+// 32. One pass turns a tile's codes into padded bf16 tiles (a byte permute
+// per code, exact; int4 pools: a page's byte row w holds position w in its
+// low nibbles and w + page/2 in its high ones, picked per position), which
+// ldmatrix and ldmatrix.trans read as B operands. Each S column is scaled by
+// (s * scale) * kc/127, the online softmax runs on the fragments (exp as
+// ex2.approx, ~2 ulp), and p * vc/127 rounded to bf16 is packed straight
+// into P V's A fragments. A row whose keys all lie in the first tile (the
+// first causal rows of a chunk at offset 0, which attend a few keys with
+// O(1) weights) is normalized before that rounding, as the plain version
+// does (p / l, with CUDA's full-precision expf, within 2 ulp), so its
+// outputs round like the plain version's. Only the tiles that cross a
+// warp's diagonal or hold the length tail are masked; a warp whose rows all
+// end before a tile skips it. The block's page walk stops at its rows' last
+// causal position (the TPU kernel's "tight" bound) and at the slot's
+// length, so later pages are never read.
 //
 // Head widths: compiled for D in {32, 64, 128}; the pools' rows hold the
-// true width d <= D (vector loads at d == D, element loads below it, the
-// columns past d staged as zeros). The wrapper pads the per-call q to D
-// and slices the output; the pools are never copied.
+// true width d <= D (16-byte cp.async when d is a multiple of 16, byte loads
+// otherwise; columns past d staged as zeros). The wrapper pads the per-call
+// q to D and slices the output; the pools are never copied. The launch plan
+// (row blocks, key tile, shared memory) comes from
+// qgemm_tpu_torch/ops/cuda/paged_plan.py; the entry refuses any other.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64, kBK = 32, kThreads = 256;
+using bf16 = __nv_bfloat16;
+constexpr int kBQ = 64;      // folded rows per block: 4 warps x 16 in each group
+constexpr int kBK = 64;      // key positions per tile
+constexpr int kSub = 16;     // positions per sub-tile: one page each
+constexpr int kGroups = 2;   // warp groups: group g takes tiles g, g + 2, ...
+constexpr int kThreads = 128 * kGroups;
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-template <int D> __host__ __device__ constexpr int ld() { return D + 4; }  // f32 row stride, 16 B aligned
+template <int D> __host__ __device__ constexpr int ldb() { return D + 8; }  // bf16 row stride (+16 B)
 template <int D> constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(kBQ) * ld<D>() + 2 * kBK * ld<D>() +
-                          kBQ * (kBK + 1) + 3 * kBQ + 2 * kBK);
+  return static_cast<size_t>(kGroups * 2 * 2 * kBK * D)  // code rings: groups x 2 stages x (K, V)
+         + kGroups * 2 * 2 * kBK * sizeof(float)          // scale rings: groups x 2 stages x (kc, vc)
+         + kGroups * 2 * sizeof(bf16) * kBK * ldb<D>()    // each group's K and V tile in bf16
+         + kGroups * 2 * kBK * sizeof(float)              // each group's kc/127, vc/127
+         + kGroups * 2 * (kBK / kSub) * sizeof(int);      // each stage's sub-tiles' first page row
 }
 
 template <int BITS, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_context_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
-                     const float* __restrict__ kc, const int8_t* __restrict__ vq,
-                     const float* __restrict__ vc, const int* __restrict__ page_table,
-                     const int* __restrict__ lengths, const int* __restrict__ offsets,
-                     float* __restrict__ out, int hkv, int C, int R, int page, int pps,
-                     int dt, float scale) {
-  constexpr int LD = ld<D>();
-  constexpr int CPT = D / 16;  // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
-  float* Ps = Vs + kBK * LD;
-  float* row_m = Ps + kBQ * (kBK + 1);
-  float* row_l = row_m + kBQ;
-  float* row_a = row_l + kBQ;
-  float* ksc = row_a + kBQ;
-  float* vsc = ksc + kBK;
+paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ kq,
+                         const float* __restrict__ kc, const int8_t* __restrict__ vq,
+                         const float* __restrict__ vc, const int* __restrict__ page_table,
+                         const int* __restrict__ lengths, const int* __restrict__ offsets,
+                         int offset0, void* __restrict__ out, int q_bf16, int hkv, int C, int R,
+                         int page, int pps, int dt, float scale) {
+  constexpr int LDB = ldb<D>();
+  constexpr int KD = D / 16;      // k16 chunks of the head width
+  constexpr int NS = kBK / 8;     // n8 tiles of a warp's scores
+  constexpr int NO = D / 8;       // n8 tiles of a warp's output
+  constexpr int CH = D / 16;      // 16-byte chunks of a code row
+  constexpr int NSUB = kBK / kSub;
+  constexpr int TILE = 2 * kBK * D;                 // one tile's K and V codes, bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int8_t* ring = reinterpret_cast<int8_t*>(smem_raw);                      // [G][2][K, V][kBK][D]
+  float* ring_sc = reinterpret_cast<float*>(ring + 2 * kGroups * TILE);    // [G][2][kc, vc][kBK]
+  bf16* Kb = reinterpret_cast<bf16*>(ring_sc + 2 * kGroups * 2 * kBK);     // [G][K, V][kBK][LDB]
+  float* ks = reinterpret_cast<float*>(Kb + kGroups * 2 * kBK * LDB);      // [G][kc, vc][kBK]
+  int* sub_w = reinterpret_cast<int*>(ks + kGroups * 2 * kBK);             // [G][2][NSUB]
 
   const int bh = blockIdx.y, b = bh / hkv, h = bh % hkv;
-  const int r0 = blockIdx.x * kBQ, tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int rows = BITS == 8 ? page : page / 2;             // byte rows per page
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // the last row blocks first
+  const int tid = threadIdx.x, lane = tid & 31, t = lane & 3;
+  const int grp = tid / 128, warp = (tid / 32) % 4;     // warp group, warp in the group
+  const int rows_pp = BITS == 8 ? page : page / 2;     // byte rows per page
   const int* pt = page_table + static_cast<size_t>(b) * pps;
-  const int len = min(lengths[b], pps * page);              // never past the table
-  const int off = offsets[b];
-  const float* qb = q + static_cast<size_t>(bh) * R * D;
-
-  for (int i = tid; i < kBQ * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), d = (i % (D / 8)) * 8;
-    float vals[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < R) qg::load8(qb + static_cast<size_t>(r0 + r) * D + d, vals);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) Qs[r * LD + d + e] = qg::bf16_round(vals[e]);
-  }
-  if (tid < kBQ) {
-    row_m[tid] = -1e30f;
-    row_l[tid] = 0.f;
-  }
-  float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+  const int len = min(lengths[b], pps * page);        // never past the table
+  const int off = offsets != nullptr ? offsets[b] : offset0;
+  const bool fast = dt % 16 == 0;                      // rows 16-byte aligned
 
   // the block's rows attend positions up to their last causal one: within
   // one head-group, off + (last row) % C; across a group boundary, off + C - 1
   const int r_last = min(r0 + kBQ, R) - 1;
   const int bound = (r0 / C == r_last / C) ? off + r_last % C : off + C - 1;
-  const int kv_end = min(bound + 1, len);
-  const int nk = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  const int kv_end = max(0, min(bound + 1, len));
+  const int nk = (kv_end + kBK - 1) / kBK;
+
+  // Each warp group runs its own pipeline over its tiles (kt = grp,
+  // grp + kGroups, ...) on a two-stage ring of its own, synchronised by a
+  // named barrier of its 128 threads, so one group converts while the other
+  // runs its products. Tile kt's codes and scales go into stage i & 1 of the
+  // group's ring (i: the group's i-th tile); positions at or past kv_end
+  // (and columns past d) are zero-filled and read nothing.
+  const int lt = tid % 128;
+  const auto group_sync = [&]() {   // immediate ids: ptxas then reserves 3 barriers, not 16
+    if (grp == 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    else asm volatile("bar.sync 2, 128;\n" ::: "memory");
+  };
+  const auto issue = [&](int i) {
+    const int sg = grp * 2 + (i & 1), kt = kGroups * i + grp;
+    int8_t* rk = ring + sg * TILE;
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j) {
+      const int p0 = kt * kBK + j * kSub;
+      const bool live = p0 < kv_end;
+      int w0 = 0;
+      size_t ph = 0;
+      if (live) {
+        const int lp = p0 / page;
+        w0 = p0 - lp * page;
+        ph = static_cast<size_t>(pt[lp]) * hkv + h;
+      }
+      if (lt == 0) sub_w[sg * NSUB + j] = w0;
+#pragma unroll
+      for (int it = 0; it < (2 * kSub * CH + 127) / 128; ++it) {
+        const int c_i = it * 128 + lt;
+        if (c_i < 2 * kSub * CH) {
+          const int which = c_i / (kSub * CH), rem = c_i % (kSub * CH);
+          const int rr = rem / CH, c = (rem % CH) * 16;
+          const int w = w0 + rr;
+          const int br = (BITS == 4 && w >= rows_pp) ? w - rows_pp : w;
+          const bool ok = live && p0 + rr < kv_end;
+          const int8_t* src = (which ? vq : kq) + (ph * rows_pp + br) * dt + c;
+          int8_t* dst = rk + which * kBK * D + (j * kSub + rr) * D + c;
+          if (fast) {
+            const bool in = ok && c < dt;
+            qg::cp_async16(qg::smem_addr(dst), in ? src : kq, in ? 16 : 0);
+          } else {
+            uint32_t wd[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int e = 0; e < 16; ++e)
+              if (ok && c + e < dt) wd[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(src[e])) << (8 * (e % 4));
+            *reinterpret_cast<uint4*>(dst) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+          }
+        }
+      }
+      // the sub-tile's scales, one 4-byte copy per position: 32 threads a sub-tile
+      if (lt / (2 * kSub) == j) {
+        const int which = (lt % (2 * kSub)) / kSub, rr = lt % kSub;
+        const bool ok = live && p0 + rr < kv_end;
+        const float* src = (which ? vc : kc) + ph * page + w0 + rr;
+        qg::cp_async4(qg::smem_addr(ring_sc + (sg * 2 + which) * kBK + j * kSub + rr),
+                      ok ? src : kc, ok ? 4 : 0);
+      }
+    }
+  };
+
+  // the group's stage i & 1 -> its bf16 K and V tiles and scales / 127
+  bf16* Kt = Kb + grp * 2 * kBK * LDB;   // this group's tiles
+  bf16* Vt = Kt + kBK * LDB;
+  float* kst = ks + grp * 2 * kBK;
+  float* vst = kst + kBK;
+  const auto convert = [&](int i) {
+    const int sg = grp * 2 + (i & 1);
+    const int8_t* rk = ring + sg * TILE;
+#pragma unroll
+    for (int it = 0; it < 2 * kBK * (D / 8) / 128; ++it) {
+      const int c_i = it * 128 + lt;
+      const int which = c_i / (kBK * (D / 8)), rem = c_i % (kBK * (D / 8));
+      const int r = rem / (D / 8), c = (rem % (D / 8)) * 8;
+      const uint2 u = *reinterpret_cast<const uint2*>(rk + which * kBK * D + r * D + c);
+      bool hi = false;
+      if (BITS == 4) hi = sub_w[sg * NSUB + r / kSub] + r % kSub >= rows_pp;
+      float f[8];
+      qg::kv_codes4<BITS>(u.x, hi, f);
+      qg::kv_codes4<BITS>(u.y, hi, f + 4);
+      *reinterpret_cast<uint4*>((which ? Vt : Kt) + r * LDB + c) =
+          make_uint4(qg::pack_code_bf16(f[0], f[1]), qg::pack_code_bf16(f[2], f[3]),
+                     qg::pack_code_bf16(f[4], f[5]), qg::pack_code_bf16(f[6], f[7]));
+    }
+    kst[lt] = ring_sc[sg * 2 * kBK + lt] * (1.f / 127.f);   // 128 threads: kc then vc
+  };
+
+  const int n_own = (nk - grp + kGroups - 1) / kGroups;   // this group's tiles
+  if (n_own > 0) issue(0);
+  qg::cp_async_commit();
+
+  // the block's rows, rounded to bf16, staged in group 0's K tile (it holds
+  // no tile yet: a group converts only after the block barrier below)
+  const size_t qb = static_cast<size_t>(bh) * R * D;
+  for (int i = tid; i < kBQ * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r0 + r < R) {
+      if (q_bf16) qg::load8(static_cast<const bf16*>(q) + qb + static_cast<size_t>(r0 + r) * D + c, v);
+      else qg::load8(static_cast<const float*>(q) + qb + static_cast<size_t>(r0 + r) * D + c, v);
+    }
+    *reinterpret_cast<uint4*>(Kb + r * LDB + c) =
+        make_uint4(qg::pack_bf16(v[0], v[1]), qg::pack_bf16(v[2], v[3]),
+                   qg::pack_bf16(v[4], v[5]), qg::pack_bf16(v[6], v[7]));
+  }
   __syncthreads();
+  // ldmatrix row offsets of this lane: A from 16 rows, B from 16 keys
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3), t_col = (lane >> 4) * 8;
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    qg::ldmatrix_x4(qf[kk], qg::smem_addr(Kb + (warp * 16 + a_row) * LDB + kk * 16 + a_col));
+  __syncthreads();   // every warp holds its q before group 0 converts over it
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBK;
-    for (int i = tid; i < kBK * (D / 8); i += kThreads) {
-      const int r = i / (D / 8), d = (i % (D / 8)) * 8;
-      const int pos = k0 + r;
-      float kv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      float vv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (pos < kv_end) {
-        const int logical = pos / page, w = pos - logical * page;
-        const size_t ph = static_cast<size_t>(pt[logical]) * hkv + h;
-        const bool hi = BITS == 4 && w >= rows;
-        const size_t o = (ph * rows + (hi ? w - rows : w)) * dt + d;
-        if (dt == D) {
-          const uint2 uk = *reinterpret_cast<const uint2*>(kq + o);
-          const uint2 uv = *reinterpret_cast<const uint2*>(vq + o);
+  // this thread's two rows and the last position each attends (-1: none);
+  // the warp's least and largest of those
+  const int qi0 = r0 + warp * 16 + (lane >> 2), qi1 = qi0 + 8;
+  const int lim0 = qi0 < R ? min(off + qi0 % C, kv_end - 1) : -1;
+  const int lim1 = qi1 < R ? min(off + qi1 % C, kv_end - 1) : -1;
+  int wmin = min(lim0, lim1), wmax = max(lim0, lim1);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const int sh = 8 * (e % 4);
-            kv[e] = qg::kv_code<BITS>((e < 4 ? uk.x : uk.y) >> sh, hi);
-            vv[e] = qg::kv_code<BITS>((e < 4 ? uv.x : uv.y) >> sh, hi);
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            if (d + e < dt) {
-              kv[e] = qg::kv_code<BITS>(static_cast<uint8_t>(kq[o + e]), hi);
-              vv[e] = qg::kv_code<BITS>(static_cast<uint8_t>(vq[o + e]), hi);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        Ks[r * LD + d + e] = kv[e];
-        Vs[r * LD + d + e] = vv[e];
-      }
-    }
-    if (tid < kBK) {
-      const int pos = k0 + tid;
-      float ks = 0.f, vs = 0.f;
-      if (pos < kv_end) {
-        const int logical = pos / page, w = pos - logical * page;
-        const size_t so = (static_cast<size_t>(pt[logical]) * hkv + h) * page + w;
-        ks = kc[so] * (1.f / 127.f);
-        vs = vc[so] * (1.f / 127.f);
-      }
-      ksc[tid] = ks;
-      vsc[tid] = vs;
-    }
-    __syncthreads();
-
-    // S = Q K^T on a 4 x 2 patch: rows ty*4+i, cols tx*2+j
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * LD + d]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx * 2 + j) * LD + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = ty * 4 + i, c = tx * 2 + j;
-        const int gq = r0 + r, gk = k0 + c;
-        const bool ok = gq < R && gk < kv_end && gk <= off + gq % C;
-        Ps[r * (kBK + 1) + c] = ok ? (s[i][j] * scale) * ksc[c] : neg_inf();
-      }
-    __syncthreads();
-
-    // online softmax: warp w owns rows 8w..8w+7, lane = column
-    for (int rr = 0; rr < kBQ / (kThreads / 32); ++rr) {
-      const int r = warp * (kBQ / (kThreads / 32)) + rr;
-      const float sv = Ps[r * (kBK + 1) + lane];
-      const float m_prev = row_m[r];
-      const float m_new = fmaxf(m_prev, qg::warp_max(sv));
-      const float p = sv == neg_inf() ? 0.f : expf(sv - m_new);
-      const float alpha = expf(m_prev - m_new);
-      const float psum = qg::warp_sum(p);
-      Ps[r * (kBK + 1) + lane] = qg::bf16_round(p * vsc[lane]);
-      __syncwarp();
-      if (lane == 0) {
-        row_m[r] = m_new;
-        row_l[r] = row_l[r] * alpha + psum;
-        row_a[r] = alpha;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-
-    // O = O * alpha + P V on rows ty*4+i, cols tx + 16*j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = row_a[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] *= a;
-    }
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * (kBK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float vv = Vs[c * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-    __syncthreads();
+  for (int o = 16; o; o >>= 1) {
+    wmin = min(wmin, __shfl_xor_sync(0xffffffffu, wmin, o));
+    wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
   }
 
+  float acc[NO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i, gq = r0 + r;
-    if (gq < R) {
-      const float l = fmaxf(row_l[r], 1e-30f);
-      float* orow = out + (static_cast<size_t>(bh) * R + gq) * D;
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < n_own; ++i) {
+    if (i + 1 < n_own) issue(i + 1);
+    qg::cp_async_commit();
+    qg::cp_async_wait<1>();   // this tile has landed
+    group_sync();             // ... for the group; its last tile's readers are done
+    convert(i);
+    group_sync();
+    const int kt = kGroups * i + grp, k0 = kt * kBK;
+    if (k0 <= wmax) {
+      float s[NS][4];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) orow[tx + 16 * j] = acc[i][j] / l;
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t bb[4];
+          qg::ldmatrix_x4(bb, qg::smem_addr(Kt + (jp * 16 + b_row) * LDB + kk * 16 + b_col));
+          qg::mma_bf16(s[2 * jp], qf[kk], bb);
+          qg::mma_bf16(s[2 * jp + 1], qf[kk], bb + 2);
+        }
+      // (s * scale) * kc/127 per column; -inf past a row's last position,
+      // only where the tile crosses the warp's diagonal or the length tail
+      const bool mask = k0 + kBK - 1 > wmin;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * t + (e & 1);
+          float x = (s[j][e] * scale) * kst[col];
+          if (mask && k0 + col > (e < 2 ? lim0 : lim1)) x = -INFINITY;
+          s[j][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x);
+          else mx1 = fmaxf(mx1, x);
+        }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = qg::exp_approx(m0 - mn0), a1 = qg::exp_approx(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // p = exp(s - m) in f32, summed unrounded. A row whose keys all lie in
+      // the first tile (a chunk's first causal rows) is normalized here, as
+      // the plain version normalizes before it rounds (p / l, with the
+      // full-precision expf), and keeps l = 1: its few O(1) weights would otherwise
+      // round to bf16 at another scale than the plain version's.
+      const bool n0 = kt == 0 && lim0 >= 0 && lim0 < kBK;
+      const bool n1 = kt == 0 && lim1 >= 0 && lim1 < kBK;
+      const bool norm = __any_sync(0xffffffffu, n0 || n1);   // warp-uniform
+      float ps0 = 0.f, ps1 = 0.f;
+      if (norm) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = s[j][e] - (e < 2 ? mn0 : mn1);   // masked: exp(-inf) = 0
+            s[j][e] = (e < 2 ? n0 : n1) ? expf(x) : qg::exp_approx(x);
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = qg::exp_approx(s[j][e] - (e < 2 ? mn0 : mn1));
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        ps0 += s[j][0] + s[j][1];
+        ps1 += s[j][2] + s[j][3];
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        ps0 += __shfl_xor_sync(0xffffffffu, ps0, o);
+        ps1 += __shfl_xor_sync(0xffffffffu, ps1, o);
+      }
+      if (norm) {
+        const float d0 = n0 ? ps0 : 1.f, d1 = n1 ? ps1 : 1.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          if (n0) s[j][0] /= d0, s[j][1] /= d0;
+          if (n1) s[j][2] /= d1, s[j][3] /= d1;
+        }
+        if (n0) ps0 = 1.f;
+        if (n1) ps1 = 1.f;
+      }
+      // p * vc/127 rounded to bf16 as the A fragments of P V (n-tiles 2c
+      // and 2c + 1 are k-chunk c)
+      uint32_t pa[NS / 2][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float v0 = vst[j * 8 + 2 * t], v1 = vst[j * 8 + 2 * t + 1];
+        pa[j / 2][(j & 1) * 2] = qg::pack_bf16(s[j][0] * v0, s[j][1] * v1);
+        pa[j / 2][(j & 1) * 2 + 1] = qg::pack_bf16(s[j][2] * v0, s[j][3] * v1);
+      }
+      l0 = l0 * a0 + ps0;
+      l1 = l1 * a1 + ps1;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        acc[j][0] *= a0;
+        acc[j][1] *= a0;
+        acc[j][2] *= a1;
+        acc[j][3] *= a1;
+      }
+#pragma unroll
+      for (int c = 0; c < NS / 2; ++c)
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t bb[4];
+          qg::ldmatrix_x4_trans(bb, qg::smem_addr(Vt + (c * 16 + t_row) * LDB + dp * 16 + t_col));
+          qg::mma_bf16(acc[2 * dp], pa[c], bb);
+          qg::mma_bf16(acc[2 * dp + 1], pa[c], bb + 2);
+        }
+    }
+  }
+
+  // group 1 hands its state to group 0 through the (idle) ring, element-major
+  // so that the 128 threads' stores do not collide; group 0 merges the two
+  // (a row only one group saw keeps that group's state exactly) and writes
+  constexpr int NE = 4 * NO + 4;
+  float* xs = reinterpret_cast<float*>(ring);
+  qg::cp_async_wait<0>();
+  __syncthreads();
+  if (grp == 1) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(4 * j + e) * 128 + lt] = acc[j][e];
+    xs[(4 * NO) * 128 + lt] = m0;
+    xs[(4 * NO + 1) * 128 + lt] = m1;
+    xs[(4 * NO + 2) * 128 + lt] = l0;
+    xs[(4 * NO + 3) * 128 + lt] = l1;
+  }
+  static_assert(NE * 128 * sizeof(float) <= 2 * kGroups * TILE, "merge state fits the ring");
+  __syncthreads();
+  if (grp == 1) return;
+  const float mb0 = xs[(4 * NO) * 128 + lt], mb1 = xs[(4 * NO + 1) * 128 + lt];
+  const float mx0 = fmaxf(m0, mb0), mx1 = fmaxf(m1, mb1);
+  const float fa0 = qg::exp_approx(m0 - mx0), fb0 = qg::exp_approx(mb0 - mx0);
+  const float fa1 = qg::exp_approx(m1 - mx1), fb1 = qg::exp_approx(mb1 - mx1);
+  const float l0c = fmaxf(l0 * fa0 + xs[(4 * NO + 2) * 128 + lt] * fb0, 1e-30f);
+  const float l1c = fmaxf(l1 * fa1 + xs[(4 * NO + 3) * 128 + lt] * fb1, 1e-30f);
+  const size_t ob = static_cast<size_t>(bh) * R * D;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int col = j * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qi = half ? qi1 : qi0;
+      if (qi >= R) continue;
+      const float fa = half ? fa1 : fa0, fb = half ? fb1 : fb0, lc = half ? l1c : l0c;
+      const int e0 = 4 * j + 2 * half;
+      const float x0 = (acc[j][2 * half] * fa + xs[e0 * 128 + lt] * fb) / lc;
+      const float x1 = (acc[j][2 * half + 1] * fa + xs[(e0 + 1) * 128 + lt] * fb) / lc;
+      const size_t o = ob + static_cast<size_t>(qi) * D + col;
+      if (q_bf16)
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + o) = __floats2bfloat162_rn(x0, x1);
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(x0, x1);
     }
   }
 }
 
 template <int BITS, int D>
 cudaError_t launch(const void* q, const void* kq, const void* kc, const void* vq,
-                   const void* vc, const void* pt, const void* len, const void* off,
-                   void* out, int B, int hkv, int C, int R, int page, int pps, int dt,
-                   float scale, cudaStream_t s) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(paged_context_kernel<BITS, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
+                   const void* vc, const void* pt, const void* len, const void* offs,
+                   int offset0, void* out, int q_bf16, int B, int hkv, int C, int R, int page,
+                   int pps, int dt, float scale, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<D>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(paged_context_mma_kernel<BITS, D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   const dim3 grid((R + kBQ - 1) / kBQ, B * hkv);
-  paged_context_kernel<BITS, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(kq),
-      static_cast<const float*>(kc), static_cast<const int8_t*>(vq),
-      static_cast<const float*>(vc), static_cast<const int*>(pt),
-      static_cast<const int*>(len), static_cast<const int*>(off), static_cast<float*>(out),
-      hkv, C, R, page, pps, dt, scale);
+  paged_context_mma_kernel<BITS, D><<<grid, kThreads, smem, s>>>(
+      q, static_cast<const int8_t*>(kq), static_cast<const float*>(kc),
+      static_cast<const int8_t*>(vq), static_cast<const float*>(vc),
+      static_cast<const int*>(pt), static_cast<const int*>(len), static_cast<const int*>(offs),
+      offset0, out, q_bf16, hkv, C, R, page, pps, dt, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q f32 [B, Hkv, R = G*C, D] (query heads folded into rows; D in {32, 64,
-// 128}, zero past d); kq/vq int8 [P, Hkv, rows, d], d <= D (rows = page for bits 8, page/2 for bits 4); kc/vc f32
-// [P, Hkv, 1, page]; page_table int32 [B, pps]; lengths, offsets int32 [B];
-// out f32 [B, Hkv, R, D]. page a multiple of 16. Returns cudaGetLastError().
+// q [B, Hkv, R = G*C, D] float32 (dtype 0) or bfloat16 (dtype 1), query
+// heads folded into rows, D in {32, 64, 128}, zero past d; kq/vq int8
+// [P, Hkv, rows, d], d <= D (rows = page for bits 8, page/2 for bits 4),
+// 16-byte aligned; kc/vc f32 [P, Hkv, 1, page]; page_table int32 [B, pps];
+// lengths int32 [B]; offsets int32 [B], or null for one offset ``offset0``;
+// out [B, Hkv, R, D] in q's dtype. page a multiple of 16 from 16 to 256.
+// The plan (``paged_plan.k6_plan``): 64 rows per block, 64-position key
+// tiles, ``smem`` bytes of dynamic shared memory; any other is refused.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for a plan or shape no
+// instantiation takes).
 extern "C" int qgemm_paged_context_attention(const void* q, const void* kq, const void* kc,
                                              const void* vq, const void* vc,
                                              const void* page_table, const void* lengths,
-                                             const void* offsets, void* out, int bits, int B,
-                                             int hkv, int C, int R, int D, int d, int page,
-                                             int pps, float scale, void* stream) {
+                                             const void* offsets, int offset0, void* out,
+                                             int dtype, int bits, int B, int hkv, int C, int R,
+                                             int D, int d, int page, int pps, float scale,
+                                             int block_rows, int key_tile, int smem,
+                                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || hkv <= 0 || C <= 0 || R <= 0 || R % C || pps <= 0 || page < 16 ||
-      page % 16 || B * hkv > 65535 || d < 1 || d > D)
+      page > 256 || page % 16 || B * hkv > 65535 || d < 1 || d > D ||
+      (dtype != 0 && dtype != 1) || block_rows != kBQ || key_tile != kBK)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto go = [&](auto fn) {
-    return static_cast<int>(fn(q, kq, kc, vq, vc, page_table, lengths, offsets, out, B, hkv,
-                               C, R, page, pps, d, scale, s));
+  const auto go = [&](auto fn, size_t want) {
+    if (static_cast<size_t>(smem) != want) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(fn(q, kq, kc, vq, vc, page_table, lengths, offsets, offset0, out,
+                               dtype, B, hkv, C, R, page, pps, d, scale, s));
   };
-  if (bits == 8 && D == 32) return go(launch<8, 32>);
-  if (bits == 8 && D == 64) return go(launch<8, 64>);
-  if (bits == 8 && D == 128) return go(launch<8, 128>);
-  if (bits == 4 && D == 32) return go(launch<4, 32>);
-  if (bits == 4 && D == 64) return go(launch<4, 64>);
-  if (bits == 4 && D == 128) return go(launch<4, 128>);
+  if (bits == 8 && D == 32) return go(launch<8, 32>, smem_bytes<32>());
+  if (bits == 8 && D == 64) return go(launch<8, 64>, smem_bytes<64>());
+  if (bits == 8 && D == 128) return go(launch<8, 128>, smem_bytes<128>());
+  if (bits == 4 && D == 32) return go(launch<4, 32>, smem_bytes<32>());
+  if (bits == 4 && D == 64) return go(launch<4, 64>, smem_bytes<64>());
+  if (bits == 4 && D == 128) return go(launch<4, 128>, smem_bytes<128>());
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,8 +5,9 @@ Replaces ``paged_context_attention`` / ``_context_kernel`` of
 ``qgemm_tpu/ops/pallas/paged_attention.py``. The TPU kernel takes int8 pools
 only, and the JAX model path keeps its gather oracle for chunks; in the
 port K6 serves every paged chunk, int8 and int4 pools alike, so no plain
-version runs on the card's main path. The source note in the .cu file says
-what bounds it and how it is built.
+version runs on the card's main path. K6 runs on the plan of
+``paged_plan.k6_plan``. The source note in the .cu file says what bounds it
+and how it is built.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import math
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
-from qgemm_tpu_torch.ops.cuda.paged_decode_attention import check_args, check_kernel_args
+from qgemm_tpu_torch.ops.cuda.paged_decode_attention import (Q_DTYPES, aligned, check_args,
+                                                             check_kernel_args, kernel_q)
+from qgemm_tpu_torch.ops.cuda.paged_plan import k6_args
 from qgemm_tpu_torch.ops.validation import check, pad_last, padded_head_dim
 from qgemm_tpu_torch.serving.paged_cache import (PagedKVCache,
                                                  paged_context_attention_reference)
@@ -27,7 +30,7 @@ def _lib():
     fn = _build.library("paged_context_attention").qgemm_paged_context_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p] * 8 + [i, p] + [i] * 10 + [ctypes.c_float, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -39,37 +42,40 @@ def paged_context_attention(q: torch.Tensor, cache: PagedKVCache, lengths: torch
     lengths[b]; the chunk's K/V must already be written. Hq a multiple of
     the pool heads (GQA). Returns [B, Hq, C, D] in q's dtype. CPU tensors
     run the plain version in float32 (the JAX package's CPU path); CUDA
-    tensors launch K6 (D <= 128) or raise."""
+    tensors launch K6 (D <= 128; float32 or bfloat16 q, other float dtypes
+    through float32) or raise."""
     check_args(q, cache, lengths)
     b, hq, c, d = q.shape
     hkv = cache.kq.shape[1]
     if not q.is_cuda:
         return paged_context_attention_reference(q, cache, lengths, offset,
                                                  compute_dtype=torch.float32)
+    dtype, q = q.dtype, kernel_q(q)
+    offs, offset0 = None, 0
     if isinstance(offset, torch.Tensor):
         check(offset.numel() in (1, b), f"offset: expected 1 or {b} values, got "
               f"{tuple(offset.shape)}")
         offs = offset.reshape(-1).to(device=q.device, dtype=torch.int32).expand(b).contiguous()
     else:
-        offs = torch.full((b,), int(offset), dtype=torch.int32, device=q.device)
+        offset0 = int(offset)     # one offset for every slot: passed by value
     pt = cache.page_table
     check_kernel_args(q, cache, (cache.kq, cache.kc, cache.vq, cache.vc, pt, lengths))
-    check(pt.dtype == torch.int32 and pt.is_contiguous(),
-          "page_table: K6 reads a contiguous int32 table")
-    check(b * hkv <= 65535, f"K6 takes at most 65535 slots x KV heads, got {b * hkv}")
     rows = (hq // hkv) * c
     dp = padded_head_dim(d)
-    qf = pad_last(q.to(torch.float32).reshape(b, hkv, rows, d), dp)   # never the pools
+    block_rows, key_tile, smem = k6_args(cache.kv_bits, dp, d, cache.page_size, pt.shape[1],
+                                         b, hkv, rows)
+    qk = aligned(pad_last(q.reshape(b, hkv, rows, d), dp))   # the per-call q; never the pools
     lens = lengths.to(torch.int32).contiguous()
     kq, kc, vq, vc = (t.contiguous() for t in (cache.kq, cache.kc, cache.vq, cache.vc))
-    out = torch.empty((b, hkv, rows, dp), dtype=torch.float32, device=q.device)
-    rc = _lib()(qf.data_ptr(), kq.data_ptr(), kc.data_ptr(), vq.data_ptr(), vc.data_ptr(),
-                pt.data_ptr(), lens.data_ptr(), offs.data_ptr(), out.data_ptr(),
-                cache.kv_bits, b, hkv, c, rows, dp, d, cache.page_size, pt.shape[1],
-                1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    out = torch.empty((b, hkv, rows, dp), dtype=q.dtype, device=q.device)
+    rc = _lib()(qk.data_ptr(), kq.data_ptr(), kc.data_ptr(), vq.data_ptr(), vc.data_ptr(),
+                pt.data_ptr(), lens.data_ptr(), 0 if offs is None else offs.data_ptr(),
+                offset0, out.data_ptr(), Q_DTYPES[q.dtype], cache.kv_bits, b, hkv, c, rows, dp,
+                d, cache.page_size, pt.shape[1], 1.0 / math.sqrt(d), block_rows, key_tile,
+                smem, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("qgemm_paged_context_attention", rc)
     paged_context_attention.launches += 1
-    return out[..., :d].reshape(b, hq, c, d).to(q.dtype)
+    return out[..., :d].reshape(b, hq, c, d).to(dtype)
 
 
 paged_context_attention.launches = 0

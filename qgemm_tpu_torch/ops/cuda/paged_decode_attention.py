@@ -9,8 +9,12 @@ Two entries keep the JAX package's signatures and both launch K5:
 grid's schedule: the ragged entry checks their shapes (the engine checks
 what they hold where it builds them, on the host) and K5 does not read
 them. Each entry counts its own
-launches. The source note in the .cu file says what bounds K5 and how it
-is built.
+launches. K5 splits each slot's pages across blocks (flash-decoding) on
+the plan of ``paged_plan.k5_plan``; the last block of a (slot, KV head)
+merges the splits' partial states, kept in a scratch tensor this wrapper
+allocates, and counts on a persistent counter buffer of the device and
+stream that every call leaves at zero (calls on two streams never share
+one). The source note in the .cu file says what bounds K5 and how it is built.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import math
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
-from qgemm_tpu_torch.ops.validation import check, check_rank, pad_last, padded_head_dim
+from qgemm_tpu_torch.ops.cuda.paged_plan import k5_args
+from qgemm_tpu_torch.ops.validation import (check, check_aligned16, check_rank, pad_last,
+                                            padded_head_dim)
 from qgemm_tpu_torch.serving.paged_cache import PagedKVCache, paged_attention_reference
 
 
@@ -41,17 +47,39 @@ def check_paged_pool(cache: PagedKVCache) -> None:
     check_rank("page_table", cache.page_table, 2)
 
 
+# q's dtypes the paged kernels take, and the code their C entries know them by
+Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_q(q: torch.Tensor) -> torch.Tensor:
+    """q as the paged kernels take it: itself in float32 or bfloat16,
+    another float dtype (float16, float64) in float32, whose output the
+    wrapper casts back to q's dtype."""
+    return q if q.dtype in Q_DTYPES else q.to(torch.float32)
+
+
 def check_kernel_args(q: torch.Tensor, cache: PagedKVCache, tensors) -> None:
     """What K5 and K6 take on the card, beyond the shapes: raises on the
     rest rather than running wrong."""
     ps = cache.page_size
     padded_head_dim(q.shape[3])
+    check(q.dtype in Q_DTYPES, f"the paged kernels take float32 or bfloat16 q, got {q.dtype} "
+          "(the wrappers pass other float dtypes in float32)")
     check(ps % 16 == 0 and 16 <= ps <= 256,
           f"the paged kernels take page sizes that are multiples of 16 from 16 to "
           f"256, got {ps}")
     check(all(t.is_cuda and t.device == q.device for t in tensors),
           "paged attention: q, pools, scales, page table and lengths must lie on "
           "q's CUDA device")
+    check(cache.page_table.dtype == torch.int32 and cache.page_table.is_contiguous(),
+          "page_table: the paged kernels read a contiguous int32 table")
+    check_aligned16("paged attention pools", cache.kq, cache.vq, cache.kc, cache.vc)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) itself, or a copy where its data does not start on
+    the 16-byte boundary the kernels' vector loads of q need."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_args(q: torch.Tensor, cache: PagedKVCache, lengths: torch.Tensor) -> None:
@@ -77,32 +105,50 @@ def _lib():
     fn = _build.library("paged_decode_attention").qgemm_paged_decode_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, i, i, i, p]
         fn.restype = i
     return fn
 
 
+# (device, stream) -> int32 counters of K5's merge, left at 0 by every call.
+# One buffer a stream: the blocks of two launches running at once on two
+# streams would otherwise count on the same (slot, KV head) counters.
+_counters = {}
+
+
+def _merge_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _counters.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
+        _counters[(device, stream)] = buf
+    return buf
+
+
 def _launch(q: torch.Tensor, cache: PagedKVCache, lengths: torch.Tensor, entry) -> torch.Tensor:
+    dtype, q = q.dtype, kernel_q(q)
     b, hq, _, d = q.shape
     hkv = cache.kq.shape[1]
     g = hq // hkv
     check(g in (1, 2, 4, 8), f"K5 takes GQA groups 1, 2, 4 or 8, got {g}")
     pt = cache.page_table
     check_kernel_args(q, cache, (cache.kq, cache.kc, cache.vq, cache.vc, pt, lengths))
-    check(pt.dtype == torch.int32 and pt.is_contiguous(),
-          "page_table: K5 reads a contiguous int32 table")
     dp = padded_head_dim(d)
-    qf = pad_last(q[:, :, 0].to(torch.float32), dp)   # the per-call q; never the pools
+    ps, pps = cache.page_size, pt.shape[1]
+    split_pages, nsplit, smem, n_scratch = k5_args(cache.kv_bits, dp, d, g, ps, pps, b, hkv)
+    qk = aligned(pad_last(q[:, :, 0], dp))   # the per-call q; never the pools
     lens = lengths.to(torch.int32).contiguous()
     kq, kc, vq, vc = (t.contiguous() for t in (cache.kq, cache.kc, cache.vq, cache.vc))
-    out = torch.empty((b, hq, dp), dtype=torch.float32, device=q.device)
-    rc = _lib()(qf.data_ptr(), kq.data_ptr(), kc.data_ptr(), vq.data_ptr(), vc.data_ptr(),
-                pt.data_ptr(), lens.data_ptr(), out.data_ptr(), cache.kv_bits, b, hkv, g, dp,
-                d, cache.page_size, pt.shape[1], 1.0 / math.sqrt(d),
-                torch.cuda.current_stream(q.device).cuda_stream)
+    out = torch.empty((b, hq, dp), dtype=q.dtype, device=q.device)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _merge_counters(q.device, stream, b * hkv)
+    rc = _lib()(qk.data_ptr(), kq.data_ptr(), kc.data_ptr(), vq.data_ptr(), vc.data_ptr(),
+                pt.data_ptr(), lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                counters.data_ptr(), Q_DTYPES[q.dtype], cache.kv_bits, b, hkv, g, dp, d, ps,
+                pps, 1.0 / math.sqrt(d), split_pages, nsplit, smem, stream)
     _build.check_launch("qgemm_paged_decode_attention", rc)
     entry.launches += 1
-    return out[:, :, None, :d].to(q.dtype)
+    return out[:, :, None, :d].to(dtype)
 
 
 def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
@@ -111,7 +157,8 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     pool heads (GQA); lengths [B], position j of slot b attends iff j <
     lengths[b]. Returns [B, Hq, 1, D] in q's dtype. CPU tensors run the
     plain version in float32 (the JAX package's CPU path); CUDA tensors
-    launch K5 (D <= 128, g in {1, 2, 4, 8}) or raise."""
+    launch K5 (D <= 128, g in {1, 2, 4, 8}; float32 or bfloat16 q, other
+    float dtypes through float32) or raise."""
     _check(q, cache, lengths)
     if not q.is_cuda:
         return paged_attention_reference(q, cache, lengths, compute_dtype=torch.float32)
