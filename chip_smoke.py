@@ -38,7 +38,11 @@ other kernels; ``train`` takes Adam steps on GPT_6_7B's widths at 4 layers
 example's small GPT on the copy task to convergence, its default head_dim
 32 among the widths; ``train_serve``
 quantizes the trained model to int8 and serves held-out copy prompts
-through the engine. Each phase prints one JSON line; the
+through the engine; ``long_copy`` trains a copy model at 384 positions,
+whose decode spans three of the decode kernels' 128-position splits, and
+serves it in int8 through the dense engine (K2) and the paged one on int8
+and int4 pools (K6, K5), each held to its teacher-forced accuracy and the
+int8 runs to ``generate``'s transcripts. Each phase prints one JSON line; the
 last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is nonzero. Needs one CUDA device; exits nonzero without one.
 Uses no JAX.
@@ -92,6 +96,17 @@ idle share) and one full-depth GPT_6_7B prompt of 1024 tokens admitted in
 and this one's in the same turns, and prints the medians, their ratios and
 the shares of the kernels' bounds.
 
+    python3 chip_smoke.py --decode-ab OTHER_CHECKOUT [ROUNDS]
+
+times K2 (int8 cache, B 8, H 32, S 1024, D 128 at row 5's lengths
+150-550 and at 8 x 1,000 positions) and K5 (ragged entry, int8 pages of
+128, the same rows), compares K5's outputs on seeded pools bit for bit
+between the two checkouts, and profiles the dense int8 engine's steady
+decode window on GPT_6_7B and on the MoE GPT (device time, the K2 family,
+device operations, wall time, idle share) with another checkout's package
+and this one's in the same turns, and prints the medians, their ratios
+and the shares of the kernels' bounds.
+
     python3 chip_smoke.py --paged-logits N
 
 serves the paged run's two short prompts and N more random ones (128-500
@@ -101,13 +116,21 @@ GPT_6_7B and prints, per request, how far its logits stray from
 history, relative to the largest logit: the readings ``serve_paged``
 holds to ``PAGED_LOGIT_RTOL``.
 
-    python3 chip_smoke.py --paged-faults N
+    python3 chip_smoke.py --long-copy CKPT
 
-runs ``--paged-logits N`` with this checkout's kernels and, with each of
-three faults planted in K5's merge (in copies of the script and package
-in a temporary directory), ``--only paged`` and ``--paged-logits N``, and
-prints whether K5's parity fails each fault and ``PAGED_LOGIT_RTOL`` lies
-above every sound reading and below each fault's.
+trains the long copy model (``phase_long_copy``) and saves it to CKPT, or
+reloads it from there, and prints its readings served through the dense
+int8, paged int8 and paged int4 engines, judging none.
+
+    python3 chip_smoke.py --decode-faults N [OTHER_CHECKOUT]
+
+runs ``--long-copy`` and ``--paged-logits N`` with this checkout's kernels
+(or another checkout's) and, with each of three faults planted in the decode kernels' split merge
+(in copies of the script and package in a temporary directory), the
+parity of each decode kernel the fault reaches, ``--long-copy`` on the
+saved model and ``--paged-logits N``; prints every reading beside its
+bound and fails unless the sound run keeps its bounds, every fault fails
+the parity and the long copy's accuracy bound catches the dropped splits.
 
     python3 chip_smoke.py --k6-draws N
 
@@ -328,9 +351,6 @@ def phase_build() -> None:
 
 def phase_parity() -> dict:
     """Each kernel against its plain version at the serving shapes."""
-    from qgemm_tpu_torch.ops.cuda.decode_attention import (decode_attention,
-                                                           decode_attention_plain)
-    from qgemm_tpu_torch.ops.kv_cache import quantize_kv
     from qgemm_tpu_torch.ops.quantize import (dequantize_weights_int4, quantize_weights,
                                               quantize_weights_int4, quantized_matmul_plain,
                                               quantized_matmul_prequant,
@@ -343,7 +363,7 @@ def phase_parity() -> dict:
             for name in ("quantized_matmul", "decode_attention", "flash_attention",
                          "w4a8_matmul", "paged_decode_attention", "paged_context_attention",
                          "flash_attention_bwd", "flash_attention_autograd",
-                         "expert_matmul", "col_quantize")}
+                         "expert_matmul", "col_quantize", "decode_attention_equals_paged")}
     report = []
 
     def record(name, got, ref, **row):
@@ -438,6 +458,27 @@ def phase_parity() -> dict:
                                  f"half of the plain {e_plain}")
     del x, w, wq, wf
 
+    k2_parity(g, record)
+    k3_checks(g, record)
+
+    paged_parity(g, record)
+    k6_edges = k6_edge_checks(record)
+    k2_k5_checks(record)
+    k7_checks(g, record)
+    torch.cuda.synchronize()
+    emit({"phase": "parity", "checks": report, "outlier_gemm": outlier_checks,
+          "k6_edges": k6_edges})
+    return errs
+
+
+def k2_parity(g: torch.Generator, record) -> None:
+    """K2 against its plain version at GPT_6_7B's decode shape (B 8, H 32,
+    S 1024, D 128; ragged lengths 1 to 1024): int8 caches, MHA and GQA
+    (Hkv 16), and the bf16 and f32 caches."""
+    from qgemm_tpu_torch.ops.cuda.decode_attention import (decode_attention,
+                                                           decode_attention_plain)
+    from qgemm_tpu_torch.ops.kv_cache import quantize_kv
+    dev = "cuda"
     # K2: p rounds to bf16 on both sides at slightly different running
     # maxima (a one-ulp flip of a probability moves an output by <= ~4e-3),
     # and a bf16 output rounds once on each side (2^-7 relative)
@@ -462,15 +503,42 @@ def phase_parity() -> dict:
         if not excess(got, ref, 2 ** -7 if cache != "float32" else 0.0) <= tol:
             raise AssertionError(f"K2 {cache} hkv={hkv}: max err {e} > {tol}")
 
-    k3_checks(g, record)
 
-    paged_parity(g, record)
-    k6_edges = k6_edge_checks(record)
-    k7_checks(g, record)
-    torch.cuda.synchronize()
-    emit({"phase": "parity", "checks": report, "outlier_gemm": outlier_checks,
-          "k6_edges": k6_edges})
-    return errs
+def k2_k5_checks(record) -> None:
+    """K2 and K5 on the same int8 rows give equal bits: a paged pool
+    (``random_paged_cache``, pages shuffled) at pages of 16, 32 and 128,
+    gathered into a dense cache, through K2 at the pool's extent and at an
+    extent of the longest length + 3 (S not a multiple of 4: the scale rows
+    lose their 16-byte alignment), and through K5's ragged entry; MHA and
+    GQA (G 4), head widths 128 and 80, bf16 q and one f32 q. Both run the
+    split body of csrc/split_decode.cuh over 128-position splits from
+    position 0. q draws from a generator of its own."""
+    from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention_ragged
+    from qgemm_tpu_torch.serving.paged_cache import gather_slot_kv
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(25)
+    lengths = torch.tensor([0, 1, 128, 129, 300, 640, 1000, 1018], device=dev,
+                           dtype=torch.int32)
+    cases = [(page, hkv, d, torch.bfloat16) for page in (16, 32, 128) for hkv in (32, 8)
+             for d in (128, 80)] + [(32, 8, 128, torch.float32)]
+    for page, hkv, d, qdt in cases:
+        cache, _ = random_paged_cache(80 + page + hkv + d, lengths.tolist(), hkv, page, 8,
+                                      pps=1024 // page, d=d)
+        q = torch.randn((8, 32, 1, d), generator=g, device=dev).to(torch.bfloat16).to(qdt)
+        paged = paged_decode_attention_ragged(q, cache, lengths)
+        kq, kc, vq, vc = gather_slot_kv(cache)
+        for s in (kq.shape[2], int(lengths.max()) + 3):
+            dense = decode_attention(q, kq[:, :, :s].contiguous(), vq[:, :, :s].contiguous(),
+                                     lengths, kc=kc[:, :, :s].contiguous(),
+                                     vc=vc[:, :, :s].contiguous())
+            record("decode_attention_equals_paged", dense, paged, page=page, hkv=hkv, d=d,
+                   s=s, q_dtype=str(qdt), tol=0.0)
+            if not (dense.dtype == paged.dtype == qdt and bits_equal(dense, paged)):
+                raise AssertionError(f"K2 != K5 bit for bit: page={page} hkv={hkv} d={d} "
+                                     f"S={s} q {qdt}, max diff {max_err(dense, paged)}")
+        del cache, kq, kc, vq, vc
 
 
 def paged_parity(g: torch.Generator, record) -> None:
@@ -549,11 +617,8 @@ def paged_parity(g: torch.Generator, record) -> None:
     k6_case(g16, 8, 32, 8, [0, 768, 300, 129], torch.float16)
 
 
-def phase_paged() -> None:
-    """K5 and K6 alone: ``paged_parity`` and ``k6_edge_checks`` (a short
-    first run of changed paged kernels, through ``--only paged``)."""
-    g = torch.Generator(device="cuda")
-    g.manual_seed(1)
+def reporter() -> tuple:
+    """(a ``record`` function for the parity checks, the list it fills)."""
     report = []
 
     def record(name, got, ref, **row):
@@ -561,10 +626,30 @@ def phase_paged() -> None:
                            max_rel_err=rel_err(got, ref), **row))
         return report[-1]["max_abs_err"]
 
+    return record, report
+
+
+def phase_paged() -> None:
+    """K5 and K6 alone: ``paged_parity`` and ``k6_edge_checks`` (a short
+    first run of changed paged kernels, through ``--only paged``)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    record, report = reporter()
     paged_parity(g, record)
     edges = k6_edge_checks(record)
     torch.cuda.synchronize()
     emit({"phase": "paged", "checks": report, "k6_edges": edges})
+
+
+def phase_k2() -> None:
+    """K2 alone: ``k2_parity`` and ``k2_k5_checks`` (through ``--only k2``)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    record, report = reporter()
+    k2_parity(g, record)
+    k2_k5_checks(record)
+    torch.cuda.synchronize()
+    emit({"phase": "k2", "checks": report})
 
 
 # q draws of K6's edge case (``k6_edge_checks``), found by a search of
@@ -1070,6 +1155,7 @@ def phase_timing(errs: dict) -> dict:
                     "shape": f"B={b} H={h} D={d} page={page} kv_bits={bits} "
                              f"lengths={lengths.tolist()} (ragged entry)"}
         del cache
+    out["decode_attention"]["k5_ms_same_lengths"] = out["paged_decode_attention"]["ms"]
     c, off = 256, 768
     q = torch.randn((1, h, c, d), generator=g, device=dev).to(torch.bfloat16)
     lens = torch.tensor([off + c], device=dev, dtype=torch.int32)
@@ -1255,6 +1341,7 @@ def device_spans(prof) -> tuple:
 # kernel families of a decode step, by substrings of the kernels' names (the
 # GEMVs' names before and after their redesign, so an A/B can read either tree)
 DECODE_FAMILIES = {"gemv": ("gemv_kernel", "small_m_kernel"),
+                   "dense_decode": ("decode_kernel<signed char", "dense_decode_split_kernel"),
                    "gemm_prepass": ("row_quantize_kernel", "row_absmax_kernel",
                                     "slab_quantize_kernel"),
                    "paged_decode": ("paged_decode",)}
@@ -1404,13 +1491,14 @@ def greedy_logits(model, prompt: list, n_new: int) -> tuple:
     return out, steps
 
 
-def engine_alone_logits(model, prompt: list, n_new: int) -> tuple:
+def engine_alone_logits(model, prompt: list, n_new: int,
+                        engine_kw: Optional[dict] = None) -> tuple:
     """One request served alone, greedy, by a new ContinuousBatchingEngine
-    with ``PAGED_ENGINE``'s options (slot 0 of 8), every step's logits of
-    its slot kept as the engine samples them. Returns (tokens, logits per
-    step)."""
+    with ``engine_kw`` (default ``PAGED_ENGINE``'s options; slot 0), every
+    step's logits of its slot kept as the engine samples them. Returns
+    (tokens, logits per step)."""
     from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
-    engine = ContinuousBatchingEngine(model, **PAGED_ENGINE)
+    engine = ContinuousBatchingEngine(model, **(engine_kw or PAGED_ENGINE))
     seen, sample = [], engine._sample
 
     def observed(logits, *args):      # the first token's [1, V], then [slots, V]
@@ -1427,6 +1515,11 @@ def engine_alone_logits(model, prompt: list, n_new: int) -> tuple:
     return list(req.generated), seen
 
 
+def first_difference(want: list, got: list) -> Optional[int]:
+    """The first step where two transcripts differ, or None."""
+    return next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+
+
 def paged_logit_reading(model, prompt: list, n_new: int) -> dict:
     """A request's greedy run alone through the paged engine (K5 decode,
     ``engine_alone_logits``) against ``generate`` (K2 decode; its logits
@@ -1436,14 +1529,16 @@ def paged_logit_reading(model, prompt: list, n_new: int) -> dict:
     reading is max |dense - paged| over the vocabulary relative to the
     dense step's largest |logit|. Returns the tokens, the first differing
     step and the two runs' margins there, and the readings: the prefill's
-    (step 0, no K5 yet), the largest (and its step) and the median."""
+    (step 0, no K5 yet), the largest (and its step) and the median, and
+    whether the two runs' logits are equal bit for bit at every step of
+    that history."""
     iso = model.generate(torch.tensor([prompt], device="cuda"), n_new,
                          quantized_cache=True)[0].tolist()
     dense, d_logits = greedy_logits(model, prompt, n_new)
     if dense != iso:
         raise AssertionError(f"the dense loop {dense} is not generate's {iso}")
     paged, p_logits = engine_alone_logits(model, prompt, n_new)
-    t = next((i for i, (a, b) in enumerate(zip(iso, paged)) if a != b), None)
+    t = first_difference(iso, paged)
     shared = n_new if t is None else t + 1
     rel = [float((d_logits[i] - p_logits[i]).abs().max() / d_logits[i].abs().max())
            for i in range(shared)]
@@ -1451,7 +1546,9 @@ def paged_logit_reading(model, prompt: list, n_new: int) -> dict:
            "paged_alone": paged, "steps_compared": shared,
            "logit_rel_diff_prefill": rel[0], "logit_rel_diff_max": max(rel),
            "logit_rel_diff_max_step": int(np.argmax(rel)),
-           "logit_rel_diff_median": float(np.median(rel)), "first_difference": None}
+           "logit_rel_diff_median": float(np.median(rel)),
+           "logits_equal": all(bits_equal(d_logits[i], p_logits[i]) for i in range(shared)),
+           "first_difference": None}
     if t is not None:
         ld, lp = d_logits[t], p_logits[t]
         res["first_difference"] = {"step": t, "dense_token": iso[t], "paged_token": paged[t],
@@ -1461,18 +1558,16 @@ def paged_logit_reading(model, prompt: list, n_new: int) -> dict:
 
 
 def paged_transcripts_match(label: str, model, reqs) -> dict:
-    """The paged engine's greedy transcripts of ``reqs`` against the model's
-    own generation. Each must equal, bit for bit, the request served alone
-    by the engine (``engine_alone_logits``): batching, paging and admission
-    change nothing. Against ``generate`` (dense int8 cache, K2 decode), at
-    every step of their shared history the logits must agree within
-    ``PAGED_LOGIT_RTOL`` of the largest (``paged_logit_reading``). For
-    prompts prefilled whole (K3 on both paths) the two differ only in the
-    order of K5's and K2's f32 sums, which the bf16 model carries into its
-    logits by a few bf16 steps; a transcript leaves generate's where that
-    flips a greedy near-tie, and is not required to equal it. Returns how
-    many transcripts equal generate's, each request's readings, and the
-    bound; raises on anything else."""
+    """The paged engine's greedy transcripts of ``reqs`` (prompts prefilled
+    whole, through K3 on both paths) against the model's own generation.
+    Each must equal, bit for bit, the request served alone by the engine
+    (``engine_alone_logits``): batching, paging and admission change
+    nothing. And each must equal ``generate``'s (dense int8 cache, K2
+    decode), its logits equal bit for bit at every step
+    (``paged_logit_reading``): K5 and K2 run one split body over the same
+    128-position splits, so the same rows give the same bits. Returns how
+    many transcripts equal generate's and each request's readings; raises
+    on anything else."""
     readings = []
     for r in reqs:
         w = paged_logit_reading(model, r.prompt, r.max_new_tokens)
@@ -1481,12 +1576,11 @@ def paged_transcripts_match(label: str, model, reqs) -> dict:
                                  f"request served alone {w['paged_alone']}")
         readings.append({"request": r.id, **{k: v for k, v in w.items()
                                              if k not in ("generate", "paged_alone")}})
-        if not w["logit_rel_diff_max"] <= PAGED_LOGIT_RTOL:
-            raise AssertionError(f"{label}: request {r.id}: the paged and dense logits "
-                                 f"differ beyond {PAGED_LOGIT_RTOL} of the largest: "
-                                 f"{readings[-1]}")
+        if not (w["logits_equal"] and w["first_difference"] is None):
+            raise AssertionError(f"{label}: request {r.id}: the paged logits or transcript "
+                                 f"are not generate's bit for bit: {readings[-1]}")
     return {"equal_to_generate": sum(w["first_difference"] is None for w in readings),
-            "requests": len(reqs), "rtol": PAGED_LOGIT_RTOL, "readings": readings}
+            "requests": len(reqs), "readings": readings}
 
 
 def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = False) -> dict:
@@ -1643,12 +1737,13 @@ OVERCOMMIT_EXTRA_NEW = 200
 # prefix cache on, chunked admission of 256 rows.
 PAGED_ENGINE = dict(max_slots=8, max_seq_len=1024, paged=True, page_size=128,
                     prefix_cache=True, chunked_prefill=256, device="cuda")
-# How far the paged engine's logits (K5 decode) may stray from generate's
-# (K2 decode), relative to the largest, at any step of a request's shared
-# history: K5's f32 sums, in another order than K2's, move the bf16
-# model's logits by a few bf16 steps. PERF.md gives the readings of sound
-# kernels and of planted K5 faults (``--paged-faults``) between which it
-# lies.
+# How far the paged engine's logits may stray from generate's, relative to
+# the largest, at any step of a request's shared history, for a prompt
+# admitted in chunks or after a prefix hit: K6's chunks against generate's
+# whole-prompt K3 prefill move the bf16 model's logits by a few bf16 steps
+# (a prompt prefilled whole gives generate's bits: K5 and K2 share their
+# split body). PERF.md gives the readings of sound kernels and of planted
+# merge faults (``--decode-faults``) on either side of it.
 PAGED_LOGIT_RTOL = 0.04
 
 
@@ -1659,9 +1754,10 @@ def serve_paged() -> tuple:
     ``paged_int8`` (int8 pools, full pool) must decode through K5 only (32
     launches per decode step, K1 193, no K2 or K4), launch K3 (whole-prompt
     prefills) and K6 (chunks and prefix-hit suffixes), hit the prefix
-    cache, and give the two short random prompts the transcripts they get
-    served alone, within ``PAGED_LOGIT_RTOL`` of ``generate``'s logits
-    (``paged_transcripts_match``). Run ``paged_int4_overcommit`` (int4 pools, over-commit,
+    cache, give the two short random prompts the transcripts they get
+    served alone and ``generate``'s logits and transcripts bit for bit
+    (``paged_transcripts_match``), and keep a chunked prompt's logits within
+    ``PAGED_LOGIT_RTOL`` of ``generate``'s. Run ``paged_int4_overcommit`` (int4 pools, over-commit,
     overlapped admission, an undersized pool, the same prompts decoding
     ``OVERCOMMIT_EXTRA_NEW`` tokens more) must preempt at least once and
     still finish every request, through K5 and K6 on int4 pools. Returns
@@ -1705,6 +1801,13 @@ def serve_paged() -> tuple:
             prefill = paged_prefill_launches(run, per_decode, GPT_6_7B.n_layers, n_gemms,
                                              label)
             match = paged_transcripts_match(label, model, [reqs[i] for i in short])
+            # a prompt past one chunk, served alone: K6 chunks against
+            # generate's whole-prompt K3 prefill
+            chunked = paged_logit_reading(model, reqs[0].prompt, reqs[0].max_new_tokens)
+            chunked = {k: v for k, v in chunked.items() if k not in ("generate", "paged_alone")}
+            if not chunked["logit_rel_diff_max"] <= PAGED_LOGIT_RTOL:
+                raise AssertionError(f"{label}: a chunked prompt's paged logits differ from "
+                                     f"generate's beyond {PAGED_LOGIT_RTOL}: {chunked}")
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
             profile = profile_decode(engine, np.random.default_rng(8))
@@ -1732,7 +1835,8 @@ def serve_paged() -> tuple:
                "pages_used_max": max(p[1] for p in run["pages"])}
         if label == "paged_int8":
             res.update(transcripts_equal_generate=match["equal_to_generate"],
-                       transcripts_vs_generate=match, peak_mem_gb=round(peak / 2**30, 2),
+                       transcripts_vs_generate=match, chunked_prompt_vs_generate=chunked,
+                       paged_logit_rtol=PAGED_LOGIT_RTOL, peak_mem_gb=round(peak / 2**30, 2),
                        prefill_launches=prefill, decode_profile=profile, decode_ab=ab)
         emit(res)
         results.append(res)
@@ -2261,6 +2365,179 @@ def phase_train_serve(model) -> dict:
         raise AssertionError(f"train_serve: served accuracy {acc} vs float {float_acc}")
     del engine, qm
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------- the long copy model (C-c)
+# The copy task at a length whose decode crosses three of the decode
+# kernels' 128-position splits: the second half of a 384-token sequence
+# copies the first, so decoding it attends to positions up to 383, and the
+# copy's source lies in the first split. ``train_model`` (the example's
+# batch, vocab and lr; d_model 128, 2 heads, 2 layers) trains it for
+# LONG_COPY_STEPS steps; where a length does not reach LONG_COPY_MIN_ACC
+# teacher-forced held-out accuracy, the next shorter one is trained (each
+# >= 257 positions, so that decoding reaches a third split).
+LONG_COPY_SEQ_LENS = (384, 320, 288, 257)
+LONG_COPY_MODEL = dict(d_model=128, n_heads=2, n_layers=2)
+LONG_COPY_STEPS = 3000
+LONG_COPY_MIN_ACC = 0.95
+# a served run's copy accuracy may fall at most this far below the
+# teacher-forced held-out accuracy (a bound that depends on no decode kernel)
+LONG_COPY_SLACK = 0.05
+LONG_COPY_REQUESTS = 16
+# The engines that serve the int8 model: (options, the decode kernel's
+# source, whether the transcripts must equal the int8 model's ``generate``).
+# The dense int8 cache decodes through K2; int8 pools of 128-position pages
+# admit a prompt in chunks (K6) and decode through K5 a page a split; int4
+# pools of 32-position pages decode through K5 four pages a split (other
+# numerics than generate's int8 cache: held to the accuracy bound only).
+LONG_COPY_ENGINES = {
+    "dense_int8": (dict(quantized_cache=True), "decode_attention", True),
+    "paged_int8_page128": (dict(paged=True, page_size=128, chunked_prefill=64,
+                                prefix_cache=True), "paged_decode_attention", True),
+    "paged_int4_page32": (dict(paged=True, page_size=32, chunked_prefill=64, kv_bits=4),
+                          "paged_decode_attention", False),
+}
+
+
+def long_copy_model(ckpt: Path) -> tuple:
+    """The long copy model, reloaded from ``ckpt`` (and the JSON beside it)
+    if it exists, else trained on the card (``LONG_COPY_SEQ_LENS`` in turn,
+    until one reaches ``LONG_COPY_MIN_ACC``) and saved there. Returns (the
+    float model, what was trained: its sequence length, config, every
+    attempt's losses, held-out accuracy and seconds)."""
+    from qgemm_tpu_torch.examples.train_gpt_lm import heldout_eval, train_model
+    from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
+    from qgemm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    meta = ckpt.with_suffix(".json")
+    if ckpt.exists():
+        info = json.loads(meta.read_text())
+        template = GPT.init(GPTConfig(**info["config"]), seed=0, device="cuda")
+        model = load_checkpoint(str(ckpt), template)
+        info["heldout_acc_reloaded"] = heldout_eval(model, info["seq_len"], 64)[1]
+        return model, info
+    attempts = []
+    for seq_len in LONG_COPY_SEQ_LENS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, st = train_model(steps=LONG_COPY_STEPS, seq_len=seq_len, device="cuda",
+                                **LONG_COPY_MODEL)
+        torch.cuda.synchronize()
+        attempts.append({"seq_len": seq_len, **st, "train_s": time.perf_counter() - t})
+        if st["heldout_acc"] >= LONG_COPY_MIN_ACC:
+            break
+        del model
+    else:
+        raise AssertionError(f"long copy: no length reached {LONG_COPY_MIN_ACC} held-out "
+                             f"accuracy in {LONG_COPY_STEPS} steps: {attempts}")
+    info = {"seq_len": seq_len, "config": dataclasses.asdict(model.cfg),
+            "steps": LONG_COPY_STEPS, "attempts": attempts, "heldout_acc": st["heldout_acc"]}
+    save_checkpoint(str(ckpt), model)
+    meta.write_text(json.dumps(info))
+    return model, info
+
+
+def long_copy_readings(ckpt: Path) -> dict:
+    """The long copy model (``long_copy_model``) quantized to int8 and
+    serving ``LONG_COPY_REQUESTS`` held-out sequences (prompt: the first half
+    and one token more; the rest decoded greedily) through each of
+    ``LONG_COPY_ENGINES``, launch counts set to 0 just before each run and
+    read just after, and the seconds it all took. Per engine: the copy
+    accuracy against the true targets, how many transcripts equal the int8
+    model's own ``generate`` (dense int8 cache), and for the first request
+    that differs, the step and both sides' margins there (the engine's from
+    the request served alone). Judges nothing: ``phase_long_copy`` and ``--decode-faults``
+    hold the readings to their bounds."""
+    from qgemm_tpu_torch.examples.train_gpt_lm import batch_iter
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    t0 = time.perf_counter()
+    model, info = long_copy_model(ckpt)
+    seq_len = info["seq_len"]
+    half = (seq_len + 1) // 2
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    seqs = next(batch_iter(g, LONG_COPY_REQUESTS, seq_len, model.cfg.vocab_size))
+    prompts, targets = seqs[:, :half + 1], seqs[:, half + 1:]
+    n_new = targets.shape[1]
+    qm = model.quantize()
+    dense = [greedy_logits(qm, p.tolist(), n_new) for p in prompts]
+    for p, (toks, _) in zip(prompts[:2], dense):
+        if qm.generate(p[None], n_new, quantized_cache=True)[0].tolist() != toks:
+            raise AssertionError("long copy: the dense loop is not generate's")
+    dense_acc = float((torch.tensor([t for t, _ in dense], device="cuda") == targets)
+                      .float().mean())
+    res = {"seq_len": seq_len, "prompt_tokens": half + 1, "new_tokens": n_new,
+           "training": info, "generate_int8_copy_acc": dense_acc, "engines": {}}
+    for label, (kw, kernel, _) in LONG_COPY_ENGINES.items():
+        engine_kw = dict(max_slots=8, device="cuda", **kw)
+        engine = ContinuousBatchingEngine(qm, **engine_kw)
+        reqs = [Request(prompt=p.tolist(), max_new_tokens=n_new) for p in prompts]
+        run = drive(engine, reqs, f"long_copy {label}")
+        del engine
+        served = torch.tensor([r.generated for r in reqs], device="cuda")
+        diffs = [first_difference(toks, r.generated) for (toks, _), r in zip(dense, reqs)]
+        counts = run["counts"]
+        row = {"copy_acc": float((served == targets).float().mean()),
+               "equal_to_generate": sum(t is None for t in diffs),
+               "first_difference_steps": diffs,
+               "decode_launches": {k: counts[k] for k in counts if "decode_attention" in k},
+               "first_difference": None}
+        i = next((i for i, t in enumerate(diffs) if t is not None), None)
+        if i is not None:
+            t, (toks, d_logits) = diffs[i], dense[i]
+            alone, e_logits = engine_alone_logits(qm, reqs[i].prompt, n_new, engine_kw)
+            a, b = toks[t], reqs[i].generated[t]
+            row["first_difference"] = {
+                "request": i, "step": t, "generate_token": a, "engine_token": b,
+                "generate_margin": float(d_logits[t][a] - d_logits[t][b]),
+                "engine_alone_equals_batched": alone == reqs[i].generated,
+                "engine_alone_margin": float(e_logits[t][b] - e_logits[t][a])}
+        res["engines"][label] = row
+    del model, qm
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def long_copy_failures(res: dict, fault_engines=None) -> list:
+    """What of ``long_copy_readings``' result breaks its bounds: each
+    engine's copy accuracy at least the teacher-forced held-out accuracy
+    less ``LONG_COPY_SLACK``; the transcripts of the engines so marked equal
+    to ``generate``'s; each engine launched its decode kernel (K2 or K5) and
+    not the other. ``fault_engines`` (a fault run) limits the check to the
+    accuracy bound of those engines."""
+    floor = res["training"]["heldout_acc"] - LONG_COPY_SLACK
+    bad = []
+    for label, row in res["engines"].items():
+        kernel, exact = LONG_COPY_ENGINES[label][1:]
+        if fault_engines is not None:
+            if label in fault_engines and row["copy_acc"] >= floor:
+                bad.append(f"{label}: copy accuracy {row['copy_acc']} >= {floor}")
+            continue
+        if row["copy_acc"] < floor:
+            bad.append(f"{label}: copy accuracy {row['copy_acc']} < {floor}")
+        if exact and row["equal_to_generate"] != LONG_COPY_REQUESTS:
+            bad.append(f"{label}: {row['equal_to_generate']} of {LONG_COPY_REQUESTS} "
+                       f"transcripts equal generate's ({row['first_difference']})")
+        launched = row["decode_launches"]
+        other = "decode_attention" if kernel != "decode_attention" else "paged_decode"
+        if not (sum(v for k, v in launched.items() if k.startswith(kernel)) > 0
+                and not any(v for k, v in launched.items() if k.startswith(other))):
+            bad.append(f"{label}: decode launches {launched}, not through {kernel}")
+    return bad
+
+
+def phase_long_copy() -> dict:
+    """The long copy model (C-c): trained on the card and saved to a
+    temporary .npz, then ``long_copy_readings``; fails on any of
+    ``long_copy_failures``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {"phase": "long_copy", **long_copy_readings(Path(tmp) / "long_copy.npz")}
+    res["copy_acc_floor"] = res["training"]["heldout_acc"] - LONG_COPY_SLACK
+    emit(res)
+    bad = long_copy_failures(res)
+    if bad:
+        raise AssertionError(f"long copy: {bad}")
     return res
 
 
@@ -3221,17 +3498,160 @@ def paged_ab(other: str, rounds: int = 1) -> None:
                              for side in med}})
 
 
-# K5 faults that ``--paged-faults`` plants, each in its own copy of the
-# checkout's package: a line of csrc/paged_decode_attention.cu's merge and
-# its faulty form (the first split's state left out of the sums, the last
-# split's, or the states summed without their exp(m_s - m) rescale).
-K5_MERGE_LOOP = "    for (int s = 0; s < nsplit_live; ++s) {\n"
-K5_FAULTS = {
-    "drop_first_split": (K5_MERGE_LOOP, "    for (int s = 1; s < nsplit_live; ++s) {\n"),
-    "drop_last_split": (K5_MERGE_LOOP, "    for (int s = 0; s < nsplit_live - 1; ++s) {\n"),
+# K2's and K5's timed lengths in ``--decode-ab``: row 5's (8 slots of
+# 150-550 positions, a cache extent of 1024) and 8 slots of 1,000
+DECODE_AB_ROWS = {"row5": [150, 210, 260, 330, 400, 450, 500, 550], "s1000": [1000] * 8}
+# K5's cases whose outputs ``--decode-ab`` compares bit for bit between the
+# two checkouts: (page, KV heads, kv_bits)
+DECODE_AB_K5_BITS = [(128, 32, 8), (128, 32, 4), (32, 8, 8), (16, 8, 4)]
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """The host's microseconds per call of ``fn``, a wrapper that only
+    queues device work: ``calls`` calls back to back, timed on the host
+    clock up to the last enqueue (the launch queue holds them all), the
+    median of 5 such runs, each after the device went idle."""
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+def decode_child(tree: str) -> None:
+    """One side of ``--decode-ab``: with the kernels and the qgemm_tpu_torch
+    package of checkout ``tree``, bench_ms of K2 (int8 cache, B 8, H 32, S
+    1024, D 128, bf16 q) and of K5 (ragged entry, int8 pools of pages of
+    128, the same rows) at ``DECODE_AB_ROWS``' lengths; the sha256 of K5's
+    outputs on ``DECODE_AB_K5_BITS``' seeded pools (compared between the
+    two sides); the host's microseconds per wrapper call at row 5's shape
+    (``host_us``); and the steady decode windows (``profile_decode``: device
+    time, the K2 family, device operations, wall time, idle share) of the
+    dense int8 engine on the full-depth GPT_6_7B and on the MoE GPT
+    (``MOE_CFG``). Prints one JSON line."""
+    import hashlib
+    root = use_tree(tree)
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B, GPTConfig
+    from qgemm_tpu_torch.ops.cuda import _build
+    from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention_ragged
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from qgemm_tpu_torch.serving.paged_cache import gather_slot_kv
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    _build.build()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    res = {"tree": str(root), "k2_ms": {}, "k5_ms": {}, "k5_sha256": {}}
+    for label, lengths in DECODE_AB_ROWS.items():
+        lens = torch.tensor(lengths, device="cuda", dtype=torch.int32)
+        q = torch.randn((8, 32, 1, 128), generator=g, device="cuda").to(torch.bfloat16)
+        cache, _ = random_paged_cache(50, lengths, 32, 128, 8, 8)
+        kq, kc, vq, vc = gather_slot_kv(cache)
+        res["k2_ms"][label] = bench_ms(lambda: decode_attention(q, kq, vq, lens, kc=kc, vc=vc))
+        res["k5_ms"][label] = bench_ms(lambda: paged_decode_attention_ragged(q, cache, lens))
+        if label == "row5":
+            res["k2_host_us"] = host_us(lambda: decode_attention(q, kq, vq, lens, kc=kc, vc=vc))
+            res["k5_host_us"] = host_us(lambda: paged_decode_attention_ragged(q, cache, lens))
+        del cache, kq, kc, vq, vc
+    lens = torch.tensor([0, 1, 128, 129, 300, 640, 1000, 1024], device="cuda",
+                        dtype=torch.int32)
+    for page, hkv, bits in DECODE_AB_K5_BITS:
+        cache, _ = random_paged_cache(90 + page + bits, lens.tolist(), hkv, page, bits,
+                                      1024 // page)
+        q = torch.randn((8, 32, 1, 128), generator=g, device="cuda").to(torch.bfloat16)
+        out = paged_decode_attention_ragged(q, cache, lens)
+        res["k5_sha256"][f"page{page}_hkv{hkv}_int{bits}"] = hashlib.sha256(
+            out.float().cpu().numpy().tobytes()).hexdigest()
+        del cache
+    torch.cuda.empty_cache()
+    for label, cfg in (("int8", GPT_6_7B), ("moe_int8", GPTConfig(**MOE_CFG))):
+        model = GPT.init_quantized(cfg, seed=0, device="cuda")
+        engine = ContinuousBatchingEngine(model, max_slots=8, max_seq_len=1024,
+                                          quantized_cache=True, device="cuda")
+        prof = profile_decode(engine, np.random.default_rng(0))
+        res[f"decode_{label}"] = {
+            **{k: prof[k] for k in DECODE_KEYS},
+            "device_events_per_step": prof["device_events_per_step"],
+            **{f"{f}_ms_per_step": v for f, v in prof["family_ms_per_step"].items()}}
+        del engine, model
+        torch.cuda.empty_cache()
+    emit(res)
+
+
+def decode_bounds() -> dict:
+    """Bounds (ms) of ``decode_child``'s timed kernels, by the timing
+    phase's formulas: q and the output (bf16), and K and V codes and scales
+    of every attended position read once (K5: ``paged_kv_bytes`` and its
+    page table and lengths), or the bf16 products."""
+    out, h, d = {}, 32, 128
+    for label, lengths in DECODE_AB_ROWS.items():
+        tot = sum(lengths)
+        out[f"k2_ms {label}"] = bound(8 * h * d * 2 * 2 + tot * h * (2 * d + 8),
+                                      tot * h * 4 * d, BF16_FLOPS)[0]
+        out[f"k5_ms {label}"] = bound(2 * 8 * h * d * 2 + 8 * (8 * 4 + 4)
+                                      + paged_kv_bytes(lengths, h, d, 128, 8),
+                                      tot * h * 4 * d, BF16_FLOPS)[0]
+    return out
+
+
+def decode_kernels_ab(other: str, rounds: int = 1) -> None:
+    """K2, K5 and the dense int8 and MoE decode steps of checkout ``other``
+    against this one's (``decode_child`` in ``ab_runs``' turns). Prints each
+    run, the medians, the speed-ups, each side's share of the kernels'
+    bounds, and whether K5's outputs were equal bit for bit in every run of
+    both sides; fails if they were not."""
+    phase_device()
+    trees, order, runs = ab_runs("--decode-child", "decode_run", other, rounds, 900)
+
+    def flat(r: dict) -> dict:
+        out = {f"{fam} {key}": v for fam in ("k2_ms", "k5_ms", "decode_int8", "decode_moe_int8")
+               for key, v in r[fam].items()}
+        out.update({k: r[k] for k in ("k2_host_us", "k5_host_us")})
+        return out
+
+    med = {side: {key: float(np.median([flat(r)[key] for r in rs])) for key in flat(rs[0])}
+           for side, rs in runs.items()}
+    bounds = decode_bounds()
+    hashes = [r["k5_sha256"] for rs in runs.values() for r in rs]
+    same = all(h == hashes[0] for h in hashes)
+    emit({"phase": "decode_ab", "order": order, "trees": trees, "median": med,
+          "speedup_other_over_this": {k: med["other"][k] / med["this"][k]
+                                      for k in med["this"] if med["this"][k]},
+          "bound_ms": bounds,
+          "share_of_bound": {side: {k: b / med[side][k] for k, b in bounds.items()}
+                             for side in med},
+          "k5_outputs_equal_bits": same, "k5_sha256": hashes[0]})
+    if not same:
+        raise AssertionError("K5's outputs differ between the two checkouts")
+
+
+# Faults that ``--decode-faults`` plants, each in its own copy of the
+# checkout's package: a line of the split merge and its faulty form (the
+# first split's state left out of the sums, the last split's, or the states
+# summed without their exp(m_s - m) rescale). The merge lives in the first
+# of DECODE_FAULT_SOURCES that the checkout has: the split body K2 and K5
+# share or, in an earlier checkout, K5's own source.
+DECODE_FAULT_SOURCES = ("split_decode.cuh", "paged_decode_attention.cu")
+MERGE_LOOP = "    for (int s = 0; s < nsplit_live; ++s) {\n"
+DECODE_FAULTS = {
+    "drop_first_split": (MERGE_LOOP, "    for (int s = 1; s < nsplit_live; ++s) {\n"),
+    "drop_last_split": (MERGE_LOOP, "    for (int s = 0; s < nsplit_live - 1; ++s) {\n"),
     "merge_without_rescale": ("      const float f = expf(__ldcg(ss + G * D + g) - mx);\n",
                               "      const float f = 1.f;\n"),
 }
+# the faults the long copy model's accuracy bound must catch on every engine
+# whose decode kernel carries them
+LONG_COPY_CATCHES = ("drop_first_split", "drop_last_split")
+
+
+def carries_fault(csrc: Path, source: str, kernel: str) -> bool:
+    """Whether ``csrc/<kernel>.cu`` is the fault's ``source`` or includes it."""
+    return (kernel + ".cu" == source
+            or f'#include "{source}"' in (csrc / f"{kernel}.cu").read_text())
 
 
 def paged_logits(n: int) -> None:
@@ -3263,63 +3683,122 @@ def paged_logits(n: int) -> None:
           "by_request": worst, "rtol": PAGED_LOGIT_RTOL})
 
 
-def paged_faults(n: int) -> None:
-    """``--paged-faults``: ``--paged-logits`` with this checkout's kernels,
-    then, for each of ``K5_FAULTS`` planted in a copy of this script and
-    its package in a temporary directory (the kernels the fault leaves
-    alone copied as built), ``--only paged`` (K5's parity, which must fail)
-    and ``--paged-logits``, one process each. Prints each run's lines, then
-    the sound run's largest reading beside each fault's on the two short
-    prompts (those the default run checks) and whether ``PAGED_LOGIT_RTOL``
-    lies between them; fails if it does not, or if a fault passes the
-    parity."""
+def long_copy_child(ckpt: str) -> None:
+    """``--long-copy CKPT``: ``long_copy_readings`` of the model in ``CKPT``
+    (trained and saved there first if it is missing), one JSON line."""
+    from qgemm_tpu_torch.ops.cuda import _build
+    _build.build()
+    emit({"phase": "long_copy", **long_copy_readings(Path(ckpt))})
+
+
+def decode_faults(n: int, tree: Optional[str] = None) -> None:
+    """``--decode-faults``: with the kernels of checkout ``tree`` (default
+    this one), in a copy of its package beside this script, ``--long-copy``
+    (which trains the long copy model once and saves it in a temporary
+    directory) and ``--paged-logits n``; then, for each of ``DECODE_FAULTS``
+    planted in another such copy (the libraries the fault leaves alone
+    copied as built), the parity of each decode kernel
+    that carries the fault (``--only paged`` for K5, ``--only k2`` for K2),
+    ``--long-copy`` on the saved model and ``--paged-logits n``, one
+    process each. Prints each run's lines, then every reading beside its
+    bound: the long copy's accuracy floor and ``PAGED_LOGIT_RTOL`` (on the
+    two short prompts, those ``serve_paged`` checks), with whether each
+    bound lies between the sound and the faulty readings. Fails if the
+    sound run breaks a bound, a fault passes a carrying kernel's parity,
+    or one of ``LONG_COPY_CATCHES`` passes the accuracy bound of an engine
+    whose kernel carries it."""
+    phase_device()
     here = Path(__file__).resolve()
-    src = here.parent
-    summary, parity = {}, {}
+    src = Path(tree).resolve() if tree else here.parent
+    csrc = src / "qgemm_tpu_torch" / "csrc"
+    source = next(f for f in DECODE_FAULT_SOURCES if (csrc / f).exists())
+    logits, copies, parity = {}, {}, {}
 
     def run(name: str, script: Path, *args: str) -> subprocess.CompletedProcess:
         proc = subprocess.run([sys.executable, str(script), *args], capture_output=True,
-                              text=True, timeout=900, check=False)
+                              text=True, timeout=1200, check=False)
         for line in proc.stdout.splitlines():
             if line.startswith("{"):
-                emit({"fault": name, "mode": args[0], **json.loads(line)})
+                emit({"fault": name, "mode": args[0] + (" " + args[1] if args[0] == "--only"
+                                                         else ""), **json.loads(line)})
         return proc
 
-    def logits(name: str, script: Path) -> None:
-        proc = run(name, script, "--paged-logits", str(n))
+    def last_line(name: str, script: Path, *args: str) -> dict:
+        proc = run(name, script, *args)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
-            raise AssertionError(f"--paged-logits of {name} exited {proc.returncode}")
-        summary[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+            raise AssertionError(f"{args[0]} of {name} exited {proc.returncode}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])
 
-    logits("sound", here)
+    engines = [k for k, v in LONG_COPY_ENGINES.items() if carries_fault(csrc, source, v[1])]
+    kernels = {k: phase for k, phase in (("paged_decode_attention", "paged"),
+                                         ("decode_attention", "k2"))
+               if carries_fault(csrc, source, k)}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (old, new) in K5_FAULTS.items():
+        ckpt = str(Path(tmp) / "long_copy.npz")
+
+        def checkout(name: str) -> Path:
+            """A copy of this script beside ``tree``'s package (and the
+            sound copy's libraries, once built) in ``tmp``; returns the
+            script."""
             root = Path(tmp) / name
             shutil.copytree(src / "qgemm_tpu_torch", root / "qgemm_tpu_torch",
                             ignore=shutil.ignore_patterns("__pycache__"))
-            shutil.copytree(src / "build" / "qgemm_tpu_torch", root / "build" / "qgemm_tpu_torch")
+            built = Path(tmp) / "sound" / "build"
+            if built.exists():
+                shutil.copytree(built, root / "build")
             shutil.copy2(here, root / here.name)
-            cu = root / "qgemm_tpu_torch" / "csrc" / "paged_decode_attention.cu"
+            return root / here.name
+
+        script = checkout("sound")
+        copies["sound"] = last_line("sound", script, "--long-copy", ckpt)
+        logits["sound"] = last_line("sound", script, "--paged-logits", str(n))
+        for name, (old, new) in DECODE_FAULTS.items():
+            script = checkout(name)
+            cu = script.parent / "qgemm_tpu_torch" / "csrc" / source
             text = cu.read_text()
             if text.count(old) != 1:
-                raise AssertionError(f"fault {name}: its line is not once in K5's source")
+                raise AssertionError(f"fault {name}: its line is not once in {source}")
             cu.write_text(text.replace(old, new))
-            proc = run(name, root / here.name, "--only", "paged")
-            tail = proc.stderr.strip().splitlines()
-            parity[name] = {"exit": proc.returncode, "error": tail[-1] if tail else ""}
-            logits(name, root / here.name)
-    sound = summary.pop("sound")["logit_rel_diff_max"]
-    faults = {k: v["short_prompts_max"] for k, v in summary.items()}
-    ok = sound <= PAGED_LOGIT_RTOL < min(faults.values())
-    emit({"phase": "paged_faults", "sound_max": sound, "fault_short_prompts_max": faults,
-          "fault_max": {k: v["logit_rel_diff_max"] for k, v in summary.items()},
-          "rtol": PAGED_LOGIT_RTOL, "rtol_separates": ok, "fault_parity": parity})
-    if not ok:
-        raise AssertionError("PAGED_LOGIT_RTOL does not lie between the sound and the "
-                             "faulty readings")
-    if any(v["exit"] == 0 for v in parity.values()):
-        raise AssertionError(f"a planted K5 fault passed K5's parity: {parity}")
+            parity[name] = {}
+            for kernel, phase in kernels.items():
+                proc = run(name, script, "--only", phase)
+                tail = proc.stderr.strip().splitlines()
+                parity[name][kernel] = {"exit": proc.returncode,
+                                        "error": tail[-1] if tail else ""}
+            copies[name] = last_line(name, script, "--long-copy", ckpt)
+            logits[name] = last_line(name, script, "--paged-logits", str(n))
+    sound_copy = copies.pop("sound")
+    floor = sound_copy["training"]["heldout_acc"] - LONG_COPY_SLACK
+    acc = lambda r: {k: v["copy_acc"] for k, v in r["engines"].items()}
+    sound_logits = logits.pop("sound")
+    short = {k: v["short_prompts_max"] for k, v in logits.items()}
+    emit({"phase": "decode_faults", "tree": str(src), "fault_source": source,
+          "engines_carrying": engines, "kernels_carrying": list(kernels),
+          "long_copy": {"floor": floor, "sound": acc(sound_copy),
+                        "sound_equal_to_generate": {k: v["equal_to_generate"] for k, v in
+                                                    sound_copy["engines"].items()},
+                        "faults": {k: acc(v) for k, v in copies.items()},
+                        "floor_separates": {e: {k: acc(v)[e] < floor <= acc(sound_copy)[e]
+                                                for k, v in copies.items()} for e in engines}},
+          "paged_logits": {"rtol": PAGED_LOGIT_RTOL,
+                           "sound_short_prompts_max": sound_logits["short_prompts_max"],
+                           "sound_max": sound_logits["logit_rel_diff_max"],
+                           "fault_short_prompts_max": short,
+                           "fault_max": {k: v["logit_rel_diff_max"] for k, v in logits.items()},
+                           "rtol_separates": {k: sound_logits["logit_rel_diff_max"]
+                                              <= PAGED_LOGIT_RTOL < v for k, v in short.items()}},
+          "fault_parity": parity})
+    bad = long_copy_failures(sound_copy)
+    if not sound_logits["logit_rel_diff_max"] <= PAGED_LOGIT_RTOL:
+        bad.append(f"sound paged logits {sound_logits['logit_rel_diff_max']} > "
+                   f"{PAGED_LOGIT_RTOL}")
+    bad += [f"{name} passed the parity of {k}" for name, r in parity.items()
+            for k, v in r.items() if v["exit"] == 0]
+    bad += [f"{name}: {b}" for name in LONG_COPY_CATCHES
+            for b in long_copy_failures(copies[name], engines)]
+    if bad:
+        raise AssertionError(f"decode faults: {bad}")
 
 
 def main() -> None:
@@ -3345,12 +3824,18 @@ def main() -> None:
         return paged_child(sys.argv[2])
     if sys.argv[1:2] == ["--paged-ab"]:
         return paged_ab(sys.argv[2], *map(int, sys.argv[3:4]))
+    if sys.argv[1:2] == ["--decode-child"]:
+        return decode_child(sys.argv[2])
+    if sys.argv[1:2] == ["--decode-ab"]:
+        return decode_kernels_ab(sys.argv[2], *map(int, sys.argv[3:4]))
     if sys.argv[1:2] == ["--k6-draws"]:
         return k6_draws(int(sys.argv[2]))
     if sys.argv[1:2] == ["--paged-logits"]:
         return paged_logits(int(sys.argv[2]))
-    if sys.argv[1:2] == ["--paged-faults"]:
-        return paged_faults(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--long-copy"]:
+        return long_copy_child(sys.argv[2])
+    if sys.argv[1:2] == ["--decode-faults"]:
+        return decode_faults(int(sys.argv[2]), *sys.argv[3:4])
     from qgemm_tpu_torch.ops.cuda import _build   # fails outside the repository
 
     smi = phase_device()
@@ -3382,6 +3867,7 @@ def main() -> None:
     train = phase_train()
     induction, copy_model = phase_train_induction()
     phase_train_serve(copy_model)
+    phase_long_copy()
     replaces = {"quantized_matmul": "qgemm_tpu/ops/pallas/quantized_matmul.py:107",
                 "decode_attention": "qgemm_tpu/ops/pallas/decode_attention.py:44",
                 "flash_attention": "qgemm_tpu/ops/pallas/flash_attention.py:41",
@@ -3445,6 +3931,10 @@ def main() -> None:
             entry.update(also_replaces="qgemm_tpu/ops/pallas/paged_attention.py:160",
                          launches_by_entry={w: path["launches"][w] for w in ws},
                          k2_ms_same_lengths=t["k2_ms_same_lengths"])
+        if name == "decode_attention":
+            entry["k5_ms_same_lengths"] = t["k5_ms_same_lengths"]
+        if name in ("decode_attention", "paged_decode_attention"):
+            entry["split_body"] = "qgemm_tpu_torch/csrc/split_decode.cuh"
         if name in ("flash_attention", "flash_attention_bwd"):
             entry.update(launches_per_train_step=train["launches_per_step"][name],
                          launches_train_induction={k: r["launches"][name]

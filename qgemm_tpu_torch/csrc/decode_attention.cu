@@ -1,42 +1,110 @@
-// Kernel K2: one decode step (Sq = 1) of attention over the KV cache, int8
-// with per-position scales or float, for Hopper (sm_90a).
+// Kernel K2: one decode step (Sq = 1) of attention over the dense KV cache
+// [B, Hkv, S, d], int8 with per-position f32 scales or float, for Hopper
+// (sm_90a).
 //
 // Replaces _decode_kernel / decode_attention of
 // qgemm_tpu/ops/pallas/decode_attention.py. Same math:
-//   s_j = (bf16(q) . bf16(k_j)) * (1/sqrt(D)) * (kc_j / 127),   j < len_b
-//   online softmax in f32; p_j * (vc_j / 127) rounded to bf16 before the
-//   V product; out = acc / max(l, 1e-30).
+//   s_j = (bf16(q) . bf16(k_j)) * (1/sqrt(d)) * (kc_j / 127),   j < len_b,
+//   softmax in f32; p_j * (vc_j / 127) rounded to bf16 before the V
+//   product; out = acc / max(l, 1e-30).
 // A float cache uses its own dtype for the two products (bf16 rounds like
 // the int8 cache, f32 does not round) and no scales.
 //
 // What bounds it on the H100: the cache read. Each step streams K and V of
-// every valid position once (2 * D bytes per position and KV head for
-// int8) against ~4 * D flops per position and query head — far under the
-// card's flop:byte balance.
+// every valid position once (2 * d bytes per position and KV head for
+// int8, and two f32 scales) against ~4 * d flops per position and query
+// head: far under the card's flop:byte balance. So the design is about
+// bytes in flight. The first K2 ran one block per (slot, KV head), a lane
+// owning a whole K row, each block one long dependent chain over all of
+// its slot's positions: at 8 slots and 32 heads, 256 blocks and a few KB in
+// flight per SM.
 //
-// Design: one block per (slot, KV head); its G = Hq / Hkv query rows (GQA)
-// share every K/V row the block reads, so the cache is read once however
-// many query heads use it. The block's 4 warps take 32-position tiles in
-// turn; in a tile each lane owns one position (its whole K row, so the
-// q.k dot needs no shuffles), the warp runs the online-softmax update for
-// the tile, then lanes switch to owning 4 head-dim columns for the p.V
-// product over the tile's rows (coalesced 128-byte row reads). Tiles stop at
-// the slot's length, so only valid positions are read. The four warps'
-// partial (max, sum, acc) states merge in a fixed order at the end; the
-// split depends only on position indices, so a slot's result does not
-// depend on the cache extent S or on the other slots.
+// Design, int8 cache (the route every model path launches): flash-decoding
+// on K5's split body (split_decode.cuh). One block of 4 warps per (slot *
+// KV head, split of 128 positions from position 0); the grid's split count
+// follows the cache extent S, which the host knows, while the lengths stay
+// on the device and a block past its slot's length exits at once. A block
+// stages its split's K and V code rows and scales in shared memory by
+// cp.async (16 KB each at D 128), computes its partial state, and the last
+// block of a (slot, KV head) merges the states in split order: one launch.
+// The splits depend only on positions, so a slot's result depends neither
+// on S nor on the other slots; and since K5 runs the same body over the
+// same positions, K2 equals K5 bit for bit on the same int8 rows in pages
+// of at most 128. The scale rows of a (slot, KV head) start bh * S * 4 bytes
+// in, which is 16-byte aligned only where S is a multiple of 4 (generate
+// keeps the exact extent): they are copied 4 bytes a position otherwise,
+// and code rows of a width d not a multiple of 16 byte by byte. The launch
+// plan (splits, grid, shared memory) comes from qgemm_tpu_torch/ops/cuda/
+// decode_plan.py; the entry refuses any other.
 //
-// Head widths: the kernel is compiled for D in {32, 64, 128} and reads a
-// cache of any true width d <= D (rows d elements apart): at d == D with
-// vector loads, below it element by element with the columns past d read
-// as zeros. The wrapper zero-pads the per-call q to D and slices the
-// output, and passes the softmax scale of the true d; the cache, which
-// persists across steps, is never copied.
+// The bf16 and f32 caches, which no model path launches, keep the first
+// design (decode_kernel below): one block per (slot, KV head) whose 4 warps
+// take 32-position tiles in turn, a lane owning a position's K row for the
+// scores and 4 columns for P V, the warps' states merged in a fixed order.
+//
+// Head widths: compiled for D in {32, 64, 128}, reading a cache of true
+// width d <= D (columns past d read as zeros). The wrapper zero-pads the
+// per-call q to D and slices the output, and passes the softmax scale of
+// the true d; the cache, which persists across steps, is never copied.
 #include <type_traits>
 
-#include "common.cuh"
+#include "split_decode.cuh"
 
 namespace {
+
+namespace sd = qg::split_decode;
+
+// the int8 route: one block per (slot * KV head, split of 128 positions)
+template <int D, int G>
+__global__ void __launch_bounds__(sd::kThreads)
+dense_decode_split_kernel(const void* __restrict__ q, const int8_t* __restrict__ k,
+                          const float* __restrict__ kc, const int8_t* __restrict__ v,
+                          const float* __restrict__ vc, const int* __restrict__ lengths,
+                          void* __restrict__ out, float* __restrict__ scratch,
+                          int* __restrict__ counters, int q_bf16, int hkv, int S, int dt,
+                          int codes16, int scales16, int nsplit, float scale) {
+  const int bh = blockIdx.x;
+  const size_t r0 = static_cast<size_t>(bh) * S;   // this (slot, KV head)'s first row
+  const sd::DenseRows<D> rows{k + r0 * dt, kc + r0, v + r0 * dt, vc + r0, dt, codes16 != 0,
+                              scales16 != 0};
+  sd::decode_split<8, D, G>(rows, q, out, scratch, counters, q_bf16, bh, blockIdx.y, nsplit,
+                            min(lengths[bh / hkv], S), sd::kSplitPositions, scale);
+}
+
+template <int D, int G>
+cudaError_t launch_split(const void* q, const int8_t* k, const float* kc, const int8_t* v,
+                         const float* vc, const int* len, void* out, float* scratch,
+                         int* counters, int q_bf16, int B, int hkv, int S, int dt, int codes16,
+                         int scales16, int nsplit, float scale, cudaStream_t s) {
+  const int smem = sd::smem_bytes(8, D, G, sd::kSplitPositions);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(dense_decode_split_kernel<D, G>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               smem);
+    if (e != cudaSuccess) return e;
+  }
+  dense_decode_split_kernel<D, G><<<dim3(B * hkv, nsplit), sd::kThreads, smem, s>>>(
+      q, k, kc, v, vc, len, out, scratch, counters, q_bf16, hkv, S, dt, codes16, scales16,
+      nsplit, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_split_g(int G, const void* q, const int8_t* k, const float* kc,
+                           const int8_t* v, const float* vc, const int* len, void* out,
+                           float* scratch, int* counters, int q_bf16, int B, int hkv, int S,
+                           int dt, int codes16, int scales16, int nsplit, float scale,
+                           cudaStream_t s) {
+  switch (G) {
+    case 1: return launch_split<D, 1>(q, k, kc, v, vc, len, out, scratch, counters, q_bf16, B, hkv, S, dt, codes16, scales16, nsplit, scale, s);
+    case 2: return launch_split<D, 2>(q, k, kc, v, vc, len, out, scratch, counters, q_bf16, B, hkv, S, dt, codes16, scales16, nsplit, scale, s);
+    case 4: return launch_split<D, 4>(q, k, kc, v, vc, len, out, scratch, counters, q_bf16, B, hkv, S, dt, codes16, scales16, nsplit, scale, s);
+    case 8: return launch_split<D, 8>(q, k, kc, v, vc, len, out, scratch, counters, q_bf16, B, hkv, S, dt, codes16, scales16, nsplit, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------- the float caches (the first design)
 
 constexpr int kWarps = 4;
 constexpr int kTile = 32;
@@ -45,10 +113,8 @@ constexpr float kNegInf = -1e30f;
 template <typename KT, int D, int G>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
-              const KT* __restrict__ vcache, const float* __restrict__ kc,
-              const float* __restrict__ vc, const int* __restrict__ lengths,
+              const KT* __restrict__ vcache, const int* __restrict__ lengths,
               float* __restrict__ out, int hkv, int S, int d, float scale) {
-  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr bool kRound = !std::is_same<KT, float>::value;  // bf16 products
   constexpr int VPL = D / 32;                               // columns per lane
   __shared__ __align__(16) float qs[G][D];
@@ -92,12 +158,6 @@ decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
         if (!full) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) kv[e] = d0 + e < d ? qg::to_f32(kr[d0 + e]) : 0.f;
-        } else if constexpr (kQuant) {
-          const uint2 u = *reinterpret_cast<const uint2*>(kr + d0);
-          const uint32_t w[2] = {u.x, u.y};
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            kv[e] = static_cast<float>(static_cast<int8_t>((w[e / 4] >> (8 * (e % 4))) & 0xffu));
         } else {
           qg::load8(kr + d0, kv);
         }
@@ -107,25 +167,15 @@ decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
           for (int e = 0; e < 8; ++e) s[g] = fmaf(qs[g][d0 + e], kv[e], s[g]);
       }
     }
-    float kscale = 1.f, vscale = 1.f;
-    if constexpr (kQuant) {
-      if (valid) {
-        kscale = kc[static_cast<size_t>(bh) * S + j] * (1.f / 127.f);
-        vscale = vc[static_cast<size_t>(bh) * S + j] * (1.f / 127.f);
-      }
-    }
     float alpha[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float sg = s[g] * scale;
-      if constexpr (kQuant) sg = sg * kscale;
-      sg = valid ? sg : kNegInf;
+      const float sg = valid ? s[g] * scale : kNegInf;
       const float m_new = fmaxf(m_run[g], qg::warp_max(sg));
-      float p = valid ? expf(sg - m_new) : 0.f;
+      const float p = valid ? expf(sg - m_new) : 0.f;
       alpha[g] = expf(m_run[g] - m_new);
       l_run[g] = l_run[g] * alpha[g] + qg::warp_sum(p);
       m_run[g] = m_new;
-      if constexpr (kQuant) p = p * vscale;
       pbuf[warp][g][lane] = kRound ? qg::bf16_round(p) : p;
     }
     __syncwarp();
@@ -176,57 +226,90 @@ decode_kernel(const float* __restrict__ q, const KT* __restrict__ kcache,
 }
 
 template <typename KT, int D>
-cudaError_t launch_d(const float* q, const void* k, const void* v, const float* kc,
-                     const float* vc, const int* len, float* out, int B, int hkv, int G,
-                     int S, int d, float scale, cudaStream_t s) {
+cudaError_t launch_d(const float* q, const void* k, const void* v, const int* len, float* out,
+                     int B, int hkv, int G, int S, int d, float scale, cudaStream_t s) {
   const KT* kk = static_cast<const KT*>(k);
   const KT* vv = static_cast<const KT*>(v);
   const dim3 grid(B * hkv), block(kWarps * 32);
   switch (G) {
-    case 1: decode_kernel<KT, D, 1><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, d, scale); break;
-    case 2: decode_kernel<KT, D, 2><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, d, scale); break;
-    case 4: decode_kernel<KT, D, 4><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, d, scale); break;
-    case 8: decode_kernel<KT, D, 8><<<grid, block, 0, s>>>(q, kk, vv, kc, vc, len, out, hkv, S, d, scale); break;
+    case 1: decode_kernel<KT, D, 1><<<grid, block, 0, s>>>(q, kk, vv, len, out, hkv, S, d, scale); break;
+    case 2: decode_kernel<KT, D, 2><<<grid, block, 0, s>>>(q, kk, vv, len, out, hkv, S, d, scale); break;
+    case 4: decode_kernel<KT, D, 4><<<grid, block, 0, s>>>(q, kk, vv, len, out, hkv, S, d, scale); break;
+    case 8: decode_kernel<KT, D, 8><<<grid, block, 0, s>>>(q, kk, vv, len, out, hkv, S, d, scale); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
 template <typename KT>
-cudaError_t launch_t(const float* q, const void* k, const void* v, const float* kc,
-                     const float* vc, const int* len, float* out, int B, int hkv, int G,
-                     int S, int D, int d, float scale, cudaStream_t s) {
+cudaError_t launch_t(const float* q, const void* k, const void* v, const int* len, float* out,
+                     int B, int hkv, int G, int S, int D, int d, float scale, cudaStream_t s) {
   if (d < 1 || d > D) return cudaErrorInvalidValue;
-  if (D == 32) return launch_d<KT, 32>(q, k, v, kc, vc, len, out, B, hkv, G, S, d, scale, s);
-  if (D == 64) return launch_d<KT, 64>(q, k, v, kc, vc, len, out, B, hkv, G, S, d, scale, s);
-  if (D == 128) return launch_d<KT, 128>(q, k, v, kc, vc, len, out, B, hkv, G, S, d, scale, s);
+  if (D == 32) return launch_d<KT, 32>(q, k, v, len, out, B, hkv, G, S, d, scale, s);
+  if (D == 64) return launch_d<KT, 64>(q, k, v, len, out, B, hkv, G, S, d, scale, s);
+  if (D == 128) return launch_d<KT, 128>(q, k, v, len, out, B, hkv, G, S, d, scale, s);
   return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* a, const void* b) {
+  return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 == 0;
 }
 
 }  // namespace
 
-// q f32 [B, Hkv*G, D] (D in {32, 64, 128}, zero past d); k/v [B, Hkv, S, d]
-// with d <= D (kv_dtype 0 = int8 with kc/vc f32 [B, Hkv, S], 1 = bf16,
-// 2 = f32, kc/vc unused); lengths int32 [B]; out f32 [B, Hkv*G, D].
-// Returns cudaGetLastError().
+// The int8 cache. q [B, Hkv*G, D] float32 (dtype 0) or bfloat16 (dtype 1),
+// D in {32, 64, 128}, zero past d, 16-byte aligned; k/v int8 [B, Hkv, S, d],
+// d <= D; kc/vc f32 [B, Hkv, S]; lengths int32 [B]; out [B, Hkv*G, D] in q's
+// dtype; scratch f32 [B * Hkv * nsplit * G * (D + 2)] (the partial states);
+// counters int32 [>= B * Hkv], all 0 (each call leaves them 0). G in {1, 2,
+// 4, 8}. The plan (``decode_plan.k2_plan``): ``split_positions`` 128,
+// ``nsplit`` = ceil(S / 128) splits, ``smem`` bytes of dynamic shared
+// memory; any other is refused. Returns cudaGetLastError().
 extern "C" int qgemm_decode_attention(const void* q, const void* k, const void* v,
                                       const void* kc, const void* vc, const void* lengths,
-                                      void* out, int kv_dtype, int B, int hkv, int G,
-                                      int S, int D, int d, float scale, void* stream) {
+                                      void* out, void* scratch, void* counters, int dtype,
+                                      int B, int hkv, int G, int S, int D, int d, float scale,
+                                      int split_positions, int nsplit, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || hkv <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const float* qf = static_cast<const float*>(q);
+  if (B <= 0 || hkv <= 0 || S <= 0 || d < 1 || d > D || (dtype != 0 && dtype != 1) ||
+      (D != 32 && D != 64 && D != 128) || (G != 1 && G != 2 && G != 4 && G != 8) ||
+      split_positions != sd::kSplitPositions ||
+      nsplit != (S + sd::kSplitPositions - 1) / sd::kSplitPositions || nsplit > 65535 ||
+      smem != sd::smem_bytes(8, D, G, sd::kSplitPositions))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int8_t* k8 = static_cast<const int8_t*>(k);
+  const int8_t* v8 = static_cast<const int8_t*>(v);
   const float* kcf = static_cast<const float*>(kc);
   const float* vcf = static_cast<const float*>(vc);
   const int* len = static_cast<const int*>(lengths);
+  float* sc = static_cast<float*>(scratch);
+  int* cnt = static_cast<int*>(counters);
+  const int codes16 = d % 16 == 0 && aligned16(k, v);
+  const int scales16 = S % 4 == 0 && aligned16(kc, vc);
+  cudaError_t e;
+  if (D == 32) e = launch_split_g<32>(G, q, k8, kcf, v8, vcf, len, out, sc, cnt, dtype, B, hkv, S, d, codes16, scales16, nsplit, scale, s);
+  else if (D == 64) e = launch_split_g<64>(G, q, k8, kcf, v8, vcf, len, out, sc, cnt, dtype, B, hkv, S, d, codes16, scales16, nsplit, scale, s);
+  else e = launch_split_g<128>(G, q, k8, kcf, v8, vcf, len, out, sc, cnt, dtype, B, hkv, S, d, codes16, scales16, nsplit, scale, s);
+  return static_cast<int>(e);
+}
+
+// The bf16 (kv_dtype 1) and f32 (kv_dtype 2) caches: q f32 [B, Hkv*G, D]
+// (D in {32, 64, 128}, zero past d); k/v [B, Hkv, S, d] with d <= D;
+// lengths int32 [B]; out f32 [B, Hkv*G, D]. Returns cudaGetLastError().
+extern "C" int qgemm_decode_attention_float(const void* q, const void* k, const void* v,
+                                            const void* lengths, void* out, int kv_dtype,
+                                            int B, int hkv, int G, int S, int D, int d,
+                                            float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || hkv <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const float* qf = static_cast<const float*>(q);
+  const int* len = static_cast<const int*>(lengths);
   float* o = static_cast<float*>(out);
   cudaError_t e;
-  if (kv_dtype == 0)
-    e = launch_t<int8_t>(qf, k, v, kcf, vcf, len, o, B, hkv, G, S, D, d, scale, s);
-  else if (kv_dtype == 1)
-    e = launch_t<__nv_bfloat16>(qf, k, v, kcf, vcf, len, o, B, hkv, G, S, D, d, scale, s);
+  if (kv_dtype == 1)
+    e = launch_t<__nv_bfloat16>(qf, k, v, len, o, B, hkv, G, S, D, d, scale, s);
   else if (kv_dtype == 2)
-    e = launch_t<float>(qf, k, v, kcf, vcf, len, o, B, hkv, G, S, D, d, scale, s);
+    e = launch_t<float>(qf, k, v, len, o, B, hkv, G, S, D, d, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled at first use, by ``nvcc`` alone, into a
 shared library with a plain C interface under ``build/qgemm_tpu_torch/``
 at the repository root (ignored by git), and loaded with ``ctypes``. The
-library's file name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads as built. A failed ``nvcc``
+library's file name carries a hash of the source, the headers it includes
+and the flags, so an edited source or header rebuilds the libraries that
+include it and the others load as built. A failed ``nvcc``
 raises: nothing falls back to the plain PyTorch versions.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,9 +46,21 @@ def nvcc_path() -> str:
                        "from csrc/ at first use and need the CUDA toolkit")
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes,
+    directly or through another header."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        p = todo.pop()
+        if p not in seen:
+            seen.append(p)
+            todo += [CSRC / h for h in re.findall(r'^#include "([^"]+)"', p.read_text(), re.M)]
+    return sorted(seen)
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for p in sources(name):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
+from qgemm_tpu_torch.ops.cuda.decode_plan import k2_args
+from qgemm_tpu_torch.ops.cuda.split_decode import Q_DTYPES, aligned, kernel_q, merge_counters
 from qgemm_tpu_torch.ops.kv_cache import QRANGE
 from qgemm_tpu_torch.ops.validation import check, check_rank, pad_last, padded_head_dim
 
@@ -69,11 +71,12 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, kc=None, vc=None, scale
     return out.reshape(b, hq, 1, d).to(q.dtype)
 
 
-def _lib():
-    fn = _build.library("decode_attention").qgemm_decode_attention
+def _lib(entry: str):
+    fn = getattr(_build.library("decode_attention"), entry)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([p] * 9 + [i] * 7 + [f, i, i, i, p] if entry == "qgemm_decode_attention"
+                       else [p] * 5 + [i] * 7 + [f, p])
         fn.restype = i
     return fn
 
@@ -86,7 +89,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     multiple of Hkv (GQA: query heads i*g..(i+1)*g-1 share KV head i);
     lengths [B] — position j of slot b attends iff j < lengths[b].
     Returns [B, Hq, 1, D] in q's dtype. CPU tensors run the plain version;
-    CUDA tensors launch K2 (D <= 128, g in {1, 2, 4, 8}) or raise."""
+    CUDA tensors launch K2 (D <= 128, g in {1, 2, 4, 8}) or raise. On the
+    int8 cache K2 reads q in float32 or bfloat16 (other float dtypes
+    through float32) and writes q's dtype, on the plan of
+    ``decode_plan.k2_plan``, with a scratch tensor for the splits' partial
+    states and the merge counters it shares with K5."""
     _check(q, k_cache, v_cache, lengths, kc, vc)
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, lengths, kc, vc)
@@ -99,24 +106,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     tensors = [q, k_cache, v_cache, lengths] + ([kc, vc] if kc is not None else [])
     check(all(t.is_cuda and t.device == q.device for t in tensors),
           "decode_attention: all tensors must lie on q's CUDA device")
-    dp = padded_head_dim(d)
-    qf = pad_last(q[:, :, 0].to(torch.float32), dp)   # the per-call q; never the cache
+    dtype, dp = q.dtype, padded_head_dim(d)
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    if kc is not None:
-        kc = kc.to(torch.float32).contiguous()
-        vc = vc.to(torch.float32).contiguous()
-        kc_ptr, vc_ptr = kc.data_ptr(), vc.data_ptr()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if kc is None:   # the float caches: the first K2, f32 q and output
+        qf = pad_last(q[:, :, 0].to(torch.float32), dp)   # the per-call q; never the cache
+        out = torch.empty((b, hq, dp), dtype=torch.float32, device=q.device)
+        rc = _lib("qgemm_decode_attention_float")(
+            qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), _KV_DTYPES[k_cache.dtype], b, hkv, g, s, dp, d,
+            1.0 / math.sqrt(d), stream)
+        _build.check_launch("qgemm_decode_attention_float", rc)
     else:
-        kc_ptr = vc_ptr = None
-    out = torch.empty((b, hq, dp), dtype=torch.float32, device=q.device)
-    rc = _lib()(qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kc_ptr,
-                vc_ptr, lens.data_ptr(), out.data_ptr(), _KV_DTYPES[k_cache.dtype],
-                b, hkv, g, s, dp, d, 1.0 / math.sqrt(d),
-                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check_launch("qgemm_decode_attention", rc)
+        q = kernel_q(q)
+        split_positions, nsplit, smem, n_scratch = k2_args(dp, d, g, s, b, hkv)
+        qk = aligned(pad_last(q[:, :, 0], dp))   # the per-call q; never the cache
+        kc, vc = kc.to(torch.float32).contiguous(), vc.to(torch.float32).contiguous()
+        out = torch.empty((b, hq, dp), dtype=q.dtype, device=q.device)
+        scratch = torch.empty((n_scratch,), dtype=torch.float32, device=q.device)
+        counters = merge_counters(q.device, stream, b * hkv)
+        rc = _lib("qgemm_decode_attention")(
+            qk.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kc.data_ptr(),
+            vc.data_ptr(), lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            counters.data_ptr(), Q_DTYPES[q.dtype], b, hkv, g, s, dp, d, 1.0 / math.sqrt(d),
+            split_positions, nsplit, smem, stream)
+        _build.check_launch("qgemm_decode_attention", rc)
     decode_attention.launches += 1
-    return out[:, :, None, :d].to(q.dtype)
+    return out[:, :, None, :d].to(dtype)   # no device operation where out is in q's dtype
 
 
 decode_attention.launches = 0

@@ -18,9 +18,9 @@ import math
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
-from qgemm_tpu_torch.ops.cuda.paged_decode_attention import (Q_DTYPES, aligned, check_args,
-                                                             check_kernel_args, kernel_q)
+from qgemm_tpu_torch.ops.cuda.paged_decode_attention import check_args, check_kernel_args
 from qgemm_tpu_torch.ops.cuda.paged_plan import k6_args
+from qgemm_tpu_torch.ops.cuda.split_decode import Q_DTYPES, aligned, kernel_q
 from qgemm_tpu_torch.ops.validation import check, pad_last, padded_head_dim
 from qgemm_tpu_torch.serving.paged_cache import (PagedKVCache,
                                                  paged_context_attention_reference)

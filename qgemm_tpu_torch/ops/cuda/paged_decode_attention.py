@@ -12,9 +12,9 @@ them. Each entry counts its own
 launches. K5 splits each slot's pages across blocks (flash-decoding) on
 the plan of ``paged_plan.k5_plan``; the last block of a (slot, KV head)
 merges the splits' partial states, kept in a scratch tensor this wrapper
-allocates, and counts on a persistent counter buffer of the device and
-stream that every call leaves at zero (calls on two streams never share
-one). The source note in the .cu file says what bounds K5 and how it is built.
+allocates, and counts on the merge counters of the device and stream
+(``split_decode.merge_counters``, shared with K2). The source note in the
+.cu file says what bounds K5 and how it is built.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
 from qgemm_tpu_torch.ops.cuda.paged_plan import k5_args
+from qgemm_tpu_torch.ops.cuda.split_decode import Q_DTYPES, aligned, kernel_q, merge_counters
 from qgemm_tpu_torch.ops.validation import (check, check_aligned16, check_rank, pad_last,
                                             padded_head_dim)
 from qgemm_tpu_torch.serving.paged_cache import PagedKVCache, paged_attention_reference
@@ -47,17 +48,6 @@ def check_paged_pool(cache: PagedKVCache) -> None:
     check_rank("page_table", cache.page_table, 2)
 
 
-# q's dtypes the paged kernels take, and the code their C entries know them by
-Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def kernel_q(q: torch.Tensor) -> torch.Tensor:
-    """q as the paged kernels take it: itself in float32 or bfloat16,
-    another float dtype (float16, float64) in float32, whose output the
-    wrapper casts back to q's dtype."""
-    return q if q.dtype in Q_DTYPES else q.to(torch.float32)
-
-
 def check_kernel_args(q: torch.Tensor, cache: PagedKVCache, tensors) -> None:
     """What K5 and K6 take on the card, beyond the shapes: raises on the
     rest rather than running wrong."""
@@ -74,12 +64,6 @@ def check_kernel_args(q: torch.Tensor, cache: PagedKVCache, tensors) -> None:
     check(cache.page_table.dtype == torch.int32 and cache.page_table.is_contiguous(),
           "page_table: the paged kernels read a contiguous int32 table")
     check_aligned16("paged attention pools", cache.kq, cache.vq, cache.kc, cache.vc)
-
-
-def aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` (contiguous) itself, or a copy where its data does not start on
-    the 16-byte boundary the kernels' vector loads of q need."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_args(q: torch.Tensor, cache: PagedKVCache, lengths: torch.Tensor) -> None:
@@ -110,20 +94,6 @@ def _lib():
     return fn
 
 
-# (device, stream) -> int32 counters of K5's merge, left at 0 by every call.
-# One buffer a stream: the blocks of two launches running at once on two
-# streams would otherwise count on the same (slot, KV head) counters.
-_counters = {}
-
-
-def _merge_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    buf = _counters.get((device, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
-        _counters[(device, stream)] = buf
-    return buf
-
-
 def _launch(q: torch.Tensor, cache: PagedKVCache, lengths: torch.Tensor, entry) -> torch.Tensor:
     dtype, q = q.dtype, kernel_q(q)
     b, hq, _, d = q.shape
@@ -141,7 +111,7 @@ def _launch(q: torch.Tensor, cache: PagedKVCache, lengths: torch.Tensor, entry) 
     out = torch.empty((b, hq, dp), dtype=q.dtype, device=q.device)
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _merge_counters(q.device, stream, b * hkv)
+    counters = merge_counters(q.device, stream, b * hkv)
     rc = _lib()(qk.data_ptr(), kq.data_ptr(), kc.data_ptr(), vq.data_ptr(), vc.data_ptr(),
                 pt.data_ptr(), lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                 counters.data_ptr(), Q_DTYPES[q.dtype], cache.kv_bits, b, hkv, g, dp, d, ps,

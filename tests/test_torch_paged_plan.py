@@ -117,8 +117,10 @@ def test_shared_memory_matches_the_kernels_and_fits(bits, D, G, page):
 
 
 def test_plan_constants_are_the_kernels():
-    """The tile and split sizes the plan assumes are the ones compiled."""
-    k5 = (CSRC / "paged_decode_attention.cu").read_text()
+    """The tile and split sizes the plan assumes are the ones compiled (K5's
+    in the split body it shares with K2, which K5's source includes)."""
+    assert '#include "split_decode.cuh"' in (CSRC / "paged_decode_attention.cu").read_text()
+    k5 = (CSRC / "split_decode.cuh").read_text()
     k6 = (CSRC / "paged_context_attention.cu").read_text()
     const = lambda src, name: int(re.search(rf"{name} = (\d+);", src).group(1))
     assert const(k5, "kSplitPositions") == pp.SPLIT_POSITIONS
