@@ -137,6 +137,28 @@ the parity and the long copy's accuracy bound catches the dropped splits.
 runs K6's edge case (offsets [0], Hkv 8, int8 pool) on the q draws of
 seeds 0 to N - 1 against its plain version and a float64 result, and
 prints each draw and the draws past the parity rule.
+
+    python3 chip_smoke.py --quant-ab OTHER_CHECKOUT [ROUNDS]
+
+times K9 (the MoE model's two expert weights in bf16 and 2048^2 f32, and
+the MoE load's 48 launches), the dynamic GEMM at 2048^3 and row 12 (B 1,
+H 32, S 2048, D 128, causal, bf16: the main kernel, the pre-pass and the
+whole wrapper, int8 P and qk_only) with another checkout's package and
+this one's in the same turns, and prints the medians, their ratios and
+the shares of the bounds.
+
+    python3 chip_smoke.py --quant-faults [OTHER_CHECKOUT]
+
+runs the phases ``k9``, ``gemm_protocol`` and ``ops_layer`` on this
+checkout's kernels (or another's), which must pass, then plants three
+faults in copies (K9 without its cluster merge, row 12's pre-pass mean
+over S - 1, row 12 without its alpha rescale) and fails unless each fails
+the check named for it.
+
+    python3 chip_smoke.py --row12-trace
+
+traces five calls of row 12's pre-pass kernel and main kernel and prints
+each device kernel's time a call.
 """
 
 from __future__ import annotations
@@ -881,10 +903,9 @@ def k8_k9_checks(g: torch.Generator, record) -> None:
     model's products (``MOE_GEMMS``, E 8): decode C 8 with f32 and bf16
     x, five of eight rows empty in every expert and one expert all empty
     (as most capacity rows are at a decode step: 16 choices over 64 slots);
-    prefill C 168 and 328; the up product with its fused ReLU. K9 at the
-    expert weights ([8, 2048, 4096] and [8, 4096, 2048] bf16) and at the
-    dynamic GEMM's 2048^2 f32, both roundings."""
-    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize, col_quantize_plain
+    prefill C 168 and 328; the up product with its fused ReLU. K9:
+    ``k9_checks``."""
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize
     from qgemm_tpu_torch.ops.cuda.expert_matmul import (grouped_quantized_matmul,
                                                         grouped_quantized_matmul_plain)
     e = MOE_CFG["n_experts"]
@@ -906,19 +927,107 @@ def k8_k9_checks(g: torch.Generator, record) -> None:
                 raise AssertionError(f"K8 c={c} k={k} n={n} {dt}: not bit-equal to its plain "
                                      f"version (max err {err}) or empty rows not 0")
         del wt, cw
+    k9_checks(g, record)
+
+
+# K9's shapes past the cluster route's K (CLUSTER_MAX_K): the two_pass route
+K9_TWO_PASS_SHAPES = (((16384, 96), "float32"), ((2, 20000, 200), "bfloat16"))
+
+
+def k9_checks(g: torch.Generator, record) -> None:
+    """K9 against its plain version, bit for bit: at the expert weights
+    ([8, 2048, 4096] and [8, 4096, 2048] bf16) and the dynamic GEMM's 2048^2
+    f32 (the cluster route, clusters of 8), both roundings; then, on a
+    generator of its own (the other checks keep their draws), at
+    ``K9_TWO_PASS_SHAPES`` (the two_pass route) and on a weight with a NaN
+    column and +inf and -inf columns: the scales must be equal bit for bit
+    where finite, inf where the plain version's are and NaN where its amax
+    is (the NaN's payload may differ), and the codes of the finite columns
+    bit for bit; the non-finite columns' codes are recorded (torch's cast
+    of NaN to int8 is undefined; the kernel writes 0)."""
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize, col_quantize_plain
+    from qgemm_tpu_torch.ops.cuda.quant_plan import col_quantize_plan
+    e = MOE_CFG["n_experts"]
+    routes = set()
+
+    def held(w, dt, rounding, **row):
+        qt, c = col_quantize(w, rounding)
+        rq, rc = col_quantize_plain(w, rounding)
+        shape = list(w.shape)
+        p = col_quantize_plan(*((1, *shape) if w.ndim == 2 else shape), dt)
+        routes.add(p["route"])
+        fin = torch.isfinite(c) & torch.isfinite(rc)   # the NaN/inf case's scales apart
+        err = record("col_quantize", qt.float(), rq.float(), shape=shape, dtype=dt,
+                     rounding=rounding, route=p["route"], cluster=p["cluster"],
+                     scales_max_abs_err=max_err(c[fin], rc[fin]), tol=0.0, **row)
+        return qt, c, rq, rc, err
+
     for shape, dt in (((e, 2048, 4096), "bfloat16"), ((e, 4096, 2048), "bfloat16"),
                       ((2048, 2048), "float32")):
         w = (torch.randn(shape, generator=g, device="cuda") * 0.02).to(getattr(torch, dt))
         for rounding in ("nearest", "truncate"):
-            qt, c = col_quantize(w, rounding)
-            rq, rc = col_quantize_plain(w, rounding)
-            err = record("col_quantize", qt.float(), rq.float(), shape=list(shape), dtype=dt,
-                         rounding=rounding, scales_max_abs_err=max_err(c, rc), tol=0.0)
+            qt, c, rq, rc, err = held(w, dt, rounding)
             if not (bits_equal(qt, rq) and bits_equal(c, rc)):
                 raise AssertionError(f"K9 {shape} {dt} {rounding}: not bit-equal to its "
                                      f"plain version (codes max err {err}, scales "
                                      f"{max_err(c, rc)})")
         del w
+    g9 = torch.Generator(device="cuda")
+    g9.manual_seed(9)
+    for shape, dt in K9_TWO_PASS_SHAPES:
+        w = (torch.randn(shape, generator=g9, device="cuda") * 0.02).to(getattr(torch, dt))
+        for rounding in ("nearest", "truncate"):
+            qt, c, rq, rc, err = held(w, dt, rounding)
+            if not (bits_equal(qt, rq) and bits_equal(c, rc)):
+                raise AssertionError(f"K9 {shape} {dt} {rounding} (two_pass): not bit-equal "
+                                     f"to its plain version (codes max err {err})")
+        del w
+    if routes != {"cluster", "two_pass"}:
+        raise AssertionError(f"K9's checks took the routes {routes}, not both")
+    for dt in ("float32", "bfloat16"):
+        w = torch.randn((2048, 256), generator=g9, device="cuda") * 0.02
+        w[5, 3], w[700, 7], w[9, 9] = float("nan"), float("inf"), float("-inf")
+        w = w.to(getattr(torch, dt))
+        bad = torch.zeros(256, dtype=torch.bool, device="cuda")
+        bad[[3, 7, 9]] = True
+        for rounding in ("nearest", "truncate"):
+            qt, c, rq, rc, err = held(w[None], dt, rounding, case="nan_inf_columns")
+            # equal bits, but any NaN for a NaN: the NaN's payload is not
+            # part of the function (torch's amax and the kernel's max pick
+            # different ones)
+            scales_equal = (bits_equal(c[..., ~bad], rc[..., ~bad])
+                            and torch.equal(torch.isnan(c), torch.isnan(rc))
+                            and torch.equal(c[~torch.isnan(c)], rc[~torch.isnan(rc)]))
+            emit({"phase": "k9_nonfinite", "dtype": dt, "rounding": rounding,
+                  "scales_equal_nan_as_nan": scales_equal,
+                  "scales_equal_bits": bits_equal(c, rc),
+                  "scales_nonfinite": [str(v) for v in c[0, 0, bad].tolist()],
+                  "scale_bits_nonfinite": {
+                      "kernel": [f"{v:#010x}" for v in c[0, 0, bad].view(torch.int32).tolist()],
+                      "plain": [f"{v:#010x}" for v in rc[0, 0, bad].view(torch.int32).tolist()]},
+                  "finite_columns_codes_equal": bits_equal(qt[0][~bad], rq[0][~bad]),
+                  "all_codes_equal": bits_equal(qt, rq),
+                  "nonfinite_columns_codes": {"kernel_nonzero": int(qt[0][bad].ne(0).sum()),
+                                              "plain_nonzero": int(rq[0][bad].ne(0).sum())}})
+            if not (scales_equal and bits_equal(qt[0][~bad], rq[0][~bad])):
+                raise AssertionError(f"K9 {dt} {rounding} with NaN/inf columns: the scales "
+                                     f"or the finite columns' codes differ from the plain "
+                                     f"version's")
+
+
+def phase_k9() -> None:
+    """``k9_checks`` alone (``--only k9``), on a generator of its own."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    rows = []
+
+    def record(name, got, ref, **row):
+        e = max_err(got, ref)
+        rows.append(dict(kernel=name, max_abs_err=e, **row))
+        return e
+
+    k9_checks(g, record)
+    emit({"phase": "k9", "checks": rows})
 
 
 # K7 parity cases (B, H, Sq, Sk, D, causal, dtype): the training slice's
@@ -2019,8 +2128,8 @@ def phase_numerics_moe() -> dict:
 
 def phase_gemm_protocol() -> dict:
     """bench.py's protocol on the card: M = N = K = 2048, uniform(-1, 1)
-    f32 operands; the signed mean error of the dynamic int8 path against
-    the exact f32 product; bench_ms times of f32 (TF32 off) and bf16
+    f32 operands; the dynamic int8 path against its plain version (K1's
+    parity rule) and its signed mean error against the exact f32 product; bench_ms times of f32 (TF32 off) and bf16
     torch.matmul, the dynamic int8 path (K9 column-quantizes W, then K1:
     TPU kernel row 3; one launch of each, checked by the launch counts),
     the prequantized int8 path (K1) and W4A8 (K4). Row 3's plain time runs
@@ -2041,11 +2150,18 @@ def phase_gemm_protocol() -> dict:
     w = torch.rand((k, n), generator=g, device="cuda") * 2 - 1
     exact = torch.matmul(x, w)
     kernels.reset_launch_counts()
-    err = quantized_matmul(x, w) - exact
+    got = quantized_matmul(x, w)
     dynamic_launches = {kk: v for kk, v in kernels.launch_counts().items() if v}
-    if dynamic_launches != {"col_quantize": 1, "quantized_matmul": 1}:
-        raise AssertionError(f"gemm_protocol: the dynamic path launched {dynamic_launches}, "
-                             f"not K9 and K1 once each")
+    err = got - exact
+    # the dynamic path against its plain version (K9's and K1's): the same
+    # codes on both sides, so K1's parity rule, 1e-6 of the largest output
+    ref = quantized_matmul_plain(x, QuantizedWeight(*col_quantize_plain(w)))
+    plain_err, plain_tol = max_err(got, ref), 1e-6 * float(ref.abs().max())
+    if dynamic_launches != {"col_quantize": 1, "quantized_matmul": 1} or plain_err > plain_tol:
+        raise AssertionError(f"gemm_protocol: the dynamic path launched {dynamic_launches} "
+                             f"(K9 and K1 once each expected), max err {plain_err} against "
+                             f"its plain version (tolerance {plain_tol})")
+    del ref
     wq, wq4 = quantize_weights(w), quantize_weights_int4(w)
     err4 = quantized_matmul_prequant_w4(x, wq4) - exact
 
@@ -2066,6 +2182,8 @@ def phase_gemm_protocol() -> dict:
     res = {"phase": "gemm_protocol", "m": m, "n": n, "k": k,
            "operands": "uniform(-1, 1) float32",
            "int8_dynamic_launches": dynamic_launches,
+           "int8_dynamic_max_abs_err_vs_plain": plain_err,
+           "int8_dynamic_tolerance_vs_plain": plain_tol,
            "int8_dynamic_signed_mean_err": float(err.mean()),
            "int8_dynamic_mean_abs_err": float(err.abs().mean()),
            "w4a8_signed_mean_err": float(err4.mean()),
@@ -2777,6 +2895,117 @@ def phase_flash_edges() -> dict:
 # ------------------------------------------------------------ the op layer
 # GPT_6_7B's widths: 8192 tokens of d_model 4096 (scripts/sol_report.py's
 # row-op shape), its 32 heads of 128 on a 2048-token prompt
+# the share of K codes the pre-pass kernel may give off by 1 from the torch
+# pre-pass's (its mean sums in another order: a few f32 ulps, which flip a
+# code only where the centered value sits within them of a rounding edge):
+# between the sound kernel's largest reading and the planted mean-over-(S-1)
+# fault's (PERF.md section 6 gives both)
+PREPASS_K_FLIP_SHARE = 1e-4
+# K's row scales: the absmax of the centered K, a few ulps of K apart
+PREPASS_SK_RTOL = 1e-5
+
+
+def int8_flash_bounds(b: int, h: int, s: int, d: int, qk_only: bool) -> dict:
+    """Bounds (ms) of row 12 at B, H, S, D (causal): the main kernel reads
+    the codes (Q and K rows, V int8 or bf16) and scales once and writes a
+    bf16 output, or does its two products over the causal pairs (int8 on
+    the tensor cores; P V in bf16 with ``qk_only``); the pre-pass reads
+    bf16 Q and K once and writes their codes and row scales, and with int8
+    P also reads V once and writes its codes and channel scales (with
+    ``qk_only`` V stays as it is: its read is the main kernel's)."""
+    pairs = h * s * (s + 1) // 2 * b
+    n = b * h * s * d
+    v_bytes = (2 if qk_only else 1) * n
+    t_bytes = (2 * n + v_bytes + n * 2 + 2 * b * h * s * 4) / HBM_BPS * 1e3
+    t_ops = (2 * pairs * d / INT8_OPS
+             + 2 * pairs * d / (BF16_FLOPS if qk_only else INT8_OPS)) * 1e3
+    qk = 2 * n * 2 + 2 * n + 2 * b * h * s * 4   # Q, K read; their codes and scales written
+    v_pre = 0 if qk_only else n * 2 + n + b * h * d * 4
+    pre = (qk + v_pre) / HBM_BPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops, "prepass_bound_ms": pre}
+
+
+def nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape and dtype, NaN where the other is NaN (whatever its bits),
+    and the same bits elsewhere."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and bits_equal(torch.where(na, torch.zeros_like(a), a),
+                                              torch.where(nb, torch.zeros_like(b), b))
+
+
+def prepass_check(q, k, v, qk_only: bool, label: str) -> dict:
+    """The pre-pass kernel against the torch pre-pass on the card: Q's
+    codes and scales, V's codes (or qk_only's bf16 V) and channel scales
+    bit for bit (neither sums anything); K's codes within 1, at most
+    ``PREPASS_K_FLIP_SHARE`` of them off by 1, and K's row scales within
+    ``PREPASS_SK_RTOL`` (the mean over the sequence sums in the kernel's
+    order); the padding of the code rows, of V's transposed tile and of K's
+    scales zero. A NaN or inf in q, k or v: the scales NaN or inf where the
+    torch pre-pass's are, and codes compared only on rows (Q, K) and
+    channels (V) of finite scale (a NaN or inf scale makes the codes NaN,
+    whose int8 cast torch leaves undefined; the kernel writes 0). Raises on
+    a failure; returns the readings."""
+    from qgemm_tpu_torch.ops.cuda.int8_flash_attention import (inputs_from_codes,
+                                                               int8_flash_prepass,
+                                                               int8_flash_prepass_cuda,
+                                                               vt_in_key_order)
+    codes = int8_flash_prepass_cuda(q, k, v, qk_only)
+    got, want = inputs_from_codes(codes), int8_flash_prepass(q, k, v, qk_only)
+    fq, fk = torch.isfinite(want.sq), torch.isfinite(want.sk)
+    kd = torch.where(fk, (got.k8.int() - want.k8.int()).abs(), 0)
+    compared = max(1, int(fk.sum()) * k.shape[3])
+    sk_rel = float(torch.where(fk, (got.sk - want.sk).abs() / want.sk, 0).max())
+    d, dv, sk_len = q.shape[3], v.shape[3], k.shape[2]
+    pad_zero = not (bool(codes.q8[..., d:].any()) or bool(codes.k8[..., d:].any())
+                    or bool(codes.sk[..., sk_len:].any()))
+    if codes.vc is not None:
+        pad_zero = pad_zero and not (bool(codes.v[:, :, dv:].any())
+                                     or bool(vt_in_key_order(codes)[..., sk_len:].any()))
+        fv = torch.isfinite(want.vc)
+        v_equal = (torch.equal(torch.where(fv, got.v8, 0), torch.where(fv, want.v8, 0))
+                   and nan_equal(got.vc, want.vc))
+    else:
+        pad_zero = pad_zero and not bool(codes.v[..., dv:].float().any())
+        v_equal = nan_equal(got.v8, want.v8) and got.vc is None and want.vc is None
+    row = {"case": label, "qk_only": qk_only, "shape": [list(q.shape), list(k.shape),
+                                                       list(v.shape)],
+           "q8_sq_equal": nan_equal(got.sq, want.sq) and torch.equal(
+               torch.where(fq, got.q8, 0), torch.where(fq, want.q8, 0)),
+           "v8_vc_equal": v_equal,
+           "sk_nonfinite_equal": torch.equal(torch.isfinite(got.sk), fk)
+           and torch.equal(torch.isnan(got.sk), torch.isnan(want.sk)),
+           "nonfinite_scales": int((~fq).sum() + (~fk).sum()) + (
+               0 if want.vc is None else int((~torch.isfinite(want.vc)).sum())),
+           "k8_max_abs_err": float(kd.max()),
+           "k8_share_off_by_1": float((kd == 1).sum()) / compared,
+           "k8_flip_share_bound": PREPASS_K_FLIP_SHARE, "sk_max_rel_err": sk_rel,
+           "sk_rtol": PREPASS_SK_RTOL, "padding_zero": pad_zero}
+    emit({"phase": "int8_flash_prepass_check", **row})
+    if not (row["q8_sq_equal"] and row["v8_vc_equal"] and row["sk_nonfinite_equal"]
+            and row["k8_max_abs_err"] <= 1
+            and row["k8_share_off_by_1"] <= PREPASS_K_FLIP_SHARE and sk_rel <= PREPASS_SK_RTOL
+            and pad_zero):
+        raise AssertionError(f"int8_flash_prepass check failed: {row}")
+    return row
+
+
+def nonfinite_inputs(q, k, v, with_inf: bool):
+    """Copies of q, k, v [B, H >= 6, S, D] with a NaN in head 0's Q row 3,
+    head 2's K row 10 (all of that head's centered K) and head 4's V
+    channel 6; ``with_inf`` adds +inf to head 1's Q row 7, -inf to head 3's
+    K and +inf to head 5's V channel 7."""
+    q, k, v = q.clone(), k.clone(), v.clone()
+    nan, inf = float("nan"), float("inf")
+    q[0, 0, 3, 5], k[0, 2, 10, 4], v[0, 4, 20, 6] = nan, nan, nan
+    if with_inf:
+        q[0, 1, 7, 2], k[0, 3, 11, 1], v[0, 5, 30, 7] = inf, -inf, inf
+    return q, k, v
+
+
 ROW_SHAPE = (8192, 4096)
 RAGGED_ROW_SHAPE = (33, 4100)
 ATTN_SHAPE = (1, 32, 2048, 128)
@@ -2805,7 +3034,7 @@ def phase_ops_layer() -> dict:
                                                           flash_attention_plain)
     from qgemm_tpu_torch.ops.cuda.int8_flash_attention import (
         KERNEL_KEY_TILE, flash_attention_int8, flash_attention_int8_plain,
-        int8_flash_attention_cuda, int8_flash_prepass)
+        int8_flash_attention_cuda, int8_flash_prepass, int8_flash_prepass_cuda)
     from qgemm_tpu_torch.ops.cuda.layernorm import layernorm_residual, layernorm_residual_plain
     from qgemm_tpu_torch.ops.cuda.softmax import softmax, softmax_plain
     from qgemm_tpu_torch.utils.profiling import bench_ms
@@ -2834,6 +3063,13 @@ def phase_ops_layer() -> dict:
                   for _ in range(3))
     jk_off = jk + torch.from_numpy(rng.normal(size=(1, 1, 1, 64)) * 8.0).float().to(dev)
     jax_cases = [(jq, jk, jv, False), (jq, jk, jv, True), (jq, jk_off, jv, True)]
+    # bf16 heads of 32 (V read as it is, half of the bf16 P V's N of 64
+    # kept), and a V of 20 channels beside a D of 48 (V copied to bf16 rows
+    # of 24; S on the code rows' first two k32 slices)
+    narrow = [tuple(torch.randn(shape, generator=g, device=dev).to(bf16) for shape in shapes)
+              + (causal,)
+              for shapes, causal in ((((1, 4, 200, 32),) * 3, True),
+                                     (((1, 2, 150, 48), (1, 2, 150, 48), (1, 2, 150, 20)), False))]
 
     # the path: every call through the op layer's entry points
     kernels.reset_launch_counts()
@@ -2851,13 +3087,30 @@ def phase_ops_layer() -> dict:
                 rq, rk, rv, causal=causal, qk_only=qk_only)
     for i, (jq_, jk_, jv_, causal) in enumerate(jax_cases):
         outs[("int8_flash_jax_case", i)] = flash_attention_int8(jq_, jk_, jv_, causal=causal)
+    for i, (nq_, nk_, nv_, causal) in enumerate(narrow):
+        for qk_only in (False, True):
+            outs[("int8_flash_narrow", i, qk_only)] = flash_attention_int8(
+                nq_, nk_, nv_, causal=causal, qk_only=qk_only)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     want = {name: 0 for name in counts}
+    calls = 6 + len(jax_cases) + 2 * len(narrow)
+    # the pre-pass: two launches a call (the column pass, then the row pass)
     want.update(softmax=len(rows), layernorm=2 * len(rows),
-                int8_flash_attention=6 + len(jax_cases))
+                int8_flash_prepass=2 * calls, int8_flash_attention=calls)
     if counts != want:
         raise AssertionError(f"ops_layer launches {counts}, expected {want}")
+
+    # the pre-pass kernel against the torch pre-pass first, so that a fault
+    # of its own fails here and not in the attention checks after it
+    prepass = [prepass_check(qq, kk, vv, qk_only, label)
+               for label, (qq, kk, vv) in (("gpt_6_7b", (q, k, v)), ("ragged", (rq, rk, rv)),
+                                           ("jax_case", (jq, jk, jv)),
+                                           ("jax_case_heavy_k_mean", (jq, jk_off, jv)),
+                                           ("narrow_d32", narrow[0][:3]),
+                                           ("d48_dv20", narrow[1][:3]),
+                                           ("nonfinite", nonfinite_inputs(rq, rk, rv, True)))
+               for qk_only in (False, True)]
 
     checks = []
     errs = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0}
@@ -2913,6 +3166,25 @@ def phase_ops_layer() -> dict:
             flash_checks(rq, rk, rv, causal, qk_only,
                          outs[("int8_flash_ragged", qk_only, causal)],
                          shape="B1 H8 Sq100 Sk130 D32 Dv64", dtype="float32")
+    for i, (nq_, nk_, nv_, causal) in enumerate(narrow):
+        for qk_only in (False, True):
+            flash_checks(nq_, nk_, nv_, causal, qk_only, outs[("int8_flash_narrow", i, qk_only)],
+                         shape=[list(nq_.shape), list(nv_.shape)], dtype="bfloat16")
+    # a NaN in q, k or v reaches the output where it reaches the plain
+    # version's (non-causal, so that every row meets every key in both)
+    nan_q, nan_k, nan_v = nonfinite_inputs(rq, rk, rv, False)
+    for qk_only in (False, True):
+        got = flash_attention_int8(nan_q, nan_k, nan_v, causal=False, qk_only=qk_only)
+        tiles = flash_attention_int8_plain(nan_q, nan_k, nan_v, False, qk_only,
+                                           block_k=KERNEL_KEY_TILE)
+        fin = torch.isfinite(tiles)
+        same_nan = torch.equal(torch.isnan(got), torch.isnan(tiles))
+        checks.append({"kernel": "int8_flash_attention", "against": "plain_nan_positions",
+                       "qk_only": qk_only, "nan_outputs": int(torch.isnan(tiles).sum()),
+                       "same_nan_positions": same_nan,
+                       "finite_max_abs_err": max_err(got[fin], tiles[fin])})
+        if not (same_nan and max_err(got[fin], tiles[fin]) <= 2e-3):
+            raise AssertionError(f"ops_layer int8_flash_attention with NaN inputs: {checks[-1]}")
     for i, (jq_, jk_, jv_, causal) in enumerate(jax_cases):
         got = outs[("int8_flash_jax_case", i)]
         f32, _ = flash_attention_plain(jq_, jk_, jv_, causal)
@@ -2946,24 +3218,18 @@ def phase_ops_layer() -> dict:
                 shape=f"[{ROW_SHAPE[0]}, {ROW_SHAPE[1]}] f32, residual, gamma and beta",
                 **errs["layernorm"])
     scale = 1.0 / math.sqrt(d)
-    pairs = h * s * (s + 1) // 2
     t_fa = {}
     for qk_only in (False, True):
-        prep = int8_flash_prepass(q, k, v, qk_only)
+        prep = int8_flash_prepass_cuda(q, k, v, qk_only)
         kern = bench_ms(lambda: int8_flash_attention_cuda(prep, True, scale, bf16))
-        pre = bench_ms(lambda: int8_flash_prepass(q, k, v, qk_only))
+        pre = bench_ms(lambda: int8_flash_prepass_cuda(q, k, v, qk_only))
+        torch_pre = bench_ms(lambda: int8_flash_prepass(q, k, v, qk_only))
         whole = bench_ms(lambda: flash_attention_int8(q, k, v, True, qk_only))
         plain = bench_ms(lambda: flash_attention_int8_plain(q, k, v, True, qk_only),
                          queue_ahead=False)
-        v_bytes = (2 if qk_only else 1) * b * h * s * d
-        t_bytes = (2 * b * h * s * d + v_bytes + b * h * s * d * 2 + 2 * b * h * s * 4) \
-            / HBM_BPS * 1e3
-        t_ops = (2 * pairs * d / INT8_OPS + 2 * pairs * d / (BF16_FLOPS if qk_only else INT8_OPS)) \
-            * 1e3
-        t_fa[qk_only] = {"ms": kern, "prepass_ms": pre, "wrapper_ms": whole, "plain_ms": plain,
-                         "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                         "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops}
+        bounds = int8_flash_bounds(b, h, s, d, qk_only)
+        t_fa[qk_only] = {"ms": kern, "prepass_ms": pre, "torch_prepass_ms": torch_pre,
+                         "wrapper_ms": whole, "plain_ms": plain, **bounds}
         del prep
     t_fa = dict(t_fa[False], qk_only=t_fa[True])
     t_fa.update(library_ms=bench_ms(lambda: F.scaled_dot_product_attention(q, k, v,
@@ -2973,8 +3239,19 @@ def phase_ops_layer() -> dict:
                 k3_ms_same_shape=bench_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
                 plain_timing="not queued ahead (host launches inside), at JAX's key block",
                 shape=f"B={b} H={h} S={s} D={d} causal bf16", **errs["int8_flash_attention"])
+    t_pre = {k_: t_fa[k_] for k_ in ("prepass_ms", "torch_prepass_ms", "prepass_bound_ms")}
+    t_pre.update(ms=t_fa["prepass_ms"], bound_ms=t_fa["prepass_bound_ms"], bound_by="bytes",
+                 plain_ms=t_fa["torch_prepass_ms"], library_ms=None,
+                 qk_only_ms=t_fa["qk_only"]["prepass_ms"],
+                 qk_only_bound_ms=t_fa["qk_only"]["prepass_bound_ms"],
+                 plain_note="the torch pre-pass (int8_flash_prepass), the kernel's plain version",
+                 library_note="no single PyTorch call computes the pre-pass",
+                 shape=t_fa["shape"], checks=prepass,
+                 max_abs_err=max(r["k8_max_abs_err"] for r in prepass),
+                 max_rel_err=max(r["sk_max_rel_err"] for r in prepass))
     res = {"phase": "ops_layer", "launches": counts, "checks": checks,
-           "softmax": t_sm, "layernorm": t_ln, "int8_flash_attention": t_fa}
+           "softmax": t_sm, "layernorm": t_ln, "int8_flash_attention": t_fa,
+           "int8_flash_prepass": t_pre}
     emit(res)
     return res
 
@@ -3801,6 +4078,229 @@ def decode_faults(n: int, tree: Optional[str] = None) -> None:
         raise AssertionError(f"decode faults: {bad}")
 
 
+# K9's timed shapes in ``--quant-ab``: k8_k9_timing's (the MoE model's two
+# expert weights and the dynamic GEMM's 2048^2 f32)
+QUANT_AB_K9 = ((MOE_CFG["n_experts"], 2048, 4096, "bfloat16"),
+               (MOE_CFG["n_experts"], 4096, 2048, "bfloat16"), (1, 2048, 2048, "float32"))
+
+
+def quant_child(tree: str) -> None:
+    """One side of ``--quant-ab``: with the kernels and the qgemm_tpu_torch
+    package of checkout ``tree``, bench_ms of K9 at ``QUANT_AB_K9``' shapes,
+    of the dynamic GEMM at 2048^3 (``gemm_protocol``'s ``int8_dynamic_ms``),
+    and of row 12 at ``ATTN_SHAPE`` (causal, bf16; int8 P and ``qk_only``):
+    its main kernel on a pre-pass's codes, its pre-pass (the pre-pass kernel,
+    or in a checkout without one the torch pre-pass) and the whole wrapper.
+    The MoE load's K9 total is the model's 24 layers times the two expert
+    weights' times. Prints one JSON line."""
+    root = use_tree(tree)
+    from qgemm_tpu_torch.ops.cuda import _build
+    from qgemm_tpu_torch.ops.cuda import int8_flash_attention as fa
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize
+    from qgemm_tpu_torch.ops.quantize import quantized_matmul
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    _build.build()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    res = {"tree": str(root), "k9_ms": {}}
+    for e, k, n, dt in QUANT_AB_K9:
+        w = (torch.randn((e, k, n), generator=g, device="cuda") * 0.02).to(getattr(torch, dt))
+        w = w[0] if e == 1 else w
+        res["k9_ms"][f"{e}x{k}x{n} {dt}"] = bench_ms(lambda: col_quantize(w))
+        del w
+    up, down = (res["k9_ms"][f"{e}x{k}x{n} {dt}"] for e, k, n, dt in QUANT_AB_K9[:2])
+    res["k9_moe_load_ms"] = MOE_CFG["n_layers"] * (up + down)
+    x = torch.rand((2048, 2048), generator=g, device="cuda") * 2 - 1
+    w = torch.rand((2048, 2048), generator=g, device="cuda") * 2 - 1
+    res["int8_dynamic_ms"] = bench_ms(lambda: quantized_matmul(x, w))
+    del x, w
+    b, h, s_, d = ATTN_SHAPE
+    q, k, v = (torch.randn((b, h, s_, d), generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    prepass = getattr(fa, "int8_flash_prepass_cuda", fa.int8_flash_prepass)
+    scale = 1.0 / math.sqrt(d)
+    for qk_only in (False, True):
+        tag = "qk_only" if qk_only else "int8_p"
+        prep = prepass(q, k, v, qk_only)
+        res[f"row12_kernel_ms {tag}"] = bench_ms(
+            lambda: fa.int8_flash_attention_cuda(prep, True, scale, torch.bfloat16))
+        res[f"row12_prepass_ms {tag}"] = bench_ms(lambda: prepass(q, k, v, qk_only))
+        res[f"row12_wrapper_ms {tag}"] = bench_ms(
+            lambda: fa.flash_attention_int8(q, k, v, True, qk_only))
+        del prep
+    emit(res)
+
+
+def quant_bounds() -> dict:
+    """Bounds (ms) of ``quant_child``'s timed work, by the timing phases'
+    formulas: K9 reads w once and writes its codes and scales; the dynamic
+    GEMM ``gemm_protocol``'s; row 12 ``int8_flash_bounds``."""
+    out = {}
+    for e, k, n, dt in QUANT_AB_K9:
+        el = e * k * n
+        out[f"k9_ms {e}x{k}x{n} {dt}"] = bound(el * (4 if dt == "float32" else 2) + el
+                                               + e * n * 4, 0, INT8_OPS)[0]
+    out["k9_moe_load_ms"] = MOE_CFG["n_layers"] * sum(
+        out[f"k9_ms {e}x{k}x{n} {dt}"] for e, k, n, dt in QUANT_AB_K9[:2])
+    m = 2048
+    out["int8_dynamic_ms"] = bound(4 * 3 * m * m, 2 * m ** 3, INT8_OPS)[0]
+    for qk_only, tag in ((False, "int8_p"), (True, "qk_only")):
+        bd = int8_flash_bounds(*ATTN_SHAPE, qk_only)
+        out[f"row12_kernel_ms {tag}"] = bd["bound_ms"]
+        out[f"row12_prepass_ms {tag}"] = bd["prepass_bound_ms"]
+        out[f"row12_wrapper_ms {tag}"] = bd["bound_ms"] + bd["prepass_bound_ms"]
+    return out
+
+
+def quant_ab(other: str, rounds: int = 1) -> None:
+    """K9, the dynamic GEMM and row 12 of checkout ``other`` against this
+    one's (``quant_child`` in ``ab_runs``' turns). Prints each run, the
+    medians, the speed-ups and each side's share of the bounds."""
+    smi = phase_device()
+    trees, order, runs = ab_runs("--quant-child", "quant_run", other, rounds, 600)
+
+    def flat(r: dict) -> dict:
+        out = {f"k9_ms {key}": v for key, v in r["k9_ms"].items()}
+        out.update({k: v for k, v in r.items() if k not in ("k9_ms", "tree", "phase", "side")})
+        return out
+
+    med = {side: {key: float(np.median([flat(r)[key] for r in rs])) for key in flat(rs[0])}
+           for side, rs in runs.items()}
+    bounds = quant_bounds()
+    emit({"phase": "quant_ab", "card": smi, "order": order, "trees": trees, "median": med,
+          "speedup_other_over_this": {k: med["other"][k] / med["this"][k] for k in med["this"]},
+          "bound_ms": bounds,
+          "share_of_bound": {side: {k: b / med[side][k] for k, b in bounds.items()}
+                             for side in med}})
+
+
+def row12_trace() -> None:
+    """``--row12-trace``: row 12 at ``ATTN_SHAPE`` (causal, bf16; int8 P and
+    ``qk_only``): five calls of its pre-pass kernel and of its main kernel
+    under ``torch.profiler``, each device kernel's time a call (the
+    pre-pass's column and row passes apart). Prints one JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qgemm_tpu_torch.ops.cuda.int8_flash_attention import (int8_flash_attention_cuda,
+                                                               int8_flash_prepass_cuda)
+    smi = phase_device()
+    phase_build()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    b, h, s_, d = ATTN_SHAPE
+    q, k, v = (torch.randn((b, h, s_, d), generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    spans = {}
+    for qk_only in (False, True):
+        codes = int8_flash_prepass_cuda(q, k, v, qk_only)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                int8_flash_prepass_cuda(q, k, v, qk_only)
+                int8_flash_attention_cuda(codes, True, 1.0 / math.sqrt(d), torch.bfloat16)
+            torch.cuda.synchronize()
+        spans["qk_only" if qk_only else "int8_p"] = {
+            e.key[:60]: e.device_time_total / 5e3 for e in prof.key_averages()
+            if e.device_time_total > 0}
+    emit({"phase": "row12_trace", "card": smi, "shape": list(ATTN_SHAPE),
+          "kernel_ms_a_call": spans})
+
+
+# Faults that ``--quant-faults`` plants, each in its own copy of the
+# checkout's package: (source, its line, the faulty line, the phases whose
+# checks must fail, what the failure must name)
+QUANT_FAULTS = {
+    "k9_without_cluster_merge": (
+        "col_quantize.cu", "    for (int p = 0; p < cs; ++p)\n",
+        "    for (int p = rank; p == rank; ++p)\n",
+        {"k9": "not bit-equal", "gemm_protocol": "gemm_protocol:"}),
+    "prepass_mean_over_s_minus_1": (
+        "int8_flash_attention.cu",
+        "        mean[tid] = __fdiv_rn(s, static_cast<float>(sk));\n",
+        "        mean[tid] = __fdiv_rn(s, static_cast<float>(sk - 1));\n",
+        {"ops_layer": "int8_flash_prepass check failed"}),
+    "flash_without_alpha_rescale": (
+        "int8_flash_attention.cu",
+        "        oi = __fadd_rn(__fmul_rn(oi, (i & 2) ? al1 : al0), pv_f32(pacc[i]));\n",
+        "        oi = __fadd_rn(oi, pv_f32(pacc[i]));\n",
+        {"ops_layer": "plain_at_kernel_key_tile"}),
+}
+
+
+def quant_faults(tree: Optional[str] = None) -> None:
+    """``--quant-faults``: with the kernels of checkout ``tree`` (default
+    this one), in a copy of its package beside this script, the phases
+    ``k9``, ``gemm_protocol`` and ``ops_layer`` (one process each), which
+    must pass; then, for each of ``QUANT_FAULTS`` planted in another such
+    copy (the sound copy's libraries copied as built), the phases the fault
+    must fail, each of which must exit nonzero with a failure naming its
+    check. Prints every run's readings: the K9 and pre-pass checks' lines,
+    and each failure's message. Fails if the sound tree fails a phase or a
+    fault passes one, or fails another check than its own."""
+    phase_device()
+    here = Path(__file__).resolve()
+    src = Path(tree).resolve() if tree else here.parent
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def checkout(name: str) -> Path:
+            root = Path(tmp) / name
+            shutil.copytree(src / "qgemm_tpu_torch", root / "qgemm_tpu_torch",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            built = Path(tmp) / "sound" / "build"
+            if built.exists():
+                shutil.copytree(built, root / "build")
+            shutil.copy2(here, root / here.name)
+            return root / here.name
+
+        def run(name: str, script: Path, phase: str) -> dict:
+            proc = subprocess.run([sys.executable, str(script), "--only", phase],
+                                  capture_output=True, text=True, timeout=900, check=False)
+            lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+            readings = [x for x in lines if x.get("phase") in (
+                "int8_flash_prepass_check", "k9_nonfinite", "gemm_protocol")]
+            for x in lines:
+                if x.get("phase") == "ops_layer":
+                    readings.append({"phase": "ops_layer_tight_checks", "max_abs_err": [
+                        c["max_abs_err"] for c in x["checks"]
+                        if c.get("against") == "plain_at_kernel_key_tile"]})
+                if x.get("phase") == "k9":
+                    readings.append({"phase": "k9", "max_abs_err": max(
+                        c["max_abs_err"] for c in x["checks"])})
+            tail = [x for x in proc.stderr.strip().splitlines() if x.startswith("AssertionError")]
+            row = {"exit": proc.returncode, "error": tail[-1][:600] if tail else "",
+                   "readings": readings}
+            emit({"phase": "quant_fault_run", "fault": name, "checks": phase, **row})
+            if proc.returncode != 0 and not tail:
+                print(proc.stdout[-2000:], proc.stderr[-6000:], file=sys.stderr)
+            return row
+
+        script = checkout("sound")
+        results["sound"] = {ph: run("sound", script, ph)
+                            for ph in ("k9", "gemm_protocol", "ops_layer")}
+        for name, (source, old, new, phases) in QUANT_FAULTS.items():
+            script = checkout(name)
+            cu = script.parent / "qgemm_tpu_torch" / "csrc" / source
+            text = cu.read_text()
+            if text.count(old) != 1:
+                raise AssertionError(f"fault {name}: its line is not once in {source}")
+            cu.write_text(text.replace(old, new))
+            results[name] = {ph: run(name, script, ph) for ph in phases}
+    bad = [f"sound {ph} exited {r['exit']}: {r['error']}"
+           for ph, r in results["sound"].items() if r["exit"] != 0]
+    for name, (_, _, _, phases) in QUANT_FAULTS.items():
+        for ph, want in phases.items():
+            r = results[name][ph]
+            if r["exit"] == 0 or want not in r["error"]:
+                bad.append(f"{name} in {ph}: exit {r['exit']}, {r['error'][:200]!r}")
+    emit({"phase": "quant_faults", "tree": str(src),
+          "caught": {name: {ph: results[name][ph]["exit"] != 0 and want in
+                            results[name][ph]["error"] for ph, want in phases.items()}
+                     for name, (_, _, _, phases) in QUANT_FAULTS.items()},
+          "sound_passed": all(r["exit"] == 0 for r in results["sound"].values())})
+    if bad:
+        raise AssertionError(f"quant faults: {bad}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -3836,6 +4336,14 @@ def main() -> None:
         return long_copy_child(sys.argv[2])
     if sys.argv[1:2] == ["--decode-faults"]:
         return decode_faults(int(sys.argv[2]), *sys.argv[3:4])
+    if sys.argv[1:2] == ["--quant-child"]:
+        return quant_child(sys.argv[2])
+    if sys.argv[1:2] == ["--quant-ab"]:
+        return quant_ab(sys.argv[2], *map(int, sys.argv[3:4]))
+    if sys.argv[1:2] == ["--quant-faults"]:
+        return quant_faults(*sys.argv[2:3])
+    if sys.argv[1:2] == ["--row12-trace"]:
+        return row12_trace()
     from qgemm_tpu_torch.ops.cuda import _build   # fails outside the repository
 
     smi = phase_device()
@@ -3849,7 +4357,8 @@ def main() -> None:
     errs = phase_parity()
     timing = phase_timing(errs)
     ops = phase_ops_layer()
-    timing.update({name: ops[name] for name in ("softmax", "layernorm", "int8_flash_attention")})
+    timing.update({name: ops[name] for name in ("softmax", "layernorm", "int8_flash_attention",
+                                                "int8_flash_prepass")})
     gemm = phase_gemm_protocol()
     int8 = serve("int8", {}, used=("quantized_matmul", "decode_attention", "flash_attention"),
                  unused=("w4a8_matmul",))
@@ -3972,6 +4481,25 @@ def main() -> None:
             entry.update({k: t[k] for k in t if k not in entry and k not in
                           ("max_abs_err", "max_rel_err", "shape")})
         kernels.append(entry)
+    # the int8 flash attention's pre-pass kernel: a second kernel of its
+    # source, with its own launch count
+    t = timing["int8_flash_prepass"]
+    kernels.append({"name": "int8_flash_prepass", "route": "cuda",
+                    "source": "qgemm_tpu_torch/csrc/int8_flash_attention.cu",
+                    "replaces": "qgemm_tpu/ops/pallas/int8_flash_attention.py:145",
+                    "replaces_note": "the XLA pre-pass of flash_attention_int8 (lines 145-163), "
+                                     "before its pallas_call",
+                    "launches": ops["launches"]["int8_flash_prepass"],
+                    "launches_counted_in": ops["phase"],
+                    "launches_note": "two device launches a call: the column pass, then the "
+                                     "row pass",
+                    **{k: t[k] for k in ("max_abs_err", "max_rel_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms", "plain_note",
+                                         "library_note", "qk_only_ms", "qk_only_bound_ms")},
+                    "error_note": "max_abs_err: K codes against the torch pre-pass's (Q and "
+                                  "V codes and their scales bit for bit); max_rel_err: K's "
+                                  "row scales",
+                    "timed_at": t["shape"], "card": smi})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,11 @@
 // Int8 blockwise (flash) attention forward for Hopper (sm_90a): the kernel
-// of row 12.
+// of row 12, and its pre-pass.
 //
-// Replaces _int8_flash_kernel of qgemm_tpu/ops/pallas/int8_flash_attention.py.
-// Its inputs come from the wrapper's pre-pass, which is JAX's too (K less
-// its per-channel mean; Q and K int8 per row, V int8 per channel, /127
-// folded into the row scales). Same math per key tile, in f32:
+// Replaces _int8_flash_kernel of qgemm_tpu/ops/pallas/int8_flash_attention.py
+// and the XLA pre-pass of its flash_attention_int8 (K less its per-channel
+// mean over the sequence; Q and K int8 per row, V int8 per channel, /127
+// folded into the row scales; qk_only leaves V in bf16). Same math per key
+// tile, in f32:
 //   s = (q8 . k8)_s32 * (sq * scale) * sk, with s = -1e30 where the key is
 //       past Sk or, when causal, kj > qi (top-left aligned);
 //   m_new = max(m, max_j s), p = exp(s - m_new) (0 where masked),
@@ -14,321 +15,725 @@
 //   qk_only: P rounded to bf16 times V in bf16 with f32 sums, l sums the f32 p;
 // and at the end o = acc / max(l, 1e-6) (times 1/127 with int8 P), stored in
 // the output dtype. Every multiply and add of that update is rounded on its
-// own (no fused multiply-add), as the plain version's tensor ops are.
+// own (no fused multiply-add), as the plain version's tensor ops are. Every
+// max keeps a NaN, as torch's amax and JAX's max do: a NaN in q, k or v
+// reaches the output as it does in the plain version.
 // P is quantized against the running max at the end of each KEY TILE, so
-// its codes depend on the tile width: this kernel's tile is 64 keys, the
+// its codes depend on the tile width: this kernel's tile is 128 keys, the
 // TPU kernel's min(1024, Sk rounded up to 128). The plain version takes the
 // tile width as an argument.
 //
 // What bounds it on the H100: at GPT_6_7B's prefill (H 32, S 2048, D 128,
 // causal) the operations, 2 * 2 * D int8 ops per attended (query, key)
 // pair on the tensor cores (1,979 TOP/s), against ~42 MB of int8 q/k/v and
-// the output.
+// the output. The pre-pass is bound by bytes: one read of Q, K and V and one
+// write of the codes (with qk_only, of Q's and K's only: V stays bf16).
 //
-// Design: K3's tiling on the tensor cores. One block of 4 warps per (64
-// query rows, batch*head); each warp owns 16 query rows and keeps its Q
-// fragments in registers. K (and V, transposed so that keys run along a
-// row) stream through shared memory in 64-key tiles; S = Q K^T is
-// mma.sync m16n8k32 s8 -> s32 into registers, the online-softmax update
-// runs on the accumulator fragments (a row's max and sum reduced across its
-// 4 lanes with shuffles), P goes through shared memory as the A operand of
-// the second product: mma.sync m16n8k32 s8 for int8 P, m16n8k16 bf16 for
-// qk_only. The causal walk stops at the tile holding the block's last row.
-// Head widths are compiled for D, Dv in {32, 64, 128}; the pre-pass pads
-// the codes with zeros, and the output is stored at its true width dv.
-#include <cstring>
+// Design (the plan is ops/cuda/int8_flash_plan.py's):
+// * pre-pass, two launches. prepass_col_kernel: one block per (64-key
+//   chunk, batch*head), a thread per channel sums K over the chunk in row
+//   order and takes V's absmax. prepass_row_kernel: Q and K rows, one warp
+//   a row (the chunks' sums added in chunk order, then / Sk, give the mean;
+//   the codes follow torch's op order: f32 x / c, then * 127, round half to
+//   even), written as 128-byte code rows; V in tiles of 128 keys, its codes
+//   written transposed [BH, DV, Skp] with each group of 32 keys permuted so
+//   that P's accumulator fragments are the P V product's A operand as they
+//   lie (no shuffles, no shared-memory pass for P). qk_only reads V as it
+//   is where it is bf16 with rows of a multiple of 8 channels; else the V
+//   blocks cast it to bf16 rows of dv rounded up to 8 (zero past dv).
+// * main kernel, int8_flash_wgmma_kernel: one block per (64 query rows,
+//   batch*head), one consumer warpgroup and one producer warp. The
+//   producer's lane 0 loads the Q tile once and keeps a ring of 2 stages
+//   full by TMA (128-byte swizzle, full and empty mbarriers): K's code tile
+//   [128 keys x 128 bytes] and V's transposed tile [DV x 128 keys] (qk_only:
+//   V's bf16 tile [128 keys x 64 channels] per 64 channels, MN-major). The
+//   consumers run S = Q K^T as wgmma m64n128k32 s8 -> s32 from shared
+//   memory over the D / 32 k32 slices of the code rows that hold D, the
+//   online softmax on the accumulator fragments (a row's max and sum across
+//   the 4 lanes of a quad), then P V as wgmma m64nNk32 s8 in chunks of N =
+//   64 channels (DV 32: one of 32) with P's codes in registers (qk_only:
+//   m64n64k16 bf16 with V's tile as the MN-major B operand). The mask runs
+//   only on tiles that pass Sk or, causal, the tile's first row; causal
+//   grids take their longest query tiles first.
 #include <type_traits>
 
 #include "common.cuh"
-#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64, kBK = 64, kThreads = 128;
-constexpr int kPad8 = 16;   // bytes of padding per int8 smem row
-constexpr int kPadB = 8;    // bf16 elements of padding per bf16 smem row
-constexpr float kNegBig = -1e30f;
+namespace sm90 = qg::sm90;
 
-template <int D, int DV, bool P8> struct Smem {
-  static constexpr int LQ = D + kPad8;                   // Q and K rows, bytes
-  static constexpr int LV = P8 ? kBK + kPad8 : kBK + kPadB;  // V^T rows, elements
-  static constexpr int LP = LV;                          // P rows, elements
-  static constexpr size_t q = static_cast<size_t>(kBQ) * LQ;
-  static constexpr size_t k = static_cast<size_t>(kBK) * LQ;
-  static constexpr size_t v = static_cast<size_t>(DV) * LV * (P8 ? 1 : 2);
-  static constexpr size_t p = static_cast<size_t>(kBQ) * LP * (P8 ? 1 : 2);
-  static constexpr size_t bytes = q + k + v + p + kBK * sizeof(float);
+constexpr int kBQ = 64, kBK = 128, kRow = 128, kStages = 2;
+constexpr int kConsumers = 128, kThreads = kConsumers + 32;
+constexpr int kChunkRows = 64, kColThreads = 128;
+constexpr int kRowsPerBlock = 32, kRowThreads = 256;
+constexpr float kNegBig = -1e30f;
+constexpr float kEps = 1e-6f;
+
+template <int DV, bool P8> struct FlashCfg {
+  static constexpr int kQBytes = kBQ * kRow;
+  static constexpr int kKBytes = kBK * kRow;
+  static constexpr int kVBoxes = (DV + 63) / 64;            // bf16: 64-channel boxes
+  static constexpr int kVBox = kBK * kRow;                   // bf16: 128 keys x 64 channels
+  static constexpr int kVBytes = P8 ? DV * kBK : kVBoxes * kVBox;
+  static constexpr int kStage = kKBytes + kVBytes;
+  static constexpr int kSkBytes = kBK * 4;                // a tile's K row scales, after the ring
+  static constexpr int kSmem = sm90::kAlign + kQBytes + kStages * (kStage + kSkBytes);
 };
 
-// grid (ceil(Sq / 64), BH). q8 [BH, Sq, D], k8 [BH, Sk, D] int8; v [BH, Sk,
-// DV] int8 (P8) or bf16 (qk_only); sq [BH, Sq], sk [BH, Sk] f32 (the /127
-// already folded in); out [BH, Sq, dv] in T.
-template <typename T, int D, int DV, bool P8>
-__global__ void __launch_bounds__(kThreads)
-int8_flash_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-                  const void* __restrict__ vin, const float* __restrict__ sqs,
-                  const float* __restrict__ sks, T* __restrict__ out, int sq, int sk, int dv,
-                  int causal, float scale) {
-  using S = Smem<D, DV, P8>;
-  using VT = typename std::conditional<P8, int8_t, __nv_bfloat16>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* Qs = reinterpret_cast<int8_t*>(smem);
-  int8_t* Ks = Qs + S::q;
-  VT* Vt = reinterpret_cast<VT*>(smem + S::q + S::k);           // [DV][LV]
-  VT* Ps = reinterpret_cast<VT*>(smem + S::q + S::k + S::v);    // [kBQ][LP]
-  float* sks_t = reinterpret_cast<float*>(smem + S::q + S::k + S::v + S::p);
+// An integer of magnitude below 2^22 added to 1.5 * 2^23 lands in the
+// float's low mantissa bits: exact conversions at full rate (the
+// converting instructions run at a quarter of it).
+constexpr int kMagicBits = 0x4B400000;
+constexpr float kMagic = 12582912.f;
+__device__ __forceinline__ float exact_f32(int x) {   // |x| < 2^22
+  return __fsub_rn(__int_as_float(kMagicBits + x), kMagic);
+}
+__device__ __forceinline__ int rint_small(float y) {   // 0 <= y < 2^22, half to even
+  return __float_as_int(__fadd_rn(y, kMagic)) - kMagicBits;
+}
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBQ, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int8_t* qb = q8 + static_cast<size_t>(bh) * sq * D;
-  const int8_t* kb = k8 + static_cast<size_t>(bh) * sk * D;
-  const VT* vb = static_cast<const VT*>(vin) + static_cast<size_t>(bh) * sk * DV;
+// max that keeps a NaN, as torch's amax does (fmaxf drops it)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
-  for (int i = tid; i < kBQ * (D / 16); i += kThreads) {
-    const int r = i / (D / 16), c = (i % (D / 16)) * 16;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (q0 + r < sq) val = *reinterpret_cast<const int4*>(qb + static_cast<size_t>(q0 + r) * D + c);
-    *reinterpret_cast<int4*>(&Qs[r * S::LQ + c]) = val;
+// ------------------------------------------------------------- the pre-pass
+__device__ __forceinline__ int code_of(float x, float c) {
+  return __float2int_rn(__fmul_rn(__fdiv_rn(x, c), 127.f));
+}
+
+// grid (nchunk, BH), kColThreads threads: thread c sums K's channel c over
+// the chunk's rows in row order and takes V's absmax of channel c
+template <typename T>
+__global__ void __launch_bounds__(kColThreads)
+prepass_col_kernel(const T* __restrict__ k, const T* __restrict__ v, float* __restrict__ ksum,
+                   float* __restrict__ vmax, int sk, int d, int dv, int nchunk, int qk_only) {
+  const int bh = blockIdx.y, ch = blockIdx.x, c = threadIdx.x;
+  const int r0 = ch * kChunkRows, r1 = min(sk, r0 + kChunkRows);
+  if (c < d) {
+    const T* kp = k + static_cast<size_t>(bh) * sk * d + c;
+    float s = 0.f;
+#pragma unroll 16
+    for (int r = r0; r < r1; ++r) s = __fadd_rn(s, qg::to_f32(kp[static_cast<size_t>(r) * d]));
+    ksum[(static_cast<size_t>(bh) * nchunk + ch) * d + c] = s;
+  }
+  if (!qk_only && c < dv) {
+    const T* vp = v + static_cast<size_t>(bh) * sk * dv + c;
+    float m = 0.f;
+#pragma unroll 16
+    for (int r = r0; r < r1; ++r) m = max_nan(m, fabsf(qg::to_f32(vp[static_cast<size_t>(r) * dv])));
+    vmax[(static_cast<size_t>(bh) * nchunk + ch) * dv + c] = m;
+  }
+}
+
+// Lane l's channels 4l..4l+3 of a row x of width d (zero past d): one 8- or
+// 16-byte load where d is a multiple of 4, else one element at a time.
+__device__ __forceinline__ void load4(const float* x, int d, int lane, float (&f)[4]) {
+  const int c0 = 4 * lane;
+  if (d % 4 == 0) {
+    const float4 u = c0 < d ? __ldg(reinterpret_cast<const float4*>(x + c0))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = c0 + j < d ? x[c0 + j] : 0.f;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* x, int d, int lane, float (&f)[4]) {
+  const int c0 = 4 * lane;
+  if (d % 4 == 0) {
+    const uint2 u = c0 < d ? __ldg(reinterpret_cast<const uint2*>(x + c0)) : make_uint2(0, 0);
+    f[0] = __uint_as_float(u.x << 16); f[1] = __uint_as_float(u.x & 0xffff0000u);
+    f[2] = __uint_as_float(u.y << 16); f[3] = __uint_as_float(u.y & 0xffff0000u);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = c0 + j < d ? __bfloat162float(x[c0 + j]) : 0.f;
+}
+
+// One Q or K row by one warp, lane l holding channels 4l..4l+3 in ``vals``
+// (zero past d; K's already less the mean): the row's codes into a
+// 128-byte row, its scale (with 1/127) into ``sc``.
+__device__ __forceinline__ void code_row(const float (&vals)[4], int d, int8_t* row, float* sc,
+                                         int lane) {
+  float mx = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) mx = max_nan(mx, fabsf(vals[j]));
+#pragma unroll
+  for (int o = 16; o; o >>= 1) mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  const float cs = max_nan(mx, kEps);   // a NaN scale gives codes 0
+  uint32_t word = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int q = 4 * lane + j < d ? code_of(vals[j], cs) : 0;
+    word |= (static_cast<uint32_t>(q) & 0xffu) << (8 * j);
+  }
+  reinterpret_cast<uint32_t*>(row)[lane] = word;
+  if (lane == 0) *sc = __fmul_rn(cs, 1.f / 127.f);
+}
+
+// key (within its group of 32) at position p of V's transposed codes
+__device__ __forceinline__ int key_of_position(int p) {
+  return 16 * (p >> 4) + 8 * ((p & 3) >> 1) + 2 * ((p >> 2) & 3) + (p & 1);
+}
+
+// grid (nq + nk + nv, BH), kRowThreads threads: Q row blocks, K row blocks,
+// then V tiles of kBK keys (none with qk_only where V is read as it is).
+// vw: V's rows, DV (int8) or the bf16 copy's width (qk_only).
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+prepass_row_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   int8_t* __restrict__ q8, int8_t* __restrict__ k8, void* __restrict__ vt,
+                   float* __restrict__ sqs, float* __restrict__ sks, float* __restrict__ vc,
+                   const float* __restrict__ ksum, const float* __restrict__ vmax, int sq, int sk,
+                   int d, int dv, int vw, int skp, int nchunk, int nq, int nk, int qk_only) {
+  __shared__ float mean[128];
+  __shared__ int8_t tile[kBK * 129];   // V's codes of a tile
+  const int bh = blockIdx.y, x = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  if (x < nq + nk) {
+    const bool is_k = x >= nq;
+    const int n = is_k ? sk : sq;
+    const int r0 = (is_k ? x - nq : x) * kRowsPerBlock;
+    if (is_k) {
+      if (tid < d) {   // the chunks' sums in chunk order, then the mean
+        float s = 0.f;
+#pragma unroll 8
+        for (int ch = 0; ch < nchunk; ++ch)   // loads in flight together, sums in order
+          s = __fadd_rn(s, ksum[(static_cast<size_t>(bh) * nchunk + ch) * d + tid]);
+        mean[tid] = __fdiv_rn(s, static_cast<float>(sk));
+      }
+      __syncthreads();
+    }
+    const T* src = (is_k ? k : q) + static_cast<size_t>(bh) * n * d;
+    int8_t* dst = (is_k ? k8 : q8) + static_cast<size_t>(bh) * n * kRow;
+    float* sc = is_k ? sks + static_cast<size_t>(bh) * skp : sqs + static_cast<size_t>(bh) * n;
+    if (is_k && x - nq == nk - 1 && tid < skp - sk) sc[sk + tid] = 0.f;   // K's scales past sk
+    constexpr int R = kRowsPerBlock / 8;   // rows a warp: all loads first
+    const int rw = r0 + warp * R;
+    float vals[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (rw + i < n) load4(src + static_cast<size_t>(rw + i) * d, d, lane, vals[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (rw + i >= n) continue;
+      if (is_k) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (4 * lane + j < d) vals[i][j] = __fsub_rn(vals[i][j], mean[4 * lane + j]);
+      }
+      code_row(vals[i], d, dst + static_cast<size_t>(rw + i) * kRow, sc + rw + i, lane);
+    }
+    return;
+  }
+  // V: keys [t0, t0 + kBK)
+  const int t0 = (x - nq - nk) * kBK;
+  const T* vb = v + static_cast<size_t>(bh) * sk * dv;
+  if (qk_only) {   // bf16 rows of vw channels in key order, zero past dv
+    auto* out = static_cast<__nv_bfloat16*>(vt) + static_cast<size_t>(bh) * sk * vw;
+    const int rows = min(kBK, sk - t0);
+    for (int i = tid; i < rows * vw; i += kRowThreads) {
+      const int r = t0 + i / vw, c = i % vw;
+      out[static_cast<size_t>(r) * vw + c] =
+          __float2bfloat16_rn(c < dv ? qg::to_f32(vb[static_cast<size_t>(r) * dv + c]) : 0.f);
+    }
+    return;
+  }
+  if (tid < dv) {
+    float m = 0.f;
+#pragma unroll 8
+    for (int ch = 0; ch < nchunk; ++ch)
+      m = max_nan(m, vmax[(static_cast<size_t>(bh) * nchunk + ch) * dv + tid]);
+    mean[tid] = max_nan(m, kEps);   // V's channel scale
+    if (t0 == 0) vc[static_cast<size_t>(bh) * dv + tid] = mean[tid];
+  }
+  __syncthreads();
+  int8_t* vs = tile;   // codes [kBK][129]
+  const int c = tid & 127;   // a thread a channel, every other row
+  if (c < dv) {
+#pragma unroll 8
+    for (int r = tid >> 7; r < kBK; r += kRowThreads / 128)
+      vs[r * 129 + c] = static_cast<int8_t>(
+          t0 + r < sk ? code_of(qg::to_f32(vb[static_cast<size_t>(t0 + r) * dv + c]), mean[c])
+                      : 0);
+  }
+  __syncthreads();
+  int8_t* out = static_cast<int8_t*>(vt) + static_cast<size_t>(bh) * vw * skp;
+  for (int i = tid; i < vw * (kBK / 4); i += kRowThreads) {
+    const int c = i / (kBK / 4), p = 4 * (i % (kBK / 4));
+    uint32_t word = 0;
+    if (c < dv) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int key = ((p + b) & ~31) + key_of_position((p + b) & 31);
+        word |= (static_cast<uint32_t>(vs[key * 129 + c]) & 0xffu) << (8 * b);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(c) * skp + t0 + p) = word;
+  }
+}
+
+// ------------------------------------------------------- the wgmma products
+// m64nNk32 s8 with A from registers, N = 32 (wgmma.cuh has 64)
+__device__ __forceinline__ void wgmma_rs(int (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) {
+  sm90::wgmma_rs(d, a, b, acc);
+}
+
+// m64n64k16 bf16 -> f32 with A (P) from registers and B (V) MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+// the descriptor of an MN-major B tile in the 128-byte swizzle: rows of 64
+// bf16 channels (128 bytes) a key, 8-key groups 1024 bytes apart; the
+// stride between 64-channel blocks is unused at N = 64
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* tile) {
+  return static_cast<uint64_t>((qg::smem_addr(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ float pv_f32(int v) { return exact_f32(v); }   // |v| <= 128 * 127^2
+__device__ __forceinline__ float pv_f32(float v) { return v; }
+
+// 1-D bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte aligned)
+// into shared memory, completing on ``bar``
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(qg::smem_addr(dst)), "l"(src), "r"(bytes), "r"(qg::smem_addr(bar))
+      : "memory");
+}
+
+template <typename A, int R> __device__ __forceinline__ void fence_acc(A (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if constexpr (std::is_same<A, float>::value)
+      asm volatile("" : "+f"(d[i])::"memory");
+    else
+      asm volatile("" : "+r"(d[i])::"memory");
+  }
+}
+
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (static_cast<uint32_t>(a) & 0xffu) | ((static_cast<uint32_t>(b) & 0xffu) << 8) |
+         ((static_cast<uint32_t>(c) & 0xffu) << 16) | (static_cast<uint32_t>(d) << 24);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ----------------------------------------------------------- the main kernel
+// grid (ceil(Sq / 64), BH), kThreads threads, FlashCfg<DV, P8>::kSmem bytes
+// of dynamic shared memory. tq: q8 [BH, Sq, 128] int8, tk: k8 [BH, Sk, 128],
+// tv: V^T [BH, DV, Skp] int8 permuted, or (qk_only) V [BH, Sk, vw] bf16;
+// sqs [BH, Sq], sks [BH, Skp] f32 (1/127 folded in; zero past Sk); out
+// [BH, Sq, dv] in T. KS: the k32 slices of the code rows that hold D (a
+// compile-time count: products under a runtime condition cost ptxas
+// injected warpgroup waits and spills).
+template <typename T, int DV, bool P8, int KS>
+__global__ void __launch_bounds__(kThreads, 2)
+int8_flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const float* __restrict__ sqs,
+                        const float* __restrict__ sks, T* __restrict__ out, int sq, int sk,
+                        int skp, int dv, int causal, float scale) {
+  using C = FlashCfg<DV, P8>;
+  using PV = typename std::conditional<P8, int, float>::type;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages], qbar;
+  uint8_t* base = sm90::aligned_smem(smem_raw);
+  uint8_t* qs = base;
+  auto k_tile = [&](int s) { return base + C::kQBytes + s * C::kStage; };
+  auto v_tile = [&](int s) { return base + C::kQBytes + s * C::kStage + C::kKBytes; };
+  float* sk_tiles = reinterpret_cast<float*>(base + C::kQBytes + kStages * C::kStage);
+  const int bh = blockIdx.y;
+  const int qt = causal ? static_cast<int>(gridDim.x - 1 - blockIdx.x)   // longest first
+                        : static_cast<int>(blockIdx.x);
+  const int q0 = qt * kBQ;
+  int nk = (sk + kBK - 1) / kBK;
+  if (causal) nk = min(nk, (min(q0 + kBQ, sq) - 1) / kBK + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers / 32);
+    }
+    sm90::mbar_init(&qbar, 1);
+    sm90::mbar_fence_init();
   }
   __syncthreads();
 
-  // this warp's rows r0 = 16 * warp + g and r1 = r0 + 8; Q fragments in registers
-  const int r0 = warp * 16 + g, r1 = r0 + 8;
-  const int qi0 = q0 + r0, qi1 = q0 + r1;
-  uint32_t qa[D / 32][4];
+  if (warp == kConsumers / 32) {   // producer
+    if (lane == 0) {
+      sm90::mbar_expect_tx(&qbar, C::kQBytes);
+      sm90::tma_load_3d(qs, &tq, &qbar, 0, q0, bh);
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) sm90::mbar_wait(&empty[s], ((i / kStages) + 1) & 1);
+        sm90::mbar_expect_tx(&full[s], C::kStage + C::kSkBytes);
+        sm90::tma_load_3d(k_tile(s), &tk, &full[s], 0, i * kBK, bh);
+        bulk_load(sk_tiles + s * kBK, sks + static_cast<size_t>(bh) * skp + i * kBK, C::kSkBytes,
+                  &full[s]);
+        if constexpr (P8) {
+          sm90::tma_load_3d(v_tile(s), &tv, &full[s], i * kBK, 0, bh);
+        } else {
 #pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk) {
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * S::LQ + kk * 32 + t * 4]);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(&Qs[r1 * S::LQ + kk * 32 + t * 4]);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * S::LQ + kk * 32 + 16 + t * 4]);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(&Qs[r1 * S::LQ + kk * 32 + 16 + t * 4]);
+          for (int bx = 0; bx < C::kVBoxes; ++bx)
+            sm90::tma_load_3d(v_tile(s) + bx * C::kVBox, &tv, &full[s], 64 * bx, i * kBK, bh);
+        }
+      }
+    }
+    return;
   }
-  const float qs0 = qi0 < sq ? __fmul_rn(sqs[static_cast<size_t>(bh) * sq + qi0], scale) : 0.f;
-  const float qs1 = qi1 < sq ? __fmul_rn(sqs[static_cast<size_t>(bh) * sq + qi1], scale) : 0.f;
+
+  // consumer warpgroup: rows r0 = q0 + 16 warp + g and r1 = r0 + 8
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
+  const float qs0 = r0 < sq ? __fmul_rn(sqs[static_cast<size_t>(bh) * sq + r0], scale) : 0.f;
+  const float qs1 = r1 < sq ? __fmul_rn(sqs[static_cast<size_t>(bh) * sq + r1], scale) : 0.f;
   float m0 = kNegBig, m1 = kNegBig, l0 = 0.f, l1 = 0.f;
-  float acc[DV / 8][4];
+  float o[DV / 2];
 #pragma unroll
-  for (int j = 0; j < DV / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  sm90::mbar_wait(&qbar, 0);
+  const uint64_t dq = sm90::desc_sw128(qs);
 
-  int nk = (sk + kBK - 1) / kBK;
-  if (causal) nk = min(nk, (min(q0 + kBQ, sq) - 1) / kBK + 1);
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kStages, k0 = it * kBK;
+    const float* skt = sk_tiles + s * kBK;   // the tile's key scales (zero past sk)
+    sm90::mbar_wait(&full[s], (it / kStages) & 1);
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();   // the previous tile's K, V and P are no longer read
-    for (int i = tid; i < kBK * (D / 16); i += kThreads) {
-      const int r = i / (D / 16), c = (i % (D / 16)) * 16;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (k0 + r < sk) val = *reinterpret_cast<const int4*>(kb + static_cast<size_t>(k0 + r) * D + c);
-      *reinterpret_cast<int4*>(&Ks[r * S::LQ + c]) = val;
-    }
-    // V transposed: Vt[c][key]; 4-byte words of a V row (4 int8 or 2 bf16)
-    constexpr int PER = 4 / sizeof(VT);
-    for (int i = tid; i < kBK * (DV / PER); i += kThreads) {
-      const int r = i / (DV / PER), c = (i % (DV / PER)) * PER;
-      VT vals[PER];
-      if (k0 + r < sk) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(vb + static_cast<size_t>(k0 + r) * DV + c);
-        memcpy(vals, &w, 4);
-      } else {
-        memset(vals, 0, 4);
-      }
+    // S = Q K^T: d[4j + q] is (row g + 8 (q >> 1), key 8j + 2t + (q & 1))
+    int sacc[kBK / 2];
+    const uint64_t dk = sm90::desc_sw128(k_tile(s));
+    sm90::wgmma_fence();
+    fence_acc(sacc);
 #pragma unroll
-      for (int e = 0; e < PER; ++e) Vt[(c + e) * S::LV + r] = vals[e];
-    }
-    if (tid < kBK) sks_t[tid] = k0 + tid < sk ? sks[static_cast<size_t>(bh) * sk + k0 + tid] : 0.f;
-    __syncthreads();
+    for (int kk = 0; kk < KS; ++kk)
+      sm90::wgmma_ss(sacc, sm90::desc_k32(dq, kk), sm90::desc_k32(dk, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_acc(sacc);
 
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
-    int s32[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s32[j][0] = s32[j][1] = s32[j][2] = s32[j][3] = 0;
-#pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk) {
-        const int8_t* kr = &Ks[(j * 8 + g) * S::LQ + kk * 32];
-        const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr + t * 4),
-                               *reinterpret_cast<const uint32_t*>(kr + 16 + t * 4)};
-        qg::mma_s8(s32[j], qa[kk], b);
-      }
-    }
-    // scores, masks and the two rows' maxima
-    float sc[kBK / 8][4];
+    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0);
+    float sc[kBK / 2];
     float mx0 = kNegBig, mx1 = kNegBig;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int j = 0; j < kBK / 8; ++j) {
+      const float2 skj = *reinterpret_cast<const float2*>(skt + 8 * j + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + t * 2 + (e & 1), kj = k0 + c;
-        const int qi = e < 2 ? qi0 : qi1;
-        const bool ok = kj < sk && (!causal || kj <= qi);
-        const float v = __fmul_rn(__fmul_rn(static_cast<float>(s32[j][e]), e < 2 ? qs0 : qs1),
-                                  sks_t[c]);
-        sc[j][e] = ok ? v : kNegBig;
-        if (e < 2) mx0 = fmaxf(mx0, sc[j][e]); else mx1 = fmaxf(mx1, sc[j][e]);
+        float v = __fmul_rn(__fmul_rn(exact_f32(sacc[4 * j + e]), e < 2 ? qs0 : qs1),
+                            (e & 1) ? skj.y : skj.x);
+        if (edge) {
+          const int kj = k0 + 8 * j + 2 * t + (e & 1);
+          if (kj >= sk || (causal && kj > (e < 2 ? r0 : r1))) v = kNegBig;
+        }
+        sc[4 * j + e] = v;
+        if (e < 2) mx0 = max_nan(mx0, v); else mx1 = max_nan(mx1, v);
       }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+#pragma unroll
+    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+      mx0 = max_nan(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
+      mx1 = max_nan(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
+    }
+    const float mn0 = max_nan(m0, mx0), mn1 = max_nan(m1, mx1);
     const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
+
+    // P: int8 codes (or bf16) packed straight into the A fragments
+    constexpr int PS = P8 ? kBK / 32 : kBK / 16;   // k slices of P V
+    uint32_t pa[PS][4];
     float ls0 = 0.f, ls1 = 0.f;
+    int li0 = 0, li1 = 0;   // int8 P: the codes' sums, exact
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int j = 0; j < kBK / 8; ++j) {
+      float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + t * 2 + (e & 1), kj = k0 + c;
-        const int qi = e < 2 ? qi0 : qi1;
-        const bool ok = kj < sk && (!causal || kj <= qi);
-        const float p = ok ? expf(sc[j][e] - (e < 2 ? mn0 : mn1)) : 0.f;
-        const int r = e < 2 ? r0 : r1;
-        if constexpr (P8) {
-          const int p8 = __float2int_rn(__fmul_rn(p, 127.f));
-          Ps[r * S::LP + c] = static_cast<int8_t>(p8);
-          if (e < 2) ls0 += static_cast<float>(p8); else ls1 += static_cast<float>(p8);
-        } else {
-          Ps[r * S::LP + c] = __float2bfloat16_rn(p);
-          if (e < 2) ls0 += p; else ls1 += p;
-        }
+        const float v = sc[4 * j + e];
+        p[e] = v == kNegBig ? 0.f : expf(v - (e < 2 ? mn0 : mn1));
       }
+      if constexpr (P8) {
+        int c8[4];
 #pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      ls0 += __shfl_xor_sync(0xffffffffu, ls0, o);
-      ls1 += __shfl_xor_sync(0xffffffffu, ls1, o);
+        for (int e = 0; e < 4; ++e) c8[e] = rint_small(__fmul_rn(p[e], 127.f));
+        li0 += c8[0] + c8[1];
+        li1 += c8[2] + c8[3];
+        // slice j / 4; j' = j % 4: j' 0, 1 fill registers 0 (row g) and 1
+        // (row g + 8), j' 2, 3 registers 2 and 3; j' odd the high half-words
+        const int kk = j / 4, jp = j % 4, sh = 16 * (jp & 1);
+        const uint32_t lo = pack4(c8[0], c8[1], 0, 0) << sh, hi = pack4(c8[2], c8[3], 0, 0) << sh;
+        if ((jp & 1) == 0) {
+          pa[kk][2 * (jp >> 1)] = lo;
+          pa[kk][2 * (jp >> 1) + 1] = hi;
+        } else {
+          pa[kk][2 * (jp >> 1)] |= lo;
+          pa[kk][2 * (jp >> 1) + 1] |= hi;
+        }
+      } else {
+        ls0 += p[0] + p[1];
+        ls1 += p[2] + p[3];
+        // k16 slice j / 2: j even registers 0, 1, j odd registers 2, 3
+        pa[j / 2][2 * (j & 1)] = pack_bf16(p[0], p[1]);
+        pa[j / 2][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
+      }
+    }
+    if constexpr (P8) {
+      ls0 = exact_f32(li0);
+      ls1 = exact_f32(li1);
+    }
+#pragma unroll
+    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+      ls0 += __shfl_xor_sync(0xffffffffu, ls0, o2);
+      ls1 += __shfl_xor_sync(0xffffffffu, ls1, o2);
     }
     l0 = __fadd_rn(__fmul_rn(l0, al0), ls0);
     l1 = __fadd_rn(__fmul_rn(l1, al1), ls1);
-    __syncwarp();
 
-    // acc = acc * alpha + P V, one 8-column n-tile at a time
-    if constexpr (P8) {
-      uint32_t pa[kBK / 32][4];
+    // P V: d[4j + q] is (row g + 8 (q >> 1), channel 8j + 2t + (q & 1))
+    // in chunks of NC channels (N of the wgmma), so that only NC / 2
+    // product registers live beside O's (bf16 DV 32: N 64, half of it kept)
+    constexpr int NC = P8 && DV < 64 ? DV : 64;
 #pragma unroll
-      for (int kk = 0; kk < kBK / 32; ++kk) {
-        pa[kk][0] = *reinterpret_cast<const uint32_t*>(&Ps[r0 * S::LP + kk * 32 + t * 4]);
-        pa[kk][1] = *reinterpret_cast<const uint32_t*>(&Ps[r1 * S::LP + kk * 32 + t * 4]);
-        pa[kk][2] = *reinterpret_cast<const uint32_t*>(&Ps[r0 * S::LP + kk * 32 + 16 + t * 4]);
-        pa[kk][3] = *reinterpret_cast<const uint32_t*>(&Ps[r1 * S::LP + kk * 32 + 16 + t * 4]);
+    for (int h = 0; h < (DV + NC - 1) / NC; ++h) {
+      PV pacc[NC / 2];
+      sm90::wgmma_fence();
+      fence_acc(pacc);
+      if constexpr (P8) {
+        const uint64_t dvd = sm90::desc_sw128(v_tile(s) + h * NC * kRow);
+#pragma unroll
+        for (int kk = 0; kk < PS; ++kk) wgmma_rs(pacc, pa[kk], sm90::desc_k32(dvd, kk), kk > 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < PS; ++kk)   // keys 16 kk.. of the 64-channel box h
+          wgmma_rs(pacc, pa[kk], desc_mn_sw128(v_tile(s) + h * C::kVBox + kk * 16 * kRow), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      fence_acc(pacc);
+      if (h == (DV + NC - 1) / NC - 1) {
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[s]);   // this warp has read the stage
       }
 #pragma unroll
-      for (int j = 0; j < DV / 8; ++j) {
-        int pv[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int kk = 0; kk < kBK / 32; ++kk) {
-          const VT* vr = &Vt[(j * 8 + g) * S::LV + kk * 32];
-          const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(vr + t * 4),
-                                 *reinterpret_cast<const uint32_t*>(vr + 16 + t * 4)};
-          qg::mma_s8(pv, pa[kk], b);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[j][e] = __fadd_rn(__fmul_rn(acc[j][e], e < 2 ? al0 : al1), static_cast<float>(pv[e]));
-      }
-    } else {
-      uint32_t pa[kBK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        pa[kk][0] = *reinterpret_cast<const uint32_t*>(&Ps[r0 * S::LP + kk * 16 + t * 2]);
-        pa[kk][1] = *reinterpret_cast<const uint32_t*>(&Ps[r1 * S::LP + kk * 16 + t * 2]);
-        pa[kk][2] = *reinterpret_cast<const uint32_t*>(&Ps[r0 * S::LP + kk * 16 + 8 + t * 2]);
-        pa[kk][3] = *reinterpret_cast<const uint32_t*>(&Ps[r1 * S::LP + kk * 16 + 8 + t * 2]);
-      }
-#pragma unroll
-      for (int j = 0; j < DV / 8; ++j) {
-        float pv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-          const VT* vr = &Vt[(j * 8 + g) * S::LV + kk * 16];
-          const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(vr + t * 2),
-                                 *reinterpret_cast<const uint32_t*>(vr + 8 + t * 2)};
-          qg::mma_bf16(pv, pa[kk], b);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[j][e] = __fadd_rn(__fmul_rn(acc[j][e], e < 2 ? al0 : al1), pv[e]);
+      for (int i = 0; i < NC / 2; ++i) {
+        if (h * (NC / 2) + i >= DV / 2) break;
+        float& oi = o[h * (NC / 2) + i];
+        oi = __fadd_rn(__fmul_rn(oi, (i & 2) ? al1 : al0), pv_f32(pacc[i]));
       }
     }
   }
 
-  const float lm0 = fmaxf(l0, 1e-6f), lm1 = fmaxf(l1, 1e-6f);
+  const float lm0 = max_nan(l0, kEps), lm1 = max_nan(l1, kEps);
+  T* ob = out + static_cast<size_t>(bh) * sq * dv;
 #pragma unroll
-  for (int j = 0; j < DV / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qi = e < 2 ? qi0 : qi1, c = j * 8 + t * 2 + (e & 1);
-      if (qi < sq && c < dv) {
-        float o = acc[j][e] / (e < 2 ? lm0 : lm1);
-        if constexpr (P8) o = __fmul_rn(o, 1.f / 127.f);
-        out[(static_cast<size_t>(bh) * sq + qi) * dv + c] = qg::from_f32<T>(o);
-      }
+  for (int i = 0; i < DV / 2; ++i) {
+    const int row = (i & 2) ? r1 : r0, c = 8 * (i / 4) + 2 * t + (i & 1);
+    if (row < sq && c < dv) {
+      float v = o[i] / ((i & 2) ? lm1 : lm0);
+      if constexpr (P8) v = __fmul_rn(v, 1.f / 127.f);
+      ob[static_cast<size_t>(row) * dv + c] = qg::from_f32<T>(v);
     }
+  }
 }
 
-template <typename T, int D, int DV, bool P8>
-cudaError_t launch(const void* q8, const void* k8, const void* v, const float* sqs,
-                   const float* sks, void* out, int bh, int sq, int sk, int dv, int causal,
-                   float scale, cudaStream_t s) {
-  const size_t smem = Smem<D, DV, P8>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(int8_flash_kernel<T, D, DV, P8>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
+// a 3-D map over V bf16 [bh, sk, vw] (vw innermost), boxes [1, kBK keys, 64
+// channels]: 128-byte key rows, zero past vw and sk
+inline bool bf16_map(CUtensorMap* map, const void* base, uint64_t vw, uint64_t sk, uint64_t bh) {
+  const sm90::EncodeTiled fn = sm90::encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || (vw * 2) % 16 != 0)
+    return false;
+  const cuuint64_t dims[3] = {vw, sk, bh};
+  const cuuint64_t strides[2] = {vw * 2, vw * 2 * sk};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(kBK), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int DV, bool P8, int KS>
+cudaError_t launch_main(const void* q8, const void* k8, const void* vt, const float* sqs,
+                        const float* sks, void* out, int bh, int sq, int sk, int skp, int dv,
+                        int vw, int causal, float scale, int smem, cudaStream_t s) {
+  using C = FlashCfg<DV, P8>;
+  if (smem != C::kSmem) return cudaErrorInvalidValue;
+  cudaError_t e = sm90::allow_smem(
+      reinterpret_cast<const void*>(int8_flash_wgmma_kernel<T, DV, P8, KS>), C::kSmem);
   if (e != cudaSuccess) return e;
+  CUtensorMap tq, tk, tv;
+  const bool ok =
+      sm90::int8_map(&tq, q8, kRow, sq, bh, kRow, kRow, kBQ, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      sm90::int8_map(&tk, k8, kRow, sk, bh, kRow, kRow, kBK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      (P8 ? sm90::int8_map(&tv, vt, skp, DV, bh, skp, kBK, DV, CU_TENSOR_MAP_SWIZZLE_128B)
+          : bf16_map(&tv, vt, vw, sk, bh));
+  if (!ok) return cudaErrorInvalidValue;
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  int8_flash_kernel<T, D, DV, P8><<<grid, kThreads, smem, s>>>(
-      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8), v, sqs, sks,
-      static_cast<T*>(out), sq, sk, dv, causal, scale);
+  int8_flash_wgmma_kernel<T, DV, P8, KS><<<grid, kThreads, C::kSmem, s>>>(
+      tq, tk, tv, sqs, sks, static_cast<T*>(out), sq, sk, skp, dv, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool P8>
-cudaError_t launch_dv(int DV, const void* q8, const void* k8, const void* v, const float* sqs,
-                      const float* sks, void* out, int bh, int sq, int sk, int dv, int causal,
-                      float scale, cudaStream_t s) {
-  if (DV == 32) return launch<T, D, 32, P8>(q8, k8, v, sqs, sks, out, bh, sq, sk, dv, causal, scale, s);
-  if (DV == 64) return launch<T, D, 64, P8>(q8, k8, v, sqs, sks, out, bh, sq, sk, dv, causal, scale, s);
-  if (DV == 128) return launch<T, D, 128, P8>(q8, k8, v, sqs, sks, out, bh, sq, sk, dv, causal, scale, s);
+template <typename T, bool P8, int KS>
+cudaError_t launch_dv(int DV, const void* q8, const void* k8, const void* vt, const float* sqs,
+                      const float* sks, void* out, int bh, int sq, int sk, int skp, int dv,
+                      int vw, int causal, float scale, int smem, cudaStream_t s) {
+  if (DV == 32)
+    return launch_main<T, 32, P8, KS>(q8, k8, vt, sqs, sks, out, bh, sq, sk, skp, dv, vw,
+                                      causal, scale, smem, s);
+  if (DV == 64)
+    return launch_main<T, 64, P8, KS>(q8, k8, vt, sqs, sks, out, bh, sq, sk, skp, dv, vw,
+                                      causal, scale, smem, s);
+  if (DV == 128)
+    return launch_main<T, 128, P8, KS>(q8, k8, vt, sqs, sks, out, bh, sq, sk, skp, dv, vw,
+                                       causal, scale, smem, s);
   return cudaErrorInvalidValue;
 }
 
+// D (32, 64, 128) -> the products' k32 slices
 template <typename T, bool P8>
-cudaError_t launch_d(int D, int DV, const void* q8, const void* k8, const void* v,
+cudaError_t launch_d(int D, int DV, const void* q8, const void* k8, const void* vt,
                      const float* sqs, const float* sks, void* out, int bh, int sq, int sk,
-                     int dv, int causal, float scale, cudaStream_t s) {
-  if (D == 32) return launch_dv<T, 32, P8>(DV, q8, k8, v, sqs, sks, out, bh, sq, sk, dv, causal, scale, s);
-  if (D == 64) return launch_dv<T, 64, P8>(DV, q8, k8, v, sqs, sks, out, bh, sq, sk, dv, causal, scale, s);
-  if (D == 128) return launch_dv<T, 128, P8>(DV, q8, k8, v, sqs, sks, out, bh, sq, sk, dv, causal, scale, s);
+                     int skp, int dv, int vw, int causal, float scale, int smem, cudaStream_t s) {
+  if (D == 32)
+    return launch_dv<T, P8, 1>(DV, q8, k8, vt, sqs, sks, out, bh, sq, sk, skp, dv, vw, causal,
+                               scale, smem, s);
+  if (D == 64)
+    return launch_dv<T, P8, 2>(DV, q8, k8, vt, sqs, sks, out, bh, sq, sk, skp, dv, vw, causal,
+                               scale, smem, s);
+  if (D == 128)
+    return launch_dv<T, P8, 4>(DV, q8, k8, vt, sqs, sks, out, bh, sq, sk, skp, dv, vw, causal,
+                               scale, smem, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_prepass(const T* q, const T* k, const T* v, int8_t* q8, int8_t* k8, void* vt,
+                           float* sqs, float* sks, float* vc, float* ksum, float* vmax, int bh,
+                           int sq, int sk, int d, int dv, int vw, int skp, int nchunk,
+                           int qk_only, cudaStream_t s) {
+  prepass_col_kernel<T><<<dim3(nchunk, bh), kColThreads, 0, s>>>(k, v, ksum, vmax, sk, d, dv,
+                                                                 nchunk, qk_only);
+  const int nq = (sq + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int nk = (sk + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int nv = vw > 0 ? skp / kBK : 0;
+  prepass_row_kernel<T><<<dim3(nq + nk + nv, bh), kRowThreads, 0, s>>>(
+      q, k, v, q8, k8, vt, sqs, sks, vc, ksum, vmax, sq, sk, d, dv, vw, skp, nchunk, nq, nk,
+      qk_only);
+  return cudaGetLastError();
+}
+
+inline int padded(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+
+// V's rows as the pre-pass writes them: DV (int8 codes transposed); with
+// qk_only, 0 where the main kernel reads the caller's bf16 V (dv a multiple
+// of 8), else the bf16 copy's width, dv rounded up to 8
+inline int v_width(int in_dtype, int dv, int qk_only) {
+  if (!qk_only) return padded(dv);
+  return in_dtype == 1 && dv % 8 == 0 ? 0 : (dv + 7) / 8 * 8;
 }
 
 }  // namespace
 
-// q8 [BH, Sq, D], k8 [BH, Sk, D] int8 codes with D in {32, 64, 128} (zero
-// past the true width); v [BH, Sk, DV], DV in {32, 64, 128}: int8 codes
-// (p_int8 = 1) or bf16 values (p_int8 = 0, qk_only); sq f32 [BH, Sq], sk
-// f32 [BH, Sk] row scales with the 1/127 folded in; out [BH, Sq, dv],
-// dv <= DV, out_dtype 0 = f32, 1 = bf16. Returns cudaGetLastError().
-extern "C" int qgemm_int8_flash_attention(const void* q8, const void* k8, const void* v,
+// The pre-pass: q [BH, Sq, d], k [BH, Sk, d], v [BH, Sk, dv] (in_dtype 0 =
+// f32, 1 = bf16; d, dv 1 to 128) -> q8 [BH, Sq, 128], k8 [BH, Sk, 128] int8
+// code rows (zero past d), sq [BH, Sq] and sk [BH, skp] f32 row scales with
+// 1/127 folded in (sk zero past Sk); V^T [BH, vw, skp] int8 codes in the
+// permuted key order and vc [BH, dv] f32 (or, qk_only, V [BH, Sk, vw] in
+// bf16, zero past dv, where vw > 0, and no vc); ksum [BH, nchunk, d] and
+// vmax [BH, nchunk, dv] f32 scratch. vw (v_width), skp and nchunk are the
+// plan's (int8_flash_plan.py); refused otherwise. Two launches.
+extern "C" int qgemm_int8_flash_prepass(const void* q, const void* k, const void* v,
+                                        int in_dtype, void* q8, void* k8, void* vt, void* sqs,
+                                        void* sks, void* vc, void* ksum, void* vmax, int bh,
+                                        int sq, int sk, int d, int dv, int vw, int skp,
+                                        int nchunk, int qk_only, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || d < 1 || d > 128 || dv < 1 || dv > 128 ||
+      (in_dtype != 0 && in_dtype != 1) || vw != v_width(in_dtype, dv, qk_only) ||
+      skp != (sk + kBK - 1) / kBK * kBK ||
+      nchunk != (sk + kChunkRows - 1) / kChunkRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* q8p = static_cast<int8_t*>(q8);
+  auto* k8p = static_cast<int8_t*>(k8);
+  auto* sqp = static_cast<float*>(sqs);
+  auto* skp_ = static_cast<float*>(sks);
+  auto* vcp = static_cast<float*>(vc);
+  auto* ks = static_cast<float*>(ksum);
+  auto* vm = static_cast<float*>(vmax);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (in_dtype == 0)
+    e = launch_prepass(static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), q8p, k8p, vt, sqp, skp_, vcp, ks, vm, bh,
+                       sq, sk, d, dv, vw, skp, nchunk, qk_only, s);
+  else if (in_dtype == 1)
+    e = launch_prepass(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                       static_cast<const __nv_bfloat16*>(v), q8p, k8p, vt, sqp, skp_, vcp, ks, vm,
+                       bh, sq, sk, d, dv, vw, skp, nchunk, qk_only, s);
+  return static_cast<int>(e);
+}
+
+// The main kernel on the pre-pass's layout: q8 [BH, Sq, 128], k8 [BH, Sk,
+// 128], v: V^T [BH, DV, skp] int8 with p_int8 = 1 (vw = DV), or V [BH, Sk,
+// vw] bf16 with p_int8 = 0 (qk_only; vw a multiple of 8, dv <= vw <= DV,
+// 16-byte aligned), sq [BH, Sq], sk [BH, skp]; D (32, 64 or 128) the padded
+// head width (S runs the code rows' D / 32 k32 slices), DV (32, 64 or 128)
+// the compiled width of V; out [BH, Sq, dv], dv <= DV, out_dtype 0 = f32,
+// 1 = bf16; smem the plan's (refused otherwise). Returns cudaGetLastError().
+extern "C" int qgemm_int8_flash_attention(const void* q8, const void* k8, const void* vt,
                                           const void* sq_scale, const void* sk_scale,
                                           void* out, int out_dtype, int p_int8, int bh,
-                                          int sq, int sk, int D, int DV, int dv, int causal,
-                                          float scale, void* stream) {
+                                          int sq, int sk, int skp, int D, int DV, int dv,
+                                          int vw, int causal, float scale, int smem,
+                                          void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535 || dv < 1 || dv > DV)
+  if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535 || dv < 1 || dv > DV ||
+      (D != 32 && D != 64 && D != 128) || skp != (sk + kBK - 1) / kBK * kBK ||
+      (p_int8 ? vw != DV : vw % 8 != 0 || vw < dv || vw > DV))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sqs = static_cast<const float*>(sq_scale);
   const float* sks = static_cast<const float*>(sk_scale);
   cudaError_t e = cudaErrorInvalidValue;
   if (out_dtype == 0 && p_int8)
-    e = launch_d<float, true>(D, DV, q8, k8, v, sqs, sks, out, bh, sq, sk, dv, causal, scale, s);
+    e = launch_d<float, true>(D, DV, q8, k8, vt, sqs, sks, out, bh, sq, sk, skp, dv, vw, causal, scale, smem, s);
   else if (out_dtype == 0)
-    e = launch_d<float, false>(D, DV, q8, k8, v, sqs, sks, out, bh, sq, sk, dv, causal, scale, s);
+    e = launch_d<float, false>(D, DV, q8, k8, vt, sqs, sks, out, bh, sq, sk, skp, dv, vw, causal, scale, smem, s);
   else if (out_dtype == 1 && p_int8)
-    e = launch_d<__nv_bfloat16, true>(D, DV, q8, k8, v, sqs, sks, out, bh, sq, sk, dv, causal, scale, s);
+    e = launch_d<__nv_bfloat16, true>(D, DV, q8, k8, vt, sqs, sks, out, bh, sq, sk, skp, dv, vw, causal, scale, smem, s);
   else if (out_dtype == 1)
-    e = launch_d<__nv_bfloat16, false>(D, DV, q8, k8, v, sqs, sks, out, bh, sq, sk, dv, causal, scale, s);
+    e = launch_d<__nv_bfloat16, false>(D, DV, q8, k8, vt, sqs, sks, out, bh, sq, sk, skp, dv, vw, causal, scale, smem, s);
   return static_cast<int>(e);
 }

@@ -17,8 +17,9 @@ K8's is ``expert_matmul.grouped_quantized_matmul`` and K9's
 ``col_quantize.col_quantize``. The op layer's row kernels are
 ``softmax.softmax`` (row 14) and ``layernorm.layernorm_residual`` (row 13);
 the int8 flash attention's wrapper is
-``int8_flash_attention.flash_attention_int8`` (row 12; its launch is
-``int8_flash_attention.int8_flash_attention_cuda``).
+``int8_flash_attention.flash_attention_int8`` (row 12; its launches are
+``int8_flash_attention.int8_flash_prepass_cuda``, the pre-pass kernel, and
+``int8_flash_attention.int8_flash_attention_cuda``, the main kernel).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ def _launchers() -> dict:
             "col_quantize": col_quantize.col_quantize,
             "softmax": softmax.softmax,
             "layernorm": layernorm.layernorm_residual,
+            "int8_flash_prepass": int8_flash_attention.int8_flash_prepass_cuda,
             "int8_flash_attention": int8_flash_attention.int8_flash_attention_cuda}
 
 

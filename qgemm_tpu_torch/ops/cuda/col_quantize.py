@@ -5,7 +5,9 @@ K8 read.
 Replaces ``col_quantize_pallas`` / ``_col_quantize_kernel`` of
 ``qgemm_tpu/ops/pallas/quantized_matmul.py``. It quantizes every expert
 weight (``models/moe.py::quantize_expert_weights``) and the weight of the
-dynamic ``ops/quantize.py::quantized_matmul``. The dense
+dynamic ``ops/quantize.py::quantized_matmul``. Its launch plan (one read of
+w on a thread-block cluster, or the two-pass route past the cluster's K) is
+``ops/cuda/quant_plan.py``'s. The dense
 ``quantize_weights`` keeps computing in the weight's dtype, as the JAX
 package's does, and does not come here. The source note in the .cu file
 says what bounds it and how it is built.
@@ -18,6 +20,7 @@ import ctypes
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
+from qgemm_tpu_torch.ops.cuda.quant_plan import col_quantize_args
 from qgemm_tpu_torch.ops.validation import check, check_float
 
 QRANGE = 127.0
@@ -47,7 +50,7 @@ def _lib():
     fn = _build.library("col_quantize").qgemm_col_quantize
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -55,8 +58,8 @@ def _lib():
 def col_quantize(w: torch.Tensor, rounding: str = "nearest"):
     """w [E, k, n] or [k, n] (f32 or bf16) -> (codes int8 [E, n, k] or
     [n, k], K-major; scales f32 [E, 1, n] or [1, n]). CPU tensors run the
-    plain version; CUDA tensors launch K9 (one launch for all E) or raise.
-    Counts each launch in ``col_quantize.launches``."""
+    plain version; CUDA tensors launch K9 (one launch for all E on the
+    cluster route) or raise. Counts each launch in ``col_quantize.launches``."""
     check(w.ndim in (2, 3), f"w: expected [k, n] or [E, k, n], got shape {tuple(w.shape)}")
     check_float("w", w)
     check(rounding in ROUNDING, f"unknown rounding {rounding!r}")
@@ -65,11 +68,16 @@ def col_quantize(w: torch.Tensor, rounding: str = "nearest"):
     check(w.dtype in W_DTYPES, f"w: K9 takes float32 or bfloat16, got {w.dtype}")
     e, k, n = w.shape if w.ndim == 3 else (1, *w.shape)
     w = w.contiguous()
+    if w.data_ptr() % 16:
+        w = w.clone()     # the kernel's 16-byte loads need an aligned base
+    route, cluster, rows, smem, words = col_quantize_args(e, k, n, str(w.dtype)[6:])
     qt = torch.empty((*w.shape[:-2], n, k), dtype=torch.int8, device=w.device)
     c = torch.empty((*w.shape[:-2], 1, n), dtype=torch.float32, device=w.device)
-    cmax = torch.empty((e, n), dtype=torch.int32, device=w.device)   # zeroed by the launch
-    rc = _lib()(w.data_ptr(), W_DTYPES[w.dtype], qt.data_ptr(), c.data_ptr(), cmax.data_ptr(),
-                e, k, n, ROUNDING[rounding], torch.cuda.current_stream(w.device).cuda_stream)
+    # the two_pass route's column maxima, zeroed by its launch
+    cmax = torch.empty((words,), dtype=torch.int32, device=w.device) if words else None
+    rc = _lib()(w.data_ptr(), W_DTYPES[w.dtype], qt.data_ptr(), c.data_ptr(),
+                cmax.data_ptr() if words else None, e, k, n, ROUNDING[rounding], route, cluster,
+                rows, smem, torch.cuda.current_stream(w.device).cuda_stream)
     _build.check_launch("qgemm_col_quantize", rc)
     col_quantize.launches += 1
     return qt, c

@@ -3,34 +3,38 @@
 
 Replaces ``flash_attention_int8`` / ``_int8_flash_kernel`` of
 ``qgemm_tpu/ops/pallas/int8_flash_attention.py``: forward-only attention
-whose two dots are int8. The pre-pass is JAX's, in torch ops outside the
-kernel: K less its per-channel mean over the sequence (softmax-invariant),
-Q and K quantized per row on their absmax (floored at 1e-6), V per
-channel, 1/127 folded into the row scales; ``qk_only`` leaves P and V in
-bf16. The kernel's output times V's channel scale is the result.
+whose two dots are int8. The pre-pass is JAX's: K less its per-channel
+mean over the sequence (softmax-invariant), Q and K quantized per row on
+their absmax (floored at 1e-6), V per channel, 1/127 folded into the row
+scales; ``qk_only`` leaves P and V in bf16. On the card it is a kernel of
+its own (``int8_flash_prepass_cuda``, two launches) that writes the codes
+in the layout the main kernel reads (``Int8FlashCodes``); here in torch
+ops it is ``int8_flash_prepass``. The kernel's output times V's channel
+scale is the result.
 
 P is quantized against the running row max at the end of each key tile,
 so its codes depend on the tile width: the kernel's tile is
 ``KERNEL_KEY_TILE`` keys, JAX's ``jax_key_block(Sk)``. The plain version
 runs the same blockwise algorithm at a given ``block_k`` (JAX's by
-default). The source note in the .cu file says what bounds the kernel and
-how it is built.
+default). The launch plan is ``ops/cuda/int8_flash_plan.py``'s; the source
+note in the .cu file says what bounds the kernels and how they are built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
+from qgemm_tpu_torch.ops.cuda import int8_flash_plan as plan
 from qgemm_tpu_torch.ops.quantize import int8_matmul
-from qgemm_tpu_torch.ops.validation import (check, check_attention_4d, pad_last,
-                                            padded_head_dim)
+from qgemm_tpu_torch.ops.validation import check, check_attention_4d
 
-KERNEL_KEY_TILE = 64
+KERNEL_KEY_TILE = plan.KEY_TILE
 _NEG_INF = -1e30
 _EPS = 1e-6
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -130,9 +134,12 @@ def int8_flash_blockwise(x: Int8FlashInputs, causal: bool, qk_only: bool, scale:
     return o.to(out_dtype)
 
 
-def _epilogue(o: torch.Tensor, x: Int8FlashInputs, dtype: torch.dtype) -> torch.Tensor:
-    """V's channel scale, applied once outside the kernel (with int8 V)."""
-    return o if x.vc is None else (o.to(torch.float32) * x.vc).to(dtype)
+def _epilogue(o: torch.Tensor, x, dtype: torch.dtype) -> torch.Tensor:
+    """V's channel scale, applied once outside the kernel (with int8 V);
+    ``x`` is the pre-pass's output in either layout."""
+    if x.vc is None:
+        return o
+    return (o.to(torch.float32) * x.vc.reshape(*o.shape[:2], 1, o.shape[3])).to(dtype)
 
 
 def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -149,35 +156,127 @@ def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return _epilogue(o, x, q.dtype)
 
 
-def _lib():
-    fn = _build.library("int8_flash_attention").qgemm_int8_flash_attention
+class Int8FlashCodes(NamedTuple):
+    """The pre-pass kernel's output, in the layout the main kernel reads:
+    q8 [B, H, Sq, 128] and k8 [B, H, Sk, 128] int8 code rows (zero past d);
+    v: V's codes transposed [B, H, DV, Skp] (DV the padded width, Skp Sk
+    rounded up to the key tile, zero past dv and Sk), each group of 32 keys
+    in ``int8_flash_plan.key_of_position``'s order; with ``qk_only``, V in
+    bf16 [B, H, Sk, W] in key order (the caller's v where it is bf16 with
+    dv a multiple of 8, else a copy with W dv rounded up to 8, zero past
+    dv); sq [B, H, Sq] and sk [B, H, Skp] (zero past Sk) f32 row scales
+    with 1/127 folded in; vc f32 [B, H, dv] (None with ``qk_only``); d and
+    dv, the true widths."""
+    q8: torch.Tensor
+    k8: torch.Tensor
+    v: torch.Tensor
+    sq: torch.Tensor
+    sk: torch.Tensor
+    vc: Optional[torch.Tensor]
+    d: int
+    dv: int
+
+
+@functools.lru_cache(maxsize=None)
+def _v_order(skp: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(plan.v_positions(skp)).to(device)
+
+
+def vt_in_key_order(c: Int8FlashCodes) -> torch.Tensor:
+    """V's transposed codes of ``c`` (int8 P) [B, H, DV, Skp] with their
+    keys in order."""
+    check(c.vc is not None, "vt_in_key_order takes int8 V codes, not qk_only's bf16 V")
+    return c.v[..., torch.argsort(_v_order(c.v.shape[-1], str(c.v.device)))]
+
+
+def inputs_from_codes(c: Int8FlashCodes) -> Int8FlashInputs:
+    """The kernel's layout back in the pre-pass's (``Int8FlashInputs``)."""
+    if c.vc is None:
+        v8 = c.v[..., :c.dv].contiguous()
+    else:
+        v8 = vt_in_key_order(c)[..., :c.dv, :c.k8.shape[2]].transpose(-1, -2).contiguous()
+    return Int8FlashInputs(c.q8[..., :c.d].contiguous(), c.k8[..., :c.d].contiguous(), v8,
+                           c.sq[..., None], c.sk[..., :c.k8.shape[2], None],
+                           None if c.vc is None else c.vc[:, :, None, :])
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "qgemm_int8_flash_prepass": [_P] * 3 + [_I] + [_P] * 8 + [_I] * 9 + [_P],
+    "qgemm_int8_flash_attention": [_P] * 6 + [_I] * 11 + [ctypes.c_float, _I, _P],
+}
+
+
+def _lib(name: str):
+    fn = getattr(_build.library("int8_flash_attention"), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
-        fn.restype = i
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _I
     return fn
 
 
-def int8_flash_attention_cuda(x: Int8FlashInputs, causal: bool, scale: float,
+def int8_flash_prepass_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            qk_only: bool = False) -> Int8FlashCodes:
+    """The pre-pass kernel on CUDA q [B, H, Sq, d], k [B, H, Sk, d], v [B, H,
+    Sk, dv] (one dtype, f32 or bf16): its codes and scales in the main
+    kernel's layout. Two launches, the column pass then the row pass, each
+    counted in ``int8_flash_prepass_cuda.launches``."""
+    b, h, sq_len, d = q.shape
+    sk_len, dv = k.shape[2], v.shape[3]
+    check(q.dtype in _OUT_DTYPES and k.dtype == v.dtype == q.dtype,
+          f"the int8 flash pre-pass takes float32 or bfloat16 q/k/v of one dtype, got "
+          f"{q.dtype}/{k.dtype}/{v.dtype}")
+    pre = plan.prepass_plan(b * h, sq_len, sk_len, d, dv, qk_only, q.dtype == torch.float32)
+    # the row pass's 8- and 16-byte loads need aligned bases
+    q, k, v = (t.contiguous() if t.contiguous().data_ptr() % 16 == 0 else t.clone()
+               for t in (q, k, v))
+    dev = q.device
+    q8 = torch.empty((b, h, sq_len, plan.CODE_ROW), dtype=torch.int8, device=dev)
+    k8 = torch.empty((b, h, sk_len, plan.CODE_ROW), dtype=torch.int8, device=dev)
+    vw = pre["v_width"]
+    if not qk_only:
+        vt = torch.empty((b, h, vw, pre["skp"]), dtype=torch.int8, device=dev)
+    else:   # the caller's bf16 v as it is, or a bf16 copy the V blocks write
+        vt = torch.empty((b, h, sk_len, vw), dtype=torch.bfloat16, device=dev) if vw else v
+    sqs = torch.empty((b, h, sq_len), dtype=torch.float32, device=dev)
+    sks = torch.empty((b, h, pre["skp"]), dtype=torch.float32, device=dev)
+    vc = None if qk_only else torch.empty((b, h, dv), dtype=torch.float32, device=dev)
+    scratch = torch.empty((pre["scratch_floats"],), dtype=torch.float32, device=dev)
+    ksum = scratch[:b * h * pre["nchunk"] * d]
+    vmax = None if qk_only else scratch[b * h * pre["nchunk"] * d:]
+    rc = _lib("qgemm_int8_flash_prepass")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _OUT_DTYPES[q.dtype], q8.data_ptr(),
+        k8.data_ptr(), vt.data_ptr(), sqs.data_ptr(), sks.data_ptr(),
+        None if qk_only else vc.data_ptr(), ksum.data_ptr(),
+        None if qk_only else vmax.data_ptr(), b * h, sq_len, sk_len, d, dv, vw,
+        pre["skp"], pre["nchunk"], int(qk_only), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("qgemm_int8_flash_prepass", rc)
+    int8_flash_prepass_cuda.launches += 2
+    return Int8FlashCodes(q8, k8, vt, sqs, sks, vc, d, dv)
+
+
+int8_flash_prepass_cuda.launches = 0
+
+
+def int8_flash_attention_cuda(x: Int8FlashCodes, causal: bool, scale: float,
                               out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the kernel on a pre-pass's CUDA tensors: the codes are padded
-    to the kernel's head widths (32, 64 or 128) here; returns its output
-    [B, H, Sq, Dv] in ``out_dtype`` (before V's channel scale). Counts each
-    launch in ``int8_flash_attention_cuda.launches``."""
-    b, h, sq_len, d = x.q8.shape
-    sk_len, dv = x.k8.shape[2], x.v8.shape[3]
+    """Launch the main kernel on a pre-pass's CUDA codes
+    (``Int8FlashCodes``); returns its output [B, H, Sq, dv] in
+    ``out_dtype`` (before V's channel scale). Counts each launch in
+    ``int8_flash_attention_cuda.launches``."""
+    b, h, sq_len, _ = x.q8.shape
+    sk_len, skp = x.k8.shape[2], x.sk.shape[2]
     check(out_dtype in _OUT_DTYPES, f"the int8 flash kernel writes float32 or bfloat16, "
           f"got {out_dtype}")
-    check(b * h <= 65535, f"the int8 flash kernel takes at most 65535 batch*heads, got {b * h}")
-    dp, dvp = padded_head_dim(d), padded_head_dim(dv)
-    q8, k8 = pad_last(x.q8, dp), pad_last(x.k8, dp)
-    v8 = pad_last(x.v8, dvp)
-    sqs, sks = x.sq.contiguous(), x.sk.contiguous()
-    out = torch.empty((b, h, sq_len, dv), dtype=out_dtype, device=q8.device)
-    rc = _lib()(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), sqs.data_ptr(), sks.data_ptr(),
-                out.data_ptr(), _OUT_DTYPES[out_dtype], int(x.vc is not None), b * h,
-                sq_len, sk_len, dp, dvp, dv, int(causal), scale,
-                torch.cuda.current_stream(q8.device).cuda_stream)
+    p_int8 = x.vc is not None
+    main = plan.flash_plan(b * h, sq_len, sk_len, x.d, x.dv, causal, p_int8)
+    out = torch.empty((b, h, sq_len, x.dv), dtype=out_dtype, device=x.q8.device)
+    rc = _lib("qgemm_int8_flash_attention")(
+        x.q8.data_ptr(), x.k8.data_ptr(), x.v.data_ptr(), x.sq.data_ptr(), x.sk.data_ptr(),
+        out.data_ptr(), _OUT_DTYPES[out_dtype], int(p_int8), b * h, sq_len, sk_len, skp,
+        main["d_pad"], main["dv_pad"], x.dv, x.v.shape[2] if p_int8 else x.v.shape[3],
+        int(causal), scale, main["smem"],
+        torch.cuda.current_stream(x.q8.device).cuda_stream)
     _build.check_launch("qgemm_int8_flash_attention", rc)
     int8_flash_attention_cuda.launches += 1
     return out
@@ -191,8 +290,8 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, H, Sq, D], k [B, H, Sk, D], v [B, H, Sk, Dv] (f32 or bf16) ->
     [B, H, Sq, Dv] in q's dtype: int8 flash attention, causal (key j
     attends query i iff j <= i) or full; ``qk_only`` quantizes only QK^T.
-    CPU tensors run the plain version; CUDA tensors run the pre-pass and
-    launch the kernel (D, Dv up to 128) or raise."""
+    CPU tensors run the plain version; CUDA tensors run the pre-pass kernel
+    and launch the main kernel (D, Dv up to 128) or raise."""
     check_attention_4d(q, k, v)
     if not q.is_cuda:
         return flash_attention_int8_plain(q, k, v, causal, qk_only)
@@ -201,6 +300,6 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           f"{q.dtype}/{k.dtype}/{v.dtype}")
     check(k.is_cuda and v.is_cuda and q.device == k.device == v.device,
           "flash_attention_int8: q, k and v must lie on one CUDA device")
-    x = int8_flash_prepass(q, k, v, qk_only)
+    x = int8_flash_prepass_cuda(q, k, v, qk_only)
     o = int8_flash_attention_cuda(x, causal, 1.0 / math.sqrt(q.shape[3]), q.dtype)
     return _epilogue(o, x, q.dtype)

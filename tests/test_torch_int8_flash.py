@@ -133,12 +133,12 @@ def test_plain_matches_jax_kernel_bf16(case, qk_only):
 
 
 def test_key_block_changes_p_codes_only_at_the_int8_level():
-    """The kernel's 64-key tiles quantize P against a different running
+    """The kernel's 128-key tiles quantize P against a different running
     max than JAX's blocks: the two stay within int8 rounding of each
     other, and each within 5e-2 of f32 attention."""
     q, k, v = _qkv(1, 2, 200, 300, 64, 64, 10)
     t = [torch.from_numpy(a) for a in (q, k, v)]
-    assert jax_key_block(300) == 384 and KERNEL_KEY_TILE == 64
+    assert jax_key_block(300) == 384 and KERNEL_KEY_TILE == 128
     wide = flash_attention_int8_plain(*t, causal=True)
     tiles = flash_attention_int8_plain(*t, causal=True, block_k=KERNEL_KEY_TILE)
     assert 0 < _err(wide, tiles) < 2e-2

@@ -137,6 +137,7 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
                                        "paged_context_attention": 0,
                                        "flash_attention_bwd": 0, "expert_matmul": 0,
                                        "col_quantize": 0, "softmax": 0, "layernorm": 0,
+                                       "int8_flash_prepass": 0,
                                        "int8_flash_attention": 0}
 
 
