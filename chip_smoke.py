@@ -42,8 +42,14 @@ through the engine; ``long_copy`` trains a copy model at 384 positions,
 whose decode spans three of the decode kernels' 128-position splits, and
 serves it in int8 through the dense engine (K2) and the paged one on int8
 and int4 pools (K6, K5), each held to its teacher-forced accuracy and the
-int8 runs to ``generate``'s transcripts. Each phase prints one JSON line; the
-last line is {"ok": true, "device": {...}}. Any failure raises, so the
+int8 runs to ``generate``'s transcripts. Every serving engine decodes by
+replaying a captured CUDA graph of its decode step
+(``serving/decode_graph.py``); ``decode_graph`` holds that route, and the
+route with ``multi_step=4``, to the eager one bit for bit on GPT_6_7B's
+dense and paged int8 engines, traces a replayed step, counts the host's
+calls per step and recovers from a replay fault; the long copy model is
+also served in blocks of four and with dense chunked admission. Each phase
+prints one JSON line; the last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is nonzero. Needs one CUDA device; exits nonzero without one.
 Uses no JAX.
 
@@ -154,6 +160,28 @@ checkout's kernels (or another's), which must pass, then plants three
 faults in copies (K9 without its cluster merge, row 12's pre-pass mean
 over S - 1, row 12 without its alpha rescale) and fails unless each fails
 the check named for it.
+
+    python3 chip_smoke.py --graph-ab OTHER_CHECKOUT [ROUNDS]
+
+profiles the steady decode windows of the full-depth int8 GPT_6_7B's dense
+and paged int8 engines (wall and device time per step and per token, idle
+share, the host's calls that queue device work, device operations, ITL
+p50/p95, tokens/s) with another checkout's package (eager) and this one's
+eager route, graph and graph with ``multi_step=4``, in turns (other,
+eager, graph, graph_ms4, then back; ROUNDS times), one process each, and
+prints the medians and their ratios to the other checkout's.
+
+    python3 chip_smoke.py --graph-faults
+
+runs ``--long-copy`` and ``--graph-transcripts`` (a random-weight int8
+GPT through graph engines, held to ``generate``'s transcripts) with this
+checkout's package and with each of three faults planted in the decode
+step's in-place inputs (page tables uploaded into a fresh tensor, tokens
+not fed back, positions not advanced), and fails unless the sound run
+keeps its bounds and every fault fails the checks named for it: the
+transcripts, and the long copy's accuracy floor where the fault reaches
+what the copy model reads (it copies by position, so a token not fed back
+leaves it at 1.0).
 
     python3 chip_smoke.py --row12-trace
 
@@ -1456,40 +1484,79 @@ DECODE_FAMILIES = {"gemv": ("gemv_kernel", "small_m_kernel"),
                    "paged_decode": ("paged_decode",)}
 
 
-def profile_decode(engine, rng, n_steps: int = 10) -> dict:
+# host calls that put work on the card, by the prefixes of their names in a
+# torch.profiler trace of CPU activity (the runtime's and the driver's API)
+HOST_ISSUE_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
+                       "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
+
+
+def host_issued(prof, n_steps: int) -> dict:
+    """Per decode step: the host's calls that queued work on the card in a
+    trace of CPU activity, in all and by name (a graph replay is one
+    ``cudaGraphLaunch``)."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.name.startswith(HOST_ISSUE_PREFIXES):
+            by_name[e.name] = by_name.get(e.name, 0) + 1
+    return {"host_issued_ops_per_step": sum(by_name.values()) / n_steps,
+            "host_issued_by_name_per_step": {k: v / n_steps for k, v in sorted(by_name.items())}}
+
+
+def profile_decode(engine, rng, n_steps: int = 10, host_window: bool = False) -> dict:
     """Where a steady decode step's time goes, with 8 busy slots: three
-    windows of ``n_steps`` steps back to back, the middle one traced by
-    torch.profiler (CUDA activity only). The trace gives the device's
+    windows of ``n_steps`` engine steps back to back, the middle one traced
+    by torch.profiler (CUDA activity only). The trace gives the device's
     kernel time per step (the union of kernel intervals). The idle share is
     1 - kernel time / wall time, against the traced window's own wall time
     (which carries the profiler's host cost, so it is an upper bound) and
     against the mean wall time of the two untraced windows around it (whose
-    slots sit, on average, at the traced window's positions). Runs after
-    the serving phase's launch counts were read."""
+    slots sit, on average, at the traced window's positions). An engine
+    step of a ``multi_step`` engine decodes a block of that many tokens: the
+    per-token readings divide by it. With ``host_window`` a fourth window,
+    traced with CPU activity, counts the host's calls that queue device
+    work (``host_issued``). The untraced windows' dispatch gaps give the
+    ITL percentiles (one gap per engine step, a block's tokens arriving
+    together) and their tokens over their wall time the tokens/s. Runs
+    after the serving phase's launch counts were read."""
     from torch.profiler import ProfilerActivity, profile
 
     from qgemm_tpu_torch.serving.engine import Request
     vocab = engine.model.cfg.vocab_size
+    per_step = max(1, getattr(engine, "multi_step", 0))
+    windows = 4 if host_window else 3
     for _ in range(engine.max_slots):
         engine.submit(Request(prompt=rng.integers(0, vocab, size=300).tolist(),
-                              max_new_tokens=3 * n_steps + 8))
+                              max_new_tokens=per_step * (windows * n_steps + 3) + 8))
     for _ in range(3):          # admits every slot, then two warm steps
         engine.step()
     if engine.book.num_active != engine.max_slots:
         raise AssertionError("profile window: not every slot is decoding")
+    gaps = []
 
     def window() -> float:
         torch.cuda.synchronize()
-        t = time.perf_counter()
+        t = last = time.perf_counter()
         for _ in range(n_steps):
             engine.step()
+            now = time.perf_counter()
+            gaps.append(now - last)
+            last = now
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / n_steps
 
     before = window()
+    untraced_gaps = list(gaps)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced_ms = window()
+    del gaps[:]
     after = window()
+    untraced_gaps += gaps
+    host = None
+    if host_window:
+        with profile(activities=[ProfilerActivity.CPU]) as hprof:
+            window()
+        host = host_issued(hprof, n_steps)
     if engine.book.num_active != engine.max_slots:
         raise AssertionError("profile window: a slot finished inside the windows")
     engine.run_to_completion()
@@ -1499,16 +1566,25 @@ def profile_decode(engine, rng, n_steps: int = 10) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     families = {fam: sum(us for name, us in by_name.items() if any(p in name for p in pats))
                 / 1e3 / n_steps for fam, pats in DECODE_FAMILIES.items()}
-    return {"steps": n_steps, "slots": engine.max_slots,
-            "wall_ms_per_step_untraced": untraced_ms,
-            "wall_ms_per_step_untraced_windows": [before, after],
-            "wall_ms_per_step_traced": traced_ms,
-            "kernel_ms_per_step": kernel_ms,
-            "idle_share_untraced": 1.0 - kernel_ms / untraced_ms,
-            "idle_share_traced": 1.0 - kernel_ms / traced_ms,
-            "device_events_per_step": n_spans / n_steps,
-            "family_ms_per_step": families,
-            "top_kernels_ms_per_step": {n[:80]: v / 1e3 / n_steps for n, v in top}}
+    gap_ms = np.asarray(untraced_gaps) * 1e3
+    res = {"steps": n_steps, "slots": engine.max_slots, "tokens_per_slot_per_step": per_step,
+           "wall_ms_per_step_untraced": untraced_ms,
+           "wall_ms_per_step_untraced_windows": [before, after],
+           "wall_ms_per_step_traced": traced_ms,
+           "kernel_ms_per_step": kernel_ms,
+           "wall_ms_per_token_untraced": untraced_ms / per_step,
+           "kernel_ms_per_token": kernel_ms / per_step,
+           "idle_share_untraced": 1.0 - kernel_ms / untraced_ms,
+           "idle_share_traced": 1.0 - kernel_ms / traced_ms,
+           "itl_p50_ms": float(np.percentile(gap_ms, 50)),
+           "itl_p95_ms": float(np.percentile(gap_ms, 95)),
+           "tokens_per_s_untraced": engine.max_slots * per_step * 1e3 / untraced_ms,
+           "device_events_per_step": n_spans / n_steps,
+           "family_ms_per_step": families,
+           "top_kernels_ms_per_step": {n[:80]: v / 1e3 / n_steps for n, v in top}}
+    if host is not None:
+        res.update(host)
+    return res
 
 
 def plant_outlier_dims(model) -> None:
@@ -1526,30 +1602,41 @@ def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
     """Serve ``reqs`` to completion one step at a time, the launch counts set
     to 0 just before the run and read just after it. Per step: the kernels
     launched, and (decode-only steps) the wall time; with the paged tier,
-    the pages reserved and used. Fails unless every request finished, with
-    no error, with its max_new_tokens tokens, within ``max_steps`` engine
-    steps."""
+    the pages reserved and used. A step that ran several decode steps (a
+    ``multi_step`` block, decode steps between admission chunks) counts its
+    launches per decode step: a decode-only step's counts divided by its
+    decode steps, an admission step's less all but one of its decode steps'
+    (so each admission step reads as its prefills and one decode step).
+    Fails unless every request finished, with no error, with its
+    max_new_tokens tokens, within ``max_steps`` engine steps, and unless an
+    engine that decodes by CUDA graph (this checkout's, unless its private
+    ``_graphs`` was set to None) replayed its graphs."""
     from qgemm_tpu_torch.ops import cuda as kernels
     for r in reqs:
         engine.submit(r)
     kernels.reset_launch_counts()
-    decode_only, admit_steps, step_ms, pages = [], [], [], []
+    decode_only, admitting, step_ms, pages = [], [], [], []
     while engine.book.num_waiting or engine.book.num_active:
         if engine.steps >= max_steps:
             raise AssertionError(f"{label}: not done after {max_steps} engine steps")
         before = kernels.launch_counts()
         n_adm = len(engine._admit_times)
+        n_dec = getattr(engine, "decode_steps", None)  # an earlier checkout's engine counts none
         t = time.perf_counter()
         engine.step()
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t) * 1e3
         delta = {kk: v - before[kk] for kk, v in kernels.launch_counts().items()}
         admitted = len(engine._admit_times) - n_adm
+        n_dec = 1 if n_dec is None else engine.decode_steps - n_dec
         if admitted:
-            admit_steps.append((admitted, delta))
-        else:
-            decode_only.append(delta)
-            step_ms.append(dt)
+            admitting.append((admitted, delta, n_dec))
+        elif n_dec:
+            if any(v % n_dec for v in delta.values()):
+                raise AssertionError(f"{label}: a step of {n_dec} decode steps launched "
+                                     f"{delta}")
+            decode_only.append({kk: v // n_dec for kk, v in delta.items()})
+            step_ms.append(dt / n_dec)
         if getattr(engine, "paged", False):  # an earlier checkout's engine has no paged mode
             st = engine.stats
             pages.append((st["pages_reserved"], st["pages_used"], engine.book.num_active))
@@ -1565,8 +1652,15 @@ def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
     per_decode = decode_only[0] if decode_only else None
     if any(dd != per_decode for dd in decode_only):
         raise AssertionError(f"{label}: decode steps launched different kernel counts")
+    graphs = getattr(engine, "_graphs", None)
+    if graphs is not None and not graphs.replays:
+        raise AssertionError(f"{label}: the engine never replayed its decode graph")
+    admit_steps = [(n, {kk: v - max(0, m - 1) * per_decode[kk] for kk, v in dd.items()})
+                   for n, dd, m in admitting] if per_decode else []
     return {"counts": counts, "per_decode": per_decode, "admit_steps": admit_steps,
-            "step_ms": step_ms, "pages": pages}
+            "step_ms": step_ms, "pages": pages,
+            "graph": None if graphs is None else {"captures": graphs.captures,
+                                                  "replays": graphs.replays}}
 
 
 def transcripts_match_generate(label: str, model, reqs) -> int:
@@ -1604,10 +1698,16 @@ def engine_alone_logits(model, prompt: list, n_new: int,
                         engine_kw: Optional[dict] = None) -> tuple:
     """One request served alone, greedy, by a new ContinuousBatchingEngine
     with ``engine_kw`` (default ``PAGED_ENGINE``'s options; slot 0), every
-    step's logits of its slot kept as the engine samples them. Returns
-    (tokens, logits per step)."""
+    step's logits of its slot kept as the engine samples them: on its eager
+    route (a replayed graph runs no Python), so a graph engine's transcript
+    held to it is held to the eager route's too; one step a dispatch
+    (``multi_step`` dropped from the options). Returns (tokens, logits per
+    step)."""
     from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
-    engine = ContinuousBatchingEngine(model, **(engine_kw or PAGED_ENGINE))
+    kw = dict(engine_kw or PAGED_ENGINE)
+    kw.pop("multi_step", None)
+    engine = ContinuousBatchingEngine(model, **kw)
+    engine._graphs = None
     seen, sample = [], engine._sample
 
     def observed(logits, *args):      # the first token's [1, V], then [slots, V]
@@ -1846,6 +1946,8 @@ OVERCOMMIT_EXTRA_NEW = 200
 # prefix cache on, chunked admission of 256 rows.
 PAGED_ENGINE = dict(max_slots=8, max_seq_len=1024, paged=True, page_size=128,
                     prefix_cache=True, chunked_prefill=256, device="cuda")
+# The dense runs' engine: 8 slots x 1024 positions of int8 KV cache.
+DENSE_ENGINE = dict(max_slots=8, max_seq_len=1024, quantized_cache=True, device="cuda")
 # How far the paged engine's logits may stray from generate's, relative to
 # the largest, at any step of a request's shared history, for a prompt
 # admitted in chunks or after a prefix hit: K6's chunks against generate's
@@ -1954,6 +2056,187 @@ def serve_paged() -> tuple:
     del model
     torch.cuda.empty_cache()
     return tuple(results)
+
+
+# The decode graphs' routes (``serving/decode_graph.py``): the eager step
+# (the engine's private ``_graphs = None``), the captured step replayed once
+# a step, and replayed in blocks of four (``multi_step=4``).
+GRAPH_ROUTES = {"eager": {}, "graph": {}, "graph_ms4": {"multi_step": 4}}
+
+
+def graph_engine(model, route: str, kw: dict):
+    """A ContinuousBatchingEngine with options ``kw`` on one of
+    ``GRAPH_ROUTES``."""
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine
+    engine = ContinuousBatchingEngine(model, **kw, **GRAPH_ROUTES[route])
+    if route == "eager":
+        engine._graphs = None
+    return engine
+
+
+def graph_cases(cfg) -> dict:
+    """The two engines of the decode graph checks and A/B on GPT_6_7B
+    (``cfg``), each with its 16 requests (``serve``'s and
+    ``serve_paged``'s) and the kernel family of its attention: the dense
+    int8 cache of ``DENSE_ENGINE`` (K2) and the paged int8 tier of
+    ``PAGED_ENGINE`` (K5)."""
+    from qgemm_tpu_torch.serving.engine import Request
+    dense = dense_requests(cfg, np.random.default_rng(0))
+    prompts, news, _ = paged_requests(cfg.vocab_size, np.random.default_rng(7))
+    return {"dense_int8": (DENSE_ENGINE,
+                           lambda: [Request(prompt=p, max_new_tokens=n) for p, n in dense],
+                           "dense_decode"),
+            "paged_int8": (PAGED_ENGINE,
+                           lambda: [Request(prompt=p, max_new_tokens=n)
+                                    for p, n in zip(prompts, news)],
+                           "paged_decode")}
+
+
+def graph_fault_recovery(model, kw: dict, make_reqs, label: str) -> dict:
+    """A fault injected into a graph replay mid-run (the fifth step of 8
+    requests): every request in flight must fail with the error, the next
+    step must capture the graph again, and a later 200-token request (one
+    chunk: its prompt prefilled whole) must get ``generate``'s transcript."""
+    from qgemm_tpu_torch.serving.engine import Request
+    engine = graph_engine(model, "graph", kw)
+    reqs = make_reqs()[:8]
+    for r in reqs:
+        engine.submit(r)
+    for _ in range(4):
+        engine.step()
+    graphs = engine._graphs
+    captures, real = graphs.captures, graphs._replay
+
+    def boom(graph):
+        graphs._replay = real
+        raise RuntimeError("injected replay fault")
+
+    graphs._replay = boom
+    engine.step()
+    failed = [r for r in reqs if r.error and "injected replay fault" in r.error and r.done]
+    if len(failed) != len(reqs) or engine.book.num_active:
+        raise AssertionError(f"{label}: after the fault {len(failed)} of {len(reqs)} requests "
+                             f"failed, {engine.book.num_active} still active")
+    rng = np.random.default_rng(12)
+    later = Request(prompt=rng.integers(0, model.cfg.vocab_size, size=200).tolist(),
+                    max_new_tokens=24)
+    engine.submit(later)
+    engine.run_to_completion()
+    if later.error is not None or graphs.captures != captures + 1:
+        raise AssertionError(f"{label}: after the fault: {later.error}, captures "
+                             f"{captures} -> {graphs.captures}")
+    transcripts_match_generate(f"{label} after the fault", model, [later])
+    res = {"failed_in_flight": len(failed), "captures_before": captures,
+           "captures_after": graphs.captures, "later_equals_generate": True}
+    if engine.paged:
+        res["prefix_cached_pages_after"] = engine.stats["prefix_cached_pages"]
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_decode_graph() -> dict:
+    """The decode graphs on the full-depth int8 GPT_6_7B, through the dense
+    int8 cache and the paged int8 tier (``graph_cases``): the same 16
+    requests through the eager route, the graph and the graph with
+    ``multi_step=4`` must give equal transcripts bit for bit (and the dense
+    ones ``generate``'s) and equal launches per decode step (K1 193, K2 or
+    K5 32), and so must 8 sampled requests on the dense engine
+    (``sampled_routes_equal``). A steady window of each route is profiled (``profile_decode``
+    with the host window): the replayed step must run the K1 GEMV, its
+    pre-pass and K2 or K5; the host's calls that queue device work are
+    counted per step. Then a replay fault mid-run must recover
+    (``graph_fault_recovery``)."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    t0 = time.perf_counter()
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    n_gemms = 6 * GPT_6_7B.n_layers + 1
+    res = {"phase": "decode_graph", "engines": {}}
+    for label, (kw, make_reqs, family) in graph_cases(GPT_6_7B).items():
+        runs, profiles = {}, {}
+        for route in GRAPH_ROUTES:
+            engine = graph_engine(model, route, kw)
+            reqs = make_reqs()
+            run = drive(engine, reqs, f"decode_graph {label} {route}")
+            runs[route] = {"transcripts": [r.generated for r in reqs],
+                           "per_decode": {k: v for k, v in run["per_decode"].items() if v},
+                           "graph": run["graph"], "stats": engine.stats}
+            profiles[route] = profile_decode(engine, np.random.default_rng(8), host_window=True)
+            del engine
+            torch.cuda.empty_cache()
+        want = runs["eager"]
+        attn = GPT_6_7B.n_layers
+        per = want["per_decode"]
+        if not (per.get("quantized_matmul") == n_gemms and sum(
+                v for k, v in per.items() if "decode_attention" in k) == attn):
+            raise AssertionError(f"decode_graph {label}: eager launches per step {per}")
+        for route, run in runs.items():
+            if run["transcripts"] != want["transcripts"]:
+                raise AssertionError(f"decode_graph {label}: {route}'s transcripts are not "
+                                     "the eager route's")
+            if run["per_decode"] != per:
+                raise AssertionError(f"decode_graph {label}: {route} launched "
+                                     f"{run['per_decode']} per decode step, eager {per}")
+        fams = profiles["graph"]["family_ms_per_step"]
+        if not all(fams[f] > 0 for f in ("gemv", "gemm_prepass", family)):
+            raise AssertionError(f"decode_graph {label}: the traced replay lacks a kernel "
+                                 f"family: {fams}")
+        # rows are independent: two transcripts equal generate
+        matched = (transcripts_match_generate(f"decode_graph {label}", model,
+                                              _requests_of(make_reqs, want["transcripts"])[:2])
+                   if label == "dense_int8" else None)
+        keys = ("wall_ms_per_step_untraced", "kernel_ms_per_step", "wall_ms_per_token_untraced",
+                "kernel_ms_per_token", "idle_share_untraced", "host_issued_ops_per_step",
+                "device_events_per_step", "itl_p50_ms", "itl_p95_ms", "tokens_per_s_untraced")
+        sampled = (sampled_routes_equal(model, kw, make_reqs, f"decode_graph {label}")
+                   if label == "dense_int8" else None)
+        res["engines"][label] = {
+            "launches_per_decode_step": per, "transcripts_equal": True,
+            "sampled": sampled,
+            "transcripts_equal_generate": matched,
+            "graph_runs": {r: v["graph"] for r, v in runs.items()},
+            "profiles": {r: {k: p[k] for k in keys} for r, p in profiles.items()},
+            "graph_families_ms_per_step": fams,
+            "host_issued_by_name_per_step": {r: p["host_issued_by_name_per_step"]
+                                             for r, p in profiles.items()},
+            "fault": graph_fault_recovery(model, kw, make_reqs, f"decode_graph {label}")}
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def sampled_routes_equal(model, kw: dict, make_reqs, label: str) -> dict:
+    """8 of ``make_reqs``' requests sampled (temperature 0.8, top-p 0.95)
+    through each of ``GRAPH_ROUTES`` with engine seed 5: the sampled graph
+    (``torch.multinomial`` on the engine's generator, registered with the
+    graph) must draw what the eager step draws, so the transcripts must be
+    equal bit for bit; each graph engine captures the sampled mode once."""
+    out = {}
+    for route in GRAPH_ROUTES:
+        engine = graph_engine(model, route, dict(kw, seed=5))
+        reqs = make_reqs()[:8]
+        for r in reqs:
+            r.temperature, r.top_p = 0.8, 0.95
+        run = drive(engine, reqs, f"{label} sampled {route}")
+        out[route] = ([r.generated for r in reqs], run["graph"])
+        del engine
+    if any(toks != out["eager"][0] for toks, _ in out.values()):
+        raise AssertionError(f"{label}: sampled transcripts differ between the routes")
+    if any(g is not None and g["captures"] != 1 for _, g in out.values()):
+        raise AssertionError(f"{label}: sampled graph captures {out}")
+    return {"requests": 8, "transcripts_equal": True,
+            "graph_runs": {r: g for r, (_, g) in out.items()}}
+
+
+def _requests_of(make_reqs, transcripts) -> list:
+    """``make_reqs``' requests with ``transcripts`` as their generated
+    tokens (for ``transcripts_match_generate``)."""
+    reqs = make_reqs()
+    for r, t in zip(reqs, transcripts):
+        r.generated = list(t)
+    return reqs
 
 
 def serve_moe() -> dict:
@@ -2516,6 +2799,14 @@ LONG_COPY_ENGINES = {
     "paged_int4_page32": (dict(paged=True, page_size=32, chunked_prefill=64, kv_bits=4),
                           "paged_decode_attention", False),
 }
+# The same three engines decoding in blocks of four graph replays, and the
+# dense engine admitting the prompts in 64-token chunks (its chunks past the
+# first attend through the bf16 product, not K3: held to the accuracy bound
+# only). Every engine decodes by graph replay.
+LONG_COPY_ENGINES.update({f"{k}_ms4": (dict(kw, multi_step=4), kernel, exact)
+                          for k, (kw, kernel, exact) in LONG_COPY_ENGINES.items()})
+LONG_COPY_ENGINES["dense_int8_chunked64"] = (dict(quantized_cache=True, chunked_prefill=64),
+                                             "decode_attention", False)
 
 
 def long_copy_model(ckpt: Path) -> tuple:
@@ -3968,6 +4259,29 @@ def long_copy_child(ckpt: str) -> None:
     emit({"phase": "long_copy", **long_copy_readings(Path(ckpt))})
 
 
+def package_copy(tmp: str, src: Path, name: str, patch: Optional[tuple] = None) -> Path:
+    """A copy of this script beside checkout ``src``'s qgemm_tpu_torch in
+    ``tmp``/``name`` (with the libraries of the copy named "sound", once it
+    has built them), and ``patch`` (a path under the package, its sound
+    text, the faulty text) applied once. Returns the copied script."""
+    here = Path(__file__).resolve()
+    root = Path(tmp) / name
+    shutil.copytree(src / "qgemm_tpu_torch", root / "qgemm_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    built = Path(tmp) / "sound" / "build"
+    if built.exists():
+        shutil.copytree(built, root / "build")
+    shutil.copy2(here, root / here.name)
+    if patch is not None:
+        path, old, new = patch
+        f = root / "qgemm_tpu_torch" / path
+        text = f.read_text()
+        if text.count(old) != 1:
+            raise AssertionError(f"fault {name}: its line is not once in {path}")
+        f.write_text(text.replace(old, new))
+    return root / here.name
+
+
 def decode_faults(n: int, tree: Optional[str] = None) -> None:
     """``--decode-faults``: with the kernels of checkout ``tree`` (default
     this one), in a copy of its package beside this script, ``--long-copy``
@@ -4013,30 +4327,11 @@ def decode_faults(n: int, tree: Optional[str] = None) -> None:
                if carries_fault(csrc, source, k)}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = str(Path(tmp) / "long_copy.npz")
-
-        def checkout(name: str) -> Path:
-            """A copy of this script beside ``tree``'s package (and the
-            sound copy's libraries, once built) in ``tmp``; returns the
-            script."""
-            root = Path(tmp) / name
-            shutil.copytree(src / "qgemm_tpu_torch", root / "qgemm_tpu_torch",
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            built = Path(tmp) / "sound" / "build"
-            if built.exists():
-                shutil.copytree(built, root / "build")
-            shutil.copy2(here, root / here.name)
-            return root / here.name
-
-        script = checkout("sound")
+        script = package_copy(tmp, src, "sound")
         copies["sound"] = last_line("sound", script, "--long-copy", ckpt)
         logits["sound"] = last_line("sound", script, "--paged-logits", str(n))
         for name, (old, new) in DECODE_FAULTS.items():
-            script = checkout(name)
-            cu = script.parent / "qgemm_tpu_torch" / "csrc" / source
-            text = cu.read_text()
-            if text.count(old) != 1:
-                raise AssertionError(f"fault {name}: its line is not once in {source}")
-            cu.write_text(text.replace(old, new))
+            script = package_copy(tmp, src, name, (f"csrc/{source}", old, new))
             parity[name] = {}
             for kernel, phase in kernels.items():
                 proc = run(name, script, "--only", phase)
@@ -4242,16 +4537,6 @@ def quant_faults(tree: Optional[str] = None) -> None:
     src = Path(tree).resolve() if tree else here.parent
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
-        def checkout(name: str) -> Path:
-            root = Path(tmp) / name
-            shutil.copytree(src / "qgemm_tpu_torch", root / "qgemm_tpu_torch",
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            built = Path(tmp) / "sound" / "build"
-            if built.exists():
-                shutil.copytree(built, root / "build")
-            shutil.copy2(here, root / here.name)
-            return root / here.name
-
         def run(name: str, script: Path, phase: str) -> dict:
             proc = subprocess.run([sys.executable, str(script), "--only", phase],
                                   capture_output=True, text=True, timeout=900, check=False)
@@ -4274,16 +4559,11 @@ def quant_faults(tree: Optional[str] = None) -> None:
                 print(proc.stdout[-2000:], proc.stderr[-6000:], file=sys.stderr)
             return row
 
-        script = checkout("sound")
+        script = package_copy(tmp, src, "sound")
         results["sound"] = {ph: run("sound", script, ph)
                             for ph in ("k9", "gemm_protocol", "ops_layer")}
         for name, (source, old, new, phases) in QUANT_FAULTS.items():
-            script = checkout(name)
-            cu = script.parent / "qgemm_tpu_torch" / "csrc" / source
-            text = cu.read_text()
-            if text.count(old) != 1:
-                raise AssertionError(f"fault {name}: its line is not once in {source}")
-            cu.write_text(text.replace(old, new))
+            script = package_copy(tmp, src, name, (f"csrc/{source}", old, new))
             results[name] = {ph: run(name, script, ph) for ph in phases}
     bad = [f"sound {ph} exited {r['exit']}: {r['error']}"
            for ph, r in results["sound"].items() if r["exit"] != 0]
@@ -4299,6 +4579,192 @@ def quant_faults(tree: Optional[str] = None) -> None:
           "sound_passed": all(r["exit"] == 0 for r in results["sound"].values())})
     if bad:
         raise AssertionError(f"quant faults: {bad}")
+
+
+# ``--graph-ab``: each run's readings per engine, from ``profile_decode``
+GRAPH_AB_KEYS = ("wall_ms_per_step_untraced", "kernel_ms_per_step",
+                 "wall_ms_per_token_untraced", "kernel_ms_per_token", "idle_share_untraced",
+                 "host_issued_ops_per_step", "device_events_per_step", "itl_p50_ms",
+                 "itl_p95_ms", "tokens_per_s_untraced")
+
+
+def graph_child(tree: str, route: str) -> None:
+    """One run of ``--graph-ab``: with the qgemm_tpu_torch package and
+    kernels of checkout ``tree``, the full-depth int8 GPT_6_7B's steady
+    decode windows (``profile_decode`` with its host window) through the
+    dense int8 and the paged int8 engines of ``graph_cases`` on one of
+    ``GRAPH_ROUTES`` (an earlier checkout's engine decodes eagerly and
+    takes only "eager"). Prints one JSON line."""
+    root = use_tree(tree)
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.ops.cuda import _build
+    _build.build()
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    res = {"tree": str(root), "route": route}
+    for label, (kw, _, _) in graph_cases(GPT_6_7B).items():
+        engine = graph_engine(model, route, kw)
+        prof = profile_decode(engine, np.random.default_rng(8), host_window=True)
+        res[label] = {**{k: prof[k] for k in GRAPH_AB_KEYS},
+                      "family_ms_per_step": prof["family_ms_per_step"],
+                      "host_issued_by_name_per_step": prof["host_issued_by_name_per_step"]}
+        del engine
+        torch.cuda.empty_cache()
+    emit(res)
+
+
+def graph_ab(other: str, rounds: int = 1) -> None:
+    """``--graph-ab``: ``graph_child`` for checkout ``other`` (an earlier
+    commit, unpacked by ``git archive``; eager) and this one's three routes,
+    one process each, in turns (other, eager, graph, graph_ms4, then back,
+    ``rounds`` times). Prints each run and the medians of each side's
+    readings, with each route's ratio to the other checkout's."""
+    here = Path(__file__).resolve()
+    trees = {"other": Path(other).resolve(), "this": here.parent}
+    sides = [("other", "eager"), ("this", "eager"), ("this", "graph"), ("this", "graph_ms4")]
+    order = (sides + sides[::-1]) * rounds
+    runs = {f"{t}_{r}": [] for t, r in sides}
+    for tree, route in order:
+        proc = subprocess.run([sys.executable, str(here), "--graph-child", str(trees[tree]),
+                               route], capture_output=True, text=True, timeout=900,
+                              check=False)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            raise AssertionError(f"--graph-child {tree} {route} exited {proc.returncode}")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[f"{tree}_{route}"].append(run)
+        emit({"phase": "graph_run", "side": f"{tree}_{route}", **run})
+    med = {side: {eng: {k: float(np.median([r[eng][k] for r in rs])) for k in GRAPH_AB_KEYS}
+                  for eng in ("dense_int8", "paged_int8")} for side, rs in runs.items()}
+    ratio = {side: {eng: {k: med[side][eng][k] / med["other_eager"][eng][k]
+                          for k in GRAPH_AB_KEYS if med["other_eager"][eng][k]}
+                    for eng in m} for side, m in med.items() if side != "other_eager"}
+    emit({"phase": "graph_ab", "trees": {k: str(v) for k, v in trees.items()},
+          "order": [f"{t}_{r}" for t, r in order], "runs_per_side": 2 * rounds,
+          "median": med, "ratio_to_other_eager": ratio})
+
+
+# ``--graph-transcripts``' model: a random-weight GPT whose greedy tokens
+# depend on the token fed back at every step (the long copy model copies by
+# position and does not see a stale token), at the kernels' head width 128
+GRAPH_CHECK_MODEL = dict(vocab_size=512, d_model=256, n_heads=2, d_ff=1024, n_layers=2,
+                         max_seq_len=512)
+GRAPH_CHECK_ENGINES = {"dense_int8": dict(quantized_cache=True),
+                       "paged_int8_page128": dict(paged=True, page_size=128)}
+
+
+def graph_transcripts() -> dict:
+    """``--graph-transcripts``: ``GRAPH_CHECK_MODEL`` with random weights
+    (seed 0), int8, serving 16 random prompts of 32-120 tokens (one chunk,
+    prefilled whole) for 48 new tokens through each of
+    ``GRAPH_CHECK_ENGINES`` by graph replay, one step and four a dispatch:
+    how many transcripts equal ``generate``'s (int8 cache; K5 and K2 share
+    their split body, so the paged ones must too). Judges nothing; prints
+    one JSON line."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
+    from qgemm_tpu_torch.ops.cuda import _build
+    from qgemm_tpu_torch.serving.engine import Request
+    _build.build()
+    model = GPT.init(GPTConfig(**GRAPH_CHECK_MODEL), seed=0, device="cuda").quantize()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, GRAPH_CHECK_MODEL["vocab_size"], size=int(n)).tolist()
+               for n in rng.integers(32, 121, size=16)]
+    want = [model.generate(torch.tensor([p], device="cuda"), 48,
+                           quantized_cache=True)[0].tolist() for p in prompts]
+    res = {"phase": "graph_transcripts", "model": GRAPH_CHECK_MODEL, "requests": len(prompts),
+           "equal_to_generate": {}}
+    for label, kw in GRAPH_CHECK_ENGINES.items():
+        for route in ("graph", "graph_ms4"):
+            engine = graph_engine(model, route, dict(max_slots=8, device="cuda", **kw))
+            reqs = [Request(prompt=p, max_new_tokens=48) for p in prompts]
+            drive(engine, reqs, f"graph_transcripts {label} {route}")
+            res["equal_to_generate"][f"{label}_{route}"] = sum(
+                r.generated == w for r, w in zip(reqs, want))
+    emit(res)
+    return res
+
+
+# Faults that ``--graph-faults`` plants, each in its own copy of the package:
+# (file under qgemm_tpu_torch/, the sound text, the faulty text, the checks
+# that must catch it). The page tables go into a fresh tensor at every
+# upload (the first kept alive, so the graph reads valid but stale pages);
+# the decode step does not feed its tokens back (the long copy model copies
+# by position, so only the transcripts can catch it); it does not advance
+# the positions.
+GRAPH_FAULTS = {
+    "page_table_fresh_tensor": (
+        "serving/engine.py",
+        "        self._pt_dev.copy_(src, non_blocking=True)\n",
+        "        self._pt_dev = torch.empty_like(self._pt_dev).copy_(src, non_blocking=True)\n"
+        "        self._pt_kept = getattr(self, '_pt_kept', []) + [self._pt_dev]\n"
+        "        for c in self.caches:\n"
+        "            c.page_table = self._pt_dev\n", ("transcripts", "floor")),
+    "tokens_not_fed_back": ("serving/engine.py",
+                            "        self.cur_tokens.copy_(nxt[:, None])\n", "",
+                            ("transcripts",)),
+    "positions_not_advanced": ("serving/engine.py",
+                               "        self.positions.add_(self._active_dev)\n", "",
+                               ("transcripts", "floor")),
+}
+
+
+def graph_faults() -> None:
+    """``--graph-faults``: ``--long-copy`` (which trains the long copy model
+    once and saves it in a temporary directory) and ``--graph-transcripts``
+    with this checkout's package, then with each of ``GRAPH_FAULTS`` planted
+    in a copy of the package (the kernels copied as built), one process
+    each. A fault fails the transcript check where an engine held to
+    ``generate``'s transcripts (the long copy's int8 engines, every engine
+    of ``--graph-transcripts``) gives another, and the floor where a long
+    copy engine copies below its accuracy floor. Prints every reading
+    beside its bound; fails if the sound run breaks a bound or a fault
+    passes a check named for it."""
+    phase_device()
+    src = Path(__file__).resolve().parent
+    copies, transcripts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "long_copy.npz")
+
+        def last_line(name: str, script: Path, *args: str) -> dict:
+            proc = subprocess.run([sys.executable, str(script), *args], capture_output=True,
+                                  text=True, timeout=1200, check=False)
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+                raise AssertionError(f"{args[0]} of {name} exited {proc.returncode}")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            emit({"fault": name, **res})
+            return res
+
+        for name, fault in [("sound", None), *GRAPH_FAULTS.items()]:
+            script = package_copy(tmp, src, name, fault and fault[:3])
+            copies[name] = last_line(name, script, "--long-copy", ckpt)
+            transcripts[name] = last_line(name, script, "--graph-transcripts")
+    sound = copies.pop("sound")
+    sound_tr = transcripts.pop("sound")
+    floor = sound["training"]["heldout_acc"] - LONG_COPY_SLACK
+    exact = [k for k, v in LONG_COPY_ENGINES.items() if v[2]]
+    acc = lambda r: {k: v["copy_acc"] for k, v in r["engines"].items()}
+    equal = lambda r: {k: r["engines"][k]["equal_to_generate"] for k in exact}
+    caught = {name: {"transcripts": any(n < LONG_COPY_REQUESTS for n in equal(r).values())
+                     or any(n < transcripts[name]["requests"]
+                            for n in transcripts[name]["equal_to_generate"].values()),
+                     "floor": any(a < floor for a in acc(r).values())}
+              for name, r in copies.items()}
+    emit({"phase": "graph_faults", "floor": floor, "requests": LONG_COPY_REQUESTS,
+          "sound": {"copy_acc": acc(sound), "equal_to_generate": equal(sound),
+                    "random_model_equal_to_generate": sound_tr["equal_to_generate"]},
+          "faults": {name: {"copy_acc": acc(r), "equal_to_generate": equal(r),
+                            "random_model_equal_to_generate":
+                                transcripts[name]["equal_to_generate"],
+                            "must_catch": list(GRAPH_FAULTS[name][3])}
+                     for name, r in copies.items()},
+          "caught": caught})
+    bad = long_copy_failures(sound)
+    bad += [f"sound --graph-transcripts: {k} {n} of {sound_tr['requests']}"
+            for k, n in sound_tr["equal_to_generate"].items() if n != sound_tr["requests"]]
+    bad += [f"{name} passed the {check} check" for name, c in caught.items()
+            for check in GRAPH_FAULTS[name][3] if not c[check]]
+    if bad:
+        raise AssertionError(f"graph faults: {bad}")
 
 
 def main() -> None:
@@ -4344,6 +4810,14 @@ def main() -> None:
         return quant_faults(*sys.argv[2:3])
     if sys.argv[1:2] == ["--row12-trace"]:
         return row12_trace()
+    if sys.argv[1:2] == ["--graph-child"]:
+        return graph_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--graph-ab"]:
+        return graph_ab(sys.argv[2], *map(int, sys.argv[3:4]))
+    if sys.argv[1:2] == ["--graph-faults"]:
+        return graph_faults()
+    if sys.argv[1:2] == ["--graph-transcripts"]:
+        return graph_transcripts()
     from qgemm_tpu_torch.ops.cuda import _build   # fails outside the repository
 
     smi = phase_device()
@@ -4369,6 +4843,7 @@ def main() -> None:
           used=("quantized_matmul", "decode_attention", "flash_attention"),
           unused=("w4a8_matmul",), outliers=True)
     paged8, paged4 = serve_paged()
+    phase_decode_graph()
     moe = serve_moe()
     phase_numerics()
     phase_numerics_moe()

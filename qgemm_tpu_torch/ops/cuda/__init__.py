@@ -55,3 +55,12 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _launchers().items()}
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (name -> launches, as ``launch_counts`` names them) to
+    the counts: a replayed CUDA graph launches its kernels without running
+    their wrappers (``serving/decode_graph.py``)."""
+    fns = _launchers()
+    for name, n in delta.items():
+        fns[name].launches += n

@@ -1,0 +1,119 @@
+"""The engine's decode step as a replayed CUDA graph: the port's counterpart
+of the JAX engine's jitted decode step (``jax.jit(_decode_impl)`` in
+``qgemm_tpu/serving/engine.py``, and ``_decode_multi_impl``'s ``lax.scan``
+of K steps for ``multi_step``).
+
+The engine hands ``DecodeGraphs`` its step: a function of the sampling mode
+that runs one decode step on the current stream and reads and writes only
+device tensors the engine keeps in place (tokens, positions, the active
+mask, the sampling knobs, the caches and the shared page table, a ring of
+per-step tokens and logprobs with its index). One graph is captured per
+mode ("greedy": argmax; "sampled": the engine's ``torch.Generator``
+registered with the graph, so that every replay draws fresh numbers), the
+first time the mode runs: one eager step on the capture stream warms up
+(it is a real step of the dispatch: its launches reach the card and are
+counted as they happen), then the capture. ``run(mode, n)`` is then n
+replays, so a block of ``multi_step`` steps costs n graph launches and the
+engine's one read of the ring.
+
+A wrapper counts its kernel launches in Python, which a replay does not
+run: the counts a capture adds are taken back (nothing reached the card)
+and added again at every replay, so the counters count the launches that
+reach the card, as on the eager route.
+
+A capture that fails raises ``GraphCaptureError``: nothing falls back to
+the eager route, which stays reachable only by the engine's private
+``_graphs = None`` (the CPU runs it always).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from qgemm_tpu_torch.ops import cuda as kernels
+
+
+class GraphCaptureError(RuntimeError):
+    """Capturing the decode step failed: a fault of the program, not of one
+    step, so the engine does not recover from it."""
+
+
+class DecodeGraphs:
+    """One captured decode step per sampling mode, replayed on the current
+    stream. ``step(mode)`` runs one step; ``generator`` is the generator the
+    sampled mode draws from."""
+
+    def __init__(self, step: Callable[[str], None], device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        self._step = step
+        self._device = device
+        self._generator = generator
+        self._graphs: Dict[str, Tuple[object, Dict[str, int]]] = {}
+        self._stream = None
+        self.captures = 0
+        self.replays = 0
+
+    def reset(self) -> None:
+        """Drop every graph: the next ``run`` of a mode captures it again.
+        After a change of the tensors the step reads (a fault recovery
+        rebuilds the caches); never after a page-table upload, which writes
+        the shared table in place."""
+        self._graphs.clear()
+
+    def run(self, mode: str, n: int) -> None:
+        """``n`` decode steps of ``mode``: replays of its graph, the first of
+        them the warm-up step and the capture where the mode has none yet."""
+        done = 0
+        if mode not in self._graphs:
+            self._graphs[mode] = self._capture(mode)
+            done = 1
+        graph, launches = self._graphs[mode]
+        for _ in range(n - done):
+            self._replay(graph)
+            kernels.add_launch_counts(launches)
+            self.replays += 1
+
+    def _capture(self, mode: str) -> Tuple[object, Dict[str, int]]:
+        with self._capture_stream():
+            self._step(mode)                   # the warm-up: a real, counted step
+            before = kernels.launch_counts()
+            try:
+                graph = self._record(mode)
+            except Exception as e:
+                raise GraphCaptureError(f"capturing the {mode} decode step failed: "
+                                        f"{type(e).__name__}: {e}") from e
+            after = kernels.launch_counts()
+            launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        kernels.add_launch_counts({k: -v for k, v in launches.items()})
+        self.captures += 1
+        return graph, launches
+
+    # the three calls into CUDA; the CPU tests replace them
+    @contextlib.contextmanager
+    def _capture_stream(self):
+        """Run the warm-up and the capture on a side stream of their own,
+        after the work queued on the current stream, and queue what follows
+        behind them. Its merge counters (``ops/cuda/split_decode.py``) are
+        allocated by the warm-up, outside the graph's pool, and no eager
+        call runs on it."""
+        cur = torch.cuda.current_stream(self._device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self._device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            yield
+        cur.wait_stream(self._stream)
+
+    def _record(self, mode: str):
+        graph = torch.cuda.CUDAGraph()
+        if mode == "sampled" and self._generator is not None:
+            graph.register_generator_state(self._generator)
+        with torch.cuda.graph(graph, stream=self._stream):
+            self._step(mode)
+        return graph
+
+    def _replay(self, graph) -> None:
+        graph.replay()

@@ -3,11 +3,15 @@
 
 A fixed pool of ``max_slots`` batch slots. Every ``step()`` admits waiting
 requests into free slots (one prefill each) and then runs ONE decode step
-over all slots; inactive slots decode junk that the host discards.
-Finished sequences free their slot at once.
+over all slots, or with ``multi_step=K`` a block of K steps when nothing
+waits for a slot; inactive slots decode junk that the host discards, and
+so does a slot for the rest of a block after it finishes. Finished
+sequences free their slot at once.
 
 Dense mode keeps a shared [slots, H, S, D] cache (float, or int8 with
-``quantized_cache=True``); a prompt is padded to a power-of-two bucket.
+``quantized_cache=True``); a prompt is padded to a power-of-two bucket, or
+with ``chunked_prefill`` admitted in chunks of that size, each written in
+place into the slot's rows of the shared cache.
 
 Paged mode (``paged=True``) keeps one page pool per layer
 (``serving/paged_cache.py``; int8, or int4 with ``kv_bits=4``) and a page
@@ -29,12 +33,19 @@ them).
 
 Ported here: ``Request``, the Python bookkeeper, greedy/sampled decoding
 with per-request temperature/top-k/top-p, stop tokens, logprobs,
-``cancel``, ``stats``, per-request prefill error isolation, the int8 cache
-and the paged tier. Speculation (``draft_model``), dense chunked prefill,
-multi-step decode, tensor parallelism (``mesh``) and the native scheduler
-raise ``NotImplementedError``. A decode-step fault propagates to the caller
-(the JAX engine's engine-level recovery is not ported yet), also from a
-decode step run between admission chunks.
+``cancel``, ``stats``, per-request prefill error isolation, the int8 cache,
+the paged tier, dense chunked prefill, ``multi_step`` blocks and the
+engine-level recovery from a decode fault (every in-flight request fails
+with ``.error`` set, the caches are rebuilt, the engine serves on).
+Speculation (``draft_model``), tensor parallelism (``mesh``) and the
+native scheduler raise ``NotImplementedError``.
+
+On CUDA every decode dispatch (a step, a ``multi_step`` block, a step
+between overlapped admission chunks) replays a captured CUDA graph of the
+decode step (``serving/decode_graph.py``), the counterpart of the JAX
+engine's jitted step: its inputs are device tensors updated in place, its
+tokens and logprobs go to a ring that the host reads once per dispatch.
+The CPU runs the same step eagerly.
 
 The engine calls only the model's ``init_cache``, ``prefill``,
 ``prefill_chunk`` and ``decode_step``, so int8, W4A8 (``bits=4``) and
@@ -59,6 +70,7 @@ import torch
 from qgemm_tpu_torch.device import DeviceLike, resolve_device
 from qgemm_tpu_torch.ops.kv_cache import QuantizedKVCache
 from qgemm_tpu_torch.ops.sampling import sample_logits, token_logprob
+from qgemm_tpu_torch.serving.decode_graph import DecodeGraphs, GraphCaptureError
 from qgemm_tpu_torch.serving.paged_cache import (PAGE_SIZE, PageAllocator,
                                                  build_step_tables, check_kv_bits,
                                                  check_step_tables, init_paged_cache,
@@ -221,21 +233,12 @@ def _slot_view(cache, slot: int):
         else tuple(sliced)
 
 
-class _DecodeFault(Exception):
-    """A decode step run between admission chunks failed: carries the error
-    past the admission's per-request isolation, so it propagates."""
-
-    def __init__(self, error: BaseException):
-        super().__init__(str(error))
-        self.error = error
-
-
 class _PagedPoolOps:
     """Host-side paged-pool plumbing: page-table sync, per-slot growth and
     release. Expects ``self.alloc`` (PageAllocator), ``self._pt_host``
     [slots, pps + 1] int32, ``self._pt_dev`` (the device page table every
     layer's cache shares), ``self.caches``, ``self._page_size``,
-    ``self.book`` and ``self.overcommit``."""
+    ``self.book``, ``self.overcommit`` and ``self._slot_worst``."""
 
     def _sync_page_tables(self):
         """Copy the host page table into the shared device table (one copy
@@ -264,21 +267,26 @@ class _PagedPoolOps:
         self.alloc.release(slot)
         self._pt_host[slot, :] = 0
 
-    def _grow_active_slots(self, active: np.ndarray):
-        """Before a decode step: give every active slot a page for its next
-        position (within its worst case, since a slot finishes before it;
-        with ``overcommit`` a dry pool preempts the youngest other slot, or
-        the slot itself, and retries). Positions come from the bookkeeper,
-        not the device. A slot that an earlier slot's growth preempted is
-        skipped: the JAX engine grows from the stale ``active`` snapshot and
-        can hand pages to a slot it just freed. Syncs the tables if any slot
-        grew."""
+    def _grow_active_slots(self, active: np.ndarray, ahead: int = 1):
+        """Before a decode dispatch of ``ahead`` steps: give every active
+        slot pages for its next ``ahead`` positions, but never past its
+        reservation (with ``overcommit``: its worst case), since a slot
+        finishes before it; a block's junk positions past it write the null
+        page. With ``overcommit`` a dry pool preempts the youngest other
+        slot, or the slot itself, and retries. Positions come from the
+        bookkeeper, not the device. A slot that an earlier slot's growth
+        preempted is skipped: the JAX engine grows from the stale ``active``
+        snapshot and can hand pages to a slot it just freed. Syncs the
+        tables if any slot grew."""
         dirty = False
         for slot in np.flatnonzero(active):
             slot = int(slot)
             if not self.book.active_mask()[slot]:
                 continue
-            want = int(self.book.pos[slot]) + 1
+            p = int(self.book.pos[slot])
+            cap = (int(self._slot_worst[slot]) if self.overcommit
+                   else len(self.alloc.slot_pages[slot]) * self._page_size)
+            want = min(p + ahead, max(cap, p + 1))
             while True:
                 try:
                     dirty |= self._grow_slot(slot, want)
@@ -307,6 +315,15 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         Python bookkeeper. ``device`` is where the engine runs (default: the
         GPU — raises without one); the model must be there.
 
+        ``multi_step=K`` (K > 1) runs a block of K decode steps per dispatch
+        whenever nothing waits for a slot (on CUDA: K replays of the decode
+        graph, one read of their tokens); a slot that finishes inside a
+        block decodes junk into its own rows for the rest of it, which the
+        host discards. Greedy transcripts equal the single-step engine's.
+        ``chunked_prefill`` admits a prompt longer than that many tokens in
+        chunks of that size (the last padded) through ``prefill_chunk``, or
+        whole where the padded chunks would overrun the cache extent.
+
         Paged mode (``paged=True``): ``n_pages`` sizes the pool (default:
         every slot's full table, plus the null page), ``page_size`` (default
         128; on the GPU a multiple of 16 from 16 to 256) the pages,
@@ -321,8 +338,6 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         effect there (pools are always quantized)."""
         for name, value, used in (
                 ("draft_model", draft_model, draft_model is not None),
-                ("chunked_prefill", chunked_prefill, bool(chunked_prefill) and not paged),
-                ("multi_step", multi_step, multi_step > 1),
                 ("mesh", mesh, mesh is not None),
                 ("scheduler", scheduler, scheduler == "native")):
             if used:
@@ -351,6 +366,8 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         self.quantized_cache = quantized_cache
         self.top_k = top_k
         self.scheduler = "python"
+        self.multi_step = int(multi_step)
+        self.chunked_prefill = chunked_prefill
         self.book = _PyBookkeeper(max_slots, self.max_seq_len)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
@@ -365,6 +382,7 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         self._preempted: Dict[int, dict] = {}
         self._admit_seq: Dict[int, int] = {}   # slot -> admission counter
         self._admit_counter = 0
+        self._slot_worst = np.zeros((max_slots,), np.int64)
         self.prefill_tokens_skipped = 0
         self._paged_chunk: Optional[int] = None
         if paged:
@@ -373,20 +391,19 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             cfg = model.cfg
             pps = -(-self.max_seq_len // ps)
             self.max_seq_len = pps * ps
-            npg = n_pages or (1 + max_slots * pps)
-            dh = cfg.d_model // cfg.n_heads
-            hkv = cfg.n_kv_heads or cfg.n_heads
+            # the pools' geometry, kept to rebuild them after a decode fault
+            self._pool_shape = dict(n_heads=cfg.n_kv_heads or cfg.n_heads,
+                                    head_dim=cfg.d_model // cfg.n_heads,
+                                    n_pages=n_pages or (1 + max_slots * pps),
+                                    page_size=ps, kv_bits=kv_bits)
             # +1 PARKING column, never allocated (always the null page): an
             # admitting slot parked there during overlapped admission writes
             # its junk decode rows to page 0, not into its prompt pages
             self._pt_host = np.zeros((max_slots, pps + 1), np.int32)
-            self.caches = [init_paged_cache(hkv, dh, npg, max_slots, pps + 1, page_size=ps,
-                                            kv_bits=kv_bits, device=self.device)
-                           for _ in model.blocks]
-            self._pt_dev = self.caches[0].page_table
-            for c in self.caches:
-                c.page_table = self._pt_dev
-            self.alloc = PageAllocator(npg, max_slots, pps)
+            self._pt_dev = torch.zeros((max_slots, pps + 1), dtype=torch.int32,
+                                       device=self.device)
+            self.caches = self._new_pools()
+            self.alloc = PageAllocator(self._pool_shape["n_pages"], max_slots, pps)
             self._page_size = ps
             self._park_pos = pps * ps
             if chunked_prefill:
@@ -394,36 +411,62 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         else:
             self.caches = model.init_cache(max_slots, self.max_seq_len,
                                            quantized=quantized_cache)
-        self.positions = torch.zeros((max_slots,), dtype=torch.int64, device=self.device)
-        self.cur_tokens = torch.zeros((max_slots, 1), dtype=torch.int64,
-                                      device=self.device)
-        # per-slot sampling knobs live on the host: an all-greedy batch then
-        # skips the sort/draw without a device round trip
+        # the decode step's inputs and outputs: device tensors that every
+        # dispatch reads and writes in place (a captured graph holds their
+        # addresses)
+        dev = self.device
+        self.positions = torch.zeros((max_slots,), dtype=torch.int64, device=dev)
+        self.cur_tokens = torch.zeros((max_slots, 1), dtype=torch.int64, device=dev)
+        self._active_dev = torch.zeros((max_slots,), dtype=torch.int64, device=dev)
+        self._active_host: Optional[np.ndarray] = None   # what _active_dev holds
+        self._temps_dev = torch.zeros((max_slots,), dtype=torch.float32, device=dev)
+        self._topps_dev = torch.ones((max_slots,), dtype=torch.float32, device=dev)
+        self._topks_dev = torch.zeros((max_slots,), dtype=torch.int64, device=dev)
+        # per step of a dispatch: the tokens [0] and their logprobs [1] of
+        # every slot, at the step's index (float64 holds both exactly)
+        self._ring = torch.zeros((max(1, self.multi_step), 2, max_slots),
+                                 dtype=torch.float64, device=dev)
+        self._ring_idx = torch.zeros((1,), dtype=torch.int64, device=dev)
+        # the temperatures also on the host: an all-greedy batch then runs
+        # the argmax step without a device round trip
         self.temps = np.zeros((max_slots,), np.float32)
-        self.topps = np.ones((max_slots,), np.float32)
-        self.topks = np.zeros((max_slots,), np.int64)
+        # the CUDA graphs of the decode step; None runs it eagerly (the CPU,
+        # or an A/B against the graphs)
+        self._graphs: Optional[DecodeGraphs] = (
+            DecodeGraphs(self._decode_body, dev, self._gen) if dev.type == "cuda" else None)
         self.finished: List[Request] = []
         self.tokens_generated = 0
+        self.decode_steps = 0          # decode steps run on the device
         self._lp_slots: Dict[int, Request] = {}
         self._admit_times: List[float] = []
         self._itl: List[float] = []
         self._last_tick_t: Optional[float] = None
         self._t_start: Optional[float] = None
 
+    def _new_pools(self) -> list:
+        """Zero paged pools, one per layer, sharing the engine's device page
+        table."""
+        g = self._pool_shape
+        pools = [init_paged_cache(g["n_heads"], g["head_dim"], g["n_pages"], self.max_slots,
+                                  self._pt_host.shape[1], page_size=g["page_size"],
+                                  kv_bits=g["kv_bits"], device=self.device)
+                 for _ in self.model.blocks]
+        for c in pools:
+            c.page_table = self._pt_dev
+        return pools
+
     # --------------------------------------------------------------- device
-    def _sample(self, logits: torch.Tensor, temps, topps, topks) -> torch.Tensor:
-        if np.all(temps <= 1e-6):
+    def _sample(self, logits: torch.Tensor, greedy: bool, temps, topps, topks) -> torch.Tensor:
+        """Tokens [B] from logits [B, V]: the argmax for an all-greedy batch,
+        else ``sample_logits`` with per-slot knobs (scalars or [B])."""
+        if greedy:
             return logits.to(torch.float32).argmax(dim=-1)
-        dev = logits.device
-        return sample_logits(logits, self._gen, torch.as_tensor(temps, device=dev),
-                             torch.as_tensor(topks, device=dev),
-                             torch.as_tensor(topps, device=dev))
+        return sample_logits(logits, self._gen, temps, topks, topps)
 
     def _sample_first(self, last: torch.Tensor, temp: float, topp: float, topk: int):
         """The first generated token and its logprob from the last prompt
         position's logits [1, V]."""
-        tok = self._sample(last, np.asarray([temp], np.float32),
-                           np.asarray([topp], np.float32), np.asarray([topk], np.int64))
+        tok = self._sample(last, temp <= 1e-6, temp, topp, topk)
         return int(tok[0]), float(token_logprob(last, tok)[0])
 
     @torch.no_grad()
@@ -436,6 +479,31 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         views = [_slot_view(c, slot) for c in self.caches]
         logits, _ = self.model.prefill(prompt, views)
         return self._sample_first(logits[0, plen_true - 1][None], temp, topp, topk)
+
+    @torch.no_grad()
+    def _admit_chunked(self, req: Request, slot: int, plen: int, prompt: torch.Tensor,
+                       eff_topk: int):
+        """Admit a long prompt into the dense cache in chunks of
+        ``chunked_prefill`` tokens (the last padded), each through
+        ``prefill_chunk`` at its offset against the slot's views of the
+        shared cache, so every chunk writes its rows in place and attends
+        the rows before it. The first token comes from the last chunk's
+        logits. Where the padded chunks would overrun the cache extent, the
+        bucket-padded ``prompt`` is prefilled whole."""
+        chunk = self.chunked_prefill
+        n_chunks = -(-plen // chunk)
+        if n_chunks * chunk > self.caches[0][0].shape[2]:
+            return self._prefill_impl(prompt, plen, slot, req.temperature, req.top_p,
+                                      eff_topk)
+        toks = torch.as_tensor(np.pad(np.asarray(req.prompt, np.int64),
+                                      (0, n_chunks * chunk - plen))[None, :],
+                               device=self.device)
+        views = [_slot_view(c, slot) for c in self.caches]
+        for c in range(n_chunks):
+            logits, _ = self.model.prefill_chunk(toks[:, c * chunk:(c + 1) * chunk],
+                                                 c * chunk, views)
+        idx = (plen - 1) - (n_chunks - 1) * chunk
+        return self._sample_first(logits[0, idx][None], req.temperature, req.top_p, eff_topk)
 
     @torch.no_grad()
     def _prefill_paged_impl(self, prompt: torch.Tensor, plen_true: int, slot: int,
@@ -466,10 +534,43 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         return logits
 
     @torch.no_grad()
-    def _decode_impl(self):
+    def _decode_body(self, mode: str) -> None:
+        """One decode step over every slot, on device tensors only (what a
+        CUDA graph captures): sample each slot's next token ("greedy": the
+        argmax), write it and its logprob into the ring at the ring's index,
+        feed the tokens back and advance the active slots' positions."""
         logits, _ = self.model.decode_step(self.cur_tokens, self.positions, self.caches)
-        nxt = self._sample(logits, self.temps, self.topps, self.topks)
-        return nxt, token_logprob(logits, nxt)
+        nxt = self._sample(logits, mode == "greedy", self._temps_dev, self._topps_dev,
+                           self._topks_dev)
+        lps = token_logprob(logits, nxt)
+        row = torch.stack((nxt.to(torch.float64), lps.to(torch.float64)))
+        self._ring.index_copy_(0, self._ring_idx, row[None])
+        self._ring_idx.add_(1)
+        self.cur_tokens.copy_(nxt[:, None])
+        self.positions.add_(self._active_dev)
+
+    def _decode(self, active: np.ndarray, n: int):
+        """A dispatch of ``n`` decode steps over every slot, the ``active``
+        ones advancing (the JAX engine's ``_decode`` for n == 1 and
+        ``_decode_multi`` above): graph replays on CUDA, the eager step on
+        the CPU. Returns the steps' tokens [n, slots] and logprobs [n,
+        slots] on the host, read in one copy."""
+        if self._active_host is None or not np.array_equal(self._active_host, active):
+            src = torch.from_numpy(active.astype(np.int64))
+            if self._active_dev.is_cuda:
+                src = src.pin_memory()
+            self._active_dev.copy_(src, non_blocking=True)
+            self._active_host = active.copy()
+        self._ring_idx.zero_()
+        mode = "greedy" if np.all(self.temps[active] <= 1e-6) else "sampled"
+        if self._graphs is None:
+            for _ in range(n):
+                self._decode_body(mode)
+        else:
+            self._graphs.run(mode, n)
+        self.decode_steps += n
+        ring = self._ring[:n].cpu().numpy()
+        return ring[:, 0].astype(np.int64), ring[:, 1].astype(np.float32)
 
     # ---------------------------------------------------------------- admin
     def submit(self, req: Request):
@@ -544,6 +645,7 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             return "wait"
         if grew or skip_pages:
             self._sync_page_tables()
+        self._slot_worst[slot] = worst
         self._admit_counter += 1
         self._admit_seq[slot] = self._admit_counter
         return hashes, skip_pages
@@ -606,13 +708,17 @@ class ContinuousBatchingEngine(_PagedPoolOps):
                 if self.paged:
                     first_tok, first_lp = self._prefill_paged(req, slot, plen, skip_pages,
                                                               prompt, eff_topk)
+                elif self.chunked_prefill and plen > self.chunked_prefill:
+                    first_tok, first_lp = self._admit_chunked(req, slot, plen, prompt,
+                                                              eff_topk)
                 else:
                     first_tok, first_lp = self._prefill_impl(
                         prompt, plen, slot, req.temperature, req.top_p, eff_topk)
-            except _DecodeFault as f:
-                raise f.error
+            except GraphCaptureError:
+                raise
             except Exception as e:  # noqa: BLE001 — per-request isolation:
-                # a failing prefill must not kill the batch
+                # a failing prefill, or a decode fault between its chunks
+                # (after the engine recovered from it), must not kill the batch
                 req.done = True
                 self._cancel_slot(slot, f"{type(e).__name__}: {e}")
                 for r in self.book.drain_finished():
@@ -624,11 +730,13 @@ class ContinuousBatchingEngine(_PagedPoolOps):
                 # publish the prompt's full pages for later admissions (a
                 # no-op for pages that were themselves acquired shared)
                 self.alloc.publish(slot, j, h)
+            # in place: a captured decode graph reads these tensors
             self.positions[slot] = plen
             self.cur_tokens[slot, 0] = first_tok
             self.temps[slot] = req.temperature
-            self.topps[slot] = req.top_p
-            self.topks[slot] = eff_topk
+            self._temps_dev[slot] = req.temperature
+            self._topps_dev[slot] = req.top_p
+            self._topks_dev[slot] = eff_topk
             self.tokens_generated += 1
             if req.logprobs:
                 req.token_logprobs.append(first_lp)
@@ -680,15 +788,14 @@ class ContinuousBatchingEngine(_PagedPoolOps):
                 return self._sample_first(logits[0, total - 1 - c * chunk][None],
                                           req.temperature, req.top_p, eff_topk)
             if overlap:
-                try:
-                    self._decode_tick()
-                except Exception as e:  # noqa: BLE001 — re-raised by _admit
-                    raise _DecodeFault(e) from e
+                self._decode_tick()
 
     def _decode_tick(self):
         """One decode step over the active slots between admission chunks
         (``overlap_admission``); the admitting slot is parked and
-        suspended, so it neither writes its pages nor advances."""
+        suspended, so it neither writes its pages nor advances. A decode
+        fault here recovers at engine level and raises, so the admission in
+        flight errors too (``_admit``'s per-request isolation)."""
         active = self.book.active_mask()
         if not active.any():
             return
@@ -697,10 +804,14 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             active = active & self.book.active_mask()
             if not active.any():
                 return
-        nxt, lps = self._decode_impl()
-        act = torch.as_tensor(active, device=self.device)
-        self.cur_tokens = torch.where(act[:, None], nxt[:, None], self.cur_tokens)
-        self._record_decode(active, act, nxt, lps)
+        try:
+            toks, lps = self._decode(active, 1)
+        except GraphCaptureError:
+            raise
+        except Exception as e:  # noqa: BLE001 — engine-level recovery
+            self._recover_from_decode_fault(e)
+            raise RuntimeError(f"decode fault during overlapped admission: {e}") from e
+        self._record_block(active, toks, lps)
 
     def cancel(self, req_id: int) -> bool:
         """Cancel a request by id: a waiting request is dropped; an active
@@ -793,6 +904,36 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         if self.paged:
             self._release_slot_pages(slot)
 
+    def _recover_from_decode_fault(self, e: Exception):
+        """A failed decode dispatch leaves every in-flight sequence's cache
+        rows unknown: fail those requests with the error, free their slots
+        and pages, rebuild the caches (paged: the pools from the engine's
+        own geometry, the prefix cache emptied, since its pages went with
+        them), zero the positions and tokens, and drop the captured graphs,
+        which hold the old caches' addresses. The engine serves later
+        submissions. A slot suspended for an overlapped admission is not
+        active here: its admission errors when the fault reaches it."""
+        msg = f"decode step failed: {type(e).__name__}: {e}"
+        self._lp_slots.clear()
+        for slot in np.flatnonzero(self.book.active_mask()):
+            req = self._slot_request(int(slot))
+            self._cancel_slot(int(slot), msg)
+            if req is not None:
+                req.done = True
+        self.finished.extend(self._drain_finished())
+        if self._graphs is not None:
+            self._graphs.reset()
+        self.caches = None            # free the old caches before the new ones
+        if self.paged:
+            self.alloc.reset_prefix_cache()
+            self.caches = self._new_pools()
+            self._sync_page_tables()
+        else:
+            self.caches = self.model.init_cache(self.max_slots, self.max_seq_len,
+                                                quantized=self.quantized_cache)
+        self.positions.zero_()
+        self.cur_tokens.zero_()
+
     # ----------------------------------------------------------------- run
     @property
     def steps(self) -> int:
@@ -800,11 +941,13 @@ class ContinuousBatchingEngine(_PagedPoolOps):
 
     @property
     def stats(self) -> Dict[str, float]:
-        """Throughput counters, admission latency, inter-token latency and,
-        in paged mode, pool occupancy, prefix-cache and over-commit
-        counters."""
+        """Throughput counters, admission latency, inter-token latency (one
+        sample per decode dispatch), in paged mode pool occupancy,
+        prefix-cache and over-commit counters, and on CUDA the decode
+        graphs' captures and replays."""
         wall = (time.perf_counter() - self._t_start) if self._t_start else 0.0
         st = {"tokens_generated": self.tokens_generated, "steps": int(self.steps),
+              "decode_steps": self.decode_steps,
               "wall_s": round(wall, 3),
               "tokens_per_s": round(self.tokens_generated / wall, 2) if wall else 0.0}
         if self._admit_times:
@@ -831,6 +974,9 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             it = np.asarray(self._itl)
             st["itl_p50_ms"] = round(float(np.percentile(it, 50)) * 1e3, 2)
             st["itl_p95_ms"] = round(float(np.percentile(it, 95)) * 1e3, 2)
+        if self._graphs is not None:
+            st.update(decode_graph_captures=self._graphs.captures,
+                      decode_graph_replays=self._graphs.replays)
         return st
 
     def _record_itl(self):
@@ -843,18 +989,20 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             self._itl.append(now - self._last_tick_t)
         self._last_tick_t = now
 
-    def _record_decode(self, active: np.ndarray, act: torch.Tensor, nxt: torch.Tensor,
-                       lps: torch.Tensor):
-        """Host bookkeeping after a decode step over the ``active`` slots."""
-        self.positions += act.to(torch.int64)
-        nxt_host = nxt.cpu().numpy()
-        if self._lp_slots:
-            lps_host = lps.cpu().numpy()
+    def _record_block(self, active: np.ndarray, toks: np.ndarray, lps: np.ndarray):
+        """Host bookkeeping after a dispatch over the ``active`` slots: replay
+        its steps' tokens and logprobs [n, slots] through the bookkeeper in
+        order, which drops what a slot produced after its own finish; then
+        free the slots that finished."""
+        for i in range(toks.shape[0]):
+            active_i = self.book.active_mask()
+            if not active_i.any():
+                break
             for slot, r in self._lp_slots.items():
-                if active[slot]:
-                    r.token_logprobs.append(float(lps_host[slot]))
-        self.book.record_step(nxt_host)
-        self.tokens_generated += int(active.sum())
+                if active_i[slot]:
+                    r.token_logprobs.append(float(lps[i, slot]))
+            self.book.record_step(toks[i])
+            self.tokens_generated += int(active_i.sum())
         for slot in np.flatnonzero(active & ~self.book.active_mask()):
             self._lp_slots.pop(int(slot), None)
             if self.paged:
@@ -863,24 +1011,32 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         self._record_itl()
 
     def step(self) -> bool:
-        """Admit waiting requests, then run one decode step for all slots."""
+        """Admit waiting requests, then run one decode step for all slots, or
+        a block of ``multi_step`` steps when nothing waits for a slot. A
+        decode fault recovers at engine level (``_recover_from_decode_fault``)."""
         if self._t_start is None:
             self._t_start = time.perf_counter()
         self._admit()
         active = self.book.active_mask()
         if not active.any():
             return False
+        n = self.multi_step if self.multi_step > 1 and self.book.num_waiting == 0 else 1
         if self.paged:
             # pool exhaustion raises here (size the pool for the resident
             # tokens, or lower max_slots) or, with overcommit, preempts
-            self._grow_active_slots(active)
+            self._grow_active_slots(active, ahead=n)
             if self.overcommit:
                 active = active & self.book.active_mask()
                 if not active.any():
                     return True
-        nxt, lps = self._decode_impl()
-        self.cur_tokens = nxt[:, None]
-        self._record_decode(active, torch.as_tensor(active, device=self.device), nxt, lps)
+        try:
+            toks, lps = self._decode(active, n)
+        except GraphCaptureError:
+            raise
+        except Exception as e:  # noqa: BLE001 — engine-level recovery
+            self._recover_from_decode_fault(e)
+            return True
+        self._record_block(active, toks, lps)
         return True
 
     def run_to_completion(self, max_steps: int = 100000) -> List[Request]:

@@ -116,21 +116,18 @@ def test_engine_sampling_and_prefill_error_isolation():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("scheduler", "native"), ("draft_model", object()), ("chunked_prefill", 16),
-    ("multi_step", 4), ("mesh", object())])
+    ("scheduler", "native"), ("draft_model", object()), ("mesh", object())])
 def test_engine_unported_options_raise(option, value):
-    """Speculation, dense chunked prefill, multi-step decode, tensor
-    parallelism and the native scheduler are not ported yet."""
+    """Speculation, tensor parallelism and the native scheduler are not
+    ported yet."""
     _, tm = model_pair(11, quantize=True)
     with pytest.raises(NotImplementedError, match=option):
         ContinuousBatchingEngine(tm, device="cpu", **{option: value})
 
 
-@pytest.mark.parametrize("option,value", [
-    ("draft_model", object()), ("multi_step", 4), ("mesh", object())])
+@pytest.mark.parametrize("option,value", [("draft_model", object()), ("mesh", object())])
 def test_paged_engine_unported_options_raise(option, value):
-    """The same options raise in paged mode (whose chunked prefill is
-    ported)."""
+    """The same options raise in paged mode."""
     _, tm = model_pair(11, quantize=True)
     with pytest.raises(NotImplementedError, match=option):
         ContinuousBatchingEngine(tm, device="cpu", paged=True, **{option: value})
