@@ -48,7 +48,13 @@ replaying a captured CUDA graph of its decode step
 route with ``multi_step=4``, to the eager one bit for bit on GPT_6_7B's
 dense and paged int8 engines, traces a replayed step, counts the host's
 calls per step and recovers from a replay fault; the long copy model is
-also served in blocks of four and with dense chunked admission. Each phase
+also served in blocks of four and with dense chunked admission. ``spec``
+serves GPT_6_7B (int8) with its W4A8 self-draft through speculative rounds
+(gamma 4) on the dense int8 and paged int8 engines: eager, graph and
+``multi_step=4`` rounds must give equal transcripts and the launches per
+round K4 (gamma + 1) x 193, K1 193, K6 32 (paged); ``spec_tv`` holds the
+sampled round's draws to the target's distribution, and ``long_copy``
+adds seven speculative engines (two drafts each). Each phase
 prints one JSON line; the last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is nonzero. Needs one CUDA device; exits nonzero without one.
 Uses no JAX.
@@ -57,6 +63,11 @@ Uses no JAX.
 
 builds the kernels and runs only the named phases (``shape_limits``,
 ``ops_layer``, ...), for a short first run of new kernels.
+
+    python3 chip_smoke.py --spec-faults
+
+plants three faults in the speculative round (copies of the package) and
+fails unless each is caught by the check named for it (``SPEC_FAULTS``).
 
     python3 chip_smoke.py --dense-step-ab OTHER_CHECKOUT [ROUNDS]
 
@@ -665,6 +676,46 @@ def paged_parity(g: torch.Generator, record) -> None:
     k6_case(g16, 8, 16, 4, [0, 768, 300, 129], torch.float32)
     k5_case(g16, 8, 128, 8, torch.float16)
     k6_case(g16, 8, 32, 8, [0, 768, 300, 129], torch.float16)
+    k6_verify_checks(record)
+
+
+# K6 at the speculative verify chunk's shapes: C = gamma + 1 rows (gamma 1,
+# 4 and 8) for 8 slots at unaligned per-slot offsets, some straddling a
+# page edge within the chunk, one at 0 and one at the end of a 1,024-row
+# table
+VERIFY_ROWS = (2, 5, 9)
+VERIFY_OFFSETS = (0, 126, 127, 255, 300, 511, 777, 1015)
+
+
+def k6_verify_checks(record) -> None:
+    """K6 against its plain version at the verify chunk's shapes
+    (``VERIFY_ROWS`` x ``VERIFY_OFFSETS``), pages of 128 and 32, int8 and
+    int4 pools, MHA and GQA (Hkv 32 and 8), by ``paged_parity``'s rule, on a
+    generator of their own (the older checks keep their draws)."""
+    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+    from qgemm_tpu_torch.serving.paged_cache import paged_context_attention_reference
+    dev, bf16 = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(45)
+    offs = torch.tensor(VERIFY_OFFSETS, device=dev)
+    for c in VERIFY_ROWS:
+        lens = (offs + c).to(torch.int32)
+        for page in (128, 32):
+            for bits in (8, 4):
+                for hkv in (32, 8):
+                    cache, _ = random_paged_cache(60 + c + page + bits + hkv, lens.tolist(),
+                                                  hkv, page, bits, pps=-(-1024 // page))
+                    q = torch.randn((len(VERIFY_OFFSETS), 32, c, 128), generator=gen,
+                                    device=dev).to(bf16)
+                    got = paged_context_attention(q, cache, lens, offs)
+                    ref = paged_context_attention_reference(q, cache, lens, offs,
+                                                            compute_dtype=bf16)
+                    e = record("paged_context_attention", got, ref, b=len(VERIFY_OFFSETS),
+                               rows=c, offsets=list(VERIFY_OFFSETS), hkv=hkv, page=page,
+                               bits=bits, q_dtype=str(bf16), tol=5e-3, verify_chunk=True)
+                    if not excess(got, ref, 2 ** -7) <= 5e-3:
+                        raise AssertionError(f"K6 verify chunk C={c} hkv={hkv} page={page} "
+                                             f"bits={bits}: max err {e}")
 
 
 def reporter() -> tuple:
@@ -1607,6 +1658,8 @@ def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
     launches per decode step: a decode-only step's counts divided by its
     decode steps, an admission step's less all but one of its decode steps'
     (so each admission step reads as its prefills and one decode step).
+    A speculative engine's steps that ran only rounds count their launches
+    per round (``per_round``: a step's counts divided by its rounds).
     Fails unless every request finished, with no error, with its
     max_new_tokens tokens, within ``max_steps`` engine steps, and unless an
     engine that decodes by CUDA graph (this checkout's, unless its private
@@ -1615,13 +1668,14 @@ def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
     for r in reqs:
         engine.submit(r)
     kernels.reset_launch_counts()
-    decode_only, admitting, step_ms, pages = [], [], [], []
+    decode_only, admitting, step_ms, pages, rounds_only, round_ms = [], [], [], [], [], []
     while engine.book.num_waiting or engine.book.num_active:
         if engine.steps >= max_steps:
             raise AssertionError(f"{label}: not done after {max_steps} engine steps")
         before = kernels.launch_counts()
         n_adm = len(engine._admit_times)
         n_dec = getattr(engine, "decode_steps", None)  # an earlier checkout's engine counts none
+        n_spec = getattr(engine, "spec_device_rounds", 0)
         t = time.perf_counter()
         engine.step()
         torch.cuda.synchronize()
@@ -1629,7 +1683,13 @@ def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
         delta = {kk: v - before[kk] for kk, v in kernels.launch_counts().items()}
         admitted = len(engine._admit_times) - n_adm
         n_dec = 1 if n_dec is None else engine.decode_steps - n_dec
-        if admitted:
+        n_spec = getattr(engine, "spec_device_rounds", 0) - n_spec
+        if n_spec and not admitted:
+            if any(v % n_spec for v in delta.values()):
+                raise AssertionError(f"{label}: a step of {n_spec} rounds launched {delta}")
+            rounds_only.append({kk: v // n_spec for kk, v in delta.items()})
+            round_ms.append(dt / n_spec)
+        elif admitted:
             admitting.append((admitted, delta, n_dec))
         elif n_dec:
             if any(v % n_dec for v in delta.values()):
@@ -1652,13 +1712,16 @@ def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
     per_decode = decode_only[0] if decode_only else None
     if any(dd != per_decode for dd in decode_only):
         raise AssertionError(f"{label}: decode steps launched different kernel counts")
+    per_round = rounds_only[0] if rounds_only else None
+    if any(dd != per_round for dd in rounds_only):
+        raise AssertionError(f"{label}: speculative rounds launched different kernel counts")
     graphs = getattr(engine, "_graphs", None)
     if graphs is not None and not graphs.replays:
         raise AssertionError(f"{label}: the engine never replayed its decode graph")
     admit_steps = [(n, {kk: v - max(0, m - 1) * per_decode[kk] for kk, v in dd.items()})
                    for n, dd, m in admitting] if per_decode else []
     return {"counts": counts, "per_decode": per_decode, "admit_steps": admit_steps,
-            "step_ms": step_ms, "pages": pages,
+            "step_ms": step_ms, "pages": pages, "per_round": per_round, "round_ms": round_ms,
             "graph": None if graphs is None else {"captures": graphs.captures,
                                                   "replays": graphs.replays}}
 
@@ -2207,27 +2270,31 @@ def phase_decode_graph() -> dict:
     return res
 
 
-def sampled_routes_equal(model, kw: dict, make_reqs, label: str) -> dict:
+def sampled_routes_equal(model, kw: dict, make_reqs, label: str, make_engine=graph_engine,
+                         routes=tuple(GRAPH_ROUTES)) -> dict:
     """8 of ``make_reqs``' requests sampled (temperature 0.8, top-p 0.95)
-    through each of ``GRAPH_ROUTES`` with engine seed 5: the sampled graph
-    (``torch.multinomial`` on the engine's generator, registered with the
-    graph) must draw what the eager step draws, so the transcripts must be
-    equal bit for bit; each graph engine captures the sampled mode once."""
+    through each of ``routes`` (the first the eager one; engines from
+    ``make_engine(model, route, kw)``) with engine seed 5: the sampled
+    graph (``torch.rand`` and ``torch.multinomial`` on the engine's
+    generator, registered with the graph) must draw what the eager step
+    draws, so the transcripts must be equal bit for bit; each graph engine
+    captures its sampled mode once."""
     out = {}
-    for route in GRAPH_ROUTES:
-        engine = graph_engine(model, route, dict(kw, seed=5))
+    for route in routes:
+        engine = make_engine(model, route, dict(kw, seed=5))
         reqs = make_reqs()[:8]
         for r in reqs:
             r.temperature, r.top_p = 0.8, 0.95
         run = drive(engine, reqs, f"{label} sampled {route}")
-        out[route] = ([r.generated for r in reqs], run["graph"])
+        out[route] = ([r.generated for r in reqs], run["graph"], engine.stats)
         del engine
-    if any(toks != out["eager"][0] for toks, _ in out.values()):
+    if any(toks != out[routes[0]][0] for toks, _, _ in out.values()):
         raise AssertionError(f"{label}: sampled transcripts differ between the routes")
-    if any(g is not None and g["captures"] != 1 for _, g in out.values()):
+    if any(g is not None and g["captures"] != 1 for _, g, _ in out.values()):
         raise AssertionError(f"{label}: sampled graph captures {out}")
     return {"requests": 8, "transcripts_equal": True,
-            "graph_runs": {r: g for r, (_, g) in out.items()}}
+            "graph_runs": {r: g for r, (_, g, _) in out.items()},
+            "spec_acceptance": {r: st.get("spec_acceptance") for r, (_, _, st) in out.items()}}
 
 
 def _requests_of(make_reqs, transcripts) -> list:
@@ -2237,6 +2304,265 @@ def _requests_of(make_reqs, transcripts) -> list:
     for r, t in zip(reqs, transcripts):
         r.generated = list(t)
     return reqs
+
+
+# ------------------------------------------------------------ speculation (A.7)
+SPEC_GAMMA = 4
+# The speculative engine's routes beside the plain engine replaying its
+# decode graph: the round run eagerly (the engine's private ``_graphs =
+# None``), replayed from its graph, and replayed four rounds a dispatch.
+SPEC_ROUTES = ("plain_graph", "spec_eager", "spec_graph", "spec_graph_ms4")
+# the host calls that queue device work per round, at most (a dispatch's
+# graph launch, the ring index's reset, the ring's read; a page-table
+# upload now and then)
+SPEC_HOST_CALLS_PER_ROUND = 5
+# kernel families of a round, by substrings of the kernels' names
+SPEC_FAMILIES = {"draft_gemv_k4": ("w4a8_gemv_kernel",),
+                 "verify_tiles_k1": ("qmm_wgmma_kernel",),
+                 "verify_paged_k6": ("paged_context_mma_kernel",),
+                 "gemm_prepass": ("row_quantize_kernel",),
+                 "cublas_bf16": ("gemm", "gemv", "sm90_xmma", "cutlass", "Kernel2")}
+
+
+def spec_engine(model, draft, route: str, kw: dict):
+    """A ContinuousBatchingEngine with options ``kw`` on one of
+    ``SPEC_ROUTES`` (the speculative ones with ``draft`` and
+    ``SPEC_GAMMA``)."""
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine
+    opts = dict(kw)
+    if route != "plain_graph":
+        opts.update(draft_model=draft, spec_gamma=SPEC_GAMMA)
+    if route.endswith("ms4"):
+        opts["multi_step"] = 4
+    engine = ContinuousBatchingEngine(model, **opts)
+    if route == "spec_eager":
+        engine._graphs = None
+    return engine
+
+
+def spec_launches_expected(n_layers: int, paged: bool) -> dict:
+    """What a round must launch: the W4A8 draft's GEMVs in each of its
+    gamma + 1 decode steps (K4), the target's verify chunk's GEMMs on the
+    tile route (K1, m = slots x (gamma + 1)) and, on the paged engine, its
+    attention (K6); no decode attention kernel (the draft's float cache and
+    the dense verify chunk take the plain composition) and no K3."""
+    n_gemms = 6 * n_layers + 1
+    return {"w4a8_matmul": (SPEC_GAMMA + 1) * n_gemms, "quantized_matmul": n_gemms,
+            "paged_context_attention": n_layers if paged else 0, "decode_attention": 0,
+            "paged_decode_attention": 0, "paged_decode_attention_ragged": 0,
+            "flash_attention": 0}
+
+
+def profile_spec(engine, rng, n_steps: int = 5) -> dict:
+    """Where a steady speculative dispatch's time goes, 8 busy slots at ~300
+    positions: four windows of ``n_steps`` engine steps (each a dispatch
+    of ``multi_step`` or one rounds), the second traced by torch.profiler
+    (CUDA activity), the fourth by CPU activity (the host's calls that
+    queue device work, ``host_issued``). Per round: the untraced windows'
+    wall, the device's kernel time (union of intervals), the idle share,
+    host calls; tokens per round per slot, acceptance, tokens/s and ITL
+    p50/p95 (one gap per dispatch) over the untraced windows. The requests
+    are cancelled after the windows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qgemm_tpu_torch.serving.engine import Request
+    per_step = max(1, engine.multi_step)
+    vocab = engine.model.cfg.vocab_size
+    reqs = [Request(prompt=rng.integers(0, vocab, size=300).tolist(),
+                    max_new_tokens=(SPEC_GAMMA + 1) * per_step * (4 * n_steps + 3) + 8)
+            for _ in range(engine.max_slots)]
+    for r in reqs:
+        engine.submit(r)
+    for _ in range(3):          # admits every slot, then two warm dispatches
+        engine.step()
+    gaps, untraced = [], {"ms": [], "tokens": 0, "rounds": 0, "drafted": 0, "accepted": 0}
+
+    def window(record: bool) -> float:
+        torch.cuda.synchronize()
+        tok, rnd = engine.tokens_generated, engine.spec_device_rounds
+        drf, acc = engine.spec_drafted, engine.spec_accepted
+        t = last = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+            now = time.perf_counter()
+            if record:
+                gaps.append(now - last)
+            last = now
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if record:
+            untraced["ms"].append(ms)
+            untraced["tokens"] += engine.tokens_generated - tok
+            untraced["rounds"] += engine.spec_device_rounds - rnd
+            untraced["drafted"] += engine.spec_drafted - drf
+            untraced["accepted"] += engine.spec_accepted - acc
+        return ms / (n_steps * per_step)
+
+    window(True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced_ms = window(False)
+    window(True)
+    with profile(activities=[ProfilerActivity.CPU]) as hprof:
+        window(False)
+    host = host_issued(hprof, n_steps * per_step)
+    if engine.book.num_active != engine.max_slots:
+        raise AssertionError("spec profile window: a slot finished inside the windows")
+    for r in reqs:
+        engine.cancel(r.id)
+    rounds = n_steps * per_step
+    busy_us, by_name, n_spans = device_spans(prof)
+    kernel_ms = busy_us / 1e3 / rounds
+    wall_ms = sum(untraced["ms"]) / untraced["rounds"]
+    families = {fam: sum(us for name, us in by_name.items() if any(p in name for p in pats))
+                / 1e3 / rounds for fam, pats in SPEC_FAMILIES.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    gap_ms = np.asarray(gaps) * 1e3
+    return {"rounds_per_dispatch": per_step, "slots": engine.max_slots,
+            "wall_ms_per_round_untraced": wall_ms, "wall_ms_per_round_traced": traced_ms,
+            "kernel_ms_per_round": kernel_ms, "idle_share_untraced": 1.0 - kernel_ms / wall_ms,
+            "tokens_per_round_per_slot": untraced["tokens"] / (untraced["rounds"]
+                                                               * engine.max_slots),
+            "acceptance": untraced["accepted"] / max(1, untraced["drafted"]),
+            "tokens_per_s_untraced": untraced["tokens"] * 1e3 / sum(untraced["ms"]),
+            "itl_p50_ms": float(np.percentile(gap_ms, 50)),
+            "itl_p95_ms": float(np.percentile(gap_ms, 95)),
+            "host_issued_ops_per_round": host["host_issued_ops_per_step"],
+            "host_issued_by_name_per_round": host["host_issued_by_name_per_step"],
+            "device_events_per_round": n_spans / rounds, "family_ms_per_round": families,
+            "top_kernels_ms_per_round": {n[:80]: v / 1e3 / rounds for n, v in top}}
+
+
+def spec_divergence(model, reqs, want: list, kw: dict) -> dict:
+    """Where the speculative transcripts of ``reqs`` differ from the plain
+    engine's (``want``): how many differ, and for the first that does, the
+    step and the plain engine's logits there (the request served alone on
+    its eager route, ``engine_alone_logits``): the margin of its token over
+    the speculative one and its top-2 gap."""
+    diffs = [first_difference(w, r.generated) for w, r in zip(want, reqs)]
+    res = {"differ": sum(d is not None for d in diffs), "first_difference_steps": diffs,
+           "first": None}
+    i = next((i for i, d in enumerate(diffs) if d is not None), None)
+    if i is not None:
+        t = diffs[i]
+        alone, logits = engine_alone_logits(model, reqs[i].prompt, reqs[i].max_new_tokens, kw)
+        lg = logits[t]
+        a, b = want[i][t], reqs[i].generated[t]
+        top2 = torch.topk(lg, 2).values
+        res["first"] = {"request": i, "step": t, "plain_token": a, "spec_token": b,
+                        "plain_alone_equals_batched": alone == want[i],
+                        "plain_margin": float(lg[a] - lg[b]),
+                        "plain_top2_gap": float(top2[0] - top2[1])}
+    return res
+
+
+def phase_spec() -> dict:
+    """Speculative decoding on the main path at full width: the int8
+    GPT_6_7B target and its W4A8 self-draft from the same float weights
+    (``GPT.init_quantized`` with seed 0, int8 and ``bits=4``, each built
+    block by block), gamma 4, 8 slots x 1,024 positions, serving the 16
+    greedy ``dense_requests`` through the dense int8-cache engine and the
+    paged int8 engine (``PAGED_ENGINE``) on each of ``SPEC_ROUTES``. Fails
+    unless every speculative route launches per round what
+    ``spec_launches_expected`` says, the eager, graph and ``multi_step=4``
+    routes give equal transcripts bit for bit, and so do 8 sampled
+    requests under one seed (``sampled_routes_equal``).
+    Reports the speculative transcripts against the plain engine's
+    (``spec_divergence``: random weights make greedy near-ties) and a
+    steady window of the plain graph engine and of the two speculative
+    graph routes (``profile_decode``, ``profile_spec``)."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.serving.engine import Request
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    draft = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda", bits=4)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dense = dense_requests(GPT_6_7B, np.random.default_rng(0))
+    make = lambda: [Request(prompt=p, max_new_tokens=n) for p, n in dense]
+    res = {"phase": "spec", "model": "GPT_6_7B int8 target, its W4A8 self-draft (seed 0)",
+           "gamma": SPEC_GAMMA, "init_s": init_s, "requests": len(dense), "engines": {}}
+    for label, kw in (("dense_int8", DENSE_ENGINE), ("paged_int8", PAGED_ENGINE)):
+        want_round = spec_launches_expected(GPT_6_7B.n_layers, label.startswith("paged"))
+        runs, profiles, seconds = {}, {}, {}
+        for route in SPEC_ROUTES:
+            t_route = time.perf_counter()
+            engine = spec_engine(model, draft, route, kw)
+            reqs = make()
+            run = drive(engine, reqs, f"spec {label} {route}")
+            st = engine.stats
+            runs[route] = {"transcripts": [r.generated for r in reqs], "stats": st,
+                           "graph": run["graph"], "per_round": run["per_round"],
+                           "per_decode": run["per_decode"],
+                           "round_ms_mean": (float(np.mean(run["round_ms"]))
+                                             if run["round_ms"] else None),
+                           "rounds_timed": len(run["round_ms"])}
+            if route == "spec_eager":
+                runs[route]["reqs"] = reqs
+            if route != "spec_eager":
+                profiles[route] = (profile_decode(engine, np.random.default_rng(8),
+                                                  host_window=True)
+                                   if route == "plain_graph"
+                                   else profile_spec(engine, np.random.default_rng(8),
+                                                     n_steps=5 if route == "spec_graph" else 2))
+            del engine
+            torch.cuda.empty_cache()
+            seconds[route] = time.perf_counter() - t_route
+        for route in SPEC_ROUTES[1:]:
+            per = runs[route]["per_round"]
+            if per is None or any(per.get(k, 0) != v for k, v in want_round.items()):
+                raise AssertionError(f"spec {label} {route}: launches per round {per}, "
+                                     f"expected {want_round}")
+            if runs[route]["transcripts"] != runs["spec_eager"]["transcripts"]:
+                raise AssertionError(f"spec {label}: {route}'s transcripts are not the eager "
+                                     "round's")
+        for route in ("spec_graph", "spec_graph_ms4"):
+            p = profiles[route]
+            if not p["host_issued_ops_per_round"] <= SPEC_HOST_CALLS_PER_ROUND:
+                raise AssertionError(f"spec {label} {route}: "
+                                     f"{p['host_issued_ops_per_round']} host calls a round")
+            fams = p["family_ms_per_round"]
+            need = ["draft_gemv_k4", "verify_tiles_k1"] + \
+                (["verify_paged_k6"] if label.startswith("paged") else [])
+            if not all(fams[f] > 0 for f in need):
+                raise AssertionError(f"spec {label} {route}: the traced round lacks a kernel "
+                                     f"family: {fams}")
+        div = spec_divergence(model, runs["spec_eager"].pop("reqs"),
+                              runs["plain_graph"]["transcripts"], kw)
+        sampled = sampled_routes_equal(
+            model, kw, make, f"spec {label}", routes=SPEC_ROUTES[1:],
+            make_engine=lambda m, route, k: spec_engine(m, draft, route, k)) \
+            if label == "dense_int8" else None
+        keys = ("wall_ms_per_round_untraced", "kernel_ms_per_round", "idle_share_untraced",
+                "tokens_per_round_per_slot", "acceptance", "tokens_per_s_untraced",
+                "itl_p50_ms", "itl_p95_ms", "host_issued_ops_per_round",
+                "device_events_per_round", "family_ms_per_round", "top_kernels_ms_per_round",
+                "host_issued_by_name_per_round")
+        plain_keys = ("wall_ms_per_step_untraced", "kernel_ms_per_step", "idle_share_untraced",
+                      "tokens_per_s_untraced", "itl_p50_ms", "itl_p95_ms",
+                      "host_issued_ops_per_step")
+        res["engines"][label] = {
+            "launches_per_round": {k: v for k, v in runs["spec_graph"]["per_round"].items()
+                                   if v},
+            "launches_per_decode_step_plain": {k: v for k, v in
+                                               runs["plain_graph"]["per_decode"].items() if v},
+            "transcripts_equal_eager_graph_ms4": True,
+            "vs_plain": div, "sampled": sampled,
+            "stats": {r: {k: v for k, v in runs[r]["stats"].items()
+                          if k in ("spec_rounds", "spec_acceptance", "tokens_per_s", "steps",
+                                   "decode_steps", "itl_p50_ms", "itl_p95_ms",
+                                   "decode_graph_captures", "decode_graph_replays")}
+                      for r in SPEC_ROUTES},
+            "round_ms_mean_in_run": {r: runs[r]["round_ms_mean"] for r in SPEC_ROUTES[1:]},
+            "profiles": {r: {k: p[k] for k in (plain_keys if r == "plain_graph" else keys)}
+                         for r, p in profiles.items()},
+            "seconds_by_route": seconds}
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    del model, draft
+    torch.cuda.empty_cache()
+    return res
 
 
 def serve_moe() -> dict:
@@ -2807,6 +3133,25 @@ LONG_COPY_ENGINES.update({f"{k}_ms4": (dict(kw, multi_step=4), kernel, exact)
                           for k, (kw, kernel, exact) in LONG_COPY_ENGINES.items()})
 LONG_COPY_ENGINES["dense_int8_chunked64"] = (dict(quantized_cache=True, chunked_prefill=64),
                                              "decode_attention", False)
+# The speculative engines (PR 14): the dense int8, paged int8 and paged int4
+# engines with gamma 4 and each of two drafts (``LONG_COPY_DRAFTS``), and the
+# dense one with its W4A8 draft four rounds a dispatch. Each decodes through
+# its decode kernel while requests wait and speculates once none does
+# (dense: the verify chunk through the bf16 composition; paged: K6).
+LONG_COPY_DRAFTS = {
+    # the model's own W4A8 copy: most proposals accepted
+    "w4a8": lambda model: model.quantize(bits=4),
+    # a random-weight model of its config, int8: almost none accepted, so
+    # every round takes the rejection path
+    "random": lambda model: type(model).init(model.cfg, seed=1, device="cuda").quantize()}
+for _base in ("dense_int8", "paged_int8_page128", "paged_int4_page32"):
+    _kw, _kernel, _exact = LONG_COPY_ENGINES[_base]
+    for _draft in LONG_COPY_DRAFTS:
+        LONG_COPY_ENGINES[f"{_base}_spec_{_draft}"] = (
+            dict(_kw, draft=_draft, spec_gamma=SPEC_GAMMA), _kernel, _exact)
+LONG_COPY_ENGINES["dense_int8_spec_w4a8_ms4"] = (
+    dict(quantized_cache=True, draft="w4a8", spec_gamma=SPEC_GAMMA, multi_step=4),
+    "decode_attention", True)
 
 
 def long_copy_model(ckpt: Path) -> tuple:
@@ -2846,7 +3191,7 @@ def long_copy_model(ckpt: Path) -> tuple:
     return model, info
 
 
-def long_copy_readings(ckpt: Path) -> dict:
+def long_copy_readings(ckpt: Path, only: Optional[str] = None) -> dict:
     """The long copy model (``long_copy_model``) quantized to int8 and
     serving ``LONG_COPY_REQUESTS`` held-out sequences (prompt: the first half
     and one token more; the rest decoded greedily) through each of
@@ -2855,8 +3200,10 @@ def long_copy_readings(ckpt: Path) -> dict:
     accuracy against the true targets, how many transcripts equal the int8
     model's own ``generate`` (dense int8 cache), and for the first request
     that differs, the step and both sides' margins there (the engine's from
-    the request served alone). Judges nothing: ``phase_long_copy`` and ``--decode-faults``
-    hold the readings to their bounds."""
+    the request served alone, without its draft); a speculative engine's
+    rounds and acceptance. ``only`` keeps the engines whose name holds it.
+    Judges nothing: ``phase_long_copy``, ``--decode-faults`` and
+    ``--spec-faults`` hold the readings to their bounds."""
     from qgemm_tpu_torch.examples.train_gpt_lm import batch_iter
     from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
     t0 = time.perf_counter()
@@ -2877,11 +3224,21 @@ def long_copy_readings(ckpt: Path) -> dict:
                       .float().mean())
     res = {"seq_len": seq_len, "prompt_tokens": half + 1, "new_tokens": n_new,
            "training": info, "generate_int8_copy_acc": dense_acc, "engines": {}}
+    drafts = {}
     for label, (kw, kernel, _) in LONG_COPY_ENGINES.items():
+        if only is not None and only not in label:
+            continue
         engine_kw = dict(max_slots=8, device="cuda", **kw)
-        engine = ContinuousBatchingEngine(qm, **engine_kw)
+        draft = engine_kw.pop("draft", None)
+        spec_kw = {}
+        if draft is not None:
+            if draft not in drafts:
+                drafts[draft] = LONG_COPY_DRAFTS[draft](model)
+            spec_kw = dict(draft_model=drafts[draft], spec_gamma=engine_kw.pop("spec_gamma"))
+        engine = ContinuousBatchingEngine(qm, **engine_kw, **spec_kw)
         reqs = [Request(prompt=p.tolist(), max_new_tokens=n_new) for p in prompts]
         run = drive(engine, reqs, f"long_copy {label}")
+        stats = engine.stats
         del engine
         served = torch.tensor([r.generated for r in reqs], device="cuda")
         diffs = [first_difference(toks, r.generated) for (toks, _), r in zip(dense, reqs)]
@@ -2891,6 +3248,11 @@ def long_copy_readings(ckpt: Path) -> dict:
                "first_difference_steps": diffs,
                "decode_launches": {k: counts[k] for k in counts if "decode_attention" in k},
                "first_difference": None}
+        if draft is not None:
+            row.update(spec_rounds=stats.get("spec_rounds", 0),
+                       spec_acceptance=stats.get("spec_acceptance"),
+                       launches_per_round={k: v for k, v in (run["per_round"] or {}).items()
+                                           if v})
         i = next((i for i, t in enumerate(diffs) if t is not None), None)
         if i is not None:
             t, (toks, d_logits) = diffs[i], dense[i]
@@ -2902,7 +3264,7 @@ def long_copy_readings(ckpt: Path) -> dict:
                 "engine_alone_equals_batched": alone == reqs[i].generated,
                 "engine_alone_margin": float(e_logits[t][b] - e_logits[t][a])}
         res["engines"][label] = row
-    del model, qm
+    del model, qm, drafts
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t0
     return res
@@ -2928,6 +3290,8 @@ def long_copy_failures(res: dict, fault_engines=None) -> list:
         if exact and row["equal_to_generate"] != LONG_COPY_REQUESTS:
             bad.append(f"{label}: {row['equal_to_generate']} of {LONG_COPY_REQUESTS} "
                        f"transcripts equal generate's ({row['first_difference']})")
+        if "spec_rounds" in row and not row["spec_rounds"] > 0:
+            bad.append(f"{label}: no speculative round")
         launched = row["decode_launches"]
         other = "decode_attention" if kernel != "decode_attention" else "paged_decode"
         if not (sum(v for k, v in launched.items() if k.startswith(kernel)) > 0
@@ -4251,12 +4615,13 @@ def paged_logits(n: int) -> None:
           "by_request": worst, "rtol": PAGED_LOGIT_RTOL})
 
 
-def long_copy_child(ckpt: str) -> None:
-    """``--long-copy CKPT``: ``long_copy_readings`` of the model in ``CKPT``
-    (trained and saved there first if it is missing), one JSON line."""
+def long_copy_child(ckpt: str, only: Optional[str] = None) -> None:
+    """``--long-copy CKPT [ONLY]``: ``long_copy_readings`` of the model in
+    ``CKPT`` (trained and saved there first if it is missing; the engines
+    whose name holds ``ONLY``), one JSON line."""
     from qgemm_tpu_torch.ops.cuda import _build
     _build.build()
-    emit({"phase": "long_copy", **long_copy_readings(Path(ckpt))})
+    emit({"phase": "long_copy", **long_copy_readings(Path(ckpt), only)})
 
 
 def package_copy(tmp: str, src: Path, name: str, patch: Optional[tuple] = None) -> Path:
@@ -4767,6 +5132,160 @@ def graph_faults() -> None:
         raise AssertionError(f"graph faults: {bad}")
 
 
+# ``--spec-tv``'s model: a random-weight GPT with 8 tokens (so that a few
+# thousand draws pin each slot's distribution), head width 32; its draft
+# another such model, far from it
+SPEC_TV_MODEL = dict(vocab_size=8, d_model=64, n_heads=2, d_ff=128, n_layers=2,
+                     max_seq_len=32)
+SPEC_TV_ROUNDS = 4096
+# per-slot knobs: temperature, top-k, top-p
+SPEC_TV_KNOBS = ((1.0, 0, 1.0), (0.7, 0, 0.9), (1.3, 3, 1.0), (1.0, 0, 0.8))
+# 4,096 draws over 8 tokens: the expected total variation is about 0.016
+SPEC_TV_BOUND = 0.05
+
+
+def spec_tv() -> dict:
+    """``--spec-tv``: the sampled speculative round on the card against the
+    target's warped distribution (the port of tests/test_gpt_serving.py's
+    ``test_engine_spec_round_matches_target_distribution``): a 4-slot
+    engine over ``SPEC_TV_MODEL`` (seed 21) with a draft of seed 22, gamma 3,
+    every slot at one state (prompt [1, 2, 3], token 4 at position 3) with
+    its own knobs (``SPEC_TV_KNOBS``), replays its "spec_sampled" graph
+    ``SPEC_TV_ROUNDS`` times from that state; each slot's first token of
+    each round is one draw. Per slot: the total variation between the
+    draws and the target's analytic distribution (``warped_probs`` of its
+    logits there) and between the draft's and the target's. One JSON
+    line; ``ok`` when every slot is within ``SPEC_TV_BOUND`` and under half
+    its draft's distance, with the draft at least 0.2 away (so that the
+    check can tell)."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
+    from qgemm_tpu_torch.ops.cuda import _build
+    from qgemm_tpu_torch.ops.sampling import warped_probs
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine
+    _build.build()
+    cfg = GPTConfig(**SPEC_TV_MODEL)
+    target = GPT.init(cfg, seed=21, device="cuda")
+    draft = GPT.init(cfg, seed=22, device="cuda")
+    eng = ContinuousBatchingEngine(target, max_slots=4, max_seq_len=16, device="cuda",
+                                   draft_model=draft, spec_gamma=3, seed=9)
+    prompt = torch.tensor([[1, 2, 3]], device="cuda")
+    for s in range(4):
+        eng._prefill_impl(prompt, 3, s, 0.0, 1.0, 0)
+        eng._draft_prefill_impl(prompt, s)
+    temps, topks, topps = (torch.tensor(k, device="cuda") for k in zip(*SPEC_TV_KNOBS))
+    eng._temps_dev.copy_(temps)
+    eng._topks_dev.copy_(topks)
+    eng._topps_dev.copy_(topps)
+    eng._active_dev.fill_(1)
+    first = []
+    for _ in range(SPEC_TV_ROUNDS):
+        eng.positions.fill_(3)
+        eng.cur_tokens.fill_(4)
+        eng._ring_idx.zero_()
+        eng._graphs.run("spec_sampled", 1)
+        first.append(eng._spec_ring[0, :, 0].clone())
+    draws = torch.stack(first).to(torch.int64).cpu()
+
+    def dist(m) -> torch.Tensor:
+        cache = m.init_cache(1, 16)
+        m.prefill(prompt, cache)
+        lg, _ = m.decode_step(torch.tensor([[4]], device="cuda"), 3, cache)
+        return torch.cat([warped_probs(lg, t, k, p) for t, k, p in SPEC_TV_KNOBS]).cpu()
+
+    p, q = dist(target), dist(draft)
+    emp = torch.stack([torch.bincount(draws[:, s], minlength=8) for s in range(4)]) \
+        / SPEC_TV_ROUNDS
+    tv = (0.5 * (emp - p).abs().sum(-1)).tolist()
+    tv_draft = (0.5 * (q - p).abs().sum(-1)).tolist()
+    ok = all(t < SPEC_TV_BOUND and t < 0.5 * d and d > 0.2 for t, d in zip(tv, tv_draft))
+    res = {"phase": "spec_tv", "rounds": SPEC_TV_ROUNDS, "bound": SPEC_TV_BOUND,
+           "knobs": SPEC_TV_KNOBS, "tv": tv, "tv_draft": tv_draft, "ok": ok,
+           "graph": {"captures": eng._graphs.captures, "replays": eng._graphs.replays}}
+    emit(res)
+    return res
+
+
+# Faults that ``--spec-faults`` plants, each in its own copy of the package:
+# (file under qgemm_tpu_torch/, the sound text, the faulty text, the check
+# that must catch it). The greedy acceptance takes one proposal past the
+# first rejection (only the random draft's rounds reject); the target
+# verifies its chunk one position late; the leftover distribution is the
+# target's p, not max(0, p - q).
+SPEC_FAULTS = {
+    "accept_past_rejection": (
+        "serving/engine.py",
+        "    n_acc = torch.cumprod((d == g[:, :-1]).to(torch.int64), dim=1).sum(dim=1)\n",
+        "    n_acc = (torch.cumprod((d == g[:, :-1]).to(torch.int64), dim=1).sum(dim=1)\n"
+        "             + 1).clamp_max(d.shape[1])\n", "random_transcripts"),
+    "verify_offset_plus_one": (
+        "serving/engine.py",
+        "                                              self.positions, self.caches)\n",
+        "                                              self.positions + 1, self.caches)\n",
+        "copy"),
+    "leftover_p": ("serving/engine.py",
+                   "    resid = torch.clamp_min(p_at - q_at, 0.0)\n", "    resid = p_at\n",
+                   "tv"),
+}
+
+
+def spec_faults() -> None:
+    """``--spec-faults``: ``--long-copy`` on the speculative engines (which
+    trains the long copy model once and saves it in a temporary directory)
+    and ``--spec-tv`` with this checkout's package, then with each of
+    ``SPEC_FAULTS`` planted in a copy of the package (the kernels copied as
+    built), one process each. The checks: ``random_transcripts`` fails where
+    an int8 engine with the random draft gives other transcripts than
+    ``generate``; ``copy`` where a speculative engine copies below its
+    accuracy floor or an int8 one gives other transcripts; ``tv`` where
+    ``--spec-tv`` is not ok. Prints every reading beside its bound; fails if
+    the sound run fails a check or a fault passes the check named for it."""
+    phase_device()
+    src = Path(__file__).resolve().parent
+    copies, tvs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "long_copy.npz")
+
+        def last_line(name: str, script: Path, *args: str) -> dict:
+            proc = subprocess.run([sys.executable, str(script), *args], capture_output=True,
+                                  text=True, timeout=1200, check=False)
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+                raise AssertionError(f"{args[0]} of {name} exited {proc.returncode}")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            emit({"fault": name, **res})
+            return res
+
+        for name, fault in [("sound", None), *SPEC_FAULTS.items()]:
+            script = package_copy(tmp, src, name, fault and fault[:3])
+            copies[name] = last_line(name, script, "--long-copy", ckpt, "_spec_")
+            tvs[name] = last_line(name, script, "--spec-tv")
+    floor = copies["sound"]["training"]["heldout_acc"] - LONG_COPY_SLACK
+    exact = [k for k, v in LONG_COPY_ENGINES.items() if v[2] and "_spec_" in k]
+    equal = lambda r: {k: r["engines"][k]["equal_to_generate"] for k in exact}
+    acc = lambda r: {k: v["copy_acc"] for k, v in r["engines"].items()}
+    caught = {name: {"random_transcripts": any(n < LONG_COPY_REQUESTS for k, n in
+                                               equal(r).items() if "_random" in k),
+                     "copy": any(a < floor for a in acc(r).values())
+                     or any(n < LONG_COPY_REQUESTS for n in equal(r).values()),
+                     "tv": not tvs[name]["ok"]}
+              for name, r in copies.items()}
+    emit({"phase": "spec_faults", "floor": floor, "requests": LONG_COPY_REQUESTS,
+          "tv_bound": SPEC_TV_BOUND,
+          "runs": {name: {"copy_acc": acc(r), "equal_to_generate": equal(r),
+                          "acceptance": {k: v.get("spec_acceptance")
+                                         for k, v in r["engines"].items()},
+                          "tv": tvs[name]["tv"], "tv_draft": tvs[name]["tv_draft"],
+                          "must_catch": SPEC_FAULTS[name][3] if name in SPEC_FAULTS else None}
+                   for name, r in copies.items()},
+          "caught": caught})
+    bad = long_copy_failures(copies["sound"])
+    bad += [f"sound run: {check} failed" for check, hit in caught["sound"].items() if hit]
+    bad += [f"{name} passed the {fault[3]} check" for name, fault in SPEC_FAULTS.items()
+            if not caught[name][fault[3]]]
+    if bad:
+        raise AssertionError(f"spec faults: {bad}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -4799,7 +5318,7 @@ def main() -> None:
     if sys.argv[1:2] == ["--paged-logits"]:
         return paged_logits(int(sys.argv[2]))
     if sys.argv[1:2] == ["--long-copy"]:
-        return long_copy_child(sys.argv[2])
+        return long_copy_child(*sys.argv[2:4])
     if sys.argv[1:2] == ["--decode-faults"]:
         return decode_faults(int(sys.argv[2]), *sys.argv[3:4])
     if sys.argv[1:2] == ["--quant-child"]:
@@ -4818,6 +5337,10 @@ def main() -> None:
         return graph_faults()
     if sys.argv[1:2] == ["--graph-transcripts"]:
         return graph_transcripts()
+    if sys.argv[1:2] == ["--spec-tv"]:
+        return spec_tv()
+    if sys.argv[1:2] == ["--spec-faults"]:
+        return spec_faults()
     from qgemm_tpu_torch.ops.cuda import _build   # fails outside the repository
 
     smi = phase_device()
@@ -4844,6 +5367,11 @@ def main() -> None:
           unused=("w4a8_matmul",), outliers=True)
     paged8, paged4 = serve_paged()
     phase_decode_graph()
+    spec = phase_spec()
+    tv = spec_tv()
+    if not tv["ok"]:
+        raise AssertionError(f"spec_tv: the sampled round's draws are off the target's "
+                             f"distribution: {tv}")
     moe = serve_moe()
     phase_numerics()
     phase_numerics_moe()
@@ -4911,6 +5439,9 @@ def main() -> None:
                          int4_plain_ms=t4["plain_ms"], int4_bound_ms=t4["bound_ms"],
                          int4_bound_by=t4["bound_by"],
                          launches_int4_overcommit_run=sum(paged4["launches"][w] for w in ws))
+        if name in ("quantized_matmul", "w4a8_matmul", "paged_context_attention"):
+            entry["launches_per_spec_round"] = {
+                k: e["launches_per_round"].get(name, 0) for k, e in spec["engines"].items()}
         if name == "paged_decode_attention":
             entry.update(also_replaces="qgemm_tpu/ops/pallas/paged_attention.py:160",
                          launches_by_entry={w: path["launches"][w] for w in ws},

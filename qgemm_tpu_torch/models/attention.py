@@ -1,7 +1,6 @@
 """Attention (port of ``scaled_dot_product_attention``, ``MultiHeadAttention``
 and ``_dispatch_attention`` of ``qgemm_tpu/models/attention.py``; the
-tensor-parallel and cross-attention branches, and the paged verify chunk at
-per-slot offsets, are not ported yet).
+tensor-parallel and cross-attention branches are not ported yet).
 
 Dispatch by device, mirroring the JAX package's by backend:
   * full-sequence attention — kernel K3 (flash forward) on CUDA at any
@@ -18,8 +17,11 @@ Dispatch by device, mirroring the JAX package's by backend:
     detects it, by its page table): a decode step writes its row and runs
     kernel K5 (the ragged entry when the cache carries step tables); a
     per-slot chunk (B == 1, page-aligned int offset) writes its pages and
-    runs kernel K6. On the CPU both wrappers run their plain versions in
-    float32, the JAX package's CPU path.
+    runs kernel K6, and so does the speculative verify chunk ([B] per-slot
+    offsets, unaligned: its rows are written one at a time). On the CPU
+    both wrappers run their plain versions in float32, the JAX package's
+    CPU path. The dense verify chunk ([B] offsets over a dense cache) takes
+    the plain composition, as JAX's jnp path does.
 Cache rows are written in place.
 """
 
@@ -153,13 +155,21 @@ class MultiHeadAttention(nn.Module):
 
     def _paged(self, q, k, v, cache, cache_index):
         """The paged branch (JAX's ``models/attention.py:212-284``): a decode
-        step (Sq == 1, per-slot positions) or a per-slot chunk prefill."""
+        step (Sq == 1, per-slot positions), a per-slot chunk prefill, or the
+        verify chunk at [B] per-slot offsets."""
         sq = q.shape[2]
         if sq > 1:
             if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
-                raise NotImplementedError(
-                    "a paged chunk at per-slot offsets (the speculative verify chunk) "
-                    "is not ported to qgemm_tpu_torch yet")
+                # the speculative verify chunk: every slot's candidate rows
+                # at its own offset, unaligned to pages, so the rows are
+                # written one at a time through the decode-step write (past
+                # the table: the null page; int4 merges each row's nibble
+                # in order), then K6 attends at the per-slot offsets
+                offsets = cache_index.to(device=q.device, dtype=torch.int64)
+                for j in range(sq):
+                    paged_write_step(cache, k[:, :, j:j + 1], v[:, :, j:j + 1], offsets + j)
+                return paged_context_attention(q, cache, (offsets + sq).to(torch.int32),
+                                               offsets)
             offset = int(cache_index)
             ps = cache.page_size
             if q.shape[0] != 1 or offset % ps:

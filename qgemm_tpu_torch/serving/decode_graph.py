@@ -1,20 +1,23 @@
-"""The engine's decode step as a replayed CUDA graph: the port's counterpart
-of the JAX engine's jitted decode step (``jax.jit(_decode_impl)`` in
-``qgemm_tpu/serving/engine.py``, and ``_decode_multi_impl``'s ``lax.scan``
-of K steps for ``multi_step``).
+"""The engine's decode step and speculative round as replayed CUDA graphs:
+the port's counterpart of the JAX engine's jitted steps (``_decode_impl``
+and ``_spec_round_impl`` in ``qgemm_tpu/serving/engine.py``, and the
+``lax.scan`` of K of them for ``multi_step``: ``_decode_multi_impl``,
+``_spec_multi_impl``).
 
-The engine hands ``DecodeGraphs`` its step: a function of the sampling mode
-that runs one decode step on the current stream and reads and writes only
-device tensors the engine keeps in place (tokens, positions, the active
-mask, the sampling knobs, the caches and the shared page table, a ring of
-per-step tokens and logprobs with its index). One graph is captured per
-mode ("greedy": argmax; "sampled": the engine's ``torch.Generator``
-registered with the graph, so that every replay draws fresh numbers), the
-first time the mode runs: one eager step on the capture stream warms up
-(it is a real step of the dispatch: its launches reach the card and are
-counted as they happen), then the capture. ``run(mode, n)`` is then n
-replays, so a block of ``multi_step`` steps costs n graph launches and the
-engine's one read of the ring.
+The engine hands ``DecodeGraphs`` its step: a function of the mode that
+runs one step of that mode's body on the current stream and reads and
+writes only device tensors the engine keeps in place (tokens, positions,
+the active mask, the sampling knobs, the caches, the draft's caches and
+the shared page table, a ring of per-step outputs with its index). The
+engine's modes are "greedy" and "sampled" (a decode step) and
+"spec_greedy" and "spec_sampled" (a speculative round). One graph is
+captured per mode, the first time it runs: one eager step on the capture
+stream warms up (it is a real step of the dispatch: its launches reach the
+card and are counted as they happen), then the capture. A mode whose name
+ends in "sampled" draws random numbers: the engine's ``torch.Generator``
+is registered with its graph, so that every replay draws fresh ones.
+``run(mode, n)`` is then n replays, so a block of ``multi_step`` steps or
+rounds costs n graph launches and the engine's one read of the ring.
 
 A wrapper counts its kernel launches in Python, which a replay does not
 run: the counts a capture adds are taken back (nothing reached the card)
@@ -29,6 +32,7 @@ the eager route, which stays reachable only by the engine's private
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -37,14 +41,14 @@ from qgemm_tpu_torch.ops import cuda as kernels
 
 
 class GraphCaptureError(RuntimeError):
-    """Capturing the decode step failed: a fault of the program, not of one
-    step, so the engine does not recover from it."""
+    """Capturing a decode step or a speculative round failed: a fault of the
+    program, not of one step, so the engine does not recover from it."""
 
 
 class DecodeGraphs:
-    """One captured decode step per sampling mode, replayed on the current
-    stream. ``step(mode)`` runs one step; ``generator`` is the generator the
-    sampled mode draws from."""
+    """One captured step per mode, replayed on the current stream.
+    ``step(mode)`` runs one step; ``generator`` is the generator the modes
+    named "...sampled" draw from."""
 
     def __init__(self, step: Callable[[str], None], device: torch.device,
                  generator: Optional[torch.Generator] = None):
@@ -109,10 +113,21 @@ class DecodeGraphs:
 
     def _record(self, mode: str):
         graph = torch.cuda.CUDAGraph()
-        if mode == "sampled" and self._generator is not None:
+        if mode.endswith("sampled") and self._generator is not None:
             graph.register_generator_state(self._generator)
-        with torch.cuda.graph(graph, stream=self._stream):
-            self._step(mode)
+        # Python's cyclic garbage is collected before the capture and not
+        # during it: freeing the device objects of a dead cycle (what a
+        # training run in the same process leaves) queued a call the
+        # capture forbids and invalidated it
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                self._step(mode)
+        finally:
+            if enabled:
+                gc.enable()
         return graph
 
     def _replay(self, graph) -> None:

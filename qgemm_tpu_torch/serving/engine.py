@@ -34,18 +34,31 @@ them).
 Ported here: ``Request``, the Python bookkeeper, greedy/sampled decoding
 with per-request temperature/top-k/top-p, stop tokens, logprobs,
 ``cancel``, ``stats``, per-request prefill error isolation, the int8 cache,
-the paged tier, dense chunked prefill, ``multi_step`` blocks and the
-engine-level recovery from a decode fault (every in-flight request fails
-with ``.error`` set, the caches are rebuilt, the engine serves on).
-Speculation (``draft_model``), tensor parallelism (``mesh``) and the
-native scheduler raise ``NotImplementedError``.
+the paged tier, dense chunked prefill, ``multi_step`` blocks, speculative
+decoding and the engine-level recovery from a decode fault (every
+in-flight request fails with ``.error`` set, the caches are rebuilt, the
+engine serves on). Tensor parallelism (``mesh``) and the native scheduler
+raise ``NotImplementedError``.
+
+Speculation (``draft_model``, ``spec_gamma``): when nothing waits for a
+slot, a dispatch runs speculative rounds instead of decode steps. In a
+round the draft proposes gamma tokens per slot from its own dense cache
+(in its dtype), the target verifies every slot's block in one
+``prefill_chunk`` at the per-slot positions (dense: the plain composition;
+paged: kernel K6), and batched Leviathan rejection sampling
+(``spec_accept``) keeps a prefix and adds one token: greedy slots get the
+plain engine's transcripts, sampled ones the target's warped
+distribution. The draft prefills every admitted prompt into its slot;
+plain steps (while requests wait, and between overlapped admission chunks)
+leave holes in its cache that lower acceptance only.
 
 On CUDA every decode dispatch (a step, a ``multi_step`` block, a step
-between overlapped admission chunks) replays a captured CUDA graph of the
-decode step (``serving/decode_graph.py``), the counterpart of the JAX
-engine's jitted step: its inputs are device tensors updated in place, its
-tokens and logprobs go to a ring that the host reads once per dispatch.
-The CPU runs the same step eagerly.
+between overlapped admission chunks, speculative rounds) replays a
+captured CUDA graph of the decode step or of the round
+(``serving/decode_graph.py``), the counterpart of the JAX engine's jitted
+step: its inputs are device tensors updated in place, its tokens and
+logprobs go to a ring that the host reads once per dispatch. The CPU runs
+the same step eagerly.
 
 The engine calls only the model's ``init_cache``, ``prefill``,
 ``prefill_chunk`` and ``decode_step``, so int8, W4A8 (``bits=4``) and
@@ -69,7 +82,8 @@ import torch
 
 from qgemm_tpu_torch.device import DeviceLike, resolve_device
 from qgemm_tpu_torch.ops.kv_cache import QuantizedKVCache
-from qgemm_tpu_torch.ops.sampling import sample_logits, token_logprob
+from qgemm_tpu_torch.ops.sampling import (sample_logits, sample_logits_with_prob, token_logprob,
+                                          warped_probs, warped_token_probs)
 from qgemm_tpu_torch.serving.decode_graph import DecodeGraphs, GraphCaptureError
 from qgemm_tpu_torch.serving.paged_cache import (PAGE_SIZE, PageAllocator,
                                                  build_step_tables, check_kv_bits,
@@ -225,6 +239,82 @@ class _PyBookkeeper:
         return out
 
 
+def _position_rows(v, gamma: int):
+    """A per-slot knob [B] repeated for each of a slot's ``gamma`` rows
+    ([B * gamma], slot-major); a scalar stays as it is."""
+    return v.repeat_interleave(gamma) if isinstance(v, torch.Tensor) and v.ndim == 1 else v
+
+
+def spec_leftover(tlogits: torch.Tensor, d: torch.Tensor, qx: torch.Tensor,
+                  dlogits: torch.Tensor, temps, topps, topks, u: torch.Tensor, gamma: int):
+    """The deterministic half of batched Leviathan acceptance (JAX's
+    ``spec_accept``, ``qgemm_tpu/serving/engine.py:281-335``, up to its one
+    categorical draw). tlogits [B, gamma+1, V] the target's verify-chunk
+    logits, d [B, gamma] the draft's proposals, qx [B, gamma] each one's
+    probability under the draft's own warped distribution, dlogits [B,
+    gamma, V] the draft's logits, per-slot knobs (scalars or [B]), u [B,
+    gamma] uniforms in [0, 1). Proposal i is accepted while u * q(x) <
+    p(x), the target's warped probability of it, read in sorted space.
+    Returns (n_acc [B], the leftover distribution [B, V] at the first
+    rejection, norm(max(0, p - q)), or p itself after full acceptance).
+    Slots at temperature <= 1e-6 see one-hots: acceptance is argmax
+    agreement and the leftover the target's argmax."""
+    b, _, v = tlogits.shape
+    px = warped_token_probs(tlogits[:, :gamma].reshape(b * gamma, v), d.reshape(-1),
+                            _position_rows(temps, gamma), _position_rows(topks, gamma),
+                            _position_rows(topps, gamma)).reshape(b, gamma)
+    n_acc = torch.cumprod((u * qx < px).to(torch.int64), dim=1).sum(dim=1)
+    at = lambda x, i: torch.gather(x, 1, i[:, None, None].expand(b, 1, v))[:, 0]
+    p_at = warped_probs(at(tlogits, n_acc), temps, topks, topps)
+    # the draft sampled from its unfiltered temperature distribution, so q
+    # is that one; past the last proposal it is defined 0
+    q_at = warped_probs(at(dlogits, n_acc.clamp_max(gamma - 1)), temps, 0, 1.0)
+    q_at = torch.where((n_acc < gamma)[:, None], q_at, torch.zeros_like(q_at))
+    resid = torch.clamp_min(p_at - q_at, 0.0)
+    dist = torch.where((resid.sum(dim=1) > 1e-9)[:, None], resid, p_at)
+    return n_acc, dist
+
+
+def spec_candidates(tlogits: torch.Tensor, d: torch.Tensor, n_acc: torch.Tensor,
+                    extra: torch.Tensor):
+    """A round's block from its acceptance: cand [B, gamma+1] (the accepted
+    proposals, then ``extra`` [B]), produced [B] = n_acc + 1, cur_new [B]
+    (the block's last token) and lps [B, gamma+1] (ln p of each candidate
+    under the target's unmodified softmax)."""
+    idx = torch.arange(d.shape[1] + 1, device=d.device)[None, :]
+    dpad = torch.cat([d, d[:, -1:]], dim=1)
+    cand = torch.where(idx < n_acc[:, None], dpad, extra[:, None])
+    produced = n_acc + 1
+    cur_new = torch.gather(cand, 1, n_acc[:, None])[:, 0]
+    lps = torch.gather(torch.log_softmax(tlogits.to(torch.float32), dim=-1), 2,
+                       cand[..., None])[..., 0]
+    return cand, produced, cur_new, lps
+
+
+def spec_accept(tlogits: torch.Tensor, d: torch.Tensor, qx: torch.Tensor,
+                dlogits: torch.Tensor, temps, topps, topks,
+                generator: Optional[torch.Generator], gamma: int):
+    """Batched Leviathan rejection sampling (JAX's ``spec_accept``): the
+    uniforms and the extra token's draw come from ``generator``, the rest
+    is ``spec_leftover`` and ``spec_candidates``. Each slot's tokens are
+    distributed as sequential warped-target sampling. Returns (cand [B,
+    gamma+1], produced [B], cur_new [B], lps [B, gamma+1])."""
+    u = torch.rand(d.shape, generator=generator, device=d.device)
+    n_acc, dist = spec_leftover(tlogits, d, qx, dlogits, temps, topps, topks, u, gamma)
+    extra = torch.multinomial(dist, 1, generator=generator)[:, 0]
+    return spec_candidates(tlogits, d, n_acc, extra)
+
+
+def spec_accept_greedy(tlogits: torch.Tensor, d: torch.Tensor):
+    """``spec_accept`` for a batch of greedy slots, drawing nothing: the
+    longest prefix of proposals equal to the target's argmax, then the
+    target's argmax after it (what ``spec_accept`` gives at temperature
+    <= 1e-6)."""
+    g = tlogits.to(torch.float32).argmax(dim=-1)                    # [B, gamma+1]
+    n_acc = torch.cumprod((d == g[:, :-1]).to(torch.int64), dim=1).sum(dim=1)
+    return spec_candidates(tlogits, d, n_acc, torch.gather(g, 1, n_acc[:, None])[:, 0])
+
+
 def _slot_view(cache, slot: int):
     """One layer's cache restricted to ``slot``: views, so writes land in
     the shared cache."""
@@ -307,13 +397,19 @@ class ContinuousBatchingEngine(_PagedPoolOps):
                  top_k: int = 0, seed: int = 0, mesh=None, paged: bool = False,
                  n_pages: Optional[int] = None, chunked_prefill: Optional[int] = None,
                  prefix_cache: bool = True, multi_step: int = 0, draft_model=None,
-                 overcommit: bool = False, page_size: Optional[int] = None,
+                 spec_gamma: int = 4, overcommit: bool = False,
+                 page_size: Optional[int] = None,
                  overlap_admission: bool = False, kv_bits: int = 8,
                  device: DeviceLike = None):
         """Options as in the JAX engine; those of modes not ported yet raise
         ``NotImplementedError``. ``scheduler`` "auto" and "python" run the
         Python bookkeeper. ``device`` is where the engine runs (default: the
-        GPU — raises without one); the model must be there.
+        GPU — raises without one); the model (and the draft) must be there.
+
+        ``draft_model`` turns on speculation with ``spec_gamma`` proposals
+        a round: every cache extent and page reservation grows by
+        ``spec_gamma + 2`` positions, the paged table by as many pages.
+        ``spec_gamma`` raises a ``ValueError`` without ``draft_model``.
 
         ``multi_step=K`` (K > 1) runs a block of K decode steps per dispatch
         whenever nothing waits for a slot (on CUDA: K replays of the decode
@@ -337,7 +433,6 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         ``ValueError`` without ``paged=True``; ``quantized_cache`` has no
         effect there (pools are always quantized)."""
         for name, value, used in (
-                ("draft_model", draft_model, draft_model is not None),
                 ("mesh", mesh, mesh is not None),
                 ("scheduler", scheduler, scheduler == "native")):
             if used:
@@ -357,10 +452,25 @@ class ContinuousBatchingEngine(_PagedPoolOps):
                 if used:
                     raise ValueError(f"ContinuousBatchingEngine({name}={value!r}) "
                                      "needs paged=True")
+        if draft_model is None and spec_gamma != 4:
+            raise ValueError(f"ContinuousBatchingEngine(spec_gamma={spec_gamma!r}) needs "
+                             "draft_model")
+        if draft_model is not None and not callable(getattr(draft_model, "decode_step", None)):
+            raise TypeError(f"ContinuousBatchingEngine(draft_model={draft_model!r}): not a "
+                            "model (no decode_step)")
         self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model is on {model.device}, engine on {self.device}")
+        for name, m in (("model", model), ("draft_model", draft_model)):
+            if m is not None and m.device != self.device:
+                raise ValueError(f"{name} is on {m.device}, engine on {self.device}")
         self.model = model
+        self.draft = draft_model
+        self.spec_gamma = int(spec_gamma)
+        if draft_model is not None and self.spec_gamma < 1:
+            raise ValueError(f"spec_gamma must be >= 1, got {spec_gamma}")
+        # a speculative round writes candidate K/V up to gamma + 1 positions
+        # past a slot's current one: every cache extent and reservation
+        # covers them
+        self.spec_extra = self.spec_gamma + 2 if draft_model is not None else 0
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len or model.cfg.max_seq_len
         self.quantized_cache = quantized_cache
@@ -391,6 +501,10 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             cfg = model.cfg
             pps = -(-self.max_seq_len // ps)
             self.max_seq_len = pps * ps
+            # speculation: the verify chunk writes up to spec_extra rows past
+            # a slot's last position; the widened table keeps them in the
+            # slot's own pages
+            pps += -(-self.spec_extra // ps)
             # the pools' geometry, kept to rebuild them after a decode fault
             self._pool_shape = dict(n_heads=cfg.n_kv_heads or cfg.n_heads,
                                     head_dim=cfg.d_model // cfg.n_heads,
@@ -409,8 +523,10 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             if chunked_prefill:
                 self._paged_chunk = -(-chunked_prefill // ps) * ps
         else:
-            self.caches = model.init_cache(max_slots, self.max_seq_len,
+            self.caches = model.init_cache(max_slots, self.max_seq_len + self.spec_extra,
                                            quantized=quantized_cache)
+        # the draft's cache: dense, in its own dtype, in both modes
+        self.draft_caches = self._new_draft_caches()
         # the decode step's inputs and outputs: device tensors that every
         # dispatch reads and writes in place (a captured graph holds their
         # addresses)
@@ -427,21 +543,38 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         self._ring = torch.zeros((max(1, self.multi_step), 2, max_slots),
                                  dtype=torch.float64, device=dev)
         self._ring_idx = torch.zeros((1,), dtype=torch.int64, device=dev)
+        # per round of a speculative dispatch, every slot's candidates, how
+        # many it produced, and their logprobs: [rounds, slots, 2 gamma + 3]
+        self._spec_ring = (torch.zeros((max(1, self.multi_step), max_slots,
+                                        2 * self.spec_gamma + 3),
+                                       dtype=torch.float64, device=dev)
+                           if draft_model is not None else None)
         # the temperatures also on the host: an all-greedy batch then runs
         # the argmax step without a device round trip
         self.temps = np.zeros((max_slots,), np.float32)
         # the CUDA graphs of the decode step; None runs it eagerly (the CPU,
         # or an A/B against the graphs)
         self._graphs: Optional[DecodeGraphs] = (
-            DecodeGraphs(self._decode_body, dev, self._gen) if dev.type == "cuda" else None)
+            DecodeGraphs(self._body, dev, self._gen) if dev.type == "cuda" else None)
         self.finished: List[Request] = []
         self.tokens_generated = 0
         self.decode_steps = 0          # decode steps run on the device
+        # speculation: rounds run on the device, and rounds, proposals and
+        # accepted proposals of the slots still active when a round replays
+        self.spec_device_rounds = 0
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self._lp_slots: Dict[int, Request] = {}
         self._admit_times: List[float] = []
         self._itl: List[float] = []
         self._last_tick_t: Optional[float] = None
         self._t_start: Optional[float] = None
+
+    def _new_draft_caches(self) -> Optional[list]:
+        if self.draft is None:
+            return None
+        return self.draft.init_cache(self.max_slots, self.max_seq_len + self.spec_extra)
 
     def _new_pools(self) -> list:
         """Zero paged pools, one per layer, sharing the engine's device page
@@ -534,6 +667,61 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         return logits
 
     @torch.no_grad()
+    def _draft_prefill_impl(self, prompt: torch.Tensor, slot: int) -> None:
+        """The draft's K/V of the bucket-padded prompt [1, bucket], written
+        in place into its slot's rows (it only proposes: nothing is
+        sampled)."""
+        self.draft.prefill(prompt, [_slot_view(c, slot) for c in self.draft_caches])
+
+    def _body(self, mode: str) -> None:
+        """One step of a dispatch of ``mode``: a decode step ("greedy",
+        "sampled") or a speculative round ("spec_greedy", "spec_sampled")."""
+        (self._spec_body if mode.startswith("spec") else self._decode_body)(mode)
+
+    @torch.no_grad()
+    def _spec_body(self, mode: str) -> None:
+        """One speculative round over every slot, on device tensors only
+        (the JAX engine's ``_spec_round_impl``): the draft takes gamma + 1
+        decode steps from each slot's position (the last one only writes
+        the last proposal's K/V), the target verifies [cur, d_1..d_gamma]
+        in one ``prefill_chunk`` at the per-slot positions, and
+        ``spec_accept`` (``spec_accept_greedy`` for "spec_greedy", which
+        draws nothing) picks each slot's block. The block, its length and
+        its logprobs go to the spec ring at the ring's index; the active
+        slots advance by their block and feed its last token back.
+        "spec_sampled" samples the proposals from the draft's unfiltered
+        temperature distribution; the slots' filters act in the target's."""
+        g = self.spec_gamma
+        sampled = mode == "spec_sampled"
+        tok, props, qxs, dlogits = self.cur_tokens, [], [], []
+        for j in range(g + 1):
+            logits, _ = self.draft.decode_step(tok, self.positions + j, self.draft_caches)
+            if sampled:
+                nxt, qx = sample_logits_with_prob(logits, self._gen, self._temps_dev, 0, 1.0)
+                qxs.append(qx)
+                dlogits.append(logits)
+            else:
+                nxt = logits.to(torch.float32).argmax(dim=-1)
+            props.append(nxt)
+            tok = nxt[:, None]
+        d = torch.stack(props[:g], dim=1)                             # [B, gamma]
+        tlogits, _ = self.model.prefill_chunk(torch.cat([self.cur_tokens, d], dim=1),
+                                              self.positions, self.caches)
+        if sampled:
+            cand, produced, cur_new, lps = spec_accept(
+                tlogits, d, torch.stack(qxs[:g], dim=1), torch.stack(dlogits[:g], dim=1),
+                self._temps_dev, self._topps_dev, self._topks_dev, self._gen, g)
+        else:
+            cand, produced, cur_new, lps = spec_accept_greedy(tlogits, d)
+        row = torch.cat([cand.to(torch.float64), produced[:, None].to(torch.float64),
+                         lps.to(torch.float64)], dim=1)
+        self._spec_ring.index_copy_(0, self._ring_idx, row[None])
+        self._ring_idx.add_(1)
+        self.positions.add_(produced * self._active_dev)
+        self.cur_tokens.copy_(torch.where(self._active_dev[:, None] > 0, cur_new[:, None],
+                                          self.cur_tokens))
+
+    @torch.no_grad()
     def _decode_body(self, mode: str) -> None:
         """One decode step over every slot, on device tensors only (what a
         CUDA graph captures): sample each slot's next token ("greedy": the
@@ -549,12 +737,10 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         self.cur_tokens.copy_(nxt[:, None])
         self.positions.add_(self._active_dev)
 
-    def _decode(self, active: np.ndarray, n: int):
-        """A dispatch of ``n`` decode steps over every slot, the ``active``
-        ones advancing (the JAX engine's ``_decode`` for n == 1 and
-        ``_decode_multi`` above): graph replays on CUDA, the eager step on
-        the CPU. Returns the steps' tokens [n, slots] and logprobs [n,
-        slots] on the host, read in one copy."""
+    def _dispatch(self, active: np.ndarray, n: int, mode: str) -> None:
+        """``n`` steps of ``mode`` (``_body``) over every slot, the
+        ``active`` ones advancing: graph replays on CUDA, the eager step on
+        the CPU. Their outputs fill the ring from index 0."""
         if self._active_host is None or not np.array_equal(self._active_host, active):
             src = torch.from_numpy(active.astype(np.int64))
             if self._active_dev.is_cuda:
@@ -562,15 +748,36 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             self._active_dev.copy_(src, non_blocking=True)
             self._active_host = active.copy()
         self._ring_idx.zero_()
-        mode = "greedy" if np.all(self.temps[active] <= 1e-6) else "sampled"
-        if self._graphs is None:
-            for _ in range(n):
-                self._decode_body(mode)
-        else:
+        if self._graphs is not None:
             self._graphs.run(mode, n)
+            return
+        for _ in range(n):
+            self._body(mode)
+
+    def _greedy(self, active: np.ndarray) -> bool:
+        return bool(np.all(self.temps[active] <= 1e-6))
+
+    def _decode(self, active: np.ndarray, n: int):
+        """A dispatch of ``n`` decode steps (the JAX engine's ``_decode`` for
+        n == 1 and ``_decode_multi`` above). Returns the steps' tokens [n,
+        slots] and logprobs [n, slots] on the host, read in one copy."""
+        self._dispatch(active, n, "greedy" if self._greedy(active) else "sampled")
         self.decode_steps += n
         ring = self._ring[:n].cpu().numpy()
         return ring[:, 0].astype(np.int64), ring[:, 1].astype(np.float32)
+
+    def _spec(self, active: np.ndarray, n: int):
+        """A dispatch of ``n`` speculative rounds (the JAX engine's
+        ``_spec_round`` for n == 1 and ``_spec_multi`` above); positions
+        and tokens chain through the rounds on the device. Returns the
+        rounds' candidates [n, slots, gamma+1], produced counts [n, slots]
+        and logprobs [n, slots, gamma+1] on the host, read in one copy."""
+        self._dispatch(active, n, "spec_greedy" if self._greedy(active) else "spec_sampled")
+        self.spec_device_rounds += n
+        ring = self._spec_ring[:n].cpu().numpy()
+        g1 = self.spec_gamma + 1
+        return (ring[..., :g1].astype(np.int64), ring[..., g1].astype(np.int64),
+                ring[..., g1 + 1:].astype(np.float32))
 
     # ---------------------------------------------------------------- admin
     def submit(self, req: Request):
@@ -591,12 +798,15 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         admitting), or "never" after finishing it with an error (it could
         not fit even in an empty pool)."""
         ps = self._page_size
-        worst = min(plen + req.max_new_tokens, self.max_seq_len)
+        # speculation: a round's candidate rows run up to spec_extra past
+        # the last position
+        worst = min(plen + req.max_new_tokens, self.max_seq_len) + self.spec_extra
         need = self.alloc.pages_needed(worst, ps)
         if self.overcommit:
-            # pages needed now (prompt + the first decode position); one
-            # page of headroom per active slot damps admit/preempt thrash
-            now_tokens = min(plen + 1, worst)
+            # pages needed now (prompt + the first decode position, and a
+            # round's rows); one page of headroom per active slot damps
+            # admit/preempt thrash
+            now_tokens = min(plen + 1 + self.spec_extra, worst)
             need_res = self.alloc.pages_needed(now_tokens, ps)
             headroom = self.book.num_active
         else:
@@ -714,6 +924,9 @@ class ContinuousBatchingEngine(_PagedPoolOps):
                 else:
                     first_tok, first_lp = self._prefill_impl(
                         prompt, plen, slot, req.temperature, req.top_p, eff_topk)
+                if self.draft is not None:
+                    # the draft proposes with the whole prompt in its cache
+                    self._draft_prefill_impl(prompt, slot)
             except GraphCaptureError:
                 raise
             except Exception as e:  # noqa: BLE001 — per-request isolation:
@@ -910,9 +1123,11 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         and pages, rebuild the caches (paged: the pools from the engine's
         own geometry, the prefix cache emptied, since its pages went with
         them), zero the positions and tokens, and drop the captured graphs,
-        which hold the old caches' addresses. The engine serves later
-        submissions. A slot suspended for an overlapped admission is not
-        active here: its admission errors when the fault reaches it."""
+        which hold the old caches' addresses. With a draft its caches are
+        rebuilt too (a fault in a speculative round leaves both unknown).
+        The engine serves later submissions. A slot suspended for an
+        overlapped admission is not active here: its admission errors when
+        the fault reaches it."""
         msg = f"decode step failed: {type(e).__name__}: {e}"
         self._lp_slots.clear()
         for slot in np.flatnonzero(self.book.active_mask()):
@@ -923,14 +1138,16 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         self.finished.extend(self._drain_finished())
         if self._graphs is not None:
             self._graphs.reset()
-        self.caches = None            # free the old caches before the new ones
+        self.caches = self.draft_caches = None   # free the old caches first
         if self.paged:
             self.alloc.reset_prefix_cache()
             self.caches = self._new_pools()
             self._sync_page_tables()
         else:
-            self.caches = self.model.init_cache(self.max_slots, self.max_seq_len,
+            self.caches = self.model.init_cache(self.max_slots,
+                                                self.max_seq_len + self.spec_extra,
                                                 quantized=self.quantized_cache)
+        self.draft_caches = self._new_draft_caches()
         self.positions.zero_()
         self.cur_tokens.zero_()
 
@@ -943,8 +1160,9 @@ class ContinuousBatchingEngine(_PagedPoolOps):
     def stats(self) -> Dict[str, float]:
         """Throughput counters, admission latency, inter-token latency (one
         sample per decode dispatch), in paged mode pool occupancy,
-        prefix-cache and over-commit counters, and on CUDA the decode
-        graphs' captures and replays."""
+        prefix-cache and over-commit counters, with a draft the speculative
+        rounds and the share of proposals accepted, and on CUDA the decode
+        graphs' captures and replays (speculative rounds included)."""
         wall = (time.perf_counter() - self._t_start) if self._t_start else 0.0
         st = {"tokens_generated": self.tokens_generated, "steps": int(self.steps),
               "decode_steps": self.decode_steps,
@@ -974,6 +1192,9 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             it = np.asarray(self._itl)
             st["itl_p50_ms"] = round(float(np.percentile(it, 50)) * 1e3, 2)
             st["itl_p95_ms"] = round(float(np.percentile(it, 95)) * 1e3, 2)
+        if self.draft is not None and self.spec_drafted:
+            st["spec_rounds"] = self.spec_rounds
+            st["spec_acceptance"] = round(self.spec_accepted / self.spec_drafted, 4)
         if self._graphs is not None:
             st.update(decode_graph_captures=self._graphs.captures,
                       decode_graph_replays=self._graphs.replays)
@@ -1012,14 +1233,18 @@ class ContinuousBatchingEngine(_PagedPoolOps):
 
     def step(self) -> bool:
         """Admit waiting requests, then run one decode step for all slots, or
-        a block of ``multi_step`` steps when nothing waits for a slot. A
-        decode fault recovers at engine level (``_recover_from_decode_fault``)."""
+        a block of ``multi_step`` steps when nothing waits for a slot; with
+        a draft and nothing waiting, speculative rounds instead
+        (``_spec_step``). A decode fault recovers at engine level
+        (``_recover_from_decode_fault``)."""
         if self._t_start is None:
             self._t_start = time.perf_counter()
         self._admit()
         active = self.book.active_mask()
         if not active.any():
             return False
+        if self.draft is not None and self.book.num_waiting == 0:
+            return self._spec_step(active)
         n = self.multi_step if self.multi_step > 1 and self.book.num_waiting == 0 else 1
         if self.paged:
             # pool exhaustion raises here (size the pool for the resident
@@ -1037,6 +1262,52 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             self._recover_from_decode_fault(e)
             return True
         self._record_block(active, toks, lps)
+        return True
+
+    def _spec_step(self, active: np.ndarray) -> bool:
+        """One speculative dispatch (nothing waits): a round, or with
+        ``multi_step`` that many rounds, each slot advancing by its own
+        accepted block. Paged slots first get pages for the dispatch's
+        candidate rows (within their reservation; rows past it write the
+        null page). The host replays the rounds in order through the
+        bookkeeper, which truncates each block at a finish and drops what a
+        slot produced after it; acceptance counts what the transcripts
+        kept, for the slots still active when each round replays."""
+        n = self.multi_step if self.multi_step > 1 else 1
+        if self.paged:
+            self._grow_active_slots(active, ahead=n * self.spec_extra)
+            if self.overcommit:
+                active = active & self.book.active_mask()
+                if not active.any():
+                    return True
+        try:
+            cands, produced, lps = self._spec(active, n)
+        except GraphCaptureError:
+            raise
+        except Exception as e:  # noqa: BLE001 — engine-level recovery
+            self._recover_from_decode_fault(e)
+            return True
+        for i in range(n):
+            act_i = self.book.active_mask()
+            if not act_i.any():
+                break
+            accepted = self.book.record_block(cands[i], produced[i])
+            self.tokens_generated += int(accepted.sum())
+            slots = np.flatnonzero(act_i)
+            self.spec_rounds += 1
+            self.spec_drafted += self.spec_gamma * len(slots)
+            # proposals the transcript kept: what was appended, less the
+            # extra token when the block ran to it
+            used = np.minimum(accepted[slots], produced[i, slots] - 1)
+            self.spec_accepted += int(used.clip(min=0).sum())
+            for slot, r in self._lp_slots.items():
+                r.token_logprobs.extend(float(x) for x in lps[i, slot, :accepted[slot]])
+        for slot in np.flatnonzero(active & ~self.book.active_mask()):
+            self._lp_slots.pop(int(slot), None)
+            if self.paged:
+                self._release_slot_pages(int(slot))
+        self.finished.extend(self._drain_finished())
+        self._record_itl()
         return True
 
     def run_to_completion(self, max_steps: int = 100000) -> List[Request]:

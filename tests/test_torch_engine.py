@@ -118,10 +118,12 @@ def test_engine_sampling_and_prefill_error_isolation():
 @pytest.mark.parametrize("option,value", [
     ("scheduler", "native"), ("draft_model", object()), ("mesh", object())])
 def test_engine_unported_options_raise(option, value):
-    """Speculation, tensor parallelism and the native scheduler are not
-    ported yet."""
+    """Tensor parallelism and the native scheduler are not ported yet.
+    Speculation is (tests/test_torch_engine_spec.py): a draft that is not
+    a model is refused."""
     _, tm = model_pair(11, quantize=True)
-    with pytest.raises(NotImplementedError, match=option):
+    error = TypeError if option == "draft_model" else NotImplementedError
+    with pytest.raises(error, match=option):
         ContinuousBatchingEngine(tm, device="cpu", **{option: value})
 
 
@@ -129,14 +131,15 @@ def test_engine_unported_options_raise(option, value):
 def test_paged_engine_unported_options_raise(option, value):
     """The same options raise in paged mode."""
     _, tm = model_pair(11, quantize=True)
-    with pytest.raises(NotImplementedError, match=option):
+    error = TypeError if option == "draft_model" else NotImplementedError
+    with pytest.raises(error, match=option):
         ContinuousBatchingEngine(tm, device="cpu", paged=True, **{option: value})
 
 
 @pytest.mark.parametrize("option,value", [("spec_gamma", 2)])
 def test_engine_rejects_knobs_of_unported_modes(option, value):
-    """The speculative mode's knob is not accepted and ignored: passing it
-    is an error."""
+    """The speculative mode's knob without a draft is not ignored: passing
+    it is an error, as the paged options are without ``paged=True``."""
     _, tm = model_pair(11, quantize=True)
-    with pytest.raises(TypeError, match=option):
+    with pytest.raises(ValueError, match=option):
         ContinuousBatchingEngine(tm, device="cpu", **{option: value})
