@@ -49,12 +49,19 @@ route with ``multi_step=4``, to the eager one bit for bit on GPT_6_7B's
 dense and paged int8 engines, traces a replayed step, counts the host's
 calls per step and recovers from a replay fault; the long copy model is
 also served in blocks of four and with dense chunked admission. ``spec``
-serves GPT_6_7B (int8) with its W4A8 self-draft through speculative rounds
-(gamma 4) on the dense int8 and paged int8 engines: eager, graph and
-``multi_step=4`` rounds must give equal transcripts and the launches per
-round K4 (gamma + 1) x 193, K1 193, K6 32 (paged); ``spec_tv`` holds the
-sampled round's draws to the target's distribution, and ``long_copy``
-adds seven speculative engines (two drafts each). Each phase
+serves GPT_6_7B (int8, at 16 of its 32 layers) with its W4A8 self-draft
+through speculative rounds (gamma 4) on the dense int8 and paged int8
+engines: eager, graph and ``multi_step=4`` rounds must give equal
+transcripts and the launches per round K4 (gamma + 1) x 97, K1 97, K6 16
+(paged); ``spec_tv`` holds the sampled round's draws to the target's
+distribution, and ``long_copy`` adds seven speculative engines (two
+drafts each). ``seq2seq`` serves S2S_1_5B (int8) through Seq2SeqEngine
+dense, paged (int8 and int4 pages), with ``multi_step=4`` and
+speculatively, routes held equal, launches per step K1 97 and K2 or K5
+12, and runs beam search and the transformer demo; ``s2s_reverse``
+trains a reverse model and serves it through seven seq2seq engines, each
+held to its teacher-forced accuracy and the int8 ones to ``generate``'s
+transcripts. Each phase
 prints one JSON line; the last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is nonzero. Needs one CUDA device; exits nonzero without one.
 Uses no JAX.
@@ -63,6 +70,14 @@ Uses no JAX.
 
 builds the kernels and runs only the named phases (``shape_limits``,
 ``ops_layer``, ...), for a short first run of new kernels.
+
+    python3 chip_smoke.py --seq2seq-faults
+
+trains the reverse model once, then plants three faults in the seq2seq
+engine (copies of the package: the cross read ignoring the source
+lengths, cross K/V written into the next slot's rows, the int8 cross
+scales dropped) and fails unless each breaks the reverse model's bounds
+on at least one engine (``S2S_FAULTS``).
 
     python3 chip_smoke.py --spec-faults
 
@@ -1554,7 +1569,13 @@ def host_issued(prof, n_steps: int) -> dict:
             "host_issued_by_name_per_step": {k: v / n_steps for k, v in sorted(by_name.items())}}
 
 
-def profile_decode(engine, rng, n_steps: int = 10, host_window: bool = False) -> dict:
+def long_prompt(rng, vocab: int) -> list:
+    """A steady window's prompt: 300 random tokens."""
+    return rng.integers(0, vocab, size=300).tolist()
+
+
+def profile_decode(engine, rng, n_steps: int = 10, host_window: bool = False,
+                   prompt=long_prompt) -> dict:
     """Where a steady decode step's time goes, with 8 busy slots: three
     windows of ``n_steps`` engine steps back to back, the middle one traced
     by torch.profiler (CUDA activity only). The trace gives the device's
@@ -1568,8 +1589,9 @@ def profile_decode(engine, rng, n_steps: int = 10, host_window: bool = False) ->
     traced with CPU activity, counts the host's calls that queue device
     work (``host_issued``). The untraced windows' dispatch gaps give the
     ITL percentiles (one gap per engine step, a block's tokens arriving
-    together) and their tokens over their wall time the tokens/s. Runs
-    after the serving phase's launch counts were read."""
+    together) and their tokens over their wall time the tokens/s. Every
+    slot's prompt is ``prompt(rng, vocab)``. Runs after the serving
+    phase's launch counts were read."""
     from torch.profiler import ProfilerActivity, profile
 
     from qgemm_tpu_torch.serving.engine import Request
@@ -1577,7 +1599,7 @@ def profile_decode(engine, rng, n_steps: int = 10, host_window: bool = False) ->
     per_step = max(1, getattr(engine, "multi_step", 0))
     windows = 4 if host_window else 3
     for _ in range(engine.max_slots):
-        engine.submit(Request(prompt=rng.integers(0, vocab, size=300).tolist(),
+        engine.submit(Request(prompt=prompt(rng, vocab),
                               max_new_tokens=per_step * (windows * n_steps + 3) + 8))
     for _ in range(3):          # admits every slot, then two warm steps
         engine.step()
@@ -1660,6 +1682,9 @@ def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
     (so each admission step reads as its prefills and one decode step).
     A speculative engine's steps that ran only rounds count their launches
     per round (``per_round``: a step's counts divided by its rounds).
+    ``admit_only`` reads every admission step less all of its decode
+    steps and rounds (a speculative engine decodes plainly while requests
+    wait), for the steps whose units were read.
     Fails unless every request finished, with no error, with its
     max_new_tokens tokens, within ``max_steps`` engine steps, and unless an
     engine that decodes by CUDA graph (this checkout's, unless its private
@@ -1690,7 +1715,7 @@ def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
             rounds_only.append({kk: v // n_spec for kk, v in delta.items()})
             round_ms.append(dt / n_spec)
         elif admitted:
-            admitting.append((admitted, delta, n_dec))
+            admitting.append((admitted, delta, n_dec, n_spec))
         elif n_dec:
             if any(v % n_dec for v in delta.values()):
                 raise AssertionError(f"{label}: a step of {n_dec} decode steps launched "
@@ -1719,8 +1744,13 @@ def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
     if graphs is not None and not graphs.replays:
         raise AssertionError(f"{label}: the engine never replayed its decode graph")
     admit_steps = [(n, {kk: v - max(0, m - 1) * per_decode[kk] for kk, v in dd.items()})
-                   for n, dd, m in admitting] if per_decode else []
+                   for n, dd, m, _ in admitting] if per_decode else []
+    admit_only = [(n, {kk: v - (m and m * per_decode[kk]) - (r and r * per_round[kk])
+                       for kk, v in dd.items()})
+                  for n, dd, m, r in admitting
+                  if (not m or per_decode) and (not r or per_round)]
     return {"counts": counts, "per_decode": per_decode, "admit_steps": admit_steps,
+            "admit_only": admit_only,
             "step_ms": step_ms, "pages": pages, "per_round": per_round, "round_ms": round_ms,
             "graph": None if graphs is None else {"captures": graphs.captures,
                                                   "replays": graphs.replays}}
@@ -2353,9 +2383,9 @@ def spec_launches_expected(n_layers: int, paged: bool) -> dict:
             "flash_attention": 0}
 
 
-def profile_spec(engine, rng, n_steps: int = 5) -> dict:
-    """Where a steady speculative dispatch's time goes, 8 busy slots at ~300
-    positions: four windows of ``n_steps`` engine steps (each a dispatch
+def profile_spec(engine, rng, n_steps: int = 5, prompt=long_prompt) -> dict:
+    """Where a steady speculative dispatch's time goes, 8 busy slots with
+    prompts of ``prompt(rng, vocab)`` (default ~300 positions): four windows of ``n_steps`` engine steps (each a dispatch
     of ``multi_step`` or one rounds), the second traced by torch.profiler
     (CUDA activity), the fourth by CPU activity (the host's calls that
     queue device work, ``host_issued``). Per round: the untraced windows'
@@ -2368,7 +2398,7 @@ def profile_spec(engine, rng, n_steps: int = 5) -> dict:
     from qgemm_tpu_torch.serving.engine import Request
     per_step = max(1, engine.multi_step)
     vocab = engine.model.cfg.vocab_size
-    reqs = [Request(prompt=rng.integers(0, vocab, size=300).tolist(),
+    reqs = [Request(prompt=prompt(rng, vocab),
                     max_new_tokens=(SPEC_GAMMA + 1) * per_step * (4 * n_steps + 3) + 8)
             for _ in range(engine.max_slots)]
     for r in reqs:
@@ -2455,9 +2485,16 @@ def spec_divergence(model, reqs, want: list, kw: dict) -> dict:
     return res
 
 
+# the depth the ``spec`` phase runs GPT_6_7B at (full width): half of its 32
+# layers, so that the whole script stays within its time with the seq2seq
+# phases; a round's launches scale with the layers
+SPEC_LAYERS = 16
+
+
 def phase_spec() -> dict:
     """Speculative decoding on the main path at full width: the int8
-    GPT_6_7B target and its W4A8 self-draft from the same float weights
+    GPT_6_7B target at ``SPEC_LAYERS`` of its 32 layers and its W4A8
+    self-draft from the same float weights
     (``GPT.init_quantized`` with seed 0, int8 and ``bits=4``, each built
     block by block), gamma 4, 8 slots x 1,024 positions, serving the 16
     greedy ``dense_requests`` through the dense int8-cache engine and the
@@ -2474,16 +2511,18 @@ def phase_spec() -> dict:
     from qgemm_tpu_torch.serving.engine import Request
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
-    draft = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda", bits=4)
+    cfg = dataclasses.replace(GPT_6_7B, n_layers=SPEC_LAYERS)
+    model = GPT.init_quantized(cfg, seed=0, device="cuda")
+    draft = GPT.init_quantized(cfg, seed=0, device="cuda", bits=4)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    dense = dense_requests(GPT_6_7B, np.random.default_rng(0))
+    dense = dense_requests(cfg, np.random.default_rng(0))
     make = lambda: [Request(prompt=p, max_new_tokens=n) for p, n in dense]
-    res = {"phase": "spec", "model": "GPT_6_7B int8 target, its W4A8 self-draft (seed 0)",
+    res = {"phase": "spec", "model": f"GPT_6_7B at {SPEC_LAYERS} layers, int8 target, its "
+                                      "W4A8 self-draft (seed 0)",
            "gamma": SPEC_GAMMA, "init_s": init_s, "requests": len(dense), "engines": {}}
     for label, kw in (("dense_int8", DENSE_ENGINE), ("paged_int8", PAGED_ENGINE)):
-        want_round = spec_launches_expected(GPT_6_7B.n_layers, label.startswith("paged"))
+        want_round = spec_launches_expected(cfg.n_layers, label.startswith("paged"))
         runs, profiles, seconds = {}, {}, {}
         for route in SPEC_ROUTES:
             t_route = time.perf_counter()
@@ -5219,8 +5258,8 @@ SPEC_FAULTS = {
         "             + 1).clamp_max(d.shape[1])\n", "random_transcripts"),
     "verify_offset_plus_one": (
         "serving/engine.py",
-        "                                              self.positions, self.caches)\n",
-        "                                              self.positions + 1, self.caches)\n",
+        "        return self.model.prefill_chunk(seq, self.positions, self.caches)[0]\n",
+        "        return self.model.prefill_chunk(seq, self.positions + 1, self.caches)[0]\n",
         "copy"),
     "leftover_p": ("serving/engine.py",
                    "    resid = torch.clamp_min(p_at - q_at, 0.0)\n", "    resid = p_at\n",
@@ -5286,6 +5325,613 @@ def spec_faults() -> None:
         raise AssertionError(f"spec faults: {bad}")
 
 
+# ------------------------------------------------------ encoder-decoder (A.8)
+# S2S_1_5B (scripts/bench_seq2seq.py's defaults: 12 + 12 layers, d_model 2048)
+# served in int8 by Seq2SeqEngine: 8 slots, sources of 16-64 tokens,
+# decoder budget 128; 16 requests of 32-128 new tokens.
+S2S_SLOTS = 8
+S2S_MAX_SRC = 64
+S2S_MAX_NEW = 128
+S2S_REQUESTS = 16
+# the engines of the served phase: options, routes (eager: the private
+# ``_graphs = None``; graph; graph_ms4: graph with multi_step=4; every route
+# held to the first), the draft. The int4 pools run K5 as the int8 ones do,
+# and the paged round runs the dense round's body with K6 for its verify,
+# so those two serve the requests on the graph route alone, and hold their
+# eager route to it on the short list (the eager step is ~10x slower)
+S2S_ENGINES = {
+    "dense_int8": (dict(quantized_cache=True), ("eager", "graph", "graph_ms4"), False),
+    "paged_int8": (dict(quantized_cache=True, paged=True, page_size=128), ("eager", "graph"),
+                   False),
+    "paged_int4": (dict(quantized_cache=True, paged=True, page_size=32, kv_bits=4),
+                   ("graph",), False),
+    "spec_dense_int8": (dict(quantized_cache=True), ("eager", "graph"), True),
+    "spec_paged_int8": (dict(quantized_cache=True, paged=True, page_size=128), ("graph",),
+                        True),
+}
+# the short list: the first 8 requests, at most 24 new tokens each; every
+# engine's sampled routes, and the greedy ones of those served on the
+# graph route alone, are held equal on it
+S2S_SHORT_REQUESTS = 8
+S2S_SHORT_NEW = 24
+S2S_BEAM = dict(beam_size=4, sources=2, new_tokens=32)
+
+
+def s2s_requests(vocab: int, rng) -> list:
+    """The served phase's requests as (source, max_new_tokens)."""
+    plens = rng.integers(16, S2S_MAX_SRC + 1, size=S2S_REQUESTS)
+    news = rng.integers(32, S2S_MAX_NEW + 1, size=S2S_REQUESTS)
+    return [(rng.integers(3, vocab, size=int(p)).tolist(), int(n)) for p, n in zip(plens, news)]
+
+
+def s2s_engine(model, route: str, kw: dict, draft=None):
+    """A Seq2SeqEngine with options ``kw`` on ``route``; with ``draft`` a
+    speculative one (gamma ``SPEC_GAMMA``)."""
+    from qgemm_tpu_torch.serving.seq2seq import Seq2SeqEngine
+    opts = dict(max_slots=S2S_SLOTS, max_src_len=S2S_MAX_SRC, max_new_tokens=S2S_MAX_NEW,
+                device="cuda", **kw)
+    if draft is not None:
+        opts.update(draft_model=draft, spec_gamma=SPEC_GAMMA)
+    if route.endswith("ms4"):
+        opts["multi_step"] = 4
+    engine = Seq2SeqEngine(model, **opts)
+    if route == "eager":
+        engine._graphs = None
+    return engine
+
+
+def s2s_launches_expected(n_layers: int, paged: bool, spec: bool) -> dict:
+    """Launches per decode step (``spec`` False) or per speculative round.
+    A step: K1 on the decoder's 8 GEMMs a layer (self q, k, v, o; cross q,
+    o; up, down) and the head, K2 (dense int8 self-cache) or K5 (paged) once
+    a layer, no K3 (the cross read is the plain composition). A round: the
+    W4A8 draft's gamma + 1 steps on K4 (its caches float: no attention
+    kernel), the verify chunk's GEMMs on K1 and, paged, its attention on
+    K6."""
+    n_gemms = 8 * n_layers + 1
+    if spec:
+        return {"w4a8_matmul": (SPEC_GAMMA + 1) * n_gemms, "quantized_matmul": n_gemms,
+                "paged_context_attention": n_layers if paged else 0, "decode_attention": 0,
+                "paged_decode_attention": 0, "paged_decode_attention_ragged": 0,
+                "flash_attention": 0}
+    return {"quantized_matmul": n_gemms, "decode_attention": 0 if paged else n_layers,
+            "paged_decode_attention": 0, "paged_decode_attention_ragged": n_layers if paged else 0,
+            "paged_context_attention": 0, "flash_attention": 0, "w4a8_matmul": 0}
+
+
+def s2s_admission_launches(n_layers: int, spec: bool) -> dict:
+    """What one admission launches: the encoder's 6 GEMMs a layer, the
+    cross K/V projections' 2 a layer and the BOS step's 8 a layer + head
+    on K1 (the W4A8 draft's the same on K4), and K3 three times a layer a
+    model: the encoder's self-attention, the BOS step's self-attention
+    (position 0 of a one-position cache: the prefill branch, Sq = Sk = 1)
+    and its cross read (unmasked, Sq 1)."""
+    per_model = 16 * n_layers + 1
+    return {"quantized_matmul": per_model, "w4a8_matmul": per_model if spec else 0,
+            "flash_attention": 3 * n_layers * (2 if spec else 1), "decode_attention": 0,
+            "paged_decode_attention_ragged": 0}
+
+
+def s2s_step_bytes(model) -> int:
+    """The bytes a decode step must read at least: the int8 codes and scales
+    of the decoder's GEMMs that run in a step and of the head (not the
+    encoder's, nor the cross K/V projections, which run at admission)."""
+    mods = [model.lm_head]
+    for blk in model.dec_blocks:
+        mods += [getattr(blk.self_attn, n) for n in ("wqkv_q", "wqkv_k", "wqkv_v", "w_o")]
+        mods += [blk.cross_attn.wqkv_q, blk.cross_attn.w_o, blk.ffn.up, blk.ffn.down]
+    return sum(b.numel() * b.element_size() for m in mods for b in (m.qt, m.c))
+
+
+def s2s_source(rng, vocab: int) -> list:
+    """A steady window's source: 48 random tokens past BOS and EOS."""
+    return rng.integers(3, vocab, size=48).tolist()
+
+
+def s2s_cross_read_ms(model, engine_kw: dict) -> dict:
+    """The cross read alone at a decode step's shapes (8 slots, one query
+    row, 16 heads of 128 over ``S2S_MAX_SRC`` positions, sources of 48
+    masked in): the int8 read (``_quantized_cross_attention``, bf16
+    products) and the float one (the draft's: the masked bf16
+    composition), timed by ``bench_ms``; times the layers give a step's
+    share."""
+    from qgemm_tpu_torch.models.attention import (_quantized_cross_attention,
+                                                  scaled_dot_product_attention)
+    from qgemm_tpu_torch.ops.kv_cache import quantize_kv
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    cfg = model.cfg
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    dh = cfg.d_model // cfg.n_heads
+    shape = (S2S_SLOTS, cfg.n_heads, S2S_MAX_SRC, dh)
+    q = torch.randn((S2S_SLOTS, cfg.n_heads, 1, dh), generator=g, device="cuda").bfloat16()
+    k = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    v = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    mask = torch.arange(S2S_MAX_SRC, device="cuda")[None, :] < 48
+    mask = mask.expand(S2S_SLOTS, -1)
+    kq, kc = quantize_kv(k)
+    vq, vc = quantize_kv(v)
+    int8_ms = bench_ms(lambda: _quantized_cross_attention(q, kq, kc, vq, vc, mask=mask))
+    float_ms = bench_ms(lambda: scaled_dot_product_attention(q, k, v,
+                                                             mask=mask[:, None, None, :]))
+    b_int8 = sum(t.numel() * t.element_size() for t in (q, kq, kc, vq, vc)) + q.numel() * 2
+    return {"int8_ms": int8_ms, "float_ms": float_ms, "layers": cfg.n_layers,
+            "int8_ms_per_step": int8_ms * cfg.n_layers,
+            "int8_bound_ms": bound(b_int8, 4 * q.numel() * S2S_MAX_SRC, BF16_FLOPS)[0],
+            "shape": {"slots": S2S_SLOTS, "heads": cfg.n_heads, "head_dim": dh,
+                      "positions": S2S_MAX_SRC, "source": 48}}
+
+
+def phase_seq2seq() -> dict:
+    """The encoder-decoder family on the main path at full width: S2S_1_5B
+    (int8 weights, ``Transformer.init_quantized`` seed 0, and its W4A8
+    self-draft from the same float weights) serving the
+    ``S2S_REQUESTS`` greedy requests of ``s2s_requests`` through every
+    engine of ``S2S_ENGINES`` on each of its routes. Fails unless every
+    route's transcripts equal the first route's bit for bit (an engine
+    served on the graph route alone: its eager and graph routes on the
+    short list), every decode step (round) launches what
+    ``s2s_launches_expected`` says and every admission what
+    ``s2s_admission_launches`` says (a speculative engine's: the target's
+    and the draft's), and 8 sampled requests draw the same tokens on the
+    eager and graph routes of every engine (the dense ones on the full
+    list, the others on the short one). Reports each engine's steady
+    window (``profile_decode`` or ``profile_spec`` on 48-token sources)
+    against the step's byte bound, the cross read's share of a step, and a
+    beam search (``S2S_BEAM``), whose beam 1 must equal ``generate``, and
+    runs ``examples/transformer_demo.py`` (``s2s_demo``)."""
+    from qgemm_tpu_torch.models.transformer import S2S_1_5B, Transformer
+    from qgemm_tpu_torch.serving.engine import Request
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer.init_quantized(S2S_1_5B, seed=0, device="cuda")
+    draft = Transformer.init_quantized(S2S_1_5B, seed=0, device="cuda", bits=4)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs_spec = s2s_requests(S2S_1_5B.vocab_size, np.random.default_rng(15))
+    make = lambda: [Request(prompt=p, max_new_tokens=n) for p, n in reqs_spec]
+    make_short = lambda: [Request(prompt=p, max_new_tokens=min(n, S2S_SHORT_NEW))
+                          for p, n in reqs_spec[:S2S_SHORT_REQUESTS]]
+    n_layers = S2S_1_5B.n_layers
+    step_bytes = s2s_step_bytes(model)
+    res = {"phase": "seq2seq", "model": "S2S_1_5B int8 (seed 0), W4A8 self-draft",
+           "params": model.num_params(), "init_s": init_s, "requests": len(reqs_spec),
+           "step_bytes": step_bytes, "step_bound_ms": bound(step_bytes, 0, INT8_OPS)[0],
+           "engines": {}}
+    for label, (kw, routes, spec) in S2S_ENGINES.items():
+        paged = kw.get("paged", False)
+        want = s2s_launches_expected(n_layers, paged, spec)
+        want_adm = s2s_admission_launches(n_layers, spec)
+        unit = "round" if spec else "step"
+        d = draft if spec else None
+        t_eng = time.perf_counter()
+
+        def serve_route(route: str, reqs: list, tag: str) -> dict:
+            engine = s2s_engine(model, route, kw, d)
+            run = drive(engine, reqs, f"seq2seq {label} {tag}")
+            per = run["per_round"] if spec else run["per_decode"]
+            if per is None or any(per.get(k, 0) != v for k, v in want.items()):
+                raise AssertionError(f"seq2seq {label} {tag}: launches per {unit} {per}, "
+                                     f"expected {want}")
+            if not run["admit_only"]:
+                raise AssertionError(f"seq2seq {label} {tag}: no admission step read")
+            for n_adm, adm in run["admit_only"]:
+                got = {k: adm.get(k, 0) for k in want_adm}
+                if any(got[k] != n_adm * v for k, v in want_adm.items()):
+                    raise AssertionError(f"seq2seq {label} {tag}: {n_adm} admissions "
+                                         f"launched {got}, expected {want_adm} each")
+            out = {"transcripts": [r.generated for r in reqs], "stats": engine.stats,
+                   "graph": run["graph"], "per": per,
+                   "ms_mean_in_run": float(np.mean(run["round_ms"] if spec
+                                                   else run["step_ms"]))}
+            if tag == "graph":
+                rng = np.random.default_rng(8)
+                out["profile"] = (profile_spec(engine, rng, n_steps=4, prompt=s2s_source)
+                                  if spec else profile_decode(engine, rng, prompt=s2s_source))
+            return out
+
+        runs = {route: serve_route(route, make(), route) for route in routes}
+        for route in routes[1:]:
+            if runs[route]["transcripts"] != runs[routes[0]]["transcripts"]:
+                raise AssertionError(f"seq2seq {label}: {route}'s transcripts are not the "
+                                     f"{routes[0]} route's")
+        entry = {"launches_per_" + unit: {k: v for k, v in runs["graph"]["per"].items() if v},
+                 "launches_per_admission": want_adm,
+                 "routes_equal": list(routes), "profile": runs["graph"]["profile"],
+                 "ms_mean_in_run": {r: runs[r]["ms_mean_in_run"] for r in routes},
+                 "stats": {r: {k: v for k, v in runs[r]["stats"].items()
+                               if k in ("tokens_per_s", "steps", "decode_steps", "spec_rounds",
+                                        "spec_acceptance", "itl_p50_ms", "admit_p50_ms",
+                                        "pages_total", "decode_graph_captures",
+                                        "decode_graph_replays")} for r in routes}}
+        if "eager" not in routes:
+            short = {route: serve_route(route, make_short(), f"{route} short")
+                     for route in ("eager", "graph")}
+            if short["eager"]["transcripts"] != short["graph"]["transcripts"]:
+                raise AssertionError(f"seq2seq {label}: the eager route's transcripts of the "
+                                     "short list are not the graph route's")
+            entry["short_routes_equal"] = ["eager", "graph"]
+            entry["ms_mean_in_run"]["eager_short"] = short["eager"]["ms_mean_in_run"]
+        full = label in ("dense_int8", "spec_dense_int8")
+        entry["sampled"] = sampled_routes_equal(
+            model, kw, make if full else make_short, f"seq2seq {label}",
+            routes=("eager", "graph"),
+            make_engine=lambda m, route, k: s2s_engine(m, route, k, d))
+        entry["sampled"]["list"] = "full" if full else "short"
+        entry["seconds"] = time.perf_counter() - t_eng
+        res["engines"][label] = entry
+        torch.cuda.empty_cache()
+    res["cross_read"] = s2s_cross_read_ms(model, S2S_ENGINES["dense_int8"][0])
+    step = res["engines"]["dense_int8"]["profile"]["kernel_ms_per_step"]
+    res["cross_read"]["share_of_dense_step_device_ms"] = \
+        res["cross_read"]["int8_ms_per_step"] / step
+    res["beam"] = s2s_beam(model)
+    del model, draft
+    torch.cuda.empty_cache()
+    res["demo"] = s2s_demo()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    return res
+
+
+def s2s_demo() -> dict:
+    """``examples/transformer_demo.py`` on the card: the reference preset
+    (d_model 8, head_dim 2), int8, with ``--bench`` (the served engines
+    above cover S2S_1_5B's widths)."""
+    from qgemm_tpu_torch.examples import transformer_demo
+    out = {}
+    for preset in ("reference",):
+        r = transformer_demo.main(["--preset", preset, "--quantized", "--bench",
+                                   "--new-tokens", "32"])
+        if len(r["tokens"]) != 2 or any(len(t) != 32 for t in r["tokens"]):
+            raise AssertionError(f"transformer_demo {preset}: {r['tokens']}")
+        out[preset] = {k: v for k, v in r.items() if k != "tokens"}
+    return out
+
+
+def s2s_beam(model) -> dict:
+    """``beam_search`` at ``S2S_BEAM`` on the int8 S2S_1_5B with the int8
+    self-cache (wall time, finite scores), and its beam 1 against
+    ``generate`` on the same source (equal token for token)."""
+    from qgemm_tpu_torch.ops import cuda as kernels
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    n, k = S2S_BEAM["new_tokens"], S2S_BEAM["beam_size"]
+    src = torch.randint(3, model.cfg.vocab_size, (S2S_BEAM["sources"], 40), generator=g,
+                        device="cuda")
+    model.beam_search(src, 4, beam_size=k, quantized_cache=True)     # warm
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, scores = model.beam_search(src, n, beam_size=k, quantized_cache=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    if toks.shape != (src.shape[0], n) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"beam search: tokens {tuple(toks.shape)}, scores {scores}")
+    b1, _ = model.beam_search(src[:1], 16, beam_size=1, quantized_cache=True)
+    greedy = model.generate(src[:1], 16, quantized_cache=True)
+    if b1.tolist() != greedy.tolist():
+        raise AssertionError(f"beam search: beam 1 {b1.tolist()} != generate "
+                             f"{greedy.tolist()}")
+    return {"beam_size": k, "sources": src.shape[0], "new_tokens": n, "wall_s": wall,
+            "ms_per_step": wall * 1e3 / n, "tokens_per_s": src.shape[0] * n / wall,
+            "scores": scores.tolist(), "beam1_equals_generate": True,
+            "launches": {kk: v for kk, v in counts.items() if v}}
+
+
+# The trained check of the encoder-decoder engines: a reverse model
+# (target = the source reversed, then EOS; the decoder sees the source only
+# through cross-attention), trained on the card on sources of 1-31 tokens,
+# one length a batch, and held to its teacher-forced accuracy over 8-31.
+# Its token embeddings start REV_EMBED_SCALE times the init's (std 1/sqrt(d)
+# beside sinusoidal positions of magnitude 1): at the init's scale neither
+# package's model left the loss plateau of a copy or a reversal within
+# 3,000 steps on the CPU; scaled, a CPU run of this recipe reached 0.99 at
+# length 24 by step 1,700.
+REV_MODEL = dict(vocab_size=64, d_model=128, n_heads=4, d_ff=512, n_layers=2,
+                 max_seq_len=64)
+REV_BOS, REV_EOS = 1, 2
+REV_TRAIN_LENGTHS = (1, 31)
+REV_LENGTHS = (8, 31)
+REV_EMBED_SCALE = 8.0
+REV_STEPS = (2000, 4000)          # attempts, until one reaches REV_MIN_ACC
+REV_BATCH = 64
+REV_LR = 1.5e-3
+REV_MIN_ACC = 0.95
+REV_SLACK = 0.05
+# three waves of 8 requests, longest first: each wave's slots held a
+# longer source before, whose rows past the new source stay in the cross
+# K/V and are read unless the step masks them
+REV_WAVES = ((26, 31), (16, 22), (8, 13))
+# the engines that serve the trained model (int8 weights, int8 cross K/V):
+# (options, whether the transcripts must equal ``generate``'s with the int8
+# self-cache, the draft)
+REV_ENGINES = {
+    "dense_int8": (dict(quantized_cache=True), True, None),
+    "dense_int8_ms4": (dict(quantized_cache=True, multi_step=4), True, None),
+    "paged_int8": (dict(quantized_cache=True, paged=True, page_size=16), True, None),
+    "paged_int4": (dict(quantized_cache=True, paged=True, page_size=16, kv_bits=4), False,
+                   None),
+    "spec_dense_int8": (dict(quantized_cache=True), True, "w4a8"),
+    "spec_paged_int8": (dict(quantized_cache=True, paged=True, page_size=16), True, "w4a8"),
+    "spec_paged_int4": (dict(quantized_cache=True, paged=True, page_size=16, kv_bits=4),
+                        False, "w4a8"),
+}
+
+
+def rev_batch(g: torch.Generator, batch: int, length: int) -> tuple:
+    """(source [B, L], decoder input [B, L+1] = BOS + reversed source,
+    target [B, L+1] = reversed source + EOS) on the generator's device."""
+    src = torch.randint(3, REV_MODEL["vocab_size"], (batch, length), generator=g,
+                        device=g.device)
+    rev = src.flip(1)
+    col = lambda t: torch.full((batch, 1), t, dtype=src.dtype, device=src.device)
+    return src, torch.cat([col(REV_BOS), rev], 1), torch.cat([rev, col(REV_EOS)], 1)
+
+
+def rev_teacher_forced(model, n: int = 16, seed: int = 7) -> float:
+    """Teacher-forced top-1 accuracy over every target token, at each
+    source length in ``REV_LENGTHS``, n sources each."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    hit = total = 0
+    with torch.no_grad():
+        for length in range(REV_LENGTHS[0], REV_LENGTHS[1] + 1):
+            src, tin, tout = rev_batch(g, n, length)
+            pred = model(src, tin).argmax(dim=-1)
+            hit += int((pred == tout).sum())
+            total += tout.numel()
+    return hit / total
+
+
+def rev_train(steps: int) -> tuple:
+    """Train the reverse model on the port's training path (K3 forward and
+    K7 backward, the analytic cross-entropy, Adam at ``REV_LR``, falling
+    over the last 30 % of the steps), one source length of
+    ``REV_TRAIN_LENGTHS`` a batch. Returns (model, losses, seconds and
+    launches per step)."""
+    from qgemm_tpu_torch.models.optim import Adam
+    from qgemm_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from qgemm_tpu_torch.ops.cross_entropy import cross_entropy_loss
+    from qgemm_tpu_torch.ops import cuda as kernels
+    cfg = TransformerConfig(**REV_MODEL)
+    model = Transformer.init(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        model.embed.table.mul_(REV_EMBED_SCALE)
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = Adam(lr=REV_LR)
+    state = opt.init(params)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    lengths = np.random.default_rng(2).integers(REV_TRAIN_LENGTHS[0], REV_TRAIN_LENGTHS[1] + 1,
+                                                size=steps)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = []
+    for i in range(steps):
+        # the rate falls linearly over the last 30 % of the steps to a tenth
+        opt.lr = REV_LR * min(1.0, 0.1 + 0.9 * (steps - i) / (0.3 * steps))
+        src, tin, tout = rev_batch(g, REV_BATCH, int(lengths[i]))
+        for p in params:
+            p.grad = None
+        logits = model(src, tin)
+        loss = cross_entropy_loss(logits.reshape(-1, cfg.vocab_size), tout.reshape(-1))
+        loss.backward()
+        state = opt.step(params, [p.grad for p in params], state)
+        if i % (steps // 10) == 0 or i == steps - 1:
+            losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    return model, {"steps": steps, "losses": losses, "train_s": time.perf_counter() - t,
+                   "launches_per_step": {k: v / steps for k, v in counts.items() if v}}
+
+
+def rev_model(ckpt: Path) -> tuple:
+    """The reverse model, reloaded from ``ckpt`` (a state dict, and the JSON
+    beside it) if it exists, else trained (``REV_STEPS`` in turn, until one
+    reaches ``REV_MIN_ACC``) and saved there. Returns (the float model,
+    what was trained)."""
+    from qgemm_tpu_torch.models.transformer import Transformer, TransformerConfig
+    meta = ckpt.with_suffix(".json")
+    if ckpt.exists():
+        info = json.loads(meta.read_text())
+        model = Transformer.init(TransformerConfig(**REV_MODEL), seed=0, device="cuda")
+        model.load_state_dict(torch.load(ckpt, map_location="cuda"))
+        info["teacher_forced_acc_reloaded"] = rev_teacher_forced(model)
+        return model, info
+    attempts = []
+    for steps in REV_STEPS:
+        model, st = rev_train(steps)
+        st["teacher_forced_acc"] = rev_teacher_forced(model)
+        attempts.append(st)
+        if st["teacher_forced_acc"] >= REV_MIN_ACC:
+            break
+        del model
+    else:
+        raise AssertionError(f"reverse model: no attempt reached {REV_MIN_ACC} teacher-forced "
+                             f"accuracy: {attempts}")
+    info = {"attempts": attempts, "teacher_forced_acc": st["teacher_forced_acc"]}
+    torch.save(model.state_dict(), ckpt)
+    meta.write_text(json.dumps(info))
+    return model, info
+
+
+def rev_readings(ckpt: Path) -> dict:
+    """The reverse model (``rev_model``) quantized to int8, serving the
+    three ``REV_WAVES`` of 8 held-out sources each (max_new_tokens the
+    source's length + 1, greedy) through every engine of ``REV_ENGINES``
+    (the speculative ones with the model's W4A8 copy as draft), launch
+    counts set to 0 just before each run and read just after. Per engine:
+    the accuracy of the transcripts against the reversed sources + EOS,
+    how many equal ``generate``'s (int8 self-cache), and the first that
+    differs with both sides' margins. Judges nothing (``rev_failures``
+    does)."""
+    from qgemm_tpu_torch.serving.engine import Request
+    from qgemm_tpu_torch.serving.seq2seq import Seq2SeqEngine
+    t0 = time.perf_counter()
+    model, info = rev_model(ckpt)
+    qm = model.quantize()
+    draft = model.quantize(bits=4)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    rng = np.random.default_rng(12)
+    srcs = [torch.randint(3, REV_MODEL["vocab_size"], (int(rng.integers(lo, hi + 1)),),
+                          generator=g, device="cuda").tolist()
+            for lo, hi in REV_WAVES for _ in range(8)]
+    targets = [list(reversed(s)) + [REV_EOS] for s in srcs]
+    gen = [qm.generate(torch.tensor([s], device="cuda"), len(s) + 1,
+                       quantized_cache=True)[0].tolist() for s in srcs]
+    acc = lambda outs: (sum(a == b for o, t in zip(outs, targets) for a, b in zip(o, t))
+                        / sum(len(t) for t in targets))
+    res = {"training": info, "requests": len(srcs), "waves": REV_WAVES,
+           "generate_acc": acc(gen), "engines": {}}
+    for label, (kw, exact, use_draft) in REV_ENGINES.items():
+        engine = Seq2SeqEngine(qm, max_slots=8, max_src_len=REV_WAVES[0][1] + 1,
+                               max_new_tokens=REV_WAVES[0][1] + 1, device="cuda",
+                               draft_model=draft if use_draft else None,
+                               spec_gamma=SPEC_GAMMA if use_draft else 4, **kw)
+        reqs = [Request(prompt=s, max_new_tokens=len(s) + 1) for s in srcs]
+        run = drive(engine, reqs, f"s2s_reverse {label}")
+        stats = engine.stats
+        del engine
+        outs = [r.generated for r in reqs]
+        diffs = [first_difference(a, b) for a, b in zip(gen, outs)]
+        row = {"acc": acc(outs), "equal_to_generate": sum(d is None for d in diffs),
+               "first_difference_steps": diffs, "first_difference": None,
+               "launches": {k: v for k, v in run["counts"].items() if v}}
+        if use_draft:
+            row.update(spec_rounds=stats.get("spec_rounds", 0),
+                       spec_acceptance=stats.get("spec_acceptance"))
+        i = next((i for i, d in enumerate(diffs) if d is not None), None)
+        if i is not None:
+            row["first_difference"] = rev_margins(qm, srcs[i], diffs[i], gen[i], outs[i])
+            row["first_difference"]["request"] = i
+        res["engines"][label] = row
+    del model, qm, draft
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def rev_margins(model, src: list, step: int, want: list, got: list) -> dict:
+    """``generate``'s logits at ``step`` of ``want`` (its transcript): the
+    margin of its token over the engine's there, and its top-2 gap."""
+    enc_kvs = model.cross_kvs(model.encode(torch.tensor([src], device="cuda")))
+    caches = model.init_cache(1, len(want), quantized=True)
+    tok = torch.tensor([[REV_BOS]], device="cuda")
+    for t in range(step + 1):
+        logits, caches = model.decode_logits(tok, t, enc_kvs, caches)
+        tok = torch.tensor([[want[t]]], device="cuda")
+    lg = logits[0].float()
+    top2 = torch.topk(lg, 2).values
+    return {"step": step, "generate_token": want[step], "engine_token": got[step],
+            "generate_margin": float(lg[want[step]] - lg[got[step]]),
+            "generate_top2_gap": float(top2[0] - top2[1])}
+
+
+def rev_failures(res: dict) -> list:
+    """What of ``rev_readings``' result breaks its bounds: each engine's
+    accuracy at least the teacher-forced accuracy less ``REV_SLACK``, the
+    transcripts of the engines so marked equal to ``generate``'s, every
+    speculative engine ran rounds."""
+    floor = res["training"]["teacher_forced_acc"] - REV_SLACK
+    bad = []
+    for label, row in res["engines"].items():
+        if row["acc"] < floor:
+            bad.append(f"{label}: accuracy {row['acc']} < {floor}")
+        if REV_ENGINES[label][1] and row["equal_to_generate"] != res["requests"]:
+            bad.append(f"{label}: {row['equal_to_generate']} of {res['requests']} transcripts "
+                       f"equal generate's ({row['first_difference']})")
+        if "spec_rounds" in row and not row["spec_rounds"] > 0:
+            bad.append(f"{label}: no speculative round")
+    return bad
+
+
+def phase_s2s_reverse() -> dict:
+    """The trained reverse model (``rev_readings``, the model saved to a
+    temporary directory); fails on any of ``rev_failures``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {"phase": "s2s_reverse", **rev_readings(Path(tmp) / "reverse.pt")}
+    res["acc_floor"] = res["training"]["teacher_forced_acc"] - REV_SLACK
+    emit(res)
+    bad = rev_failures(res)
+    per_step = res["training"]["attempts"][-1]["launches_per_step"]
+    attn = 3 * REV_MODEL["n_layers"]
+    if per_step.get("flash_attention") != attn or per_step.get("flash_attention_bwd") != attn:
+        bad.append(f"training launched {per_step} a step, not K3 and K7 {attn} times each")
+    if bad:
+        raise AssertionError(f"s2s reverse: {bad}")
+    return res
+
+
+def s2s_reverse_child(ckpt: str) -> None:
+    """``--s2s-reverse CKPT``: ``rev_readings`` of the model in CKPT (trained
+    and saved there first if missing), one JSON line."""
+    from qgemm_tpu_torch.ops.cuda import _build
+    _build.build()
+    emit({"phase": "s2s_reverse", **rev_readings(Path(ckpt))})
+
+
+# Faults that ``--seq2seq-faults`` plants, each in its own copy of the
+# package: (file under qgemm_tpu_torch/, the sound text, the faulty text).
+# The decode step's cross read attends every position of the cross K/V,
+# stale rows of an earlier, longer source included; admission writes a
+# slot's cross K/V into the next slot's rows; the int8 cross read drops the
+# K and V scales (reads codes / 127).
+S2S_FAULTS = {
+    "cross_read_ignores_src_lens": (
+        "serving/seq2seq.py",
+        "        return self._src_pos[None, :] < self.src_lens[:, None]\n",
+        "        return (self._src_pos[None, :] >= 0).expand(self.max_slots, -1)\n"),
+    "cross_kv_wrong_slot": (
+        "serving/seq2seq.py",
+        "                d[slot:slot + 1, :, :plen] = p.to(d.dtype)\n",
+        "                w = (slot + 1) % d.shape[0]\n"
+        "                d[w:w + 1, :, :plen] = p.to(d.dtype)\n"),
+    "int8_cross_scales_dropped": (
+        "models/attention.py",
+        "    s = s * (kc[..., 0] / (QRANGE * d ** 0.5))[:, :, None, :]\n",
+        "    s = s * (1.0 / (QRANGE * d ** 0.5))\n    vc = torch.ones_like(vc)\n"),
+}
+
+
+def seq2seq_faults() -> None:
+    """``--seq2seq-faults``: ``--s2s-reverse`` (which trains the reverse
+    model once and saves it in a temporary directory) with this checkout's
+    package, then with each of ``S2S_FAULTS`` planted in a copy of it, one
+    process each. Prints every reading beside its bound; fails if the sound
+    run breaks a bound of ``rev_failures`` or a fault keeps every engine
+    within them."""
+    phase_device()
+    src = Path(__file__).resolve().parent
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "reverse.pt")
+        for name, fault in [("sound", None), *S2S_FAULTS.items()]:
+            script = package_copy(tmp, src, name, fault)
+            proc = subprocess.run([sys.executable, str(script), "--s2s-reverse", ckpt],
+                                  capture_output=True, text=True, timeout=1200, check=False)
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+                raise AssertionError(f"--s2s-reverse of {name} exited {proc.returncode}")
+            runs[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+    failures = {name: rev_failures(r) for name, r in runs.items()}
+    emit({"phase": "seq2seq_faults", "training": runs["sound"]["training"],
+          "floor": runs["sound"]["training"]["teacher_forced_acc"] - REV_SLACK,
+          "runs": {name: {"acc": {k: v["acc"] for k, v in r["engines"].items()},
+                          "equal_to_generate": {k: v["equal_to_generate"]
+                                                for k, v in r["engines"].items()},
+                          "seconds": r["seconds"], "failures": failures[name]}
+                   for name, r in runs.items()}})
+    bad = [f"sound run: {f}" for f in failures["sound"]]
+    bad += [f"{name} was not caught" for name in S2S_FAULTS if not failures[name]]
+    if bad:
+        raise AssertionError(f"seq2seq faults: {bad}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -5341,6 +5987,10 @@ def main() -> None:
         return spec_tv()
     if sys.argv[1:2] == ["--spec-faults"]:
         return spec_faults()
+    if sys.argv[1:2] == ["--s2s-reverse"]:
+        return s2s_reverse_child(sys.argv[2])
+    if sys.argv[1:2] == ["--seq2seq-faults"]:
+        return seq2seq_faults()
     from qgemm_tpu_torch.ops.cuda import _build   # fails outside the repository
 
     smi = phase_device()
@@ -5380,6 +6030,8 @@ def main() -> None:
     induction, copy_model = phase_train_induction()
     phase_train_serve(copy_model)
     phase_long_copy()
+    s2s = phase_seq2seq()
+    phase_s2s_reverse()
     replaces = {"quantized_matmul": "qgemm_tpu/ops/pallas/quantized_matmul.py:107",
                 "decode_attention": "qgemm_tpu/ops/pallas/decode_attention.py:44",
                 "flash_attention": "qgemm_tpu/ops/pallas/flash_attention.py:41",
@@ -5439,6 +6091,15 @@ def main() -> None:
                          int4_plain_ms=t4["plain_ms"], int4_bound_ms=t4["bound_ms"],
                          int4_bound_by=t4["bound_by"],
                          launches_int4_overcommit_run=sum(paged4["launches"][w] for w in ws))
+        s2s_counts = {f"{lbl}_per_{'round' if e.get('launches_per_round') else 'step'}":
+                      sum((e.get("launches_per_round") or e["launches_per_step"]).get(w, 0)
+                          for w in ws) for lbl, e in s2s["engines"].items()}
+        s2s_adm, s2s_adm_spec = (sum(s2s["engines"][lbl]["launches_per_admission"].get(w, 0)
+                                     for w in ws) for lbl in ("dense_int8", "spec_dense_int8"))
+        if any(s2s_counts.values()) or s2s_adm or s2s_adm_spec:
+            entry.update(launches_seq2seq={k: v for k, v in s2s_counts.items() if v},
+                         launches_seq2seq_per_admission=s2s_adm,
+                         launches_seq2seq_per_spec_admission=s2s_adm_spec)
         if name in ("quantized_matmul", "w4a8_matmul", "paged_context_attention"):
             entry["launches_per_spec_round"] = {
                 k: e["launches_per_round"].get(name, 0) for k, e in spec["engines"].items()}

@@ -1,12 +1,21 @@
-"""Attention (port of ``scaled_dot_product_attention``, ``MultiHeadAttention``
-and ``_dispatch_attention`` of ``qgemm_tpu/models/attention.py``; the
-tensor-parallel and cross-attention branches are not ported yet).
+"""Attention (port of ``scaled_dot_product_attention``, ``Attention``,
+``MultiHeadAttention``, ``_quantized_cross_attention`` and
+``_dispatch_attention`` of ``qgemm_tpu/models/attention.py``; the
+tensor-parallel branches are not ported yet).
 
 Dispatch by device, mirroring the JAX package's by backend:
-  * full-sequence attention — kernel K3 (flash forward) on CUDA at any
-    length, differentiable through kernel K7 (the blockwise backward); on
-    the CPU the plain composition under autograd (GQA gradients flow back
-    through ``_repeat_kv``);
+  * full-sequence attention with no mask (self-attention, causal or not,
+    and cross-attention, Sq != Sk) — kernel K3 (flash forward) on CUDA at
+    any length, differentiable through kernel K7 (the blockwise backward);
+    on the CPU the plain composition under autograd (GQA gradients flow
+    back through ``_repeat_kv``);
+  * a key mask ([B, Sk] bool: padded encoder positions, or each serving
+    slot's true source length) — the plain composition on both, as JAX's
+    jnp path;
+  * cross-attention over precomputed K/V: a float (k, v) pair takes the two
+    routes above; an int8 4-tuple (kq, kc, vq, vc) the factored-scale
+    composition of ``_quantized_cross_attention``, products in f32 on the
+    CPU and bf16 on CUDA, as JAX's (f32 on its CPU backend);
   * full-prompt prefill (cache index 0, causal, Sq == Sk) — K3 on the
     unquantized K/V on CUDA; on the CPU the prompt attends the cache rows
     just written (re-read int8 rows for an int8 cache), as JAX does there;
@@ -42,6 +51,7 @@ from qgemm_tpu_torch.ops.cuda.paged_decode_attention import (paged_decode_attent
 from qgemm_tpu_torch.ops.kv_cache import QRANGE, QuantizedKVCache, quantize_kv
 from qgemm_tpu_torch.ops.softmax import softmax
 from qgemm_tpu_torch.serving.paged_cache import paged_write_prompt, paged_write_step
+from qgemm_tpu_torch.utils.prng import uniform_init
 
 _NEG = -1e30
 
@@ -62,6 +72,27 @@ def scaled_dot_product_attention(q, k, v, causal: bool = False,
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
     return torch.matmul(softmax(scores, axis=-1), v)
+
+
+def _quantized_cross_attention(q, kq, kc, vq, vc, mask=None) -> torch.Tensor:
+    """q [B, Hq, Sq, D]; kq/vq int8 [B, Hkv, S, D] (GQA: query heads fold
+    into the row axis, Hq a multiple of Hkv); kc/vc f32 [B, Hkv, S, 1]
+    per-position absmax; ``mask`` [B, S] bool. The scales are factored out
+    of the products (q.(kq*kc) == (q.kq)*kc, p@(vq*vc) == (p*vc)@vq), so
+    the dequantized K/V never exist."""
+    b, hq, sq, d = q.shape
+    hkv = kq.shape[1]
+    if hq != hkv:
+        q = q.reshape(b, hkv, (hq // hkv) * sq, d)
+    cd = torch.bfloat16 if q.is_cuda else torch.float32
+    s = torch.matmul(q.to(cd), kq.to(cd).transpose(-1, -2)).to(torch.float32)
+    s = s * (kc[..., 0] / (QRANGE * d ** 0.5))[:, :, None, :]
+    if mask is not None:
+        s = torch.where(mask[:, None, None, :], s, torch.full_like(s, _NEG))
+    p = softmax(s, axis=-1)
+    p = p * (vc[..., 0] * (1.0 / QRANGE))[:, :, None, :]
+    out = torch.matmul(p.to(cd), vq.to(cd)).to(q.dtype)
+    return out.reshape(b, hq, sq, out.shape[-1]) if hq != hkv else out
 
 
 def _dispatch_attention(q, k, v, causal: bool) -> torch.Tensor:
@@ -86,6 +117,33 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor, index) -> None:
     else:
         start = min(max(int(index), 0), s - sq)
         cache[:, :, start:start + sq] = new
+
+
+class Attention(nn.Module):
+    """Single-head scaled dot-product attention, the reference-parity layer:
+    Q/K/V projections, softmax(QK^T / sqrt(d_k)) V, no bias and no output
+    projection. Self-attention when ``x_kv`` is None, cross-attention
+    otherwise."""
+
+    def __init__(self, w_q: torch.Tensor, w_k: torch.Tensor, w_v: torch.Tensor):
+        super().__init__()
+        self.w_q = nn.Parameter(w_q)     # [d_model, d_k]
+        self.w_k = nn.Parameter(w_k)     # [d_model, d_k]
+        self.w_v = nn.Parameter(w_v)     # [d_model, d_v]
+
+    @classmethod
+    def init(cls, generator: torch.Generator, d_model: int, d_k: int, d_v: int,
+             dtype: torch.dtype = torch.float32) -> "Attention":
+        """Uniform ±1/sqrt(d_k) from ``generator``."""
+        bound = 1.0 / (d_k ** 0.5)
+        return cls(*(uniform_init(generator, (d_model, n), bound, dtype)
+                     for n in (d_k, d_k, d_v)))
+
+    def forward(self, x_q, x_kv=None, causal: bool = False) -> torch.Tensor:
+        if x_kv is None:
+            x_kv = x_q
+        return scaled_dot_product_attention(x_q @ self.w_q, x_kv @ self.w_k, x_kv @ self.w_v,
+                                            causal=causal)
 
 
 class MultiHeadAttention(nn.Module):
@@ -134,23 +192,44 @@ class MultiHeadAttention(nn.Module):
         g = self.n_heads // self.kv_heads
         return x if g == 1 else torch.repeat_interleave(x, g, dim=1)
 
+    def precompute_kv(self, x_kv):
+        """Project and head-split K/V once: the cross-attention's K/V of an
+        encoder output, static over every decode step. -> (k, v), each
+        [B, Hkv, Sk, Dh]."""
+        return (self._split(self.wqkv_k(x_kv), self.kv_heads),
+                self._split(self.wqkv_v(x_kv), self.kv_heads))
+
     def forward(self, x_q, x_kv=None, causal: bool = False, kv_cache=None,
-                cache_index=None):
+                cache_index=None, precomputed_kv=None, mask=None):
         """x_q [B, Sq, D]; x_kv [B, Sk, D] or None (self-attention).
 
         With ``kv_cache`` ((k, v) float [B, Hkv, S, Dh], a
         ``QuantizedKVCache`` or a ``PagedKVCache``) and ``cache_index`` (an
         int, or [B] per-slot positions), the new K/V rows are written at
-        cache_index in place and (out, kv_cache) is returned."""
+        cache_index in place and (out, kv_cache) is returned.
+        ``precomputed_kv``: the K/V instead of projecting ``x_kv``, a float
+        (k, v) pair or an int8 (kq, kc, vq, vc) 4-tuple (cross-attention).
+        ``mask`` [B, Sk] bool marks the keys attended (padded encoder
+        positions, or a serving slot's true source length)."""
         q = self._split(self.wqkv_q(x_q), self.n_heads)
-        if x_kv is None:
-            x_kv = x_q
-        k = self._split(self.wqkv_k(x_kv), self.kv_heads)
-        v = self._split(self.wqkv_v(x_kv), self.kv_heads)
+        if precomputed_kv is not None and len(precomputed_kv) == 4:
+            out = _quantized_cross_attention(q, *precomputed_kv, mask=mask)
+            return self.w_o(self._merge(out))
+        if precomputed_kv is not None:
+            k, v = precomputed_kv
+        else:
+            if x_kv is None:
+                x_kv = x_q
+            k, v = self.precompute_kv(x_kv)
         if kv_cache is not None:
             out = self._cached(q, k, v, kv_cache, cache_index, causal)
             return self.w_o(self._merge(out)), kv_cache
-        out = _dispatch_attention(q, self._repeat_kv(k), self._repeat_kv(v), causal)
+        k, v = self._repeat_kv(k), self._repeat_kv(v)
+        if mask is not None:
+            out = scaled_dot_product_attention(q, k, v, causal=causal,
+                                               mask=mask[:, None, None, :])
+        else:
+            out = _dispatch_attention(q, k, v, causal)
         return self.w_o(self._merge(out))
 
     def _paged(self, q, k, v, cache, cache_index):

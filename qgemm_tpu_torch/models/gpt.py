@@ -1,6 +1,6 @@
 """Decoder-only transformer, the serving-path model family (port of
-``qgemm_tpu/models/gpt.py``; ``beam_search`` is not ported yet): pre-LN
-causal LM, KV-cache decoding with per-slot positions, offline int8 or int4
+``qgemm_tpu/models/gpt.py``): pre-LN causal LM, KV-cache decoding with
+per-slot positions, greedy generation and beam search, offline int8 or int4
 (W4A8) quantization of every GEMM, optionally with the LLM.int8() outlier
 split. ``GPTConfig(n_experts > 0)`` swaps every block's FFN for a top-k
 routed ``MoEFeedForward`` (``models/moe.py``), whose experts quantize to
@@ -29,8 +29,8 @@ from qgemm_tpu_torch.models.attention import MultiHeadAttention
 from qgemm_tpu_torch.models.embedding import Embedding
 from qgemm_tpu_torch.models.linear import Linear, check_quantize_options
 from qgemm_tpu_torch.models.moe import MoEFeedForward
-from qgemm_tpu_torch.models.transformer import FeedForward, LayerNorm
-from qgemm_tpu_torch.ops.kv_cache import init_quantized_kv_cache
+from qgemm_tpu_torch.models.transformer import FeedForward, LayerNorm, _beam_loop
+from qgemm_tpu_torch.ops.kv_cache import QuantizedKVCache, init_quantized_kv_cache
 
 
 @dataclass(frozen=True)
@@ -238,3 +238,29 @@ class GPT(nn.Module):
             tok = logits.argmax(dim=-1, keepdim=True)
             out.append(tok)
         return torch.cat(out, dim=1)
+
+    @torch.no_grad()
+    def beam_search(self, prompt: torch.Tensor, max_new_tokens: int, beam_size: int = 4,
+                    eos_token: Optional[int] = None, length_penalty: float = 0.6,
+                    quantized_cache: bool = False):
+        """Beam-search continuation of prompt [B, S_p], the decoder-only twin
+        of ``Transformer.beam_search``: the prompt prefills once at batch B,
+        its cache rows are repeated into the B*K beam rows, the first token
+        of each beam is one of the K best after the prompt, then the beam
+        steps. Returns (tokens [B, max_new_tokens], scores [B])."""
+        b, s_p = prompt.shape
+        k = beam_size
+        caches = self.init_cache(b, s_p + max_new_tokens, quantized=quantized_cache)
+        logits, caches = self.prefill(prompt, caches)
+        rows = [[t.repeat_interleave(k, dim=0) for t in c] for c in caches]
+        caches = [QuantizedKVCache(*r) if isinstance(c, QuantizedKVCache) else tuple(r)
+                  for c, r in zip(caches, rows)]
+        lp0 = torch.log_softmax(logits[:, s_p - 1, :].to(torch.float32), dim=-1)
+        scores, nxt0 = torch.topk(lp0, k, dim=-1)
+        toks = torch.zeros((b, k, max_new_tokens), dtype=torch.int64, device=prompt.device)
+        toks[:, :, 0] = nxt0
+        done = (nxt0 == eos_token) if eos_token is not None else \
+            torch.zeros((b, k), dtype=torch.bool, device=prompt.device)
+        step = lambda tok, t, caches: self.decode_step(tok, s_p + t, caches)
+        return _beam_loop(step, nxt0.reshape(-1, 1), caches, scores, 1, max_new_tokens,
+                          eos_token, length_penalty, toks=toks, done=done)

@@ -325,10 +325,24 @@ def _slot_view(cache, slot: int):
 
 class _PagedPoolOps:
     """Host-side paged-pool plumbing: page-table sync, per-slot growth and
-    release. Expects ``self.alloc`` (PageAllocator), ``self._pt_host``
-    [slots, pps + 1] int32, ``self._pt_dev`` (the device page table every
-    layer's cache shares), ``self.caches``, ``self._page_size``,
-    ``self.book``, ``self.overcommit`` and ``self._slot_worst``."""
+    release, and the pools themselves. Expects ``self.alloc``
+    (PageAllocator), ``self._pt_host`` [slots, pps + 1] int32,
+    ``self._pt_dev`` (the device page table every layer's cache shares),
+    ``self._pool_shape`` (the pools' geometry), ``self.caches``,
+    ``self._page_size``, ``self.max_slots``, ``self.device``, ``self.book``,
+    ``self.overcommit`` and ``self._slot_worst``."""
+
+    def _new_pools(self, n_layers: int) -> list:
+        """Zero paged pools of the engine's geometry, one for each of
+        ``n_layers``, sharing the engine's device page table."""
+        g = self._pool_shape
+        pools = [init_paged_cache(g["n_heads"], g["head_dim"], g["n_pages"], self.max_slots,
+                                  self._pt_host.shape[1], page_size=g["page_size"],
+                                  kv_bits=g["kv_bits"], device=self.device)
+                 for _ in range(n_layers)]
+        for c in pools:
+            c.page_table = self._pt_dev
+        return pools
 
     def _sync_page_tables(self):
         """Copy the host page table into the shared device table (one copy
@@ -391,7 +405,439 @@ class _PagedPoolOps:
             self._sync_page_tables()
 
 
-class ContinuousBatchingEngine(_PagedPoolOps):
+class _EngineLoop(_PagedPoolOps):
+    """The serving loop both engines share (``ContinuousBatchingEngine`` and
+    ``serving/seq2seq.Seq2SeqEngine``): sampling, the decode and speculative
+    dispatches (graph replays on CUDA, the eager step on the CPU), the
+    host's replay of their outputs through the bookkeeper, ``step``,
+    ``cancel``, ``stats`` and ``run_to_completion``. The step bodies
+    ``_decode_body`` and ``_spec_body`` take their model calls from the
+    engine's ``_step_logits``, ``_draft_logits`` and ``_verify_logits``;
+    an engine provides those, its ``_admit``, ``_rebuild_caches`` (fault
+    recovery) and the state they use."""
+
+    def _init_loop(self) -> None:
+        """The loop's state, for an engine that has set ``device``,
+        ``max_slots``, ``multi_step``, ``spec_gamma``, ``draft`` and
+        ``_gen``."""
+        # the decode step's inputs and outputs: device tensors that every
+        # dispatch reads and writes in place (a captured graph holds their
+        # addresses)
+        dev, max_slots = self.device, self.max_slots
+        self.positions = torch.zeros((max_slots,), dtype=torch.int64, device=dev)
+        self.cur_tokens = torch.zeros((max_slots, 1), dtype=torch.int64, device=dev)
+        self._active_dev = torch.zeros((max_slots,), dtype=torch.int64, device=dev)
+        self._active_host: Optional[np.ndarray] = None   # what _active_dev holds
+        self._temps_dev = torch.zeros((max_slots,), dtype=torch.float32, device=dev)
+        self._topps_dev = torch.ones((max_slots,), dtype=torch.float32, device=dev)
+        self._topks_dev = torch.zeros((max_slots,), dtype=torch.int64, device=dev)
+        # per step of a dispatch: the tokens [0] and their logprobs [1] of
+        # every slot, at the step's index (float64 holds both exactly)
+        self._ring = torch.zeros((max(1, self.multi_step), 2, max_slots),
+                                 dtype=torch.float64, device=dev)
+        self._ring_idx = torch.zeros((1,), dtype=torch.int64, device=dev)
+        # per round of a speculative dispatch, every slot's candidates, how
+        # many it produced, and their logprobs: [rounds, slots, 2 gamma + 3]
+        self._spec_ring = (torch.zeros((max(1, self.multi_step), max_slots,
+                                        2 * self.spec_gamma + 3),
+                                       dtype=torch.float64, device=dev)
+                           if self.draft is not None else None)
+        # the temperatures also on the host: an all-greedy batch then runs
+        # the argmax step without a device round trip
+        self.temps = np.zeros((max_slots,), np.float32)
+        # the CUDA graphs of the decode step; None runs it eagerly (the CPU,
+        # or an A/B against the graphs)
+        self._graphs: Optional[DecodeGraphs] = (
+            DecodeGraphs(self._body, dev, self._gen) if dev.type == "cuda" else None)
+        self.finished: List[Request] = []
+        self.tokens_generated = 0
+        self.decode_steps = 0          # decode steps run on the device
+        # speculation: rounds run on the device, and rounds, proposals and
+        # accepted proposals of the slots still active when a round replays
+        self.spec_device_rounds = 0
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self._lp_slots: Dict[int, Request] = {}
+        self._admit_times: List[float] = []
+        self._itl: List[float] = []
+        self._last_tick_t: Optional[float] = None
+        self._t_start: Optional[float] = None
+
+    def _sample(self, logits: torch.Tensor, greedy: bool, temps, topps, topks) -> torch.Tensor:
+        """Tokens [B] from logits [B, V]: the argmax for an all-greedy batch,
+        else ``sample_logits`` with per-slot knobs (scalars or [B])."""
+        if greedy:
+            return logits.to(torch.float32).argmax(dim=-1)
+        return sample_logits(logits, self._gen, temps, topks, topps)
+
+    def _sample_first(self, last: torch.Tensor, temp: float, topp: float, topk: int):
+        """The first generated token and its logprob from the last prompt
+        position's logits [1, V]."""
+        tok = self._sample(last, temp <= 1e-6, temp, topp, topk)
+        return int(tok[0]), float(token_logprob(last, tok)[0])
+
+    def _body(self, mode: str) -> None:
+        """One step of a dispatch of ``mode``: a decode step ("greedy",
+        "sampled") or a speculative round ("spec_greedy", "spec_sampled")."""
+        (self._spec_body if mode.startswith("spec") else self._decode_body)(mode)
+
+    @torch.no_grad()
+    def _spec_body(self, mode: str) -> None:
+        """One speculative round over every slot, on device tensors only
+        (the JAX engines' ``_spec_round_impl``): the draft takes gamma + 1
+        decode steps from each slot's position (``_draft_logits``; the last
+        one only writes the last proposal's K/V), the target verifies [cur,
+        d_1..d_gamma] in one chunk at the per-slot positions
+        (``_verify_logits``), and ``spec_accept`` (``spec_accept_greedy``
+        for "spec_greedy", which draws nothing) picks each slot's block. The
+        block, its length and its logprobs go to the spec ring at the ring's
+        index; the active slots advance by their block and feed its last
+        token back.
+        "spec_sampled" samples the proposals from the draft's unfiltered
+        temperature distribution; the slots' filters act in the target's."""
+        g = self.spec_gamma
+        sampled = mode == "spec_sampled"
+        tok, props, qxs, dlogits = self.cur_tokens, [], [], []
+        for j in range(g + 1):
+            logits = self._draft_logits(tok, self.positions + j)
+            if sampled:
+                nxt, qx = sample_logits_with_prob(logits, self._gen, self._temps_dev, 0, 1.0)
+                qxs.append(qx)
+                dlogits.append(logits)
+            else:
+                nxt = logits.to(torch.float32).argmax(dim=-1)
+            props.append(nxt)
+            tok = nxt[:, None]
+        d = torch.stack(props[:g], dim=1)                             # [B, gamma]
+        tlogits = self._verify_logits(torch.cat([self.cur_tokens, d], dim=1))
+        if sampled:
+            cand, produced, cur_new, lps = spec_accept(
+                tlogits, d, torch.stack(qxs[:g], dim=1), torch.stack(dlogits[:g], dim=1),
+                self._temps_dev, self._topps_dev, self._topks_dev, self._gen, g)
+        else:
+            cand, produced, cur_new, lps = spec_accept_greedy(tlogits, d)
+        row = torch.cat([cand.to(torch.float64), produced[:, None].to(torch.float64),
+                         lps.to(torch.float64)], dim=1)
+        self._spec_ring.index_copy_(0, self._ring_idx, row[None])
+        self._ring_idx.add_(1)
+        self.positions.add_(produced * self._active_dev)
+        self.cur_tokens.copy_(torch.where(self._active_dev[:, None] > 0, cur_new[:, None],
+                                          self.cur_tokens))
+
+    @torch.no_grad()
+    def _decode_body(self, mode: str) -> None:
+        """One decode step over every slot, on device tensors only (what a
+        CUDA graph captures): the logits of ``_step_logits``, each slot's
+        next token ("greedy": the argmax) and its logprob into the ring at
+        the ring's index, the tokens fed back and the active slots'
+        positions advanced."""
+        logits = self._step_logits()
+        nxt = self._sample(logits, mode == "greedy", self._temps_dev, self._topps_dev,
+                           self._topks_dev)
+        lps = token_logprob(logits, nxt)
+        row = torch.stack((nxt.to(torch.float64), lps.to(torch.float64)))
+        self._ring.index_copy_(0, self._ring_idx, row[None])
+        self._ring_idx.add_(1)
+        self.cur_tokens.copy_(nxt[:, None])
+        self.positions.add_(self._active_dev)
+
+    def _dispatch(self, active: np.ndarray, n: int, mode: str) -> None:
+        """``n`` steps of ``mode`` (``_body``) over every slot, the
+        ``active`` ones advancing: graph replays on CUDA, the eager step on
+        the CPU. Their outputs fill the ring from index 0."""
+        if self._active_host is None or not np.array_equal(self._active_host, active):
+            src = torch.from_numpy(active.astype(np.int64))
+            if self._active_dev.is_cuda:
+                src = src.pin_memory()
+            self._active_dev.copy_(src, non_blocking=True)
+            self._active_host = active.copy()
+        self._ring_idx.zero_()
+        if self._graphs is not None:
+            self._graphs.run(mode, n)
+            return
+        for _ in range(n):
+            self._body(mode)
+
+    def _greedy(self, active: np.ndarray) -> bool:
+        return bool(np.all(self.temps[active] <= 1e-6))
+
+    def _decode(self, active: np.ndarray, n: int):
+        """A dispatch of ``n`` decode steps (the JAX engine's ``_decode`` for
+        n == 1 and ``_decode_multi`` above). Returns the steps' tokens [n,
+        slots] and logprobs [n, slots] on the host, read in one copy."""
+        self._dispatch(active, n, "greedy" if self._greedy(active) else "sampled")
+        self.decode_steps += n
+        ring = self._ring[:n].cpu().numpy()
+        return ring[:, 0].astype(np.int64), ring[:, 1].astype(np.float32)
+
+    def _spec(self, active: np.ndarray, n: int):
+        """A dispatch of ``n`` speculative rounds (the JAX engine's
+        ``_spec_round`` for n == 1 and ``_spec_multi`` above); positions
+        and tokens chain through the rounds on the device. Returns the
+        rounds' candidates [n, slots, gamma+1], produced counts [n, slots]
+        and logprobs [n, slots, gamma+1] on the host, read in one copy."""
+        self._dispatch(active, n, "spec_greedy" if self._greedy(active) else "spec_sampled")
+        self.spec_device_rounds += n
+        ring = self._spec_ring[:n].cpu().numpy()
+        g1 = self.spec_gamma + 1
+        return (ring[..., :g1].astype(np.int64), ring[..., g1].astype(np.int64),
+                ring[..., g1 + 1:].astype(np.float32))
+
+    def _recover_from_decode_fault(self, e: Exception):
+        """A failed decode dispatch leaves every in-flight sequence's cache
+        rows unknown: fail those requests with the error, free their slots
+        and pages, drop the captured graphs, which hold the old caches'
+        addresses, rebuild the caches (the engine's ``_rebuild_caches``,
+        the draft's too: a fault in a speculative round leaves both
+        unknown) and zero the positions and tokens. The engine serves later
+        submissions. A slot suspended for an overlapped admission is not
+        active here: its admission errors when the fault reaches it."""
+        msg = f"decode step failed: {type(e).__name__}: {e}"
+        self._lp_slots.clear()
+        for slot in np.flatnonzero(self.book.active_mask()):
+            req = self._slot_request(int(slot))
+            self._cancel_slot(int(slot), msg)
+            if req is not None:
+                req.done = True
+        self.finished.extend(self._drain_finished())
+        if self._graphs is not None:
+            self._graphs.reset()
+        self.caches = self.draft_caches = None   # free the old caches first
+        self._rebuild_caches()
+        self.positions.zero_()
+        self.cur_tokens.zero_()
+
+    def _unadmit(self, req: Request):
+        """Undo an admission: free the slot, keep any OTHER requests the
+        bookkeeper finished in the meantime."""
+        self.book.cancel(req.id)
+        for r in self.book.drain_finished():
+            if r.id != req.id:
+                self.finished.append(self._finalize(r))
+
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a request by id: a waiting request is dropped; an active
+        one frees its slot (and pages) at once, its partial transcript
+        kept. Returns False when the id is unknown or already finished."""
+        res = self.book.cancel(req_id)
+        if res is None:
+            return False
+        kind, info = res
+        if kind == "waiting":
+            info.done = True
+            info.cancelled = True
+            self.finished.append(self._finalize(info))
+        else:
+            self._lp_slots.pop(info, None)
+            if self.paged:
+                self._release_slot_pages(info)
+            for r in self.book.drain_finished():
+                r.done = True
+                if r.id == req_id:
+                    r.cancelled = True
+                self.finished.append(self._finalize(r))
+        return True
+
+    def _slot_request(self, slot: int) -> Optional[Request]:
+        """The Request occupying ``slot``, if any."""
+        return self.book.slot_req.get(slot)
+
+    def _finalize(self, r: Request) -> Request:
+        """Merge a finished continuation back into the ORIGINAL Request: a
+        preempted request finishes as a continuation whose transcript holds
+        only its post-preemption tokens."""
+        info = self._preempted.pop(r.id, None)
+        if info is None:
+            return r
+        orig = info["req"]
+        orig.generated = info["gen"] + list(r.generated)
+        orig.token_logprobs = info["lps"] + list(r.token_logprobs)
+        orig.done, orig.error = r.done, r.error
+        orig.cancelled = r.cancelled
+        return orig
+
+    def _drain_finished(self) -> List[Request]:
+        return [self._finalize(r) for r in self.book.drain_finished()]
+
+    def _cancel_slot(self, slot: int, error_msg: str):
+        """Cancel whatever request occupies ``slot`` (if any), tagging it
+        with ``error_msg``, and free its pages."""
+        req = self._slot_request(slot)
+        if req is None:
+            return
+        req.error = error_msg
+        self.book.cancel(req.id)
+        if self.paged:
+            self._release_slot_pages(slot)
+
+    @property
+    def steps(self) -> int:
+        return self.book.steps
+
+    @property
+    def stats(self) -> Dict[str, float]:
+        """Throughput counters, admission latency, inter-token latency (one
+        sample per decode dispatch), in paged mode pool occupancy,
+        prefix-cache and over-commit counters, with a draft the speculative
+        rounds and the share of proposals accepted, and on CUDA the decode
+        graphs' captures and replays (speculative rounds included)."""
+        wall = (time.perf_counter() - self._t_start) if self._t_start else 0.0
+        st = {"tokens_generated": self.tokens_generated, "steps": int(self.steps),
+              "decode_steps": self.decode_steps,
+              "wall_s": round(wall, 3),
+              "tokens_per_s": round(self.tokens_generated / wall, 2) if wall else 0.0}
+        if self._admit_times:
+            at = np.asarray(self._admit_times)
+            st["admit_p50_ms"] = round(float(np.percentile(at, 50)) * 1e3, 2)
+            st["admit_p95_ms"] = round(float(np.percentile(at, 95)) * 1e3, 2)
+            st["admissions"] = len(at)
+        if self.paged:
+            total = self.caches[0].n_pages - 1          # page 0 reserved
+            ps = self._page_size
+            act = self.book.active_mask()
+            st.update(
+                pages_in_use=total - self.alloc.n_free, pages_total=total,
+                prefix_hits=self.alloc.prefix_hits,
+                prefix_cached_pages=len(self.alloc.cached),
+                prefill_tokens_skipped=self.prefill_tokens_skipped,
+                # pages held by slots vs pages their positions occupy: the
+                # worst-case reservation strands the difference
+                pages_reserved=sum(len(p) for p in self.alloc.slot_pages),
+                pages_used=int(sum(-(-(int(self.book.pos[s]) + 1) // ps)
+                                   for s in np.flatnonzero(act))),
+                preemptions=self.preemptions)
+        if self._itl:
+            it = np.asarray(self._itl)
+            st["itl_p50_ms"] = round(float(np.percentile(it, 50)) * 1e3, 2)
+            st["itl_p95_ms"] = round(float(np.percentile(it, 95)) * 1e3, 2)
+        if self.draft is not None and self.spec_drafted:
+            st["spec_rounds"] = self.spec_rounds
+            st["spec_acceptance"] = round(self.spec_accepted / self.spec_drafted, 4)
+        if self._graphs is not None:
+            st.update(decode_graph_captures=self._graphs.captures,
+                      decode_graph_replays=self._graphs.replays)
+        return st
+
+    def _record_itl(self):
+        """Wall-clock gap between consecutive decode steps while slots are
+        resident (admission stalls included). Bounded sample ring."""
+        now = time.perf_counter()
+        if self._last_tick_t is not None:
+            if len(self._itl) >= 4096:
+                del self._itl[:2048]
+            self._itl.append(now - self._last_tick_t)
+        self._last_tick_t = now
+
+    def _record_block(self, active: np.ndarray, toks: np.ndarray, lps: np.ndarray):
+        """Host bookkeeping after a dispatch over the ``active`` slots: replay
+        its steps' tokens and logprobs [n, slots] through the bookkeeper in
+        order, which drops what a slot produced after its own finish; then
+        free the slots that finished."""
+        for i in range(toks.shape[0]):
+            active_i = self.book.active_mask()
+            if not active_i.any():
+                break
+            for slot, r in self._lp_slots.items():
+                if active_i[slot]:
+                    r.token_logprobs.append(float(lps[i, slot]))
+            self.book.record_step(toks[i])
+            self.tokens_generated += int(active_i.sum())
+        for slot in np.flatnonzero(active & ~self.book.active_mask()):
+            self._lp_slots.pop(int(slot), None)
+            if self.paged:
+                self._release_slot_pages(int(slot))
+        self.finished.extend(self._drain_finished())
+        self._record_itl()
+
+    def step(self) -> bool:
+        """Admit waiting requests, then run one decode step for all slots, or
+        a block of ``multi_step`` steps when nothing waits for a slot; with
+        a draft and nothing waiting, speculative rounds instead
+        (``_spec_step``). A decode fault recovers at engine level
+        (``_recover_from_decode_fault``)."""
+        if self._t_start is None:
+            self._t_start = time.perf_counter()
+        self._admit()
+        active = self.book.active_mask()
+        if not active.any():
+            return False
+        if self.draft is not None and self.book.num_waiting == 0:
+            return self._spec_step(active)
+        n = self.multi_step if self.multi_step > 1 and self.book.num_waiting == 0 else 1
+        if self.paged:
+            # pool exhaustion raises here (size the pool for the resident
+            # tokens, or lower max_slots) or, with overcommit, preempts
+            self._grow_active_slots(active, ahead=n)
+            if self.overcommit:
+                active = active & self.book.active_mask()
+                if not active.any():
+                    return True
+        try:
+            toks, lps = self._decode(active, n)
+        except GraphCaptureError:
+            raise
+        except Exception as e:  # noqa: BLE001 — engine-level recovery
+            self._recover_from_decode_fault(e)
+            return True
+        self._record_block(active, toks, lps)
+        return True
+
+    def _spec_step(self, active: np.ndarray) -> bool:
+        """One speculative dispatch (nothing waits): a round, or with
+        ``multi_step`` that many rounds, each slot advancing by its own
+        accepted block. Paged slots first get pages for the dispatch's
+        candidate rows (within their reservation; rows past it write the
+        null page). The host replays the rounds in order through the
+        bookkeeper, which truncates each block at a finish and drops what a
+        slot produced after it; acceptance counts what the transcripts
+        kept, for the slots still active when each round replays."""
+        n = self.multi_step if self.multi_step > 1 else 1
+        if self.paged:
+            self._grow_active_slots(active, ahead=n * self.spec_extra)
+            if self.overcommit:
+                active = active & self.book.active_mask()
+                if not active.any():
+                    return True
+        try:
+            cands, produced, lps = self._spec(active, n)
+        except GraphCaptureError:
+            raise
+        except Exception as e:  # noqa: BLE001 — engine-level recovery
+            self._recover_from_decode_fault(e)
+            return True
+        for i in range(n):
+            act_i = self.book.active_mask()
+            if not act_i.any():
+                break
+            accepted = self.book.record_block(cands[i], produced[i])
+            self.tokens_generated += int(accepted.sum())
+            slots = np.flatnonzero(act_i)
+            self.spec_rounds += 1
+            self.spec_drafted += self.spec_gamma * len(slots)
+            # proposals the transcript kept: what was appended, less the
+            # extra token when the block ran to it
+            used = np.minimum(accepted[slots], produced[i, slots] - 1)
+            self.spec_accepted += int(used.clip(min=0).sum())
+            for slot, r in self._lp_slots.items():
+                r.token_logprobs.extend(float(x) for x in lps[i, slot, :accepted[slot]])
+        for slot in np.flatnonzero(active & ~self.book.active_mask()):
+            self._lp_slots.pop(int(slot), None)
+            if self.paged:
+                self._release_slot_pages(int(slot))
+        self.finished.extend(self._drain_finished())
+        self._record_itl()
+        return True
+
+    def run_to_completion(self, max_steps: int = 100000) -> List[Request]:
+        while ((self.book.num_waiting or self.book.num_active)
+               and self.steps < max_steps):
+            self.step()
+        self.finished.extend(self._drain_finished())
+        return self.finished
+
+
+class ContinuousBatchingEngine(_EngineLoop):
     def __init__(self, model, max_slots: int = 8, max_seq_len: Optional[int] = None,
                  scheduler: str = "auto", quantized_cache: bool = False,
                  top_k: int = 0, seed: int = 0, mesh=None, paged: bool = False,
@@ -516,7 +962,7 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             self._pt_host = np.zeros((max_slots, pps + 1), np.int32)
             self._pt_dev = torch.zeros((max_slots, pps + 1), dtype=torch.int32,
                                        device=self.device)
-            self.caches = self._new_pools()
+            self.caches = self._new_pools(len(model.blocks))
             self.alloc = PageAllocator(self._pool_shape["n_pages"], max_slots, pps)
             self._page_size = ps
             self._park_pos = pps * ps
@@ -527,81 +973,14 @@ class ContinuousBatchingEngine(_PagedPoolOps):
                                            quantized=quantized_cache)
         # the draft's cache: dense, in its own dtype, in both modes
         self.draft_caches = self._new_draft_caches()
-        # the decode step's inputs and outputs: device tensors that every
-        # dispatch reads and writes in place (a captured graph holds their
-        # addresses)
-        dev = self.device
-        self.positions = torch.zeros((max_slots,), dtype=torch.int64, device=dev)
-        self.cur_tokens = torch.zeros((max_slots, 1), dtype=torch.int64, device=dev)
-        self._active_dev = torch.zeros((max_slots,), dtype=torch.int64, device=dev)
-        self._active_host: Optional[np.ndarray] = None   # what _active_dev holds
-        self._temps_dev = torch.zeros((max_slots,), dtype=torch.float32, device=dev)
-        self._topps_dev = torch.ones((max_slots,), dtype=torch.float32, device=dev)
-        self._topks_dev = torch.zeros((max_slots,), dtype=torch.int64, device=dev)
-        # per step of a dispatch: the tokens [0] and their logprobs [1] of
-        # every slot, at the step's index (float64 holds both exactly)
-        self._ring = torch.zeros((max(1, self.multi_step), 2, max_slots),
-                                 dtype=torch.float64, device=dev)
-        self._ring_idx = torch.zeros((1,), dtype=torch.int64, device=dev)
-        # per round of a speculative dispatch, every slot's candidates, how
-        # many it produced, and their logprobs: [rounds, slots, 2 gamma + 3]
-        self._spec_ring = (torch.zeros((max(1, self.multi_step), max_slots,
-                                        2 * self.spec_gamma + 3),
-                                       dtype=torch.float64, device=dev)
-                           if draft_model is not None else None)
-        # the temperatures also on the host: an all-greedy batch then runs
-        # the argmax step without a device round trip
-        self.temps = np.zeros((max_slots,), np.float32)
-        # the CUDA graphs of the decode step; None runs it eagerly (the CPU,
-        # or an A/B against the graphs)
-        self._graphs: Optional[DecodeGraphs] = (
-            DecodeGraphs(self._body, dev, self._gen) if dev.type == "cuda" else None)
-        self.finished: List[Request] = []
-        self.tokens_generated = 0
-        self.decode_steps = 0          # decode steps run on the device
-        # speculation: rounds run on the device, and rounds, proposals and
-        # accepted proposals of the slots still active when a round replays
-        self.spec_device_rounds = 0
-        self.spec_rounds = 0
-        self.spec_drafted = 0
-        self.spec_accepted = 0
-        self._lp_slots: Dict[int, Request] = {}
-        self._admit_times: List[float] = []
-        self._itl: List[float] = []
-        self._last_tick_t: Optional[float] = None
-        self._t_start: Optional[float] = None
+        self._init_loop()
 
     def _new_draft_caches(self) -> Optional[list]:
         if self.draft is None:
             return None
         return self.draft.init_cache(self.max_slots, self.max_seq_len + self.spec_extra)
 
-    def _new_pools(self) -> list:
-        """Zero paged pools, one per layer, sharing the engine's device page
-        table."""
-        g = self._pool_shape
-        pools = [init_paged_cache(g["n_heads"], g["head_dim"], g["n_pages"], self.max_slots,
-                                  self._pt_host.shape[1], page_size=g["page_size"],
-                                  kv_bits=g["kv_bits"], device=self.device)
-                 for _ in self.model.blocks]
-        for c in pools:
-            c.page_table = self._pt_dev
-        return pools
-
     # --------------------------------------------------------------- device
-    def _sample(self, logits: torch.Tensor, greedy: bool, temps, topps, topks) -> torch.Tensor:
-        """Tokens [B] from logits [B, V]: the argmax for an all-greedy batch,
-        else ``sample_logits`` with per-slot knobs (scalars or [B])."""
-        if greedy:
-            return logits.to(torch.float32).argmax(dim=-1)
-        return sample_logits(logits, self._gen, temps, topks, topps)
-
-    def _sample_first(self, last: torch.Tensor, temp: float, topp: float, topk: int):
-        """The first generated token and its logprob from the last prompt
-        position's logits [1, V]."""
-        tok = self._sample(last, temp <= 1e-6, temp, topp, topk)
-        return int(tok[0]), float(token_logprob(last, tok)[0])
-
     @torch.no_grad()
     def _prefill_impl(self, prompt: torch.Tensor, plen_true: int, slot: int,
                       temp: float, topp: float, topk: int):
@@ -673,123 +1052,20 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         sampled)."""
         self.draft.prefill(prompt, [_slot_view(c, slot) for c in self.draft_caches])
 
-    def _body(self, mode: str) -> None:
-        """One step of a dispatch of ``mode``: a decode step ("greedy",
-        "sampled") or a speculative round ("spec_greedy", "spec_sampled")."""
-        (self._spec_body if mode.startswith("spec") else self._decode_body)(mode)
+    # the model calls of the step bodies (``_EngineLoop``): the decode step,
+    # a draft step and the verify chunk, each writing its K/V in place
+    def _step_logits(self) -> torch.Tensor:
+        return self.model.decode_step(self.cur_tokens, self.positions, self.caches)[0]
 
-    @torch.no_grad()
-    def _spec_body(self, mode: str) -> None:
-        """One speculative round over every slot, on device tensors only
-        (the JAX engine's ``_spec_round_impl``): the draft takes gamma + 1
-        decode steps from each slot's position (the last one only writes
-        the last proposal's K/V), the target verifies [cur, d_1..d_gamma]
-        in one ``prefill_chunk`` at the per-slot positions, and
-        ``spec_accept`` (``spec_accept_greedy`` for "spec_greedy", which
-        draws nothing) picks each slot's block. The block, its length and
-        its logprobs go to the spec ring at the ring's index; the active
-        slots advance by their block and feed its last token back.
-        "spec_sampled" samples the proposals from the draft's unfiltered
-        temperature distribution; the slots' filters act in the target's."""
-        g = self.spec_gamma
-        sampled = mode == "spec_sampled"
-        tok, props, qxs, dlogits = self.cur_tokens, [], [], []
-        for j in range(g + 1):
-            logits, _ = self.draft.decode_step(tok, self.positions + j, self.draft_caches)
-            if sampled:
-                nxt, qx = sample_logits_with_prob(logits, self._gen, self._temps_dev, 0, 1.0)
-                qxs.append(qx)
-                dlogits.append(logits)
-            else:
-                nxt = logits.to(torch.float32).argmax(dim=-1)
-            props.append(nxt)
-            tok = nxt[:, None]
-        d = torch.stack(props[:g], dim=1)                             # [B, gamma]
-        tlogits, _ = self.model.prefill_chunk(torch.cat([self.cur_tokens, d], dim=1),
-                                              self.positions, self.caches)
-        if sampled:
-            cand, produced, cur_new, lps = spec_accept(
-                tlogits, d, torch.stack(qxs[:g], dim=1), torch.stack(dlogits[:g], dim=1),
-                self._temps_dev, self._topps_dev, self._topks_dev, self._gen, g)
-        else:
-            cand, produced, cur_new, lps = spec_accept_greedy(tlogits, d)
-        row = torch.cat([cand.to(torch.float64), produced[:, None].to(torch.float64),
-                         lps.to(torch.float64)], dim=1)
-        self._spec_ring.index_copy_(0, self._ring_idx, row[None])
-        self._ring_idx.add_(1)
-        self.positions.add_(produced * self._active_dev)
-        self.cur_tokens.copy_(torch.where(self._active_dev[:, None] > 0, cur_new[:, None],
-                                          self.cur_tokens))
+    def _draft_logits(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        return self.draft.decode_step(tok, pos, self.draft_caches)[0]
 
-    @torch.no_grad()
-    def _decode_body(self, mode: str) -> None:
-        """One decode step over every slot, on device tensors only (what a
-        CUDA graph captures): sample each slot's next token ("greedy": the
-        argmax), write it and its logprob into the ring at the ring's index,
-        feed the tokens back and advance the active slots' positions."""
-        logits, _ = self.model.decode_step(self.cur_tokens, self.positions, self.caches)
-        nxt = self._sample(logits, mode == "greedy", self._temps_dev, self._topps_dev,
-                           self._topks_dev)
-        lps = token_logprob(logits, nxt)
-        row = torch.stack((nxt.to(torch.float64), lps.to(torch.float64)))
-        self._ring.index_copy_(0, self._ring_idx, row[None])
-        self._ring_idx.add_(1)
-        self.cur_tokens.copy_(nxt[:, None])
-        self.positions.add_(self._active_dev)
-
-    def _dispatch(self, active: np.ndarray, n: int, mode: str) -> None:
-        """``n`` steps of ``mode`` (``_body``) over every slot, the
-        ``active`` ones advancing: graph replays on CUDA, the eager step on
-        the CPU. Their outputs fill the ring from index 0."""
-        if self._active_host is None or not np.array_equal(self._active_host, active):
-            src = torch.from_numpy(active.astype(np.int64))
-            if self._active_dev.is_cuda:
-                src = src.pin_memory()
-            self._active_dev.copy_(src, non_blocking=True)
-            self._active_host = active.copy()
-        self._ring_idx.zero_()
-        if self._graphs is not None:
-            self._graphs.run(mode, n)
-            return
-        for _ in range(n):
-            self._body(mode)
-
-    def _greedy(self, active: np.ndarray) -> bool:
-        return bool(np.all(self.temps[active] <= 1e-6))
-
-    def _decode(self, active: np.ndarray, n: int):
-        """A dispatch of ``n`` decode steps (the JAX engine's ``_decode`` for
-        n == 1 and ``_decode_multi`` above). Returns the steps' tokens [n,
-        slots] and logprobs [n, slots] on the host, read in one copy."""
-        self._dispatch(active, n, "greedy" if self._greedy(active) else "sampled")
-        self.decode_steps += n
-        ring = self._ring[:n].cpu().numpy()
-        return ring[:, 0].astype(np.int64), ring[:, 1].astype(np.float32)
-
-    def _spec(self, active: np.ndarray, n: int):
-        """A dispatch of ``n`` speculative rounds (the JAX engine's
-        ``_spec_round`` for n == 1 and ``_spec_multi`` above); positions
-        and tokens chain through the rounds on the device. Returns the
-        rounds' candidates [n, slots, gamma+1], produced counts [n, slots]
-        and logprobs [n, slots, gamma+1] on the host, read in one copy."""
-        self._dispatch(active, n, "spec_greedy" if self._greedy(active) else "spec_sampled")
-        self.spec_device_rounds += n
-        ring = self._spec_ring[:n].cpu().numpy()
-        g1 = self.spec_gamma + 1
-        return (ring[..., :g1].astype(np.int64), ring[..., g1].astype(np.int64),
-                ring[..., g1 + 1:].astype(np.float32))
+    def _verify_logits(self, seq: torch.Tensor) -> torch.Tensor:
+        return self.model.prefill_chunk(seq, self.positions, self.caches)[0]
 
     # ---------------------------------------------------------------- admin
     def submit(self, req: Request):
         self.book.submit(req)
-
-    def _unadmit(self, req: Request):
-        """Undo an admission: free the slot, keep any OTHER requests the
-        bookkeeper finished in the meantime."""
-        self.book.cancel(req.id)
-        for r in self.book.drain_finished():
-            if r.id != req.id:
-                self.finished.append(self._finalize(r))
 
     def _reserve_pages(self, slot: int, req: Request, plen: int):
         """The paged half of an admission's checks, as the JAX engine makes
@@ -1026,51 +1302,7 @@ class ContinuousBatchingEngine(_PagedPoolOps):
             raise RuntimeError(f"decode fault during overlapped admission: {e}") from e
         self._record_block(active, toks, lps)
 
-    def cancel(self, req_id: int) -> bool:
-        """Cancel a request by id: a waiting request is dropped; an active
-        one frees its slot (and pages) at once, its partial transcript
-        kept. Returns False when the id is unknown or already finished."""
-        res = self.book.cancel(req_id)
-        if res is None:
-            return False
-        kind, info = res
-        if kind == "waiting":
-            info.done = True
-            info.cancelled = True
-            self.finished.append(self._finalize(info))
-        else:
-            self._lp_slots.pop(info, None)
-            if self.paged:
-                self._release_slot_pages(info)
-            for r in self.book.drain_finished():
-                r.done = True
-                if r.id == req_id:
-                    r.cancelled = True
-                self.finished.append(self._finalize(r))
-        return True
-
     # ------------------------------------------------------------ over-commit
-    def _slot_request(self, slot: int) -> Optional[Request]:
-        """The Request occupying ``slot``, if any."""
-        return self.book.slot_req.get(slot)
-
-    def _finalize(self, r: Request) -> Request:
-        """Merge a finished continuation back into the ORIGINAL Request: a
-        preempted request finishes as a continuation whose transcript holds
-        only its post-preemption tokens."""
-        info = self._preempted.pop(r.id, None)
-        if info is None:
-            return r
-        orig = info["req"]
-        orig.generated = info["gen"] + list(r.generated)
-        orig.token_logprobs = info["lps"] + list(r.token_logprobs)
-        orig.done, orig.error = r.done, r.error
-        orig.cancelled = r.cancelled
-        return orig
-
-    def _drain_finished(self) -> List[Request]:
-        return [self._finalize(r) for r in self.book.drain_finished()]
-
     def _preempt_for_pages(self, needy_slot: int) -> bool:
         """Over-commit pool pressure: preempt the YOUNGEST-admitted active
         slot (other than ``needy_slot`` if there is one), free its pages and
@@ -1106,213 +1338,16 @@ class ContinuousBatchingEngine(_PagedPoolOps):
         self.preemptions += 1
         return True
 
-    def _cancel_slot(self, slot: int, error_msg: str):
-        """Cancel whatever request occupies ``slot`` (if any), tagging it
-        with ``error_msg``, and free its pages."""
-        req = self._slot_request(slot)
-        if req is None:
-            return
-        req.error = error_msg
-        self.book.cancel(req.id)
-        if self.paged:
-            self._release_slot_pages(slot)
-
-    def _recover_from_decode_fault(self, e: Exception):
-        """A failed decode dispatch leaves every in-flight sequence's cache
-        rows unknown: fail those requests with the error, free their slots
-        and pages, rebuild the caches (paged: the pools from the engine's
-        own geometry, the prefix cache emptied, since its pages went with
-        them), zero the positions and tokens, and drop the captured graphs,
-        which hold the old caches' addresses. With a draft its caches are
-        rebuilt too (a fault in a speculative round leaves both unknown).
-        The engine serves later submissions. A slot suspended for an
-        overlapped admission is not active here: its admission errors when
-        the fault reaches it."""
-        msg = f"decode step failed: {type(e).__name__}: {e}"
-        self._lp_slots.clear()
-        for slot in np.flatnonzero(self.book.active_mask()):
-            req = self._slot_request(int(slot))
-            self._cancel_slot(int(slot), msg)
-            if req is not None:
-                req.done = True
-        self.finished.extend(self._drain_finished())
-        if self._graphs is not None:
-            self._graphs.reset()
-        self.caches = self.draft_caches = None   # free the old caches first
+    def _rebuild_caches(self) -> None:
+        """Fresh caches after a decode fault (paged: the pools from the
+        engine's own geometry, the prefix cache emptied, since its pages
+        went with them; the draft's caches too)."""
         if self.paged:
             self.alloc.reset_prefix_cache()
-            self.caches = self._new_pools()
+            self.caches = self._new_pools(len(self.model.blocks))
             self._sync_page_tables()
         else:
             self.caches = self.model.init_cache(self.max_slots,
                                                 self.max_seq_len + self.spec_extra,
                                                 quantized=self.quantized_cache)
         self.draft_caches = self._new_draft_caches()
-        self.positions.zero_()
-        self.cur_tokens.zero_()
-
-    # ----------------------------------------------------------------- run
-    @property
-    def steps(self) -> int:
-        return self.book.steps
-
-    @property
-    def stats(self) -> Dict[str, float]:
-        """Throughput counters, admission latency, inter-token latency (one
-        sample per decode dispatch), in paged mode pool occupancy,
-        prefix-cache and over-commit counters, with a draft the speculative
-        rounds and the share of proposals accepted, and on CUDA the decode
-        graphs' captures and replays (speculative rounds included)."""
-        wall = (time.perf_counter() - self._t_start) if self._t_start else 0.0
-        st = {"tokens_generated": self.tokens_generated, "steps": int(self.steps),
-              "decode_steps": self.decode_steps,
-              "wall_s": round(wall, 3),
-              "tokens_per_s": round(self.tokens_generated / wall, 2) if wall else 0.0}
-        if self._admit_times:
-            at = np.asarray(self._admit_times)
-            st["admit_p50_ms"] = round(float(np.percentile(at, 50)) * 1e3, 2)
-            st["admit_p95_ms"] = round(float(np.percentile(at, 95)) * 1e3, 2)
-            st["admissions"] = len(at)
-        if self.paged:
-            total = self.caches[0].n_pages - 1          # page 0 reserved
-            ps = self._page_size
-            act = self.book.active_mask()
-            st.update(
-                pages_in_use=total - self.alloc.n_free, pages_total=total,
-                prefix_hits=self.alloc.prefix_hits,
-                prefix_cached_pages=len(self.alloc.cached),
-                prefill_tokens_skipped=self.prefill_tokens_skipped,
-                # pages held by slots vs pages their positions occupy: the
-                # worst-case reservation strands the difference
-                pages_reserved=sum(len(p) for p in self.alloc.slot_pages),
-                pages_used=int(sum(-(-(int(self.book.pos[s]) + 1) // ps)
-                                   for s in np.flatnonzero(act))),
-                preemptions=self.preemptions)
-        if self._itl:
-            it = np.asarray(self._itl)
-            st["itl_p50_ms"] = round(float(np.percentile(it, 50)) * 1e3, 2)
-            st["itl_p95_ms"] = round(float(np.percentile(it, 95)) * 1e3, 2)
-        if self.draft is not None and self.spec_drafted:
-            st["spec_rounds"] = self.spec_rounds
-            st["spec_acceptance"] = round(self.spec_accepted / self.spec_drafted, 4)
-        if self._graphs is not None:
-            st.update(decode_graph_captures=self._graphs.captures,
-                      decode_graph_replays=self._graphs.replays)
-        return st
-
-    def _record_itl(self):
-        """Wall-clock gap between consecutive decode steps while slots are
-        resident (admission stalls included). Bounded sample ring."""
-        now = time.perf_counter()
-        if self._last_tick_t is not None:
-            if len(self._itl) >= 4096:
-                del self._itl[:2048]
-            self._itl.append(now - self._last_tick_t)
-        self._last_tick_t = now
-
-    def _record_block(self, active: np.ndarray, toks: np.ndarray, lps: np.ndarray):
-        """Host bookkeeping after a dispatch over the ``active`` slots: replay
-        its steps' tokens and logprobs [n, slots] through the bookkeeper in
-        order, which drops what a slot produced after its own finish; then
-        free the slots that finished."""
-        for i in range(toks.shape[0]):
-            active_i = self.book.active_mask()
-            if not active_i.any():
-                break
-            for slot, r in self._lp_slots.items():
-                if active_i[slot]:
-                    r.token_logprobs.append(float(lps[i, slot]))
-            self.book.record_step(toks[i])
-            self.tokens_generated += int(active_i.sum())
-        for slot in np.flatnonzero(active & ~self.book.active_mask()):
-            self._lp_slots.pop(int(slot), None)
-            if self.paged:
-                self._release_slot_pages(int(slot))
-        self.finished.extend(self._drain_finished())
-        self._record_itl()
-
-    def step(self) -> bool:
-        """Admit waiting requests, then run one decode step for all slots, or
-        a block of ``multi_step`` steps when nothing waits for a slot; with
-        a draft and nothing waiting, speculative rounds instead
-        (``_spec_step``). A decode fault recovers at engine level
-        (``_recover_from_decode_fault``)."""
-        if self._t_start is None:
-            self._t_start = time.perf_counter()
-        self._admit()
-        active = self.book.active_mask()
-        if not active.any():
-            return False
-        if self.draft is not None and self.book.num_waiting == 0:
-            return self._spec_step(active)
-        n = self.multi_step if self.multi_step > 1 and self.book.num_waiting == 0 else 1
-        if self.paged:
-            # pool exhaustion raises here (size the pool for the resident
-            # tokens, or lower max_slots) or, with overcommit, preempts
-            self._grow_active_slots(active, ahead=n)
-            if self.overcommit:
-                active = active & self.book.active_mask()
-                if not active.any():
-                    return True
-        try:
-            toks, lps = self._decode(active, n)
-        except GraphCaptureError:
-            raise
-        except Exception as e:  # noqa: BLE001 — engine-level recovery
-            self._recover_from_decode_fault(e)
-            return True
-        self._record_block(active, toks, lps)
-        return True
-
-    def _spec_step(self, active: np.ndarray) -> bool:
-        """One speculative dispatch (nothing waits): a round, or with
-        ``multi_step`` that many rounds, each slot advancing by its own
-        accepted block. Paged slots first get pages for the dispatch's
-        candidate rows (within their reservation; rows past it write the
-        null page). The host replays the rounds in order through the
-        bookkeeper, which truncates each block at a finish and drops what a
-        slot produced after it; acceptance counts what the transcripts
-        kept, for the slots still active when each round replays."""
-        n = self.multi_step if self.multi_step > 1 else 1
-        if self.paged:
-            self._grow_active_slots(active, ahead=n * self.spec_extra)
-            if self.overcommit:
-                active = active & self.book.active_mask()
-                if not active.any():
-                    return True
-        try:
-            cands, produced, lps = self._spec(active, n)
-        except GraphCaptureError:
-            raise
-        except Exception as e:  # noqa: BLE001 — engine-level recovery
-            self._recover_from_decode_fault(e)
-            return True
-        for i in range(n):
-            act_i = self.book.active_mask()
-            if not act_i.any():
-                break
-            accepted = self.book.record_block(cands[i], produced[i])
-            self.tokens_generated += int(accepted.sum())
-            slots = np.flatnonzero(act_i)
-            self.spec_rounds += 1
-            self.spec_drafted += self.spec_gamma * len(slots)
-            # proposals the transcript kept: what was appended, less the
-            # extra token when the block ran to it
-            used = np.minimum(accepted[slots], produced[i, slots] - 1)
-            self.spec_accepted += int(used.clip(min=0).sum())
-            for slot, r in self._lp_slots.items():
-                r.token_logprobs.extend(float(x) for x in lps[i, slot, :accepted[slot]])
-        for slot in np.flatnonzero(active & ~self.book.active_mask()):
-            self._lp_slots.pop(int(slot), None)
-            if self.paged:
-                self._release_slot_pages(int(slot))
-        self.finished.extend(self._drain_finished())
-        self._record_itl()
-        return True
-
-    def run_to_completion(self, max_steps: int = 100000) -> List[Request]:
-        while ((self.book.num_waiting or self.book.num_active)
-               and self.steps < max_steps):
-            self.step()
-        self.finished.extend(self._drain_finished())
-        return self.finished

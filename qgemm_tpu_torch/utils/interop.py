@@ -13,11 +13,15 @@ bit (codes transposed once to the port's K-major layout). An MoE block's
 FFN holds ``ffn/router_w`` and ``ffn/w_up``, ``ffn/w_down`` (float), or
 ``ffn/w_up/q`` and ``ffn/w_up/c`` (and ``w_down``'s) when int8. The outlier
 options are meta fields, which checkpoints do not hold, so they are
-arguments. ``gpt_to_numpy_params`` is the reverse: the port's GPT (float,
-int8 or int4) as the same path-keyed numpy leaves, so a model trained by
-the port loads into the JAX package. ``paged_cache_from_numpy`` builds the
-port's ``PagedKVCache`` from a JAX ``PagedKVCache``'s arrays. All of them
-read and write numpy only; they never import JAX.
+arguments. ``transformer_from_jax_params`` does the same for the
+encoder-decoder ``Transformer`` (``enc_blocks/0/attn/...``,
+``dec_blocks/0/self_attn/...``, ``dec_blocks/0/cross_attn/...``,
+``ln_enc``, ``ln_dec``). ``gpt_to_numpy_params`` is the reverse: the
+port's GPT (float, int8 or int4) as the same path-keyed numpy leaves, so a
+model trained by the port loads into the JAX package.
+``paged_cache_from_numpy`` builds the port's ``PagedKVCache`` from a JAX
+``PagedKVCache``'s arrays. All of them read and write numpy only; they
+never import JAX.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from qgemm_tpu_torch.models.embedding import Embedding
 from qgemm_tpu_torch.models.gpt import GPT, GPTBlock, GPTConfig
 from qgemm_tpu_torch.models.linear import Linear, QuantizedLinear
 from qgemm_tpu_torch.models.moe import MoEFeedForward, QuantizedExpertWeight
-from qgemm_tpu_torch.models.transformer import FeedForward, LayerNorm
+from qgemm_tpu_torch.models.transformer import (DecoderBlock, EncoderBlock, FeedForward,
+                                                LayerNorm, Transformer, TransformerConfig)
 from qgemm_tpu_torch.ops.quantize import QuantizedWeight, QuantizedWeight4
 from qgemm_tpu_torch.serving.paged_cache import PAGE_SIZE, PagedKVCache, check_kv_bits
 
@@ -141,6 +146,14 @@ def _moe(params, prefix: str, device, top_k: int) -> MoEFeedForward:
                           experts("w_down"), top_k=top_k)
 
 
+def _attention(linear, prefix: str, cfg) -> MultiHeadAttention:
+    """The attention module at ``prefix`` (its four projections by
+    ``linear``)."""
+    return MultiHeadAttention(*(linear(f"{prefix}/{n}")
+                                for n in ("wqkv_q", "wqkv_k", "wqkv_v", "w_o")),
+                              n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+
+
 def _layernorm(params, prefix: str, device) -> LayerNorm:
     return LayerNorm(to_tensor(params, f"{prefix}/gamma", device),
                      to_tensor(params, f"{prefix}/beta", device))
@@ -163,9 +176,7 @@ def gpt_from_jax_params(params: Mapping[str, np.ndarray], cfg: GPTConfig,
     blocks = []
     for i in range(cfg.n_layers):
         p = f"blocks/{i}"
-        attn = MultiHeadAttention(*(linear(f"{p}/attn/{n}")
-                                    for n in ("wqkv_q", "wqkv_k", "wqkv_v", "w_o")),
-                                  n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+        attn = _attention(linear, f"{p}/attn", cfg)
         if cfg.n_experts > 0:
             ffn = _moe(params, f"{p}/ffn", dev, cfg.moe_top_k)
         else:
@@ -175,6 +186,28 @@ def gpt_from_jax_params(params: Mapping[str, np.ndarray], cfg: GPTConfig,
     embed = Embedding(to_tensor(params, "embed/table", dev),
                       to_tensor(params, "embed/pos", dev))
     return GPT(embed, blocks, _layernorm(params, "ln_f", dev), linear("lm_head"), cfg)
+
+
+def transformer_from_jax_params(params: Mapping[str, np.ndarray], cfg: TransformerConfig,
+                                device: DeviceLike = None) -> Transformer:
+    """Build the port's encoder-decoder ``Transformer`` from a ``qgemm_tpu``
+    Transformer's path-keyed leaves (float, int8 or int4, any mix), as
+    ``gpt_from_jax_params`` builds the GPT. ``device`` defaults to the
+    GPU."""
+    dev = resolve_device(device)
+    linear = lambda prefix: _linear(params, prefix, dev)
+    ln = lambda prefix: _layernorm(params, prefix, dev)
+    mha = lambda prefix: _attention(linear, prefix, cfg)
+    ffn = lambda prefix: FeedForward(linear(f"{prefix}/up"), linear(f"{prefix}/down"))
+    enc = [EncoderBlock(mha(f"enc_blocks/{i}/attn"), ffn(f"enc_blocks/{i}/ffn"),
+                        ln(f"enc_blocks/{i}/ln1"), ln(f"enc_blocks/{i}/ln2"))
+           for i in range(cfg.n_layers)]
+    dec = [DecoderBlock(mha(f"dec_blocks/{i}/self_attn"), mha(f"dec_blocks/{i}/cross_attn"),
+                        ffn(f"dec_blocks/{i}/ffn"),
+                        *(ln(f"dec_blocks/{i}/ln{j}") for j in (1, 2, 3)))
+           for i in range(cfg.n_layers)]
+    embed = Embedding(to_tensor(params, "embed/table", dev), to_tensor(params, "embed/pos", dev))
+    return Transformer(embed, enc, dec, ln("ln_enc"), ln("ln_dec"), linear("lm_head"), cfg)
 
 
 def paged_cache_from_numpy(kq: np.ndarray, kc: np.ndarray, vq: np.ndarray, vc: np.ndarray,

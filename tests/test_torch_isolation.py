@@ -53,7 +53,8 @@ def test_port_imports_no_jax():
               "qgemm_tpu_torch.ops.cuda.expert_matmul", "qgemm_tpu_torch.ops.cuda.col_quantize",
               "qgemm_tpu_torch.ops.cuda.softmax", "qgemm_tpu_torch.ops.cuda.layernorm",
               "qgemm_tpu_torch.ops.cuda.int8_flash_attention", "qgemm_tpu_torch.ops.elemwise",
-              "qgemm_tpu_torch.ops.reduction", "qgemm_tpu_torch.ops.matmul"):
+              "qgemm_tpu_torch.ops.reduction", "qgemm_tpu_torch.ops.matmul",
+              "qgemm_tpu_torch.serving.seq2seq", "qgemm_tpu_torch.examples.transformer_demo"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
