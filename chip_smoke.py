@@ -416,13 +416,20 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """The kernels (one ``nvcc`` per source, all at once) and the two host
+    libraries (``g++``: the native scheduler, which every engine that names
+    no scheduler then takes, and the idx loader)."""
     from qgemm_tpu_torch.ops.cuda import _build
+    from qgemm_tpu_torch.utils import host_build
     t0 = time.perf_counter()
     built = _build.build()
     secs = time.perf_counter() - t0
     for name, log in _build.build_logs.items():
         print(f"--- ptxas {name}\n{log}", file=sys.stderr)
-    emit({"phase": "build", "seconds": round(secs, 2), "built": built})
+    t0 = time.perf_counter()
+    host = {name: host_build.build(name).name for name in host_build.HOST_LIBS}
+    emit({"phase": "build", "seconds": round(secs, 2), "built": built,
+          "host_libraries": host, "host_seconds": round(time.perf_counter() - t0, 2)})
 
 
 def phase_parity() -> dict:
@@ -1756,6 +1763,89 @@ def drive(engine, reqs, label: str, max_steps: int = 5000) -> dict:
                                                   "replays": graphs.replays}}
 
 
+# the stats a native-scheduled run must share with its Python-bookkept twin
+TWIN_STATS = ("tokens_generated", "steps", "decode_steps", "admissions", "preemptions",
+              "pages_in_use", "pages_total", "pages_reserved", "pages_used", "prefix_hits",
+              "prefix_cached_pages", "prefill_tokens_skipped", "spec_rounds",
+              "spec_acceptance", "decode_graph_captures", "decode_graph_replays")
+
+
+def native_twin(label: str, model, kw: dict, make_reqs, want_reqs: list, want_run: dict,
+                want_stats: dict, make_engine=None) -> dict:
+    """Serve ``make_reqs()`` again through an engine of options ``kw`` with
+    ``scheduler="native"`` (``make_engine(model, kw)``, default
+    ``ContinuousBatchingEngine``), driven as its Python-bookkept twin was
+    (``want_reqs``, ``want_run``: ``drive``'s result; ``want_stats``: its
+    engine's stats right after). The transcripts must equal the twin's bit
+    for bit, and so must every launch count ``drive`` read (in all, per
+    decode step, per round, per admission step), the pages held after each
+    step (paged) and the ``TWIN_STATS``. Returns the native run's readings
+    and its engine."""
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, _NativeBookkeeper
+    opts = dict(kw, scheduler="native")
+    engine = (make_engine or (lambda m, o: ContinuousBatchingEngine(m, **o)))(model, opts)
+    if engine.scheduler != "native" or not isinstance(engine.book, _NativeBookkeeper):
+        raise AssertionError(f"{label}: the engine took the {engine.scheduler} scheduler")
+    reqs = make_reqs()
+    run = drive(engine, reqs, f"{label} native")
+    for i, (a, b) in enumerate(zip(want_reqs, reqs)):
+        if a.generated != b.generated:
+            raise AssertionError(f"{label}: request {i}'s native transcript differs from the "
+                                 f"Python bookkeeper's at step "
+                                 f"{first_difference(a.generated, b.generated)}")
+    for key in ("counts", "per_decode", "per_round", "admit_steps", "admit_only", "pages"):
+        if run[key] != want_run[key]:
+            raise AssertionError(f"{label}: native {key} {run[key]} != Python {want_run[key]}")
+    stats = engine.stats
+    differ = {k: (want_stats.get(k), stats.get(k)) for k in TWIN_STATS
+              if want_stats.get(k) != stats.get(k)}
+    if differ:
+        raise AssertionError(f"{label}: native stats differ (Python, native): {differ}")
+    return {"engine": engine, "run": run, "stats": stats,
+            "checked": ["transcripts"] + [k for k in TWIN_STATS if k in stats]
+            + ["launches in all, per decode step, per round, per admission step"]
+            + (["pages after each step"] if run["pages"] else [])}
+
+
+def twin_readings(want_run: dict, want_stats: dict, twin: dict) -> dict:
+    """Both bookkeepers' walls in a twin pair: the median decode-only step
+    (``drive``: synchronised after each step) and the whole run's wall per
+    token (admissions included)."""
+    out = {}
+    for side, run, st in (("python", want_run, want_stats),
+                          ("native", twin["run"], twin["stats"])):
+        out[side] = {"decode_step_ms_median": (float(np.median(run["step_ms"]))
+                                               if run["step_ms"] else None),
+                     "round_ms_median": (float(np.median(run["round_ms"]))
+                                         if run["round_ms"] else None),
+                     "wall_ms_per_token": 1e3 * st["wall_s"] / max(1, st["tokens_generated"])}
+    return out
+
+
+def bookkeeping_host_us(slots: int = 8, max_seq_len: int = 1024) -> dict:
+    """The host's microseconds per bookkeeping call of each bookkeeper, 8
+    decoding slots (``host_us``): the engine's reads (``active_mask``,
+    ``positions``), ``record_step``, and one decode step's bookkeeping as
+    ``_record_block`` does it (mask, record, mask, drain)."""
+    from qgemm_tpu_torch.serving.engine import _NativeBookkeeper, _PyBookkeeper, Request
+    toks = np.zeros(slots, np.int64)
+    out = {}
+    for side, cls in (("python", _PyBookkeeper), ("native", _NativeBookkeeper)):
+        book = cls(slots, max_seq_len)
+        for _ in range(slots):
+            book.submit(Request(prompt=[1], max_new_tokens=max_seq_len - 2))
+        while (adm := book.next_admission()) is not None:
+            book.admitted(adm[0], 1)
+        calls = {"active_mask": book.active_mask, "positions": book.positions,
+                 "record_step": lambda: book.record_step(toks),
+                 "decode_step": lambda: (book.active_mask(), book.record_step(toks),
+                                         book.active_mask(), book.drain_finished())}
+        out[side] = {name: host_us(fn, calls=100) for name, fn in calls.items()}
+        if book.num_active != slots:
+            raise AssertionError(f"bookkeeping_host_us: a {side} slot finished")
+    return out
+
+
 def transcripts_match_generate(label: str, model, reqs) -> int:
     """Each request's greedy transcript equals the model's own generation
     with the dense int8 cache (K3 prefill, K2 decode). Returns the count."""
@@ -1885,11 +1975,18 @@ def paged_transcripts_match(label: str, model, reqs) -> dict:
             "requests": len(reqs), "readings": readings}
 
 
-def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = False) -> dict:
+def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = False,
+          twin: bool = False) -> dict:
     """One pass of the main path: GPT_6_7B (full width and depth, weights
     quantized with ``qkw``) serving 16 greedy requests through the
-    continuous-batching engine with an int8 KV cache. Every kernel in
-    ``used`` must have launched and none in ``unused``. With ``outliers``
+    continuous-batching engine with an int8 KV cache and the Python
+    bookkeeper. Every kernel in
+    ``used`` must have launched and none in ``unused``. With ``twin`` the
+    same requests are served again under the native scheduler
+    (``native_twin``: equal transcripts, launches and stats), both sides'
+    steady decode windows are profiled in turns (python, native, native,
+    python) and both bookkeepers' host time per
+    call is read (``bookkeeping_host_us``). With ``outliers``
     the outlier dims are planted, a forward pre-hook on every quantized
     linear adds its input's count of columns above the threshold into a
     device tensor (read once, after the run), and the transcripts are not
@@ -1917,9 +2014,10 @@ def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = Fa
         hooks = [mod.register_forward_pre_hook(count_above) for mod in model.modules()
                  if isinstance(mod, QuantizedLinear)]
     rng = np.random.default_rng(0)
-    reqs = [Request(prompt=p, max_new_tokens=n) for p, n in dense_requests(GPT_6_7B, rng)]
-    engine = ContinuousBatchingEngine(model, max_slots=8, max_seq_len=1024,
-                                      quantized_cache=True, device="cuda")
+    dense = dense_requests(GPT_6_7B, rng)
+    make_reqs = lambda: [Request(prompt=p, max_new_tokens=n) for p, n in dense]
+    reqs = make_reqs()
+    engine = ContinuousBatchingEngine(model, **DENSE_ENGINE)
     run = drive(engine, reqs, label)
     counts, per_decode, step_ms = run["counts"], run["per_decode"], run["step_ms"]
     stats = engine.stats
@@ -1948,7 +2046,43 @@ def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = Fa
     matched = 0 if outliers else transcripts_match_generate(label, model, reqs[:2])
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    profile_state = rng.bit_generator.state
     profile = profile_decode(engine, rng)
+    native = None
+    if twin:
+        t_twin = time.perf_counter()
+        nat = native_twin(f"serving_{label}", model, DENSE_ENGINE, make_reqs, reqs, run, stats)
+        layers = GPT_6_7B.n_layers
+        want = ({"quantized_matmul": n_gemms, "decode_attention": layers},
+                {"quantized_matmul": n_gemms, "flash_attention": layers})
+        got = ({k: nat["run"]["per_decode"][k] for k in want[0]},
+               {k: per_prefill[k] for k in want[1]})
+        if got != want:
+            raise AssertionError(f"serving_{label}: launches per decode step and per prefill "
+                                 f"{got}, expected {want}")
+        # steady windows in turns, python (above), native, native, python,
+        # each on the same prompts
+        nat_engine, profiles = nat.pop("engine"), {"python": [profile], "native": []}
+        for side, eng in (("native", nat_engine), ("native", nat_engine), ("python", engine)):
+            rng.bit_generator.state = profile_state
+            profiles[side].append(profile_decode(eng, rng))
+        per_token = {side: float(np.mean([p["wall_ms_per_token_untraced"] for p in ps]))
+                     for side, ps in profiles.items()}
+        idle = {side: [p["idle_share_untraced"] for p in ps] for side, ps in profiles.items()}
+        del nat_engine
+        native = {"scheduler": "native", "checked": nat["checked"],
+                  "launches": nat["run"]["counts"],
+                  "launches_per_decode_step": nat["run"]["per_decode"],
+                  "walls": twin_readings(run, stats, nat),
+                  "steady_wall_ms_per_token_untraced_mean": per_token,
+                  "steady_wall_ms_per_token_untraced_windows": {
+                      side: [p["wall_ms_per_token_untraced"] for p in ps]
+                      for side, ps in profiles.items()},
+                  "steady_order": ["python", "native", "native", "python"],
+                  "steady_native_over_python": per_token["native"] / per_token["python"],
+                  "steady_idle_share_untraced": idle,
+                  "bookkeeping_host_us": bookkeeping_host_us(),
+                  "seconds": time.perf_counter() - t_twin}
     res = {"phase": f"serving_{label}",
            "model": f"GPT_6_7B {label} weights, int8 KV cache",
            "quantize": qkw, "layers": GPT_6_7B.n_layers, "d_model": GPT_6_7B.d_model,
@@ -1960,7 +2094,10 @@ def serve(label: str, qkw: dict, used: tuple, unused: tuple, outliers: bool = Fa
            "launches": counts, "launches_per_decode_step": per_decode,
            "launches_per_prefill": per_prefill,
            "peak_mem_gb": round(peak / 2**30, 2),
-           "transcripts_match_generate": matched, "decode_profile": profile}
+           "transcripts_match_generate": matched, "decode_profile": profile,
+           "scheduler": engine.scheduler}
+    if native is not None:
+        res["native_twin"] = native
     if outliers:
         res["outlier_dims_planted"] = OUTLIER_DIMS
         res["columns_above_threshold"] = columns_above
@@ -2037,10 +2174,14 @@ OVERCOMMIT_PAGES = 25
 OVERCOMMIT_EXTRA_NEW = 200
 # The paged runs' engine: 8 slots x 1024 positions in int8 pages of 128,
 # prefix cache on, chunked admission of 256 rows.
+# The Python bookkeeper, named: a phase's native-scheduled twin
+# (``native_twin``) changes only that; an engine of the script that names
+# no scheduler takes the native one, whose library the build phase built.
 PAGED_ENGINE = dict(max_slots=8, max_seq_len=1024, paged=True, page_size=128,
-                    prefix_cache=True, chunked_prefill=256, device="cuda")
+                    prefix_cache=True, chunked_prefill=256, device="cuda", scheduler="python")
 # The dense runs' engine: 8 slots x 1024 positions of int8 KV cache.
-DENSE_ENGINE = dict(max_slots=8, max_seq_len=1024, quantized_cache=True, device="cuda")
+DENSE_ENGINE = dict(max_slots=8, max_seq_len=1024, quantized_cache=True, device="cuda",
+                    scheduler="python")
 # How far the paged engine's logits may stray from generate's, relative to
 # the largest, at any step of a request's shared history, for a prompt
 # admitted in chunks or after a prefix hit: K6's chunks against generate's
@@ -2064,8 +2205,10 @@ def serve_paged() -> tuple:
     ``PAGED_LOGIT_RTOL`` of ``generate``'s. Run ``paged_int4_overcommit`` (int4 pools, over-commit,
     overlapped admission, an undersized pool, the same prompts decoding
     ``OVERCOMMIT_EXTRA_NEW`` tokens more) must preempt at least once and
-    still finish every request, through K5 and K6 on int4 pools. Returns
-    both phases' results."""
+    still finish every request, through K5 and K6 on int4 pools; served
+    again under the native scheduler (``native_twin``), it must give the
+    same transcripts, launches, pages after every step and stats
+    (preemptions among them). Returns both phases' results."""
     from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
     from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
 
@@ -2082,9 +2225,13 @@ def serve_paged() -> tuple:
                              ("paged_int4_overcommit", OVERCOMMIT_EXTRA_NEW,
                               dict(kv_bits=4, overcommit=True, overlap_admission=True,
                                    n_pages=OVERCOMMIT_PAGES))):
-        reqs = [Request(prompt=p, max_new_tokens=n + extra) for p, n in zip(prompts, news)]
+        make_reqs = lambda extra=extra: [Request(prompt=p, max_new_tokens=n + extra)
+                                         for p, n in zip(prompts, news)]
+        reqs = make_reqs()
         engine = ContinuousBatchingEngine(model, **PAGED_ENGINE, **kw)
+        t_run = time.perf_counter()
         run = drive(engine, reqs, label)
+        run_s = time.perf_counter() - t_run
         counts, per_decode = run["counts"], run["per_decode"]
         stats = engine.stats
         k5_launches = sum(counts[k] for k in k5)
@@ -2122,6 +2269,16 @@ def serve_paged() -> tuple:
                            np.random.default_rng(9))
         elif not stats["preemptions"] >= 1:
             raise AssertionError(f"{label}: no preemption in an undersized pool: {stats}")
+        else:
+            t_twin = time.perf_counter()
+            nat = native_twin(label, model, dict(PAGED_ENGINE, **kw), make_reqs, reqs, run,
+                              stats)
+            del nat["engine"]
+            native = {"scheduler": "native", "checked": nat["checked"],
+                      "launches": nat["run"]["counts"],
+                      "preemptions": nat["stats"]["preemptions"],
+                      "walls": twin_readings(run, stats, nat),
+                      "seconds": {"python": run_s, "native": time.perf_counter() - t_twin}}
         reserved = max(p[0] for p in run["pages"])
         res = {"phase": f"serving_{label}",
                "model": "GPT_6_7B int8 weights, paged KV cache", "engine": kw,
@@ -2137,6 +2294,9 @@ def serve_paged() -> tuple:
                "pages_used_at_max_reserved": next(p[1] for p in run["pages"]
                                                   if p[0] == reserved),
                "pages_used_max": max(p[1] for p in run["pages"])}
+        res["scheduler"] = engine.scheduler
+        if label != "paged_int8":
+            res["native_twin"] = native
         if label == "paged_int8":
             res.update(transcripts_equal_generate=match["equal_to_generate"],
                        transcripts_vs_generate=match, chunked_prompt_vs_generate=chunked,
@@ -2239,7 +2399,9 @@ def phase_decode_graph() -> dict:
     with the host window): the replayed step must run the K1 GEMV, its
     pre-pass and K2 or K5; the host's calls that queue device work are
     counted per step. Then a replay fault mid-run must recover
-    (``graph_fault_recovery``)."""
+    (``graph_fault_recovery``). The dense engine's ``multi_step=4`` route
+    runs again under the native scheduler (``native_twin``: the same
+    transcripts, launches and stats as the Python bookkeeper's)."""
     from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
     t0 = time.perf_counter()
     model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
@@ -2254,6 +2416,8 @@ def phase_decode_graph() -> dict:
             runs[route] = {"transcripts": [r.generated for r in reqs],
                            "per_decode": {k: v for k, v in run["per_decode"].items() if v},
                            "graph": run["graph"], "stats": engine.stats}
+            if route == "graph_ms4":
+                ms4 = (reqs, run, runs[route]["stats"])
             profiles[route] = profile_decode(engine, np.random.default_rng(8), host_window=True)
             del engine
             torch.cuda.empty_cache()
@@ -2283,7 +2447,16 @@ def phase_decode_graph() -> dict:
                 "device_events_per_step", "itl_p50_ms", "itl_p95_ms", "tokens_per_s_untraced")
         sampled = (sampled_routes_equal(model, kw, make_reqs, f"decode_graph {label}")
                    if label == "dense_int8" else None)
+        native = None
+        if label == "dense_int8":
+            nat = native_twin(f"decode_graph {label} graph_ms4", model, kw, make_reqs, *ms4,
+                              make_engine=lambda m, o: graph_engine(m, "graph_ms4", o))
+            del nat["engine"]
+            native = {"route": "graph_ms4", "checked": nat["checked"],
+                      "launches": nat["run"]["counts"],
+                      "walls": twin_readings(ms4[1], ms4[2], nat)}
         res["engines"][label] = {
+            "native_twin": native,
             "launches_per_decode_step": per, "transcripts_equal": True,
             "sampled": sampled,
             "transcripts_equal_generate": matched,
@@ -2506,7 +2679,10 @@ def phase_spec() -> dict:
     Reports the speculative transcripts against the plain engine's
     (``spec_divergence``: random weights make greedy near-ties) and a
     steady window of the plain graph engine and of the two speculative
-    graph routes (``profile_decode``, ``profile_spec``)."""
+    graph routes (``profile_decode``, ``profile_spec``). The dense engine's
+    ``spec_graph`` route runs again under the native scheduler
+    (``native_twin``: its rounds through ``record_block``; the same
+    transcripts, launches and stats as the Python bookkeeper's)."""
     from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
     from qgemm_tpu_torch.serving.engine import Request
     t0 = time.perf_counter()
@@ -2538,6 +2714,8 @@ def phase_spec() -> dict:
                            "rounds_timed": len(run["round_ms"])}
             if route == "spec_eager":
                 runs[route]["reqs"] = reqs
+            if route == "spec_graph":
+                spec_graph = (reqs, run, st)
             if route != "spec_eager":
                 profiles[route] = (profile_decode(engine, np.random.default_rng(8),
                                                   host_window=True)
@@ -2580,7 +2758,17 @@ def phase_spec() -> dict:
         plain_keys = ("wall_ms_per_step_untraced", "kernel_ms_per_step", "idle_share_untraced",
                       "tokens_per_s_untraced", "itl_p50_ms", "itl_p95_ms",
                       "host_issued_ops_per_step")
+        native = None
+        if label == "dense_int8":
+            nat = native_twin(f"spec {label} spec_graph", model, kw, make, *spec_graph,
+                              make_engine=lambda m, o: spec_engine(m, draft, "spec_graph", o))
+            del nat["engine"]
+            native = {"route": "spec_graph", "checked": nat["checked"],
+                      "launches": nat["run"]["counts"],
+                      "launches_per_round": nat["run"]["per_round"],
+                      "walls": twin_readings(spec_graph[1], spec_graph[2], nat)}
         res["engines"][label] = {
+            "native_twin": native,
             "launches_per_round": {k: v for k, v in runs["spec_graph"]["per_round"].items()
                                    if v},
             "launches_per_decode_step_plain": {k: v for k, v in
@@ -2841,6 +3029,155 @@ def phase_gemm_protocol() -> dict:
            "speedup_int8_dynamic_vs_bf16": t["bf16_ms"] / t["int8_dynamic_ms"]}
     emit(res)
     return res
+
+
+# The MNIST oracle's protocol (scripts/mnist_oracle.py, RESULTS_MNIST.md): the
+# 784-16-10 MLP, SGD lr 0.01, batch 32 in order, 50 epochs, on MNIST.synthetic
+# at noise 2.0 (8,192 train samples of seed 1, 2,048 test of seed 2), from the
+# JAX package's initial weights of seed 1 (tests/fixtures/
+# mnist_mlp_init_seed1.npz: the port's own PRNG draws others). JAX's fp32 test
+# accuracy on it is 0.8984; the card's must land within MNIST_FP32_TOL of it,
+# and the int8 model's within MNIST_INT8_TOL of the card's fp32.
+MNIST_DIMS = [784, 16, 10]
+MNIST_JAX_FP32 = 0.8984
+MNIST_FP32_TOL = 0.015
+MNIST_INT8_TOL = 0.01
+MNIST_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+
+
+def phase_mnist() -> dict:
+    """A.10 on the card: the idx loader's native route against the numpy
+    parser on the checked-in fixture; the MNIST example's ``train_mlp`` on
+    the oracle's protocol (wall time; one more epoch traced for the device
+    time a step); the int8 model (every layer through K1, 2 launches a
+    forward, nothing else) and the fp32 one on the test split, held to the
+    bounds above; K1 against its plain version (1e-6 of the largest output)
+    and timed at the MLP's four shapes (M 32 and 2,048; K 784 to N 16, K 16
+    to N 10), beside its bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qgemm_tpu_torch.data import native as data_native
+    from qgemm_tpu_torch.data.mnist import (_SPLIT_FILES, MNIST, load_idx_images,
+                                            load_idx_labels)
+    from qgemm_tpu_torch.examples.train_mnist import evaluate, train_mlp
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.ops.quantize import quantized_matmul_plain, quantized_matmul_prequant
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    t0 = time.perf_counter()
+    data_native.build()
+    loader = {}
+    fixture = MNIST_FIXTURES / "mnist_mini"
+    for split, (img, lbl) in _SPLIT_FILES.items():
+        got = MNIST.load(str(fixture), split)                  # the native route
+        want_x = load_idx_images(str(fixture / img), use_native=False)
+        want_y = load_idx_labels(str(fixture / lbl), use_native=False)
+        if not (np.array_equal(got.images, want_x) and np.array_equal(got.targets, want_y)):
+            raise AssertionError(f"mnist: the native idx loader differs from the numpy "
+                                 f"parser on mnist_mini/{split}")
+        loader[split] = len(got)
+    train = MNIST.synthetic(8192, seed=1, noise=2.0)
+    test = MNIST.synthetic(2048, seed=2, noise=2.0)
+    init = str(MNIST_FIXTURES / "mnist_mlp_init_seed1.npz")
+    proto = dict(dims=MNIST_DIMS, batch=32, lr=0.01, seed=1, device="cuda", shuffle=False,
+                 init=init)
+    model, records, wall = train_mlp(train, epochs=50, **proto)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, traced_wall = train_mlp(train, epochs=1, **proto)
+    busy_us, by_name, n_spans = device_spans(prof)
+    steps = len(train) // 32
+    tx = torch.as_tensor(test.images, device="cuda")
+    ty = torch.as_tensor(test.targets.astype(np.int64), device="cuda")
+    fp32 = evaluate(model, tx, ty)
+    qmodel = model.quantize()
+    kernels.reset_launch_counts()
+    int8 = evaluate(qmodel, tx, ty)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    if launches != {"quantized_matmul": 2}:
+        raise AssertionError(f"mnist: an int8 forward launched {launches}, not K1 twice")
+    if not (abs(fp32 - MNIST_JAX_FP32) <= MNIST_FP32_TOL and abs(int8 - fp32) <= MNIST_INT8_TOL):
+        raise AssertionError(f"mnist: fp32 test accuracy {fp32} (JAX {MNIST_JAX_FP32} +- "
+                             f"{MNIST_FP32_TOL}), int8 {int8} (+- {MNIST_INT8_TOL} of fp32)")
+    k1 = []
+    with torch.no_grad():
+        hidden = torch.relu(qmodel.layers[0](tx))
+        for m in (32, 2048):
+            for layer, x in zip(qmodel.layers, (tx[:m], hidden[:m])):
+                wq = layer.wq
+                k, n = x.shape[1], layer.out_features
+                got = quantized_matmul_prequant(x, wq)
+                ref = quantized_matmul_plain(x, wq)
+                err, tol = max_err(got, ref), 1e-6 * float(ref.abs().max())
+                if not err <= tol:
+                    raise AssertionError(f"mnist: K1 at m {m}, k {k}, n {n}: max err {err} "
+                                         f"against its plain version (tolerance {tol})")
+                bms, by = bound(4 * m * k + k * n + 4 * n + 4 * m * n, 2 * m * n * k, INT8_OPS)
+                w_f32 = model.layers[0 if k == 784 else 1].w.detach()
+                k1.append({"m": m, "k": k, "n": n, "max_abs_err": err, "tolerance": tol,
+                           "ms": bench_ms(lambda: quantized_matmul_prequant(x, wq)),
+                           "plain_ms": bench_ms(lambda: quantized_matmul_plain(x, wq)),
+                           "bound_ms": bms, "bound_by": by, "library_ms": None,
+                           "f32_matmul_ms": bench_ms(lambda: torch.matmul(x, w_f32))})
+    res = {"phase": "mnist", "protocol": "784-16-10 MLP, SGD lr 0.01, batch 32 in order, 50 "
+                                         "epochs, MNIST.synthetic noise 2.0 (8192 / 2048), "
+                                         "JAX's initial weights of seed 1",
+           "idx_loader_native_equals_numpy": loader,
+           "train_acc_running_last_epoch": records[-1]["train_acc"],
+           "loss_last_epoch": records[-1]["loss"], "fp32_test_acc": fp32,
+           "int8_test_acc": int8, "jax_fp32_test_acc": MNIST_JAX_FP32,
+           "int8_launches_per_forward": launches, "train_wall_s": wall,
+           "train_steps": 50 * steps, "wall_ms_per_step": wall * 1e3 / (50 * steps),
+           "device_ms_per_step_traced_epoch": busy_us / 1e3 / steps,
+           "device_ops_per_step": n_spans / steps,
+           "traced_epoch_wall_s": traced_wall, "k1_at_mlp_shapes": k1,
+           "k1_library_note": "no one PyTorch call: torch._int_mm takes n a multiple of 8 "
+                              "and m > 16",
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def phase_quantize_demo() -> dict:
+    """The quantize demo (examples/quantize_demo.py) on the card at its
+    default case (the reference's 3x3 @ 3x2) and at 2048^3: each dynamic
+    call launches K9 once and K1 once, its result is held to the plain
+    versions' (K9's and K1's, on the same inputs) to 1e-6 of the largest
+    output, and so is its printed mean error."""
+    from qgemm_tpu_torch.examples.quantize_demo import inputs, main as demo_main
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize_plain
+    from qgemm_tpu_torch.ops.quantize import QuantizedWeight, quantized_matmul_plain
+    cases = []
+    for name, dims in (("reference_3x3_3x2", (0, 0, 0)), ("2048^3", (2048, 2048, 2048))):
+        x, w = (t.cuda() for t in inputs(*dims, seed=0))
+        kernels.reset_launch_counts()
+        got = demo_main(["-m", str(dims[0]), "-n", str(dims[1]), "-k", str(dims[2])])
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        plain = quantized_matmul_plain(x, QuantizedWeight(*col_quantize_plain(w)))
+        plain_err = float((got["exact"] - plain).abs().mean())
+        tol = 1e-6 * float(plain.abs().max())
+        err = max_err(got["quantized"], plain)
+        if launches != {"col_quantize": 1, "quantized_matmul": 1} or not (
+                err <= tol and abs(got["mean_error"] - plain_err) <= tol):
+            raise AssertionError(f"quantize_demo {name}: launches {launches}; max err {err}, "
+                                 f"mean error {got['mean_error']} against the plain "
+                                 f"versions' {plain_err} (tolerance {tol})")
+        cases.append({"case": name, "m_n_k": dims, "launches": launches,
+                      "mean_error": got["mean_error"], "plain_mean_error": plain_err,
+                      "max_abs_err_vs_plain": err, "tolerance": tol})
+    res = {"phase": "quantize_demo", "cases": cases}
+    emit(res)
+    return res
+
+
+def phase_serving_int8() -> dict:
+    """``serve``'s int8 run and its native twin alone (``--only``)."""
+    return serve("int8", {}, used=("quantized_matmul", "decode_attention", "flash_attention"),
+                 unused=("w4a8_matmul",), twin=True)
+
+
+def phase_serving_paged() -> tuple:
+    """``serve_paged`` alone (``--only``)."""
+    return serve_paged()
 
 
 def phase_numerics() -> None:
@@ -6007,8 +6344,9 @@ def main() -> None:
     timing.update({name: ops[name] for name in ("softmax", "layernorm", "int8_flash_attention",
                                                 "int8_flash_prepass")})
     gemm = phase_gemm_protocol()
-    int8 = serve("int8", {}, used=("quantized_matmul", "decode_attention", "flash_attention"),
-                 unused=("w4a8_matmul",))
+    demo = phase_quantize_demo()
+    mnist = phase_mnist()
+    int8 = phase_serving_int8()
     w4a8 = serve("w4a8", {"bits": 4}, used=("w4a8_matmul", "decode_attention",
                                             "flash_attention"),
                  unused=("quantized_matmul",))
@@ -6016,7 +6354,7 @@ def main() -> None:
           used=("quantized_matmul", "decode_attention", "flash_attention"),
           unused=("w4a8_matmul",), outliers=True)
     paged8, paged4 = serve_paged()
-    phase_decode_graph()
+    graphs = phase_decode_graph()
     spec = phase_spec()
     tv = spec_tv()
     if not tv["ok"]:
@@ -6047,6 +6385,13 @@ def main() -> None:
     # each kernel's wrappers: K5 has two entries, each with its own count
     wrappers = {"paged_decode_attention": ("paged_decode_attention",
                                            "paged_decode_attention_ragged")}
+    # the native-scheduled twins' launches in all (each equal to its Python
+    # twin's), the MNIST int8 forward's and the quantize demo's
+    twins = {"serving_int8": int8["native_twin"],
+             "serving_paged_int4_overcommit": paged4["native_twin"],
+             "decode_graph dense_int8 graph_ms4": graphs["engines"]["dense_int8"]["native_twin"],
+             "spec dense_int8 spec_graph": spec["engines"]["dense_int8"]["native_twin"]}
+    demo_launches = {c["case"]: c["launches"] for c in demo["cases"]}
     kernels = []
     for name in _build.KERNELS:
         t = timing[name]
@@ -6076,8 +6421,20 @@ def main() -> None:
                  "timed_at": t["shape"], "timing": "bench_ms: median of 20 "
                  "back-to-back calls queued behind a device sleep, CUDA events "
                  "around each, L2 flushed by a read before each", "card": smi}
+        native_counts = {lbl: sum(tw["launches"].get(w, 0) for w in ws)
+                         for lbl, tw in twins.items()}
+        if any(native_counts.values()):
+            entry["launches_native_scheduler_twins"] = {k: v for k, v in native_counts.items()
+                                                        if v}
+        if any(c.get(name) for c in demo_launches.values()):
+            entry["launches_quantize_demo"] = {k: c.get(name, 0) for k, c in
+                                               demo_launches.items()}
         if name == "quantized_matmul":
-            entry["also_replaces"] = "qgemm_tpu/ops/pallas/quantized_matmul.py:139"
+            entry.update(also_replaces="qgemm_tpu/ops/pallas/quantized_matmul.py:139",
+                         launches_mnist_int8_per_forward=mnist["int8_launches_per_forward"][name],
+                         mnist_shapes=[{k: r[k] for k in ("m", "k", "n", "ms", "plain_ms",
+                                                          "bound_ms", "max_abs_err")}
+                                       for r in mnist["k1_at_mlp_shapes"]])
         if name == "w4a8_matmul":
             entry["library_note"] = ("no single PyTorch call computes W4A8: "
                                      "torch._weight_int4pack_mm takes bf16 activations")

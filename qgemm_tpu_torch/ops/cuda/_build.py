@@ -12,7 +12,6 @@ raises: nothing falls back to the plain PyTorch versions.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import re
 import shutil
@@ -21,9 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
-_PKG = Path(__file__).resolve().parents[2]
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "qgemm_tpu_torch"
+from qgemm_tpu_torch.utils.host_build import BUILD_DIR, CSRC, digest, publish, tmp_path
+
 KERNELS = ("quantized_matmul", "decode_attention", "flash_attention", "w4a8_matmul",
            "paged_decode_attention", "paged_context_attention", "flash_attention_bwd",
            "expert_matmul", "col_quantize", "softmax", "layernorm", "int8_flash_attention")
@@ -58,35 +56,24 @@ def sources(name: str) -> List[Path]:
     return sorted(seen)
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources(name):
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    return h.hexdigest()[:16]
-
-
 def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}.{_digest(name)}.so"
+    return BUILD_DIR / f"{name}.{digest(NVCC_FLAGS, sources(name))}.so"
 
 
 def _compile(name: str) -> subprocess.Popen:
-    out = _lib_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp_path(_lib_path(name))),
+           str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
 
 def _finish(name: str, proc: subprocess.Popen) -> None:
     log, _ = proc.communicate()
-    out = _lib_path(name)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)
+    publish(_lib_path(name))
     build_logs[name] = log
 
 

@@ -35,10 +35,12 @@ Ported here: ``Request``, the Python bookkeeper, greedy/sampled decoding
 with per-request temperature/top-k/top-p, stop tokens, logprobs,
 ``cancel``, ``stats``, per-request prefill error isolation, the int8 cache,
 the paged tier, dense chunked prefill, ``multi_step`` blocks, speculative
-decoding and the engine-level recovery from a decode fault (every
-in-flight request fails with ``.error`` set, the caches are rebuilt, the
-engine serves on). Tensor parallelism (``mesh``) and the native scheduler
-raise ``NotImplementedError``.
+decoding, the engine-level recovery from a decode fault (every in-flight
+request fails with ``.error`` set, the caches are rebuilt, the engine
+serves on) and the native C++ scheduler (``scheduler="native"``, or
+``"auto"`` once its library is built: ``serving/native.py``), which runs
+the Python bookkeeper's state machine behind a C ABI. Tensor parallelism
+(``mesh``) raises ``NotImplementedError``.
 
 Speculation (``draft_model``, ``spec_gamma``): when nothing waits for a
 slot, a dispatch runs speculative rounds instead of decode steps. In a
@@ -115,7 +117,9 @@ class Request:
 
 class _PyBookkeeper:
     """Host-side serving state machine: queue, slots, positions,
-    transcripts, finish rules."""
+    transcripts, finish rules. The engine reads its state through
+    ``active_mask``, ``positions``, ``request_in_slot``, ``num_waiting``,
+    ``num_active`` and ``steps``, which ``_NativeBookkeeper`` has too."""
 
     def __init__(self, max_slots: int, max_seq_len: int):
         self.max_slots = max_slots
@@ -174,6 +178,15 @@ class _PyBookkeeper:
 
     def active_mask(self) -> np.ndarray:
         return self.active.copy()
+
+    def positions(self) -> np.ndarray:
+        """Every slot's position (the next one it writes); a free slot's
+        is stale."""
+        return self.pos.copy()
+
+    def request_in_slot(self, slot: int) -> Optional[Request]:
+        """The Request occupying ``slot``, or None when it is free."""
+        return self.slot_req.get(slot)
 
     def record_block(self, cands: np.ndarray, produced: np.ndarray):
         """Append each active slot's own accepted block (variable length per
@@ -236,6 +249,95 @@ class _PyBookkeeper:
 
     def drain_finished(self) -> List[Request]:
         out, self.finished = self.finished, []
+        return out
+
+
+class _NativeBookkeeper:
+    """The same state machine, run by the C++ scheduler
+    (``serving/native.py``). The scheduler keeps the transcripts; a
+    request's ``generated`` is filled in, and ``done`` set, when it
+    finishes."""
+
+    def __init__(self, max_slots: int, max_seq_len: int):
+        from qgemm_tpu_torch.serving.native import NativeScheduler
+        self._sched = NativeScheduler(max_slots, max_seq_len)
+        self._by_id: Dict[int, Request] = {}
+
+    def submit(self, req: Request, front: bool = False):
+        self._sched.submit(req.id, req.prompt, req.max_new_tokens, req.eos_token,
+                           front=front)
+        if req.stop_tokens:
+            self._sched.set_stops(req.id, req.stop_tokens)
+        self._by_id[req.id] = req
+
+    def next_admission(self):
+        adm = self._sched.next_admission()
+        if adm is None:
+            return None
+        slot, rid, _ = adm
+        return slot, self._by_id[rid]
+
+    def admitted(self, slot: int, first_token: int):
+        self._sched.admitted(slot, int(first_token))
+
+    def record_step(self, tokens: np.ndarray):
+        self._sched.record_step(tokens)
+
+    def record_block(self, cands: np.ndarray, produced: np.ndarray):
+        return self._sched.record_block(cands, produced)
+
+    def active_mask(self) -> np.ndarray:
+        return self._sched.active_mask()
+
+    def positions(self) -> np.ndarray:
+        return self._sched.positions()
+
+    def request_in_slot(self, slot: int) -> Optional[Request]:
+        rid = self._sched.request_in_slot(slot)
+        return None if rid is None else self._by_id.get(rid)
+
+    def suspend_slot(self, slot: int):
+        self._sched.suspend_slot(slot)
+
+    def resume_slot(self, slot: int):
+        self._sched.resume_slot(slot)
+
+    def preempt(self, req_id: int):
+        res = self._sched.preempt(req_id)
+        if res is None:
+            return None
+        slot, gen = res
+        self._by_id.pop(req_id, None)
+        return slot, [int(t) for t in gen]
+
+    def cancel(self, req_id: int):
+        res = self._sched.cancel(req_id)
+        if res is None:
+            return None
+        if res == -1:
+            return "waiting", self._by_id.pop(req_id)
+        return "active", res
+
+    @property
+    def num_waiting(self) -> int:
+        return self._sched.num_waiting
+
+    @property
+    def num_active(self) -> int:
+        return self._sched.num_active
+
+    @property
+    def steps(self) -> int:
+        return self._sched.steps
+
+    def drain_finished(self) -> List[Request]:
+        out = []
+        while (fin := self._sched.pop_finished()) is not None:
+            rid, toks = fin
+            req = self._by_id.pop(rid)
+            req.generated = [int(t) for t in toks]
+            req.done = True
+            out.append(req)
         return out
 
 
@@ -383,11 +485,13 @@ class _PagedPoolOps:
         snapshot and can hand pages to a slot it just freed. Syncs the
         tables if any slot grew."""
         dirty = False
+        # a preemption in the loop frees a slot and moves no other slot
+        pos = self.book.positions()
         for slot in np.flatnonzero(active):
             slot = int(slot)
             if not self.book.active_mask()[slot]:
                 continue
-            p = int(self.book.pos[slot])
+            p = int(pos[slot])
             cap = (int(self._slot_worst[slot]) if self.overcommit
                    else len(self.alloc.slot_pages[slot]) * self._page_size)
             want = min(p + ahead, max(cap, p + 1))
@@ -596,7 +700,7 @@ class _EngineLoop(_PagedPoolOps):
         msg = f"decode step failed: {type(e).__name__}: {e}"
         self._lp_slots.clear()
         for slot in np.flatnonzero(self.book.active_mask()):
-            req = self._slot_request(int(slot))
+            req = self.book.request_in_slot(int(slot))
             self._cancel_slot(int(slot), msg)
             if req is not None:
                 req.done = True
@@ -639,10 +743,6 @@ class _EngineLoop(_PagedPoolOps):
                 self.finished.append(self._finalize(r))
         return True
 
-    def _slot_request(self, slot: int) -> Optional[Request]:
-        """The Request occupying ``slot``, if any."""
-        return self.book.slot_req.get(slot)
-
     def _finalize(self, r: Request) -> Request:
         """Merge a finished continuation back into the ORIGINAL Request: a
         preempted request finishes as a continuation whose transcript holds
@@ -663,7 +763,7 @@ class _EngineLoop(_PagedPoolOps):
     def _cancel_slot(self, slot: int, error_msg: str):
         """Cancel whatever request occupies ``slot`` (if any), tagging it
         with ``error_msg``, and free its pages."""
-        req = self._slot_request(slot)
+        req = self.book.request_in_slot(slot)
         if req is None:
             return
         req.error = error_msg
@@ -695,7 +795,7 @@ class _EngineLoop(_PagedPoolOps):
         if self.paged:
             total = self.caches[0].n_pages - 1          # page 0 reserved
             ps = self._page_size
-            act = self.book.active_mask()
+            act, pos = self.book.active_mask(), self.book.positions()
             st.update(
                 pages_in_use=total - self.alloc.n_free, pages_total=total,
                 prefix_hits=self.alloc.prefix_hits,
@@ -704,7 +804,7 @@ class _EngineLoop(_PagedPoolOps):
                 # pages held by slots vs pages their positions occupy: the
                 # worst-case reservation strands the difference
                 pages_reserved=sum(len(p) for p in self.alloc.slot_pages),
-                pages_used=int(sum(-(-(int(self.book.pos[s]) + 1) // ps)
+                pages_used=int(sum(-(-(int(pos[s]) + 1) // ps)
                                    for s in np.flatnonzero(act))),
                 preemptions=self.preemptions)
         if self._itl:
@@ -847,9 +947,13 @@ class ContinuousBatchingEngine(_EngineLoop):
                  page_size: Optional[int] = None,
                  overlap_admission: bool = False, kv_bits: int = 8,
                  device: DeviceLike = None):
-        """Options as in the JAX engine; those of modes not ported yet raise
-        ``NotImplementedError``. ``scheduler`` "auto" and "python" run the
-        Python bookkeeper. ``device`` is where the engine runs (default: the
+        """Options as in the JAX engine; ``mesh`` (not ported yet) raises
+        ``NotImplementedError``. ``scheduler`` "python" runs the Python
+        bookkeeper, "native" the C++ scheduler (``serving/native.py``, its
+        library built at first use, or raises), "auto" the native one when
+        its library is built already and the Python one otherwise;
+        ``self.scheduler`` records the choice. The two give the same
+        transcripts. ``device`` is where the engine runs (default: the
         GPU — raises without one); the model (and the draft) must be there.
 
         ``draft_model`` turns on speculation with ``spec_gamma`` proposals
@@ -878,14 +982,10 @@ class ContinuousBatchingEngine(_EngineLoop):
         options of paged mode, ``prefix_cache=False`` among them, raise a
         ``ValueError`` without ``paged=True``; ``quantized_cache`` has no
         effect there (pools are always quantized)."""
-        for name, value, used in (
-                ("mesh", mesh, mesh is not None),
-                ("scheduler", scheduler, scheduler == "native")):
-            if used:
-                raise NotImplementedError(
-                    f"ContinuousBatchingEngine({name}={value!r}) is not ported "
-                    "to qgemm_tpu_torch yet")
-        if scheduler not in ("auto", "python"):
+        if mesh is not None:
+            raise NotImplementedError(f"ContinuousBatchingEngine(mesh={mesh!r}) is not "
+                                      "ported to qgemm_tpu_torch yet")
+        if scheduler not in ("auto", "python", "native"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if not paged:
             for name, value, used in (("n_pages", n_pages, n_pages is not None),
@@ -921,10 +1021,14 @@ class ContinuousBatchingEngine(_EngineLoop):
         self.max_seq_len = max_seq_len or model.cfg.max_seq_len
         self.quantized_cache = quantized_cache
         self.top_k = top_k
-        self.scheduler = "python"
+        if scheduler == "auto":
+            from qgemm_tpu_torch.serving import native
+            scheduler = "native" if native.available() else "python"
+        self.scheduler = scheduler
         self.multi_step = int(multi_step)
         self.chunked_prefill = chunked_prefill
-        self.book = _PyBookkeeper(max_slots, self.max_seq_len)
+        self.book = (_NativeBookkeeper if scheduler == "native"
+                     else _PyBookkeeper)(max_slots, self.max_seq_len)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
 
@@ -1314,7 +1418,7 @@ class ContinuousBatchingEngine(_EngineLoop):
         if not cands:
             return False
         victim = max(cands, key=lambda s: self._admit_seq.get(s, -1))
-        req = self._slot_request(victim)
+        req = self.book.request_in_slot(victim)
         if req is None:
             return False
         res = self.book.preempt(req.id)

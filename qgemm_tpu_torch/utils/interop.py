@@ -16,9 +16,12 @@ options are meta fields, which checkpoints do not hold, so they are
 arguments. ``transformer_from_jax_params`` does the same for the
 encoder-decoder ``Transformer`` (``enc_blocks/0/attn/...``,
 ``dec_blocks/0/self_attn/...``, ``dec_blocks/0/cross_attn/...``,
-``ln_enc``, ``ln_dec``). ``gpt_to_numpy_params`` is the reverse: the
-port's GPT (float, int8 or int4) as the same path-keyed numpy leaves, so a
-model trained by the port loads into the JAX package.
+``ln_enc``, ``ln_dec``), and ``mlp_from_jax_params`` for the ``MLP``
+(``layers/0/w``, ``layers/0/b``, ``layers/0/wq/q``). ``gpt_to_numpy_params``,
+``transformer_to_numpy_params`` and ``mlp_to_numpy_params`` are the reverse:
+the port's model (float, int8 or int4) as the same path-keyed numpy leaves,
+so a model trained by the port loads into the JAX package; ``gpt_leaves``,
+``transformer_leaves`` and ``mlp_leaves`` give the same leaves as tensors.
 ``paged_cache_from_numpy`` builds the port's ``PagedKVCache`` from a JAX
 ``PagedKVCache``'s arrays. All of them read and write numpy only; they
 never import JAX.
@@ -36,6 +39,7 @@ from qgemm_tpu_torch.models.attention import MultiHeadAttention
 from qgemm_tpu_torch.models.embedding import Embedding
 from qgemm_tpu_torch.models.gpt import GPT, GPTBlock, GPTConfig
 from qgemm_tpu_torch.models.linear import Linear, QuantizedLinear
+from qgemm_tpu_torch.models.mlp import MLP
 from qgemm_tpu_torch.models.moe import MoEFeedForward, QuantizedExpertWeight
 from qgemm_tpu_torch.models.transformer import (DecoderBlock, EncoderBlock, FeedForward,
                                                 LayerNorm, Transformer, TransformerConfig)
@@ -95,22 +99,72 @@ def _ffn_leaves(ffn, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _attention_leaves(attn, prefix: str) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for n in ("wqkv_q", "wqkv_k", "wqkv_v", "w_o"):
+        out.update(_linear_leaves(getattr(attn, n), f"{prefix}/{n}"))
+    return out
+
+
+def _layernorm_leaves(ln, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}/gamma": ln.gamma, f"{prefix}/beta": ln.beta}
+
+
+def _embed_leaves(embed) -> Dict[str, torch.Tensor]:
+    return {"embed/table": embed.table, "embed/pos": embed.pos}
+
+
 def gpt_leaves(model: GPT) -> Dict[str, torch.Tensor]:
     """The port's GPT as its JAX pytree's leaves, keyed by path in the
     pytree's order, as tensors (int8 and packed int4 codes as ``[k, n]``
     views of the K-major buffers; nothing is copied)."""
-    out: Dict[str, torch.Tensor] = {"embed/table": model.embed.table,
-                                    "embed/pos": model.embed.pos}
+    out = _embed_leaves(model.embed)
     for i, blk in enumerate(model.blocks):
         p = f"blocks/{i}"
-        for n in ("wqkv_q", "wqkv_k", "wqkv_v", "w_o"):
-            out.update(_linear_leaves(getattr(blk.attn, n), f"{p}/attn/{n}"))
+        out.update(_attention_leaves(blk.attn, f"{p}/attn"))
         out.update(_ffn_leaves(blk.ffn, f"{p}/ffn"))
-        for n in ("ln1", "ln2"):
-            ln = getattr(blk, n)
-            out.update({f"{p}/{n}/gamma": ln.gamma, f"{p}/{n}/beta": ln.beta})
-    out.update({"ln_f/gamma": model.ln_f.gamma, "ln_f/beta": model.ln_f.beta})
+        out.update(_layernorm_leaves(blk.ln1, f"{p}/ln1"))
+        out.update(_layernorm_leaves(blk.ln2, f"{p}/ln2"))
+    out.update(_layernorm_leaves(model.ln_f, "ln_f"))
     out.update(_linear_leaves(model.lm_head, "lm_head"))
+    return out
+
+
+def transformer_leaves(model: Transformer) -> Dict[str, torch.Tensor]:
+    """The port's encoder-decoder ``Transformer`` as its JAX pytree's
+    leaves, keyed by path in the pytree's order, as tensors."""
+    out = _embed_leaves(model.embed)
+    for i, blk in enumerate(model.enc_blocks):
+        p = f"enc_blocks/{i}"
+        out.update(_attention_leaves(blk.attn, f"{p}/attn"))
+        out.update(_ffn_leaves(blk.ffn, f"{p}/ffn"))
+        out.update(_layernorm_leaves(blk.ln1, f"{p}/ln1"))
+        out.update(_layernorm_leaves(blk.ln2, f"{p}/ln2"))
+    for i, blk in enumerate(model.dec_blocks):
+        p = f"dec_blocks/{i}"
+        out.update(_attention_leaves(blk.self_attn, f"{p}/self_attn"))
+        out.update(_attention_leaves(blk.cross_attn, f"{p}/cross_attn"))
+        out.update(_ffn_leaves(blk.ffn, f"{p}/ffn"))
+        for n in ("ln1", "ln2", "ln3"):
+            out.update(_layernorm_leaves(getattr(blk, n), f"{p}/{n}"))
+    out.update(_layernorm_leaves(model.ln_enc, "ln_enc"))
+    out.update(_layernorm_leaves(model.ln_dec, "ln_dec"))
+    out.update(_linear_leaves(model.lm_head, "lm_head"))
+    return out
+
+
+def mlp_leaves(model: MLP) -> Dict[str, torch.Tensor]:
+    """The port's ``MLP`` as its JAX pytree's leaves (``layers/<i>/...``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(model.layers):
+        out.update(_linear_leaves(layer, f"layers/{i}"))
+    return out
+
+
+def _to_numpy_params(leaves: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key, t in leaves.items():
+        out.update(to_numpy_leaves(key, t))
     return out
 
 
@@ -119,10 +173,19 @@ def gpt_to_numpy_params(model: GPT) -> Dict[str, np.ndarray]:
     and the JAX package's ``load_checkpoint`` restores: bf16 as uint16 bits
     + a dtype tag, int8 codes (``wq/q``) and packed int4 codes (``wq/qp``)
     back in JAX's ``[k, n]`` layout, scales as they are."""
-    out: Dict[str, np.ndarray] = {}
-    for key, t in gpt_leaves(model).items():
-        out.update(to_numpy_leaves(key, t))
-    return out
+    return _to_numpy_params(gpt_leaves(model))
+
+
+def transformer_to_numpy_params(model: Transformer) -> Dict[str, np.ndarray]:
+    """The port's ``Transformer`` as path-keyed numpy leaves, as
+    ``gpt_to_numpy_params`` gives a GPT's."""
+    return _to_numpy_params(transformer_leaves(model))
+
+
+def mlp_to_numpy_params(model: MLP) -> Dict[str, np.ndarray]:
+    """The port's ``MLP`` as path-keyed numpy leaves, as
+    ``gpt_to_numpy_params`` gives a GPT's."""
+    return _to_numpy_params(mlp_leaves(model))
 
 
 def _linear(params, prefix: str, device, **outliers):
@@ -208,6 +271,20 @@ def transformer_from_jax_params(params: Mapping[str, np.ndarray], cfg: Transform
            for i in range(cfg.n_layers)]
     embed = Embedding(to_tensor(params, "embed/table", dev), to_tensor(params, "embed/pos", dev))
     return Transformer(embed, enc, dec, ln("ln_enc"), ln("ln_dec"), linear("lm_head"), cfg)
+
+
+def mlp_from_jax_params(params: Mapping[str, np.ndarray], device: DeviceLike = None,
+                        remat: bool = False, outlier_threshold: float = 0.0,
+                        outlier_capacity: int = 32) -> MLP:
+    """Build the port's ``MLP`` from a ``qgemm_tpu`` MLP's path-keyed leaves
+    (float, int8 or int4 layers; as many layers as ``layers/<i>`` keys).
+    ``remat`` and the outlier options are meta fields, which checkpoints do
+    not hold. ``device`` defaults to the GPU."""
+    dev = resolve_device(device)
+    n = 1 + max(int(k.split("/")[1]) for k in params if k.startswith("layers/"))
+    outliers = dict(outlier_threshold=outlier_threshold, outlier_capacity=outlier_capacity)
+    return MLP([_linear(params, f"layers/{i}", dev, **outliers) for i in range(n)],
+               remat=remat)
 
 
 def paged_cache_from_numpy(kq: np.ndarray, kc: np.ndarray, vq: np.ndarray, vc: np.ndarray,

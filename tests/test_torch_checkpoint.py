@@ -106,3 +106,93 @@ def test_load_checkpoint_checks_leaves(tmp_path):
     with pytest.raises(ValueError, match="shape"):
         load_checkpoint(path, GPT.init(GPTConfig(**dict(CFG, d_ff=32)), seed=0,
                                        device="cpu"))
+
+
+# ------------------------------------------------- every tree: MLP, Transformer
+MLP_DIMS = [24, 16, 10]
+S2S = dict(vocab_size=40, d_model=32, n_heads=4, d_ff=64, n_layers=2, max_seq_len=16)
+TREE_KINDS = ["float32", "int8", "int4"]
+
+
+def _quantized(m, kind):
+    return m.quantize(bits=4) if kind == "int4" else m.quantize() if kind == "int8" else m
+
+
+def _jax_tree(tree, kind):
+    """A JAX MLP or Transformer of ``kind`` and a port template of the same
+    structure (other weights)."""
+    if tree == "mlp":
+        from qgemm_tpu.models.mlp import MLP as JMLP
+        from qgemm_tpu_torch.models.mlp import MLP
+        jm = JMLP.init(jax.random.PRNGKey(5), MLP_DIMS)
+        template = MLP.init(9, MLP_DIMS, device="cpu")
+    else:
+        from qgemm_tpu.models.transformer import Transformer as JTransformer
+        from qgemm_tpu.models.transformer import TransformerConfig as JS2S
+        from qgemm_tpu_torch.models.transformer import Transformer, TransformerConfig
+        jm = JTransformer.init(JS2S(**S2S), key=jax.random.PRNGKey(5))
+        template = Transformer.init(TransformerConfig(**S2S), seed=9, device="cpu")
+    return _quantized(jm, kind), _quantized(template, kind)
+
+
+def _port_leaves(model):
+    from qgemm_tpu_torch.utils.interop import mlp_leaves, transformer_leaves
+    from qgemm_tpu_torch.models.mlp import MLP
+    leaves = mlp_leaves(model) if isinstance(model, MLP) else transformer_leaves(model)
+    return {k: v.detach().numpy() for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("kind", TREE_KINDS)
+@pytest.mark.parametrize("tree", ["mlp", "transformer"])
+def test_any_tree_round_trips_across_packages(tree, kind, tmp_path):
+    """A JAX checkpoint loads into the port bit for bit; the port's file of
+    that model holds the JAX file's keys, dtypes and bytes and loads back
+    into the JAX package; the port's own round trip keeps every leaf."""
+    jm, template = _jax_tree(tree, kind)
+    j_save(str(tmp_path / "jax.npz"), jm)
+    model = load_checkpoint(str(tmp_path / "jax.npz"), template)
+    assert type(model) is type(template) and model.device.type == "cpu"
+    want = _jax_leaves(jm)
+    got = _port_leaves(model)
+    assert list(got) == list(want)
+    for key, a in got.items():
+        np.testing.assert_array_equal(_bits(a), _bits(want[key]), err_msg=key)
+    save_checkpoint(str(tmp_path / "port.npz"), model)
+    with np.load(tmp_path / "jax.npz") as a, np.load(tmp_path / "port.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype, key
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    back = _jax_leaves(j_load(str(tmp_path / "port.npz"), jm))
+    for key in want:
+        np.testing.assert_array_equal(_bits(back[key]), _bits(want[key]), err_msg=key)
+    again = _port_leaves(load_checkpoint(str(tmp_path / "port.npz"), template))
+    for key in got:
+        np.testing.assert_array_equal(again[key], got[key], err_msg=key)
+
+
+def test_mlp_checkpoint_keeps_template_meta_and_checks_leaves(tmp_path):
+    from qgemm_tpu_torch.models.mlp import MLP
+    model = MLP.init(1, MLP_DIMS, remat=True, device="cpu")
+    path = str(tmp_path / "m.npz")
+    save_checkpoint(path, model)
+    back = load_checkpoint(path, MLP.init(2, MLP_DIMS, remat=True, device="cpu"))
+    assert back.remat and torch.equal(back.layers[1].w, model.layers[1].w)
+    q = model.quantize(outlier_threshold=6.0)
+    save_checkpoint(path, q)
+    back = load_checkpoint(path, MLP.init(2, MLP_DIMS, device="cpu").quantize(
+        outlier_threshold=6.0))
+    assert all(l.outlier_threshold == 6.0 for l in back.layers)
+    with pytest.raises(KeyError, match="missing leaf"):
+        load_checkpoint(path, MLP.init(2, MLP_DIMS + [3], device="cpu").quantize())
+    with pytest.raises(ValueError, match="shape"):
+        load_checkpoint(path, MLP.init(2, [24, 8, 10], device="cpu").quantize())
+
+
+def test_unknown_tree_raises(tmp_path):
+    path = str(tmp_path / "m.npz")
+    with pytest.raises(TypeError, match="no checkpoint layout for Linear"):
+        save_checkpoint(path, torch.nn.Linear(3, 2))
+    save_checkpoint(path, GPT.init(GPTConfig(**CFG), seed=0, device="cpu"))
+    with pytest.raises(TypeError, match="no checkpoint layout"):
+        load_checkpoint(path, {"embed/table": torch.zeros(1)})

@@ -118,10 +118,16 @@ def test_engine_sampling_and_prefill_error_isolation():
 @pytest.mark.parametrize("option,value", [
     ("scheduler", "native"), ("draft_model", object()), ("mesh", object())])
 def test_engine_unported_options_raise(option, value):
-    """Tensor parallelism and the native scheduler are not ported yet.
-    Speculation is (tests/test_torch_engine_spec.py): a draft that is not
-    a model is refused."""
+    """Tensor parallelism is not ported yet. Speculation is
+    (tests/test_torch_engine_spec.py): a draft that is not a model is
+    refused. The native scheduler is ported (tests/test_torch_native_scheduler.py):
+    the engine takes it, and an unknown scheduler raises."""
     _, tm = model_pair(11, quantize=True)
+    if option == "scheduler":
+        assert ContinuousBatchingEngine(tm, device="cpu", scheduler=value).scheduler == value
+        with pytest.raises(ValueError, match=option):
+            ContinuousBatchingEngine(tm, device="cpu", scheduler="cxx")
+        return
     error = TypeError if option == "draft_model" else NotImplementedError
     with pytest.raises(error, match=option):
         ContinuousBatchingEngine(tm, device="cpu", **{option: value})

@@ -7,11 +7,14 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import qgemm_tpu_torch
+from qgemm_tpu_torch.examples import quantize_demo, serve_gpt, train_mnist
 from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
+from qgemm_tpu_torch.models.mlp import MLP
 from qgemm_tpu_torch.models.moe import MoEFeedForward
 from qgemm_tpu_torch.ops import cuda as kernels
 from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize
@@ -31,7 +34,7 @@ from qgemm_tpu_torch.ops.quantize import (quantize_weights, quantize_weights_int
                                           quantized_matmul_prequant_w4)
 from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
 from qgemm_tpu_torch.serving.paged_cache import init_paged_cache, paged_write_step
-from qgemm_tpu_torch.utils.interop import gpt_from_jax_params
+from qgemm_tpu_torch.utils.interop import gpt_from_jax_params, mlp_from_jax_params
 from qgemm_tpu_torch.utils.profiling import bench_ms
 from qgemm_tpu_torch.utils.testing import use_test_threads
 
@@ -54,7 +57,12 @@ def test_port_imports_no_jax():
               "qgemm_tpu_torch.ops.cuda.softmax", "qgemm_tpu_torch.ops.cuda.layernorm",
               "qgemm_tpu_torch.ops.cuda.int8_flash_attention", "qgemm_tpu_torch.ops.elemwise",
               "qgemm_tpu_torch.ops.reduction", "qgemm_tpu_torch.ops.matmul",
-              "qgemm_tpu_torch.serving.seq2seq", "qgemm_tpu_torch.examples.transformer_demo"):
+              "qgemm_tpu_torch.serving.seq2seq", "qgemm_tpu_torch.examples.transformer_demo",
+              "qgemm_tpu_torch.serving.native", "qgemm_tpu_torch.data.mnist",
+              "qgemm_tpu_torch.data.native", "qgemm_tpu_torch.models.mlp",
+              "qgemm_tpu_torch.utils.config", "qgemm_tpu_torch.utils.host_build",
+              "qgemm_tpu_torch.examples.train_mnist", "qgemm_tpu_torch.examples.serve_gpt",
+              "qgemm_tpu_torch.examples.quantize_demo"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -76,6 +84,11 @@ def test_default_device_raises_without_gpu():
     for make in (lambda: GPT.init(CFG),
                  lambda: GPT.init_quantized(CFG),
                  lambda: gpt_from_jax_params({}, CFG),
+                 lambda: MLP.init(0, [4, 3]),
+                 lambda: mlp_from_jax_params({"layers/0/w": np.zeros((4, 3), np.float32)}),
+                 lambda: train_mnist.main(["--epochs", "1"]),
+                 lambda: quantize_demo.main([]),
+                 lambda: serve_gpt.main(["--layers", "1"]),
                  lambda: GPT.init(MOE),
                  lambda: GPT.init_quantized(MOE),
                  lambda: gpt_from_jax_params({}, MOE)):
@@ -140,6 +153,18 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
                                        "col_quantize": 0, "softmax": 0, "layernorm": 0,
                                        "int8_flash_prepass": 0,
                                        "int8_flash_attention": 0}
+
+
+def test_mlp_and_examples_cpu_path_launch_no_kernel():
+    """The int8 MLP, the MNIST example (training, then the int8 evaluation)
+    and the dynamic GEMM demo on the CPU launch no kernel."""
+    kernels.reset_launch_counts()
+    model = MLP.init(0, [784, 16, 10], device="cpu")
+    assert model.quantize()(torch.zeros(3, 784)).shape == (3, 10)
+    res = train_mnist.main(["--epochs", "1", "--device", "cpu", "--data", ROOT])
+    assert res["int8_test_acc"] > 0.5 and res["device"] == "cpu"
+    assert quantize_demo.main(["-c"])["mean_error"] < 0.01
+    assert sum(kernels.launch_counts().values()) == 0
 
 
 def test_model_cpu_path_launches_no_kernel():

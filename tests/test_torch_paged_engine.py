@@ -164,8 +164,9 @@ def test_fault1_growth_skips_a_slot_preempted_in_the_same_pass():
 
 def test_jax_overcommit_parity_and_throughput_scenario():
     """The scenario of the JAX suite's
-    test_overcommit_preemption_parity_and_throughput, with the Python
-    scheduler (the port has no native one yet): over-commit keeps the
+    test_overcommit_preemption_parity_and_throughput, with the engine's
+    default scheduler (the native one's half is in
+    tests/test_torch_native_scheduler.py): over-commit keeps the
     reservation-mode transcripts, which equal the JAX engine's, and needs
     fewer engine steps."""
     sizes = {"vocab_size": 97, "d_model": 32, "d_ff": 64, "max_seq_len": 64}
