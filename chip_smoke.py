@@ -61,11 +61,23 @@ speculatively, routes held equal, launches per step K1 97 and K2 or K5
 12, and runs beam search and the transformer demo; ``s2s_reverse``
 trains a reverse model and serves it through seven seq2seq engines, each
 held to its teacher-forced accuracy and the int8 ones to ``generate``'s
-transcripts. Each phase
+transcripts. ``k1_given_cx`` holds K1's route on caller-given row scales
+(the row-parallel int8 layer's) at GPT_6_7B's W_O and FFN-down shard
+shapes for p 1, 2 and 4, m 8 and 512: bit for bit to its plain version and
+to the fused route on the shard's own absmax, the p shards summed by hand
+against the unsharded K1, each timed beside its bound. ``tp_serving``
+(after ``decode_graph``, on its model) serves GPT_6_7B through the
+tensor-parallel route on an NCCL group of world 1: the dense int8-KV graph
+engine, the paged int8 graph engine and the speculative dense engine, 8
+greedy requests each, with and without the mesh, transcripts, launches and
+stats equal bit for bit, 129 collectives a decode step with the analytic
+all-reduce bytes, 64 K1 launches a step on the given-cx route. Each phase
 prints one JSON line; the last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is nonzero. Needs one CUDA device; exits nonzero without one.
 Uses no JAX.
 
+    python3 chip_smoke.py --tp-faults    # planted faults of the TP route, each caught
+    python3 chip_smoke.py --tp-cards N   # N ranks on N cards against one card, faults planted
     python3 chip_smoke.py --only PHASE[,PHASE...]
 
 builds the kernels and runs only the named phases (``shape_limits``,
@@ -219,8 +231,10 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1554,7 +1568,8 @@ DECODE_FAMILIES = {"gemv": ("gemv_kernel", "small_m_kernel"),
                    "dense_decode": ("decode_kernel<signed char", "dense_decode_split_kernel"),
                    "gemm_prepass": ("row_quantize_kernel", "row_absmax_kernel",
                                     "slab_quantize_kernel"),
-                   "paged_decode": ("paged_decode",)}
+                   "paged_decode": ("paged_decode",),
+                   "nccl": ("nccl",)}
 
 
 # host calls that put work on the card, by the prefixes of their names in a
@@ -2468,9 +2483,642 @@ def phase_decode_graph() -> dict:
             "fault": graph_fault_recovery(model, kw, make_reqs, f"decode_graph {label}")}
     res["seconds"] = time.perf_counter() - t0
     emit(res)
+    res["tp_serving"] = tp_serving(model)   # the same model, reused
     del model
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------------------- tensor parallelism
+# K1's caller-given row scales at GPT_6_7B's row-parallel shard shapes: W_O
+# (K 4096) and FFN-down (K 16384), N 4096, sharded on K over p ranks
+K1_GIVEN_CX_SHAPES = {"w_o": (4096, 4096), "ffn_down": (16384, 4096)}
+K1_GIVEN_CX_P = (1, 2, 4)
+K1_GIVEN_CX_ROWS = (8, 512)
+# the p shards' f32 outputs summed by hand against the unsharded K1: the
+# codes are the same (one global grid), so the two differ by the rounding of
+# p + 1 int32-to-f32 conversions and p - 1 f32 additions per element,
+# under 2^-20 of the sum of the shards' magnitudes; a shard that quantized
+# on its own grid moves outputs by ~1e-3 of that
+K1_SHARD_SUM_RTOL = 2.0 ** -20
+TP_REQUESTS = 8
+# the tensor-parallel route at p = 1: per decode step of GPT_6_7B, a MAX and
+# a SUM after W_O and after FFN-down in each of 32 layers, and the head's
+# gather
+TP_COLLECTIVES_PER_STEP = 4 * 32 + 1
+TP_GIVEN_CX_PER_STEP = 2 * 32
+
+
+def k1_given_cx_plain(x: torch.Tensor, qt: torch.Tensor, c: torch.Tensor,
+                      cx: torch.Tensor) -> torch.Tensor:
+    """The plain version of K1 on given row scales in K1's epilogue order,
+    (acc * (cx / 127^2)) * cw (``quantized_matmul_plain(cx=...)`` takes
+    JAX's, acc * (cx cw) / 127^2, an f32 rounding apart)."""
+    from qgemm_tpu_torch.ops.quantize import QRANGE, int8_matmul, quantize_with_scales
+    acc = int8_matmul(quantize_with_scales(x.float(), cx), qt.t())
+    return (acc.to(torch.float32) * (cx * (1.0 / (QRANGE * QRANGE)))) * c
+
+
+def k1_given_cx_checks(own_scales: bool = False) -> dict:
+    """K1 on caller-given row scales at the shard shapes of
+    ``K1_GIVEN_CX_SHAPES`` for each p of ``K1_GIVEN_CX_P`` and m of
+    ``K1_GIVEN_CX_ROWS``: every shard's output equals the plain version's
+    bit for bit on the whole row's absmax, and the fused route's where the
+    scales are the shard's own absmax; the p shards' outputs summed by hand
+    equal the unsharded K1 within ``K1_SHARD_SUM_RTOL``. Times the given-cx
+    route, the fused route and the plain version on shard 0 (``bench_ms``)
+    beside its bound. ``own_scales`` plants a fault: each shard quantizes
+    on its own absmax (the sum check must fail, at p > 1). The plain
+    version's time is ``quantized_matmul_plain(cx=...)``'s, its error
+    beside the kernel's output ``plain_max_abs_err``."""
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.ops.quantize import (QuantizedWeight, absmax_scales,
+                                              quantize_weights, quantized_matmul_plain,
+                                              quantized_matmul_prequant)
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    rows, failures = [], []
+    kernels.reset_launch_counts()
+    for layer, (k, n) in K1_GIVEN_CX_SHAPES.items():
+        wq = quantize_weights(torch.randn((k, n), generator=g, device="cuda") * 0.02)
+        for m in K1_GIVEN_CX_ROWS:
+            x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+            full = quantized_matmul_prequant(x, wq)
+            cx = absmax_scales(x.float(), -1)
+            for p in K1_GIVEN_CX_P:
+                kl = k // p
+                parts, bits, fused_bits, plain_err = [], True, True, 0.0
+                for r in range(p):
+                    xs = x[:, r * kl:(r + 1) * kl].contiguous()
+                    ws = QuantizedWeight(qt=wq.qt[:, r * kl:(r + 1) * kl].contiguous(), c=wq.c)
+                    c_r = absmax_scales(xs.float(), -1) if own_scales else cx
+                    got = quantized_matmul_prequant(xs, ws, cx=c_r)
+                    bits &= bits_equal(got, k1_given_cx_plain(xs, ws.qt, ws.c, c_r))
+                    plain_err = max(plain_err, max_err(got, quantized_matmul_plain(xs, ws,
+                                                                                   cx=c_r)))
+                    fused_bits &= bits_equal(
+                        quantized_matmul_prequant(xs, ws),
+                        quantized_matmul_prequant(xs, ws, cx=absmax_scales(xs.float(), -1)))
+                    parts.append(got)
+                    if r == 0:
+                        shard0 = (xs, ws, c_r)
+                summed = torch.stack(parts).sum(0)
+                scale = float(torch.stack(parts).abs().sum(0).max())
+                err = max_err(summed, full)
+                xs, ws, c_r = shard0
+                ms = bench_ms(lambda: quantized_matmul_prequant(xs, ws, cx=c_r))
+                fused_ms = bench_ms(lambda: quantized_matmul_prequant(xs, ws))
+                plain_ms = bench_ms(lambda: quantized_matmul_plain(xs, ws, cx=c_r))
+                bms, by = bound(m * kl * 2 + m * 4 + kl * n + n * 4 + m * n * 4,
+                                2 * m * n * kl, INT8_OPS)
+                row = {"layer": layer, "p": p, "m": m, "k_shard": kl, "n": n,
+                       "bits_equal_plain": bits, "bits_equal_fused_on_own_absmax": fused_bits,
+                       "plain_max_abs_err": plain_err,
+                       "shard_sum_max_abs_err": err, "shard_sum_scale": scale,
+                       "shard_sum_rtol": K1_SHARD_SUM_RTOL, "ms": ms, "fused_ms": fused_ms,
+                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "share_of_bound": bms / ms}
+                rows.append(row)
+                if not (bits and fused_bits):
+                    failures.append(f"{layer} p={p} m={m}: not bit-equal "
+                                    f"(plain {bits}, fused {fused_bits})")
+                if err > K1_SHARD_SUM_RTOL * scale:
+                    failures.append(f"{layer} p={p} m={m}: shard sum off the unsharded K1 by "
+                                    f"{err:.3e} > {K1_SHARD_SUM_RTOL:.1e} x {scale:.3e}")
+            del x
+        del wq
+    launched = kernels.launch_counts()["quantized_matmul_given_cx"]
+    if not launched:
+        failures.append("the given-cx route never launched")
+    return {"rows": rows, "failures": failures, "given_cx_launches": launched}
+
+
+def phase_k1_given_cx() -> dict:
+    """``k1_given_cx_checks`` (row 2's route: the row-parallel int8 layer's
+    K1 on the all-reduced row scales); fails on any failure."""
+    t0 = time.perf_counter()
+    res = k1_given_cx_checks()
+    res.update(phase="k1_given_cx", seconds=time.perf_counter() - t0)
+    emit(res)
+    if res["failures"]:
+        raise AssertionError(f"k1_given_cx: {res['failures']}")
+    return res
+
+
+def tp_group() -> tuple:
+    """A process group of world 1 on this card (NCCL, over a file store in
+    ``build/``) and its mesh, all on "model"; -> (mesh, the store)."""
+    from qgemm_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    store = Path(__file__).resolve().parent / "build" / f"tp_store.{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    initialize_distributed(init_method=f"file://{store}", world_size=1, rank=0)
+    return make_mesh((1, 1)), store
+
+
+def tp_close(store: Path) -> None:
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    store.unlink(missing_ok=True)
+
+
+def decode_step_collectives(engine, make_reqs) -> dict:
+    """The collectives of one decode step with every slot busy (the step's
+    graph replay adds those its capture counted)."""
+    from qgemm_tpu_torch.parallel import tp_ops
+    for r in make_reqs()[:engine.max_slots]:
+        r.max_new_tokens = 64       # none finishes before every slot is decoding
+        engine.submit(r)
+    while engine.book.num_waiting or engine.book.num_active < engine.max_slots:
+        if engine.steps > 1000:
+            raise AssertionError("decode_step_collectives: the slots never filled")
+        engine.step()
+    n_dec, n_adm = engine.decode_steps, len(engine._admit_times)
+    tp_ops.reset_collective_counts()
+    engine.step()
+    torch.cuda.synchronize()
+    counts = tp_ops.collective_counts()
+    if engine.decode_steps != n_dec + 1 or len(engine._admit_times) != n_adm:
+        raise AssertionError(f"decode_step_collectives: the step was not one decode step")
+    engine.run_to_completion()
+    return counts
+
+
+def tp_run(label: str, make_engine, make_reqs, want: Optional[dict] = None) -> dict:
+    """Serve ``make_reqs()`` through ``make_engine()`` with ``drive``; with
+    ``want`` (the un-meshed run's result) hold the transcripts, the launches
+    per decode step and per round (K1's given-cx route aside, which only
+    the mesh takes) and the ``TWIN_STATS`` to it bit for bit."""
+    engine = make_engine()
+    reqs = make_reqs()
+    run = drive(engine, reqs, label)
+    strip = lambda d: None if d is None else {k: v for k, v in d.items()
+                                             if v and k != "quantized_matmul_given_cx"}
+    res = {"engine": engine, "transcripts": [r.generated for r in reqs],
+           "per_decode": strip(run["per_decode"]), "per_round": strip(run["per_round"]),
+           "given_cx": {"per_decode": (run["per_decode"] or {}).get("quantized_matmul_given_cx"),
+                        "per_round": (run["per_round"] or {}).get("quantized_matmul_given_cx"),
+                        "in_all": run["counts"]["quantized_matmul_given_cx"]},
+           "stats": {k: v for k, v in engine.stats.items() if k in TWIN_STATS},
+           "graph": run["graph"]}
+    if want is not None:
+        for i, (a, b) in enumerate(zip(want["transcripts"], res["transcripts"])):
+            if a != b:
+                raise AssertionError(f"{label}: request {i}'s transcript differs from the "
+                                     f"un-meshed engine's at step {first_difference(a, b)}")
+        for key in ("per_decode", "per_round", "stats"):
+            if res[key] != want[key]:
+                raise AssertionError(f"{label}: {key} {res[key]} != un-meshed {want[key]}")
+    return res
+
+
+def tp_serving(model, kv_fault: bool = False) -> dict:
+    """The tensor-parallel route at p = 1 on the main path's model (the
+    int8 GPT_6_7B at full depth, reused): an NCCL group of world 1, the
+    rank's model ``shard_quantized_model(model, mesh)`` (at p = 1 it shares
+    every tensor with ``model``; every quantized layer is marked, as JAX
+    marks them), and three engines each serving ``TP_REQUESTS`` greedy
+    requests with and without the mesh: the dense int8-KV graph engine,
+    the paged int8 graph engine and the speculative dense engine (a W4A8
+    draft of 2 full-width layers, sharded too). Transcripts, launches per
+    decode step and per round, and stats must equal the un-meshed engines'
+    bit for bit (at p = 1 the collectives are identities and the given-cx
+    route equals the fused one); the meshed dense and paged engines' decode
+    step must run ``TP_COLLECTIVES_PER_STEP`` collectives carrying
+    ``decode_step_allreduce_bytes`` and ``TP_GIVEN_CX_PER_STEP``
+    K1 launches on the given-cx route. A steady window of the dense graph
+    engine is profiled with and without the mesh (wall and device time a
+    token, the NCCL kernels' share: reported, not judged). ``kv_fault``
+    plants a fault: every block's K/V shards taken one head past their
+    own."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.parallel.sharding import shard_quantized_model
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    t0 = time.perf_counter()
+    mesh, store = tp_group()
+    try:
+        local = shard_quantized_model(model, mesh)
+        if kv_fault:
+            shift_kv_heads(local)
+        draft = GPT.init_quantized(dataclasses.replace(GPT_6_7B, n_layers=2), seed=1,
+                                   device="cuda", bits=4)
+        dlocal = shard_quantized_model(draft, mesh)
+        dense = dense_requests(GPT_6_7B, np.random.default_rng(0))[:TP_REQUESTS]
+        prompts, news, _ = paged_requests(GPT_6_7B.vocab_size, np.random.default_rng(7))
+        cases = {
+            "dense_int8_graph": (DENSE_ENGINE, {}, dense),
+            "paged_int8_graph": (PAGED_ENGINE, {}, list(zip(prompts, news))[:TP_REQUESTS]),
+            "spec_dense_int8_graph": (DENSE_ENGINE, {"spec_gamma": 4}, dense)}
+        want_bytes = decode_step_allreduce_bytes(GPT_6_7B.n_layers, GPT_6_7B.d_model,
+                                                 DENSE_ENGINE["max_slots"])
+        res = {"phase": "tp_serving", "p": 1, "backend": "nccl", "requests": TP_REQUESTS,
+               "engines": {}, "planted_fault": "kv_head_offset" if kv_fault else None}
+        for label, (kw, extra, reqs) in cases.items():
+            spec = "spec_gamma" in extra
+            make_reqs = lambda reqs=reqs: [Request(prompt=p, max_new_tokens=n) for p, n in reqs]
+            plain = lambda: ContinuousBatchingEngine(
+                model, **kw, **extra, **({"draft_model": draft} if spec else {}))
+            meshed = lambda: ContinuousBatchingEngine(
+                local, **kw, **extra, mesh=mesh, **({"draft_model": dlocal} if spec else {}))
+            want = tp_run(f"tp_serving {label} un-meshed", plain, make_reqs)
+            got = tp_run(f"tp_serving {label} mesh", meshed, make_reqs, want)
+            row = {"transcripts_equal": True, "launches_per_decode_step": got["per_decode"],
+                   "launches_per_round": got["per_round"], "given_cx": got["given_cx"],
+                   "stats": got["stats"], "graph": got["graph"]}
+            if not got["given_cx"]["in_all"]:
+                raise AssertionError(f"tp_serving {label}: the given-cx route never launched")
+            if not spec:
+                if got["given_cx"]["per_decode"] != TP_GIVEN_CX_PER_STEP:
+                    raise AssertionError(f"tp_serving {label}: {got['given_cx']} given-cx "
+                                         f"launches, not {TP_GIVEN_CX_PER_STEP} a step")
+                coll = decode_step_collectives(got["engine"], make_reqs)
+                n = coll["all_reduce_max"] + coll["all_reduce_sum"] + coll["all_gather"]
+                ar = coll["all_reduce_max_bytes"] + coll["all_reduce_sum_bytes"]
+                row.update(collectives_per_decode_step=coll, all_reduce_bytes_analytic=want_bytes)
+                if n != TP_COLLECTIVES_PER_STEP or ar != want_bytes:
+                    raise AssertionError(f"tp_serving {label}: a decode step ran {coll}; "
+                                         f"expected {TP_COLLECTIVES_PER_STEP} collectives and "
+                                         f"{want_bytes} all-reduce bytes")
+            if label == "dense_int8_graph":
+                prof = {side: profile_decode(e, np.random.default_rng(8))
+                        for side, e in (("un_meshed", want["engine"]),
+                                        ("mesh", got["engine"]))}
+                keys = ("wall_ms_per_token_untraced", "kernel_ms_per_token",
+                        "kernel_ms_per_step", "idle_share_untraced",
+                        "device_events_per_step", "family_ms_per_step",
+                        "top_kernels_ms_per_step")
+                row["profile"] = {side: {k: p[k] for k in keys} for side, p in prof.items()}
+                nccl = prof["mesh"]["family_ms_per_step"]["nccl"]
+                row["nccl_ms_per_step"] = nccl
+                row["nccl_share_of_device_step"] = nccl / prof["mesh"]["kernel_ms_per_step"]
+                row["mesh_over_un_meshed_wall_per_token"] = (
+                    prof["mesh"]["wall_ms_per_token_untraced"]
+                    / prof["un_meshed"]["wall_ms_per_token_untraced"])
+            res["engines"][label] = row
+            del want, got
+            torch.cuda.empty_cache()
+        del draft, dlocal, local
+    finally:
+        tp_close(store)
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_tp_serving() -> dict:
+    """``tp_serving`` alone (``--only``), on a model of its own."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    return tp_serving(model)
+
+
+def decode_step_allreduce_bytes(n_layers: int, d_model: int, batch: int) -> int:
+    """scripts/bench_scaling.py:69's formula (that script imports JAX, so
+    the formula is copied; tests/test_torch_tp_engine.py holds the two
+    equal): per layer an f32 [B, d_model] SUM after W_O and after FFN-down
+    and the two f32 [B, 1] MAXes that globalize the row absmax."""
+    return n_layers * 2 * (batch * d_model * 4 + batch * 4)
+
+
+def shift_kv_heads(model) -> list:
+    """A planted fault: every attention block's K/V projections take their
+    shard one head past their own (the rank's head block rolled by one
+    head). -> the (layer, codes, scales) it replaced, for ``unshift``."""
+    saved = []
+    with torch.no_grad():
+        for mod in model.modules():
+            if hasattr(mod, "wqkv_k") and hasattr(mod, "kv_heads"):
+                dh = mod.wqkv_q.out_features // mod.n_heads
+                for lin in (mod.wqkv_k, mod.wqkv_v):
+                    saved.append((lin, lin.qt, lin.c))
+                    # new tensors: at p = 1 the shard shares the model's
+                    lin.qt = torch.roll(lin.qt, dh, dims=0)
+                    lin.c = torch.roll(lin.c, dh, dims=1)
+    return saved
+
+
+def unshift(saved: list) -> None:
+    for lin, qt, c in saved:
+        lin.qt, lin.c = qt, c
+
+
+# which planted fault the card's checks can see at p = 1, and which the CPU
+# tests hold at p = 2 (tests/test_torch_tp_engine.py::test_planted_faults_are_caught)
+TP_FAULTS = {
+    "own_row_scales": "k1_given_cx: the shards' outputs summed by hand (p = 2, 4)",
+    "kv_head_offset": "tp_serving: transcripts against the un-meshed engine (p = 1)",
+    "skipped_sum": "an identity at p = 1; the CPU test at p = 2",
+    "bf16_sum": "an identity at p = 1 in the bf16 model (the sum is cast to bf16 anyway); "
+                "the CPU test at p = 2 in f32"}
+
+
+def tp_faults() -> None:
+    """Plant the faults the card can see: each must break its check. The
+    un-planted checks must pass first. Prints which check caught which."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    phase_device()
+    phase_build()
+    caught = {}
+    sound = k1_given_cx_checks()
+    if sound["failures"]:
+        raise AssertionError(f"tp_faults: the sound k1_given_cx fails: {sound['failures']}")
+    bad = k1_given_cx_checks(own_scales=True)
+    caught["own_row_scales"] = [f for f in bad["failures"]]
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    try:
+        tp_serving(model, kv_fault=True)
+        caught["kv_head_offset"] = []
+    except AssertionError as e:
+        caught["kv_head_offset"] = [str(e)[:300]]
+    for fault, check in TP_FAULTS.items():
+        emit({"fault": fault, "check": check, "caught": bool(caught.get(fault)),
+              "evidence": caught.get(fault, [])[:3]})
+    missed = [f for f in ("own_row_scales", "kv_head_offset") if not caught[f]]
+    if missed:
+        raise AssertionError(f"tp_faults: not caught: {missed}")
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def steady_wall_ms(engine, rng, n_steps: int = 10) -> float:
+    """Wall ms of a steady decode step with every slot busy, untraced
+    (the host clock around ``n_steps`` steps, synchronised): the multi-card
+    run's reading."""
+    from qgemm_tpu_torch.serving.engine import Request
+    vocab = engine.model.cfg.vocab_size
+    for _ in range(engine.max_slots):
+        engine.submit(Request(prompt=long_prompt(rng, vocab), max_new_tokens=n_steps + 8))
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n_steps):
+        engine.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / n_steps
+    engine.run_to_completion()
+    return ms
+
+
+def prompt_logits(model, prompts) -> torch.Tensor:
+    """Each prompt's logits after its last token, from a fresh cache (a
+    whole-prompt prefill): f32 [len(prompts), vocab] on the host."""
+    rows = []
+    for p in prompts:
+        logits, _ = model.prefill(torch.tensor([p], device="cuda"),
+                                  model.init_cache(1, len(p), quantized=True))
+        rows.append(logits[0, -1].float().cpu())
+    return torch.stack(rows)
+
+
+# how far the logits of a prompt, and of a teacher-forced decode step, may
+# move when the model is sharded over cards, relative to the largest: the
+# bf16 paged chunks' bound (the ranks' f32 partials are summed in another
+# order and each layer's bf16 output may round the other way). Read at p = 4
+# on four H100s (PERF.md §6): sound, 0.0216 (prompts) and 0.0264 (forced
+# decode steps); a skipped SUM 1.31 and KV shards one head off 1.22; a
+# per-shard grid 0.0288 and a bf16 SUM 0.0286, which this bound cannot see
+TP_CARDS_LOGIT_RTOL = PAGED_LOGIT_RTOL
+# decode steps teacher-forced on the single card's transcripts
+TP_CARDS_FORCED_STEPS = 8
+
+
+def _own_row_scales(x, mesh, axis="model"):
+    return x.to(torch.float32).abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
+
+
+def _skipped_sum(partial, mesh, axis="model"):
+    return partial
+
+
+def _bf16_sum(partial, mesh, axis="model"):
+    from qgemm_tpu_torch.parallel import tp_ops
+    return tp_ops.all_reduce_sum_(partial.to(torch.bfloat16), mesh, axis).to(torch.float32)
+
+
+# the faults ``--tp-cards`` plants on every rank, each in a run of its own:
+# name -> (the tp_ops function it replaces, its replacement); the KV shard
+# one head off is ``shift_kv_heads``. Those the logits check must catch at
+# p > 1 are in ``TP_CARDS_MUST_CATCH``; the others are read and reported
+# (the per-shard grid is ``k1_given_cx``'s to catch, the bf16 SUM the CPU
+# test's)
+TP_CARDS_FAULTS = {"own_row_scales": ("global_row_scales", _own_row_scales),
+                   "skipped_sum": ("reduce_partial", _skipped_sum),
+                   "bf16_sum": ("reduce_partial", _bf16_sum),
+                   "kv_head_offset": None}
+TP_CARDS_MUST_CATCH = ("skipped_sum", "kv_head_offset")
+
+
+def forced_decode_logits(engine, prompts, forced, n_steps: int) -> torch.Tensor:
+    """``n_steps`` teacher-forced greedy decode steps through ``engine``'s
+    own dispatch (on CUDA its captured graph, with a mesh's collectives in
+    it), every prompt admitted first: before step t each request's slot is
+    fed ``forced[i][t]`` (a reference transcript), and the step's logits
+    are read from a tap the step's body writes. The engine is spent
+    afterwards. -> f32 [len(prompts), n_steps, vocab] on the host."""
+    from qgemm_tpu_torch.serving.engine import Request
+    if len(prompts) > engine.max_slots or any(len(f) < n_steps for f in forced):
+        raise ValueError("forced_decode_logits: a slot for every prompt, a forced "
+                         "token for every step")
+    vocab = engine.model.cfg.vocab_size
+    tap = torch.zeros((engine.max_slots, vocab), dtype=torch.float32, device=engine.device)
+    step_logits = engine._step_logits
+
+    def tapped():
+        logits = step_logits()
+        tap.copy_(logits.reshape(tap.shape))
+        return logits
+    engine._step_logits = tapped      # before the first dispatch captures the step
+    reqs = [Request(prompt=list(p), max_new_tokens=n_steps + 1) for p in prompts]
+    for r in reqs:
+        engine.submit(r)
+    engine._t_start = time.perf_counter()
+    engine._admit()
+    slot_of = {}
+    for s in range(engine.max_slots):
+        q = engine.book.request_in_slot(s)
+        if q is not None:
+            slot_of[q.id] = s
+    if len(slot_of) != len(reqs):
+        raise AssertionError(f"forced_decode_logits: {len(slot_of)} of {len(reqs)} admitted")
+    slots = [slot_of[r.id] for r in reqs]
+    active = engine.book.active_mask()
+    out = torch.empty((len(reqs), n_steps, vocab), dtype=torch.float32)
+    for t in range(n_steps):
+        engine.cur_tokens[slots, 0] = torch.tensor([f[t] for f in forced],
+                                                   device=engine.device)
+        engine._decode(active, 1)
+        out[:, t] = tap[slots].cpu()
+    return out
+
+
+def logit_reading(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How far ``got`` moved from ``want``: the largest change relative to
+    want's largest magnitude, per request and in all, and the argmax flips."""
+    d = (got - want).abs().flatten(1).amax(1)
+    scale = float(want.abs().max())
+    return {"rel_change": float(d.max()) / scale,
+            "rel_change_per_request": (d / scale).tolist(),
+            "argmax_flips": int((got.argmax(-1) != want.argmax(-1)).sum())}
+
+
+def tp_cards_worker(rank: int, world: int, out: str) -> None:
+    """One rank of ``--tp-cards``: the int8 GPT_6_7B from seed 0, rank 0 also
+    served un-meshed on its card, then the rank's shards under the mesh
+    (the full model dropped first); writes its transcripts and readings."""
+    import torch.distributed as dist
+
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.parallel import tp_ops
+    from qgemm_tpu_torch.parallel.mesh import make_mesh
+    from qgemm_tpu_torch.parallel.sharding import shard_quantized_model
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    def stage(what: str) -> None:   # progress on stderr: where a stuck world stopped
+        print(f"tp_cards rank {rank}: {what} at {time.perf_counter():.1f}", file=sys.stderr,
+              flush=True)
+
+    mesh = make_mesh((1, world))
+    model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+    stage("model built")
+    dense = dense_requests(GPT_6_7B, np.random.default_rng(0))[:TP_REQUESTS]
+    make_reqs = lambda: [Request(prompt=p, max_new_tokens=n) for p, n in dense]
+    prompts = [p for p, _ in dense]
+    res = {"rank": rank}
+    want = [None]
+    if rank == 0:
+        engine = ContinuousBatchingEngine(model, **DENSE_ENGINE)
+        reqs = make_reqs()
+        drive(engine, reqs, "tp_cards un-meshed")
+        want = [[r.generated for r in reqs]]
+        res["want"] = want[0]
+        res["want_wall_ms_per_step"] = steady_wall_ms(engine, np.random.default_rng(8))
+        want_logits = prompt_logits(model, prompts)
+        want_forced = forced_decode_logits(ContinuousBatchingEngine(model, **DENSE_ENGINE),
+                                           prompts, want[0], TP_CARDS_FORCED_STEPS)
+        stage("single-card run done")
+        del engine
+        gc.collect()
+    dist.broadcast_object_list(want, src=0)   # every rank forces the same tokens
+    local = shard_quantized_model(model, mesh)
+    del model
+    torch.cuda.empty_cache()
+    engine = ContinuousBatchingEngine(local, **DENSE_ENGINE, mesh=mesh)
+    reqs = make_reqs()
+    run = drive(engine, reqs, f"tp_cards mesh rank {rank}")
+    stage("mesh run done")
+    got_logits = prompt_logits(local, prompts)
+    forced = {}
+    for fault in (None,) + tuple(TP_CARDS_FAULTS):
+        swap, saved = TP_CARDS_FAULTS.get(fault), None
+        if swap is not None:
+            orig = getattr(tp_ops, swap[0])
+            setattr(tp_ops, swap[0], swap[1])
+        elif fault is not None:
+            saved = shift_kv_heads(local)
+        try:
+            forced[fault or "sound"] = forced_decode_logits(
+                ContinuousBatchingEngine(local, **DENSE_ENGINE, mesh=mesh), prompts, want[0],
+                TP_CARDS_FORCED_STEPS)
+        finally:
+            if swap is not None:
+                setattr(tp_ops, swap[0], orig)
+            if saved is not None:
+                unshift(saved)
+        gc.collect()       # the spent engine's graphs hold NCCL work of the group
+    stage("forced decode steps done")
+    if rank == 0:
+        res["forced"] = {k: logit_reading(v, want_forced) for k, v in forced.items()}
+        # a first token that differs must be a near tie: the single card's
+        # top-2 gap within twice the largest logit change of that prompt
+        dl = (got_logits - want_logits).abs()
+        top2 = torch.topk(want_logits, 2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        flips = (got_logits.argmax(-1) != want_logits.argmax(-1)).tolist()
+        res["logits"] = {"max_abs_change": dl.max(-1).values.tolist(),
+                         "rel_change": float(dl.max() / want_logits.abs().max()),
+                         "top2_gap": gaps, "argmax_flips": flips,
+                         "near_tie": [g <= 2 * float(m) for g, m in
+                                      zip(gaps, dl.max(-1).values.tolist())]}
+    res.update(got=[r.generated for r in reqs], per_decode=run["per_decode"],
+               collectives=decode_step_collectives(engine, make_reqs),
+               wall_ms_per_step=steady_wall_ms(engine, np.random.default_rng(8)),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    stage("readings done")
+    with open(Path(out) / f"tp_cards-{rank}.json", "w") as f:
+        json.dump(res, f)
+    # the decode graphs hold NCCL work of the group: free them (the engine
+    # sits in a reference cycle) before the group is destroyed, which
+    # otherwise waits on them forever
+    del engine
+    gc.collect()
+    torch.cuda.synchronize()
+    stage("graphs freed")
+
+
+def tp_cards(n: int) -> None:
+    """``n`` ranks, one per card, on NCCL: the int8 GPT_6_7B's dense graph
+    engine sharded n ways, against the single-card engine on rank 0's card.
+    Every rank must serve the same transcripts; the prompts' logits, and
+    those of ``TP_CARDS_FORCED_STEPS`` decode steps teacher-forced on the
+    single card's transcripts (the captured graph with the cross-card NCCL
+    collectives, K2 on each rank's heads), may move by at most
+    ``TP_CARDS_LOGIT_RTOL`` of the largest, and a first token that differs
+    from the single card's must be a near tie. Each fault of
+    ``TP_CARDS_FAULTS`` is planted in a forced run of its own; those of
+    ``TP_CARDS_MUST_CATCH`` must move the forced logits past the bound, the
+    others are reported. The free-running transcripts against the single
+    card's are reported (greedy on random weights: a near tie anywhere
+    sends one on another path)."""
+    from qgemm_tpu_torch.utils.testing import run_world
+    phase_device()
+    if torch.cuda.device_count() < n:
+        raise SystemExit(f"--tp-cards {n}: {torch.cuda.device_count()} card(s) here")
+    phase_build()
+    out = Path(__file__).resolve().parent / "build" / f"tp_cards.{os.getpid()}"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        run_world(tp_cards_worker, n, str(out), str(out), device=None, timeout=300)
+    except TimeoutError:   # report what the ranks wrote, then fail
+        emit({"phase": "tp_cards", "timed_out": True, "ranks_written": {
+            f.name: json.loads(f.read_text()) for f in sorted(out.glob("tp_cards-*.json"))}})
+        raise
+    ranks = [json.loads((out / f"tp_cards-{r}.json").read_text()) for r in range(n)]
+    want = ranks[0]["want"]
+    diffs = {r["rank"]: [first_difference(a, b) for a, b in zip(want, r["got"])]
+             for r in ranks}
+    res = {"phase": "tp_cards", "p": n, "seconds": time.perf_counter() - t0,
+           "transcripts_equal": all(r["got"] == want for r in ranks),
+           "ranks_agree": all(r["got"] == ranks[0]["got"] for r in ranks),
+           "prompt_logits": ranks[0]["logits"], "logit_rtol": TP_CARDS_LOGIT_RTOL,
+           "forced_decode_steps": TP_CARDS_FORCED_STEPS,
+           "forced_decode_logits": ranks[0]["forced"],
+           "first_differences": diffs,
+           "collectives_per_decode_step": ranks[0]["collectives"],
+           "launches_per_decode_step": ranks[0]["per_decode"],
+           "single_card_wall_ms_per_step": ranks[0]["want_wall_ms_per_step"],
+           "mesh_wall_ms_per_step": {r["rank"]: r["wall_ms_per_step"] for r in ranks},
+           "peak_mem_gb": {r["rank"]: r["peak_mem_gb"] for r in ranks}}
+    emit(res)
+    shutil.rmtree(out, ignore_errors=True)
+    lg, fd = res["prompt_logits"], res["forced_decode_logits"]
+    bad = [i for i, (f, t) in enumerate(zip(lg["argmax_flips"], lg["near_tie"])) if f and not t]
+    caught = {f: fd[f]["rel_change"] > TP_CARDS_LOGIT_RTOL for f in TP_CARDS_FAULTS}
+    for fault, hit in caught.items():
+        emit({"fault": fault, "check": "tp_cards: teacher-forced decode logits, p = "
+              f"{n}", "rel_change": fd[fault]["rel_change"], "caught": hit})
+    missed = [f for f in TP_CARDS_MUST_CATCH if not caught[f]]
+    if (not res["ranks_agree"] or lg["rel_change"] > TP_CARDS_LOGIT_RTOL or bad
+            or fd["sound"]["rel_change"] > TP_CARDS_LOGIT_RTOL or missed):
+        raise AssertionError(f"tp_cards: ranks agree {res['ranks_agree']}, prompt logits "
+                             f"moved {lg['rel_change']:.3g} and teacher-forced decode "
+                             f"logits {fd['sound']['rel_change']:.3g} of the largest (bound "
+                             f"{TP_CARDS_LOGIT_RTOL}), first tokens flipped off a near tie: "
+                             f"{bad}, planted faults not caught: {missed}")
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
 
 
 def sampled_routes_equal(model, kw: dict, make_reqs, label: str, make_engine=graph_engine,
@@ -6328,6 +6976,10 @@ def main() -> None:
         return s2s_reverse_child(sys.argv[2])
     if sys.argv[1:2] == ["--seq2seq-faults"]:
         return seq2seq_faults()
+    if sys.argv[1:2] == ["--tp-faults"]:
+        return tp_faults()
+    if sys.argv[1:2] == ["--tp-cards"]:
+        return tp_cards(int(sys.argv[2]))
     from qgemm_tpu_torch.ops.cuda import _build   # fails outside the repository
 
     smi = phase_device()
@@ -6340,6 +6992,7 @@ def main() -> None:
     phase_flash_edges()
     errs = phase_parity()
     timing = phase_timing(errs)
+    given_cx = phase_k1_given_cx()
     ops = phase_ops_layer()
     timing.update({name: ops[name] for name in ("softmax", "layernorm", "int8_flash_attention",
                                                 "int8_flash_prepass")})
@@ -6430,6 +7083,17 @@ def main() -> None:
             entry["launches_quantize_demo"] = {k: c.get(name, 0) for k, c in
                                                demo_launches.items()}
         if name == "quantized_matmul":
+            tp = graphs["tp_serving"]["engines"]
+            entry["given_cx_route"] = {
+                "note": "K1 on caller-given row scales (row 2's contract): the row-parallel "
+                        "int8 layer's route, launched by the mesh engines of tp_serving",
+                "launches_per_decode_step_tp_serving": {
+                    k: e["given_cx"]["per_decode"] for k, e in tp.items()},
+                "launches_tp_serving": {k: e["given_cx"]["in_all"] for k, e in tp.items()},
+                "shard_rows": [{k: r[k] for k in ("layer", "p", "m", "k_shard", "n", "ms",
+                                                  "fused_ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "shard_sum_max_abs_err")}
+                               for r in given_cx["rows"]]}
             entry.update(also_replaces="qgemm_tpu/ops/pallas/quantized_matmul.py:139",
                          launches_mnist_int8_per_forward=mnist["int8_launches_per_forward"][name],
                          mnist_shapes=[{k: r[k] for k in ("m", "k", "n", "ms", "plain_ms",

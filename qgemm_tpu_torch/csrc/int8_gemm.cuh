@@ -359,14 +359,18 @@ cudaError_t launch_gemv(const int8_t* xq, const float* cx, const int8_t* wt, con
 }
 
 // E batches of [m, k] x [k, n]; xq [E * m, k] and cx [E * m] are scratch for
-// the pre-pass's codes and row scales.
+// the pre-pass's codes and row scales. ``given_cx`` [E * m], where not null,
+// holds the caller's row scales: the pre-pass quantizes with them and the
+// GEMM reads them in place of cx, which stays unwritten.
 template <typename T>
 cudaError_t launch(const T* x, const int8_t* wt, const float* cw, int8_t* xq, float* cx,
                    float* out, int batches, int m, int n, int k, int truncate, int relu,
-                   const GemvPlan& p, const TilePlan& tp, cudaStream_t s) {
+                   const GemvPlan& p, const TilePlan& tp, cudaStream_t s,
+                   const float* given_cx) {
   if (m <= 16 && !plan_ok(p, m, k)) return cudaErrorInvalidValue;
   row_quantize_kernel<T><<<batches * m, quant_threads(k), 0, s>>>(x, xq, cx, k, k, k, 1, 1,
-                                                                  truncate, 1.f);
+                                                                  truncate, 1.f, given_cx);
+  if (given_cx != nullptr) cx = const_cast<float*>(given_cx);
   cudaError_t e = cudaSuccess;
   if (m > 16) {
     e = launch_tile(tp, xq, cx, wt, cw, out, batches, m, n, k, relu, s);
@@ -382,7 +386,7 @@ cudaError_t launch(const T* x, const int8_t* wt, const float* cw, int8_t* xq, fl
 inline cudaError_t launch_any(const void* x, int x_dtype, const void* wt, const void* cw,
                               void* xq, void* cx, void* out, int batches, int m, int n, int k,
                               int truncate, int relu, const GemvPlan& p, const TilePlan& tp,
-                              cudaStream_t s) {
+                              cudaStream_t s, const void* given_cx = nullptr) {
   if (batches <= 0 || batches > 65535 || m <= 0 || n <= 0 || k <= 0 || k % 16 != 0)
     return cudaErrorInvalidValue;
   const auto* w8 = static_cast<const int8_t*>(wt);
@@ -390,12 +394,13 @@ inline cudaError_t launch_any(const void* x, int x_dtype, const void* wt, const 
   auto* x8 = static_cast<int8_t*>(xq);
   auto* cxf = static_cast<float*>(cx);
   auto* of = static_cast<float*>(out);
+  const auto* gcx = static_cast<const float*>(given_cx);
   if (x_dtype == 0)
     return launch(static_cast<const float*>(x), w8, cwf, x8, cxf, of, batches, m, n, k,
-                  truncate, relu, p, tp, s);
+                  truncate, relu, p, tp, s, gcx);
   if (x_dtype == 1)
     return launch(static_cast<const __nv_bfloat16*>(x), w8, cwf, x8, cxf, of, batches, m, n,
-                  k, truncate, relu, p, tp, s);
+                  k, truncate, relu, p, tp, s, gcx);
   return cudaErrorInvalidValue;
 }
 

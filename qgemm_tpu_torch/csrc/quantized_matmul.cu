@@ -33,15 +33,18 @@
 // [m, k] and cx f32 [m] scratch, out f32 [m, n]; for m <= 16 the GEMV's plan
 // (warps, k_slice, smem: ops/cuda/gemv_plan.py), for more rows the tile
 // kernel's (tile_bm, tile_bn, tile_smem: ops/cuda/tile_plan.py), each
-// refused unless it matches a compiled instantiation. Returns
+// refused unless it matches a compiled instantiation. ``given_cx`` f32 [m],
+// or null: the caller's row scales (the TPU kernel _qmm_kernel's cx input,
+// which a row-parallel shard takes from the all-reduced absmax of the whole
+// K); the pre-pass quantizes x with them and writes no scale. Returns
 // cudaGetLastError().
 extern "C" int qgemm_quantized_matmul(const void* x, int x_dtype, const void* wt,
                                       const void* cw, void* xq, void* cx, void* out, int m,
                                       int n, int k, int truncate, int warps, int k_slice,
                                       int smem, int tile_bm, int tile_bn, int tile_smem,
-                                      void* stream) {
+                                      const void* given_cx, void* stream) {
   return static_cast<int>(qg::gemm::launch_any(x, x_dtype, wt, cw, xq, cx, out, 1, m, n, k,
                                                truncate, 0, {warps, k_slice, smem},
                                                {tile_bm, tile_bn, tile_smem},
-                                               static_cast<cudaStream_t>(stream)));
+                                               static_cast<cudaStream_t>(stream), given_cx));
 }

@@ -51,31 +51,40 @@ __device__ __forceinline__ void load8_masked(const T* row, int i, int k, int vec
 // grid (rows * nseg), quant_threads(seg) threads. Block b is segment s = b %
 // nseg of row r = b / nseg: columns [s * seg, min((s + 1) * seg, kp)) of x
 // [rows, k] (zeros at and past k) and of the codes xq [rows, kp] (kp and seg
-// multiples of 8); scale[b] = c / div with c = max(absmax, 1e-12).
+// multiples of 8); scale[b] = c / div with c = max(absmax, 1e-12). With
+// ``given`` (the caller's scales, one per block: a row-parallel shard
+// quantizes on the row absmax of the whole K) c = given[b], no absmax is
+// taken and ``scale`` is not written.
 template <typename T>
 __global__ void __launch_bounds__(kQuantMaxThreads)
 row_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ scale,
-                    int k, int kp, int seg, int nseg, int vec, int truncate, float div) {
+                    int k, int kp, int seg, int nseg, int vec, int truncate, float div,
+                    const float* __restrict__ given = nullptr) {
   __shared__ float red[kQuantMaxThreads / 32];
   launch_dependents();   // the GEMV may start prefetching its weights
   const int row = blockIdx.x / nseg, s = blockIdx.x % nseg;
   const int k0 = s * seg, k1 = min(k0 + seg, kp);
   const int step = blockDim.x * 8;
   const T* xr = x + static_cast<size_t>(row) * k;
-  float mx = 0.f;
-  for (int i = k0 + threadIdx.x * 8; i < min(k1, k); i += step) {
-    float v[8];
-    load8_masked(xr, i, k, vec, v);
+  float c;
+  if (given != nullptr) {
+    c = given[blockIdx.x];
+  } else {
+    float mx = 0.f;
+    for (int i = k0 + threadIdx.x * 8; i < min(k1, k); i += step) {
+      float v[8];
+      load8_masked(xr, i, k, vec, v);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fabsf(v[j]));
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fabsf(v[j]));
+    }
+    mx = warp_max(mx);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+    __syncthreads();
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) mx = fmaxf(mx, red[w]);
+    c = fmaxf(mx, kEps);
+    if (threadIdx.x == 0) scale[blockIdx.x] = c / div;
   }
-  mx = warp_max(mx);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
-  __syncthreads();
-  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) mx = fmaxf(mx, red[w]);
-  const float c = fmaxf(mx, kEps);
   const float sc = kQRange / c;
-  if (threadIdx.x == 0) scale[blockIdx.x] = c / div;
   for (int i = k0 + threadIdx.x * 8; i < k1; i += step) {
     float v[8];
     load8_masked(xr, i, k, vec, v);

@@ -7,12 +7,19 @@ reporting slot occupancy and throughput. ``--scheduler auto`` (the
 default) keeps the host-side bookkeeping in the native C++ scheduler when
 its library is built (``serving/native.py``), ``native`` builds it first,
 ``python`` runs the Python bookkeeper; the line "scheduler:" says which
-ran. Tensor parallelism (the JAX example's ``--tp``) is not ported.
+ran.
+
+``--tp N`` serves the int8 model tensor-parallel over N processes, one per
+card (NCCL; gloo with ``--device cpu``), each with its rank's shards
+(``parallel.sharding.shard_quantized_model``), the draft sharded too;
+start it under ``torchrun``, which gives each process its rank. Rank 0
+prints.
 
 Usage (on the GPU; ``--device cpu`` runs the plain PyTorch path):
 
     python -m qgemm_tpu_torch.examples.serve_gpt [--layers N] [--requests R] \\
         [--slots K] [--scheduler native] [--paged] [--multi-step 4]
+    torchrun --nproc-per-node N -m qgemm_tpu_torch.examples.serve_gpt --tp N
 """
 
 from __future__ import annotations
@@ -22,9 +29,12 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from qgemm_tpu_torch.device import resolve_device
 from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
+from qgemm_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+from qgemm_tpu_torch.parallel.sharding import shard_quantized_model
 from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
 
 
@@ -55,12 +65,24 @@ def parser() -> argparse.ArgumentParser:
                     help="speculative decoding: a draft of this many layers (d_model/4) "
                          "proposing --spec-gamma tokens a round")
     ap.add_argument("--spec-gamma", type=int, default=4)
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel ways: one process per rank, under torchrun")
     ap.add_argument("--device", default=None, help="default: the GPU; 'cpu' for the plain path")
     return ap
 
 
 def serve(args) -> Dict[str, object]:
+    mesh = None
+    if args.tp:
+        if args.no_quantize:
+            raise SystemExit("--tp shards the quantized model; drop --no-quantize")
+        initialize_distributed(device=args.device)
+        if dist.get_world_size() != args.tp:
+            raise SystemExit(f"--tp {args.tp} needs {args.tp} processes (torchrun "
+                             f"--nproc-per-node {args.tp}), have {dist.get_world_size()}")
+        mesh = make_mesh((1, args.tp), device=args.device)
     dev = resolve_device(args.device)
+    say = print if mesh is None or dist.get_rank() == 0 else (lambda *a, **k: None)
     cfg = GPTConfig(vocab_size=args.vocab, d_model=args.d_model, n_heads=args.heads,
                     n_kv_heads=args.kv_heads, d_ff=4 * args.d_model, n_layers=args.layers,
                     max_seq_len=args.max_seq_len)
@@ -75,12 +97,17 @@ def serve(args) -> Dict[str, object]:
         draft = GPT.init(dcfg, seed=args.seed + 1, device=dev)
         if not args.no_quantize:
             draft = draft.quantize()
+    if mesh is not None:
+        model = shard_quantized_model(model, mesh)
+        draft = None if draft is None else shard_quantized_model(draft, mesh)
     spec = dict(draft_model=draft, spec_gamma=args.spec_gamma) if draft is not None else {}
     engine = ContinuousBatchingEngine(model, max_slots=args.slots, scheduler=args.scheduler,
                                       paged=args.paged, n_pages=args.n_pages or None,
                                       chunked_prefill=args.chunked or None,
-                                      multi_step=args.multi_step, device=dev, **spec)
-    print(f"model: {model.num_params() / 1e6:.1f}M params "
+                                      multi_step=args.multi_step, device=dev, mesh=mesh,
+                                      **spec)
+    say(f"tensor parallel: {args.tp or 1} rank(s)")
+    say(f"model: {model.num_params() / 1e6:.1f}M params "
           f"({'float' if args.no_quantize else 'int4' if args.w4 else 'int8'}); "
           f"scheduler: {engine.scheduler}; slots: {args.slots}; device: {dev}")
 
@@ -102,13 +129,13 @@ def serve(args) -> Dict[str, object]:
     fin = engine.finished
     n_toks = sum(len(r.generated) for r in fin)
     st = engine.stats
-    print(f"served {len(fin)} requests, {n_toks} tokens in {dt:.2f}s "
+    say(f"served {len(fin)} requests, {n_toks} tokens in {dt:.2f}s "
           f"({n_toks / dt:,.0f} tok/s host-stepped), {engine.steps} steps, "
           f"mean occupancy {np.mean(occupancy):.2f}/{args.slots}")
-    print(f"engine stats: {st['tokens_generated']} tokens, "
+    say(f"engine stats: {st['tokens_generated']} tokens, "
           f"{st['tokens_per_s']:,.0f} tok/s engine-counted (wall {st['wall_s']}s)")
     for r in fin[:4]:
-        print(f"  req {r.id}: prompt[{len(r.prompt)}] -> {len(r.generated)} tokens: "
+        say(f"  req {r.id}: prompt[{len(r.prompt)}] -> {len(r.generated)} tokens: "
               f"{r.generated[:8]}...")
     if not (all(r.done and r.error is None for r in fin) and len(fin) == args.requests):
         raise RuntimeError(f"{len(fin)} of {args.requests} requests finished, errors: "
@@ -117,7 +144,12 @@ def serve(args) -> Dict[str, object]:
 
 
 def main(argv=None) -> Dict[str, object]:
-    return serve(parser().parse_args(argv))
+    args = parser().parse_args(argv)
+    try:
+        return serve(args)
+    finally:
+        if args.tp and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

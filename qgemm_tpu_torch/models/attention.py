@@ -1,7 +1,7 @@
 """Attention (port of ``scaled_dot_product_attention``, ``Attention``,
 ``MultiHeadAttention``, ``_quantized_cross_attention`` and
-``_dispatch_attention`` of ``qgemm_tpu/models/attention.py``; the
-tensor-parallel branches are not ported yet).
+``_dispatch_attention`` of ``qgemm_tpu/models/attention.py``, and its
+tensor-parallel ``with_tp``).
 
 Dispatch by device, mirroring the JAX package's by backend:
   * full-sequence attention with no mask (self-attention, causal or not,
@@ -32,6 +32,16 @@ Dispatch by device, mirroring the JAX package's by backend:
     CPU path. The dense verify chunk ([B] offsets over a dense cache) takes
     the plain composition, as JAX's jnp path does.
 Cache rows are written in place.
+
+Tensor parallelism (``MultiHeadAttention.with_tp``): this rank's block holds
+``n_heads / p`` query heads and ``kv_heads / p`` KV heads (QKV column shards
+kept head-local, W_O a row shard, one MAX and one SUM a call), so every
+route above runs unchanged on the local heads, with no collective of its
+own, and caches allocated for the block are head-local. Query heads
+``r H/p ..`` map to KV heads ``r Hkv/p ..``: GQA groups stay whole on a
+rank. Where a head count does not divide the axis the block stays whole
+and replicated on every rank (JAX mixes sharded and resharded pieces
+there; both compute the same function).
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from qgemm_tpu_torch.models.linear import Linear
+from qgemm_tpu_torch.models.linear import Linear, shard_by_plan
 from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention
 from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention
 from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
@@ -179,6 +189,24 @@ class MultiHeadAttention(nn.Module):
         return MultiHeadAttention(self.wqkv_q.quantize(**qkw), self.wqkv_k.quantize(**qkw),
                                   self.wqkv_v.quantize(**qkw), self.w_o.quantize(**qkw),
                                   self.n_heads, self.n_kv_heads)
+
+    # Megatron's pairing: QKV column-sharded without gathering, W_O row-sharded
+    TP_PLAN = {"wqkv_q": ("column", False), "wqkv_k": ("column", False),
+               "wqkv_v": ("column", False), "w_o": ("row", True)}
+
+    def with_tp(self, mesh, axis: str = "model") -> "MultiHeadAttention":
+        """This rank's block, sharded by ``TP_PLAN``; or the block itself,
+        replicated, where a head count or a projection does not divide the
+        axis."""
+        from qgemm_tpu_torch.parallel.mesh import axis_size
+        p = axis_size(mesh, axis)
+        if self.n_heads % p or self.kv_heads % p:
+            return self
+        lins = shard_by_plan(self, mesh, axis)
+        if lins is None:
+            return self
+        return MultiHeadAttention(lins["wqkv_q"], lins["wqkv_k"], lins["wqkv_v"], lins["w_o"],
+                                  self.n_heads // p, self.n_kv_heads // p)
 
     def _split(self, x, heads: int):
         b, s, d = x.shape

@@ -14,6 +14,13 @@ Caches are updated in place: ``decode_step``, ``prefill`` and
 the same objects. The cache extent is exactly what the caller asks for (the
 JAX package rounds it up to 128 rows off the CPU for its TPU kernels; the
 port's kernels mask by length and need no such padding).
+
+``with_tp(mesh)`` gives this rank's model of a quantized one (tensor
+parallelism, ``parallel/``): attention blocks and dense FFNs sharded,
+Megatron's pairing, the head column-sharded over the vocabulary with its
+output gathered (every rank samples from the same full logits), embedding
+and LayerNorms replicated, and an MoE FFN's experts whole on every rank.
+Its caches are head-local.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from torch import nn
 from qgemm_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from qgemm_tpu_torch.models.attention import MultiHeadAttention
 from qgemm_tpu_torch.models.embedding import Embedding
-from qgemm_tpu_torch.models.linear import Linear, check_quantize_options
+from qgemm_tpu_torch.models.linear import Linear, check_quantize_options, shard_by_plan
 from qgemm_tpu_torch.models.moe import MoEFeedForward
 from qgemm_tpu_torch.models.transformer import FeedForward, LayerNorm, _beam_loop
 from qgemm_tpu_torch.ops.kv_cache import QuantizedKVCache, init_quantized_kv_cache
@@ -86,6 +93,12 @@ class GPTBlock(nn.Module):
     def quantize(self, **qkw) -> "GPTBlock":
         return GPTBlock(self.attn.quantize(**qkw), self.ffn.quantize(**qkw),
                         self.ln1, self.ln2)
+
+    def with_tp(self, mesh, axis: str = "model") -> "GPTBlock":
+        """The attention block and a dense FFN sharded; an MoE FFN stays
+        whole (its expert-sharded layout is not ported)."""
+        ffn = self.ffn if isinstance(self.ffn, MoEFeedForward) else self.ffn.with_tp(mesh, axis)
+        return GPTBlock(self.attn.with_tp(mesh, axis), ffn, self.ln1, self.ln2)
 
     def forward(self, x, cache=None, cache_index=None):
         if cache is None:
@@ -153,6 +166,20 @@ class GPT(nn.Module):
         return GPT(self.embed, [b.quantize(**qkw) for b in self.blocks], self.ln_f,
                    self.lm_head.quantize(**qkw), self.cfg)
 
+    # the head column-sharded over the vocabulary, its output gathered
+    TP_PLAN = {"lm_head": ("column", True)}
+
+    def with_tp(self, mesh, axis: str = "model") -> "GPT":
+        """This rank's model of a quantized one (see the module note)."""
+        head = (shard_by_plan(self, mesh, axis) or {"lm_head": self.lm_head})["lm_head"]
+        return GPT(self.embed, [b.with_tp(mesh, axis) for b in self.blocks], self.ln_f, head,
+                   self.cfg)
+
+    @property
+    def kv_heads(self) -> int:
+        """The KV heads each cache holds (this rank's, under a mesh)."""
+        return self.blocks[0].attn.kv_heads
+
     def num_params(self) -> int:
         """Elements of every leaf (weights, codes, scales, tables), as JAX's
         ``num_params`` counts the pytree's leaves."""
@@ -183,7 +210,7 @@ class GPT(nn.Module):
         cfg = self.cfg
         s = max_len or cfg.max_seq_len
         dh = cfg.d_model // cfg.n_heads
-        hkv = cfg.n_kv_heads or cfg.n_heads
+        hkv = self.kv_heads
         dev = self.device
         if quantized:
             return [init_quantized_kv_cache(batch, hkv, s, dh, device=dev)

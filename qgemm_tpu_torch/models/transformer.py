@@ -1,5 +1,5 @@
 """The encoder-decoder transformer and the blocks the model families share
-(port of ``qgemm_tpu/models/transformer.py`` without tensor parallelism):
+(port of ``qgemm_tpu/models/transformer.py``):
 ``LayerNorm``, ``FeedForward``, ``EncoderBlock``, ``DecoderBlock`` and
 ``Transformer``.
 
@@ -14,6 +14,12 @@ package rounds it up to 128 rows off its CPU backend for its TPU kernels;
 the port's kernels mask by length). ``generate`` and ``beam_search`` are
 host loops over ``decode_step``/``decode_logits`` with one read of the
 result at the end (JAX scans them under jit).
+
+``with_tp(mesh)`` gives this rank's model of a quantized one (tensor
+parallelism, ``parallel/``): every attention block (the cross-attention's
+K/V projections too) and FFN sharded, Megatron's pairing, the head
+column-sharded over the vocabulary with its output gathered, embedding and
+LayerNorms replicated.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from torch import nn
 from qgemm_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from qgemm_tpu_torch.models.attention import MultiHeadAttention
 from qgemm_tpu_torch.models.embedding import Embedding
-from qgemm_tpu_torch.models.linear import Linear, check_quantize_options
+from qgemm_tpu_torch.models.linear import Linear, check_quantize_options, shard_by_plan
 from qgemm_tpu_torch.ops.kv_cache import init_quantized_kv_cache
 from qgemm_tpu_torch.ops.layernorm import layernorm
 
@@ -90,6 +96,15 @@ class FeedForward(nn.Module):
     def quantize(self, **qkw) -> "FeedForward":
         return FeedForward(self.up.quantize(**qkw), self.down.quantize(**qkw))
 
+    # up column-sharded (kept sharded), down row-sharded: one MAX and one SUM a call
+    TP_PLAN = {"up": ("column", False), "down": ("row", True)}
+
+    def with_tp(self, mesh, axis: str = "model") -> "FeedForward":
+        """This rank's FFN, sharded by ``TP_PLAN``; both layers whole where
+        either does not divide the axis."""
+        lins = shard_by_plan(self, mesh, axis)
+        return self if lins is None else FeedForward(lins["up"], lins["down"])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(torch.relu(self.up(x)))
 
@@ -119,6 +134,10 @@ class EncoderBlock(nn.Module):
         return EncoderBlock(self.attn.quantize(**qkw), self.ffn.quantize(**qkw),
                             self.ln1, self.ln2)
 
+    def with_tp(self, mesh, axis: str = "model") -> "EncoderBlock":
+        return EncoderBlock(self.attn.with_tp(mesh, axis), self.ffn.with_tp(mesh, axis),
+                            self.ln1, self.ln2)
+
     def forward(self, x, mask=None):
         """``mask`` [B, S] bool marks real source positions: the encoder is
         bidirectional, so unmasked padding would reach every position."""
@@ -142,6 +161,11 @@ class DecoderBlock(nn.Module):
     def quantize(self, **qkw) -> "DecoderBlock":
         return DecoderBlock(self.self_attn.quantize(**qkw), self.cross_attn.quantize(**qkw),
                             self.ffn.quantize(**qkw), self.ln1, self.ln2, self.ln3)
+
+    def with_tp(self, mesh, axis: str = "model") -> "DecoderBlock":
+        return DecoderBlock(self.self_attn.with_tp(mesh, axis),
+                            self.cross_attn.with_tp(mesh, axis),
+                            self.ffn.with_tp(mesh, axis), self.ln1, self.ln2, self.ln3)
 
     def forward(self, x, enc_kv, self_cache=None, cache_index=None, src_mask=None):
         """``enc_kv``: the cross-attention's precomputed K/V (a float pair or
@@ -221,6 +245,26 @@ class Transformer(nn.Module):
                            [b.quantize(**qkw) for b in self.dec_blocks], self.ln_enc,
                            self.ln_dec, self.lm_head.quantize(**qkw), self.cfg)
 
+    # the head column-sharded over the vocabulary, its output gathered
+    TP_PLAN = {"lm_head": ("column", True)}
+
+    def with_tp(self, mesh, axis: str = "model") -> "Transformer":
+        """This rank's model of a quantized one (see the module note)."""
+        head = (shard_by_plan(self, mesh, axis) or {"lm_head": self.lm_head})["lm_head"]
+        return Transformer(self.embed, [b.with_tp(mesh, axis) for b in self.enc_blocks],
+                           [b.with_tp(mesh, axis) for b in self.dec_blocks], self.ln_enc,
+                           self.ln_dec, head, self.cfg)
+
+    @property
+    def kv_heads(self) -> int:
+        """The decoder's KV heads held here (this rank's, under a mesh)."""
+        return self.dec_blocks[0].self_attn.kv_heads
+
+    @property
+    def cross_kv_heads(self) -> int:
+        """The cross-attention's KV heads held here."""
+        return self.dec_blocks[0].cross_attn.kv_heads
+
     def num_params(self) -> int:
         """Elements of every leaf (weights, codes, scales, tables)."""
         return sum(t.numel() for t in self.state_dict().values())
@@ -252,7 +296,7 @@ class Transformer(nn.Module):
         dtype or a ``QuantizedKVCache``, each [batch, Hkv, max_len, Dh]."""
         cfg = self.cfg
         dh = cfg.d_model // cfg.n_heads
-        hkv = cfg.n_kv_heads or cfg.n_heads
+        hkv = self.kv_heads
         dev = self.device
         if quantized:
             return [init_quantized_kv_cache(batch, hkv, max_len, dh, device=dev)

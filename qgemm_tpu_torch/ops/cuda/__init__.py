@@ -32,6 +32,7 @@ def _launchers() -> dict:
                                           paged_context_attention, paged_decode_attention,
                                           quantized_matmul, softmax, w4a8_matmul)
     return {"quantized_matmul": quantized_matmul.quantized_matmul_cuda,
+            "quantized_matmul_given_cx": quantized_matmul.given_cx,
             "decode_attention": decode_attention.decode_attention,
             "flash_attention": flash_attention.flash_attention_fwd,
             "w4a8_matmul": w4a8_matmul.w4a8_matmul_cuda,

@@ -13,6 +13,8 @@ dispatches to its Pallas kernel.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
+from typing import Optional
 
 import torch
 
@@ -29,18 +31,20 @@ def _lib():
     fn = lib.qgemm_quantized_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p]
         fn.restype = i
     return fn
 
 
 def quantized_matmul_cuda(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor,
-                          rounding: str) -> torch.Tensor:
+                          rounding: str, cx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K1 on checked CUDA tensors: x [m, k] f32/bf16, K-major int8
     weights wt [n, k] (k % 16 == 0: the caller pads K), per-column scales cw [1, n] -> f32
     [m, n]. The pre-pass writes x's int8 codes into ``xq``; m <= 16 runs the
-    GEMV on ``gemv_plan``'s launch plan. Counts each launch in
-    ``quantized_matmul_cuda.launches``."""
+    GEMV on ``gemv_plan``'s launch plan. ``cx`` f32 [m, 1], where given, is
+    the caller's row scales: the pre-pass quantizes on them and takes no
+    absmax. Counts each launch in ``quantized_matmul_cuda.launches``, and a
+    launch on given scales in ``given_cx.launches`` too."""
     if not (x.is_cuda and x.device == wt.device == cw.device):
         raise ValueError("x, wt and cw must lie on one CUDA device")
     m, k = x.shape
@@ -52,20 +56,30 @@ def quantized_matmul_cuda(x: torch.Tensor, wt: torch.Tensor, cw: torch.Tensor,
     if wt.data_ptr() % 16:   # TMA reads the weights from a 16-byte aligned base
         wt = wt.clone()
     cw = cw.to(torch.float32).contiguous()
+    if cx is not None:
+        if cx.device != x.device or cx.dtype != torch.float32 or cx.numel() != m:
+            raise ValueError(f"cx: expected f32 row scales [{m}, 1] on {x.device}")
+        cx = cx.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
     # one scratch allocation: the pre-pass's int8 codes xq [m, k], then its
-    # f32 row scales cx [m] (m * k is a multiple of 16)
+    # f32 row scales [m] (m * k is a multiple of 16)
     xq = torch.empty((m * k + 4 * m,), dtype=torch.int8, device=x.device)
     rc = _lib()(x.data_ptr(), X_DTYPES[x.dtype], wt.data_ptr(), cw.data_ptr(),
                 xq.data_ptr(), xq.data_ptr() + m * k, out.data_ptr(), m, n, k,
                 ROUNDING[rounding],
                 *gemv_args("int8", 1, m, n, k), *tile_args("int8", 1, m, n, k),
+                None if cx is None else cx.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch("qgemm_quantized_matmul", rc)
     quantized_matmul_cuda.launches += 1
+    if cx is not None:
+        given_cx.launches += 1
     return out
 
 
 quantized_matmul_cuda.launches = 0
+# K1's launches on caller-given row scales (the row-parallel route), also
+# counted in quantized_matmul_cuda.launches
+given_cx = SimpleNamespace(launches=0)

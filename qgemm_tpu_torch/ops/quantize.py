@@ -53,17 +53,22 @@ def absmax_quantize(x: torch.Tensor, axis: int, rounding: str = "nearest",
     columns of weights: axis=0), computing in x's dtype as the JAX version
     does. Returns (q int8, c absmax float32)."""
     c = absmax_scales(x, axis)
+    return quantize_with_scales(x, c, rounding, qrange), c.to(torch.float32)
+
+
+def quantize_with_scales(x: torch.Tensor, c: torch.Tensor, rounding: str = "nearest",
+                         qrange: float = QRANGE) -> torch.Tensor:
+    """int8 codes of x on the given absmax grid ``c`` (broadcast against x):
+    clip(round(x * (qrange / c)))."""
     # a true division: torch evaluates `float / tensor` as float * (1 / c),
     # which rounds differently from JAX's qrange / c. full_like keeps the
     # numerator on the device: a host scalar copied in would sync the stream
     scaled = x * (torch.full_like(c, qrange) / c)
     if rounding == "nearest":
-        q = torch.clamp(torch.round(scaled), -qrange, qrange).to(torch.int8)
-    elif rounding == "truncate":  # reference bit-parity
-        q = torch.trunc(scaled).to(torch.int8)
-    else:
-        raise ValueError(f"unknown rounding {rounding!r}")
-    return q, c.to(torch.float32)
+        return torch.clamp(torch.round(scaled), -qrange, qrange).to(torch.int8)
+    if rounding == "truncate":  # reference bit-parity
+        return torch.trunc(scaled).to(torch.int8)
+    raise ValueError(f"unknown rounding {rounding!r}")
 
 
 def dequantize(acc_i32: torch.Tensor, cx: torch.Tensor, cw: torch.Tensor,
@@ -105,11 +110,17 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 
 def quantized_matmul_plain(x: torch.Tensor, wq: QuantizedWeight,
-                           rounding: str = "nearest") -> torch.Tensor:
+                           rounding: str = "nearest",
+                           cx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel K1: x is upcast to f32 (as the TPU
     kernel does), row-quantized, multiplied exactly and dequantized.
-    x [m, k] float -> f32 [m, n]."""
-    xq, cx = absmax_quantize(x.to(torch.float32), axis=-1, rounding=rounding)
+    x [m, k] float -> f32 [m, n]. ``cx`` f32 [m, 1]: the caller's row
+    scales (the TPU kernel ``_qmm_kernel``'s input) in place of x's own."""
+    xf = x.to(torch.float32)
+    if cx is None:
+        xq, cx = absmax_quantize(xf, axis=-1, rounding=rounding)
+    else:
+        xq = quantize_with_scales(xf, cx, rounding)
     return dequantize(int8_matmul(xq, wq.q), cx, wq.c)
 
 
@@ -131,11 +142,18 @@ def quantized_matmul_xla(x: torch.Tensor, w: torch.Tensor, rounding: str = "near
 
 
 def quantized_matmul_prequant(x: torch.Tensor, wq: QuantizedWeight,
-                              rounding: str = "nearest") -> torch.Tensor:
+                              rounding: str = "nearest",
+                              cx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Serving path: weights already int8, activations quantized per call.
     x [m, k] float -> f32 [m, n]. CPU tensors run the plain version; CUDA
     tensors launch K1 (x f32 or bf16) or raise. A k that is not a multiple
-    of 16 is zero-padded (x and the weight codes) on that call only."""
+    of 16 is zero-padded (x and the weight codes) on that call only.
+
+    ``cx`` f32 [m, 1] (the contract of the TPU kernel ``_qmm_kernel``):
+    quantize x on these row scales instead of its own absmax — a
+    row-parallel shard passes the absmax of the whole row, all-reduced
+    (``parallel/tp_ops.py``). Given x's own absmax (floored at 1e-12) it
+    returns the same bits as without."""
     check_matmul_2d(x, wq.q, "x", "wq.q")
     check_float("x", x)
     check_dtype("wq.q", wq.qt, torch.int8)
@@ -143,11 +161,17 @@ def quantized_matmul_prequant(x: torch.Tensor, wq: QuantizedWeight,
           f"wq.c: expected per-column scales (1, {wq.qt.shape[0]}), "
           f"got {tuple(wq.c.shape)}")
     check(rounding in _k1.ROUNDING, f"unknown rounding {rounding!r}")
+    if cx is not None:
+        check(tuple(cx.shape) == (x.shape[0], 1),
+              f"cx: expected row scales ({x.shape[0]}, 1), got {tuple(cx.shape)}")
+        check_dtype("cx", cx, torch.float32)
+        check(cx.device == x.device, f"cx is on {cx.device}, x on {x.device}")
     if not x.is_cuda:
-        return quantized_matmul_plain(x, wq, rounding)
+        return quantized_matmul_plain(x, wq, rounding, cx)
     check(x.dtype in _k1.X_DTYPES, f"x: K1 takes float32 or bfloat16, got {x.dtype}")
     kp = k_tile(x.shape[1])
-    return _k1.quantized_matmul_cuda(pad_last(x, kp), pad_last(wq.qt, kp), wq.c, rounding)
+    return _k1.quantized_matmul_cuda(pad_last(x, kp), pad_last(wq.qt, kp), wq.c, rounding,
+                                     cx=cx)
 
 
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor,

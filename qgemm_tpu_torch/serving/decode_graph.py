@@ -24,6 +24,14 @@ run: the counts a capture adds are taken back (nothing reached the card)
 and added again at every replay, so the counters count the launches that
 reach the card, as on the eager route.
 
+Under a mesh (``collectives=True``) the step's ``torch.distributed``
+collectives (``parallel/tp_ops.py``) are captured into the graph, in place
+on its tensors, and a replay adds the collectives its capture counted, as
+it does launches. The capture then runs in CUDA's thread-local capture
+mode, after a device synchronisation: the process group's watchdog thread
+queries the events of earlier collectives while the capturing thread
+records, which the global mode forbids.
+
 A capture that fails raises ``GraphCaptureError``: nothing falls back to
 the eager route, which stays reachable only by the engine's private
 ``_graphs = None`` (the CPU runs it always).
@@ -38,6 +46,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from qgemm_tpu_torch.ops import cuda as kernels
+from qgemm_tpu_torch.parallel import tp_ops
 
 
 class GraphCaptureError(RuntimeError):
@@ -51,11 +60,12 @@ class DecodeGraphs:
     named "...sampled" draw from."""
 
     def __init__(self, step: Callable[[str], None], device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, collectives: bool = False):
         self._step = step
         self._device = device
         self._generator = generator
-        self._graphs: Dict[str, Tuple[object, Dict[str, int]]] = {}
+        self._collectives = collectives
+        self._graphs: Dict[str, Tuple[object, Dict[str, int], Dict[str, int]]] = {}
         self._stream = None
         self.captures = 0
         self.replays = 0
@@ -74,26 +84,30 @@ class DecodeGraphs:
         if mode not in self._graphs:
             self._graphs[mode] = self._capture(mode)
             done = 1
-        graph, launches = self._graphs[mode]
+        graph, launches, collectives = self._graphs[mode]
         for _ in range(n - done):
             self._replay(graph)
             kernels.add_launch_counts(launches)
+            tp_ops.add_collective_counts(collectives)
             self.replays += 1
 
-    def _capture(self, mode: str) -> Tuple[object, Dict[str, int]]:
+    def _capture(self, mode: str) -> Tuple[object, Dict[str, int], Dict[str, int]]:
+        diff = lambda a, b: {k: b[k] - a[k] for k in b if b[k] != a[k]}
         with self._capture_stream():
             self._step(mode)                   # the warm-up: a real, counted step
             before = kernels.launch_counts()
+            coll_before = tp_ops.collective_counts()
             try:
                 graph = self._record(mode)
             except Exception as e:
                 raise GraphCaptureError(f"capturing the {mode} decode step failed: "
                                         f"{type(e).__name__}: {e}") from e
-            after = kernels.launch_counts()
-            launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            launches = diff(before, kernels.launch_counts())
+            collectives = diff(coll_before, tp_ops.collective_counts())
         kernels.add_launch_counts({k: -v for k, v in launches.items()})
+        tp_ops.add_collective_counts({k: -v for k, v in collectives.items()})
         self.captures += 1
-        return graph, launches
+        return graph, launches, collectives
 
     # the three calls into CUDA; the CPU tests replace them
     @contextlib.contextmanager
@@ -120,10 +134,14 @@ class DecodeGraphs:
         # training run in the same process leaves) queued a call the
         # capture forbids and invalidated it
         gc.collect()
+        mode_kw = {}
+        if self._collectives:
+            torch.cuda.synchronize(self._device)
+            mode_kw["capture_error_mode"] = "thread_local"
         enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self._stream):
+            with torch.cuda.graph(graph, stream=self._stream, **mode_kw):
                 self._step(mode)
         finally:
             if enabled:

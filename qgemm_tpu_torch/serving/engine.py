@@ -39,8 +39,18 @@ decoding, the engine-level recovery from a decode fault (every in-flight
 request fails with ``.error`` set, the caches are rebuilt, the engine
 serves on) and the native C++ scheduler (``scheduler="native"``, or
 ``"auto"`` once its library is built: ``serving/native.py``), which runs
-the Python bookkeeper's state machine behind a C ABI. Tensor parallelism
-(``mesh``) raises ``NotImplementedError``.
+the Python bookkeeper's state machine behind a C ABI.
+
+Tensor parallelism (``mesh``): one process per device, each running this
+engine on the same requests with its rank's model (``with_tp`` /
+``parallel.sharding.shard_quantized_model``). The caches, pools, the draft
+and its caches follow from the local modules and are head-local; page
+tables and every host decision (admission, pages, preemption, speculation)
+are the same on every rank, since the head's logits are gathered and every
+rank seeds its generator alike. On CUDA the decode step's collectives are
+captured into its graph (``serving/decode_graph.py``). A fault in a
+dispatch or an admission raises under a mesh: only the rank that met it
+would know, so no rank cancels requests or rebuilds its caches alone.
 
 Speculation (``draft_model``, ``spec_gamma``): when nothing waits for a
 slot, a dispatch runs speculative rounds instead of decode steps. In a
@@ -76,6 +86,7 @@ import dataclasses
 import hashlib
 import itertools
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -86,6 +97,7 @@ from qgemm_tpu_torch.device import DeviceLike, resolve_device
 from qgemm_tpu_torch.ops.kv_cache import QuantizedKVCache
 from qgemm_tpu_torch.ops.sampling import (sample_logits, sample_logits_with_prob, token_logprob,
                                           warped_probs, warped_token_probs)
+from qgemm_tpu_torch.parallel.mesh import axis_size
 from qgemm_tpu_torch.serving.decode_graph import DecodeGraphs, GraphCaptureError
 from qgemm_tpu_torch.serving.paged_cache import (PAGE_SIZE, PageAllocator,
                                                  build_step_tables, check_kv_bits,
@@ -552,7 +564,8 @@ class _EngineLoop(_PagedPoolOps):
         # the CUDA graphs of the decode step; None runs it eagerly (the CPU,
         # or an A/B against the graphs)
         self._graphs: Optional[DecodeGraphs] = (
-            DecodeGraphs(self._body, dev, self._gen) if dev.type == "cuda" else None)
+            DecodeGraphs(self._body, dev, self._gen, collectives=self.mesh is not None)
+            if dev.type == "cuda" else None)
         self.finished: List[Request] = []
         self.tokens_generated = 0
         self.decode_steps = 0          # decode steps run on the device
@@ -696,7 +709,13 @@ class _EngineLoop(_PagedPoolOps):
         the draft's too: a fault in a speculative round leaves both
         unknown) and zero the positions and tokens. The engine serves later
         submissions. A slot suspended for an overlapped admission is not
-        active here: its admission errors when the fault reaches it."""
+        active here: its admission errors when the fault reaches it.
+
+        Under a mesh the fault is raised instead: it reached this rank
+        only, and a rank that recovered alone would pair its next
+        collectives with the other ranks' and sum rows of other requests."""
+        if self.mesh is not None:
+            raise e
         msg = f"decode step failed: {type(e).__name__}: {e}"
         self._lp_slots.clear()
         for slot in np.flatnonzero(self.book.active_mask()):
@@ -937,6 +956,23 @@ class _EngineLoop(_PagedPoolOps):
         return self.finished
 
 
+def check_mesh(mesh, *models):
+    """The engines' ``mesh``: None, or a mesh with a ``"model"`` axis over
+    which every quantized layer of the models that is sharded was sharded."""
+    if mesh is None:
+        return None
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if "model" not in names:
+        raise ValueError(f"mesh {mesh!r}: expected a DeviceMesh with a 'model' axis "
+                         "(parallel.mesh.make_mesh)")
+    for m in models:
+        for mod in ([] if m is None else m.modules()):
+            if getattr(mod, "tp_mode", "none") != "none" and mod.mesh is not mesh:
+                raise ValueError("the model was sharded over another mesh than the "
+                                 "engine's")
+    return mesh
+
+
 class ContinuousBatchingEngine(_EngineLoop):
     def __init__(self, model, max_slots: int = 8, max_seq_len: Optional[int] = None,
                  scheduler: str = "auto", quantized_cache: bool = False,
@@ -947,9 +983,10 @@ class ContinuousBatchingEngine(_EngineLoop):
                  page_size: Optional[int] = None,
                  overlap_admission: bool = False, kv_bits: int = 8,
                  device: DeviceLike = None):
-        """Options as in the JAX engine; ``mesh`` (not ported yet) raises
-        ``NotImplementedError``. ``scheduler`` "python" runs the Python
-        bookkeeper, "native" the C++ scheduler (``serving/native.py``, its
+        """Options as in the JAX engine. ``mesh``: tensor-parallel serving —
+        the mesh the model was sharded over, ``model`` (and ``draft_model``)
+        this rank's model of it (see the module note). ``scheduler``
+        "python" runs the Python bookkeeper, "native" the C++ scheduler (``serving/native.py``, its
         library built at first use, or raises), "auto" the native one when
         its library is built already and the Python one otherwise;
         ``self.scheduler`` records the choice. The two give the same
@@ -982,9 +1019,7 @@ class ContinuousBatchingEngine(_EngineLoop):
         options of paged mode, ``prefix_cache=False`` among them, raise a
         ``ValueError`` without ``paged=True``; ``quantized_cache`` has no
         effect there (pools are always quantized)."""
-        if mesh is not None:
-            raise NotImplementedError(f"ContinuousBatchingEngine(mesh={mesh!r}) is not "
-                                      "ported to qgemm_tpu_torch yet")
+        self.mesh = check_mesh(mesh, model, draft_model)
         if scheduler not in ("auto", "python", "native"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if not paged:
@@ -1036,6 +1071,17 @@ class ContinuousBatchingEngine(_EngineLoop):
         self.overcommit = overcommit
         self.overlap_admission = overlap_admission
         self.prefix_cache = prefix_cache and paged
+        if self.prefix_cache and mesh is not None:
+            # JAX's rule: its suffix prefill runs under shard_map on
+            # head-sharded pools, which needs both head counts to divide
+            # the model axis; otherwise prefix caching is off from the start
+            cfg, p = model.cfg, axis_size(mesh, "model")
+            heads = (cfg.n_heads, cfg.n_kv_heads or cfg.n_heads)
+            if any(h % p for h in heads):
+                warnings.warn(f"prefix_cache disabled: head counts {heads} must divide the "
+                              f"model axis ({p}) for the tensor-parallel suffix prefill",
+                              stacklevel=2)
+                self.prefix_cache = False
         self.preemptions = 0
         # preempted requests: id -> {"req": the original Request, "gen" and
         # "lps": what it produced before its (latest) preemption}
@@ -1056,7 +1102,7 @@ class ContinuousBatchingEngine(_EngineLoop):
             # slot's own pages
             pps += -(-self.spec_extra // ps)
             # the pools' geometry, kept to rebuild them after a decode fault
-            self._pool_shape = dict(n_heads=cfg.n_kv_heads or cfg.n_heads,
+            self._pool_shape = dict(n_heads=model.kv_heads,
                                     head_dim=cfg.d_model // cfg.n_heads,
                                     n_pages=n_pages or (1 + max_slots * pps),
                                     page_size=ps, kv_bits=kv_bits)
@@ -1311,7 +1357,10 @@ class ContinuousBatchingEngine(_EngineLoop):
                 raise
             except Exception as e:  # noqa: BLE001 — per-request isolation:
                 # a failing prefill, or a decode fault between its chunks
-                # (after the engine recovered from it), must not kill the batch
+                # (after the engine recovered from it), must not kill the batch;
+                # under a mesh it does (``_recover_from_decode_fault``)
+                if self.mesh is not None:
+                    raise
                 req.done = True
                 self._cancel_slot(slot, f"{type(e).__name__}: {e}")
                 for r in self.book.drain_finished():

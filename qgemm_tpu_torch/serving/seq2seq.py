@@ -1,5 +1,6 @@
 """Continuous batching for the encoder-decoder family (port of
-``qgemm_tpu/serving/seq2seq.py`` without tensor parallelism).
+``qgemm_tpu/serving/seq2seq.py``; under a ``mesh`` every rank runs it on
+its model's shards, as the GPT engine does).
 
 The GPT engine's loop (``serving/engine.py``: a fixed pool of slots, one
 decode step over all of them, per-slot positions, ``multi_step`` blocks,
@@ -49,7 +50,7 @@ import torch
 from qgemm_tpu_torch.device import DeviceLike, resolve_device
 from qgemm_tpu_torch.ops.kv_cache import quantize_kv
 from qgemm_tpu_torch.serving.decode_graph import GraphCaptureError
-from qgemm_tpu_torch.serving.engine import Request, _EngineLoop, _PyBookkeeper
+from qgemm_tpu_torch.serving.engine import Request, _EngineLoop, _PyBookkeeper, check_mesh
 from qgemm_tpu_torch.serving.paged_cache import (PAGE_SIZE, PageAllocator, check_kv_bits,
                                                  paged_write_step)
 
@@ -98,11 +99,11 @@ class Seq2SeqEngine(_EngineLoop):
         into its own float cross K/V and keeps a dense float self-cache;
         every extent and reservation grows by ``spec_gamma + 2``.
         ``device`` is where the engine runs (default: the GPU, raising
-        without one); the models must be there. ``mesh`` raises
-        ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError(f"Seq2SeqEngine(mesh={mesh!r}) is not ported to "
-                                      "qgemm_tpu_torch yet")
+        without one); the models must be there. ``mesh``: tensor-parallel
+        serving, as the GPT engine's — ``model`` and ``draft_model`` are
+        this rank's models; the self-caches and the cross K/V are
+        head-local, the source lengths and page tables whole."""
+        self.mesh = check_mesh(mesh, model, draft_model)
         if not paged:
             for name, value, used in (("n_pages", n_pages, n_pages is not None),
                                       ("page_size", page_size, page_size is not None),
@@ -144,7 +145,7 @@ class Seq2SeqEngine(_EngineLoop):
         self.prefill_tokens_skipped = 0
         self._preempted: Dict[int, dict] = {}
         dh = cfg.d_model // cfg.n_heads
-        hkv = cfg.n_kv_heads or cfg.n_heads
+        hkv = model.kv_heads
         dev = self.device
         if paged:
             ps = page_size or PAGE_SIZE
@@ -166,6 +167,7 @@ class Seq2SeqEngine(_EngineLoop):
         self.draft_caches = self._new_draft_caches()
         # the cross-attention K/V of every slot, written by admission
         s_src = self.max_src_len
+        hkv = model.cross_kv_heads
         if quantized_cache:
             z8 = lambda: torch.zeros((max_slots, hkv, s_src, dh), dtype=torch.int8, device=dev)
             one = lambda: torch.ones((max_slots, hkv, s_src, 1), dtype=torch.float32,
@@ -177,7 +179,7 @@ class Seq2SeqEngine(_EngineLoop):
         self.draft_enc_kvs = None
         if draft_model is not None:
             dcfg = draft_model.cfg
-            zd = lambda: torch.zeros((max_slots, dcfg.n_kv_heads or dcfg.n_heads, s_src,
+            zd = lambda: torch.zeros((max_slots, draft_model.cross_kv_heads, s_src,
                                       dcfg.d_model // dcfg.n_heads), dtype=dcfg.tdtype,
                                      device=dev)
             self.draft_enc_kvs = [(zd(), zd()) for _ in draft_model.dec_blocks]
@@ -315,6 +317,8 @@ class Seq2SeqEngine(_EngineLoop):
             except GraphCaptureError:
                 raise
             except Exception as e:  # noqa: BLE001 — per-request isolation
+                if self.mesh is not None:   # a fault of one rank ends the mesh's serving
+                    raise
                 req.done = True
                 self._cancel_slot(slot, f"{type(e).__name__}: {e}")
                 for r in self.book.drain_finished():

@@ -24,7 +24,8 @@ so a model trained by the port loads into the JAX package; ``gpt_leaves``,
 ``transformer_leaves`` and ``mlp_leaves`` give the same leaves as tensors.
 ``paged_cache_from_numpy`` builds the port's ``PagedKVCache`` from a JAX
 ``PagedKVCache``'s arrays. All of them read and write numpy only; they
-never import JAX.
+never import JAX. A rank's model of a tensor-parallel deployment is the
+unsharded load followed by ``parallel.sharding.shard_quantized_model``.
 """
 
 from __future__ import annotations
@@ -188,14 +189,20 @@ def mlp_to_numpy_params(model: MLP) -> Dict[str, np.ndarray]:
     return _to_numpy_params(mlp_leaves(model))
 
 
-def _linear(params, prefix: str, device, **outliers):
+def _in_features(prefix: str, cfg) -> int:
+    """The true K of a model's linear at ``prefix`` (JAX keeps it as a
+    meta field, which the leaves do not carry; row-parallel W4A8 needs it)."""
+    return cfg.d_ff if prefix.endswith("ffn/down") else cfg.d_model
+
+
+def _linear(params, prefix: str, device, in_features: Optional[int] = None, **outliers):
     bias = f"{prefix}/b"
     b = to_tensor(params, bias, device) if bias in params else None
     for leaf, kind in (("q", QuantizedWeight), ("qp", QuantizedWeight4)):
         if f"{prefix}/wq/{leaf}" in params:
             wq = kind.from_kn(to_tensor(params, f"{prefix}/wq/{leaf}", device),
                               to_tensor(params, f"{prefix}/wq/c", device))
-            return QuantizedLinear(wq, b, **outliers)
+            return QuantizedLinear(wq, b, in_features=in_features, **outliers)
     return Linear(to_tensor(params, f"{prefix}/w", device), b)
 
 
@@ -234,7 +241,7 @@ def gpt_from_jax_params(params: Mapping[str, np.ndarray], cfg: GPTConfig,
                     outlier_capacity=outlier_capacity)
 
     def linear(prefix):
-        return _linear(params, prefix, dev, **outliers)
+        return _linear(params, prefix, dev, _in_features(prefix, cfg), **outliers)
 
     blocks = []
     for i in range(cfg.n_layers):
@@ -258,7 +265,7 @@ def transformer_from_jax_params(params: Mapping[str, np.ndarray], cfg: Transform
     ``gpt_from_jax_params`` builds the GPT. ``device`` defaults to the
     GPU."""
     dev = resolve_device(device)
-    linear = lambda prefix: _linear(params, prefix, dev)
+    linear = lambda prefix: _linear(params, prefix, dev, _in_features(prefix, cfg))
     ln = lambda prefix: _layernorm(params, prefix, dev)
     mha = lambda prefix: _attention(linear, prefix, cfg)
     ffn = lambda prefix: FeedForward(linear(f"{prefix}/up"), linear(f"{prefix}/down"))

@@ -1,7 +1,15 @@
 """Numeric comparison harness (port of ``qgemm_tpu/utils/testing.py``) and
-the shared setup of the port's CPU tests."""
+the shared setup of the port's CPU tests, among them ``run_world``, which
+runs a function in a world of processes over a process group (the
+tensor-parallel tests run gloo on the CPU)."""
 
 from __future__ import annotations
+
+import gc
+import os
+import time
+import uuid
+from datetime import timedelta
 
 import numpy as np
 import torch
@@ -37,3 +45,39 @@ def assert_allclose(a, b, rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL
         raise AssertionError(
             f"allclose failed {msg}: worst at {worst}: a={a[worst]!r} b={b[worst]!r} "
             f"(max |a-b|={np.max(np.abs(a - b)):.3e}, rtol={rtol}, atol={atol})")
+
+
+def _world_child(rank: int, fn, world: int, store: str, device, args) -> None:
+    import torch.distributed as dist
+
+    from qgemm_tpu_torch.parallel.mesh import initialize_distributed
+    use_test_threads()
+    initialize_distributed(init_method=f"file://{store}", world_size=world, rank=rank,
+                           device=device, timeout=timedelta(seconds=180))
+    try:
+        fn(rank, world, *args)
+    finally:
+        gc.collect()   # objects in reference cycles may hold the group's work
+        dist.destroy_process_group()
+
+
+def run_world(fn, world: int, workdir: str, *args, device="cpu",
+              timeout: float = 300.0) -> None:
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes, each
+    with one intra-op thread and a default process group over a file store
+    in ``workdir`` (``device`` "cpu": gloo; None or "cuda": NCCL, one card
+    per rank). ``fn`` must be importable by the children (a module-level
+    function of a module that imports no JAX); it passes its results back
+    through files. Raises if any process fails or the world outlives
+    ``timeout`` seconds (the others are then killed)."""
+    import torch.multiprocessing as mp
+    store = os.path.join(os.path.abspath(workdir), f"store-{uuid.uuid4().hex}")
+    ctx = mp.start_processes(_world_child, args=(fn, world, store, device, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise TimeoutError(f"run_world({fn.__name__}, {world}) ran past {timeout} s")

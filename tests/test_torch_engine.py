@@ -118,8 +118,9 @@ def test_engine_sampling_and_prefill_error_isolation():
 @pytest.mark.parametrize("option,value", [
     ("scheduler", "native"), ("draft_model", object()), ("mesh", object())])
 def test_engine_unported_options_raise(option, value):
-    """Tensor parallelism is not ported yet. Speculation is
-    (tests/test_torch_engine_spec.py): a draft that is not a model is
+    """Tensor parallelism is ported (tests/test_torch_tp_engine.py): a mesh
+    that is not a DeviceMesh with a "model" axis is refused. Speculation
+    is (tests/test_torch_engine_spec.py): a draft that is not a model is
     refused. The native scheduler is ported (tests/test_torch_native_scheduler.py):
     the engine takes it, and an unknown scheduler raises."""
     _, tm = model_pair(11, quantize=True)
@@ -128,7 +129,7 @@ def test_engine_unported_options_raise(option, value):
         with pytest.raises(ValueError, match=option):
             ContinuousBatchingEngine(tm, device="cpu", scheduler="cxx")
         return
-    error = TypeError if option == "draft_model" else NotImplementedError
+    error = TypeError if option == "draft_model" else ValueError
     with pytest.raises(error, match=option):
         ContinuousBatchingEngine(tm, device="cpu", **{option: value})
 
@@ -137,7 +138,7 @@ def test_engine_unported_options_raise(option, value):
 def test_paged_engine_unported_options_raise(option, value):
     """The same options raise in paged mode."""
     _, tm = model_pair(11, quantize=True)
-    error = TypeError if option == "draft_model" else NotImplementedError
+    error = TypeError if option == "draft_model" else ValueError
     with pytest.raises(error, match=option):
         ContinuousBatchingEngine(tm, device="cpu", paged=True, **{option: value})
 

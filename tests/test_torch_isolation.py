@@ -16,6 +16,8 @@ from qgemm_tpu_torch.examples import quantize_demo, serve_gpt, train_mnist
 from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
 from qgemm_tpu_torch.models.mlp import MLP
 from qgemm_tpu_torch.models.moe import MoEFeedForward
+from qgemm_tpu_torch.ops.quantize import absmax_scales
+from qgemm_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from qgemm_tpu_torch.ops import cuda as kernels
 from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize
 from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention
@@ -62,7 +64,9 @@ def test_port_imports_no_jax():
               "qgemm_tpu_torch.data.native", "qgemm_tpu_torch.models.mlp",
               "qgemm_tpu_torch.utils.config", "qgemm_tpu_torch.utils.host_build",
               "qgemm_tpu_torch.examples.train_mnist", "qgemm_tpu_torch.examples.serve_gpt",
-              "qgemm_tpu_torch.examples.quantize_demo"):
+              "qgemm_tpu_torch.examples.quantize_demo", "qgemm_tpu_torch.parallel",
+              "qgemm_tpu_torch.parallel.mesh", "qgemm_tpu_torch.parallel.tp_ops",
+              "qgemm_tpu_torch.parallel.sharding"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -91,7 +95,9 @@ def test_default_device_raises_without_gpu():
                  lambda: serve_gpt.main(["--layers", "1"]),
                  lambda: GPT.init(MOE),
                  lambda: GPT.init_quantized(MOE),
-                 lambda: gpt_from_jax_params({}, MOE)):
+                 lambda: gpt_from_jax_params({}, MOE),
+                 lambda: make_mesh(),
+                 lambda: initialize_distributed(world_size=1, rank=0)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     model = GPT.init(CFG, device="cpu").quantize()
@@ -113,6 +119,7 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     x = torch.randn(4, 64, generator=g)
     wq = quantize_weights(torch.randn(64, 24, generator=g))
     assert quantized_matmul_prequant(x, wq).shape == (4, 24)
+    assert quantized_matmul_prequant(x, wq, cx=absmax_scales(x, -1)).shape == (4, 24)
     wq4 = quantize_weights_int4(torch.randn(64, 24, generator=g))
     assert quantized_matmul_prequant_w4(x, wq4).shape == (4, 24)
     for w in (wq, wq4):
@@ -144,7 +151,8 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     q32 = torch.randn(1, 2, 5, 32, generator=g)
     assert flash_attention_int8(q32, q32, torch.randn(1, 2, 5, 48, generator=g),
                                 causal=True).shape == (1, 2, 5, 48)
-    assert kernels.launch_counts() == {"quantized_matmul": 0, "decode_attention": 0,
+    assert kernels.launch_counts() == {"quantized_matmul": 0,
+                                       "quantized_matmul_given_cx": 0, "decode_attention": 0,
                                        "flash_attention": 0, "w4a8_matmul": 0,
                                        "paged_decode_attention": 0,
                                        "paged_decode_attention_ragged": 0,

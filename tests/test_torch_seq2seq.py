@@ -264,10 +264,12 @@ def test_decode_fault_recovery(kind):
 
 
 def test_engine_options_and_device():
-    """``mesh`` raises NotImplementedError; paged options need paged=True;
-    the default device is the GPU (raises here without one)."""
+    """A ``mesh`` that is not a DeviceMesh with a "model" axis raises
+    ValueError (tensor parallelism: tests/test_torch_tp_seq2seq.py); paged
+    options need paged=True; the default device is the GPU (raises here
+    without one)."""
     _, tm = pair(1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         Seq2SeqEngine(tm, device="cpu", mesh=object())
     for bad in (dict(n_pages=4), dict(page_size=16), dict(kv_bits=4)):
         with pytest.raises(ValueError, match="needs paged=True"):
