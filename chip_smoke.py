@@ -71,13 +71,22 @@ tensor-parallel route on an NCCL group of world 1: the dense int8-KV graph
 engine, the paged int8 graph engine and the speculative dense engine, 8
 greedy requests each, with and without the mesh, transcripts, launches and
 stats equal bit for bit, 129 collectives a decode step with the analytic
-all-reduce bytes, 64 K1 launches a step on the given-cx route. Each phase
+all-reduce bytes, 64 K1 launches a step on the given-cx route.
+``parallel`` (after ``serve_moe``, world 1 over NCCL) serves the MoE GPT
+with its experts sharded over the model axis through the dense and paged
+graph engines against the un-meshed ones bit for bit (one more SUM a
+layer a decode step), runs all-to-all expert parallelism on one layer,
+ring attention's block loops over four shards of an S 8192 sequence on
+the card against K3 and K7 over the whole sequence (K3 and K7 once per
+visible block), the data x model Adam step of the ``train`` model bit for
+bit to the un-meshed step, and GPipe at one stage. Each phase
 prints one JSON line; the last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is nonzero. Needs one CUDA device; exits nonzero without one.
 Uses no JAX.
 
     python3 chip_smoke.py --tp-faults    # planted faults of the TP route, each caught
-    python3 chip_smoke.py --tp-cards N   # N ranks on N cards against one card, faults planted
+    python3 chip_smoke.py --tp-cards N   # N ranks on N cards against one card, faults planted;
+                                         # then ring, Ulysses, EP, dp x tp and GPipe across them
     python3 chip_smoke.py --only PHASE[,PHASE...]
 
 builds the kernels and runs only the named phases (``shape_limits``,
@@ -2656,6 +2665,7 @@ def tp_run(label: str, make_engine, make_reqs, want: Optional[dict] = None) -> d
     strip = lambda d: None if d is None else {k: v for k, v in d.items()
                                              if v and k != "quantized_matmul_given_cx"}
     res = {"engine": engine, "transcripts": [r.generated for r in reqs],
+           "counts": {k: v for k, v in run["counts"].items() if v},
            "per_decode": strip(run["per_decode"]), "per_round": strip(run["per_round"]),
            "given_cx": {"per_decode": (run["per_decode"] or {}).get("quantized_matmul_given_cx"),
                         "per_round": (run["per_round"] or {}).get("quantized_matmul_given_cx"),
@@ -2867,7 +2877,7 @@ def prompt_logits(model, prompts) -> torch.Tensor:
     whole-prompt prefill): f32 [len(prompts), vocab] on the host."""
     rows = []
     for p in prompts:
-        logits, _ = model.prefill(torch.tensor([p], device="cuda"),
+        logits, _ = model.prefill(torch.tensor([p], device=model.device),
                                   model.init_cache(1, len(p), quantized=True))
         rows.append(logits[0, -1].float().cpu())
     return torch.stack(rows)
@@ -2909,6 +2919,74 @@ TP_CARDS_FAULTS = {"own_row_scales": ("global_row_scales", _own_row_scales),
                    "bf16_sum": ("reduce_partial", _bf16_sum),
                    "kv_head_offset": None}
 TP_CARDS_MUST_CATCH = ("skipped_sum", "kv_head_offset")
+
+
+def _future_visible(src: int, me: int) -> int:
+    from qgemm_tpu_torch.parallel import ring_attention as ra
+    return ra.DIAGONAL if src == me else ra.VISIBLE
+
+
+def _block_local_lse(q, k, v, out, lse, g, causal: bool):
+    """The ring's block backward against the block's own output and
+    logsumexp instead of the global ones."""
+    from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
+    out_j, lse_j = flash_attention_fwd(q, k, v, causal)
+    return flash_attention_bwd(q, k, v, out_j, lse_j, g, causal)
+
+
+def _neighbour_expert_offset(r: int, n_local: int) -> int:
+    return (r ^ 1) * n_local
+
+
+def _collect_one_tick_early(t: int, n_stages: int) -> int:
+    return t - n_stages + 2
+
+
+def _no_data_grad_sync(mesh, axis: str = "data"):
+    return lambda g: g
+
+
+# the planted faults of the rest of parallelism (ring, EP, GPipe, data x
+# model training): name -> (module, the function it replaces, its
+# replacement). Each must fail its check at p = 2 (the CPU tests) and on
+# ``--tp-cards`` across cards. The EP offset swaps the experts' slots with
+# the neighbour rank's (plant it after ``shard_moe``), the data-axis
+# reduction is skipped by gradient hooks that do nothing (plant it before
+# ``shard_model``)
+PARALLEL_FAULTS = {
+    "ring_future_visible": ("qgemm_tpu_torch.parallel.ring_attention", "_regime",
+                            _future_visible),
+    "ring_block_local_lse": ("qgemm_tpu_torch.parallel.ring_attention", "_block_bwd",
+                             _block_local_lse),
+    "ep_expert_offset": ("qgemm_tpu_torch.parallel.expert", "_expert_offset",
+                         _neighbour_expert_offset),
+    "pipeline_tick": ("qgemm_tpu_torch.parallel.pipeline", "_collect_index",
+                      _collect_one_tick_early),
+    "data_grad_skipped": ("qgemm_tpu_torch.parallel.sharding", "_data_grad_hook",
+                          _no_data_grad_sync),
+}
+
+
+class planted:
+    """``with planted(name):`` runs its body with the fault of
+    ``PARALLEL_FAULTS`` in place (None: sound)."""
+
+    def __init__(self, name: Optional[str]):
+        self.swap = None if name is None else PARALLEL_FAULTS[name]
+
+    def __enter__(self):
+        if self.swap is not None:
+            import importlib
+            mod = importlib.import_module(self.swap[0])
+            self.saved = (mod, getattr(mod, self.swap[1]))
+            setattr(mod, self.swap[1], self.swap[2])
+        return self
+
+    def __exit__(self, *exc):
+        if self.swap is not None:
+            setattr(self.saved[0], self.swap[1], self.saved[1])
+        return False
 
 
 def forced_decode_logits(engine, prompts, forced, n_steps: int) -> torch.Tensor:
@@ -3117,8 +3195,608 @@ def tp_cards(n: int) -> None:
                              f"logits {fd['sound']['rel_change']:.3g} of the largest (bound "
                              f"{TP_CARDS_LOGIT_RTOL}), first tokens flipped off a near tie: "
                              f"{bad}, planted faults not caught: {missed}")
+    parallel_cards(n)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+# ---------------------------------------------------------------------------
+# the rest of parallelism: expert, sequence, pipeline, data x model
+# ---------------------------------------------------------------------------
+
+
+def ep_collectives_per_step(n_layers: int) -> dict:
+    """The expert-sharded MoE GPT's decode step under a mesh: per layer a MAX
+    and a SUM after W_O and the experts' SUM, and the head's gather."""
+    return {"all_reduce_max": n_layers, "all_reduce_sum": 2 * n_layers, "all_gather": 1}
+
+# the ring on one card: B 1, H 32, D 128, bf16, S 8192 as 4 shards of 2048
+RING_SHAPE = dict(b=1, h=32, s=8192, d=128, shards=4)
+# the ring's bounds against K3 and K7 over the whole sequence (stated before
+# its first card run): bf16 O and dQ/dK/dV round once more on the ring's
+# side (each block's output, then the merge) -> |ring - whole| <= 2^-6 |whole|
+# + 1e-2 max|whole|; the lse merges f32 block lses -> 1e-3 absolute
+RING_RTOL, RING_ATOL_SHARE, RING_LSE_ATOL = 2 ** -6, 1e-2, 1e-3
+# GPipe at one stage against the sequential forward on the same bf16 model:
+# microbatch GEMMs of other row counts may round apart (stated bound: the
+# logits within 2e-2 of the largest)
+GPIPE_MICRO, GPIPE_LOGIT_RTOL = 4, 2e-2
+
+
+def moe_step_allreduce_bytes(n_layers: int, d_model: int, batch: int) -> int:
+    """A decode step's all-reduce bytes of the expert-sharded MoE GPT: per
+    layer the f32 [B, 1] MAX and [B, d_model] SUM of the row-parallel W_O
+    and the experts' f32 [B, d_model] SUM."""
+    return n_layers * (batch * 4 + 2 * batch * d_model * 4)
+
+
+def ep_serving(mesh) -> dict:
+    """The MoE GPT (``MOE_CFG``, int8, seed 0) under ``mesh`` with its
+    experts on the model axis (every block's FFN a rank's ``shard_moe``),
+    served by the dense graph engine and the paged one beside the un-meshed
+    engines (``tp_run``: transcripts, launches a decode step and stats bit
+    for bit); the meshed decode step's collectives (``ep_collectives_per_step``
+    with ``moe_step_allreduce_bytes``); then ``ep_moe_forward_a2a`` on the
+    first layer at 64 tokens against the whole layer, bit for bit at p = 1,
+    with its two all-to-alls."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.parallel import tp_ops
+    from qgemm_tpu_torch.parallel.expert import ep_moe_forward_a2a, shard_moe
+    from qgemm_tpu_torch.parallel.mesh import axis_size, make_mesh
+    from qgemm_tpu_torch.parallel.sharding import shard_quantized_model
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = GPTConfig(**MOE_CFG)
+    p = axis_size(mesh, "model")
+    model = GPT.init_quantized(cfg, seed=0, device=dev)
+    local = shard_quantized_model(model, mesh)
+    held = [blk.ffn.n_local_experts for blk in local.blocks]
+    if any(blk.ffn.tp_mode != "expert" for blk in local.blocks) or held != [
+            cfg.n_experts // p] * cfg.n_layers:
+        raise AssertionError(f"ep_serving: the experts are not sharded: {held}")
+    dense = dense_requests(cfg, np.random.default_rng(0))[:TP_REQUESTS]
+    prompts, news, _ = paged_requests(cfg.vocab_size, np.random.default_rng(7))
+    cases = {"dense_int8_graph": (DENSE_ENGINE, dense),
+             "paged_int8_graph": (PAGED_ENGINE, list(zip(prompts, news))[:TP_REQUESTS])}
+    want_bytes = moe_step_allreduce_bytes(cfg.n_layers, cfg.d_model, DENSE_ENGINE["max_slots"])
+    want_coll = ep_collectives_per_step(cfg.n_layers)
+    res = {"p": p, "experts_per_rank": held[0], "engines": {}}
+    for label, (kw, reqs) in cases.items():
+        make_reqs = lambda reqs=reqs: [Request(prompt=q, max_new_tokens=n) for q, n in reqs]
+        want = tp_run(f"ep_serving {label} un-meshed",
+                      lambda: ContinuousBatchingEngine(model, **kw), make_reqs)
+        got = tp_run(f"ep_serving {label} mesh",
+                     lambda: ContinuousBatchingEngine(local, **kw, mesh=mesh), make_reqs, want)
+        coll = decode_step_collectives(got["engine"], make_reqs)
+        ar = coll["all_reduce_max_bytes"] + coll["all_reduce_sum_bytes"]
+        if {k: coll[k] for k in want_coll} != want_coll or ar != want_bytes:
+            raise AssertionError(f"ep_serving {label}: a decode step ran {coll}; expected "
+                                 f"{want_coll} and {want_bytes} all-reduce bytes")
+        res["engines"][label] = {
+            "transcripts_equal": True, "launches_per_decode_step": got["per_decode"],
+            "launches": got["counts"],
+            "given_cx": got["given_cx"], "stats": got["stats"], "graph": got["graph"],
+            "collectives_per_decode_step": coll, "all_reduce_bytes_analytic": want_bytes}
+        del want, got
+        gc.collect()
+    # all-to-all expert parallelism on the first layer, 64 tokens
+    ep_mesh = make_mesh((p,), ("expert",))
+    layer = model.blocks[0].ffn
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x = torch.randn((64, cfg.d_model), generator=g, device=dev).to(cfg.tdtype)
+    rank_layer = shard_moe(layer, ep_mesh)
+    with torch.no_grad():
+        want = layer(x)
+        kernels.reset_launch_counts()
+        tp_ops.reset_collective_counts()
+        got = ep_moe_forward_a2a(x, rank_layer, ep_mesh)
+        torch.cuda.synchronize()
+    res["a2a"] = {"tokens": 64, "bit_equal": bool(torch.equal(got, want)),
+                  "max_abs_err": max_err(got, want),
+                  "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+                  "collectives": {k: v for k, v in tp_ops.collective_counts().items() if v}}
+    if p == 1 and not res["a2a"]["bit_equal"]:
+        raise AssertionError(f"ep_serving: a2a EP differs from the whole layer at p = 1: "
+                             f"{res['a2a']}")
+    if res["a2a"]["collectives"].get("all_to_all") != 2:
+        raise AssertionError(f"ep_serving: a2a ran {res['a2a']['collectives']}")
+    del model, local, layer, rank_layer
+    gc.collect()
+    return res
+
+
+def ring_blocks_one_device() -> dict:
+    """Ring attention's block loops over ``shards`` shards of one sequence
+    held on one device (the rotation moves the list), causal and not:
+    the forward against K3 over the whole sequence, the backward (from the
+    ring's own output and logsumexp) against K7 over the whole sequence,
+    within ``RING_RTOL``/``RING_ATOL_SHARE``/``RING_LSE_ATOL``. The ring
+    launches K3 and K7 once per visible block: n(n + 1)/2 causal (n
+    diagonal, none for future blocks), n^2 not. The shape is
+    ``RING_SHAPE``, bf16, from seed 0."""
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
+    from qgemm_tpu_torch.parallel.ring_attention import (local_rotation, ring_backward_blocks,
+                                                         ring_forward_blocks)
+    b, h, s, d, shards = (RING_SHAPE[k] for k in ("b", "h", "s", "d", "shards"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    q, k, v, dout = (torch.randn((b, h, s, d), generator=g, device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    cut = lambda t: [c.contiguous() for c in t.chunk(shards, dim=2)]
+    qs, ks, vs, gs = cut(q), cut(k), cut(v), cut(dout)
+    pos = list(range(shards))
+    res = {"shape": dict(RING_SHAPE, dtype="bfloat16"), "cases": {}}
+    for causal in (True, False):
+        kernels.reset_launch_counts()
+        outs, lses = ring_forward_blocks(qs, ks, vs, pos, shards, causal, local_rotation)
+        fwd = kernels.launch_counts()
+        grads = ring_backward_blocks(qs, ks, vs, outs, lses, gs, pos, shards, causal,
+                                     local_rotation)
+        torch.cuda.synchronize()
+        bwd = kernels.launch_counts()
+        want_out, want_lse = flash_attention_fwd(q, k, v, causal)
+        want = flash_attention_bwd(q, k, v, want_out, want_lse, dout, causal)
+        blocks = shards * (shards + 1) // 2 if causal else shards * shards
+        row = {"k3_launches": fwd["flash_attention"], "k7_launches": bwd["flash_attention_bwd"],
+               "blocks": blocks}
+        checks = [("out", torch.cat(outs, dim=2), want_out)]
+        checks += [(n, torch.cat(gr, dim=2), w) for n, gr, w in zip(("dq", "dk", "dv"),
+                                                                    grads, want)]
+        failures = []
+        for name, got, ref in checks:
+            scale = float(ref.float().abs().max())
+            beyond = excess(got, ref, RING_RTOL)
+            row[name] = {"max_abs_err": max_err(got, ref), "max_ref": scale,
+                         "beyond_rtol": beyond, "tol": RING_ATOL_SHARE * scale}
+            if not beyond <= RING_ATOL_SHARE * scale:
+                failures.append(name)
+        row["lse_max_abs_err"] = max_err(torch.cat(lses, dim=2), want_lse)
+        if row["lse_max_abs_err"] > RING_LSE_ATOL:
+            failures.append("lse")
+        if (fwd["flash_attention"], bwd["flash_attention_bwd"]) != (blocks, blocks):
+            failures.append("launches")
+        row["failures"] = failures
+        res["cases"]["causal" if causal else "full"] = row
+        del outs, lses, grads, want_out, want_lse, want
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    ring = lambda: ring_forward_blocks(qs, ks, vs, pos, shards, True, local_rotation)
+    # the ring's merges launch more kernels than the launch queue holds
+    res["ms_causal_ring_forward"] = bench_ms(ring, queue_ahead=False)
+    res["ms_causal_k3_whole"] = bench_ms(lambda: flash_attention_fwd(q, k, v, True))
+    res["failures"] = {c: r["failures"] for c, r in res["cases"].items() if r["failures"]}
+    return res
+
+
+def train_step_on_mesh(mesh) -> tuple:
+    """One Adam step (the example's ``train_step``, lr ``TRAIN_LR``) of the
+    ``train`` phase's model (GPT_6_7B's widths at ``TRAIN_LAYERS`` layers,
+    seed 0, one fixed batch) un-meshed, and of its ``shard_model`` on
+    ``mesh`` (a copy taken first) on the rank's ``shard_batch``: the loss
+    and every updated parameter must equal the un-meshed step's bit for bit
+    at p = 1 (the collectives identities); the meshed step's launches (K3
+    and K7 once per layer) and collectives (per layer a SUM after W_O and
+    FFN-down, in the backward one for each column layer's input and the
+    head's, one per trainable parameter on the data axis; the head's
+    gather). -> (the result, the un-meshed model after its step, the
+    step's tokens)."""
+    from qgemm_tpu_torch.examples.train_gpt_lm import train_step
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.models.optim import Adam
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.parallel import tp_ops
+    from qgemm_tpu_torch.parallel.sharding import shard_batch, shard_model
+    cfg = dataclasses.replace(GPT_6_7B, n_layers=TRAIN_LAYERS)
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    model = GPT.init(cfg, seed=0, device="cuda")
+    local = shard_model(model, mesh)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    seqs = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=g, device="cuda")
+
+    def one_step(m, tokens):
+        params = [p for _, p in m.named_trainable()]
+        opt = Adam(lr=TRAIN_LR)
+        kernels.reset_launch_counts()
+        tp_ops.reset_collective_counts()
+        t = time.perf_counter()
+        _, loss = train_step(m, params, opt, opt.init(params), tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        for p in params:
+            p.grad = None
+        return loss, params, kernels.launch_counts(), tp_ops.collective_counts(), ms
+    loss0, p0, _, _, ms0 = one_step(model, seqs)
+    loss1, p1, launches, coll, ms1 = one_step(local, shard_batch(seqs, mesh))
+    n = cfg.n_layers
+    want_coll = {"all_reduce_sum": 2 * n + 4 * n + 1 + len(p1), "all_gather": 1}
+    equal = [bool(torch.equal(a, b)) for a, b in zip(p0, p1)]
+    res = {"model": f"GPT_6_7B widths, {n} layers, {cfg.dtype}", "batch": [batch, seq],
+           "loss_un_meshed": float(loss0), "loss_mesh": float(loss1),
+           "loss_bit_equal": bool(torch.equal(loss0, loss1)),
+           "params_bit_equal": sum(equal), "params": len(equal),
+           "max_param_diff": max(max_err(a, b) for a, b in zip(p0, p1)),
+           "launches": {k: v for k, v in launches.items() if v},
+           "collectives": {k: v for k, v in coll.items() if v},
+           "collectives_expected": want_coll,
+           "step_ms_un_meshed": ms0, "step_ms_mesh": ms1}
+    failures = []
+    if not (res["loss_bit_equal"] and all(equal)):
+        failures.append("the meshed step differs from the un-meshed one")
+    if (launches["flash_attention"], launches["flash_attention_bwd"]) != (n, n):
+        failures.append(f"launches {res['launches']}")
+    if {k: coll[k] for k in want_coll} != want_coll:
+        failures.append(f"collectives {res['collectives']} != {want_coll}")
+    res["failures"] = failures
+    del local, p1
+    gc.collect()
+    return res, model, seqs[:, :-1]
+
+
+def gpipe_one_stage(model, tokens) -> dict:
+    """``pipeline_gpt_forward`` at one stage in ``GPIPE_MICRO`` microbatches
+    against the model's sequential forward (logits within
+    ``GPIPE_LOGIT_RTOL`` of the largest); K3 once per layer and
+    microbatch."""
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.parallel.mesh import make_mesh
+    from qgemm_tpu_torch.parallel.pipeline import pipeline_gpt_forward
+    pipe_mesh = make_mesh((1,), ("pipe",))
+    with torch.no_grad():
+        want = model(tokens)
+        kernels.reset_launch_counts()
+        got = pipeline_gpt_forward(model, tokens, mesh=pipe_mesh, n_microbatches=GPIPE_MICRO)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    rel = max_err(got, want) / float(want.float().abs().max())
+    res = {"stages": 1, "microbatches": GPIPE_MICRO, "tokens": list(tokens.shape),
+           "rel_err": rel, "bit_equal": bool(torch.equal(got, want)),
+           "launches": {k: v for k, v in launches.items() if v}}
+    want_k3 = model.cfg.n_layers * GPIPE_MICRO
+    res["failures"] = ([] if rel <= GPIPE_LOGIT_RTOL and launches["flash_attention"] == want_k3
+                       else [f"logits {rel} (bound {GPIPE_LOGIT_RTOL}), K3 "
+                             f"{launches['flash_attention']} (want {want_k3})"])
+    return res
+
+
+# the rest of parallelism across cards (``--tp-cards N``): each rank's
+# readings against one card (the same seeds on the rank's own card); the
+# data x model training step's bounds (stated before its first card run):
+# the global loss within 1e-2 of the single card's, every parameter's
+# gradient within 0.2 of the norm of its single-card slice (bf16 row SUMs
+# across cards and the data axis' mean round otherwise, and a bias or gain
+# summed over many tokens cancels: 0.034 in a rehearsal on 4 gloo ranks at
+# tiny widths, where a skipped data-axis reduction read 1.27-1.50); the
+# faults of ``PARALLEL_FAULTS``, each planted in a run of its own, must
+# break them
+CARDS_LOSS_RTOL, CARDS_GRAD_RTOL = 1e-2, 0.2
+
+
+def _rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def _ring_cards(mesh, dev, fault: Optional[str] = None) -> dict:
+    """Ring attention (``RING_SHAPE``'s sequence, causal) and Ulysses across
+    the ``seq`` axis against K3 and K7 over the whole sequence on this
+    card; the rank's shard within the ring's bounds."""
+    from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
+    from qgemm_tpu_torch.parallel.ring_attention import ring_attention, shard_sequence
+    from qgemm_tpu_torch.parallel.ulysses import ulysses_attention
+    b, h, s, d = (RING_SHAPE[k] for k in ("b", "h", "s", "d"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    q, k, v, dout = (torch.randn((b, h, s, d), generator=g, device=dev).to(torch.bfloat16)
+                     for _ in range(4))
+    want_out, want_lse = flash_attention_fwd(q, k, v, True)
+    want = (want_out,) + flash_attention_bwd(q, k, v, want_out, want_lse, dout, True)
+    cut = lambda t: shard_sequence(t, mesh)
+    res = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        if fault is not None and name == "ulysses":
+            continue
+        shards = [cut(t).requires_grad_(True) for t in (q, k, v)]
+        with planted(fault):
+            out = fn(*shards, mesh=mesh, causal=True)
+            out.backward(cut(dout))
+        row = {}
+        for item, got, ref in zip(("out", "dq", "dk", "dv"),
+                                  (out,) + tuple(t.grad for t in shards), want):
+            ref = cut(ref)
+            scale = float(ref.float().abs().max())
+            row[item] = {"beyond_rtol": excess(got, ref, RING_RTOL),
+                         "tol": RING_ATOL_SHARE * scale, "bit_equal": bool(torch.equal(got, ref))}
+        row["within"] = all(r["beyond_rtol"] <= r["tol"] for r in row.values())
+        res[name] = row
+    return res
+
+
+def _moe_cards(mesh, dev, prompts) -> tuple:
+    """The expert-sharded MoE GPT (2 experts a card at p = 4) across the
+    cards: its prompts' logits, the dense graph engine's transcripts and a
+    decode step's collectives. -> (the readings, the whole model)."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPTConfig
+    from qgemm_tpu_torch.parallel.sharding import shard_quantized_model
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    model = GPT.init_quantized(GPTConfig(**MOE_CFG), seed=0, device=dev)
+    local = shard_quantized_model(model, mesh)
+    out = {"logits": prompt_logits(local, prompts),
+           "experts_per_rank": local.blocks[0].ffn.n_local_experts}
+    engine = ContinuousBatchingEngine(local, **DENSE_ENGINE, mesh=mesh)
+    make_reqs = lambda: [Request(prompt=p, max_new_tokens=16) for p in prompts]
+    reqs = make_reqs()
+    drive(engine, reqs, "parallel_cards moe mesh")
+    out["transcripts"] = [r.generated for r in reqs]
+    out["collectives"] = decode_step_collectives(engine, make_reqs)
+    del engine
+    gc.collect()
+    torch.cuda.synchronize()
+    return out, model
+
+
+def _train_cards(mesh, dev, fault: Optional[str] = None) -> dict:
+    """The ``train`` phase's model, one step's loss and gradients on the
+    (data, model) mesh (each rank its ``shard_batch`` slice) against the
+    single-card step's on this card."""
+    from qgemm_tpu_torch.examples.train_gpt_lm import loss_fn
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.parallel.mesh import axis_rank
+    from qgemm_tpu_torch.parallel.sharding import data_mean, shard_batch, shard_model
+    cfg = dataclasses.replace(GPT_6_7B, n_layers=TRAIN_LAYERS)
+    model = GPT.init(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    seqs = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=g,
+                         device=dev)
+    with planted(fault):
+        local = shard_model(model, mesh)
+    loss = loss_fn(local, shard_batch(seqs, mesh))
+    loss.backward()
+    glob = float(data_mean(loss, mesh))
+    want = loss_fn(model, seqs)
+    want.backward()
+    full = dict(model.named_trainable())
+    r = axis_rank(mesh, "model")
+    errs = {}
+    for name, p in local.named_trainable():
+        ref = full[name].grad
+        for dim, (a, b) in enumerate(zip(ref.shape, p.shape)):
+            if a != b:
+                ref = ref.narrow(dim, r * b, b)
+        errs[name] = _rel_norm(p.grad, ref)
+    res = {"loss": glob, "loss_single_card": float(want),
+           "loss_rel": abs(glob - float(want)) / abs(float(want)),
+           "grad_rel_max": max(errs.values()),
+           "grad_rel_worst": max(errs, key=errs.get)}
+    res["within"] = res["loss_rel"] <= CARDS_LOSS_RTOL and res["grad_rel_max"] <= CARDS_GRAD_RTOL
+    del model, local, loss, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _gpipe_cards(mesh, dev, model, tokens, want, fault: Optional[str] = None) -> dict:
+    from qgemm_tpu_torch.parallel.pipeline import pipeline_gpt_forward
+    with planted(fault), torch.no_grad():
+        got = pipeline_gpt_forward(model, tokens, mesh=mesh, n_microbatches=GPIPE_MICRO)
+    rel = max_err(got, want) / float(want.float().abs().max())
+    return {"rel_err": rel, "within": rel <= GPIPE_LOGIT_RTOL,
+            "bit_equal": bool(torch.equal(got, want))}
+
+
+# which part each planted fault is read in
+CARDS_FAULT_PARTS = {"ring_future_visible": "ring", "ring_block_local_lse": "ring",
+                     "ep_expert_offset": "ep_layer", "pipeline_tick": "gpipe",
+                     "data_grad_skipped": "train"}
+
+
+def _ep_layer_cards(mesh, layer, x, fault: Optional[str] = None) -> dict:
+    """``ep_moe_forward`` of a rank's ``shard_moe`` of ``layer`` on ``x`` (the
+    same on every rank) against the whole layer on this card."""
+    from qgemm_tpu_torch.parallel.expert import ep_moe_forward, shard_moe
+    local = shard_moe(layer, mesh)
+    with planted(fault), torch.no_grad():
+        got = ep_moe_forward(x, local, mesh)
+        want = layer(x)
+    return {"bit_equal": bool(torch.equal(got, want)), "max_abs_err": max_err(got, want)}
+
+
+def parallel_cards_worker(rank: int, world: int, out: str) -> None:
+    """One rank of ``--tp-cards``' second world: ring and Ulysses over a
+    ``seq`` mesh, the expert-sharded MoE GPT over (1, N) (its prompts'
+    logits against this card's, its transcripts and a decode step's
+    collectives), its first layer through ``ep_moe_forward`` and a2a over an
+    ``expert`` mesh, the data x model training step over (2, N/2), GPipe
+    over N stages of GPT_6_7B's widths at 2 N layers, each against this
+    card alone; then each fault of ``CARDS_FAULT_PARTS`` planted in its
+    part. Writes the rank's readings."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.parallel import tp_ops
+    from qgemm_tpu_torch.parallel.expert import ep_moe_forward_a2a, shard_moe
+    from qgemm_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stage = lambda what: print(f"parallel_cards rank {rank}: {what} at {time.perf_counter():.1f}",
+                               file=sys.stderr, flush=True)
+    meshes = {"seq": make_mesh((world,), ("seq",)), "model": make_mesh((1, world)),
+              "expert": make_mesh((world,), ("expert",)), "pipe": make_mesh((world,), ("pipe",)),
+              "train": make_mesh((2, world // 2) if world % 2 == 0 else (1, world))}
+    res = {"rank": rank, "train_mesh": list(meshes["train"].mesh.shape), "faults": {}}
+    t = time.perf_counter()
+    res["ring"] = _ring_cards(meshes["seq"], dev)
+    res["seconds"] = {"ring": time.perf_counter() - t}
+    stage("ring done")
+    # the MoE GPT: the prompts' logits against this card's un-meshed model
+    t = time.perf_counter()
+    rng = np.random.default_rng(0)
+    prompts = [p for p, _ in dense_requests(GPT_6_7B, rng)[:TP_REQUESTS]]
+    moe, model = _moe_cards(meshes["model"], dev, prompts)
+    want_logits = prompt_logits(model, prompts)
+    # reported, not judged: a router near a tie sends a token to another
+    # expert once the attention's SUM across cards rounds otherwise (0.199
+    # of the largest on four H100s, where the dense TP GPT moves 0.02)
+    res["moe"] = dict(moe, logits=logit_reading(moe.pop("logits"), want_logits))
+    # the first layer alone: ep_moe_forward on the same 64 tokens on every
+    # rank against the whole layer on this card (bit for bit: each token's
+    # SUM adds its two choices' partials and zeros), and a2a on the rank's
+    # 16 against the whole layer on those tokens alone (a2a's per-source
+    # capacity)
+    layer = model.blocks[0].ffn
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x = torch.randn((64, MOE_CFG["d_model"]), generator=g, device=dev).to(torch.bfloat16)
+    res["ep_layer"] = _ep_layer_cards(meshes["expert"], layer, x)
+    xr = x.chunk(world)[rank]
+    tp_ops.reset_collective_counts()
+    with torch.no_grad():
+        got = ep_moe_forward_a2a(xr, shard_moe(layer, meshes["expert"]), meshes["expert"])
+        ref = layer(xr)
+    res["a2a"] = {"bit_equal": bool(torch.equal(got, ref)), "max_abs_err": max_err(got, ref),
+                  "all_to_all": tp_ops.collective_counts()["all_to_all"]}
+    res["seconds"]["moe"] = time.perf_counter() - t
+    stage("moe done")
+    t = time.perf_counter()
+    res["train"] = _train_cards(meshes["train"], dev)
+    res["seconds"]["train"] = time.perf_counter() - t
+    stage("train done")
+    t = time.perf_counter()
+    gcfg = dataclasses.replace(GPT_6_7B, n_layers=2 * world)
+    gpt = GPT.init(gcfg, seed=0, device=dev)
+    g.manual_seed(5)
+    toks = torch.randint(0, gcfg.vocab_size, (4, TRAIN_SEQ), generator=g, device=dev)
+    with torch.no_grad():
+        gwant = gpt(toks)
+    res["gpipe"] = _gpipe_cards(meshes["pipe"], dev, gpt, toks, gwant)
+    res["seconds"]["gpipe"] = time.perf_counter() - t
+    stage("gpipe done")
+    for fault, part in CARDS_FAULT_PARTS.items():
+        if part == "ring":
+            ring = _ring_cards(meshes["seq"], dev, fault)["ring"]
+            r, reading = ring["within"], {k: v["beyond_rtol"] / v["tol"]
+                                          for k, v in ring.items() if k != "within"}
+        elif part == "ep_layer":
+            ep = _ep_layer_cards(meshes["expert"], layer, x, fault)
+            r, reading = ep["bit_equal"], ep["max_abs_err"]
+        elif part == "gpipe":
+            pipe = _gpipe_cards(meshes["pipe"], dev, gpt, toks, gwant, fault)
+            r, reading = pipe["within"], pipe["rel_err"]
+        else:
+            train = _train_cards(meshes["train"], dev, fault)
+            r, reading = train["within"], train["grad_rel_max"]
+        res["faults"][fault] = {"part": part, "caught": not r, "reading": reading}
+    stage("faults done")
+    with open(Path(out) / f"parallel_cards-{rank}.json", "w") as f:
+        json.dump(res, f)
+    del model, gpt, layer
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def parallel_cards(n: int) -> dict:
+    """``parallel_cards_worker`` on ``n`` cards: the ring, Ulysses, training
+    and GPipe within their bounds and the EP layer and a2a bit for bit on
+    every rank, the MoE GPT's decode step with its collectives and the
+    ranks' transcripts agreeing (its logits against one card reported), and
+    every planted fault caught."""
+    from qgemm_tpu_torch.utils.testing import run_world
+    out = Path(__file__).resolve().parent / "build" / f"parallel_cards.{os.getpid()}"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        run_world(parallel_cards_worker, n, str(out), str(out), device=None, timeout=400)
+    except TimeoutError:
+        emit({"phase": "parallel_cards", "timed_out": True, "ranks_written": {
+            f.name: json.loads(f.read_text()) for f in sorted(out.glob("parallel_cards-*"))}})
+        raise
+    ranks = [json.loads((out / f"parallel_cards-{r}.json").read_text()) for r in range(n)]
+    shutil.rmtree(out, ignore_errors=True)
+    res = {"phase": "parallel_cards", "p": n, "seconds": time.perf_counter() - t0,
+           "ranks": ranks}
+    emit(res)
+    bad = []
+    want_coll = ep_collectives_per_step(MOE_CFG["n_layers"])
+    for r in ranks:
+        for part in ("train", "gpipe"):
+            if not r[part]["within"]:
+                bad.append((r["rank"], part))
+        if not r["ep_layer"]["bit_equal"]:
+            bad.append((r["rank"], "ep_layer"))
+        if {k: r["moe"]["collectives"][k] for k in want_coll} != want_coll:
+            bad.append((r["rank"], "moe collectives"))
+        for name, row in r["ring"].items():
+            if not row["within"]:
+                bad.append((r["rank"], name))
+        if not r["a2a"]["bit_equal"] or r["a2a"]["all_to_all"] != 2:
+            bad.append((r["rank"], "a2a"))
+        bad += [(r["rank"], f) for f, c in r["faults"].items() if not c["caught"]]
+    if any(r["moe"]["transcripts"] != ranks[0]["moe"]["transcripts"] for r in ranks):
+        bad.append("the ranks' MoE transcripts differ")
+    if bad:
+        raise AssertionError(f"parallel_cards: {bad}")
+    return res
+
+
+def parallel_launches(par: dict, wrappers) -> dict:
+    """A kernel's launches on ``phase_parallel``'s paths (its wrappers'
+    counts summed): each EP engine's run and decode step, the a2a layer, the
+    ring's forward and backward (causal and not), the meshed training step,
+    the one-stage GPipe forward; the nonzero ones."""
+    count = lambda d: sum((d or {}).get(w, 0) for w in wrappers)
+    out = {}
+    for label, e in par["ep_serving"]["engines"].items():
+        out[f"ep_serving {label}"] = count(e["launches"])
+        out[f"ep_serving {label} per decode step"] = count(e["launches_per_decode_step"])
+    out["ep_a2a one layer"] = count(par["ep_serving"]["a2a"]["launches"])
+    for case, row in par["ring"]["cases"].items():
+        out[f"ring {case} forward"] = (row["k3_launches"] if "flash_attention" in wrappers
+                                       else 0)
+        out[f"ring {case} backward"] = (row["k7_launches"] if "flash_attention_bwd" in wrappers
+                                        else 0)
+    out["train dp x tp step"] = count(par["train"]["launches"])
+    out["gpipe one stage"] = count(par["gpipe"]["launches"])
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_parallel() -> dict:
+    """The rest of parallelism on this card at world 1 over NCCL
+    (``tp_group``): ``ep_serving`` (the expert-sharded MoE GPT served
+    meshed and un-meshed, dense and paged graph engines; a2a EP on one
+    layer), ``ring_blocks_one_device`` (ring attention's block loops over
+    four shards of one sequence against K3 and K7 over the whole),
+    ``train_step_on_mesh`` (dp x tp at (1, 1)) and ``gpipe_one_stage``.
+    Each part's launch counts are set to 0 just before it runs and read
+    just after. Fails if any part failed."""
+    t0 = time.perf_counter()
+    res = {"phase": "parallel", "p": 1, "backend": "nccl", "seconds_by_part": {}}
+    mesh, store = tp_group()
+    try:
+        def part(name, fn):
+            t = time.perf_counter()
+            out = fn()
+            res["seconds_by_part"][name] = time.perf_counter() - t
+            res[name] = out[0] if isinstance(out, tuple) else out
+            emit({"phase": "parallel", "part": name, **res[name]})   # each as it ends
+            torch.cuda.empty_cache()
+            return out
+        part("ep_serving", lambda: ep_serving(mesh))
+        part("ring", ring_blocks_one_device)
+        _, model, tokens = part("train", lambda: train_step_on_mesh(mesh))
+        part("gpipe", lambda: gpipe_one_stage(model, tokens))
+        del model, tokens
+        gc.collect()
+        torch.cuda.synchronize()
+    finally:
+        tp_close(store)
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    torch.cuda.empty_cache()
+    failures = {k: res[k]["failures"] for k in ("ring", "train", "gpipe") if res[k]["failures"]}
+    if failures:
+        raise AssertionError(f"parallel: {failures}")
+    return res
 
 
 def sampled_routes_equal(model, kw: dict, make_reqs, label: str, make_engine=graph_engine,
@@ -7014,6 +7692,7 @@ def main() -> None:
         raise AssertionError(f"spec_tv: the sampled round's draws are off the target's "
                              f"distribution: {tv}")
     moe = serve_moe()
+    par = phase_parallel()
     phase_numerics()
     phase_numerics_moe()
     phase_outlier_numerics()
@@ -7168,6 +7847,9 @@ def main() -> None:
         if name in ("softmax", "layernorm", "int8_flash_attention"):
             entry.update({k: t[k] for k in t if k not in entry and k not in
                           ("max_abs_err", "max_rel_err", "shape")})
+        par_counts = parallel_launches(par, ws)
+        if par_counts:
+            entry["launches_parallel"] = par_counts
         kernels.append(entry)
     # the int8 flash attention's pre-pass kernel: a second kernel of its
     # source, with its own launch count

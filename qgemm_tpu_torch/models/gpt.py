@@ -15,12 +15,14 @@ the same objects. The cache extent is exactly what the caller asks for (the
 JAX package rounds it up to 128 rows off the CPU for its TPU kernels; the
 port's kernels mask by length and need no such padding).
 
-``with_tp(mesh)`` gives this rank's model of a quantized one (tensor
-parallelism, ``parallel/``): attention blocks and dense FFNs sharded,
-Megatron's pairing, the head column-sharded over the vocabulary with its
-output gathered (every rank samples from the same full logits), embedding
-and LayerNorms replicated, and an MoE FFN's experts whole on every rank.
-Its caches are head-local.
+``with_tp(mesh)`` gives this rank's model (tensor parallelism,
+``parallel/``; a quantized model for serving, a float one for training
+through ``parallel.sharding.shard_model``): attention blocks and dense FFNs
+sharded, Megatron's pairing, the head column-sharded over the vocabulary
+with its output gathered (every rank samples from the same full logits),
+embedding and LayerNorms replicated, and an MoE FFN's experts sharded over
+the model axis (``parallel/expert.py``: the rank's E/p experts, one SUM a
+layer), or whole where E does not divide it. Its caches are head-local.
 """
 
 from __future__ import annotations
@@ -95,9 +97,17 @@ class GPTBlock(nn.Module):
                         self.ln1, self.ln2)
 
     def with_tp(self, mesh, axis: str = "model") -> "GPTBlock":
-        """The attention block and a dense FFN sharded; an MoE FFN stays
-        whole (its expert-sharded layout is not ported)."""
-        ffn = self.ffn if isinstance(self.ffn, MoEFeedForward) else self.ffn.with_tp(mesh, axis)
+        """The attention block and a dense FFN sharded by Megatron's
+        pairing; an MoE FFN's experts sharded over the axis (JAX's
+        ``("model", None, None)`` for the expert leaves), or the FFN whole
+        where E does not divide it."""
+        if isinstance(self.ffn, MoEFeedForward):
+            from qgemm_tpu_torch.parallel.expert import shard_moe
+            from qgemm_tpu_torch.parallel.mesh import axis_size
+            ffn = (self.ffn if self.ffn.n_experts % axis_size(mesh, axis)
+                   else shard_moe(self.ffn, mesh, axis))
+        else:
+            ffn = self.ffn.with_tp(mesh, axis)
         return GPTBlock(self.attn.with_tp(mesh, axis), ffn, self.ln1, self.ln2)
 
     def forward(self, x, cache=None, cache_index=None):
@@ -170,7 +180,7 @@ class GPT(nn.Module):
     TP_PLAN = {"lm_head": ("column", True)}
 
     def with_tp(self, mesh, axis: str = "model") -> "GPT":
-        """This rank's model of a quantized one (see the module note)."""
+        """This rank's model (see the module note)."""
         head = (shard_by_plan(self, mesh, axis) or {"lm_head": self.lm_head})["lm_head"]
         return GPT(self.embed, [b.with_tp(mesh, axis) for b in self.blocks], self.ln_f, head,
                    self.cfg)

@@ -18,7 +18,11 @@ rank's layer, its codes, scales and bias sliced to its shard, whose forward
 runs the explicit collectives of ``parallel/tp_ops.py``: ``"column"``
 shards N (its output all-gathered, or kept [.., N/p] to feed a row layer),
 ``"row"`` shards K (its input is the rank's [.., K/p] slice, its f32
-partial summed across ranks, the bias added after the sum). A dimension
+partial summed across ranks, the bias added after the sum). A float
+``Linear.with_tp`` shards its weight and bias the same way for training
+and runs the differentiable collectives of ``parallel/collectives.py``
+(Megatron's f on a column layer's input, g after a row layer's product,
+a gather whose backward takes the rank's block). A dimension
 that does not divide the axis leaves the layer whole and replicated, as
 JAX's rule does. Each container of quantized layers states Megatron's
 pairing once, as ``TP_PLAN`` (attribute -> mode, gather_output): its
@@ -62,6 +66,10 @@ class Linear(nn.Module):
         super().__init__()
         self.w = _trainable(w)    # [in_dim, out_dim]
         self.b = _trainable(b)    # [out_dim] or None
+        self.tp_mode = "none"     # "none" | "column" | "row"
+        self.tp_axis = "model"
+        self.gather_output = True
+        self.mesh = None
 
     @classmethod
     def init(cls, generator: torch.Generator, in_dim: int, out_dim: int,
@@ -73,28 +81,73 @@ class Linear(nn.Module):
         return cls(w, b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_mode != "none":
+            return self._tp_forward(x)
         y = torch.matmul(x, self.w.to(x.dtype))
         if self.b is not None:
             y = y + self.b
         return y
+
+    def _tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+        from qgemm_tpu_torch.parallel import collectives as cl
+        mesh, axis = self.mesh, self.tp_axis
+        if self.tp_mode == "column":
+            # the bias is whole after the gather, this rank's block without it
+            y = torch.matmul(cl.copy_to_axis(x, mesh, axis), self.w.to(x.dtype))
+            if self.gather_output:
+                y = cl.gather_last(y, mesh, axis)
+        else:
+            y = cl.reduce_over_axis(torch.matmul(x, self.w.to(x.dtype)), mesh, axis)
+        return y if self.b is None else y + self.b
+
+    @property
+    def leaf_specs(self) -> Dict[str, Tuple]:
+        """Each leaf's sharded dimension in this layer's mode."""
+        return tp_leaf_specs(self.tp_mode, self.gather_output, bits=None)
+
+    def tp_shardable(self, mode: str, p: int) -> bool:
+        """JAX's condition: N % p (column) or K % p (row)."""
+        if mode not in ("column", "row"):
+            raise ValueError(f"unknown tensor-parallel mode {mode!r}")
+        k, n = self.w.shape
+        return (n if mode == "column" else k) % p == 0
+
+    def with_tp(self, mode: str, mesh, axis: str = "model",
+                gather_output: bool = True) -> "Linear":
+        """This rank's shard of the layer for training (see the module
+        note): new trainable parameters holding its block of the weight
+        and, in column mode without the gather, of the bias (at p = 1 they
+        share the layer's storage); or the layer itself, whole, where its
+        dimension does not divide the axis."""
+        from qgemm_tpu_torch.parallel.mesh import axis_rank, axis_size
+        if self.tp_mode != "none":
+            raise ValueError(f"layer is sharded already ({self.tp_mode})")
+        p, r = axis_size(mesh, axis), axis_rank(mesh, axis)
+        if not self.tp_shardable(mode, p):
+            return self
+        col = mode == "column"
+        w = _shard(self.w.detach(), 1 if col else 0, p, r)
+        b = None if self.b is None else self.b.detach()
+        if b is not None and col and not gather_output:
+            b = _shard(b, 0, p, r)
+        out = Linear(w, b)
+        out.tp_mode, out.tp_axis, out.gather_output, out.mesh = mode, axis, gather_output, mesh
+        return out
 
     def quantize(self, outlier_threshold: float = 0.0, outlier_capacity: int = 32,
                  bits: int = 8) -> "QuantizedLinear":
         """``bits=4``: W4A8 weights; ``outlier_threshold > 0``: the outlier
         split at inference. The two compose."""
         check_quantize_options(outlier_threshold, outlier_capacity, bits)
+        if self.tp_mode != "none":
+            raise ValueError("quantize the whole model, then shard it "
+                             "(parallel.sharding.shard_quantized_model)")
         wq = quantize_weights_int4(self.w.data) if bits == 4 \
             else quantize_weights(self.w.data)
         return QuantizedLinear(wq, None if self.b is None else self.b.data,
                                outlier_threshold=outlier_threshold,
                                outlier_capacity=outlier_capacity,
                                in_features=self.w.shape[0])
-
-    def tp_shardable(self, *args, **kw):
-        raise TypeError("tensor parallelism shards quantized layers; quantize the model "
-                        "first (float sharding for training is not ported)")
-
-    with_tp = tp_shardable
 
 
 def _shard(t: torch.Tensor, dim: int, p: int, r: int) -> torch.Tensor:
@@ -103,31 +156,27 @@ def _shard(t: torch.Tensor, dim: int, p: int, r: int) -> torch.Tensor:
     return t.narrow(dim, r * n, n).contiguous()
 
 
-def tp_leaf_specs(mode: str, gather_output: bool = True, bits: int = 8) -> Dict[str, Tuple]:
-    """The sharded dimension of each leaf of a quantized layer in ``mode``,
-    by JAX's leaf names (``wq/q`` [K, N] int8 or ``wq/qp`` [K/2, N] packed
-    int4 codes, ``wq/c`` scales, ``b``) as ``PartitionSpec`` tuples (a leaf
-    not named is replicated): column shards the out dimension of the codes,
-    of the scales and of a bias it keeps sharded (its output not gathered);
-    row the in dimension of the codes and of a W4A8 layer's group scales
-    [K/128, N]."""
+def tp_leaf_specs(mode: str, gather_output: bool = True,
+                  bits: Optional[int] = 8) -> Dict[str, Tuple]:
+    """The sharded dimension of each leaf of a layer in ``mode``, by JAX's
+    leaf names (a float layer's ``w`` [K, N] with ``bits=None``; a
+    quantized one's ``wq/q`` [K, N] int8 or ``wq/qp`` [K/2, N] packed int4
+    codes and ``wq/c`` scales; ``b``) as ``PartitionSpec`` tuples (a leaf
+    not named is replicated): column shards the out dimension of the
+    weight or codes, of the scales and of a bias it keeps sharded (its
+    output not gathered); row the in dimension of the weight or codes and
+    of a W4A8 layer's group scales [K/128, N]."""
     if mode == "none":
         return {}
+    if bits is None:
+        if mode == "column":
+            return {"w": (None, "model"), "b": () if gather_output else ("model",)}
+        return {"w": ("model", None), "b": ()}
     codes = "wq/qp" if bits == 4 else "wq/q"
     if mode == "column":
         return {codes: (None, "model"), "wq/c": (None, "model"),
                 "b": () if gather_output else ("model",)}
     return {codes: ("model", None), "wq/c": ("model", None) if bits == 4 else (), "b": ()}
-
-
-def layer_leaf(path: str) -> Tuple[str, str]:
-    """A leaf path -> (its layer's path, the leaf's name in the layer):
-    ``blocks/0/attn/w_o/wq/c`` -> (``blocks/0/attn/w_o``, ``wq/c``)."""
-    if "/wq/" in path:
-        owner, rest = path.rsplit("/wq/", 1)
-        return owner, "wq/" + rest
-    owner, _, leaf = path.rpartition("/")
-    return owner, leaf
 
 
 def shard_by_plan(module: nn.Module, mesh, axis: str = "model"):

@@ -20,6 +20,11 @@ product runs in TF32 (the router's product is an f32 ``matmul``; callers
 on the card keep ``torch.backends.cuda.matmul.allow_tf32`` False, its
 default).
 
+Expert parallelism (``parallel/expert.py``): ``shard_moe`` gives a rank
+the layer holding only the E/p experts of its coordinate, the router
+whole; its forward runs ``ep_moe_forward`` on the mesh it names (routing
+replicated, the rank's experts, one SUM), and ``tp_mode`` is ``"expert"``.
+
 ``quantize()`` makes per-expert LLM.int8() absmax weights with kernel K9
 (``ops/cuda/col_quantize.py``) and ignores ``bits`` and the outlier
 options, as the JAX package does; the quantized expert FFN runs kernel K8
@@ -80,6 +85,46 @@ def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int, capacity: int):
     dispatch = oh.reshape(top_k, t, e, capacity).sum(0)
     combine = (oh * gates[:, None]).reshape(top_k, t, e, capacity).sum(0)
     return dispatch, combine
+
+
+def dispatch(xf: torch.Tensor, slot: torch.Tensor, top_k: int, n_experts: int,
+             capacity: int) -> torch.Tensor:
+    """Each (choice, token) row of xf [T, d] copied into its flat slot (the
+    slot ``n_experts * capacity`` is a dropped choice's, and is cut off)
+    -> f32 [n_experts, capacity, d], zero where no token landed."""
+    n_slots, d = n_experts * capacity, xf.shape[-1]
+    return xf.new_zeros((n_slots + 1, d)).index_copy(0, slot, xf.repeat(top_k, 1))[
+        :n_slots].reshape(n_experts, capacity, d)
+
+
+def combine(expert_out: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
+            top_k: int) -> torch.Tensor:
+    """Each (choice, token)'s expert output from expert_out [E, C, d] (zero
+    for a slot past the end, a dropped choice's), scaled by its gate, the
+    k choices added in choice order -> [T, d]."""
+    d = expert_out.shape[-1]
+    n_slots = expert_out.shape[0] * expert_out.shape[1]
+    picked = torch.cat([expert_out.reshape(n_slots, d),
+                        expert_out.new_zeros((1, d))]).index_select(0, slot)
+    return (picked * gates[:, None]).reshape(top_k, -1, d).sum(dim=0)
+
+
+def run_experts(expert_in: torch.Tensor, w_up, w_down) -> torch.Tensor:
+    """The experts' FFN on their slots: expert_in f32 [E, C, d] -> f32
+    [E, C, d]; K8 on CUDA when the weights are ``QuantizedExpertWeight``s,
+    the f32 products of ``expert_ffn`` when float."""
+    if isinstance(w_up, QuantizedExpertWeight):
+        return quantized_expert_ffn(expert_in, w_up, w_down)
+    return expert_ffn(expert_in.to(w_up.dtype), w_up, w_down)
+
+
+def expert_leaf_specs(quantized: bool) -> dict:
+    """JAX's sharding rule for an MoE FFN's expert leaves (float [E, ...],
+    or the int8 codes [E, in, out] and scales [E, 1, out]): the expert
+    dimension on the model axis, as ``PartitionSpec`` tuples by leaf name;
+    the router (not named) replicated."""
+    leaves = ("w_up/q", "w_up/c", "w_down/q", "w_down/c") if quantized else ("w_up", "w_down")
+    return {leaf: ("model", None, None) for leaf in leaves}
 
 
 def load_balancing_loss(x: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
@@ -156,6 +201,11 @@ class MoEFeedForward(nn.Module):
         self.top_k = top_k
         self.capacity_factor = capacity_factor
         self.is_quantized = isinstance(w_up, QuantizedExpertWeight)
+        # expert parallelism (``parallel/expert.py``): a rank's layer holds
+        # the E/p experts of its coordinate on the axis
+        self.tp_mode = "none"           # "none" | "expert"
+        self.tp_axis = "model"
+        self.mesh = None
         self.router_w = nn.Parameter(router_w, requires_grad=not self.is_quantized)
         if self.is_quantized:
             for name, wq in (("w_up", w_up), ("w_down", w_down)):
@@ -178,42 +228,50 @@ class MoEFeedForward(nn.Module):
                    top_k=top_k, capacity_factor=capacity_factor)
 
     def expert_weights(self):
-        """(w_up, w_down): float parameters, or ``QuantizedExpertWeight``s."""
+        """(w_up, w_down): float parameters, or ``QuantizedExpertWeight``s
+        (the layer's own experts: a rank's under expert parallelism)."""
         if self.is_quantized:
             return (QuantizedExpertWeight(self.w_up_qt, self.w_up_c),
                     QuantizedExpertWeight(self.w_down_qt, self.w_down_c))
         return self.w_up, self.w_down
 
+    @property
+    def n_local_experts(self) -> int:
+        return self.expert_weights()[0].c.shape[0] if self.is_quantized else self.w_up.shape[0]
+
+    @property
+    def leaf_specs(self):
+        """The expert leaves' specs where this layer holds a rank's experts
+        (``expert_leaf_specs``); nothing sharded otherwise."""
+        return expert_leaf_specs(self.is_quantized) if self.tp_mode == "expert" else {}
+
     def quantize(self, **_qkw) -> "MoEFeedForward":
-        """int8 expert weights (K9). ``bits`` and the outlier options are
-        accepted and ignored, as by the JAX package: they apply to the
-        attention projections and ``lm_head`` only."""
+        """int8 expert weights (K9), keeping the layer's expert placement.
+        ``bits`` and the outlier options are accepted and ignored, as by the
+        JAX package: they apply to the attention projections and
+        ``lm_head`` only."""
         if self.is_quantized:
             return self
-        return MoEFeedForward(self.router_w.data, quantize_expert_weights(self.w_up.data),
-                              quantize_expert_weights(self.w_down.data), top_k=self.top_k,
-                              capacity_factor=self.capacity_factor)
+        out = MoEFeedForward(self.router_w.data, quantize_expert_weights(self.w_up.data),
+                             quantize_expert_weights(self.w_down.data), top_k=self.top_k,
+                             capacity_factor=self.capacity_factor)
+        out.n_experts = self.n_experts
+        out.tp_mode, out.tp_axis, out.mesh = self.tp_mode, self.tp_axis, self.mesh
+        return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [..., d] -> [..., d] in x's dtype. The tokens are flattened
-        row-major, and the capacity follows their count."""
+        row-major, and the capacity follows their count. A rank's layer of
+        an expert-sharded one runs ``ep_moe_forward`` on its mesh."""
+        if self.tp_mode == "expert":
+            from qgemm_tpu_torch.parallel.expert import ep_moe_forward
+            return ep_moe_forward(x, self, self.mesh, self.tp_axis)
         shape = x.shape
-        d = shape[-1]
-        xf = x.reshape(-1, d).to(torch.float32)
-        t = xf.shape[0]
-        cap = _capacity(t, self.n_experts, self.top_k, self.capacity_factor)
+        xf = x.reshape(-1, shape[-1]).to(torch.float32)
+        cap = _capacity(xf.shape[0], self.n_experts, self.top_k, self.capacity_factor)
         slot, gates = route_slots(xf, self.router_w, self.top_k, cap)
-        n_slots = self.n_experts * cap
-        expert_in = xf.new_zeros((n_slots + 1, d)).index_copy(
-            0, slot, xf.repeat(self.top_k, 1))[:n_slots].reshape(self.n_experts, cap, d)
-        w_up, w_down = self.expert_weights()
-        if self.is_quantized:
-            expert_out = quantized_expert_ffn(expert_in, w_up, w_down)
-        else:
-            expert_out = expert_ffn(expert_in.to(w_up.dtype), w_up, w_down)
-        picked = torch.cat([expert_out.reshape(n_slots, d),
-                            expert_out.new_zeros((1, d))]).index_select(0, slot)
-        out = (picked * gates[:, None]).reshape(self.top_k, t, d).sum(dim=0)
+        expert_in = dispatch(xf, slot, self.top_k, self.n_experts, cap)
+        out = combine(run_experts(expert_in, *self.expert_weights()), slot, gates, self.top_k)
         return out.reshape(shape).to(x.dtype)
 
     def aux_loss(self, x: torch.Tensor) -> torch.Tensor:

@@ -15,11 +15,12 @@ the port's kernels mask by length). ``generate`` and ``beam_search`` are
 host loops over ``decode_step``/``decode_logits`` with one read of the
 result at the end (JAX scans them under jit).
 
-``with_tp(mesh)`` gives this rank's model of a quantized one (tensor
-parallelism, ``parallel/``): every attention block (the cross-attention's
-K/V projections too) and FFN sharded, Megatron's pairing, the head
-column-sharded over the vocabulary with its output gathered, embedding and
-LayerNorms replicated.
+``with_tp(mesh)`` gives this rank's model (tensor parallelism,
+``parallel/``; quantized for serving, float for training through
+``parallel.sharding.shard_model``): every attention block (the
+cross-attention's K/V projections too) and FFN sharded, Megatron's
+pairing, the head column-sharded over the vocabulary with its output
+gathered, embedding and LayerNorms replicated.
 """
 
 from __future__ import annotations
@@ -249,7 +250,7 @@ class Transformer(nn.Module):
     TP_PLAN = {"lm_head": ("column", True)}
 
     def with_tp(self, mesh, axis: str = "model") -> "Transformer":
-        """This rank's model of a quantized one (see the module note)."""
+        """This rank's model (see the module note)."""
         head = (shard_by_plan(self, mesh, axis) or {"lm_head": self.lm_head})["lm_head"]
         return Transformer(self.embed, [b.with_tp(mesh, axis) for b in self.enc_blocks],
                            [b.with_tp(mesh, axis) for b in self.dec_blocks], self.ln_enc,

@@ -40,7 +40,7 @@ from qgemm_tpu_torch.ops.quantize import (_EPS, QRANGE, QuantizedWeight, Quantiz
                                           quantized_matmul_prequant_w4)
 from qgemm_tpu_torch.parallel.mesh import axis_rank, axis_size
 
-_KINDS = ("all_reduce_max", "all_reduce_sum", "all_gather")
+_KINDS = ("all_reduce_max", "all_reduce_sum", "all_gather", "all_to_all", "ppermute")
 _COUNTS: Dict[str, int] = {}
 
 
@@ -52,8 +52,10 @@ def reset_collective_counts() -> None:
 
 def collective_counts() -> Dict[str, int]:
     """Collectives this process ran since the last reset, by kind
-    (``all_reduce_max``, ``all_reduce_sum``, ``all_gather``), and the bytes
-    of each kind's payload (``<kind>_bytes``: the input tensor's size)."""
+    (``all_reduce_max``, ``all_reduce_sum``, ``all_gather``, and the
+    differentiable ``all_to_all`` and ``ppermute`` of
+    ``parallel/collectives.py``), and the bytes of each kind's payload
+    (``<kind>_bytes``: the input tensor's size)."""
     return dict(_COUNTS)
 
 
@@ -65,14 +67,15 @@ def add_collective_counts(delta: Dict[str, int]) -> None:
 reset_collective_counts()
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def count_collective(kind: str, t: torch.Tensor) -> None:
+    """Count one collective of ``kind`` whose payload is ``t``."""
     _COUNTS[kind] += 1
     _COUNTS[kind + "_bytes"] += t.numel() * t.element_size()
 
 
 def all_reduce_max_(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """In place: the elementwise max of ``t`` over the axis."""
-    _count("all_reduce_max", t)
+    count_collective("all_reduce_max", t)
     with torch.no_grad():   # the quantized products carry no gradient
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
     return t
@@ -80,7 +83,7 @@ def all_reduce_max_(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
 
 def all_reduce_sum_(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """In place: the sum of ``t`` over the axis."""
-    _count("all_reduce_sum", t)
+    count_collective("all_reduce_sum", t)
     with torch.no_grad():
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
     return t
@@ -92,7 +95,7 @@ def all_gather_last(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     p = axis_size(mesh, axis)
     lead, n = t.shape[:-1], t.shape[-1]
     src = t.reshape(-1, n).contiguous()
-    _count("all_gather", src)
+    count_collective("all_gather", src)
     out = torch.empty((p * src.shape[0], n), dtype=t.dtype, device=t.device)
     with torch.no_grad():
         dist.all_gather_into_tensor(out, src, group=mesh.get_group(axis))

@@ -11,7 +11,8 @@ loads the other's. The tree is any of the port's models — ``GPT``,
 
 The sharded flavor (``save_checkpoint_sharded``/``load_checkpoint_sharded``)
 serves tensor-parallel models: rank r writes ``proc{r}.npz`` holding its
-shards of its local model (``parallel.sharding.shard_quantized_model``),
+shards of its local model (``parallel.sharding.shard_quantized_model``, or
+``shard_model`` for a float one; an MoE FFN's experts by their block),
 keyed as JAX keys a shard, by the global path and its global ``start:stop``
 span per dimension (``blocks/0/attn/wqkv_q/wq/q@0:64,32:64``); replicated
 leaves go under their whole span on every rank. The union of the ranks'
@@ -30,7 +31,7 @@ import torch.distributed as dist
 from torch import nn
 
 from qgemm_tpu_torch.models.gpt import GPT
-from qgemm_tpu_torch.models.linear import QuantizedLinear, layer_leaf
+from qgemm_tpu_torch.models.linear import QuantizedLinear
 from qgemm_tpu_torch.models.mlp import MLP
 from qgemm_tpu_torch.models.transformer import Transformer
 from qgemm_tpu_torch.utils.interop import (DTYPE_TAG, gpt_from_jax_params, gpt_leaves,
@@ -120,28 +121,28 @@ def tree_leaves(model: Model) -> Dict[str, torch.Tensor]:
 def _shard_key(path: str, t: torch.Tensor, layer, leaf: str) -> str:
     """JAX's shard key: the path and the leaf's global span per dimension.
     A leaf of a sharded layer spans rank r's block along the dimension the
-    layer's mode shards (``tp_leaf_specs``); any other leaf spans its whole
-    shape."""
+    layer's mode shards (``tp_leaf_specs``, an MoE layer's expert
+    dimension); any other leaf spans its whole shape."""
     from qgemm_tpu_torch.parallel.mesh import axis_rank
     shape = tuple(t.shape)
     spec = layer.leaf_specs.get(leaf, ()) if layer is not None else ()
     r = axis_rank(layer.mesh, layer.tp_axis) if spec else 0
     spans = []
     for d, n in enumerate(shape):
-        start = r * n if d < len(spec) and spec[d] == "model" else 0
+        start = r * n if d < len(spec) and spec[d] is not None else 0
         spans.append(f"{start}:{start + n}")
     return f"{path}@{','.join(spans)}"
 
 
 def _shard_keys(model: Model) -> Dict[str, str]:
-    """Leaf path -> shard key for every leaf of a local model."""
+    """Leaf path -> shard key for every leaf of a local model: each leaf's
+    span from the layer that owns it (a linear layer, float or quantized,
+    or an MoE FFN), by the layer's mode."""
+    from qgemm_tpu_torch.parallel.sharding import _owner
     layers = {name.replace(".", "/"): m for name, m in model.named_modules()
-              if isinstance(m, QuantizedLinear)}
-    keys = {}
-    for path, t in tree_leaves(model).items():
-        owner, leaf = layer_leaf(path)
-        keys[path] = _shard_key(path, t, layers.get(owner), leaf)
-    return keys
+              if hasattr(m, "leaf_specs")}
+    return {path: _shard_key(path, t, *_owner(path, layers))
+            for path, t in tree_leaves(model).items()}
 
 
 def _process_file(dirpath: str) -> str:

@@ -66,10 +66,15 @@ def test_port_imports_no_jax():
               "qgemm_tpu_torch.examples.train_mnist", "qgemm_tpu_torch.examples.serve_gpt",
               "qgemm_tpu_torch.examples.quantize_demo", "qgemm_tpu_torch.parallel",
               "qgemm_tpu_torch.parallel.mesh", "qgemm_tpu_torch.parallel.tp_ops",
-              "qgemm_tpu_torch.parallel.sharding"):
+              "qgemm_tpu_torch.parallel.sharding", "qgemm_tpu_torch.parallel.collectives",
+              "qgemm_tpu_torch.parallel.expert", "qgemm_tpu_torch.parallel.ring_attention",
+              "qgemm_tpu_torch.parallel.ulysses", "qgemm_tpu_torch.parallel.pipeline",
+              "qgemm_tpu_torch.parallel.dryrun"):
         assert m in mods, m
+    # the worker modules the tests' spawned ranks import (tests/) too
     code = ("import importlib, sys\n"
-            f"for m in {mods!r} + ['chip_smoke']:\n"
+            "sys.path.insert(0, 'tests')\n"
+            f"for m in {mods!r} + ['chip_smoke', 'torch_tp_workers', 'torch_parallel_workers']:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'qgemm_tpu' or m.startswith('qgemm_tpu.')]\n"

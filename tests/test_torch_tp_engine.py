@@ -3,7 +3,7 @@
 worlds of 2 and 4 over gloo. Greedy transcripts equal the port's unsharded
 engine's in every mode (dense float and int8 KV, paged int8 with prefix
 caching and chunked admission, paged int4 over-committed, speculative
-dense and paged, GQA, MoE with experts whole, the native scheduler), and
+dense and paged, GQA, MoE with its experts sharded, the native scheduler), and
 JAX's tensor-parallel engine's on make_mesh((1, p)) in every mode with a
 float cache (dense, speculative dense, GQA, MoE): with the int8 cache
 JAX's jitted step rounds other than op by op (test_torch_engine.py), and

@@ -98,8 +98,11 @@ def _expected(name, p):
         ffn = ffn and (cfg["d_ff"] // 128) % p == 0
     head = cfg["vocab_size"] % p == 0
     rows = cfg["n_layers"] * (attn + ffn)
+    # an MoE block's experts sharded over the axis: one SUM of the partials
+    experts = cfg["n_layers"] * int(cfg.get("n_experts", 1) % p == 0 and not ffn)
     int8 = qkw.get("bits", 8) == 8 or "outlier_threshold" in qkw
-    return attn, ffn, head, dict(all_reduce_max=rows if int8 else 0, all_reduce_sum=rows,
+    return attn, ffn, head, dict(all_reduce_max=rows if int8 else 0,
+                                 all_reduce_sum=rows + experts,
                                  all_gather=int(head) + ("outlier_threshold" in qkw) * rows)
 
 
@@ -107,7 +110,8 @@ def _expected(name, p):
 def test_tp_layers_sharded_and_collectives_counted(world, name):
     """Megatron's pairing where the shapes divide p, whole layers where
     they do not; 4 all-reduces a dense block (a MAX and a SUM after W_O and
-    after FFN-down), 2 an MoE block (experts whole), one gather a forward
+    after FFN-down), 3 an MoE block (a MAX and a SUM after W_O, the
+    experts' SUM: the experts sharded), one gather a forward
     (the head), plus one gather of column maxima a row layer with
     outliers."""
     p, ranks = world
@@ -140,13 +144,13 @@ def test_sharding_spec_matches_jax_rules():
     """model_sharding_spec, read from the containers' TP_PLAN and each
     mode's leaf specs (those the sharded checkpoints key by), gives JAX's
     PartitionSpecs (as tuples) for every leaf of a dense int8, a W4A8 (row
-    layers' group scales sharded) and a GQA GPT; an MoE GPT's experts stay
-    whole."""
+    layers' group scales sharded), a GQA and an MoE GPT (the expert leaves
+    sharded on E, the router replicated)."""
     from jax.sharding import PartitionSpec as P
 
     from qgemm_tpu.parallel.sharding import model_sharding_spec as j_spec
     from qgemm_tpu.utils.checkpoint import _path_key
-    for name in ("int8", "w4a8", "gqa"):
+    for name in ("int8", "w4a8", "gqa", "moe"):
         jm, cfg, _ = _jax_model(name)
         jspec = {_path_key(p): s for p, s in jax.tree_util.tree_flatten_with_path(
             j_spec(jm), is_leaf=lambda x: isinstance(x, P))[0]}
@@ -155,12 +159,12 @@ def test_sharding_spec_matches_jax_rules():
         assert set(spec) == set(jspec), name
         for k, s in spec.items():
             assert s == tuple(jspec[k]), (name, k)
-    assert spec["blocks/0/attn/w_o/wq/c"] == ()
-    jm, cfg, _ = _jax_model("moe")
-    spec = model_sharding_spec(gpt_from_jax_params(jax_params(jm), GPTConfig(**cfg),
-                                                   device="cpu"))
-    assert spec["blocks/0/ffn/w_up/q"] == ()   # experts whole
-    assert spec["blocks/0/attn/wqkv_q/wq/q"] == (None, "model")
+        if name == "moe":
+            assert spec["blocks/0/ffn/w_up/q"] == ("model", None, None)
+            assert spec["blocks/0/ffn/router_w"] == ()
+            assert spec["blocks/0/attn/wqkv_q/wq/q"] == (None, "model")
+        elif name != "w4a8":   # int8 row layers' scales stay whole
+            assert spec["blocks/0/attn/w_o/wq/c"] == ()
 
 
 class _Mesh:
@@ -181,15 +185,26 @@ class _Mesh:
 def test_with_tp_slices_each_ranks_shard_and_refuses_float():
     """Rank r's layers hold block r of the columns (QKV, FFN-up, the head:
     codes, scales and the bias kept sharded) or of K (W_O, FFN-down: whole
-    scales and bias); a float model raises TypeError; a W4A8 row layer
-    whose true K is unknown stays whole."""
+    scales and bias); a W4A8 row layer whose true K is unknown stays whole.
+    A float model, refused before float sharding was ported, is sliced the
+    same way (its weights and the kept-sharded bias) for training."""
     import torch
 
     from qgemm_tpu_torch.models.gpt import GPT
     from qgemm_tpu_torch.models.linear import Linear
     cfg = GPTConfig(**BASE)
-    with pytest.raises(TypeError, match="quantize"):
-        GPT.init(cfg, device="cpu").with_tp(_Mesh(2, 0))
+    fl = GPT.init(cfg, device="cpu")
+    for r in range(2):
+        local = fl.with_tp(_Mesh(2, r))
+        a, fa = local.blocks[0].attn, fl.blocks[0].attn
+        assert (a.wqkv_q.tp_mode, a.w_o.tp_mode) == ("column", "row")
+        assert torch.equal(a.wqkv_q.w, fa.wqkv_q.w[:, 16 * r:16 * (r + 1)])
+        assert torch.equal(a.w_o.w, fa.w_o.w[16 * r:16 * (r + 1)])
+        f, ff = local.blocks[0].ffn, fl.blocks[0].ffn
+        assert torch.equal(f.up.b, ff.up.b[32 * r:32 * (r + 1)])
+        assert torch.equal(f.down.b, ff.down.b)
+        assert local.lm_head.w.shape == (32, 48) and local.lm_head.gather_output
+        assert all(p.requires_grad for p in local.parameters())
     full = GPT.init(cfg, device="cpu").quantize()
     for r in range(2):
         local = full.with_tp(_Mesh(2, r))
