@@ -79,14 +79,25 @@ layer a decode step), runs all-to-all expert parallelism on one layer,
 ring attention's block loops over four shards of an S 8192 sequence on
 the card against K3 and K7 over the whole sequence (K3 and K7 once per
 visible block), the data x model Adam step of the ``train`` model bit for
-bit to the un-meshed step, and GPipe at one stage. Each phase
+bit to the un-meshed step, and GPipe at one stage. ``surface`` (after
+``decode_graph``) holds the names the port gained for the JAX package's
+surface: ``backend=`` of the four public int8 matmuls at 2048^3 ("kernel"
+and "auto" equal bits through K1, or K9 and K1; "plain" no counted launch,
+within 1e-6 of the largest output), ``matmul_fn`` on the outlier route,
+and ``utils.profiling.trace`` around 4 steady graph decode steps of
+``decode_graph``'s dense int8 engine (the trace file must name K1's GEMV,
+its pre-pass, K2 and the graph launches). ``dryrun`` (after ``parallel``)
+runs the port's ``run_dryrun`` at world 1 over NCCL: every section but the
+two MoE ones, which need two experts, and K1, K3, K4, K5, K6 and K7 must
+launch. Each phase
 prints one JSON line; the last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is nonzero. Needs one CUDA device; exits nonzero without one.
 Uses no JAX.
 
     python3 chip_smoke.py --tp-faults    # planted faults of the TP route, each caught
     python3 chip_smoke.py --tp-cards N   # N ranks on N cards against one card, faults planted;
-                                         # then ring, Ulysses, EP, dp x tp and GPipe across them
+                                         # then ring, Ulysses, EP, dp x tp and GPipe across them;
+                                         # then run_dryrun across them, the ranks agreeing
     python3 chip_smoke.py --only PHASE[,PHASE...]
 
 builds the kernels and runs only the named phases (``shape_limits``,
@@ -2443,6 +2454,8 @@ def phase_decode_graph() -> dict:
             if route == "graph_ms4":
                 ms4 = (reqs, run, runs[route]["stats"])
             profiles[route] = profile_decode(engine, np.random.default_rng(8), host_window=True)
+            if (label, route) == ("dense_int8", "graph"):   # the surface phase's trace
+                res["surface_trace"] = traced_decode(engine, profiles[route])
             del engine
             torch.cuda.empty_cache()
         want = runs["eager"]
@@ -3196,6 +3209,7 @@ def tp_cards(n: int) -> None:
                              f"{TP_CARDS_LOGIT_RTOL}), first tokens flipped off a near tie: "
                              f"{bad}, planted faults not caught: {missed}")
     parallel_cards(n)
+    dryrun_cards(n)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
@@ -3796,6 +3810,286 @@ def phase_parallel() -> dict:
     failures = {k: res[k]["failures"] for k in ("ring", "train", "gpipe") if res[k]["failures"]}
     if failures:
         raise AssertionError(f"parallel: {failures}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's surface on the card, and the port's dryrun
+# ---------------------------------------------------------------------------
+
+SURFACE_TRACE_STEPS = 4
+# the kernel families the traced decode step must show: K1's GEMV and its
+# pre-pass, K2 (DECODE_FAMILIES' names, those device_spans reads)
+SURFACE_TRACE_FAMILIES = ("gemv", "gemm_prepass", "dense_decode")
+GRAPH_LAUNCH_NAMES = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def traced_decode(engine, profiled: dict) -> dict:
+    """``utils.profiling.trace`` around ``SURFACE_TRACE_STEPS`` steady
+    decode steps of a graph engine with every slot busy. The trace file
+    must name the kernels of ``SURFACE_TRACE_FAMILIES`` and the decode
+    graph's launches (``GRAPH_LAUNCH_NAMES``, the host calls that replay
+    it); its device time a step (the union of its kernel intervals) is
+    reported beside ``profile_decode``'s for the same engine
+    (``profiled``), not judged."""
+    from qgemm_tpu_torch.serving.engine import Request
+    from qgemm_tpu_torch.utils.profiling import trace
+    rng = np.random.default_rng(9)
+    for _ in range(engine.max_slots):
+        engine.submit(Request(prompt=long_prompt(rng, engine.model.cfg.vocab_size),
+                              max_new_tokens=SURFACE_TRACE_STEPS + 8))
+    for _ in range(3):          # admits every slot, then two warm steps
+        engine.step()
+    if engine.book.num_active != engine.max_slots:
+        raise AssertionError("surface trace: not every slot is decoding")
+    log_dir = Path(__file__).resolve().parent / "build" / f"trace.{os.getpid()}"
+    t0 = time.perf_counter()
+    with trace(str(log_dir)) as t:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(SURFACE_TRACE_STEPS):
+            engine.step()
+        torch.cuda.synchronize()
+        steps_ms = (time.perf_counter() - t1) * 1e3
+    context_ms = (time.perf_counter() - t0) * 1e3
+    if engine.book.num_active != engine.max_slots:
+        raise AssertionError("surface trace: a slot finished inside the window")
+    engine.run_to_completion()
+    file_bytes = os.path.getsize(t.path)
+    with open(t.path) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(log_dir, ignore_errors=True)
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["name"]) for e in events
+                   if e.get("cat") == "kernel")
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:        # union of the kernels' intervals, as device_spans
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    fams = {fam: sum(us for name, us in by_name.items() if any(p in name for p in pats))
+            / 1e3 / SURFACE_TRACE_STEPS for fam, pats in DECODE_FAMILIES.items()}
+    graph_launches = sum(1 for e in events if e.get("name", "").startswith(GRAPH_LAUNCH_NAMES))
+    res = {"steps": SURFACE_TRACE_STEPS, "file_bytes": file_bytes, "events": len(events),
+           "kernel_events": len(spans), "graph_launches": graph_launches,
+           "kernel_ms_per_step": busy_us / 1e3 / SURFACE_TRACE_STEPS,
+           "profile_decode_kernel_ms_per_step": profiled["kernel_ms_per_step"],
+           "wall_ms_per_step_traced": steps_ms / SURFACE_TRACE_STEPS,
+           # the profiler's start and stop and the file's export included
+           "context_wall_ms": context_ms,
+           "profile_decode_wall_ms_per_step_untraced": profiled["wall_ms_per_step_untraced"],
+           "family_ms_per_step": fams}
+    res["failures"] = [f"no {fam} kernel in the trace" for fam in SURFACE_TRACE_FAMILIES
+                       if not fams[fam]]
+    if graph_launches < SURFACE_TRACE_STEPS:
+        res["failures"].append(f"{graph_launches} graph launches in the trace, "
+                               f"{SURFACE_TRACE_STEPS} steps")
+    return res
+
+
+def backend_checks() -> dict:
+    """``backend=`` of the four public int8 matmuls at bench.py's 2048^3
+    (``phase_gemm_protocol``'s operands; the outlier routes on x with
+    the dims of ``OUTLIER_DIMS`` below 2048 scaled by 20, past the 6.0
+    threshold): "kernel" and
+    "auto" give equal bits and launch their kernels (K1; K9 and K1 for the
+    dynamic products), "plain" launches no counted kernel and stays within
+    ``gemm_protocol``'s rule of the kernel's result (1e-6 of its largest
+    output); ``matmul_fn`` set to the prequant product gives the outlier
+    route's bits; "kernel" on a CPU tensor and an unknown backend raise."""
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.ops.quantize import (quantize_weights, quantized_matmul,
+                                              quantized_matmul_outlier,
+                                              quantized_matmul_prequant,
+                                              quantized_matmul_prequant_outlier)
+    m = n = k = 2048
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    x = torch.rand((m, k), generator=g, device="cuda") * 2 - 1
+    w = torch.rand((k, n), generator=g, device="cuda") * 2 - 1
+    xo = x.clone()
+    xo[:, [d for d in OUTLIER_DIMS if d < k]] *= 20.0
+    wq = quantize_weights(w)
+    k1, k9 = {"quantized_matmul": 1}, {"col_quantize": 1, "quantized_matmul": 1}
+    cases = {"quantized_matmul_prequant": (
+                 lambda b: quantized_matmul_prequant(x, wq, backend=b), k1),
+             "quantized_matmul": (lambda b: quantized_matmul(x, w, backend=b), k9),
+             "quantized_matmul_prequant_outlier": (
+                 lambda b: quantized_matmul_prequant_outlier(xo, wq, backend=b), k1),
+             "quantized_matmul_outlier": (
+                 lambda b: quantized_matmul_outlier(xo, w, backend=b), k9)}
+
+    def launched(fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {kk: v for kk, v in kernels.launch_counts().items() if v}
+
+    res, failures = {"m": m, "n": n, "k": k, "rows": {}}, []
+    for name, (fn, want) in cases.items():
+        got = {b: launched(lambda: fn(b)) for b in ("kernel", "auto", "plain")}
+        ref = got["kernel"][0]
+        row = {f"{b}_launches": got[b][1] for b in got}
+        row.update(kernel_equals_auto=bool(torch.equal(ref, got["auto"][0])),
+                   plain_max_abs_err=max_err(got["plain"][0], ref),
+                   plain_tolerance=1e-6 * float(ref.abs().max()))
+        if row["kernel_launches"] != want or row["auto_launches"] != want:
+            failures.append(f"{name}: kernel/auto launched {row['kernel_launches']}, "
+                            f"{row['auto_launches']}, not {want}")
+        if row["plain_launches"]:
+            failures.append(f"{name}: plain launched {row['plain_launches']}")
+        if not row["kernel_equals_auto"] or row["plain_max_abs_err"] > row["plain_tolerance"]:
+            failures.append(f"{name}: {row}")
+        res["rows"][name] = row
+        del got, ref
+    routed, route_launches = launched(lambda: quantized_matmul_prequant_outlier(
+        xo, wq, matmul_fn=quantized_matmul_prequant))
+    res["matmul_fn"] = {"equals_the_route": bool(torch.equal(
+        routed, quantized_matmul_prequant_outlier(xo, wq))), "launches": route_launches}
+    if not res["matmul_fn"]["equals_the_route"] or route_launches != k1:
+        failures.append(f"matmul_fn: {res['matmul_fn']}")
+    xc, wc = x[:8, :64].cpu(), w[:64, :16].cpu()
+    calls = {"quantized_matmul_prequant": lambda b: quantized_matmul_prequant(
+                 xc, quantize_weights(wc), backend=b),
+             "quantized_matmul": lambda b: quantized_matmul(xc, wc, backend=b),
+             "quantized_matmul_prequant_outlier": lambda b: quantized_matmul_prequant_outlier(
+                 xc, quantize_weights(wc), backend=b),
+             "quantized_matmul_outlier": lambda b: quantized_matmul_outlier(xc, wc, backend=b)}
+    raised = {}
+    for name, fn in calls.items():
+        for b, err in (("kernel", RuntimeError), ("xla", ValueError)):
+            try:
+                fn(b)
+                raised[f"{name} {b} on cpu"] = False
+            except err:
+                raised[f"{name} {b} on cpu"] = True
+    try:
+        quantized_matmul_prequant(x, wq, backend="pallas")
+        raised["quantized_matmul_prequant pallas on cuda"] = False
+    except ValueError:
+        raised["quantized_matmul_prequant pallas on cuda"] = True
+    res["raised"] = raised
+    failures += [f"{case} did not raise" for case, r in raised.items() if not r]
+    res["failures"] = failures
+    return res
+
+
+def phase_surface(trace_reading: Optional[dict] = None) -> dict:
+    """The names the port gained for the JAX package's surface, on the
+    card: ``backend_checks`` and ``profiling.trace`` around steady decode
+    steps of the main path's graph engine (``traced_decode``; in the whole
+    script taken inside ``decode_graph`` on its dense int8 graph engine and
+    passed as ``trace_reading``, alone on an engine of its own). Fails on
+    any failure."""
+    t0 = time.perf_counter()
+    res = {"phase": "surface", "backend": backend_checks()}
+    if trace_reading is None:
+        from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+        model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
+        engine = graph_engine(model, "graph", DENSE_ENGINE)
+        trace_reading = traced_decode(engine, profile_decode(engine, np.random.default_rng(8)))
+        del engine, model
+        torch.cuda.empty_cache()
+    res["trace"] = trace_reading
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    failures = res["backend"]["failures"] + res["trace"]["failures"]
+    if failures:
+        raise AssertionError(f"surface: {failures}")
+    return res
+
+
+# the kernels the dryrun must launch at world 1 (their wrappers' counts
+# summed); K2, K8 and K9 are reported beside them
+DRYRUN_MUST_LAUNCH = ("quantized_matmul", "flash_attention", "w4a8_matmul",
+                      "paged_decode_attention", "paged_context_attention",
+                      "flash_attention_bwd")
+# each kernel's launch counters, by ``launch_counts``' names
+KERNEL_WRAPPERS = {"paged_decode_attention": ("paged_decode_attention",
+                                              "paged_decode_attention_ragged")}
+# the dryrun's readings every rank must hold alike (tests/test_torch_dryrun.py)
+DRYRUN_REPLICATED = ("train_loss", "pipeline_loss", "ep_loss", "prefix_hits", "preemptions",
+                     "tp_column_err", "tp_row_err", "moe_sections")
+
+
+def kernel_launches(counts: dict, name: str) -> int:
+    return sum(counts.get(w, 0) for w in KERNEL_WRAPPERS.get(name, (name,)))
+
+
+def phase_dryrun() -> dict:
+    """``parallel/dryrun.run_dryrun`` (JAX's ``dryrun_multichip``) at
+    world 1 over NCCL (``tp_group``), every section through the kernels:
+    the launch counts are set to 0 just before it and read just after, and
+    each kernel of ``DRYRUN_MUST_LAUNCH`` must have launched (a zero would
+    say a section took a plain route on the card). The two MoE sections
+    need two experts and run only across cards (``--tp-cards``)."""
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.parallel.dryrun import run_dryrun
+    t0 = time.perf_counter()
+    _, store = tp_group()
+    try:
+        kernels.reset_launch_counts()
+        readings = run_dryrun()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        gc.collect()    # the engines' decode graphs, before the group goes
+        torch.cuda.synchronize()
+    finally:
+        tp_close(store)
+    res = {"phase": "dryrun", "p": 1, "backend": "nccl", "readings": readings,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(res)
+    torch.cuda.empty_cache()
+    missing = [k for k in DRYRUN_MUST_LAUNCH if not kernel_launches(launches, k)]
+    if missing:
+        raise AssertionError(f"dryrun: no launch of {missing} at world 1: {launches}")
+    return res
+
+
+def dryrun_cards_worker(rank: int, world: int, out: str) -> None:
+    """One rank of ``--tp-cards``' third world: ``run_dryrun`` across the
+    cards, its launch counts set to 0 just before it; writes the readings."""
+    from qgemm_tpu_torch.ops import cuda as kernels
+    from qgemm_tpu_torch.parallel.dryrun import run_dryrun
+    t = time.perf_counter()
+    kernels.reset_launch_counts()
+    readings = run_dryrun()
+    torch.cuda.synchronize()
+    res = {"rank": rank, "readings": readings, "seconds": time.perf_counter() - t,
+           "launches": {k: v for k, v in kernels.launch_counts().items() if v}}
+    with open(Path(out) / f"dryrun_cards-{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def dryrun_cards(n: int) -> dict:
+    """``run_dryrun`` on ``n`` cards, one rank each (JAX's
+    ``dryrun_multichip(n)``): every rank must pass, hold the MoE sections,
+    launch K8 and the kernels of ``DRYRUN_MUST_LAUNCH``, and agree with
+    the others on every reading of ``DRYRUN_REPLICATED``."""
+    from qgemm_tpu_torch.utils.testing import run_world
+    out = Path(__file__).resolve().parent / "build" / f"dryrun_cards.{os.getpid()}"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        run_world(dryrun_cards_worker, n, str(out), str(out), device=None, timeout=400)
+    except TimeoutError:
+        emit({"phase": "dryrun_cards", "timed_out": True, "ranks_written": {
+            f.name: json.loads(f.read_text()) for f in sorted(out.glob("dryrun_cards-*"))}})
+        raise
+    ranks = [json.loads((out / f"dryrun_cards-{r}.json").read_text()) for r in range(n)]
+    shutil.rmtree(out, ignore_errors=True)
+    res = {"phase": "dryrun_cards", "p": n, "seconds": time.perf_counter() - t0,
+           "ranks": ranks}
+    emit(res)
+    first = ranks[0]["readings"]
+    bad = [k for k in DRYRUN_REPLICATED
+           if any(r["readings"][k] != first[k] for r in ranks)]
+    for r in ranks:
+        bad += [(r["rank"], k) for k in DRYRUN_MUST_LAUNCH + ("expert_matmul",)
+                if not kernel_launches(r["launches"], k)]
+        if not r["readings"]["moe_sections"]:
+            bad.append((r["rank"], "MoE sections left out"))
+    if bad:
+        raise AssertionError(f"dryrun_cards: {bad}")
     return res
 
 
@@ -7686,6 +7980,7 @@ def main() -> None:
           unused=("w4a8_matmul",), outliers=True)
     paged8, paged4 = serve_paged()
     graphs = phase_decode_graph()
+    phase_surface(graphs["surface_trace"])
     spec = phase_spec()
     tv = spec_tv()
     if not tv["ok"]:
@@ -7693,6 +7988,7 @@ def main() -> None:
                              f"distribution: {tv}")
     moe = serve_moe()
     par = phase_parallel()
+    dry = phase_dryrun()
     phase_numerics()
     phase_numerics_moe()
     phase_outlier_numerics()
@@ -7714,9 +8010,7 @@ def main() -> None:
                 "softmax": "qgemm_tpu/ops/pallas/softmax.py:30",
                 "layernorm": "qgemm_tpu/ops/pallas/layernorm.py:30",
                 "int8_flash_attention": "qgemm_tpu/ops/pallas/int8_flash_attention.py:45"}
-    # each kernel's wrappers: K5 has two entries, each with its own count
-    wrappers = {"paged_decode_attention": ("paged_decode_attention",
-                                           "paged_decode_attention_ragged")}
+    wrappers = KERNEL_WRAPPERS
     # the native-scheduled twins' launches in all (each equal to its Python
     # twin's), the MNIST int8 forward's and the quantize demo's
     twins = {"serving_int8": int8["native_twin"],
@@ -7850,6 +8144,7 @@ def main() -> None:
         par_counts = parallel_launches(par, ws)
         if par_counts:
             entry["launches_parallel"] = par_counts
+        entry["launches_dryrun"] = kernel_launches(dry["launches"], name)
         kernels.append(entry)
     # the int8 flash attention's pre-pass kernel: a second kernel of its
     # source, with its own launch count

@@ -20,7 +20,12 @@ On CUDA tensors the serving matmuls run kernel K1
 (``ops/cuda/quantized_matmul.py``) and kernel K4
 (``ops/cuda/w4a8_matmul.py``), and the dynamic matmul column-quantizes its
 weight with kernel K9 (``ops/cuda/col_quantize.py``); on CPU tensors their
-plain versions.
+plain versions. The public matmuls take the JAX package's ``backend``
+under the port's names (``BACKENDS``): ``"auto"`` is that rule, ``"kernel"``
+(JAX's ``"pallas"``) launches the kernel and raises on a CPU tensor, and
+``"plain"`` (JAX's ``"xla"``) runs the plain PyTorch composition on the
+tensor's own device, launching no kernel. Any other string raises
+``ValueError`` (JAX takes it as ``"xla"``).
 """
 
 from __future__ import annotations
@@ -40,6 +45,18 @@ W4RANGE = 7.0
 GROUP = 128     # int4 weight scale group along K
 W4_SLAB = 2048  # widest K slab sharing one W4A8 activation scale
 _EPS = 1e-12  # guards all-zero rows/cols (scale would be inf)
+BACKENDS = ("auto", "kernel", "plain")
+
+
+def _runs_kernel(x: torch.Tensor, backend: str) -> bool:
+    """Whether a matmul on ``x`` launches its kernel under ``backend``
+    (see the module note); raises on an unknown backend, and on
+    ``"kernel"`` for a tensor off the card."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: expected one of {BACKENDS}")
+    if backend == "kernel" and not x.is_cuda:
+        raise RuntimeError(f"backend='kernel' launches a CUDA kernel; x is on {x.device}")
+    return backend != "plain" and x.is_cuda
 
 
 def absmax_scales(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -143,7 +160,8 @@ def quantized_matmul_xla(x: torch.Tensor, w: torch.Tensor, rounding: str = "near
 
 def quantized_matmul_prequant(x: torch.Tensor, wq: QuantizedWeight,
                               rounding: str = "nearest",
-                              cx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              cx: Optional[torch.Tensor] = None,
+                              backend: str = "auto") -> torch.Tensor:
     """Serving path: weights already int8, activations quantized per call.
     x [m, k] float -> f32 [m, n]. CPU tensors run the plain version; CUDA
     tensors launch K1 (x f32 or bf16) or raise. A k that is not a multiple
@@ -153,7 +171,8 @@ def quantized_matmul_prequant(x: torch.Tensor, wq: QuantizedWeight,
     quantize x on these row scales instead of its own absmax — a
     row-parallel shard passes the absmax of the whole row, all-reduced
     (``parallel/tp_ops.py``). Given x's own absmax (floored at 1e-12) it
-    returns the same bits as without."""
+    returns the same bits as without. ``backend``: see the module note."""
+    kernel = _runs_kernel(x, backend)
     check_matmul_2d(x, wq.q, "x", "wq.q")
     check_float("x", x)
     check_dtype("wq.q", wq.qt, torch.int8)
@@ -166,7 +185,7 @@ def quantized_matmul_prequant(x: torch.Tensor, wq: QuantizedWeight,
               f"cx: expected row scales ({x.shape[0]}, 1), got {tuple(cx.shape)}")
         check_dtype("cx", cx, torch.float32)
         check(cx.device == x.device, f"cx is on {cx.device}, x on {x.device}")
-    if not x.is_cuda:
+    if not kernel:
         return quantized_matmul_plain(x, wq, rounding, cx)
     check(x.dtype in _k1.X_DTYPES, f"x: K1 takes float32 or bfloat16, got {x.dtype}")
     kp = k_tile(x.shape[1])
@@ -174,19 +193,23 @@ def quantized_matmul_prequant(x: torch.Tensor, wq: QuantizedWeight,
                                      cx=cx)
 
 
-def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
-                     rounding: str = "nearest") -> torch.Tensor:
+def quantized_matmul(x: torch.Tensor, w: torch.Tensor, rounding: str = "nearest",
+                     backend: str = "auto") -> torch.Tensor:
     """Dynamic quantized matmul: quantizes BOTH operands on the fly. W is
     column-quantized in f32, as the JAX Pallas path does (K9 on CUDA
     tensors), then K1 runs as on the serving path. x [m, k], w [k, n]
-    float."""
+    float. ``backend="plain"`` runs ``quantized_matmul_xla``."""
+    _runs_kernel(x, backend)
     check_matmul_2d(x, w)
     check_float("x", x)
     check_float("w", w)
+    if backend == "plain":
+        return quantized_matmul_xla(x, w, rounding=rounding)
     # K9 reads f32 or bf16 and upcasts in registers; other floats go to f32 here
     qt, c = col_quantize(w if w.dtype == torch.bfloat16 else w.to(torch.float32),
                          rounding=rounding)
-    return quantized_matmul_prequant(x, QuantizedWeight(qt=qt, c=c), rounding=rounding)
+    return quantized_matmul_prequant(x, QuantizedWeight(qt=qt, c=c), rounding=rounding,
+                                     backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -269,12 +292,14 @@ def quantize_weights_int4(w: torch.Tensor) -> QuantizedWeight4:
     return QuantizedWeight4(qpt=pack_int4(q).t().contiguous(), c=best_c)
 
 
-def dequantize_weights_int4(wq4: QuantizedWeight4, k: Optional[int] = None) -> torch.Tensor:
-    """The (lossy) f32 weights [kp, n], or [:k] when the true K is given."""
+def dequantize_weights_int4(wq4: QuantizedWeight4, k: Optional[int] = None,
+                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (lossy) weights [kp, n], or [:k] when the true K is given,
+    computed in f32 and cast to ``dtype``."""
     q = unpack_int4(wq4.qp).to(torch.float32)
     kp, n = q.shape
     w = (q.reshape(kp // GROUP, GROUP, n) * _div(W4RANGE, wq4.c)[:, None, :]).reshape(kp, n)
-    return w if k is None else w[:k]
+    return (w if k is None else w[:k]).to(dtype)
 
 
 def w4a8_slab(kp: int) -> int:
@@ -307,9 +332,12 @@ def w4a8_matmul_plain(x: torch.Tensor, wq4: QuantizedWeight4) -> torch.Tensor:
     return out
 
 
-def quantized_matmul_prequant_w4(x: torch.Tensor, wq4: QuantizedWeight4) -> torch.Tensor:
+def quantized_matmul_prequant_w4(x: torch.Tensor, wq4: QuantizedWeight4,
+                                 backend: str = "auto") -> torch.Tensor:
     """x [m, k] float @ int4 weights -> f32 [m, n]. CPU tensors run the
-    plain version; CUDA tensors launch K4 (x f32 or bf16) or raise."""
+    plain version; CUDA tensors launch K4 (x f32 or bf16) or raise.
+    ``backend``: see the module note."""
+    kernel = _runs_kernel(x, backend)
     check_rank("x", x, 2)
     check_float("x", x)
     check_dtype("wq4.qpt", wq4.qpt, torch.int8)
@@ -319,7 +347,7 @@ def quantized_matmul_prequant_w4(x: torch.Tensor, wq4: QuantizedWeight4) -> torc
           f"{2 * kp2} rows (k rounded up to {GROUP})")
     check(tuple(wq4.c.shape) == (2 * kp2 // GROUP, n),
           f"wq4.c: expected group scales {(2 * kp2 // GROUP, n)}, got {tuple(wq4.c.shape)}")
-    if not x.is_cuda:
+    if not kernel:
         return w4a8_matmul_plain(x, wq4)
     check(x.dtype in _k4.X_DTYPES, f"x: K4 takes float32 or bfloat16, got {x.dtype}")
     return _k4.w4a8_matmul_cuda(x, wq4.qpt, wq4.c, w4a8_slab(2 * kp2))
@@ -373,31 +401,40 @@ def _outlier_dot(x_o: torch.Tensor, w_rows: torch.Tensor) -> torch.Tensor:
 
 
 def quantized_matmul_prequant_outlier(x: torch.Tensor, wq, threshold: float = 6.0,
-                                      capacity: int = 32) -> torch.Tensor:
+                                      capacity: int = 32, backend: str = "auto",
+                                      matmul_fn=None) -> torch.Tensor:
     """Serving-path outlier decomposition over int8 (``QuantizedWeight``) or
     int4 (``QuantizedWeight4``) weights: the outlier dims are zeroed in the
     quantized product (K1 or K4), and the matching weight rows, dequantized
     on the fly, multiply the outlier columns in the outlier dtype. Weights
-    stay quantized in memory. x [m, k] float -> f32 [m, n]."""
+    stay quantized in memory. x [m, k] float -> f32 [m, n]. ``backend``:
+    the quantized product's (see the module note). ``matmul_fn(x_in, wq)``,
+    when given, computes the quantized product in its place; the split and
+    the outlier product stay as they are."""
+    _runs_kernel(x, backend)
     x_in, x_o, top_idx = _outlier_split(x, threshold, capacity)
     if isinstance(wq, QuantizedWeight4):
-        out = quantized_matmul_prequant_w4(x_in, wq)
+        product = quantized_matmul_prequant_w4
         w_rows = _take_rows_w4(wq, top_idx)
     else:
-        out = quantized_matmul_prequant(x_in, wq)
+        product = quantized_matmul_prequant
         w_rows = wq.qt.index_select(1, top_idx).t().to(torch.float32) \
             * wq.c * (1.0 / QRANGE)
+    out = matmul_fn(x_in, wq) if matmul_fn is not None else product(x_in, wq, backend=backend)
     return out + _outlier_dot(x_o, w_rows)
 
 
 def quantized_matmul_outlier(x: torch.Tensor, w: torch.Tensor, threshold: float = 6.0,
-                             capacity: Optional[int] = None) -> torch.Tensor:
+                             capacity: Optional[int] = None,
+                             backend: str = "auto") -> torch.Tensor:
     """Dynamic outlier decomposition: out = quantized_matmul(x with outlier
     dims zeroed, w) + x[:, outliers] @ w[outliers, :] in the outlier dtype.
     ``capacity`` (default max(8, k / 128)) is the static number of outlier
-    dims; exact with respect to the threshold while no more dims exceed it."""
+    dims; exact with respect to the threshold while no more dims exceed it.
+    ``backend``: the quantized product's (see the module note)."""
     k = x.shape[-1]
     if capacity is None:
         capacity = max(8, k // 128)
     x_in, x_o, top_idx = _outlier_split(x, threshold, capacity)
-    return quantized_matmul(x_in, w) + _outlier_dot(x_o, w.index_select(0, top_idx))
+    return quantized_matmul(x_in, w, backend=backend) \
+        + _outlier_dot(x_o, w.index_select(0, top_idx))

@@ -18,6 +18,7 @@ SPMD: one process per device, each holding its own shards.
 The names JAX's package exports are attributes here, imported on first
 use (the models and the engines import parts of this package)."""
 
+from qgemm_tpu_torch import _lazy_exports
 from qgemm_tpu_torch.parallel.mesh import initialize_distributed, make_mesh  # noqa: F401
 
 _EXPORTS = {
@@ -34,12 +35,4 @@ _EXPORTS = {
 
 __all__ = ["initialize_distributed", "make_mesh", *_EXPORTS]
 
-
-def __getattr__(name: str):
-    module = _EXPORTS.get(name)
-    if module is None:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    import importlib
-    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
-    globals()[name] = value
-    return value
+__getattr__ = _lazy_exports(__name__, _EXPORTS)

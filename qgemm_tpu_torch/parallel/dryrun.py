@@ -13,7 +13,9 @@ over-committed, the MoE GPT with its experts sharded, dense and paged);
 all-to-all expert parallelism; a GQA generate and speculative decoding;
 the GPipe, ring, Ulysses and expert-parallel training steps and the int8
 expert-parallel forward. Each model is drawn from a seed on every rank
-alike. Returns the readings it checked.
+alike. Returns the readings it checked. The MoE GPT's and a2a's sections
+give each rank one expert under top-2 routing, so they run only at n >= 2
+(``moe_sections``).
 """
 
 from __future__ import annotations
@@ -179,33 +181,41 @@ def run_dryrun(device: DeviceLike = None) -> dict:
            [[t, t + 1] for t in (7, 9)], [5, 5], max_steps=60)
 
     # --- over-commit and preemption x paged x TP -------------------------
+    # pages of 16, the smallest the paged kernels take on the card; JAX's
+    # 9 pages of 8 become 5 of 16: the same 64 positions past the null page,
+    # where the two requests need 86
     oeng = ContinuousBatchingEngine(pgpt_sharded, max_slots=2, paged=True, overcommit=True,
-                                    n_pages=9, page_size=8, **eng)
+                                    n_pages=5, page_size=16, **eng)
     _serve(oeng, [[t, t + 1, t + 2] for t in (15, 17)], [40, 40], max_steps=400)
     out["preemptions"] = oeng.preemptions
 
-    # --- the MoE GPT under the mesh: experts sharded, dense and paged -----
-    mcfg = GPTConfig(vocab_size=64, d_model=8 * mp, n_heads=mp, d_ff=16 * mp, n_layers=2,
-                     max_seq_len=128, n_experts=n, moe_top_k=2)
-    mgpt_sharded = shard_quantized_model(GPT.init(mcfg, seed=31, device=dev).quantize(), mesh)
-    ffn = mgpt_sharded.blocks[0].ffn
-    _check(ffn.tp_mode == "expert" and ffn.n_local_experts == n // mp,
-           f"MoE experts not sharded ({ffn.tp_mode}, {ffn.n_local_experts} of {n})")
-    for kw in ({}, {"paged": True}):
-        _serve(ContinuousBatchingEngine(mgpt_sharded, max_slots=2, **kw, **eng),
-               [[t, t + 1] for t in (19, 21)], [3, 3], max_steps=60)
-
-    # --- all-to-all expert parallelism -----------------------------------
+    # The next two sections give each rank one expert under top-2 routing,
+    # which needs at least two experts: at world 1 they are left out.
     ep_mesh = make_mesh((n,), ("expert",), device=device)
     r_ep = axis_rank(ep_mesh, "expert")
     g = torch.Generator(device=dev)
-    g.manual_seed(13)
-    moe = MoEFeedForward.init(g, 16, 32, n_experts=n, top_k=2, capacity_factor=8.0)
-    xm = _randn((8 * n, 16), 14, dev)
-    a2a = ep_moe_forward_a2a(_block(xm, 0, n, r_ep), shard_moe(moe, ep_mesh), ep_mesh)
-    with torch.no_grad():
-        want = _block(moe(xm), 0, n, r_ep)
-    out["a2a_err"] = _close(a2a, want, 1e-3, "a2a EP != single-device MoE")
+    out["moe_sections"] = n >= 2
+    if n >= 2:
+        # --- the MoE GPT under the mesh: experts sharded, dense and paged -
+        mcfg = GPTConfig(vocab_size=64, d_model=8 * mp, n_heads=mp, d_ff=16 * mp, n_layers=2,
+                         max_seq_len=128, n_experts=n, moe_top_k=2)
+        mgpt_sharded = shard_quantized_model(GPT.init(mcfg, seed=31, device=dev).quantize(),
+                                             mesh)
+        ffn = mgpt_sharded.blocks[0].ffn
+        _check(ffn.tp_mode == "expert" and ffn.n_local_experts == n // mp,
+               f"MoE experts not sharded ({ffn.tp_mode}, {ffn.n_local_experts} of {n})")
+        for kw in ({}, {"paged": True}):
+            _serve(ContinuousBatchingEngine(mgpt_sharded, max_slots=2, **kw, **eng),
+                   [[t, t + 1] for t in (19, 21)], [3, 3], max_steps=60)
+
+        # --- all-to-all expert parallelism -------------------------------
+        g.manual_seed(13)
+        moe = MoEFeedForward.init(g, 16, 32, n_experts=n, top_k=2, capacity_factor=8.0)
+        xm = _randn((8 * n, 16), 14, dev)
+        a2a = ep_moe_forward_a2a(_block(xm, 0, n, r_ep), shard_moe(moe, ep_mesh), ep_mesh)
+        with torch.no_grad():
+            want = _block(moe(xm), 0, n, r_ep)
+        out["a2a_err"] = _close(a2a, want, 1e-3, "a2a EP != single-device MoE")
 
     # --- W4A8 tensor parallelism -----------------------------------------
     k4 = 128 * mp                        # scale groups divide the model axis

@@ -1,11 +1,15 @@
-"""Kernel timing on the card with CUDA events (the port's counterpart of
-``qgemm_tpu/utils/profiling.py``'s ``bench_ms``)."""
+"""Timing and tracing (port of ``qgemm_tpu/utils/profiling.py``): kernel
+timing on the card with CUDA events (``bench_ms``), the rate of a timed
+call (``flops_per_sec``) and a trace of the work run inside a context
+(``trace``)."""
 
 from __future__ import annotations
 
+import os
 import statistics
 import time
-from typing import Callable
+import uuid
+from typing import Callable, Optional
 
 import torch
 
@@ -80,3 +84,50 @@ def bench_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
         host_s *= 2
     raise RuntimeError("bench_ms: the host could not queue the timed calls ahead "
                        "of the device (does fn synchronize?)")
+
+
+def flops_per_sec(ms: float, flops: int) -> float:
+    return flops / (ms * 1e-3)
+
+
+class trace:
+    """A torch.profiler trace of the work run inside the context, written
+    as a Chrome trace file (JSON, which Perfetto and chrome://tracing open)
+    under ``log_dir`` when the context exits, also when it exits by an
+    exception; its path is then ``self.path``::
+
+        with trace("profile") as t:
+            engine.step()
+        print(t.path)
+
+    It records the host's activity always and the card's kernels (CUPTI)
+    when the process has a card, and moves no work between devices. One
+    profiler runs at a time in a process, as one ``jax.profiler`` trace
+    does: entering while any torch profiler runs raises ``RuntimeError``.
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.path: Optional[str] = None
+        self._prof = None
+
+    def __enter__(self) -> "trace":
+        from torch.profiler import ProfilerActivity, profile
+        if torch.autograd._profiler_enabled():
+            raise RuntimeError("trace: a torch profiler is already running in this process")
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self._prof = profile(activities=activities)
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        prof, self._prof = self._prof, None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()    # the kernels queued inside the context
+        prof.__exit__(*exc)
+        self.path = os.path.join(self.log_dir, f"trace-{uuid.uuid4().hex}.json")
+        prof.export_chrome_trace(self.path)
+        return False

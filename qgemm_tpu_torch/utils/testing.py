@@ -33,11 +33,23 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _f64(x) -> np.ndarray:
+    return np.asarray(to_numpy(x), dtype=np.float64)
+
+
+def allclose(a, b, rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL) -> bool:
+    """|a - b| <= atol + rtol * |b| everywhere, in float64; False when the
+    shapes differ."""
+    a, b = _f64(a), _f64(b)
+    if a.shape != b.shape:
+        return False
+    return bool(np.all(np.abs(a - b) <= atol + rtol * np.abs(b)))
+
+
 def assert_allclose(a, b, rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL,
                     msg: str = ""):
     """|a - b| <= atol + rtol * |b| elementwise, reporting the worst entry."""
-    a = np.asarray(to_numpy(a), dtype=np.float64)
-    b = np.asarray(to_numpy(b), dtype=np.float64)
+    a, b = _f64(a), _f64(b)
     assert a.shape == b.shape, f"shape mismatch {a.shape} vs {b.shape} {msg}"
     err = np.abs(a - b) - (atol + rtol * np.abs(b))
     if np.any(err > 0):
@@ -45,6 +57,18 @@ def assert_allclose(a, b, rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL
         raise AssertionError(
             f"allclose failed {msg}: worst at {worst}: a={a[worst]!r} b={b[worst]!r} "
             f"(max |a-b|={np.max(np.abs(a - b)):.3e}, rtol={rtol}, atol={atol})")
+
+
+def mean_abs_error(a, b) -> float:
+    """Mean |a - b| in float64, the quantization error the JAX package
+    reports."""
+    return float(np.mean(np.abs(_f64(a) - _f64(b))))
+
+
+def rel_fro_error(a, b) -> float:
+    """||a - b||_F / ||b||_F in float64 (the denominator floored at 1e-30)."""
+    a, b = _f64(a), _f64(b)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
 def _world_child(rank: int, fn, world: int, store: str, device, args) -> None:

@@ -318,3 +318,18 @@ def dryrun_worker(rank: int, world: int, workdir: str) -> None:
     from qgemm_tpu_torch.parallel import run_dryrun
     _dump(workdir, "dryrun", rank, run_dryrun(device="cpu"))
 
+
+def dryrun_pages_worker(rank: int, world: int, workdir: str) -> None:
+    """``dryrun_worker`` with the page size of every paged engine the
+    dryrun builds recorded under ``page_sizes``."""
+    from qgemm_tpu_torch.parallel import run_dryrun
+    from qgemm_tpu_torch.serving.seq2seq import Seq2SeqEngine
+    sizes = []
+    for cls in (ContinuousBatchingEngine, Seq2SeqEngine):
+        def recording(self, *args, _init=cls.__init__, **kw):
+            _init(self, *args, **kw)
+            if self.paged:
+                sizes.append(self._page_size)
+        cls.__init__ = recording
+    _dump(workdir, "dryrun", rank, dict(run_dryrun(device="cpu"), page_sizes=sizes))
+
