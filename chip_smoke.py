@@ -4920,14 +4920,15 @@ def step_profile(fn) -> dict:
             "top_kernels_ms": {n[:80]: v / 1e3 for n, v in top}}
 
 
-def train_run() -> tuple:
+def train_run(cfg=None, timed: int = TRAIN_TIMED_STEPS, label: str = "train",
+              model_name: str = "GPT_6_7B widths, 4 of 32 layers") -> tuple:
     """The training path at full width: GPT_6_7B's widths (vocab 50272,
     d_model 4096, 32 heads x 128, d_ff 16384, bf16, max_seq_len 2048) at
-    ``TRAIN_LAYERS`` layers, random weights from seed 0, one fixed batch of
-    4 x 2048 random tokens (and their next tokens), Adam at lr 1e-4 through
-    the example's ``train_step`` (GPT.forward, the bf16 cross-entropy and
-    its analytic gradient, backward through K7, Adam in place): one warm-up
-    step, ``TRAIN_TIMED_STEPS`` steps timed on the host clock (each
+    ``TRAIN_LAYERS`` layers, or ``cfg``, random weights from seed 0, one
+    fixed batch of 4 x 2048 random tokens (and their next tokens), Adam at
+    lr 1e-4 through the example's ``train_step`` (GPT.forward, the bf16
+    cross-entropy and its analytic gradient, backward through K7, Adam in
+    place): one warm-up step, ``timed`` steps timed on the host clock (each
     synchronised), then one step traced for the device's idle share. The
     launch counts are set to 0 just before the steps and read just after.
     Returns (the result line, each step's launches)."""
@@ -4935,7 +4936,7 @@ def train_run() -> tuple:
     from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
     from qgemm_tpu_torch.models.optim import Adam
     from qgemm_tpu_torch.ops import cuda as kernels
-    cfg = dataclasses.replace(GPT_6_7B, n_layers=TRAIN_LAYERS)
+    cfg = cfg or dataclasses.replace(GPT_6_7B, n_layers=TRAIN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = GPT.init(cfg, seed=0, device="cuda")
@@ -4954,9 +4955,9 @@ def train_run() -> tuple:
 
     losses, step_ms, per_step = [], [], []
     kernels.reset_launch_counts()
-    for i in range(1 + TRAIN_TIMED_STEPS + 1):
+    for i in range(1 + timed + 1):
         before = kernels.launch_counts()
-        if i <= TRAIN_TIMED_STEPS:
+        if i <= timed:
             torch.cuda.synchronize()
             t = time.perf_counter()
             step()
@@ -4970,11 +4971,10 @@ def train_run() -> tuple:
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     med = float(np.median(step_ms))
-    res = {"phase": "train",
-           "model": f"GPT_6_7B widths, {TRAIN_LAYERS} of 32 layers, bf16, random weights",
+    res = {"phase": label, "model": f"{model_name}, bf16, random weights",
            "params": sum(p.numel() for p in params), "init_s": round(init_s, 2),
            "batch": [TRAIN_BATCH, TRAIN_SEQ], "optimizer": f"Adam lr {TRAIN_LR}",
-           "losses": losses, "loss_steps": "warm-up, 5 timed, traced",
+           "losses": losses, "loss_steps": f"warm-up, {timed} timed, traced",
            "step_ms": step_ms, "step_ms_median": med,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
            "peak_mem_gb": round(peak / 2**30, 2), "launches": counts,
@@ -5442,10 +5442,453 @@ def phase_shape_limits() -> dict:
                       else max_err(a, r) <= 1e-5 * scale)
                 held(ok and a.shape == r.shape, "k7", a, r, grad=name, d=d, dv=dv,
                      causal=causal, dtype=dt)
+    wide_shape_checks(held)
     torch.cuda.synchronize()
     res = {"phase": "shape_limits", "n_checks": len(checks), "checks": checks}
     emit(res)
     return res
+
+
+# The widened attention shapes: head widths up to 256
+# (true widths 160 and 256 in the compiled D 256), GQA groups that are no
+# row tile of K2 and K5 (3, 7) or wider than one (16, 32, 71: passes of 8
+# rows), and pages of 8 (and 24, sub-tiles of 8 in K6)
+WIDE_WIDTHS = (160, 256)
+WIDE_GROUPS = (3, 7, 16, 32, 71)
+WIDE_PAGES = (8, 24)
+
+
+def wide_shape_checks(held) -> None:
+    """Each new instance against its plain version on the card, with the
+    tolerances ``phase_shape_limits`` holds the narrower ones to (K2, K5,
+    K6: 5e-3 beyond one bf16 rounding; K3: 1e-2 bf16, 1e-5 f32, lse 1e-4;
+    K7: 1e-3 of the largest gradient bf16, 1e-5 f32): K2 (int8 and bf16
+    caches) and K5 (int8 and int4 pools) at D 256 (widths 160 and 256) and
+    at ``WIDE_GROUPS``; K5 and K6 at ``WIDE_PAGES``; K6 at D 256 on both
+    pools; K3 and K7 at D 256 (causal and not, bf16 and f32, Dv != D; a bf16
+    gradient beyond its rule passes by ``flash_edge_checks``' float64 rule,
+    and is marked ``held_by_f64``). And
+    K2 equals K5 bit for bit on the same int8 rows at g 7 and 71 (and at D
+    256): one split body, the same passes. Draws come from a generator of
+    their own, so the older checks keep theirs."""
+    from qgemm_tpu_torch.ops.cuda.decode_attention import (decode_attention,
+                                                           decode_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
+                                                          flash_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import (flash_attention_bwd,
+                                                              flash_attention_bwd_plain)
+    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention_ragged
+    from qgemm_tpu_torch.ops.kv_cache import quantize_kv
+    from qgemm_tpu_torch.serving.paged_cache import (gather_slot_kv, paged_attention_reference,
+                                                     paged_context_attention_reference)
+    dev, bf16 = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    # (true width d, KV heads, query heads): D 256 in MHA-like and GQA
+    # groups, then every group of WIDE_GROUPS at d 64 over one KV head and
+    # g 7 at d 128 over 4 (Qwen2-7B's group)
+    cases = ([(d, 2, 8) for d in WIDE_WIDTHS] + [(256, 1, 8), (256, 1, 7)]
+             + [(64, 1, grp) for grp in WIDE_GROUPS] + [(128, 4, 28)])
+    lengths = torch.tensor([1, 37, 200, 64], device=dev, dtype=torch.int32)
+    for d, hkv, hq in cases:
+        for cache in ("int8", "bfloat16"):
+            q = torch.randn((4, hq, 1, d), generator=g, device=dev).to(bf16)
+            kf, vf = (torch.randn((4, hkv, 200, d), generator=g, device=dev) for _ in range(2))
+            if cache == "int8":
+                (kq, kc), (vq, vc) = quantize_kv(kf), quantize_kv(vf)
+                args, kw = (q, kq, vq, lengths), {"kc": kc, "vc": vc}
+            else:
+                args, kw = (q, kf.to(bf16), vf.to(bf16), lengths), {}
+            got, ref = decode_attention(*args, **kw), decode_attention_plain(*args, **kw)
+            held(excess(got, ref, 2 ** -7) <= 5e-3, "k2_wide", got, ref, d=d, hkv=hkv, hq=hq,
+                 cache=cache)
+        for bits in (8, 4):
+            lens = torch.tensor([0, 1, 130, 300], device=dev, dtype=torch.int32)
+            pc, _ = random_paged_cache(200 + d + hq + bits, lens.tolist(), hkv, 32, bits,
+                                       pps=12, d=d)
+            q = torch.randn((4, hq, 1, d), generator=g, device=dev).to(bf16)
+            live = lens > 0
+            got = paged_decode_attention_ragged(q, pc, lens)
+            ref = paged_attention_reference(q, pc, lens, compute_dtype=bf16)
+            held(excess(got[live], ref[live], 2 ** -7) <= 5e-3 and not bool(got[~live].any()),
+                 "k5_wide", got[live], ref[live], d=d, hkv=hkv, hq=hq, bits=bits)
+            del pc
+    # K6 at D 256 on both pools, and K5 and K6 at pages of 8 and 24
+    for d, hkv, hq, page in ([(d, 2, 8, 32) for d in WIDE_WIDTHS] + [(64, 1, 7, 32)]
+                             + [(dd, 2, 8, pg) for pg in WIDE_PAGES for dd in (128, 256)]):
+        for bits in (8, 4):
+            if page != 32:
+                lens = torch.tensor([0, 1, 130, 300], device=dev, dtype=torch.int32)
+                pc, _ = random_paged_cache(300 + d + page + bits, lens.tolist(), hkv, page,
+                                           bits, pps=-(-300 // page) + 1, d=d)
+                q = torch.randn((4, hq, 1, d), generator=g, device=dev).to(bf16)
+                live = lens > 0
+                got = paged_decode_attention_ragged(q, pc, lens)
+                ref = paged_attention_reference(q, pc, lens, compute_dtype=bf16)
+                held(excess(got[live], ref[live], 2 ** -7) <= 5e-3
+                     and not bool(got[~live].any()), "k5_page", got[live], ref[live], d=d,
+                     page=page, bits=bits)
+                del pc
+            offs = [0, 77]
+            lens = torch.tensor([o + 64 for o in offs], device=dev, dtype=torch.int32)
+            pc, _ = random_paged_cache(400 + d + page + bits, lens.tolist(), hkv, page, bits,
+                                       pps=-(-141 // page) + 1, d=d)
+            q = torch.randn((2, hq, 64, d), generator=g, device=dev).to(bf16)
+            off = torch.tensor(offs, device=dev)
+            got = paged_context_attention(q, pc, lens, off)
+            ref = paged_context_attention_reference(q, pc, lens, off, compute_dtype=bf16)
+            held(excess(got, ref, 2 ** -7) <= 5e-3, "k6_wide", got, ref, d=d, hq=hq, hkv=hkv,
+                 page=page, bits=bits)
+            del pc
+    # K2 == K5 bit for bit on the same int8 rows: g 7 (d 128, 4 KV heads),
+    # g 71 (d 64, one), D 256 at g 8; pages of 16 and 128
+    lens = torch.tensor([0, 1, 128, 129, 300, 640, 1000, 1018], device=dev, dtype=torch.int32)
+    for d, hkv, hq in ((128, 4, 28), (64, 1, 71), (256, 1, 8)):
+        for page in (16, 128):
+            pc, _ = random_paged_cache(500 + d + hq + page, lens.tolist(), hkv, page, 8,
+                                       pps=1024 // page, d=d)
+            q = torch.randn((8, hq, 1, d), generator=g, device=dev).to(bf16)
+            paged = paged_decode_attention_ragged(q, pc, lens)
+            kq, kc, vq, vc = gather_slot_kv(pc)
+            dense = decode_attention(q, kq, vq, lens, kc=kc, vc=vc)
+            held(bits_equal(dense, paged), "k2_equals_k5_wide", dense, paged, d=d, hkv=hkv,
+                 hq=hq, page=page)
+            del pc, kq, kc, vq, vc
+    # K3 and K7 at D 256: K3's and K7's parity tolerances
+    for d, dv in ((256, 256), (160, 256), (256, 160)):
+        for causal in (True, False):
+            for dt in ("bfloat16", "float32"):
+                dtype = getattr(torch, dt)
+                q = torch.randn((2, 4, 150, d), generator=g, device=dev).to(dtype)
+                k = torch.randn((2, 4, 170, d), generator=g, device=dev).to(dtype)
+                v = torch.randn((2, 4, 170, dv), generator=g, device=dev).to(dtype)
+                dout = torch.randn((2, 4, 150, dv), generator=g, device=dev).to(dtype)
+                o, lse = flash_attention_fwd(q, k, v, causal=causal)
+                ro, rl = flash_attention_plain(q, k, v, causal=causal)
+                fwd_ok = (excess(o, ro, 2 ** -7) <= 1e-2 if dt == "bfloat16"
+                          else max_err(o, ro) <= 1e-5) and max_err(lse, rl) <= 1e-4
+                held(fwd_ok and tuple(o.shape) == (2, 4, 150, dv), "k3_wide", o, ro, d=d,
+                     dv=dv, causal=causal, dtype=dt, lse_max_abs_err=max_err(lse, rl))
+                got = flash_attention_bwd(q, k, v, o, lse, dout, causal)
+                ref = flash_attention_bwd_plain(q, k, v, o, lse, dout, causal)
+                exact = attention_grads_f64(q, k, v, dout, causal) if dt == "bfloat16" else ref
+                for name, a, r, x in zip(("dq", "dk", "dv"), got, ref, exact):
+                    scale = float(r.float().abs().max())
+                    row = dict(grad=name, d=d, dv=dv, causal=causal, dtype=dt)
+                    if dt == "bfloat16":
+                        ok = excess(a, r, 2 ** -7) <= 1e-3 * scale
+                        if not ok:
+                            # flash_edge_checks' rule for a bf16 rounding flip of dS: as
+                            # exact against the float64 gradient as the plain version
+                            k_err = float((a.double() - x).abs().max())
+                            p_err = float((r.double() - x).abs().max())
+                            ok = k_err <= p_err + 1e-3 * scale
+                            row.update(held_by_f64=True, kernel_vs_f64=k_err,
+                                       plain_vs_f64=p_err)
+                    else:
+                        ok = max_err(a, r) <= 1e-5 * scale
+                    held(ok and a.shape == r.shape, "k7_wide", a, r, **row)
+
+
+# Three public attention geometries at full width, served by the repo's
+# GPT (its blocks: LayerNorm, GELU FFN, learned positions; random int8
+# weights from seed 0): each published config's vocab, d_model, query and
+# KV heads and d_ff (Gemma-2B, Qwen2-7B and Falcon-7B's config.json), GQA
+# groups 8, 7 and 71, head widths 256, 128 and 64. Depth is cut
+# (``ATTN_GEOMETRY_LAYERS``: Gemma-2B's whole 18, half of Qwen2-7B's 28 and
+# of Falcon-7B's 32) so that the phase, three models each served by two
+# engines, stays near 90 s and the whole script well inside its limit;
+# widths never are.
+ATTN_GEOMETRIES = {
+    "gemma2b_widths": dict(vocab_size=256000, d_model=2048, n_heads=8, n_kv_heads=1,
+                           d_ff=16384),
+    "qwen2_7b_widths": dict(vocab_size=152064, d_model=3584, n_heads=28, n_kv_heads=4,
+                            d_ff=18944),
+    "falcon7b_widths": dict(vocab_size=65024, d_model=4544, n_heads=71, n_kv_heads=1,
+                            d_ff=18176),
+}
+ATTN_GEOMETRY_FULL_DEPTH = {"gemma2b_widths": 18, "qwen2_7b_widths": 28, "falcon7b_widths": 32}
+ATTN_GEOMETRY_LAYERS = {"gemma2b_widths": 18, "qwen2_7b_widths": 14, "falcon7b_widths": 16}
+# the traced decode window's middle (``profile_decode``: 300-token prompts,
+# an admitting step, two warm steps and a window of 10 before it): the
+# positions a slot holds there, for the K2 and K5 byte bound of a step
+DECODE_WINDOW_POSITIONS = 318
+
+
+def attn_geometry_config(label: str, n_layers: Optional[int] = None):
+    from qgemm_tpu_torch.models.gpt import GPTConfig
+    return GPTConfig(**ATTN_GEOMETRIES[label], max_seq_len=2048, dtype="bfloat16",
+                     n_layers=n_layers or ATTN_GEOMETRY_LAYERS[label])
+
+
+def attn_geometry_requests(vocab: int, rng) -> tuple:
+    """8 greedy requests, alternating: 4 share a 256-token prefix (a prefix
+    hit, K6 on the suffix) with random suffixes of 32-300 tokens; 4 are
+    random prompts, two of 128-256 tokens (one chunk: a whole-prompt K3
+    prefill on both tiers) and two of 257-500 (chunked on the paged tier).
+    max_new_tokens 8-16. Returns (prompts, max_new, the whole-prompt
+    requests' indices, a chunked one's index)."""
+    prefix = rng.integers(0, vocab, size=256).tolist()
+    shared = [prefix + rng.integers(0, vocab, size=int(n)).tolist()
+              for n in rng.integers(32, 301, size=4)]
+    plens = list(rng.integers(128, 257, size=2)) + list(rng.integers(257, 501, size=2))
+    own = [rng.integers(0, vocab, size=int(n)).tolist() for n in plens]
+    prompts = [p for pair in zip(shared, own) for p in pair]
+    news = [int(n) for n in rng.integers(8, 17, size=8)]
+    return prompts, news, (1, 3), 5
+
+
+def decode_attn_bytes(cfg, slots: int, positions: int, paged: bool) -> int:
+    """Bytes a decode step's K2 (or K5) launches must move at every layer:
+    each slot's K and V codes and f32 scales of ``positions`` positions per
+    KV head read once, q and the output (bf16) once; K5 also its page
+    table rows (pages of 128) and the lengths."""
+    hkv = cfg.n_kv_heads or cfg.n_heads
+    d = cfg.d_model // cfg.n_heads
+    per_layer = slots * hkv * 2 * positions * (d + 4) + 2 * slots * cfg.n_heads * d * 2
+    if paged:
+        per_layer += slots * (-(-1024 // 128) * 4 + 4)
+    return cfg.n_layers * per_layer
+
+
+def attn_geometry(label: str) -> dict:
+    """One geometry on the main path: the int8 GPT served by the dense
+    graph engine (``DENSE_ENGINE``) and the paged int8 graph engine
+    (``PAGED_ENGINE``: pages of 128, prefix cache, 256-row chunks), 8
+    greedy requests each (``attn_geometry_requests``), launch counts set to
+    0 just before each run and read just after (``drive``). Fails unless:
+    every decode step launched K2 (dense) or K5 (paged) once per layer and
+    the model's 6 L + 1 GEMMs; every admission launched K3 once per layer
+    per whole-prompt prefill and, on the paged tier, K6 once per layer per
+    chunk, with whole prompts and chunks both present
+    (``paged_prefill_launches``); the dense engine's 8 transcripts equal
+    ``generate``'s (``transcripts_match_generate``); the paged engine's
+    whole-prompt requests equal ``generate``'s bit for bit, logits and
+    tokens (``paged_transcripts_match``: K5 and K2 share a split body); a
+    chunked prompt's paged logits stay within ``PAGED_LOGIT_RTOL`` of
+    ``generate``'s (``paged_logit_reading``). Each engine's steady decode
+    window is profiled (``profile_decode``): device ms a step, K2's or K5's
+    ms a step beside their byte bound (``decode_attn_bytes``)."""
+    from qgemm_tpu_torch.models.gpt import GPT
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    cfg = attn_geometry_config(label)
+    L, n_gemms = cfg.n_layers, 6 * cfg.n_layers + 1
+    t0 = time.perf_counter()
+    model = GPT.init_quantized(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    res = {"config": {**ATTN_GEOMETRIES[label], "n_layers": L,
+                      "full_depth": ATTN_GEOMETRY_FULL_DEPTH[label],
+                      "head_dim": cfg.d_model // cfg.n_heads,
+                      "gqa_group": cfg.n_heads // (cfg.n_kv_heads or cfg.n_heads)},
+           "init_s": round(time.perf_counter() - t0, 2)}
+    prompts, news, whole, chunked_i = attn_geometry_requests(cfg.vocab_size,
+                                                             np.random.default_rng(20))
+    k5 = ("paged_decode_attention", "paged_decode_attention_ragged")
+    for tier, kw in (("dense", DENSE_ENGINE), ("paged", PAGED_ENGINE)):
+        t_tier = time.perf_counter()
+        reqs = [Request(prompt=p, max_new_tokens=n) for p, n in zip(prompts, news)]
+        engine = ContinuousBatchingEngine(model, **kw)
+        run = drive(engine, reqs, f"{label} {tier}")
+        per_decode, counts = run["per_decode"], run["counts"]
+        attn = ("decode_attention",) if tier == "dense" else k5
+        if not (per_decode is not None and sum(per_decode[k] for k in attn) == L
+                and per_decode["quantized_matmul"] == n_gemms
+                and per_decode["flash_attention"] == 0 == per_decode["paged_context_attention"]
+                and (tier == "paged" or sum(per_decode[k] for k in k5) == 0)
+                and (tier == "dense" or per_decode["decode_attention"] == 0)):
+            raise AssertionError(f"{label} {tier}: launches per decode step {per_decode}")
+        prefill = paged_prefill_launches(run, per_decode, L, n_gemms, f"{label} {tier}")
+        if not (prefill["whole_prompt_prefills"] > 0
+                and (prefill["chunks"] > 0) == (tier == "paged")
+                and prefill["whole_prompt_prefills"] + prefill["chunks"] >= len(reqs)):
+            raise AssertionError(f"{label} {tier}: prefills {prefill}")
+        out = {"launches": counts, "launches_per_decode_step": per_decode,
+               "prefill_launches": prefill, "stats": engine.stats,
+               "decode_step_ms_median": float(np.median(run["step_ms"])),
+               "graph": run["graph"]}
+        if tier == "dense":
+            out["transcripts_match_generate"] = transcripts_match_generate(
+                f"{label} dense", model, reqs)
+        else:
+            match = paged_transcripts_match(f"{label} paged", model,
+                                            [reqs[i] for i in whole])
+            chunked = paged_logit_reading(model, reqs[chunked_i].prompt,
+                                          reqs[chunked_i].max_new_tokens)
+            chunked = {k: v for k, v in chunked.items() if k not in ("generate", "paged_alone")}
+            if not chunked["logit_rel_diff_max"] <= PAGED_LOGIT_RTOL:
+                raise AssertionError(f"{label} paged: a chunked prompt's logits differ from "
+                                     f"generate's beyond {PAGED_LOGIT_RTOL}: {chunked}")
+            iso = [model.generate(torch.tensor([r.prompt], device="cuda"), r.max_new_tokens,
+                                  quantized_cache=True)[0].tolist() for r in reqs]
+            out.update(transcripts_match_generate=match["equal_to_generate"],
+                       paged_logit_reading=chunked, paged_logit_rtol=PAGED_LOGIT_RTOL,
+                       transcripts_equal_generate_all=sum(
+                           r.generated == w for r, w in zip(reqs, iso)))
+        prof = profile_decode(engine, np.random.default_rng(21))
+        fam = "dense_decode" if tier == "dense" else "paged_decode"
+        bms = bound(decode_attn_bytes(cfg, engine.max_slots, DECODE_WINDOW_POSITIONS,
+                                      tier == "paged"), 0, BF16_FLOPS)[0]
+        out.update(decode_profile=prof, kernel_ms_per_step=prof["kernel_ms_per_step"],
+                   attention_ms_per_step=prof["family_ms_per_step"][fam],
+                   attention_bound_ms_per_step=bms,
+                   attention_bound_note=f"bytes at {DECODE_WINDOW_POSITIONS} positions a "
+                                        "slot, every layer",
+                   seconds=round(time.perf_counter() - t_tier, 2))
+        res[tier] = out
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def attn_geometry_train() -> dict:
+    """One training step of the ``train`` phase's shape (4 x 2048 tokens,
+    bf16, Adam) at ``gemma2b_widths`` (head_dim 256) and 4 layers: a
+    warm-up step, one timed step and one traced, each launching K3 and K7
+    once per layer and no other kernel of the port. Its wall time and its
+    K3 and K7 ms (the traced step's device time by family)."""
+    cfg = attn_geometry_config("gemma2b_widths", n_layers=TRAIN_LAYERS)
+    res, per_step = train_run(cfg, timed=1, label="attn_geometries_train",
+                              model_name=f"gemma2b_widths, {TRAIN_LAYERS} of 18 layers")
+    train_kernel_counts(per_step, TRAIN_LAYERS, "attn_geometries_train")
+    if not all(np.isfinite(res["losses"])):
+        raise AssertionError(f"attn_geometries_train: a loss is not finite: {res['losses']}")
+    fam = res["traced_step"]["kernel_ms_by_family"]
+    res.update(k3_ms=fam["k3_flash_fwd"], k7_ms=fam["k7_flash_bwd"],
+               launches_per_step=per_step[0])
+    return res
+
+
+def phase_attn_geometries() -> dict:
+    """``attn_geometry`` at each of ``ATTN_GEOMETRIES``, the D 256 training
+    step (``attn_geometry_train``) and the new shapes' kernel times
+    (``wide_timing``)."""
+    t0 = time.perf_counter()
+    res = {"phase": "attn_geometries", "layers": ATTN_GEOMETRY_LAYERS,
+           "full_depth": ATTN_GEOMETRY_FULL_DEPTH}
+    for label in ATTN_GEOMETRIES:
+        res[label] = attn_geometry(label)
+    res["train_gemma2b_widths"] = attn_geometry_train()
+    res["serving_seconds"] = round(time.perf_counter() - t0, 2)
+    res["timing"] = wide_timing()
+    res["seconds"] = round(time.perf_counter() - t0, 2)
+    emit(res)
+    return res
+
+
+# ``wide_timing``'s rows by the kernel whose entry of the ``kernels`` line
+# carries them
+WIDE_TIMING_KEYS = {
+    "decode_attention": ("decode_attention_d256_g8", "decode_attention_d64_g71"),
+    "paged_decode_attention": ("paged_decode_attention_d256_g8",
+                               "paged_decode_attention_d64_g71"),
+    "flash_attention": ("flash_attention_d256",),
+    "flash_attention_bwd": ("flash_attention_bwd_d256",),
+    "paged_context_attention": ("paged_context_attention_d256_int8",
+                                "paged_context_attention_d256_int4"),
+}
+
+
+def wide_timing() -> dict:
+    """The attention kernels at their widened shapes, by
+    ``phase_timing``'s protocol (bench_ms; plain versions, byte and
+    operation bounds by its formulas; SDPA beside K3 and K7): K2 and K5
+    (int8, pages of 128) at D 256 (Hq 8 over one KV head: Gemma-2B's
+    group) and at g 71 (Falcon-7B's, d 64), 8 slots of row 5's lengths
+    150-550; K3 and K7 at B 4, H 8, S 2048, D 256, causal, bf16; K6 at C
+    256 after 768, D 256, Hq 8 over one KV head, int8 and int4."""
+    import torch.nn.functional as F
+
+    from qgemm_tpu_torch.ops.cuda.decode_attention import (decode_attention,
+                                                           decode_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
+                                                          flash_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import (flash_attention_bwd,
+                                                              flash_attention_bwd_plain)
+    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention_ragged
+    from qgemm_tpu_torch.serving.paged_cache import (gather_slot_kv, paged_attention_reference,
+                                                     paged_context_attention_reference)
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    g = torch.Generator(device="cuda")
+    g.manual_seed(22)
+    bf16, out = torch.bfloat16, {}
+    lengths = [150, 210, 260, 330, 400, 450, 500, 550]
+    lens = torch.tensor(lengths, device="cuda", dtype=torch.int32)
+    tot, page, pps = sum(lengths), 128, 8
+    for key, (hq, hkv, d) in (("d256_g8", (8, 1, 256)), ("d64_g71", (71, 1, 64))):
+        cache, _ = random_paged_cache(60 + hq, lengths, hkv, page, 8, pps, d=d)
+        kq, kc, vq, vc = gather_slot_kv(cache)
+        q = torch.randn((8, hq, 1, d), generator=g, device="cuda").to(bf16)
+        k2 = bench_ms(lambda: decode_attention(q, kq, vq, lens, kc=kc, vc=vc))
+        k5 = bench_ms(lambda: paged_decode_attention_ragged(q, cache, lens))
+        k2_plain = bench_ms(lambda: decode_attention_plain(q, kq, vq, lens, kc=kc, vc=vc))
+        k5_plain = bench_ms(lambda: paged_attention_reference(q, cache, lens,
+                                                              compute_dtype=bf16),
+                            queue_ahead=False)
+        ops = tot * hq * 4 * d
+        b2 = bound(8 * hq * d * 2 * 2 + tot * hkv * (2 * d + 8), ops, BF16_FLOPS)
+        b5 = bound(2 * 8 * hq * d * 2 + 8 * (pps * 4 + 4)
+                   + paged_kv_bytes(lengths, hkv, d, page, 8), ops, BF16_FLOPS)
+        shape = f"B=8 Hq={hq} Hkv={hkv} D={d} lengths={lengths}"
+        out[f"decode_attention_{key}"] = {"ms": k2, "plain_ms": k2_plain, "library_ms": None,
+                                          "bound_ms": b2[0], "bound_by": b2[1],
+                                          "shape": shape + " S=1024 int8"}
+        out[f"paged_decode_attention_{key}"] = {"ms": k5, "plain_ms": k5_plain,
+                                                "library_ms": None, "bound_ms": b5[0],
+                                                "bound_by": b5[1],
+                                                "shape": shape + " page=128 int8 (ragged)"}
+        del cache, kq, kc, vq, vc
+    b, h, s, d = 4, 8, 2048, 256
+    q, k, v, dout = (torch.randn((b, h, s, d), generator=g, device="cuda").to(bf16)
+                     for _ in range(4))
+    flops = 4 * d * b * h * s * (s + 1) // 2
+    b3 = bound(4 * b * h * s * d * 2 + b * h * s * 4, flops, BF16_FLOPS)
+    k3 = bench_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
+    out["flash_attention_d256"] = {
+        "ms": k3, "plain_ms": bench_ms(lambda: flash_attention_plain(q, k, v, causal=True)),
+        "library_ms": bench_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                      is_causal=True)),
+        "bound_ms": b3[0], "bound_by": b3[1], "achieved_tflops": flops / k3 / 1e9,
+        "shape": f"B={b} H={h} S={s} D={d} causal bf16"}
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    k7 = bench_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, True))
+    qg_, kg_, vg_ = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg_, kg_, vg_, is_causal=True)
+    lib, _ = bench_queued_or_not(
+        lambda: torch.autograd.grad(sdpa_out, (qg_, kg_, vg_), dout, retain_graph=True))
+    flops7 = 10 * d * b * h * s * (s + 1) // 2
+    b7 = bound(8 * b * h * s * d * 2 + b * h * s * 4, flops7, BF16_FLOPS)
+    out["flash_attention_bwd_d256"] = {
+        "ms": k7, "plain_ms": bench_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, dout,
+                                                                         True)),
+        "library_ms": lib, "bound_ms": b7[0], "bound_by": b7[1],
+        "achieved_tflops": flops7 / k7 / 1e9,
+        "shape": f"B={b} H={h} S={s} D={d} causal bf16"}
+    del q, k, v, dout, o, lse, qg_, kg_, vg_, sdpa_out
+    torch.cuda.empty_cache()
+    c, off, hq, hkv, d = 256, 768, 8, 1, 256
+    q = torch.randn((1, hq, c, d), generator=g, device="cuda").to(bf16)
+    lens = torch.tensor([off + c], device="cuda", dtype=torch.int32)
+    pairs = c * off + c * (c + 1) // 2
+    for bits in (8, 4):
+        cache, _ = random_paged_cache(70 + bits, lens.tolist(), hkv, page, bits, pps, d=d)
+        ms = bench_ms(lambda: paged_context_attention(q, cache, lens, off))
+        plain = bench_ms(lambda: paged_context_attention_reference(
+            q, cache, lens, off, compute_dtype=bf16), queue_ahead=False)
+        moved = 2 * c * hq * d * 2 + pps * 4 + 8 + paged_kv_bytes(lens.tolist(), hkv, d, page,
+                                                                   bits)
+        b6 = bound(moved, hq * pairs * 4 * d, BF16_FLOPS)
+        out[f"paged_context_attention_d256_int{bits}"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": b6[0],
+            "bound_by": b6[1], "shape": f"B=1 Hq={hq} Hkv={hkv} C={c} D={d} offset={off} "
+                                        f"page={page} kv_bits={bits}"}
+        del cache
+    torch.cuda.empty_cache()
+    return out
 
 
 # K3 and K7 edge cases on the bf16 route: lengths at the tensor-core
@@ -5989,7 +6432,8 @@ def flash_child(tree: str) -> None:
     S 2048 (D 128, causal, bf16), K7 at the latter, the ``train`` step
     (``train_run``: median wall time of the timed steps and the traced
     step's device time) and the bf16 edge grid (``flash_edge_checks``,
-    reported, not raised). Prints one JSON line."""
+    reported, not raised), and the sha256 of K3's and K7's outputs
+    (``flash_hashes``). Prints one JSON line."""
     root = use_tree(tree)
     from qgemm_tpu_torch.ops.cuda import _build
     from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
@@ -6010,6 +6454,7 @@ def flash_child(tree: str) -> None:
             del o, lse
         del q, k, v, dout
     torch.cuda.empty_cache()
+    res["sha256"] = flash_hashes()
     train, _ = train_run()
     res.update(train_step_wall_ms_median=train["step_ms_median"],
                train_step_device_ms=train["traced_step"]["kernel_ms"],
@@ -6022,17 +6467,51 @@ def flash_child(tree: str) -> None:
     emit(res)
 
 
+def flash_hashes() -> dict:
+    """sha256 of K3's (O, lse) and K7's (dQ, dK, dV) outputs, by head width
+    32, 64 and 128 and dtype, over seeded inputs at Sq 129, Sk 65 and Sq =
+    Sk = 200, causal and not, Dv = D: the shapes that ran before D 256,
+    compared bit for bit between two checkouts by ``--flash-ab``."""
+    from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    out = {}
+    for d in (32, 64, 128):
+        for dt in (torch.bfloat16, torch.float32):
+            outs = []
+            for sq, sk in ((129, 65), (200, 200)):
+                for causal in (True, False):
+                    q, dout = (torch.randn((2, 3, sq, d), generator=g, device="cuda").to(dt)
+                               for _ in range(2))
+                    k, v = (torch.randn((2, 3, sk, d), generator=g, device="cuda").to(dt)
+                            for _ in range(2))
+                    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+                    outs += [o, lse, *flash_attention_bwd(q, k, v, o, lse, dout, causal)]
+            out[f"d{d}_{str(dt).split('.')[-1]}"] = sha256_of(*outs)
+    return out
+
+
 def flash_ab(other: str, rounds: int = 1) -> None:
     """K3, K7 and the ``train`` step of checkout ``other`` against this
     one's (``flash_child`` in ``ab_runs``' turns). Prints each run, the
-    medians and the speed-ups."""
+    medians and the speed-ups, and whether K3's and K7's outputs were equal
+    bit for bit in every run of both sides (``flash_hashes``; the train
+    losses too); fails if they were not."""
     trees, order, runs = ab_runs("--flash-child", "flash_run", other, rounds, 900)
     keys = ("k3_ms_b1_s512", "k3_ms_b4_s2048", "k7_ms_b4_s2048", "train_step_wall_ms_median",
             "train_step_device_ms")
     med = {side: {k: float(np.median([r[k] for r in rs])) for k in keys}
            for side, rs in runs.items()}
+    same, hashes = equal_hashes(runs, "sha256")
+    same_loss, losses = equal_hashes(runs, "train_losses")
     emit({"phase": "flash_ab", "order": order, "trees": trees, "median": med,
-          "speedup_other_over_this": {k: med["other"][k] / med["this"][k] for k in keys}})
+          "speedup_other_over_this": {k: med["other"][k] / med["this"][k] for k in keys},
+          "outputs_equal_bits": same, "sha256": hashes, "train_losses_equal": same_loss,
+          "train_losses": losses})
+    if not (same and same_loss):
+        raise AssertionError("K3's or K7's outputs, or the train losses, differ between the "
+                             "two checkouts")
 
 
 GEMV_AB_ROWS = (1, 8, 16)
@@ -6334,7 +6813,9 @@ def paged_child(tree: str) -> None:
     Hkv 32 and a GQA Hkv 8) after 0 and after 768 resident positions, the
     paged int8 engine's steady decode window (``profile_decode``: device
     time, K5's family, wall time, idle share) and one chunked GPT_6_7B
-    prompt (``profile_chunked_prompt``). Prints one JSON line."""
+    prompt (``profile_chunked_prompt``), with the sha256 of each timed K5
+    and K6 case's output (compared between the two sides). Prints one
+    JSON line."""
     root = use_tree(tree)
     from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
     from qgemm_tpu_torch.ops.cuda import _build
@@ -6345,7 +6826,7 @@ def paged_child(tree: str) -> None:
     _build.build()
     g = torch.Generator(device="cuda")
     g.manual_seed(10)
-    res = {"tree": str(root), "k5_ms": {}, "k6_ms": {}}
+    res = {"tree": str(root), "k5_ms": {}, "k6_ms": {}, "sha256": {}}
     for label, lengths in PAGED_AB_K5.items():
         lens = torch.tensor(lengths, device="cuda", dtype=torch.int32)
         q = torch.randn((8, 32, 1, 128), generator=g, device="cuda").to(torch.bfloat16)
@@ -6353,6 +6834,8 @@ def paged_child(tree: str) -> None:
             cache, _ = random_paged_cache(30 + bits, lengths, 32, 128, bits, 8)
             res["k5_ms"][f"{label}_int{bits}"] = bench_ms(
                 lambda: paged_decode_attention_ragged(q, cache, lens))
+            res["sha256"][f"k5 {label}_int{bits}"] = sha256_of(
+                paged_decode_attention_ragged(q, cache, lens))
             del cache
     for hkv in (32, 8):
         for off in (0, 768):
@@ -6363,6 +6846,8 @@ def paged_child(tree: str) -> None:
                 cache, _ = random_paged_cache(40 + bits, lens.tolist(), hkv, 128, bits, 8)
                 res["k6_ms"][f"hkv{hkv}_off{off}_int{bits}"] = bench_ms(
                     lambda: paged_context_attention(q, cache, lens, off))
+                res["sha256"][f"k6 hkv{hkv}_off{off}_int{bits}"] = sha256_of(
+                    paged_context_attention(q, cache, lens, off))
                 del cache
     torch.cuda.empty_cache()
     model = GPT.init_quantized(GPT_6_7B, seed=0, device="cuda")
@@ -6404,8 +6889,9 @@ def paged_bounds() -> dict:
 def paged_ab(other: str, rounds: int = 1) -> None:
     """K5, K6, the paged decode step and a chunked prompt of checkout
     ``other`` against this one's (``paged_child`` in ``ab_runs``' turns).
-    Prints each run, the medians, the speed-ups and each side's share of
-    the kernels' bounds."""
+    Prints each run, the medians, the speed-ups, each side's share of the
+    kernels' bounds, and whether every timed K5 and K6 case gave the same
+    bits in every run of both sides; fails if one did not."""
     trees, order, runs = ab_runs("--paged-child", "paged_run", other, rounds, 900)
 
     def flat(r: dict) -> dict:
@@ -6418,20 +6904,43 @@ def paged_ab(other: str, rounds: int = 1) -> None:
     med = {side: {key: float(np.median([flat(r)[key] for r in rs])) for key in flat(rs[0])}
            for side, rs in runs.items()}
     bounds = paged_bounds()
+    same, hashes = equal_hashes(runs, "sha256")
     emit({"phase": "paged_ab", "order": order, "trees": trees, "median": med,
           "speedup_other_over_this": {k: med["other"][k] / med["this"][k]
-                                      for k in med["this"]},
+                                      for k in med["this"] if med["this"][k]},
           "bound_ms": bounds,
           "share_of_bound": {side: {k: b / med[side][k] for k, b in bounds.items()}
-                             for side in med}})
+                             for side in med},
+          "outputs_equal_bits": same, "sha256": hashes})
+    if not same:
+        raise AssertionError("K5's or K6's outputs differ between the two checkouts")
 
 
 # K2's and K5's timed lengths in ``--decode-ab``: row 5's (8 slots of
 # 150-550 positions, a cache extent of 1024) and 8 slots of 1,000
 DECODE_AB_ROWS = {"row5": [150, 210, 260, 330, 400, 450, 500, 550], "s1000": [1000] * 8}
 # K5's cases whose outputs ``--decode-ab`` compares bit for bit between the
-# two checkouts: (page, KV heads, kv_bits)
+# two checkouts (and K2's on the int8 cases' rows, int8 and bf16 caches):
+# (page, KV heads, kv_bits)
 DECODE_AB_K5_BITS = [(128, 32, 8), (128, 32, 4), (32, 8, 8), (16, 8, 4)]
+
+
+def sha256_of(*tensors) -> str:
+    """One sha256 over the bytes of ``tensors`` (as float32 on the host):
+    the A/B modes compare a kernel's outputs between two checkouts bit for
+    bit."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def equal_hashes(runs: dict, key: str) -> tuple:
+    """Whether every run of both sides gave the same ``key`` hashes, and
+    those of the first run."""
+    hashes = [r[key] for rs in runs.values() for r in rs]
+    return all(h == hashes[0] for h in hashes), hashes[0]
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -6454,7 +6963,7 @@ def decode_child(tree: str) -> None:
     """One side of ``--decode-ab``: with the kernels and the qgemm_tpu_torch
     package of checkout ``tree``, bench_ms of K2 (int8 cache, B 8, H 32, S
     1024, D 128, bf16 q) and of K5 (ragged entry, int8 pools of pages of
-    128, the same rows) at ``DECODE_AB_ROWS``' lengths; the sha256 of K5's
+    128, the same rows) at ``DECODE_AB_ROWS``' lengths; the sha256 of K5's and K2's
     outputs on ``DECODE_AB_K5_BITS``' seeded pools (compared between the
     two sides); the host's microseconds per wrapper call at row 5's shape
     (``host_us``); and the steady decode windows (``profile_decode``: device
@@ -6487,6 +6996,7 @@ def decode_child(tree: str) -> None:
         del cache, kq, kc, vq, vc
     lens = torch.tensor([0, 1, 128, 129, 300, 640, 1000, 1024], device="cuda",
                         dtype=torch.int32)
+    res["k2_sha256"] = {}
     for page, hkv, bits in DECODE_AB_K5_BITS:
         cache, _ = random_paged_cache(90 + page + bits, lens.tolist(), hkv, page, bits,
                                       1024 // page)
@@ -6494,6 +7004,14 @@ def decode_child(tree: str) -> None:
         out = paged_decode_attention_ragged(q, cache, lens)
         res["k5_sha256"][f"page{page}_hkv{hkv}_int{bits}"] = hashlib.sha256(
             out.float().cpu().numpy().tobytes()).hexdigest()
+        if bits == 8:   # K2 on the same rows: its int8 route, and a bf16 cache
+            kq, kc, vq, vc = gather_slot_kv(cache)
+            res["k2_sha256"][f"page{page}_hkv{hkv}_int8"] = sha256_of(
+                decode_attention(q, kq, vq, lens, kc=kc, vc=vc))
+            kf, vf = ((t.float() * c / 127).to(torch.bfloat16) for t, c in ((kq, kc), (vq, vc)))
+            res["k2_sha256"][f"page{page}_hkv{hkv}_bf16_cache"] = sha256_of(
+                decode_attention(q, kf, vf, lens))
+            del kq, kc, vq, vc, kf, vf
         del cache
     torch.cuda.empty_cache()
     for label, cfg in (("int8", GPT_6_7B), ("moe_int8", GPTConfig(**MOE_CFG))):
@@ -6544,17 +7062,18 @@ def decode_kernels_ab(other: str, rounds: int = 1) -> None:
     med = {side: {key: float(np.median([flat(r)[key] for r in rs])) for key in flat(rs[0])}
            for side, rs in runs.items()}
     bounds = decode_bounds()
-    hashes = [r["k5_sha256"] for rs in runs.values() for r in rs]
-    same = all(h == hashes[0] for h in hashes)
+    same, k5_hash = equal_hashes(runs, "k5_sha256")
+    same2, k2_hash = equal_hashes(runs, "k2_sha256")
     emit({"phase": "decode_ab", "order": order, "trees": trees, "median": med,
           "speedup_other_over_this": {k: med["other"][k] / med["this"][k]
                                       for k in med["this"] if med["this"][k]},
           "bound_ms": bounds,
           "share_of_bound": {side: {k: b / med[side][k] for k, b in bounds.items()}
                              for side in med},
-          "k5_outputs_equal_bits": same, "k5_sha256": hashes[0]})
-    if not same:
-        raise AssertionError("K5's outputs differ between the two checkouts")
+          "k5_outputs_equal_bits": same, "k5_sha256": k5_hash,
+          "k2_outputs_equal_bits": same2, "k2_sha256": k2_hash})
+    if not (same and same2):
+        raise AssertionError("K5's or K2's outputs differ between the two checkouts")
 
 
 # Faults that ``--decode-faults`` plants, each in its own copy of the
@@ -7993,6 +8512,7 @@ def main() -> None:
     phase_numerics_moe()
     phase_outlier_numerics()
     train = phase_train()
+    geoms = phase_attn_geometries()
     induction, copy_model = phase_train_induction()
     phase_train_serve(copy_model)
     phase_long_copy()
@@ -8144,6 +8664,14 @@ def main() -> None:
         par_counts = parallel_launches(par, ws)
         if par_counts:
             entry["launches_parallel"] = par_counts
+        if name in WIDE_TIMING_KEYS:
+            entry["at_wide_shapes"] = {k: geoms["timing"][k] for k in WIDE_TIMING_KEYS[name]}
+            entry["launches_attn_geometries"] = {
+                f"{lbl} {tier}": sum(geoms[lbl][tier]["launches"].get(w, 0) for w in ws)
+                for lbl in ATTN_GEOMETRIES for tier in ("dense", "paged")}
+            if name.startswith("flash"):
+                entry["launches_attn_geometries"]["train_gemma2b_widths per step"] = \
+                    geoms["train_gemma2b_widths"]["launches_per_step"][name]
         entry["launches_dryrun"] = kernel_launches(dry["launches"], name)
         kernels.append(entry)
     # the int8 flash attention's pre-pass kernel: a second kernel of its

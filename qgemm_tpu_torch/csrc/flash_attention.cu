@@ -53,10 +53,18 @@
 //
 // Scores never reach device memory: O(S * D) traffic on both routes.
 //
-// Head widths: compiled for D in {32, 64, 128} with Dv == D. The wrapper
-// zero-pads q, k and v (per-call tensors) to the D that holds both the
-// true d and dv, passes the softmax scale of the true d, and slices O to
-// dv: zero columns add nothing to a score, and O's padded columns are 0.
+// Head widths: compiled for D in {32, 64, 128, 256} with Dv == D. The
+// wrapper zero-pads q, k and v (per-call tensors) to the D that holds both
+// the true d and dv, passes the softmax scale of the true d, and slices O
+// to dv: zero columns add nothing to a score, and O's padded columns are 0.
+// D 256 on the mma route takes fewer keys a tile and no Q in registers: a
+// warp's 16 rows of O are 128 f32 registers a thread there, and Q's A
+// fragments (64 more) with a 64-key tile's S and P (48) would pass the 255
+// cap, so Q's fragments are loaded from shared memory per k-chunk (ldmatrix)
+// and K/V tiles hold 32 keys (S and P 24 registers); shared memory 99 KB a
+// block, two blocks an SM (FlashAttention-2's hdim-256 forward also takes
+// smaller tiles). The f32 route takes D 256 as it is (O 64 registers, 139
+// KB of shared memory).
 #include <type_traits>
 
 #include "common.cuh"
@@ -247,9 +255,13 @@ constexpr int kTileK = 64;   // keys per K/V tile
 
 template <int D> __host__ __device__ constexpr int mma_ld() { return D + 8; }  // bf16 row stride (+16 B)
 constexpr int kMmaBQ = 64, kMmaWarps = 4;   // 4 warps of 16 query rows
+// the mma route's tiling at width D: keys per K/V tile, and whether a warp
+// holds Q's A fragments in registers (D 256: 32 keys, Q read per k-chunk)
+template <int D> __host__ __device__ constexpr int mma_tile_k() { return D > 128 ? 32 : kTileK; }
+template <int D> __host__ __device__ constexpr bool mma_q_regs() { return D <= 128; }
 template <int D> constexpr size_t mma_smem_bytes() {
   // Q, then two stages of K and V tiles
-  return sizeof(bf16) * static_cast<size_t>(mma_ld<D>()) * (kMmaBQ + 4 * kTileK);
+  return sizeof(bf16) * static_cast<size_t>(mma_ld<D>()) * (kMmaBQ + 4 * mma_tile_k<D>());
 }
 
 // cp.async of rows r0 .. r0 + ROWS - 1 of a [n, D] bf16 matrix into a
@@ -298,13 +310,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int sq, int sk, int causal, float scale) {
   constexpr int BQ = kMmaBQ, NT = kMmaWarps * 32, LD = mma_ld<D>();
+  constexpr int TK = mma_tile_k<D>();   // keys per K/V tile
+  constexpr bool QREG = mma_q_regs<D>();
   constexpr int KD = D / 16;       // k16 chunks of the head width
-  constexpr int NS = kTileK / 8;   // n8 tiles of a warp's scores
+  constexpr int NS = TK / 8;       // n8 tiles of a warp's scores
   constexpr int NO = D / 8;        // n8 tiles of a warp's output
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * LD;          // [2][kTileK][LD]
-  bf16* Vs = Ks + 2 * kTileK * LD;  // [2][kTileK][LD]
+  bf16* Ks = Qs + BQ * LD;          // [2][TK][LD]
+  bf16* Vs = Ks + 2 * TK * LD;      // [2][TK][LD]
 
   // the last query blocks, which attend the most keys when causal, first
   const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
@@ -315,15 +329,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
   const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
 
-  int nk = (sk + kTileK - 1) / kTileK;
-  if (causal) nk = min(nk, (min(q0 + BQ, sq) - 1) / kTileK + 1);
+  int nk = (sk + TK - 1) / TK;
+  if (causal) nk = min(nk, (min(q0 + BQ, sq) - 1) / TK + 1);
 
   cp_tile<D, BQ, NT>(Qs, qb, q0, sq);
-  cp_tile<D, kTileK, NT>(Ks, kb, 0, sk);
-  cp_tile<D, kTileK, NT>(Vs, vb, 0, sk);
+  cp_tile<D, TK, NT>(Ks, kb, 0, sk);
+  cp_tile<D, TK, NT>(Vs, vb, 0, sk);
   qg::cp_async_commit();
 
-  uint32_t qf[KD][4];
+  uint32_t qf[QREG ? KD : 1][4];   // D 256: one k-chunk's, loaded where it is used
   float acc[NO][4];
 #pragma unroll
   for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -334,39 +348,45 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3), t_col = (lane >> 4) * 8;
 
   for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1, k0 = kt * kTileK;
+    const int st = kt & 1, k0 = kt * TK;
     if (kt + 1 < nk) {
-      cp_tile<D, kTileK, NT>(Ks + (st ^ 1) * kTileK * LD, kb, k0 + kTileK, sk);
-      cp_tile<D, kTileK, NT>(Vs + (st ^ 1) * kTileK * LD, vb, k0 + kTileK, sk);
+      cp_tile<D, TK, NT>(Ks + (st ^ 1) * TK * LD, kb, k0 + TK, sk);
+      cp_tile<D, TK, NT>(Vs + (st ^ 1) * TK * LD, vb, k0 + TK, sk);
     }
     qg::cp_async_commit();
     qg::cp_async_wait<1>();   // this tile (and Q) have landed
     __syncthreads();
-    if (kt == 0) {
+    if constexpr (QREG) {
+      if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        qg::ldmatrix_x4(qf[kk], qg::smem_addr(Qs + (warp * 16 + a_row) * LD + kk * 16 + a_col));
+        for (int kk = 0; kk < KD; ++kk)
+          qg::ldmatrix_x4(qf[kk], qg::smem_addr(Qs + (warp * 16 + a_row) * LD + kk * 16 + a_col));
+      }
     }
     // a warp whose rows all precede the tile (causal) or lie past Sq skips it
     if (w0 < sq && !(causal && w0 + 15 < k0)) {
-      const bf16* Kt = Ks + st * kTileK * LD;
-      const bf16* Vt = Vs + st * kTileK * LD;
+      const bf16* Kt = Ks + st * TK * LD;
+      const bf16* Vt = Vs + st * TK * LD;
       float s[NS][4];
 #pragma unroll
       for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
+      for (int kk = 0; kk < KD; ++kk) {
+        if (!QREG)
+          qg::ldmatrix_x4(qf[0], qg::smem_addr(Qs + (warp * 16 + a_row) * LD + kk * 16 + a_col));
+        const uint32_t* qa = qf[QREG ? kk : 0];
 #pragma unroll
         for (int jp = 0; jp < NS / 2; ++jp) {
           uint32_t b[4];
           qg::ldmatrix_x4(b, qg::smem_addr(Kt + (jp * 16 + b_row) * LD + kk * 16 + b_col));
-          qg::mma_bf16(s[2 * jp], qf[kk], b);
-          qg::mma_bf16(s[2 * jp + 1], qf[kk], b + 2);
+          qg::mma_bf16(s[2 * jp], qa, b);
+          qg::mma_bf16(s[2 * jp + 1], qa, b + 2);
         }
+      }
       // scale, and mask where the tile holds the Sk tail or crosses the
       // diagonal; the rows' maxima over the quad
       float mx0, mx1;
-      if (k0 + kTileK > sk || (causal && k0 + kTileK - 1 > w0))
+      if (k0 + TK > sk || (causal && k0 + TK - 1 > w0))
         scale_scores<true>(s, scale, k0 + 2 * t, qi0, qi1, sk, causal, mx0, mx1);
       else
         scale_scores<false>(s, scale, k0 + 2 * t, qi0, qi1, sk, causal, mx0, mx1);
@@ -458,7 +478,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
 
 }  // namespace
 
-// q [BH, Sq, D], k/v [BH, Sk, D], o [BH, Sq, D], D in {32, 64, 128}; lse f32
+// q [BH, Sq, D], k/v [BH, Sk, D], o [BH, Sq, D], D in {32, 64, 128, 256}; lse f32
 // [BH, Sq]. The launch plan: route 0 (SIMT) takes dtype 0 (f32), route 1
 // (mma) dtype 1 (bf16), both 64 query rows per block; smem is the plan's
 // dynamic shared memory, checked against the
@@ -478,11 +498,14 @@ extern "C" int qgemm_flash_attention_fwd(const void* q, const void* k, const voi
       return launch<float, 64>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
     if (D == 128 && static_cast<size_t>(smem) == smem_bytes<128>())
       return launch<float, 128>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
+    if (D == 256 && static_cast<size_t>(smem) == smem_bytes<256>())
+      return launch<float, 256>(q, k, v, o, l, bh, sq, sk, causal, scale, s);
   }
   if (route == 1 && dtype == 1) {
     if (D == 32) return launch_mma<32>(q, k, v, o, l, bh, sq, sk, causal, scale, smem, s);
     if (D == 64) return launch_mma<64>(q, k, v, o, l, bh, sq, sk, causal, scale, smem, s);
     if (D == 128) return launch_mma<128>(q, k, v, o, l, bh, sq, sk, causal, scale, smem, s);
+    if (D == 256) return launch_mma<256>(q, k, v, o, l, bh, sq, sk, causal, scale, smem, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -62,9 +62,21 @@
 //    the outputs; operands are staged as f32 (K3's SIMT layout), and P and
 //    dS go through shared memory.
 //
-// Head widths: compiled for D in {32, 64, 128} with Dv == D; the wrapper
-// zero-pads q, k, v, O and dO to one such D and slices dQ, dK and dV to
-// the true widths (the padded columns of every product are zeros).
+// Head widths: compiled for D in {32, 64, 128, 256} with Dv == D; the
+// wrapper zero-pads q, k, v, O and dO to one such D and slices dQ, dK and
+// dV to the true widths (the padded columns of every product are zeros).
+//
+// D 256 on the mma route: a thread's f32 accumulator of 16 rows x 256
+// columns is 128 registers, so the D <= 128 designs (the dQ kernel's Q and
+// dO fragments in registers, 128 more; the dK/dV kernel's K and V
+// fragments and two accumulators, 384) would pass the 255 cap. There the
+// dQ kernel reads Q's and dO's fragments from shared memory per k-chunk,
+// and the dK/dV work runs as two blocks per 64 keys (grid z: 0 computes
+// dV from S, 1 computes dK from S and dP), each with one accumulator and
+// K's and V's fragments read from shared memory (flash_bwd_dkv_wide_kernel):
+// 8 products per attended pair, not 7. Shared memory stays the D <= 128
+// layout: ~198 KB a block at D 256, one block an SM. The f32 route takes D
+// 256 as it is (204 and 212 KB).
 #include <type_traits>
 
 #include "common.cuh"
@@ -475,6 +487,9 @@ __device__ __forceinline__ void pds_fragments(const float (&s)[2][4], const floa
   }
 }
 
+// whether a warp holds its resident A fragments in registers (D <= 128)
+template <int D> __host__ __device__ constexpr bool mma_a_regs() { return D <= 128; }
+
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -482,6 +497,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         bf16* __restrict__ dq, int sq, int sk, int causal, float scale) {
   constexpr int LD = mma_ld<D>(), KD = D / 16, NO = D / 8;
+  constexpr bool AREG = mma_a_regs<D>();   // D 256: Q's and dO's fragments per k-chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* dOs = Qs + kMmaRows * LD;
@@ -506,7 +522,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float lse0 = qi0 < sq ? lse[roff + qi0] : 0.f, lse1 = qi1 < sq ? lse[roff + qi1] : 0.f;
   const float dl0 = qi0 < sq ? delta[roff + qi0] : 0.f, dl1 = qi1 < sq ? delta[roff + qi1] : 0.f;
 
-  uint32_t qf[KD][4], gf[KD][4];
+  uint32_t qf[AREG ? KD : 1][4], gf[AREG ? KD : 1][4];
   float acc[NO][4];
 #pragma unroll
   for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -520,12 +536,14 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     qg::cp_async_commit();
     qg::cp_async_wait<1>();
     __syncthreads();
-    if (kt == 0) {
+    if constexpr (AREG) {
+      if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const int off = (warp * 16 + ln.a_row) * LD + kk * 16 + ln.a_col;
-        qg::ldmatrix_x4(qf[kk], qg::smem_addr(Qs + off));
-        qg::ldmatrix_x4(gf[kk], qg::smem_addr(dOs + off));
+        for (int kk = 0; kk < KD; ++kk) {
+          const int off = (warp * 16 + ln.a_row) * LD + kk * 16 + ln.a_col;
+          qg::ldmatrix_x4(qf[kk], qg::smem_addr(Qs + off));
+          qg::ldmatrix_x4(gf[kk], qg::smem_addr(dOs + off));
+        }
       }
     }
     const bf16* Kt = Ks + st * kMmaRows * LD;
@@ -540,18 +558,26 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
+      for (int kk = 0; kk < KD; ++kk) {
+        if (!AREG) {
+          const int off = (warp * 16 + ln.a_row) * LD + kk * 16 + ln.a_col;
+          qg::ldmatrix_x4(qf[0], qg::smem_addr(Qs + off));
+          qg::ldmatrix_x4(gf[0], qg::smem_addr(dOs + off));
+        }
+        const uint32_t* qa = qf[AREG ? kk : 0];
+        const uint32_t* ga = gf[AREG ? kk : 0];
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp) {
           const int off = (h * 32 + jp * 16 + ln.b_row) * LD + kk * 16 + ln.b_col;
           uint32_t b[4];
           qg::ldmatrix_x4(b, qg::smem_addr(Kt + off));
-          qg::mma_bf16(s[2 * jp], qf[kk], b);
-          qg::mma_bf16(s[2 * jp + 1], qf[kk], b + 2);
+          qg::mma_bf16(s[2 * jp], qa, b);
+          qg::mma_bf16(s[2 * jp + 1], qa, b + 2);
           qg::ldmatrix_x4(b, qg::smem_addr(Vt + off));
-          qg::mma_bf16(dp[2 * jp], gf[kk], b);
-          qg::mma_bf16(dp[2 * jp + 1], gf[kk], b + 2);
+          qg::mma_bf16(dp[2 * jp], ga, b);
+          qg::mma_bf16(dp[2 * jp + 1], ga, b + 2);
         }
+      }
       uint32_t da[2][4];   // bf16(dS) as the A fragments of dS K
       const Rows r{qi0, qi1, sq, sk, causal};
       const float lse2[2] = {lse0, lse1}, dl2[2] = {dl0, dl1};
@@ -717,6 +743,135 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The dK/dV work at D 256: block (64 keys, batch*head, z) computes dV (z 0,
+// from S: dV += bf16(P^T) dO) or dK (z 1, from S and dP: dK += bf16(dS^T)
+// Q) with one accumulator; K's and V's A fragments are read from shared
+// memory per k-chunk. The walk, masks and rounding points are
+// flash_bwd_dkv_mma_kernel's, so each output is what that kernel computes.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                          int causal, float scale) {
+  constexpr int LD = mma_ld<D>(), KD = D / 16, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kMmaRows * LD;
+  bf16* Qs = Vs + kMmaRows * LD;       // [2][kMmaRows][LD]
+  bf16* dOs = Qs + 2 * kMmaRows * LD;  // [2][kMmaRows][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * kMmaRows * LD);  // [2][kMmaRows]
+  float* Dl = Ls + 2 * kMmaRows;                                  // [2][kMmaRows]
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * kMmaRows, tid = threadIdx.x;
+  const bool want_dk = blockIdx.z == 1;   // block-uniform
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int kw0 = k0 + warp * 16, ki0 = kw0 + (lane >> 2), ki1 = ki0 + 8;
+  const Lane ln(lane);
+  const size_t qoff = static_cast<size_t>(bh) * sq * D, koff = static_cast<size_t>(bh) * sk * D;
+  const float* lb = lse + static_cast<size_t>(bh) * sq;
+  const float* db = delta + static_cast<size_t>(bh) * sq;
+
+  const int nq = (sq + kMmaRows - 1) / kMmaRows, qt0 = causal ? k0 / kMmaRows : 0;
+  auto load_q_tile = [&](int qt, int st) {
+    const int qs0 = qt * kMmaRows;
+    cp_tile<D>(Qs + st * kMmaRows * LD, q + qoff, qs0, sq);
+    cp_tile<D>(dOs + st * kMmaRows * LD, dout + qoff, qs0, sq);
+    const int r = tid & (kMmaRows - 1), qi = qs0 + r;
+    const bool ok = qi < sq;
+    const float* src = (tid < kMmaRows ? lb : db) + (ok ? qi : 0);
+    float* dst = (tid < kMmaRows ? Ls : Dl) + st * kMmaRows + r;
+    qg::cp_async4(qg::smem_addr(dst), src, ok ? 4 : 0);
+  };
+  cp_tile<D>(Ks, k + koff, k0, sk);
+  cp_tile<D>(Vs, v + koff, k0, sk);
+  if (qt0 < nq) load_q_tile(qt0, 0);
+  qg::cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int st = (qt - qt0) & 1, qs0 = qt * kMmaRows;
+    if (qt + 1 < nq) load_q_tile(qt + 1, st ^ 1);
+    qg::cp_async_commit();
+    qg::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qt = Qs + st * kMmaRows * LD;
+    const bf16* dOt = dOs + st * kMmaRows * LD;
+    const float* Lt = Ls + st * kMmaRows;
+    const float* Dt = Dl + st * kMmaRows;
+#pragma unroll 1
+    for (int h = 0; h < 4; ++h) {      // pieces of 16 queries
+      const int qh = qs0 + h * 16;
+      if (kw0 >= sk || qh >= sq || (causal && qh + 15 < kw0)) continue;
+      // S^T = K Q^T (and, for dK, dP^T = V dO^T): rows are keys, columns queries
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const int aoff = (warp * 16 + ln.a_row) * LD + kk * 16 + ln.a_col;
+        const int off = (h * 16 + ln.b_row) * LD + kk * 16 + ln.b_col;
+        uint32_t a[4], b[4];
+        qg::ldmatrix_x4(a, qg::smem_addr(Ks + aoff));
+        qg::ldmatrix_x4(b, qg::smem_addr(Qt + off));
+        qg::mma_bf16(s[0], a, b);
+        qg::mma_bf16(s[1], a, b + 2);
+        if (want_dk) {
+          qg::ldmatrix_x4(a, qg::smem_addr(Vs + aoff));
+          qg::ldmatrix_x4(b, qg::smem_addr(dOt + off));
+          qg::mma_bf16(dp[0], a, b);
+          qg::mma_bf16(dp[1], a, b + 2);
+        }
+      }
+      uint32_t pa[4], da[4];
+      const Rows r{ki0, ki1, sk, sq, causal};
+      const int c0 = h * 16 + 2 * t;
+      const float lse2[4] = {Lt[c0], Lt[c0 + 1], Lt[c0 + 8], Lt[c0 + 9]};
+      const float dl2[4] = {Dt[c0], Dt[c0 + 1], Dt[c0 + 8], Dt[c0 + 9]};
+      if (qh + 16 > sq || kw0 + 16 > sk || (causal && kw0 + 15 > qh))
+        pds_fragments<true>(s, dp, pa, da, r, qs0 + c0, lse2, dl2, scale);
+      else
+        pds_fragments<false>(s, dp, pa, da, r, qs0 + c0, lse2, dl2, scale);
+      // dV += P^T dO, or dK += dS^T Q, over these 16 queries
+      const uint32_t* fa = want_dk ? da : pa;
+      const bf16* Bt = want_dk ? Qt : dOt;
+#pragma unroll
+      for (int dp2 = 0; dp2 < NO / 2; ++dp2) {
+        uint32_t b[4];
+        qg::ldmatrix_x4_trans(b, qg::smem_addr(Bt + (h * 16 + ln.t_row) * LD + dp2 * 16 + ln.t_col));
+        qg::mma_bf16(acc[2 * dp2], fa, b);
+        qg::mma_bf16(acc[2 * dp2 + 1], fa, b + 2);
+      }
+    }
+    __syncthreads();
+  }
+  qg::cp_async_wait<0>();   // a block with no query tile still has K/V copies in flight
+
+  bf16* dst = want_dk ? dk : dv;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (ki0 < sk)
+      *reinterpret_cast<__nv_bfloat162*>(dst + koff + static_cast<size_t>(ki0) * D + col) =
+          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    if (ki1 < sk)
+      *reinterpret_cast<__nv_bfloat162*>(dst + koff + static_cast<size_t>(ki1) * D + col) =
+          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+}
+
+// the dK/dV kernel of width D (only that one is instantiated)
+template <int D> constexpr auto dkv_kernel_of() {
+  if constexpr (mma_a_regs<D>()) return flash_bwd_dkv_mma_kernel<D>;
+  else return flash_bwd_dkv_wide_kernel<D>;
+}
+
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* o,
                        const float* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -725,12 +880,13 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   constexpr size_t want_q = mma_dq_smem_bytes<D>(), want_kv = mma_dkv_smem_bytes<D>();
   if (static_cast<size_t>(smem_dq) != want_q || static_cast<size_t>(smem_dkv) != want_kv)
     return cudaErrorInvalidValue;
+  constexpr bool wide = !mma_a_regs<D>();   // D 256: flash_bwd_dkv_wide_kernel
+  const auto dkv_kernel = dkv_kernel_of<D>();
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(want_q));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(want_kv));
   if (e != cudaSuccess) return e;
   const bf16* qt = static_cast<const bf16*>(q);
@@ -748,10 +904,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
                                     causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_mma_kernel<D><<<dim3((sk + kMmaRows - 1) / kMmaRows, bh), kMmaThreads,
-                                want_kv, s>>>(qt, kt, vt, gt, lse, delta,
-                                              static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                                              sq, sk, causal, scale);
+  dkv_kernel<<<dim3((sk + kMmaRows - 1) / kMmaRows, bh, wide ? 2 : 1), kMmaThreads, want_kv,
+               s>>>(qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                    sq, sk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -785,6 +940,7 @@ extern "C" int qgemm_flash_attention_bwd(const void* q, const void* k, const voi
     if (D == 32) return QG_BWD(32);
     if (D == 64) return QG_BWD(64);
     if (D == 128) return QG_BWD(128);
+    if (D == 256) return QG_BWD(256);
 #undef QG_BWD
   }
   if (route == 1 && dtype == 1) {
@@ -794,6 +950,7 @@ extern "C" int qgemm_flash_attention_bwd(const void* q, const void* k, const voi
     if (D == 32) return QG_BWD(32);
     if (D == 64) return QG_BWD(64);
     if (D == 128) return QG_BWD(128);
+    if (D == 256) return QG_BWD(256);
 #undef QG_BWD
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -55,11 +55,25 @@
 // causal position (the TPU kernel's "tight" bound) and at the slot's
 // length, so later pages are never read.
 //
-// Head widths: compiled for D in {32, 64, 128}; the pools' rows hold the
-// true width d <= D (16-byte cp.async when d is a multiple of 16, byte loads
-// otherwise; columns past d staged as zeros). The wrapper pads the per-call
-// q to D and slices the output; the pools are never copied. The launch plan
-// (row blocks, key tile, shared memory) comes from
+// Head widths: compiled for D in {32, 64, 128, 256}; the pools' rows hold
+// the true width d <= D (16-byte cp.async when d is a multiple of 16, byte
+// loads otherwise; columns past d staged as zeros). The wrapper pads the
+// per-call q to D and slices the output; the pools are never copied.
+//
+// D 256 has its own tiling (Tiling<256>): at D 128 a thread already holds
+// q's A fragments (32 registers), O (64) and a 64-key tile's S and P (48),
+// at 253-255 registers, and D 256 doubles q and O. So a D 256 block is one
+// warp group (4 warps of 16 rows, 64 rows a block) over 32-key tiles, and
+// q stays in shared memory (its A fragments loaded per k-chunk by
+// ldmatrix): O 128 registers, S and P 24. Shared memory ~99 KB a block
+// (the ring, the bf16 K and V tiles, q), two blocks an SM. The row blocks,
+// page walk, scales, masks and rounding points are the narrower widths'.
+//
+// Pages: multiples of 8 from 8 to 256. A key tile is walked in sub-tiles of
+// 16 positions (pages that are multiples of 16) or 8 (other pages), each
+// in one page, whose physical page is resolved once.
+//
+// The launch plan (row blocks, key tile, shared memory) comes from
 // qgemm_tpu_torch/ops/cuda/paged_plan.py; the entry refuses any other.
 #include "common.cuh"
 #include "mma.cuh"
@@ -68,28 +82,40 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr int kBQ = 64;      // folded rows per block: 4 warps x 16 in each group
-constexpr int kBK = 64;      // key positions per tile
-constexpr int kSub = 16;     // positions per sub-tile: one page each
-constexpr int kGroups = 2;   // warp groups: group g takes tiles g, g + 2, ...
-constexpr int kThreads = 128 * kGroups;
+
+// D <= 128: two warp groups (group g takes key tiles g, g + 2, ...) over
+// 64-key tiles, q's A fragments in registers; D 256: one group over 32-key
+// tiles, q in shared memory (the source note says why)
+template <int D> struct Tiling {
+  static constexpr bool kWide = D > 128;
+  static constexpr int kGroups = kWide ? 1 : 2;
+  static constexpr int kBK = kWide ? 32 : 64;   // key positions per tile
+  static constexpr int kThreads = 128 * kGroups;
+};
 
 template <int D> __host__ __device__ constexpr int ldb() { return D + 8; }  // bf16 row stride (+16 B)
-template <int D> constexpr size_t smem_bytes() {
-  return static_cast<size_t>(kGroups * 2 * 2 * kBK * D)  // code rings: groups x 2 stages x (K, V)
-         + kGroups * 2 * 2 * kBK * sizeof(float)          // scale rings: groups x 2 stages x (kc, vc)
-         + kGroups * 2 * sizeof(bf16) * kBK * ldb<D>()    // each group's K and V tile in bf16
-         + kGroups * 2 * kBK * sizeof(float)              // each group's kc/127, vc/127
-         + kGroups * 2 * (kBK / kSub) * sizeof(int);      // each stage's sub-tiles' first page row
+// SUB: positions per sub-tile, one page each (16, or 8 for other pages)
+template <int D, int SUB> constexpr size_t smem_bytes() {
+  using T = Tiling<D>;
+  return static_cast<size_t>(T::kGroups * 2 * 2 * T::kBK * D)  // code rings: groups x 2 stages x (K, V)
+         + T::kGroups * 2 * 2 * T::kBK * sizeof(float)    // scale rings: groups x 2 stages x (kc, vc)
+         + T::kGroups * 2 * sizeof(bf16) * T::kBK * ldb<D>()   // each group's K and V tile in bf16
+         + T::kGroups * 2 * T::kBK * sizeof(float)        // each group's kc/127, vc/127
+         + T::kGroups * 2 * (T::kBK / SUB) * sizeof(int)  // each stage's sub-tiles' first page row
+         + (T::kWide ? sizeof(bf16) * kBQ * ldb<D>() : 0);   // q (wide: kept in shared memory)
 }
 
-template <int BITS, int D>
-__global__ void __launch_bounds__(kThreads)
+template <int BITS, int D, int SUB>
+__global__ void __launch_bounds__(Tiling<D>::kThreads)
 paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ kq,
                          const float* __restrict__ kc, const int8_t* __restrict__ vq,
                          const float* __restrict__ vc, const int* __restrict__ page_table,
                          const int* __restrict__ lengths, const int* __restrict__ offsets,
                          int offset0, void* __restrict__ out, int q_bf16, int hkv, int C, int R,
                          int page, int pps, int dt, float scale) {
+  constexpr bool kWide = Tiling<D>::kWide;
+  constexpr int kGroups = Tiling<D>::kGroups, kBK = Tiling<D>::kBK;
+  constexpr int kThreads = Tiling<D>::kThreads, kSub = SUB;
   constexpr int LDB = ldb<D>();
   constexpr int KD = D / 16;      // k16 chunks of the head width
   constexpr int NS = kBK / 8;     // n8 tiles of a warp's scores
@@ -103,6 +129,9 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
   bf16* Kb = reinterpret_cast<bf16*>(ring_sc + 2 * kGroups * 2 * kBK);     // [G][K, V][kBK][LDB]
   float* ks = reinterpret_cast<float*>(Kb + kGroups * 2 * kBK * LDB);      // [G][kc, vc][kBK]
   int* sub_w = reinterpret_cast<int*>(ks + kGroups * 2 * kBK);             // [G][2][NSUB]
+  // q in bf16: its own region when wide, else group 0's K tile until the
+  // fragments are in registers
+  bf16* Qs = kWide ? reinterpret_cast<bf16*>(sub_w + kGroups * 2 * NSUB) : Kb;   // [kBQ][LDB]
 
   const int bh = blockIdx.y, b = bh / hkv, h = bh % hkv;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // the last row blocks first
@@ -204,15 +233,16 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
           make_uint4(qg::pack_code_bf16(f[0], f[1]), qg::pack_code_bf16(f[2], f[3]),
                      qg::pack_code_bf16(f[4], f[5]), qg::pack_code_bf16(f[6], f[7]));
     }
-    kst[lt] = ring_sc[sg * 2 * kBK + lt] * (1.f / 127.f);   // 128 threads: kc then vc
+    if (lt < 2 * kBK) kst[lt] = ring_sc[sg * 2 * kBK + lt] * (1.f / 127.f);   // kc then vc
   };
 
   const int n_own = (nk - grp + kGroups - 1) / kGroups;   // this group's tiles
   if (n_own > 0) issue(0);
   qg::cp_async_commit();
 
-  // the block's rows, rounded to bf16, staged in group 0's K tile (it holds
-  // no tile yet: a group converts only after the block barrier below)
+  // the block's rows, rounded to bf16, staged in Qs (narrow: group 0's K
+  // tile, which holds no tile yet: a group converts only after the block
+  // barrier below)
   const size_t qb = static_cast<size_t>(bh) * R * D;
   for (int i = tid; i < kBQ * (D / 8); i += kThreads) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8;
@@ -221,7 +251,7 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
       if (q_bf16) qg::load8(static_cast<const bf16*>(q) + qb + static_cast<size_t>(r0 + r) * D + c, v);
       else qg::load8(static_cast<const float*>(q) + qb + static_cast<size_t>(r0 + r) * D + c, v);
     }
-    *reinterpret_cast<uint4*>(Kb + r * LDB + c) =
+    *reinterpret_cast<uint4*>(Qs + r * LDB + c) =
         make_uint4(qg::pack_bf16(v[0], v[1]), qg::pack_bf16(v[2], v[3]),
                    qg::pack_bf16(v[4], v[5]), qg::pack_bf16(v[6], v[7]));
   }
@@ -230,10 +260,12 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
   const int a_row = lane & 15, a_col = (lane >> 4) * 8;
   const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
   const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3), t_col = (lane >> 4) * 8;
-  uint32_t qf[KD][4];
+  uint32_t qf[kWide ? 1 : KD][4];   // wide: one k-chunk's, loaded where it is used
+  if constexpr (!kWide) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    qg::ldmatrix_x4(qf[kk], qg::smem_addr(Kb + (warp * 16 + a_row) * LDB + kk * 16 + a_col));
+    for (int kk = 0; kk < KD; ++kk)
+      qg::ldmatrix_x4(qf[kk], qg::smem_addr(Qs + (warp * 16 + a_row) * LDB + kk * 16 + a_col));
+  }
   __syncthreads();   // every warp holds its q before group 0 converts over it
 
   // this thread's two rows and the last position each attends (-1: none);
@@ -266,14 +298,18 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
 #pragma unroll
       for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
+      for (int kk = 0; kk < KD; ++kk) {
+        if (kWide)
+          qg::ldmatrix_x4(qf[0], qg::smem_addr(Qs + (warp * 16 + a_row) * LDB + kk * 16 + a_col));
+        const uint32_t* qa = qf[kWide ? 0 : kk];
 #pragma unroll
         for (int jp = 0; jp < NS / 2; ++jp) {
           uint32_t bb[4];
           qg::ldmatrix_x4(bb, qg::smem_addr(Kt + (jp * 16 + b_row) * LDB + kk * 16 + b_col));
-          qg::mma_bf16(s[2 * jp], qf[kk], bb);
-          qg::mma_bf16(s[2 * jp + 1], qf[kk], bb + 2);
+          qg::mma_bf16(s[2 * jp], qa, bb);
+          qg::mma_bf16(s[2 * jp + 1], qa, bb + 2);
         }
+      }
       // (s * scale) * kc/127 per column; -inf past a row's last position,
       // only where the tile crosses the warp's diagonal or the length tail
       const bool mask = k0 + kBK - 1 > wmin;
@@ -371,12 +407,33 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
     }
   }
 
+  const size_t ob = static_cast<size_t>(bh) * R * D;
+  qg::cp_async_wait<0>();
+  if constexpr (kGroups == 1) {   // wide: one group's state, normalized and written
+    const float l0c = fmaxf(l0, 1e-30f), l1c = fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int col = j * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int qi = half ? qi1 : qi0;
+        if (qi >= R) continue;
+        const float lc = half ? l1c : l0c;
+        const float x0 = acc[j][2 * half] / lc, x1 = acc[j][2 * half + 1] / lc;
+        const size_t o = ob + static_cast<size_t>(qi) * D + col;
+        if (q_bf16)
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + o) = __floats2bfloat162_rn(x0, x1);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(x0, x1);
+      }
+    }
+    return;
+  }
   // group 1 hands its state to group 0 through the (idle) ring, element-major
   // so that the 128 threads' stores do not collide; group 0 merges the two
   // (a row only one group saw keeps that group's state exactly) and writes
   constexpr int NE = 4 * NO + 4;
   float* xs = reinterpret_cast<float*>(ring);
-  qg::cp_async_wait<0>();
   __syncthreads();
   if (grp == 1) {
 #pragma unroll
@@ -388,7 +445,8 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
     xs[(4 * NO + 2) * 128 + lt] = l0;
     xs[(4 * NO + 3) * 128 + lt] = l1;
   }
-  static_assert(NE * 128 * sizeof(float) <= 2 * kGroups * TILE, "merge state fits the ring");
+  static_assert(kGroups == 1 || NE * 128 * sizeof(float) <= 2 * kGroups * TILE,
+                "merge state fits the ring");
   __syncthreads();
   if (grp == 1) return;
   const float mb0 = xs[(4 * NO) * 128 + lt], mb1 = xs[(4 * NO + 1) * 128 + lt];
@@ -397,7 +455,6 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
   const float fa1 = qg::exp_approx(m1 - mx1), fb1 = qg::exp_approx(mb1 - mx1);
   const float l0c = fmaxf(l0 * fa0 + xs[(4 * NO + 2) * 128 + lt] * fb0, 1e-30f);
   const float l1c = fmaxf(l1 * fa1 + xs[(4 * NO + 3) * 128 + lt] * fb1, 1e-30f);
-  const size_t ob = static_cast<size_t>(bh) * R * D;
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
     const int col = j * 8 + 2 * t;
@@ -418,20 +475,20 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
   }
 }
 
-template <int BITS, int D>
+template <int BITS, int D, int SUB>
 cudaError_t launch(const void* q, const void* kq, const void* kc, const void* vq,
                    const void* vc, const void* pt, const void* len, const void* offs,
                    int offset0, void* out, int q_bf16, int B, int hkv, int C, int R, int page,
                    int pps, int dt, float scale, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<D, SUB>();
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(paged_context_mma_kernel<BITS, D>,
+    const cudaError_t e = cudaFuncSetAttribute(paged_context_mma_kernel<BITS, D, SUB>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((R + kBQ - 1) / kBQ, B * hkv);
-  paged_context_mma_kernel<BITS, D><<<grid, kThreads, smem, s>>>(
+  paged_context_mma_kernel<BITS, D, SUB><<<grid, Tiling<D>::kThreads, smem, s>>>(
       q, static_cast<const int8_t*>(kq), static_cast<const float*>(kc),
       static_cast<const int8_t*>(vq), static_cast<const float*>(vc),
       static_cast<const int*>(pt), static_cast<const int*>(len), static_cast<const int*>(offs),
@@ -446,9 +503,10 @@ cudaError_t launch(const void* q, const void* kq, const void* kc, const void* vq
 // [P, Hkv, rows, d], d <= D (rows = page for bits 8, page/2 for bits 4),
 // 16-byte aligned; kc/vc f32 [P, Hkv, 1, page]; page_table int32 [B, pps];
 // lengths int32 [B]; offsets int32 [B], or null for one offset ``offset0``;
-// out [B, Hkv, R, D] in q's dtype. page a multiple of 16 from 16 to 256.
+// out [B, Hkv, R, D] in q's dtype. page a multiple of 8 from 8 to 256.
 // The plan (``paged_plan.k6_plan``): 64 rows per block, 64-position key
-// tiles, ``smem`` bytes of dynamic shared memory; any other is refused.
+// tiles (32 at D 256), ``smem`` bytes of dynamic shared memory; any other is
+// refused.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for a plan or shape no
 // instantiation takes).
 extern "C" int qgemm_paged_context_attention(const void* q, const void* kq, const void* kc,
@@ -460,20 +518,30 @@ extern "C" int qgemm_paged_context_attention(const void* q, const void* kq, cons
                                              int block_rows, int key_tile, int smem,
                                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || hkv <= 0 || C <= 0 || R <= 0 || R % C || pps <= 0 || page < 16 ||
-      page > 256 || page % 16 || B * hkv > 65535 || d < 1 || d > D ||
-      (dtype != 0 && dtype != 1) || block_rows != kBQ || key_tile != kBK)
+  if (B <= 0 || hkv <= 0 || C <= 0 || R <= 0 || R % C || pps <= 0 || page < 8 ||
+      page > 256 || page % 8 || B * hkv > 65535 || d < 1 || d > D ||
+      (dtype != 0 && dtype != 1) || block_rows != kBQ ||
+      key_tile != (D > 128 ? Tiling<256>::kBK : Tiling<128>::kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto go = [&](auto fn, size_t want) {
     if (static_cast<size_t>(smem) != want) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(fn(q, kq, kc, vq, vc, page_table, lengths, offsets, offset0, out,
                                dtype, B, hkv, C, R, page, pps, d, scale, s));
   };
-  if (bits == 8 && D == 32) return go(launch<8, 32>, smem_bytes<32>());
-  if (bits == 8 && D == 64) return go(launch<8, 64>, smem_bytes<64>());
-  if (bits == 8 && D == 128) return go(launch<8, 128>, smem_bytes<128>());
-  if (bits == 4 && D == 32) return go(launch<4, 32>, smem_bytes<32>());
-  if (bits == 4 && D == 64) return go(launch<4, 64>, smem_bytes<64>());
-  if (bits == 4 && D == 128) return go(launch<4, 128>, smem_bytes<128>());
+#define QG_K6(SUB)                                                                    \
+  if (bits == 8 && D == 32) return go(launch<8, 32, SUB>, smem_bytes<32, SUB>());     \
+  if (bits == 8 && D == 64) return go(launch<8, 64, SUB>, smem_bytes<64, SUB>());     \
+  if (bits == 8 && D == 128) return go(launch<8, 128, SUB>, smem_bytes<128, SUB>());  \
+  if (bits == 8 && D == 256) return go(launch<8, 256, SUB>, smem_bytes<256, SUB>());  \
+  if (bits == 4 && D == 32) return go(launch<4, 32, SUB>, smem_bytes<32, SUB>());     \
+  if (bits == 4 && D == 64) return go(launch<4, 64, SUB>, smem_bytes<64, SUB>());     \
+  if (bits == 4 && D == 128) return go(launch<4, 128, SUB>, smem_bytes<128, SUB>());  \
+  if (bits == 4 && D == 256) return go(launch<4, 256, SUB>, smem_bytes<256, SUB>());
+  if (page % 16 == 0) {
+    QG_K6(16)
+  } else {
+    QG_K6(8)
+  }
+#undef QG_K6
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,77 +34,85 @@
 // says how). The step tables of the ragged entry (the TPU grid's schedule)
 // are not read.
 //
-// Head widths: compiled for D in {32, 64, 128}; the pools' rows hold the
-// true width d <= D (16-byte cp.async when d is a multiple of 16, byte loads
-// otherwise; columns past d staged as zeros). The wrapper pads the per-call
-// q to D and slices the output; the pools are never copied. The launch plan
-// (split, grid, shared memory) comes from qgemm_tpu_torch/ops/cuda/
-// paged_plan.py; the entry refuses any other.
+// Head widths: compiled for D in {32, 64, 128, 256}; the pools' rows hold
+// the true width d <= D (16-byte cp.async when d is a multiple of 16, byte
+// loads otherwise; columns past d staged as zeros). The wrapper pads the
+// per-call q to D and slices the output; the pools are never copied. GQA
+// groups: any g >= 1, in the split body's row tiles (one pass of g rows
+// for g in {1, 2, 4, 8}, else passes of 8 over the staged split). Pages:
+// multiples of 8 from 8 to 256; a split of pages of 8 is 16 pages, each
+// staged on its own (an int4 page of 8 is 4 code rows; its scale row, 32
+// bytes, still one pair of 16-byte copies). The launch plan (split, grid,
+// shared memory) comes from qgemm_tpu_torch/ops/cuda/paged_plan.py; the
+// entry refuses any other.
 #include "split_decode.cuh"
 
 namespace {
 
 namespace sd = qg::split_decode;
 
-template <int BITS, int D, int G>
+template <int BITS, int D, int G, bool PASSES>
 __global__ void __launch_bounds__(sd::kThreads)
 paged_decode_split_kernel(const void* __restrict__ q, const int8_t* __restrict__ kq,
                           const float* __restrict__ kc, const int8_t* __restrict__ vq,
                           const float* __restrict__ vc, const int* __restrict__ page_table,
                           const int* __restrict__ lengths, void* __restrict__ out,
                           float* __restrict__ scratch, int* __restrict__ counters, int q_bf16,
-                          int hkv, int page, int pps, int dt, int nsplit, float scale) {
+                          int hkv, int page, int pps, int dt, int nsplit, float scale, int ng) {
   const int bh = blockIdx.x, b = bh / hkv;
   const sd::PagedRows<BITS, D> rows{kq, kc, vq, vc, page_table + static_cast<size_t>(b) * pps,
                                     hkv, bh % hkv, page, dt};
-  sd::decode_split<BITS, D, G>(rows, q, out, scratch, counters, q_bf16, bh, blockIdx.y, nsplit,
-                               min(lengths[b], pps * page), page, scale);   // never past the table
+  sd::decode_split<BITS, D, G, PASSES>(rows, q, out, scratch, counters, q_bf16, bh, blockIdx.y,
+                                       nsplit, min(lengths[b], pps * page), page, scale,
+                                       ng);   // never past the table
 }
 
-template <int BITS, int D, int G>
+template <int BITS, int D, int G, bool PASSES>
 cudaError_t launch(const void* q, const int8_t* kq, const float* kc, const int8_t* vq,
                    const float* vc, const int* pt, const int* len, void* out, float* scratch,
-                   int* counters, int q_bf16, int B, int hkv, int page, int pps, int dt,
+                   int* counters, int q_bf16, int B, int hkv, int ng, int page, int pps, int dt,
                    int nsplit, float scale, cudaStream_t s) {
   const int smem = sd::smem_bytes(BITS, D, G, page);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(paged_decode_split_kernel<BITS, D, G>,
+    const cudaError_t e = cudaFuncSetAttribute(paged_decode_split_kernel<BITS, D, G, PASSES>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                smem);
     if (e != cudaSuccess) return e;
   }
-  paged_decode_split_kernel<BITS, D, G><<<dim3(B * hkv, nsplit), sd::kThreads, smem, s>>>(
-      q, kq, kc, vq, vc, pt, len, out, scratch, counters, q_bf16, hkv, page, pps, dt, nsplit,
-      scale);
+  paged_decode_split_kernel<BITS, D, G, PASSES>
+      <<<dim3(B * hkv, nsplit), sd::kThreads, smem, s>>>(q, kq, kc, vq, vc, pt, len, out,
+                                                        scratch, counters, q_bf16, hkv, page,
+                                                        pps, dt, nsplit, scale, ng);
   return cudaGetLastError();
 }
 
+// the group's row tile: one pass of g rows, or passes of 8 (sd::row_tile)
 template <int BITS, int D>
 cudaError_t launch_g(int G, const void* q, const int8_t* kq, const float* kc, const int8_t* vq,
                      const float* vc, const int* pt, const int* len, void* out, float* scratch,
                      int* counters, int q_bf16, int B, int hkv, int page, int pps, int dt,
                      int nsplit, float scale, cudaStream_t s) {
   switch (G) {
-    case 1: return launch<BITS, D, 1>(q, kq, kc, vq, vc, pt, len, out, scratch, counters, q_bf16, B, hkv, page, pps, dt, nsplit, scale, s);
-    case 2: return launch<BITS, D, 2>(q, kq, kc, vq, vc, pt, len, out, scratch, counters, q_bf16, B, hkv, page, pps, dt, nsplit, scale, s);
-    case 4: return launch<BITS, D, 4>(q, kq, kc, vq, vc, pt, len, out, scratch, counters, q_bf16, B, hkv, page, pps, dt, nsplit, scale, s);
-    case 8: return launch<BITS, D, 8>(q, kq, kc, vq, vc, pt, len, out, scratch, counters, q_bf16, B, hkv, page, pps, dt, nsplit, scale, s);
-    default: return cudaErrorInvalidValue;
+    case 1: return launch<BITS, D, 1, false>(q, kq, kc, vq, vc, pt, len, out, scratch, counters, q_bf16, B, hkv, G, page, pps, dt, nsplit, scale, s);
+    case 2: return launch<BITS, D, 2, false>(q, kq, kc, vq, vc, pt, len, out, scratch, counters, q_bf16, B, hkv, G, page, pps, dt, nsplit, scale, s);
+    case 4: return launch<BITS, D, 4, false>(q, kq, kc, vq, vc, pt, len, out, scratch, counters, q_bf16, B, hkv, G, page, pps, dt, nsplit, scale, s);
+    case 8: return launch<BITS, D, 8, false>(q, kq, kc, vq, vc, pt, len, out, scratch, counters, q_bf16, B, hkv, G, page, pps, dt, nsplit, scale, s);
+    default: return launch<BITS, D, 8, true>(q, kq, kc, vq, vc, pt, len, out, scratch, counters, q_bf16, B, hkv, G, page, pps, dt, nsplit, scale, s);
   }
 }
 
 }  // namespace
 
 // q [B, Hkv*G, D] float32 (dtype 0) or bfloat16 (dtype 1), D in {32, 64,
-// 128}, zero past d; kq/vq int8 [P, Hkv, rows, d], d <= D (rows = page for
-// bits 8, page/2 for bits 4), 16-byte aligned; kc/vc f32 [P, Hkv, 1, page];
-// page_table int32 [B, pps]; lengths int32 [B]; out [B, Hkv*G, D] in q's
-// dtype; scratch f32 [B * Hkv * nsplit * G * (D + 2)] (the partial states);
-// counters int32 [>= B * Hkv], all 0 (each call leaves them 0). page a
-// multiple of 16 from 16 to 256; G in {1, 2, 4, 8}. The plan
+// 128, 256}, zero past d; kq/vq int8 [P, Hkv, rows, d], d <= D (rows = page
+// for bits 8, page/2 for bits 4), 16-byte aligned; kc/vc f32 [P, Hkv, 1,
+// page]; page_table int32 [B, pps]; lengths int32 [B]; out [B, Hkv*G, D] in
+// q's dtype; scratch f32 [B * Hkv * nsplit * G * (D + 2)] (the partial
+// states); counters int32 [>= B * Hkv], all 0 (each call leaves them 0).
+// page a multiple of 8 from 8 to 256; any G >= 1. The plan
 // (``paged_plan.k5_plan``): ``split_pages`` pages a split, ``nsplit`` =
-// ceil(pps / split_pages) splits, ``smem`` bytes of dynamic shared memory;
-// any other is refused. Returns cudaGetLastError().
+// ceil(pps / split_pages) splits, ``smem`` bytes of dynamic shared memory at
+// the group's row tile; any other is refused. Returns cudaGetLastError().
 extern "C" int qgemm_paged_decode_attention(const void* q, const void* kq, const void* kc,
                                             const void* vq, const void* vc,
                                             const void* page_table, const void* lengths,
@@ -114,12 +122,12 @@ extern "C" int qgemm_paged_decode_attention(const void* q, const void* kq, const
                                             int split_pages_, int nsplit, int smem,
                                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || hkv <= 0 || pps <= 0 || page < 16 || page > 256 || page % 16 || d < 1 ||
+  if (B <= 0 || hkv <= 0 || pps <= 0 || page < 8 || page > 256 || page % 8 || d < 1 ||
       d > D || (dtype != 0 && dtype != 1) || (bits != 8 && bits != 4) ||
-      (D != 32 && D != 64 && D != 128) || (G != 1 && G != 2 && G != 4 && G != 8) ||
+      (D != 32 && D != 64 && D != 128 && D != 256) || G < 1 ||
       split_pages_ != sd::split_pages(page) ||
       nsplit != (pps + split_pages_ - 1) / split_pages_ || nsplit > 65535 ||
-      smem != sd::smem_bytes(bits, D, G, page))
+      smem != sd::smem_bytes(bits, D, sd::row_tile(G), page))
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* k8 = static_cast<const int8_t*>(kq);
   const int8_t* v8 = static_cast<const int8_t*>(vq);
@@ -132,9 +140,11 @@ extern "C" int qgemm_paged_decode_attention(const void* q, const void* kq, const
   cudaError_t e;
   if (bits == 8 && D == 32) e = launch_g<8, 32>(G, q, k8, kcf, v8, vcf, pt, len, out, sc, cnt, dtype, B, hkv, page, pps, d, nsplit, scale, s);
   else if (bits == 8 && D == 64) e = launch_g<8, 64>(G, q, k8, kcf, v8, vcf, pt, len, out, sc, cnt, dtype, B, hkv, page, pps, d, nsplit, scale, s);
-  else if (bits == 8) e = launch_g<8, 128>(G, q, k8, kcf, v8, vcf, pt, len, out, sc, cnt, dtype, B, hkv, page, pps, d, nsplit, scale, s);
+  else if (bits == 8 && D == 128) e = launch_g<8, 128>(G, q, k8, kcf, v8, vcf, pt, len, out, sc, cnt, dtype, B, hkv, page, pps, d, nsplit, scale, s);
+  else if (bits == 8) e = launch_g<8, 256>(G, q, k8, kcf, v8, vcf, pt, len, out, sc, cnt, dtype, B, hkv, page, pps, d, nsplit, scale, s);
   else if (D == 32) e = launch_g<4, 32>(G, q, k8, kcf, v8, vcf, pt, len, out, sc, cnt, dtype, B, hkv, page, pps, d, nsplit, scale, s);
   else if (D == 64) e = launch_g<4, 64>(G, q, k8, kcf, v8, vcf, pt, len, out, sc, cnt, dtype, B, hkv, page, pps, d, nsplit, scale, s);
-  else e = launch_g<4, 128>(G, q, k8, kcf, v8, vcf, pt, len, out, sc, cnt, dtype, B, hkv, page, pps, d, nsplit, scale, s);
+  else if (D == 128) e = launch_g<4, 128>(G, q, k8, kcf, v8, vcf, pt, len, out, sc, cnt, dtype, B, hkv, page, pps, d, nsplit, scale, s);
+  else e = launch_g<4, 256>(G, q, k8, kcf, v8, vcf, pt, len, out, sc, cnt, dtype, B, hkv, page, pps, d, nsplit, scale, s);
   return static_cast<int>(e);
 }

@@ -19,21 +19,33 @@
 // equal bits. The block, given the split's code rows and scales staged in
 // shared memory by its row source (``stage``):
 //   - scores: lanes take 16-byte column slices of a code row (D / 16 lanes
-//     per row), hold their slices of the G <= 8 query rows in registers,
-//     and sum over the row's lanes with xor shuffles; an int4 byte row is
-//     read once for both of its positions (w: low nibbles, w + page/2:
-//     high);
+//     per row), hold their slices of a pass's G <= 8 query rows in
+//     registers, and sum over the row's lanes with xor shuffles; an int4
+//     byte row is read once for both of its positions (w: low nibbles, w +
+//     page/2: high);
 //   - the split's softmax in f32 (a warp per query row): its max m, its sum
 //     l of exp(s - m), and p * vc/127 rounded to bf16;
 //   - P V: each thread takes 4 columns of a set of rows, then the row sets
 //     are summed in a fixed order: the split's partial state (m, l, O[G, D]).
+// Query rows: the group's g query heads run in passes of a compiled row
+// tile G (registers hold G rows' q slices and P V sums; shared memory G
+// rows of scores and partial sums). A group g in {1, 2, 4, 8} is one pass
+// of G = g rows; any other g runs ceil(g / 8) passes of G = 8 over the
+// split's K and V, which are staged in shared memory once, the last
+// pass's spare rows computed on zero q and never written. So a slot's
+// cache is read from device memory once at any g: at g 71 (Falcon-7B, one
+// KV head) a block makes 9 passes over its 128 positions. What bounds it
+// is still the cache read (bytes), now at g / 8 passes of the score and
+// P V loops per byte: at g 71, d 64, ~4 * 71 * 64 flops per 2 * 64 + 8
+// bytes a position, ~130 per byte, still under the card's balance.
 // A slot of one live split writes its output at once. Otherwise each block
 // writes its partial state to scratch and, after a __threadfence, counts
 // itself done on the (slot, KV head)'s counter; the last block to finish
 // merges the states IN SPLIT ORDER (deterministic, whatever order the
-// blocks finished in), writes out = O / max(L, 1e-30), and resets the
-// counter to 0 for the next call: one launch per call. Codes become f32 by
-// a byte permute into an f32's mantissa (exact; no int-to-float convert).
+// blocks finished in, and the same at every g and row tile), writes out =
+// O / max(L, 1e-30), and resets the counter to 0 for the next call: one
+// launch per call. Codes become f32 by a byte permute into an f32's
+// mantissa (exact; no int-to-float convert).
 #pragma once
 
 #include "common.cuh"
@@ -50,8 +62,12 @@ __host__ __device__ constexpr int split_pages(int page) {
   return page < kSplitPositions ? kSplitPositions / page : 1;
 }
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+// the compiled row tile of a GQA group g: g itself where it is 1, 2, 4 or
+// 8, else 8 (passes of 8 rows)
+__host__ __device__ constexpr int row_tile(int g) { return g == 1 || g == 2 || g == 4 ? g : 8; }
 
-// the dynamic shared memory of one block, region by region (see decode_split)
+// the dynamic shared memory of one block at row tile G, region by region
+// (see decode_split)
 __host__ __device__ constexpr int smem_bytes(int bits, int D, int G, int page) {
   return 2 * split_pages(page) * (bits == 8 ? page : page / 2) * D   // K, V code rows
          + 2 * split_pages(page) * page * 4                          // kc, vc
@@ -157,29 +173,33 @@ struct DenseRows {
 };
 
 // One block's split ``split`` of (slot, KV head) ``bh``, whose slot holds
-// ``len`` positions, over pages of ``page`` positions; q [bh * G + g][D] in
-// bf16 (q_bf16) or f32, out likewise; scratch [bh][nsplit][G][D + 2];
+// ``len`` positions, over pages of ``page`` positions, for the ``ng`` query
+// heads of the KV head (the GQA group): one pass of the row tile G = ng
+// (PASSES false), or ceil(ng / G) passes of G rows. q [bh * ng + g][D] in
+// bf16 (q_bf16) or f32, out likewise; scratch [bh][nsplit][ng][D + 2];
 // counters [bh], 0 on entry, 0 again when the call ends.
-template <int BITS, int D, int G, class Rows>
+template <int BITS, int D, int G, bool PASSES, class Rows>
 __device__ __forceinline__ void decode_split(const Rows& src, const void* __restrict__ q,
                                              void* __restrict__ out,
                                              float* __restrict__ scratch,
                                              int* __restrict__ counters, int q_bf16, int bh,
                                              int split, int nsplit, int len, int page,
-                                             float scale) {
+                                             float scale, int ng) {
   constexpr int LPR = D / 16;           // lanes per code row in the score pass
   constexpr int RPW = 32 / LPR;         // code rows a warp takes at once
   constexpr int TPR = D / 4;            // threads per code row in the P V pass
   constexpr int NRG = kThreads / TPR;   // row sets of the P V pass
+  const int NG = PASSES ? ng : G;       // the group's query rows
+  const int npass = PASSES ? (ng + G - 1) / G : 1;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t orow = static_cast<size_t>(bh) * G * D;   // this (slot, KV head)'s outputs
+  const size_t orow = static_cast<size_t>(bh) * NG * D;   // this (slot, KV head)'s outputs
   const auto store = [&](int i, float v) {
     if (q_bf16) static_cast<bf16*>(out)[orow + i] = __float2bfloat16_rn(v);
     else static_cast<float*>(out)[orow + i] = v;
   };
   if (len == 0) {
     if (split == 0)
-      for (int i = tid; i < G * D; i += kThreads) store(i, 0.f);
+      for (int i = tid; i < NG * D; i += kThreads) store(i, 0.f);
     return;
   }
   const int sp = split_pages(page), np = sp * page;   // pages, positions per split
@@ -201,128 +221,138 @@ __device__ __forceinline__ void decode_split(const Rows& src, const void* __rest
                                          round16(2 * G * 4));      // [NRG][G][D]
   int* flag = reinterpret_cast<int*>(part + NRG * G * D);
 
-  // the split's code rows and scales -> shared memory
+  // the split's code rows and scales -> shared memory, once for every pass
   src.stage(Kc, Vc, ksc, vsc, split, n_live);
   cp_async_commit();
-
-  // meanwhile this lane's 16-column slice of the G query rows, as bf16
-  const int lsub = lane % LPR, rsub = lane / LPR;
-  float qr[G][16];
-  const size_t qrow = static_cast<size_t>(bh) * G * D + lsub * 16;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (q_bf16) {
-      load8(static_cast<const bf16*>(q) + qrow + g * D, qr[g]);
-      load8(static_cast<const bf16*>(q) + qrow + g * D + 8, qr[g] + 8);
-    } else {
-      load8(static_cast<const float*>(q) + qrow + g * D, qr[g]);
-      load8(static_cast<const float*>(q) + qrow + g * D + 8, qr[g] + 8);
-#pragma unroll
-      for (int e = 0; e < 16; ++e) qr[g][e] = bf16_round(qr[g][e]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
 
   // the split's byte rows: every row below n_rows_all holds a live position
   // (int4: its low nibble's; its high nibble's is live if below n_live)
   const int last = (n_live - 1) / page;
   const int n_rows_all = BITS == 8 ? n_live : last * rows + min(rows, n_live - last * page);
   const auto pos_of = [&](int i) { return BITS == 8 || sp == 1 ? i : (i / rows) * page + i % rows; };
+  const int lsub = lane % LPR, rsub = lane / LPR;
+  const int c4 = (tid % TPR) * 4, rs = tid / TPR;   // the P V pass's columns and row set
+  float* state = scratch + (static_cast<size_t>(bh) * nsplit + split) * NG * (D + 2);
 
-  // scores: s = (q . K) * scale * kc/127, lanes on 16-byte slices of a row
-  for (int i0 = warp * RPW; i0 < n_rows_all; i0 += kWarps * RPW) {
-    const int i = i0 + rsub;
-    const bool ok = i < n_rows_all;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (ok) u = *reinterpret_cast<const uint4*>(Kc + i * D + lsub * 16);
-    const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
+  for (int pass = 0; pass < npass; ++pass) {
+    const int g0 = pass * G;                                // the pass's first query row
+    const int rows_live = PASSES ? min(G, NG - g0) : G;   // its rows inside the group
+    // this lane's 16-column slice of the pass's G query rows, as bf16 (the
+    // first pass loads them while the split's copies are in flight; rows
+    // past the group are zeros)
+    float qr[G][16];
+    const size_t qrow = (static_cast<size_t>(bh) * NG + g0) * D + lsub * 16;
 #pragma unroll
-    for (int half = 0; half < (BITS == 8 ? 1 : 2); ++half) {
-      float kv[16];
+    for (int g = 0; g < G; ++g) {
+      if (PASSES && g >= rows_live) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) kv_codes4<BITS>(wd[k], half == 1, kv + 4 * k);
-      float s[G];
+        for (int e = 0; e < 16; ++e) qr[g][e] = 0.f;
+      } else if (q_bf16) {
+        load8(static_cast<const bf16*>(q) + qrow + g * D, qr[g]);
+        load8(static_cast<const bf16*>(q) + qrow + g * D + 8, qr[g] + 8);
+      } else {
+        load8(static_cast<const float*>(q) + qrow + g * D, qr[g]);
+        load8(static_cast<const float*>(q) + qrow + g * D + 8, qr[g] + 8);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float a = 0.f;
-#pragma unroll
-        for (int e = 0; e < 16; ++e) a = fmaf(qr[g][e], kv[e], a);
-#pragma unroll
-        for (int o = LPR / 2; o; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-        s[g] = a;
-      }
-      const int pos = ok ? pos_of(i) + half * rows : n_live;
-      if (lsub == 0 && pos < n_live) {
-        const float ks = ksc[pos] * (1.f / 127.f);
-#pragma unroll
-        for (int g = 0; g < G; ++g) S[g * np + pos] = (s[g] * scale) * ks;
+        for (int e = 0; e < 16; ++e) qr[g][e] = bf16_round(qr[g][e]);
       }
     }
-  }
-  __syncthreads();
+    if (pass == 0) cp_async_wait<0>();
+    __syncthreads();   // the split is staged; the last pass's readers are done
 
-  // the split's softmax, a warp per query row: m, l, and p * vc/127 in bf16
-  for (int g = warp; g < G; g += kWarps) {
-    float* sg = S + g * np;
-    float mx = -1e30f;
-    for (int j = lane; j < n_live; j += 32) mx = fmaxf(mx, sg[j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < n_live; j += 32) {
-      const float p = expf(sg[j] - mx);
-      sum += p;
-      sg[j] = bf16_round(p * (vsc[j] * (1.f / 127.f)));
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      mrow[g] = mx;
-      lrow[g] = sum;
-    }
-  }
-  __syncthreads();
-
-  // P V: thread (row set rs, 4 columns c4) over rows rs, rs + NRG, ...
-  const int c4 = (tid % TPR) * 4, rs = tid / TPR;
-  float acc[G][4];
+    // scores: s = (q . K) * scale * kc/127, lanes on 16-byte slices of a row
+    for (int i0 = warp * RPW; i0 < n_rows_all; i0 += kWarps * RPW) {
+      const int i = i0 + rsub;
+      const bool ok = i < n_rows_all;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (ok) u = *reinterpret_cast<const uint4*>(Kc + i * D + lsub * 16);
+      const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
-  for (int i = rs; i < n_rows_all; i += NRG) {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(Vc + i * D + c4);
-    const int pos = pos_of(i);
+      for (int half = 0; half < (BITS == 8 ? 1 : 2); ++half) {
+        float kv[16];
 #pragma unroll
-    for (int half = 0; half < (BITS == 8 ? 1 : 2); ++half) {
-      const int pp = pos + half * rows;
-      if (pp >= n_live) break;
-      float v[4];
-      kv_codes4<BITS>(w, half == 1, v);
+        for (int k = 0; k < 4; ++k) kv_codes4<BITS>(wd[k], half == 1, kv + 4 * k);
+        float s[G];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float p = S[g * np + pp];
+        for (int g = 0; g < G; ++g) {
+          float a = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(p, v[e], acc[g][e]);
+          for (int e = 0; e < 16; ++e) a = fmaf(qr[g][e], kv[e], a);
+#pragma unroll
+          for (int o = LPR / 2; o; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+          s[g] = a;
+        }
+        const int pos = ok ? pos_of(i) + half * rows : n_live;
+        if (lsub == 0 && pos < n_live) {
+          const float ks = ksc[pos] * (1.f / 127.f);
+#pragma unroll
+          for (int g = 0; g < G; ++g) S[g * np + pos] = (s[g] * scale) * ks;
+        }
       }
     }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-    *reinterpret_cast<float4*>(part + (rs * G + g) * D + c4) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-  __syncthreads();
+    __syncthreads();
 
-  float* state = scratch + (static_cast<size_t>(bh) * nsplit + split) * G * (D + 2);
-  for (int i = tid; i < G * D; i += kThreads) {
-    float o = 0.f;
+    // the split's softmax, a warp per query row: m, l, and p * vc/127 in bf16
+    for (int g = warp; g < G; g += kWarps) {
+      float* sg = S + g * np;
+      float mx = -1e30f;
+      for (int j = lane; j < n_live; j += 32) mx = fmaxf(mx, sg[j]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < n_live; j += 32) {
+        const float p = expf(sg[j] - mx);
+        sum += p;
+        sg[j] = bf16_round(p * (vsc[j] * (1.f / 127.f)));
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        mrow[g] = mx;
+        lrow[g] = sum;
+      }
+    }
+    __syncthreads();
+
+    // P V: thread (row set rs, 4 columns c4) over rows rs, rs + NRG, ...
+    float acc[G][4];
 #pragma unroll
-    for (int r = 0; r < NRG; ++r) o += part[r * G * D + i];
-    if (nsplit_live == 1) store(i, o / fmaxf(lrow[i / D], 1e-30f));
-    else state[i] = o;
+    for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+    for (int i = rs; i < n_rows_all; i += NRG) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(Vc + i * D + c4);
+      const int pos = pos_of(i);
+#pragma unroll
+      for (int half = 0; half < (BITS == 8 ? 1 : 2); ++half) {
+        const int pp = pos + half * rows;
+        if (pp >= n_live) break;
+        float v[4];
+        kv_codes4<BITS>(w, half == 1, v);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float p = S[g * np + pp];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(p, v[e], acc[g][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      *reinterpret_cast<float4*>(part + (rs * G + g) * D + c4) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    __syncthreads();
+
+    // the pass's rows: out (one live split) or their partial state
+    for (int i = tid; i < rows_live * D; i += kThreads) {
+      float o = 0.f;
+#pragma unroll
+      for (int r = 0; r < NRG; ++r) o += part[r * G * D + i];
+      if (nsplit_live == 1) store(g0 * D + i, o / fmaxf(lrow[i / D], 1e-30f));
+      else state[g0 * D + i] = o;
+    }
+    if (nsplit_live > 1 && tid < rows_live) {
+      state[NG * D + g0 + tid] = mrow[tid];
+      state[NG * D + NG + g0 + tid] = lrow[tid];
+    }
   }
   if (nsplit_live == 1) return;
-  if (tid < G) {
-    state[G * D + tid] = mrow[tid];
-    state[G * D + G + tid] = lrow[tid];
-  }
   __threadfence();
   __syncthreads();
   if (tid == 0) *flag = atomicAdd(counters + bh, 1) == nsplit_live - 1;
@@ -331,16 +361,16 @@ __device__ __forceinline__ void decode_split(const Rows& src, const void* __rest
   __threadfence();
 
   // the last block: merge the live splits' states in split order
-  const float* st0 = scratch + static_cast<size_t>(bh) * nsplit * G * (D + 2);
-  for (int i = tid; i < G * D; i += kThreads) {
+  const float* st0 = scratch + static_cast<size_t>(bh) * nsplit * NG * (D + 2);
+  for (int i = tid; i < NG * D; i += kThreads) {
     const int g = i / D;
     float mx = -1e30f;
-    for (int s = 0; s < nsplit_live; ++s) mx = fmaxf(mx, __ldcg(st0 + s * G * (D + 2) + G * D + g));
+    for (int s = 0; s < nsplit_live; ++s) mx = fmaxf(mx, __ldcg(st0 + s * NG * (D + 2) + NG * D + g));
     float l = 0.f, o = 0.f;
     for (int s = 0; s < nsplit_live; ++s) {
-      const float* ss = st0 + s * G * (D + 2);
-      const float f = expf(__ldcg(ss + G * D + g) - mx);
-      l += __ldcg(ss + G * D + G + g) * f;
+      const float* ss = st0 + s * NG * (D + 2);
+      const float f = expf(__ldcg(ss + NG * D + g) - mx);
+      l += __ldcg(ss + NG * D + NG + g) * f;
       o += __ldcg(ss + i) * f;
     }
     store(i, o / fmaxf(l, 1e-30f));

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
-from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import ROUTES, flash_attention_bwd
+from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import ROUTES, WIDTHS, flash_attention_bwd
 from qgemm_tpu_torch.ops.validation import (check, check_aligned16, check_attention_4d,
                                             pad_last, padded_head_dim)
 
@@ -51,26 +51,29 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _MMA_KEY_TILE = 64
+_MMA_WIDE_KEY_TILE = 32    # D 256: fewer keys a tile, Q's fragments read per k-chunk
 
 
 def flash_fwd_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int) -> dict:
     """K3's launch plan for ``bh`` batch*heads of ``sq`` queries over ``sk``
-    keys at the kernel width ``d`` (32, 64 or 128): the route ("mma", the
-    bf16 tensor-core kernel; "simt", the f32 kernel), the query rows per
-    block, the keys per streamed tile, threads per block, the grid and the
-    dynamic shared memory in bytes. Both routes take 64 query rows per
+    keys at the kernel width ``d`` (32, 64, 128 or 256): the route ("mma",
+    the bf16 tensor-core kernel; "simt", the f32 kernel), the query rows
+    per block, the keys per streamed tile, threads per block, the grid and
+    the dynamic shared memory in bytes. Both routes take 64 query rows per
     block: on the H100, 128-row blocks of the mma route (8 warps) were
-    slower at S 512 and at S 2048 (PERF.md §6). Pure: the CPU tests
+    slower at S 512 and at S 2048 (PERF.md §6); at d 256 the mma route's
+    key tiles hold 32 keys (the .cu note says why). Pure: the CPU tests
     check it, and the C entry refuses a plan that matches no compiled
     kernel."""
     check(dtype in _DTYPES, f"K3 takes float32 or bfloat16, got {dtype}")
-    check(d in (32, 64, 128), f"K3 is compiled for widths 32, 64 and 128, got {d}")
+    check(d in WIDTHS, f"K3 is compiled for widths {WIDTHS}, got {d}")
     check(0 < bh <= 65535, f"K3 takes 1 to 65535 batch*heads, got {bh}")
     check(sq > 0 and sk > 0, f"K3 needs sq and sk > 0, got {sq}, {sk}")
     if dtype == torch.bfloat16:
-        plan = {"route": "mma", "block_q": 64, "block_k": _MMA_KEY_TILE, "threads": 128,
+        tile = _MMA_WIDE_KEY_TILE if d > 128 else _MMA_KEY_TILE
+        plan = {"route": "mma", "block_q": 64, "block_k": tile, "threads": 128,
                 # Q, then two stages of K and V tiles, bf16 rows padded by 16 B
-                "smem": 2 * (d + 8) * (64 + 4 * _MMA_KEY_TILE)}
+                "smem": 2 * (d + 8) * (64 + 4 * tile)}
     else:
         plan = {"route": "simt", "block_q": 64, "block_k": 32, "threads": 256,
                 # Q, K and V tiles in f32 (rows padded by 16 B), scores, row stats
@@ -93,9 +96,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, H, Sq, D], k [B, H, Sk, D], v [B, H, Sk, Dv] -> (O [B, H, Sq, Dv],
     lse f32 [B, H, Sq]); causal means key j attends query i iff j <= i. CPU
     tensors run the plain version; CUDA tensors launch K3 (bf16 on the
-    tensor-core route, f32 on the SIMT route; D and Dv up to 128: q, k and
-    v are zero-padded to the kernel's width when D or Dv is not 32, 64 or
-    128, or they differ) or raise."""
+    tensor-core route, f32 on the SIMT route; D and Dv up to 256: q, k and
+    v are zero-padded to the kernel's width when D or Dv is not 32, 64, 128
+    or 256, or they differ) or raise."""
     check_attention_4d(q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)

@@ -21,6 +21,7 @@ from qgemm_tpu_torch.ops.validation import (check, check_aligned16, check_attent
                                             pad_last, padded_head_dim)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WIDTHS = (32, 64, 128, 256)   # K3's and K7's compiled head widths
 # the C entries' route codes (K3's and K7's): the f32 SIMT kernels and the
 # bf16 tensor-core (mma.sync) kernels
 ROUTES = {"simt": 0, "mma": 1}
@@ -57,14 +58,16 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_bwd_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int) -> dict:
     """K7's launch plan for ``bh`` batch*heads of ``sq`` queries over ``sk``
-    keys at the kernel width ``d`` (32, 64 or 128): the route ("mma" for
-    bf16, "simt" for f32), the query rows per dQ block (``block_q``), the
-    key rows per dK/dV block (``block_k``), the rows of each streamed tile,
-    threads per block, the three grids (delta pre-pass, dQ, dK/dV) and the
-    two kernels' dynamic shared memory in bytes. Pure: the CPU tests check
-    it, and the C entry refuses a plan that matches no compiled kernel."""
+    keys at the kernel width ``d`` (32, 64, 128 or 256): the route ("mma"
+    for bf16, "simt" for f32), the query rows per dQ block (``block_q``),
+    the key rows per dK/dV block (``block_k``), the rows of each streamed
+    tile, threads per block, the three grids (delta pre-pass, dQ, dK/dV:
+    at d 256 on the mma route two dK/dV blocks per 64 keys, z 0 for dV and
+    1 for dK) and the two kernels' dynamic shared memory in bytes. Pure:
+    the CPU tests check it, and the C entry refuses a plan that matches no
+    compiled kernel."""
     check(dtype in _DTYPES, f"K7 takes float32 or bfloat16, got {dtype}")
-    check(d in (32, 64, 128), f"K7 is compiled for widths 32, 64 and 128, got {d}")
+    check(d in WIDTHS, f"K7 is compiled for widths {WIDTHS}, got {d}")
     check(0 < bh <= 65535, f"K7 takes 1 to 65535 batch*heads, got {bh}")
     check(sq > 0 and sk > 0, f"K7 needs sq and sk > 0, got {sq}, {sk}")
     check(bh * sq <= 0x7FFFFFFF // 32, f"K7's delta pre-pass takes at most 2^26 rows, "
@@ -83,7 +86,8 @@ def flash_bwd_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int) -> dic
                 "smem_dq": rows + 4 * (64 * 33 + 2 * 64),
                 "smem_dkv": rows + 4 * (2 * 64 * 33 + 2 * 32)}
     plan.update(grid_delta=(-(-bh * sq * 32 // 256),), grid_dq=(-(-sq // plan["block_q"]), bh),
-                grid_dkv=(-(-sk // plan["block_k"]), bh))
+                grid_dkv=(-(-sk // plan["block_k"]), bh)
+                + ((2,) if plan["route"] == "mma" and d > 128 else ()))
     return plan
 
 
@@ -102,7 +106,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, H, Sq, D], k/v [B, H, Sk, D], out and its gradient g
     [B, H, Sq, D], lse f32 [B, H, Sq] (the forward's) -> (dQ, dK, dV).
     CPU tensors run the plain version; CUDA tensors launch K7 (bf16 on the
-    tensor-core route, f32 on the SIMT route; D and Dv up to 128,
+    tensor-core route, f32 on the SIMT route; D and Dv up to 256,
     zero-padded as K3's wrapper pads them; at most 65535 batch*heads) or
     raise."""
     check_attention_4d(q, k, v)

@@ -42,7 +42,7 @@ def paged_context_attention(q: torch.Tensor, cache: PagedKVCache, lengths: torch
     lengths[b]; the chunk's K/V must already be written. Hq a multiple of
     the pool heads (GQA). Returns [B, Hq, C, D] in q's dtype. CPU tensors
     run the plain version in float32 (the JAX package's CPU path); CUDA
-    tensors launch K6 (D <= 128; float32 or bfloat16 q, other float dtypes
+    tensors launch K6 (D <= 256; float32 or bfloat16 q, other float dtypes
     through float32) or raise."""
     check_args(q, cache, lengths)
     b, hq, c, d = q.shape

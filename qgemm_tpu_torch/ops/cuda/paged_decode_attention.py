@@ -55,8 +55,8 @@ def check_kernel_args(q: torch.Tensor, cache: PagedKVCache, tensors) -> None:
     padded_head_dim(q.shape[3])
     check(q.dtype in Q_DTYPES, f"the paged kernels take float32 or bfloat16 q, got {q.dtype} "
           "(the wrappers pass other float dtypes in float32)")
-    check(ps % 16 == 0 and 16 <= ps <= 256,
-          f"the paged kernels take page sizes that are multiples of 16 from 16 to "
+    check(ps % 8 == 0 and 8 <= ps <= 256,
+          f"the paged kernels take page sizes that are multiples of 8 from 8 to "
           f"256, got {ps}")
     check(all(t.is_cuda and t.device == q.device for t in tensors),
           "paged attention: q, pools, scales, page table and lengths must lie on "
@@ -99,7 +99,6 @@ def _launch(q: torch.Tensor, cache: PagedKVCache, lengths: torch.Tensor, entry) 
     b, hq, _, d = q.shape
     hkv = cache.kq.shape[1]
     g = hq // hkv
-    check(g in (1, 2, 4, 8), f"K5 takes GQA groups 1, 2, 4 or 8, got {g}")
     pt = cache.page_table
     check_kernel_args(q, cache, (cache.kq, cache.kc, cache.vq, cache.vc, pt, lengths))
     dp = padded_head_dim(d)
@@ -127,7 +126,7 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     pool heads (GQA); lengths [B], position j of slot b attends iff j <
     lengths[b]. Returns [B, Hq, 1, D] in q's dtype. CPU tensors run the
     plain version in float32 (the JAX package's CPU path); CUDA tensors
-    launch K5 (D <= 128, g in {1, 2, 4, 8}; float32 or bfloat16 q, other
+    launch K5 (D <= 256, any g; float32 or bfloat16 q, other
     float dtypes through float32) or raise."""
     _check(q, cache, lengths)
     if not q.is_cuda:

@@ -60,9 +60,10 @@ def check_aligned16(name: str, *tensors: torch.Tensor) -> None:
 
 def padded_head_dim(d: int) -> int:
     """The head width an attention kernel is compiled for that holds ``d``:
-    32, 64 or 128 (the kernels take any d up to 128; above it they raise)."""
-    check(1 <= d <= 128, f"the attention kernels take head_dim 1 to 128, got {d}")
-    return 32 if d <= 32 else 64 if d <= 64 else 128
+    32, 64, 128 or 256 (the kernels take any d up to 256; above it they
+    raise)."""
+    check(1 <= d <= 256, f"the attention kernels take head_dim 1 to 256, got {d}")
+    return 32 if d <= 32 else 64 if d <= 64 else 128 if d <= 128 else 256
 
 
 def pad_last(t: torch.Tensor, width: int) -> torch.Tensor:

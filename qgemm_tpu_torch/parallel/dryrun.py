@@ -181,11 +181,10 @@ def run_dryrun(device: DeviceLike = None) -> dict:
            [[t, t + 1] for t in (7, 9)], [5, 5], max_steps=60)
 
     # --- over-commit and preemption x paged x TP -------------------------
-    # pages of 16, the smallest the paged kernels take on the card; JAX's
-    # 9 pages of 8 become 5 of 16: the same 64 positions past the null page,
-    # where the two requests need 86
+    # JAX's 9 pages of 8: 64 positions past the null page, where the two
+    # requests need 86
     oeng = ContinuousBatchingEngine(pgpt_sharded, max_slots=2, paged=True, overcommit=True,
-                                    n_pages=5, page_size=16, **eng)
+                                    n_pages=9, page_size=8, **eng)
     _serve(oeng, [[t, t + 1, t + 2] for t in (15, 17)], [40, 40], max_steps=400)
     out["preemptions"] = oeng.preemptions
 

@@ -1009,7 +1009,7 @@ class ContinuousBatchingEngine(_EngineLoop):
 
         Paged mode (``paged=True``): ``n_pages`` sizes the pool (default:
         every slot's full table, plus the null page), ``page_size`` (default
-        128; on the GPU a multiple of 16 from 16 to 256) the pages,
+        128; on the GPU a multiple of 8 from 8 to 256) the pages,
         ``kv_bits`` 8 or 4 the pools (int4 needs an even page).
         ``prefix_cache`` (default on) shares full prompt pages between
         requests; ``overcommit`` reserves pages needed now instead of the

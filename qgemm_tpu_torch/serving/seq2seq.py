@@ -90,8 +90,8 @@ class Seq2SeqEngine(_EngineLoop):
         budget (default: the positional table less one). ``quantized_cache``
         makes the dense self-cache and the cross K/V int8. ``paged=True``
         pages the decoder self-cache (``n_pages``, default every slot's full
-        table; ``page_size`` default 128, on the GPU a multiple of 16 from
-        16 to 256; ``kv_bits`` 8 or 4, int4 needing an even page): pages
+        table; ``page_size`` default 128, on the GPU a multiple of 8 from
+        8 to 256; ``kv_bits`` 8 or 4, int4 needing an even page): pages
         round the decoder budget up but the requests' limit stays the
         budget. ``multi_step=K`` runs K decode steps a dispatch when nothing
         waits. ``draft_model`` (a Transformer) turns on speculation,

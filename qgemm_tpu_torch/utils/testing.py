@@ -71,6 +71,58 @@ def rel_fro_error(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
+def activation_values(x, slab: int = 0) -> np.ndarray:
+    """The int8 activation codes' values before rounding, x * (127 / c), in
+    float32, on each row's absmax grid ``c`` (floored at 1e-12) over K
+    slabs of ``slab`` columns (0: the whole row), as the quantized matmuls
+    compute them."""
+    x = np.asarray(to_numpy(x), np.float32)
+    slab = slab or x.shape[1]
+    out = np.empty_like(x)
+    for s0 in range(0, x.shape[1], slab):
+        xs = x[:, s0:s0 + slab]
+        c = np.maximum(np.abs(xs).max(axis=1, keepdims=True), np.float32(1e-12))
+        out[:, s0:s0 + slab] = xs * (np.float32(127) / c)
+    return out
+
+
+def activation_code_ties(port, ref, seq: int, eps: float) -> tuple:
+    """Two packages' activation codes, layer by layer: ``port[layer][part]``
+    and ``ref[layer][part]`` are the values before rounding
+    (``activation_values``) of one quantized layer's input, [rows, K'], in
+    call order (parts: the ranks' shards, or one). Every code of a row
+    that no earlier differing code reaches must be equal (round half to
+    even, as torch and jnp round), or both values must lie within ``eps``
+    of a rounding boundary k + 1/2: a tie, which the two packages may break
+    apart from last-bit differences in their inputs. Rows are sequence-
+    major (row = b * seq + t); a differing code at (b, t) reaches every
+    later layer's rows (b, t') for t' >= t, since attention carries it
+    forward. Returns (the rows reached, the ties: (layer, part, row,
+    column, port value, ref value)); raises AssertionError on a differing
+    code that is no tie."""
+    rows = port[0][0].shape[0]
+    reached = np.zeros(rows, bool)
+    ties = []
+    tie = lambda v: np.abs(v - np.floor(v) - 0.5) < eps
+    for li, (pl, rl) in enumerate(zip(port, ref)):
+        new = np.zeros(rows, bool)
+        for part, (a, b) in enumerate(zip(pl, rl)):
+            differ = (np.round(a) != np.round(b)) & ~reached[:, None]
+            bad = differ & ~(tie(a) & tie(b))
+            if bad.any():
+                i, k = np.argwhere(bad)[0]
+                raise AssertionError(f"layer {li} part {part}: {int(bad.sum())} codes differ "
+                                     f"and are not at a rounding tie, e.g. row {i} column "
+                                     f"{k}: {a[i, k]!r} against {b[i, k]!r}")
+            for i, k in np.argwhere(differ):
+                ties.append((li, part, int(i), int(k), float(a[i, k]), float(b[i, k])))
+                new[i] = True
+        for i in np.flatnonzero(new):
+            b0, t = divmod(int(i), seq)
+            reached[b0 * seq + t:(b0 + 1) * seq] = True
+    return reached, ties
+
+
 def _world_child(rank: int, fn, world: int, store: str, device, args) -> None:
     import torch.distributed as dist
 

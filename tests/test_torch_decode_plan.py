@@ -32,7 +32,9 @@ use_test_threads()
 CSRC = Path(dp.__file__).resolve().parents[2] / "csrc"
 SMEM_LIMIT = 232448        # the dynamic shared memory one H100 block may use
 EXTENTS = (1, 127, 128, 129, 300, 385, 1024, 1025)
-COMPILED = [(D, G) for D in (32, 64, 128) for G in (1, 2, 4, 8)]
+COMPILED = [(D, G) for D in (32, 64, 128, 256) for G in (1, 2, 4, 8)]
+# GQA groups that are no compiled row tile (passes of 8 rows), or wider
+GROUPS = (3, 7, 16, 32, 71)
 
 
 def _lengths(S: int) -> list:
@@ -126,6 +128,8 @@ def test_plan_constants_are_the_kernels():
     assert const(body, "kThreads") == dp.K2_THREADS
     assert '#include "split_decode.cuh"' in k2
     assert "sd::smem_bytes(8, D, G, sd::kSplitPositions)" in k2
+    assert "smem != sd::smem_bytes(8, D, sd::row_tile(G), sd::kSplitPositions)" in k2
+    assert "default: return launch_split<D, 8, true>" in k2
     assert "split_positions != sd::kSplitPositions" in k2
     assert "<<<dim3(B * hkv, nsplit), sd::kThreads, smem, s>>>" in k2
 
@@ -142,9 +146,23 @@ def test_build_keys_each_library_by_the_headers_it_includes():
     assert "int8_gemm.cuh" in names["expert_matmul"] and "wgmma.cuh" in names["expert_matmul"]
 
 
+@pytest.mark.parametrize("S", [200, 1025])
+@pytest.mark.parametrize("g", GROUPS)
+@pytest.mark.parametrize("D", [64, 256])
+def test_k2_plan_takes_any_group_in_passes_of_8(D, g, S):
+    """A group that is no row tile: the row tile 8's shared memory (K5's at
+    int8 pages of 128, so the two stay one body), ceil(g / 8) passes, and a
+    scratch state for every one of the g rows."""
+    plan = dp.k2_plan(D, D, g, S, 3, 2)
+    assert plan["row_tile"] == 8 and plan["passes"] == -(-g // 8)
+    assert plan["smem"] == dp.k2_smem(D, 8) == pp.k5_plan(8, D, D, g, 128, 8, 3, 2)["smem"]
+    assert plan["scratch_floats"] == 6 * plan["nsplit"] * g * (D + 2)
+    assert plan["smem"] <= SMEM_LIMIT
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(D=256), "head widths"), (dict(D=48), "head widths"), (dict(d=129), "width d"),
-    (dict(d=0), "width d"), (dict(G=3), "GQA groups"), (dict(G=16), "GQA groups"),
+    (dict(D=512), "head widths"), (dict(D=48), "head widths"), (dict(d=129), "width d"),
+    (dict(d=0), "width d"), (dict(G=0), "GQA group"), (dict(D=256, d=257), "width d"),
     (dict(S=0), "positive"), (dict(b=0), "positive"), (dict(hkv=0), "positive"),
     (dict(S=65536 * 128), "splits"),
 ])
@@ -202,7 +220,8 @@ def _split_merge(q, k, v, lengths, kc=None, vc=None):
 
 
 @pytest.mark.parametrize("S,g,codes", [(300, 1, False), (385, 4, False), (129, 2, True),
-                                       (385, 8, True), (257, 1, True)])
+                                       (385, 8, True), (257, 1, True), (300, 7, True),
+                                       (385, 3, False), (257, 17, True)])
 def test_split_partial_states_merged_in_order_match_plain_and_jax(S, g, codes):
     """The flash-decoding split changes only the order of f32 sums: the
     mirror against ``decode_attention_plain`` and the JAX kernel on a float32

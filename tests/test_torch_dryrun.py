@@ -46,13 +46,14 @@ def test_ranks_agree(ranks, key):
 def test_dryrun_world_of_one(tmp_path):
     """Every section but the two MoE ones runs at world 1, and every paged
     engine has pages the card's paged kernels take (K5's plan raises on
-    others: JAX's over-commit section has pages of 8)."""
+    others), JAX's over-commit pages of 8 among them."""
     d = str(tmp_path)
     run_world(dryrun_pages_worker, 1, d, d)
     (res,) = results(d, "dryrun", 1)
     assert len(res["page_sizes"]) == 5     # the MoE GPT's paged engine needs n >= 2
     for ps in res["page_sizes"]:
         k5_plan(8, 32, 8, 1, ps, 4, 2, 1)
+    assert 8 in res["page_sizes"]
     assert res["world"] == 1 and res["mesh"] == (1, 1) and not res["moe_sections"]
     assert "a2a_err" not in res and res["prefix_hits"] >= 1 and res["preemptions"] >= 1
     assert res["tp_column_err"] == 0.0 and res["tp_row_err"] == 0.0

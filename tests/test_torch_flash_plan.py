@@ -14,7 +14,7 @@ from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_bwd_plan
 from qgemm_tpu_torch.ops.validation import check_aligned16
 
 SMEM_LIMIT = 232448          # the dynamic shared memory one H100 block may use
-WIDTHS = (32, 64, 128)       # the kernels' compiled head widths
+WIDTHS = (32, 64, 128, 256)  # the kernels' compiled head widths
 DTYPES = (torch.bfloat16, torch.float32)
 # (Sq, Sk) at the tensor-core tiles' edges (16-row warps, 64-row blocks and
 # key tiles), Sq != Sk both ways, and the training shape
@@ -28,7 +28,9 @@ SMEM = {(torch.bfloat16, 32): (25600, 30720, 31744),
         (torch.bfloat16, 128): (87040, 104448, 105472),
         (torch.float32, 32): (27648, 36608, 44800),
         (torch.float32, 64): (44032, 61184, 69376),
-        (torch.float32, 128): (76800, 110336, 118528)}
+        (torch.float32, 128): (76800, 110336, 118528),
+        (torch.bfloat16, 256): (101376, 202752, 203776),
+        (torch.float32, 256): (142336, 208640, 216832)}
 
 
 @pytest.mark.parametrize("d", WIDTHS)
@@ -73,6 +75,30 @@ def test_more_than_65535_batch_heads_raises(plan):
         plan(torch.bfloat16, 65536, 8, 8, 128)
     with pytest.raises(ValueError, match="65535"):
         plan(torch.float32, 70000, 8, 8, 64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_d256_tiles(dtype):
+    """D 256: the mma route's K3 takes 32-key tiles and its K7 two dK/dV
+    blocks per 64 keys (grid z: dV, then dK); the f32 route keeps its
+    tiles and grids."""
+    fwd = flash_fwd_plan(dtype, 32, 2048, 2048, 256)
+    bwd = flash_bwd_plan(dtype, 32, 2048, 2048, 256)
+    mma = dtype == torch.bfloat16
+    assert fwd["block_k"] == 32 and fwd["block_q"] == 64
+    assert bwd["grid_dkv"] == ((32, 32, 2) if mma else (32, 32))
+    narrow = flash_bwd_plan(dtype, 32, 2048, 2048, 128)
+    assert narrow["grid_dkv"] == (32, 32)
+    assert flash_fwd_plan(dtype, 32, 2048, 2048, 128)["block_k"] == (64 if mma else 32)
+
+
+@pytest.mark.parametrize("d", [48, 257, 512])
+@pytest.mark.parametrize("plan", [flash_fwd_plan, flash_bwd_plan])
+def test_plans_refuse_uncompiled_widths(plan, d):
+    with pytest.raises(ValueError, match="widths"):
+        plan(torch.bfloat16, 4, 8, 8, d)
+    with pytest.raises(ValueError, match="widths"):
+        plan(torch.float32, 4, 8, 8, d)
 
 
 @pytest.mark.parametrize("plan", [flash_fwd_plan, flash_bwd_plan])

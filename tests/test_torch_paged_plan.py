@@ -31,8 +31,10 @@ use_test_threads()
 
 CSRC = Path(pp.__file__).resolve().parents[2] / "csrc"
 SMEM_LIMIT = 232448        # the dynamic shared memory one H100 block may use
-PAGES = (16, 32, 128, 256)
-COMPILED = [(bits, D, G) for bits in (8, 4) for D in (32, 64, 128) for G in (1, 2, 4, 8)]
+PAGES = (8, 16, 24, 32, 128, 256)
+COMPILED = [(bits, D, G) for bits in (8, 4) for D in (32, 64, 128, 256) for G in (1, 2, 4, 8)]
+# GQA groups that are no compiled row tile (passes of 8 rows), or wider
+GROUPS = (3, 7, 16, 32, 71)
 
 
 def _lengths(page: int, pps: int) -> list:
@@ -112,7 +114,8 @@ def test_shared_memory_matches_the_kernels_and_fits(bits, D, G, page):
     sp = pp.split_pages(page)
     staged = 2 * sp * (page if bits == 8 else page // 2) * D + 2 * sp * page * 4
     assert staged < k5 <= SMEM_LIMIT
-    assert 2 * pp.K6_GROUPS * 2 * pp.K6_KEY_TILE * D < k6 <= SMEM_LIMIT
+    groups, key_tile = pp.k6_tiling(D)
+    assert 2 * groups * 2 * key_tile * D < k6 <= SMEM_LIMIT
     assert k5 % 16 == 0 and k6 % 16 == 0
 
 
@@ -126,10 +129,19 @@ def test_plan_constants_are_the_kernels():
     assert const(k5, "kSplitPositions") == pp.SPLIT_POSITIONS
     assert const(k5, "kThreads") == pp.K5_THREADS
     assert const(k6, "kBQ") == pp.K6_BLOCK_ROWS
-    assert const(k6, "kBK") == pp.K6_KEY_TILE
-    assert const(k6, "kSub") == pp.K6_SUB_TILE
-    assert const(k6, "kGroups") == pp.K6_GROUPS
+    # K6's tiling: (groups, key tile) at D <= 128 and at D 256
+    assert re.search(r"kGroups = kWide \? 1 : (\d+);", k6).group(1) == str(pp.K6_GROUPS)
+    assert re.search(r"kBK = kWide \? (\d+) : (\d+);", k6).groups() == (
+        str(pp.K6_WIDE_KEY_TILE), str(pp.K6_KEY_TILE))
+    assert re.search(r"kWide = D > 128;", k6)
+    assert pp.k6_tiling(128) == (pp.K6_GROUPS, pp.K6_KEY_TILE)
+    assert pp.k6_tiling(256) == (1, pp.K6_WIDE_KEY_TILE)
+    # sub-tiles of 16 where pages are multiples of 16, else 8
+    assert "if (page % 16 == 0) {" in k6 and "QG_K6(16)" in k6 and "QG_K6(8)" in k6
+    assert (pp.k6_sub_tile(32), pp.k6_sub_tile(8), pp.k6_sub_tile(24)) == (16, 8, 8)
     assert re.search(r"kThreads = 128 \* kGroups;", k6) and pp.K6_THREADS == 128 * pp.K6_GROUPS
+    # the split body's row tiles
+    assert "g == 1 || g == 2 || g == 4 ? g : 8" in k5 and pp.ROW_TILES == (1, 2, 4, 8)
 
 
 @pytest.mark.parametrize("C,G", [(256, 1), (256, 4), (100, 4), (1, 8), (65, 2), (16, 8)])
@@ -181,11 +193,26 @@ def test_int4_byte_row_and_nibble_are_the_pool_layout(page):
         assert torch.equal((u - 8).to(torch.int8), codes[w])
 
 
+@pytest.mark.parametrize("page", [8, 24])
+@pytest.mark.parametrize("g", GROUPS)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_k5_plan_takes_any_group_at_d256_and_pages_of_8(bits, g, page):
+    """A group that is no row tile runs in passes of 8 rows at the row
+    tile 8's shared memory; the scratch holds every row's state."""
+    plan = pp.k5_plan(bits, 256, 160, g, page, 40, 3, 2)
+    assert pp.row_tile(g) == plan["row_tile"] == 8
+    assert plan["passes"] == -(-g // 8) and (plan["passes"] - 1) * 8 < g
+    assert plan["smem"] == pp.k5_smem(bits, 256, 8, page) <= SMEM_LIMIT
+    assert plan["split_pages"] == 128 // page and plan["nsplit"] == -(-40 // (128 // page))
+    assert plan["scratch_floats"] == 6 * plan["nsplit"] * g * (256 + 2)
+    assert pp.k6_plan(bits, 256, 160, page, 40, 3, 2, g * 64)["smem"] <= SMEM_LIMIT
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(page=8), "multiples of 16"), (dict(page=272), "multiples of 16"),
-    (dict(page=40), "multiples of 16"), (dict(D=256), "head widths"),
+    (dict(page=12), "multiples of 8"), (dict(page=272), "multiples of 8"),
+    (dict(page=4), "multiples of 8"), (dict(D=512), "head widths"),
     (dict(D=48), "head widths"), (dict(d=129), "width d"), (dict(d=0), "width d"),
-    (dict(bits=3), "kv_bits"), (dict(G=3), "GQA groups"), (dict(G=16), "GQA groups"),
+    (dict(bits=3), "kv_bits"), (dict(G=0), "GQA group"), (dict(D=256, d=257), "width d"),
     (dict(pps=65536 * 8, page=16), "splits"), (dict(b=0), "positive"),
 ])
 def test_k5_plan_refuses_what_the_kernel_refuses(kw, match):
@@ -196,8 +223,8 @@ def test_k5_plan_refuses_what_the_kernel_refuses(kw, match):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(page=8), "multiples of 16"), (dict(page=24), "multiples of 16"),
-    (dict(D=256), "head widths"), (dict(d=200), "width d"), (dict(bits=2), "kv_bits"),
+    (dict(page=12), "multiples of 8"), (dict(page=4), "multiples of 8"),
+    (dict(D=512), "head widths"), (dict(d=200), "width d"), (dict(bits=2), "kv_bits"),
     (dict(b=2, hkv=32768), "65535"), (dict(b=65536, hkv=1), "65535"),
     (dict(rows=0), "rows"),
 ])
@@ -276,7 +303,8 @@ def _split_merge(q, cache, lengths):
 
 
 @pytest.mark.parametrize("bits,page,g", [(8, 128, 1), (4, 128, 1), (8, 16, 4), (4, 16, 2),
-                                         (8, 32, 8), (4, 48, 1), (8, 256, 2)])
+                                         (8, 32, 8), (4, 48, 1), (8, 256, 2), (8, 8, 7),
+                                         (4, 8, 3), (4, 24, 16)])
 def test_split_partial_states_merged_in_order_match_the_plain_version(bits, page, g):
     """The flash-decoding split changes only the order of f32 sums."""
     hkv, d = 2, 32

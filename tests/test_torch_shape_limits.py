@@ -5,8 +5,8 @@ only on the card; chip_smoke.py's ``shape_limits`` phase holds them there):
   to a multiple of 16 when it is not one. Zeros change neither a row's
   absmax nor an int32 sum, so the plain version on the padded operands
   equals it on the unpadded ones bit for bit.
-* Attention at any head width up to 128 (and Dv != D for K3/K7): the
-  kernels run at the padded width 32, 64 or 128 with the softmax scale of
+* Attention at any head width up to 256 (and Dv != D for K3/K7): the
+  kernels run at the padded width 32, 64, 128 or 256 with the softmax scale of
   the true width; zero columns add nothing to a score, so the padded plain
   versions sliced back equal the unpadded ones within 1e-6.
 """
@@ -37,10 +37,10 @@ def _t(shape, seed, scale=1.0):
 
 def test_padded_widths():
     assert [k_tile(k) for k in (1, 3, 16, 17, 784)] == [16, 16, 16, 32, 784]
-    assert [padded_head_dim(d) for d in (1, 2, 32, 33, 64, 65, 100, 128)] == \
-        [32, 32, 32, 64, 64, 128, 128, 128]
+    assert [padded_head_dim(d) for d in (1, 2, 32, 33, 64, 65, 100, 128, 129, 160, 256)] == \
+        [32, 32, 32, 64, 64, 128, 128, 128, 256, 256, 256]
     with pytest.raises(ValueError, match="head_dim"):
-        padded_head_dim(129)
+        padded_head_dim(257)
 
 
 @pytest.mark.parametrize("k", [3, 17, 784])
@@ -78,7 +78,8 @@ def test_k_padding_keeps_k8_bits(k):
                        want)
 
 
-@pytest.mark.parametrize("d,dv", [(2, 2), (32, 32), (32, 64), (48, 48), (100, 20)])
+@pytest.mark.parametrize("d,dv", [(2, 2), (32, 32), (32, 64), (48, 48), (100, 20), (160, 160),
+                                  (256, 160), (130, 256)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_padding_flash_fwd_bwd(d, dv, causal):
     q, k, v = _t((1, 2, 9, d), 1), _t((1, 2, 11, d), 2), _t((1, 2, 11, dv), 3)
@@ -98,7 +99,7 @@ def test_head_padding_flash_fwd_bwd(d, dv, causal):
         assert float(got[..., w:].abs().sum()) == 0.0, name
 
 
-@pytest.mark.parametrize("d", [2, 32, 80])
+@pytest.mark.parametrize("d", [2, 32, 80, 160, 256])
 def test_head_padding_decode(d):
     """K2 reads the cache at its true width and treats the columns past it
     as zeros: the same as a zero-padded cache."""

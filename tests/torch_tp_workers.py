@@ -116,17 +116,29 @@ def _port_gpt(params, cfg: dict, **outliers) -> GPT:
 def model_worker(rank: int, world: int, workdir: str, cases: dict) -> None:
     """``cases``: name -> (JAX params, config dict, outlier options, tokens).
     Per case: the local model's logits (whole and at one decode step), the
-    unsharded model's, which layers were sharded, and the collectives of
-    one forward."""
+    unsharded model's, which layers were sharded, the collectives of one
+    forward, and the input of each row-parallel W4A8 layer on this rank
+    (its K shard, in call order: ``w4a8_row_x``)."""
     mesh = make_mesh(device="cpu")
     res = {}
+    row_w4a8 = tp_ops.tp_w4a8_matmul_row
     for name, (params, cfg, outliers, toks) in cases.items():
         full = _port_gpt(params, cfg, **outliers)
         local = shard_quantized_model(full, mesh)
         t = torch.from_numpy(toks)
+        row_x = []
+
+        def recorded(x, *args, **kw):
+            row_x.append(_np(x))
+            return row_w4a8(x, *args, **kw)
+
+        tp_ops.tp_w4a8_matmul_row = recorded
         tp_ops.reset_collective_counts()
-        with torch.no_grad():
-            got = local(t)
+        try:
+            with torch.no_grad():
+                got = local(t)
+        finally:
+            tp_ops.tp_w4a8_matmul_row = row_w4a8
         counts = tp_ops.collective_counts()
         with torch.no_grad():
             want = full(t)
@@ -135,7 +147,8 @@ def model_worker(rank: int, world: int, workdir: str, cases: dict) -> None:
                  "up": getattr(getattr(blk.ffn, "up", None), "tp_mode", "moe"),
                  "head": local.lm_head.tp_mode, "heads": blk.attn.n_heads,
                  "kv_heads": blk.attn.kv_heads}
-        res[name] = dict(got=_np(got), want=_np(want), counts=counts, modes=modes)
+        res[name] = dict(got=_np(got), want=_np(want), counts=counts, modes=modes,
+                         w4a8_row_x=row_x)
     _dump(workdir, "model", rank, res)
 
 
