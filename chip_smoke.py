@@ -5,7 +5,10 @@
 Builds the port's CUDA kernels from qgemm_tpu_torch/csrc, holds each one
 against its plain PyTorch version at the shapes the port once raised on
 (``shape_limits``: K1, K8 and the dynamic GEMM at K not a multiple of 16,
-the attention kernels at head_dim 32 and 2 and Dv != D), K3 and K7 on
+the attention kernels at head_dim 32 and 2 and Dv != D, and the last
+shapes the JAX kernels take: row 12 past head width 128, the attention
+kernels past 256, pages of any size on K5 and K6, and batch * heads,
+splits, slots x KV heads and experts past 65,535), K3 and K7 on
 their bf16 tensor-core route at the tile edges (``flash_edges``: Sq, Sk in
 {1, 63, 64, 65, 129}, D 32, 64, 128, causal and not) and every kernel at
 GPT_6_7B shapes (K8 and K9 at the MoE model's, bit for bit; K6's first
@@ -49,16 +52,17 @@ route with ``multi_step=4``, to the eager one bit for bit on GPT_6_7B's
 dense and paged int8 engines, traces a replayed step, counts the host's
 calls per step and recovers from a replay fault; the long copy model is
 also served in blocks of four and with dense chunked admission. ``spec``
-serves GPT_6_7B (int8, at 16 of its 32 layers) with its W4A8 self-draft
+serves GPT_6_7B (int8, at 8 of its 32 layers) with its W4A8 self-draft
 through speculative rounds (gamma 4) on the dense int8 and paged int8
 engines: eager, graph and ``multi_step=4`` rounds must give equal
-transcripts and the launches per round K4 (gamma + 1) x 97, K1 97, K6 16
+transcripts and the launches per round K4 (gamma + 1) x 49, K1 49, K6 8
 (paged); ``spec_tv`` holds the sampled round's draws to the target's
 distribution, and ``long_copy`` adds seven speculative engines (two
-drafts each). ``seq2seq`` serves S2S_1_5B (int8) through Seq2SeqEngine
+drafts each). ``seq2seq`` serves S2S_1_5B (int8, at 6 + 6 of its 12 + 12
+layers) through Seq2SeqEngine
 dense, paged (int8 and int4 pages), with ``multi_step=4`` and
-speculatively, routes held equal, launches per step K1 97 and K2 or K5
-12, and runs beam search and the transformer demo; ``s2s_reverse``
+speculatively, routes held equal, launches per step K1 49 and K2 or K5
+6, and runs beam search and the transformer demo; ``s2s_reverse``
 trains a reverse model and serves it through seven seq2seq engines, each
 held to its teacher-forced accuracy and the int8 ones to ``generate``'s
 transcripts. ``k1_given_cx`` holds K1's route on caller-given row scales
@@ -89,7 +93,10 @@ and ``utils.profiling.trace`` around 4 steady graph decode steps of
 its pre-pass, K2 and the graph launches). ``dryrun`` (after ``parallel``)
 runs the port's ``run_dryrun`` at world 1 over NCCL: every section but the
 two MoE ones, which need two experts, and K1, K3, K4, K5, K6 and K7 must
-launch. Each phase
+launch. ``wide_pages`` (after ``attn_geometries``) serves GPT_6_7B's
+widths at 4 layers through the paged engine at pages of 12 and 512 (int8)
+and 4 (int4), K5 and K6 launched once per layer a step or chunk, and
+times the kernels at the last shapes (``last_timing``). Each phase
 prints one JSON line; the last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is nonzero. Needs one CUDA device; exits nonzero without one.
 Uses no JAX.
@@ -98,6 +105,7 @@ Uses no JAX.
     python3 chip_smoke.py --tp-cards N   # N ranks on N cards against one card, faults planted;
                                          # then ring, Ulysses, EP, dp x tp and GPipe across them;
                                          # then run_dryrun across them, the ranks agreeing
+    python3 chip_smoke.py --build-times  # each kernel source compiled alone, its seconds
     python3 chip_smoke.py --only PHASE[,PHASE...]
 
 builds the kernels and runs only the named phases (``shape_limits``,
@@ -208,8 +216,9 @@ times K9 (the MoE model's two expert weights in bf16 and 2048^2 f32, and
 the MoE load's 48 launches), the dynamic GEMM at 2048^3 and row 12 (B 1,
 H 32, S 2048, D 128, causal, bf16: the main kernel, the pre-pass and the
 whole wrapper, int8 P and qk_only) with another checkout's package and
-this one's in the same turns, and prints the medians, their ratios and
-the shares of the bounds.
+this one's in the same turns, compares their outputs (and K8's at C 8 and
+168) bit for bit between the checkouts, and prints the medians, their
+ratios and the shares of the bounds.
 
     python3 chip_smoke.py --quant-faults [OTHER_CHECKOUT]
 
@@ -464,6 +473,43 @@ def phase_build() -> None:
     host = {name: host_build.build(name).name for name in host_build.HOST_LIBS}
     emit({"phase": "build", "seconds": round(secs, 2), "built": built,
           "host_libraries": host, "host_seconds": round(time.perf_counter() - t0, 2)})
+
+
+def build_times() -> None:
+    """``--build-times``: every kernel source compiled alone, one ``nvcc``
+    each, all started together (as ``phase_build`` starts them): each
+    source's seconds to finish, the count of its kernels and its spills
+    (``ptxas``), and whether it built. Prints one JSON line; fails if a
+    source did not build."""
+    import threading
+
+    from qgemm_tpu_torch.ops.cuda import _build
+    t0 = time.perf_counter()
+    procs = {n: _build._compile(n) for n in _build.KERNELS}
+    logs, secs = {}, {}
+
+    def wait(name, proc):
+        logs[name] = proc.communicate()[0]
+        secs[name] = round(time.perf_counter() - t0, 1)
+
+    threads = [threading.Thread(target=wait, args=kv) for kv in procs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    res = {}
+    for name, proc in procs.items():
+        print(f"--- nvcc {name}\n{logs[name]}", file=sys.stderr)
+        if proc.returncode == 0:
+            _build.publish(_build._lib_path(name))
+        res[name] = {"seconds": secs[name], "built": proc.returncode == 0,
+                     "kernels": logs[name].count("Compiling entry function"),
+                     "spills": sum(" 0 bytes spill stores" not in ln
+                                   for ln in logs[name].splitlines() if "spill stores" in ln)}
+    emit({"phase": "build_times", "sources": res,
+          "seconds": round(time.perf_counter() - t0, 1)})
+    if not all(r["built"] for r in res.values()):
+        raise AssertionError(f"build_times: a source did not build: {res}")
 
 
 def phase_parity() -> dict:
@@ -1947,7 +1993,8 @@ def first_difference(want: list, got: list) -> Optional[int]:
     return next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
 
 
-def paged_logit_reading(model, prompt: list, n_new: int) -> dict:
+def paged_logit_reading(model, prompt: list, n_new: int,
+                        engine_kw: Optional[dict] = None) -> dict:
     """A request's greedy run alone through the paged engine (K5 decode,
     ``engine_alone_logits``) against ``generate`` (K2 decode; its logits
     from ``greedy_logits``, whose tokens must be generate's). At every step
@@ -1958,13 +2005,14 @@ def paged_logit_reading(model, prompt: list, n_new: int) -> dict:
     step and the two runs' margins there, and the readings: the prefill's
     (step 0, no K5 yet), the largest (and its step) and the median, and
     whether the two runs' logits are equal bit for bit at every step of
-    that history."""
+    that history. ``engine_kw``: the paged engine's options
+    (``PAGED_ENGINE``'s by default)."""
     iso = model.generate(torch.tensor([prompt], device="cuda"), n_new,
                          quantized_cache=True)[0].tolist()
     dense, d_logits = greedy_logits(model, prompt, n_new)
     if dense != iso:
         raise AssertionError(f"the dense loop {dense} is not generate's {iso}")
-    paged, p_logits = engine_alone_logits(model, prompt, n_new)
+    paged, p_logits = engine_alone_logits(model, prompt, n_new, engine_kw)
     t = first_difference(iso, paged)
     shared = n_new if t is None else t + 1
     rel = [float((d_logits[i] - p_logits[i]).abs().max() / d_logits[i].abs().max())
@@ -4278,10 +4326,11 @@ def spec_divergence(model, reqs, want: list, kw: dict) -> dict:
     return res
 
 
-# the depth the ``spec`` phase runs GPT_6_7B at (full width): half of its 32
-# layers, so that the whole script stays within its time with the seq2seq
-# phases; a round's launches scale with the layers
-SPEC_LAYERS = 16
+# the depth the ``spec`` phase runs GPT_6_7B at (full width): a quarter of
+# its 32 layers, so that the whole script stays within
+# its time with the seq2seq phases and the last shapes' checks; a round's
+# launches scale with the layers
+SPEC_LAYERS = 8
 
 
 def phase_spec() -> dict:
@@ -5443,8 +5492,12 @@ def phase_shape_limits() -> dict:
                 held(ok and a.shape == r.shape, "k7", a, r, grad=name, d=d, dv=dv,
                      causal=causal, dtype=dt)
     wide_shape_checks(held)
+    t_last = time.perf_counter()
+    last_shape_checks(held)
     torch.cuda.synchronize()
-    res = {"phase": "shape_limits", "n_checks": len(checks), "checks": checks}
+    res = {"phase": "shape_limits", "n_checks": len(checks),
+           "last_shape_checks_seconds": round(time.perf_counter() - t_last, 2),
+           "checks": checks}
     emit(res)
     return res
 
@@ -5591,15 +5644,244 @@ def wide_shape_checks(held) -> None:
                     held(ok and a.shape == r.shape, "k7_wide", a, r, **row)
 
 
+# The last shapes the JAX kernels take that the card once refused: row 12
+# past head width 128, the attention kernels past 256 (d != dv past 256 on
+# K3 and K7), pages of any size on K5 and K6, and counts past a grid y's
+# 65,535 (batch * heads, splits, slots x KV heads, experts, two-pass rows)
+LAST_ROW12 = ((160, 160), (256, 256), (256, 96), (384, 320), (576, 512), (1024, 1024))
+LAST_WIDTHS = (384, 576)
+LAST_PAGES = (1, 3, 4, 12, 272, 512)
+MANY = 65600               # past 65,535
+
+
+def many_slot_cache(b: int, page: int, bits: int, d: int, seed: int):
+    """A paged cache on the card of ``b`` slots of one KV head, one page
+    each (a shuffled physical page), random codes and positive scales, no
+    step tables: K6's many-slot case, built in bulk."""
+    from qgemm_tpu_torch.serving.paged_cache import PagedKVCache
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rows = page if bits == 8 else page // 2
+    lo = -127 if bits == 8 else -128
+    codes = lambda: torch.randint(lo, 128, (b + 1, 1, rows, d), generator=g, device="cuda",
+                                  dtype=torch.int8)
+    scales = lambda: torch.rand((b + 1, 1, 1, page), generator=g, device="cuda") * 2 + 0.05
+    pt = (torch.randperm(b, generator=g, device="cuda") + 1).to(torch.int32)[:, None]
+    return PagedKVCache(kq=codes(), kc=scales(), vq=codes(), vc=scales(),
+                        page_table=pt.contiguous(), page_size=page, kv_bits=bits)
+
+
+def last_shape_checks(held) -> None:
+    """Each of the last shapes against its plain version on the card, with
+    the tolerances ``phase_shape_limits`` holds the narrower ones to (K2,
+    K5, K6: 5e-3 beyond one bf16 rounding; K3: 1e-2 bf16, 1e-5 f32, lse
+    1e-4; K7: 1e-3 of the largest gradient bf16 (``flash_edge_checks``'
+    float64 rule past it), 1e-5 f32; row 12: ``ops_layer``'s 2e-3 against
+    the plain version at the kernel's key tile, its pre-pass by
+    ``prepass_check``; K8 and K9 bit for bit):
+      - row 12 at ``LAST_ROW12`` (d, dv), int8 P and ``qk_only``;
+      - K2 (int8 and bf16 caches), K5 (int8 and int4), K6 (int8 and int4),
+        K3 and K7 at d ``LAST_WIDTHS`` (K3/K7 at 576 / 512 too), and each
+        at 1,024 once;
+      - K5 and K6 at ``LAST_PAGES`` (int4 at the even ones), and K2 == K5
+        bit for bit at int8 pages of 1, 12, 272 and 512 (K5's splits K2's);
+      - batch * heads ``MANY`` on K3, K7 and row 12 at short S; K6 over
+        ``MANY`` slots x KV heads; K8 and K9 over ``MANY`` experts (K8's
+        GEMV and tile kernels), K9's two-pass route past 65,535 row tiles;
+        one K5 slot of ``MANY`` splits.
+    Draws come from a generator of their own, so the older checks keep
+    theirs."""
+    from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize, col_quantize_plain
+    from qgemm_tpu_torch.ops.cuda.decode_attention import (decode_attention,
+                                                           decode_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.expert_matmul import (grouped_quantized_matmul,
+                                                        grouped_quantized_matmul_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
+                                                          flash_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import (flash_attention_bwd,
+                                                              flash_attention_bwd_plain)
+    from qgemm_tpu_torch.ops.cuda.int8_flash_attention import (KERNEL_KEY_TILE,
+                                                               flash_attention_int8,
+                                                               flash_attention_int8_plain)
+    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention_ragged
+    from qgemm_tpu_torch.ops.kv_cache import quantize_kv
+    from qgemm_tpu_torch.serving.paged_cache import (gather_slot_kv, paged_attention_reference,
+                                                     paged_context_attention_reference)
+    dev, bf16 = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    rnd = lambda shape, dt=bf16: torch.randn(shape, generator=g, device=dev).to(dt)
+    t0 = time.perf_counter()
+
+    def mark(what: str) -> None:   # progress on stderr: a slow or stuck group shows where
+        torch.cuda.synchronize()
+        print(f"last_shape_checks {what}: {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+              flush=True)
+
+    def row12(q, k, v, causal, qk_only, **row):
+        got = flash_attention_int8(q, k, v, causal=causal, qk_only=qk_only)
+        tiles = flash_attention_int8_plain(q, k, v, causal, qk_only, block_k=KERNEL_KEY_TILE)
+        ok = (excess(got, tiles, 2 ** -6) <= 2e-3 if got.dtype == bf16
+              else max_err(got, tiles) <= 2e-3)
+        held(ok and got.shape == tiles.shape, "row12_last", got, tiles, causal=causal,
+             qk_only=qk_only, **row)
+
+    def k3_k7(q, k, v, dout, causal, what, **row):
+        dt = "bfloat16" if q.dtype == bf16 else "float32"
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        ro, rl = flash_attention_plain(q, k, v, causal=causal)
+        fwd_ok = (excess(o, ro, 2 ** -7) <= 1e-2 if dt == "bfloat16"
+                  else max_err(o, ro) <= 1e-5) and max_err(lse, rl) <= 1e-4
+        held(fwd_ok and o.shape == ro.shape, "k3_" + what, o, ro, causal=causal, dtype=dt,
+             lse_max_abs_err=max_err(lse, rl), **row)
+        got = flash_attention_bwd(q, k, v, o, lse, dout, causal)
+        ref = flash_attention_bwd_plain(q, k, v, o, lse, dout, causal)
+        exact = attention_grads_f64(q, k, v, dout, causal) if dt == "bfloat16" else ref
+        for name, a, r, x in zip(("dq", "dk", "dv"), got, ref, exact):
+            scale = float(r.float().abs().max())
+            info = dict(grad=name, causal=causal, dtype=dt, **row)
+            if dt == "bfloat16":
+                ok = excess(a, r, 2 ** -7) <= 1e-3 * scale
+                if not ok:   # flash_edge_checks' rule for a bf16 rounding flip of dS
+                    k_err = float((a.double() - x).abs().max())
+                    p_err = float((r.double() - x).abs().max())
+                    ok = k_err <= p_err + 1e-3 * scale
+                    info.update(held_by_f64=True, kernel_vs_f64=k_err, plain_vs_f64=p_err)
+            else:
+                ok = max_err(a, r) <= 1e-5 * scale
+            held(ok and a.shape == r.shape, "k7_" + what, a, r, **info)
+
+    def k5(pc, q, lens, what, **row):
+        live = lens > 0
+        got = paged_decode_attention_ragged(q, pc, lens)
+        ref = paged_attention_reference(q, pc, lens, compute_dtype=bf16)
+        held(excess(got[live], ref[live], 2 ** -7) <= 5e-3 and not bool(got[~live].any()),
+             "k5_" + what, got[live], ref[live], **row)
+
+    def k6(pc, q, lens, off, what, **row):
+        got = paged_context_attention(q, pc, lens, off)
+        ref = paged_context_attention_reference(q, pc, lens, off, compute_dtype=bf16)
+        held(excess(got, ref, 2 ** -7) <= 5e-3, "k6_" + what, got, ref, **row)
+
+    # row 12 past head width 128 (code rows of 256 to 1,024 bytes, V in
+    # chunks of 128 channels): the pre-pass, then the kernel
+    for i, (d, dv) in enumerate(LAST_ROW12):
+        for qk_only in (False, True):
+            dt = torch.float32 if (d == 256 and dv == 256 and qk_only) else bf16
+            q, k, v = rnd((1, 2, 100, d), dt), rnd((1, 2, 200, d), dt), rnd((1, 2, 200, dv), dt)
+            prepass_check(q, k, v, qk_only, f"last_d{d}_dv{dv}")
+            row12(q, k, v, i % 2 == 0, qk_only, d=d, dv=dv, dtype=str(dt))
+            mark(f"row 12 d {d} dv {dv} qk_only {qk_only}")
+    # K2, K5, K6 at head widths past 256, and 1,024 once each
+    lengths = torch.tensor([1, 37, 200, 64], device=dev, dtype=torch.int32)
+    for d, hkv, hq in [(d, 2, 8) for d in LAST_WIDTHS] + [(1024, 1, 8)]:
+        caches = ("int8", "bfloat16") if d < 1024 else ("int8",)
+        for cache in caches:
+            q = rnd((4, hq, 1, d))
+            kf, vf = (torch.randn((4, hkv, 200, d), generator=g, device=dev) for _ in range(2))
+            if cache == "int8":
+                (kq, kc), (vq, vc) = quantize_kv(kf), quantize_kv(vf)
+                args, kw = (q, kq, vq, lengths), {"kc": kc, "vc": vc}
+            else:
+                args, kw = (q, kf.to(bf16), vf.to(bf16), lengths), {}
+            got, ref = decode_attention(*args, **kw), decode_attention_plain(*args, **kw)
+            held(excess(got, ref, 2 ** -7) <= 5e-3, "k2_last", got, ref, d=d, hkv=hkv, hq=hq,
+                 cache=cache)
+        for bits in ((8, 4) if d < 1024 else (4,)):
+            lens = torch.tensor([0, 1, 130, 300], device=dev, dtype=torch.int32)
+            pc, _ = random_paged_cache(600 + d + bits, lens.tolist(), hkv, 32, bits, pps=12, d=d)
+            k5(pc, rnd((4, hq, 1, d)), lens, "last", d=d, hkv=hkv, hq=hq, bits=bits)
+            offs = [0, 77]
+            lens = torch.tensor([o + 64 for o in offs], device=dev, dtype=torch.int32)
+            pc, _ = random_paged_cache(700 + d + bits, lens.tolist(), hkv, 32, bits, pps=6, d=d)
+            k6(pc, rnd((2, hq, 64, d)), lens, torch.tensor(offs, device=dev), "last", d=d,
+               hkv=hkv, hq=hq, bits=bits)
+            del pc
+        mark(f"K2, K5, K6 d {d}")
+    # K3 and K7 past 256: d == dv, d != dv, and 1,024 once
+    for d, dv in ((384, 384), (576, 512), (1024, 1024)):
+        for causal, dt in (((True, bf16), (False, torch.float32)) if d < 1024
+                           else ((True, bf16),)):
+            q, k = rnd((1, 2, 150, d), dt), rnd((1, 2, 170, d), dt)
+            v, dout = rnd((1, 2, 170, dv), dt), rnd((1, 2, 150, dv), dt)
+            k3_k7(q, k, v, dout, causal, "last", d=d, dv=dv)
+        mark(f"K3, K7 d {d} dv {dv}")
+    # pages of any size on K5 and K6; K2 == K5 at several int8 pages
+    for page in LAST_PAGES:
+        for bits in ((8, 4) if page % 2 == 0 else (8,)):
+            lens = torch.tensor([0, 1, 130, 600, 1100], device=dev, dtype=torch.int32)
+            pc, _ = random_paged_cache(800 + page + bits, lens.tolist(), 2, page, bits,
+                                       pps=-(-1100 // page) + 1, d=128)
+            k5(pc, rnd((5, 8, 1, 128)), lens, "page", page=page, bits=bits)
+            offs = [0, 77, 950]
+            lens = torch.tensor([o + 64 for o in offs], device=dev, dtype=torch.int32)
+            pc, _ = random_paged_cache(900 + page + bits, lens.tolist(), 2, page, bits,
+                                       pps=-(-1014 // page) + 1, d=128)
+            k6(pc, rnd((3, 8, 64, 128)), lens, torch.tensor(offs, device=dev), "page",
+               page=page, bits=bits)
+            del pc
+            mark(f"K5, K6 page {page} bits {bits}")
+    lens = torch.tensor([0, 1, 128, 129, 300, 640, 1000, 1018], device=dev, dtype=torch.int32)
+    for page in (1, 12, 272, 512):
+        pc, _ = random_paged_cache(1000 + page, lens.tolist(), 2, page, 8, pps=-(-1018 // page),
+                                   d=128)
+        q = rnd((8, 8, 1, 128))
+        paged = paged_decode_attention_ragged(q, pc, lens)
+        kq, kc, vq, vc = gather_slot_kv(pc)
+        dense = decode_attention(q, kq, vq, lens, kc=kc, vc=vc)
+        held(bits_equal(dense, paged), "k2_equals_k5_page", dense, paged, page=page)
+        del pc, kq, kc, vq, vc
+        mark(f"K2 == K5 page {page}")
+    # counts past 65,535: batch * heads on K3, K7 and row 12 at short S
+    for dt in (bf16, torch.float32):
+        q, k, v, dout = (rnd((1640, 40, 8, 32), dt) for _ in range(4))
+        k3_k7(q, k, v, dout, True, "many", batch_heads=MANY)
+    q, k, v = (rnd((1640, 40, 16, 32)) for _ in range(3))
+    row12(q, k, v, True, False, batch_heads=MANY, d=32, dv=32)
+    del q, k, v, dout
+    mark("batch * heads 65,600")
+    # K6 over MANY slots x one KV head (pages of 16, one each)
+    pc = many_slot_cache(MANY, 16, 8, 32, 1100)
+    lens = torch.full((MANY,), 11, device=dev, dtype=torch.int32)
+    k6(pc, rnd((MANY, 2, 4, 32)), lens, torch.full((MANY,), 7, device=dev), "many",
+       slots_x_kv_heads=MANY)
+    del pc
+    mark("K6 slots x KV heads 65,600")
+    # K8 (GEMV at C 2, tile kernel at C 20) and K9 over MANY experts
+    for c_rows in (2, 20):
+        x = rnd((MANY, c_rows, 16), torch.float32)
+        wt = torch.randint(-127, 128, (MANY, 16, 16), generator=g, device=dev, dtype=torch.int8)
+        cw = torch.rand((MANY, 1, 16), generator=g, device=dev) + 0.1
+        got = grouped_quantized_matmul(x, wt, cw, relu=True)
+        ref = grouped_quantized_matmul_plain(x, wt, cw, relu=True)
+        held(bits_equal(got, ref), "k8_many", got, ref, experts=MANY, c=c_rows)
+    for e, k_rows in ((MANY, 16), (1, 65535 * 64 + 64)):
+        w = rnd((e, k_rows, 16))
+        (qt, c), (rq, rc) = col_quantize(w), col_quantize_plain(w)
+        held(torch.equal(qt, rq) and bits_equal(c, rc), "k9_many", c, rc, experts=e,
+             k=k_rows)
+    del x, wt, cw, w, qt, c, rq, rc
+    mark("K8, K9 experts 65,600")
+    # one K5 slot of MANY splits (pages of 128, d 8)
+    n = MANY * 128 - 5
+    pc, _ = random_paged_cache(1200, [n], 1, 128, 8, pps=MANY, d=8)
+    k5(pc, rnd((1, 1, 1, 8)), torch.tensor([n], device=dev, dtype=torch.int32), "many",
+       splits=MANY, length=n)
+    del pc
+    mark("K5 splits 65,600")
+    torch.cuda.empty_cache()
+
+
 # Three public attention geometries at full width, served by the repo's
 # GPT (its blocks: LayerNorm, GELU FFN, learned positions; random int8
 # weights from seed 0): each published config's vocab, d_model, query and
 # KV heads and d_ff (Gemma-2B, Qwen2-7B and Falcon-7B's config.json), GQA
 # groups 8, 7 and 71, head widths 256, 128 and 64. Depth is cut
-# (``ATTN_GEOMETRY_LAYERS``: Gemma-2B's whole 18, half of Qwen2-7B's 28 and
-# of Falcon-7B's 32) so that the phase, three models each served by two
-# engines, stays near 90 s and the whole script well inside its limit;
-# widths never are.
+# (``ATTN_GEOMETRY_LAYERS``: half of Gemma-2B's 18, a quarter of Qwen2-7B's
+# 28 and of Falcon-7B's 32) so that the phase,
+# three models each served by two engines, stays near 40 s and the whole
+# script inside its limit; widths never are.
 ATTN_GEOMETRIES = {
     "gemma2b_widths": dict(vocab_size=256000, d_model=2048, n_heads=8, n_kv_heads=1,
                            d_ff=16384),
@@ -5609,7 +5891,7 @@ ATTN_GEOMETRIES = {
                             d_ff=18176),
 }
 ATTN_GEOMETRY_FULL_DEPTH = {"gemma2b_widths": 18, "qwen2_7b_widths": 28, "falcon7b_widths": 32}
-ATTN_GEOMETRY_LAYERS = {"gemma2b_widths": 18, "qwen2_7b_widths": 14, "falcon7b_widths": 16}
+ATTN_GEOMETRY_LAYERS = {"gemma2b_widths": 9, "qwen2_7b_widths": 7, "falcon7b_widths": 8}
 # the traced decode window's middle (``profile_decode``: 300-token prompts,
 # an admitting step, two warm steps and a window of 10 before it): the
 # positions a slot holds there, for the K2 and K5 byte bound of a step
@@ -5760,6 +6042,294 @@ def attn_geometry_train() -> dict:
     res.update(k3_ms=fam["k3_flash_fwd"], k7_ms=fam["k7_flash_bwd"],
                launches_per_step=per_step[0])
     return res
+
+
+# The paged tier at the pages the card once refused, on GPT_6_7B's widths
+# at 4 of its 32 layers (the pages are what is new, not the depth): int8
+# pools in pages of 12 (K6 sub-tiles of 1) and 512, K5's splits K2's
+# 128 positions at both, int4 pools in pages of 4
+WIDE_PAGE_LAYERS = 4
+WIDE_PAGE_TIERS = {"int8_page12": dict(page_size=12), "int8_page512": dict(page_size=512),
+                   "int4_page4": dict(page_size=4, kv_bits=4)}
+
+
+def wide_page_requests(vocab: int, rng) -> tuple:
+    """8 greedy requests, alternating: 4 share a 256-token prefix (a prefix
+    hit at pages of 12 and 4) with random suffixes of 32-300 tokens; 4 are
+    random prompts, two of 128-256 tokens (whole-prompt prefills) and two of
+    600-900 (admitted in chunks at every page: the engine's chunks are
+    page-granular, 512 tokens at pages of 512). max_new_tokens 8-16.
+    Returns (prompts, max_new, the whole-prompt requests' indices, a
+    chunked one's index)."""
+    prefix = rng.integers(0, vocab, size=256).tolist()
+    shared = [prefix + rng.integers(0, vocab, size=int(n)).tolist()
+              for n in rng.integers(32, 301, size=4)]
+    plens = list(rng.integers(128, 257, size=2)) + list(rng.integers(600, 901, size=2))
+    own = [rng.integers(0, vocab, size=int(n)).tolist() for n in plens]
+    prompts = [p for pair in zip(shared, own) for p in pair]
+    news = [int(n) for n in rng.integers(8, 17, size=8)]
+    return prompts, news, (1, 3), 5
+
+
+def alone_logit_reading(model, prompt: list, n_new: int, kw: dict, ref_kw: dict) -> dict:
+    """A request's greedy run alone through the paged engine with ``kw``
+    against its run alone with ``ref_kw`` (``engine_alone_logits``, eager):
+    the tokens, the first differing step, and over the shared history the
+    largest |difference| of the logits relative to the reference step's
+    largest |logit|, and whether they are equal bit for bit."""
+    ref, r_logits = engine_alone_logits(model, prompt, n_new, ref_kw)
+    got, g_logits = engine_alone_logits(model, prompt, n_new, kw)
+    t = first_difference(ref, got)
+    shared = n_new if t is None else t + 1
+    rel = [float((r_logits[i] - g_logits[i]).abs().max() / r_logits[i].abs().max())
+           for i in range(shared)]
+    return {"reference": ref, "tokens": got, "first_difference": t,
+            "logit_rel_diff_max": max(rel),
+            "logits_equal": all(bits_equal(r_logits[i], g_logits[i]) for i in range(shared))}
+
+
+def phase_wide_pages() -> dict:
+    """The paged engine (``PAGED_ENGINE``'s options but the page, and int4
+    pools for ``int4_page4``) serving ``wide_page_requests``' 8 greedy
+    requests on int8 GPT_6_7B at ``WIDE_PAGE_LAYERS`` layers, at each of
+    ``WIDE_PAGE_TIERS``, the launch counts set to 0 just before each run
+    and read just after (``drive``). Fails unless every decode step
+    launched K5 once per layer and the 6 L + 1 GEMMs, and every admission
+    K3 once per layer per whole-prompt prefill and K6 once per layer per
+    chunk, both present (``paged_prefill_launches``); every pool page came
+    back. int8 tiers: the whole-prompt requests' transcripts and logits
+    equal ``generate``'s bit for bit (K5's splits are K2's at these pages,
+    ``paged_plan.aligned``), and a chunked prompt's logits stay within
+    ``PAGED_LOGIT_RTOL`` of its; each whole-prompt transcript equals the
+    request served alone by its engine. int4 (no dense int4 path to hold it to):
+    each whole-prompt request and the chunked one served alone at pages of
+    4 against the int4 engine at pages of 128, within ``PAGED_LOGIT_RTOL``
+    (K5's splits and K6's key tiles are the same positions at both pages:
+    the bits are recorded), and the whole-prompt transcripts equal the
+    requests served alone. Then ``last_timing``."""
+    from qgemm_tpu_torch.models.gpt import GPT, GPT_6_7B
+    from qgemm_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(GPT_6_7B, n_layers=WIDE_PAGE_LAYERS)
+    L, n_gemms = cfg.n_layers, 6 * cfg.n_layers + 1
+    model = GPT.init_quantized(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    res = {"phase": "wide_pages", "model": f"GPT_6_7B int8 weights, {L} of 32 layers",
+           "init_s": round(time.perf_counter() - t0, 2)}
+    prompts, news, whole, chunked_i = wide_page_requests(cfg.vocab_size,
+                                                         np.random.default_rng(23))
+    k5 = ("paged_decode_attention", "paged_decode_attention_ragged")
+    for tier, extra in WIDE_PAGE_TIERS.items():
+        t_tier = time.perf_counter()
+        kw = dict(PAGED_ENGINE, **extra)
+        reqs = [Request(prompt=p, max_new_tokens=n) for p, n in zip(prompts, news)]
+        engine = ContinuousBatchingEngine(model, **kw)
+        run = drive(engine, reqs, f"wide_pages {tier}")
+        per_decode, counts = run["per_decode"], run["counts"]
+        if not (per_decode is not None and sum(per_decode[k] for k in k5) == L
+                and per_decode["quantized_matmul"] == n_gemms
+                and per_decode["decode_attention"] == 0 == per_decode["flash_attention"]
+                and per_decode["paged_context_attention"] == 0):
+            raise AssertionError(f"wide_pages {tier}: launches per decode step {per_decode}")
+        prefill = paged_prefill_launches(run, per_decode, L, n_gemms, f"wide_pages {tier}")
+        if not (prefill["whole_prompt_prefills"] > 0 and prefill["chunks"] > 0
+                and prefill["whole_prompt_prefills"] + prefill["chunks"] >= len(reqs)):
+            raise AssertionError(f"wide_pages {tier}: prefills {prefill}")
+        if any(c.page_size != kw["page_size"] or c.kv_bits != kw.get("kv_bits", 8)
+               for c in engine.caches):
+            raise AssertionError(f"wide_pages {tier}: the pools are not the tier's")
+        if engine.stats["pages_in_use"] != 0:
+            raise AssertionError(f"wide_pages {tier}: pages left in use {engine.stats}")
+        readings = {}
+        for i in list(whole) + [chunked_i]:
+            r = reqs[i]
+            if kw.get("kv_bits", 8) == 8:
+                w = paged_logit_reading(model, r.prompt, r.max_new_tokens, kw)
+                alone, ok = w["paged_alone"], (w["logit_rel_diff_max"] <= PAGED_LOGIT_RTOL
+                                               and (i == chunked_i
+                                                    or (w["first_difference"] is None
+                                                        and w["logits_equal"])))
+            else:
+                w = alone_logit_reading(model, r.prompt, r.max_new_tokens, kw,
+                                        dict(PAGED_ENGINE, kv_bits=4))
+                alone, ok = w["tokens"], w["logit_rel_diff_max"] <= PAGED_LOGIT_RTOL
+            readings[f"request_{i}"] = {k: v for k, v in w.items()
+                                        if k not in ("generate", "paged_alone", "reference",
+                                                     "tokens")}
+            readings[f"request_{i}"]["whole_prompt"] = i != chunked_i
+            if i != chunked_i and alone != r.generated:
+                raise AssertionError(f"wide_pages {tier}: request {i}: engine {r.generated} "
+                                     f"!= the request served alone {alone}")
+            if not ok:
+                raise AssertionError(f"wide_pages {tier}: request {i}: {readings[f'request_{i}']}")
+        res[tier] = {"engine": {k: v for k, v in kw.items() if k != "device"},
+                     "launches": counts, "launches_per_decode_step": per_decode,
+                     "prefill_launches": prefill, "stats": engine.stats,
+                     "decode_step_ms_median": float(np.median(run["step_ms"])),
+                     "graph": run["graph"], "readings": readings,
+                     "paged_logit_rtol": PAGED_LOGIT_RTOL,
+                     "seconds": round(time.perf_counter() - t_tier, 2)}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    res["serving_seconds"] = round(time.perf_counter() - t0, 2)
+    res["timing"] = last_timing()
+    res["seconds"] = round(time.perf_counter() - t0, 2)
+    emit(res)
+    return res
+
+
+# ``last_timing``'s rows by the kernel whose entry of the ``kernels`` line
+# carries them
+LAST_TIMING_KEYS = {
+    "int8_flash_attention": ("int8_flash_attention_d256",),
+    "decode_attention": ("decode_attention_d512",),
+    "paged_decode_attention": ("paged_decode_attention_d512", "paged_decode_attention_page12",
+                               "paged_decode_attention_page512"),
+    "flash_attention": ("flash_attention_d512",),
+    "flash_attention_bwd": ("flash_attention_bwd_d512",),
+    "paged_context_attention": ("paged_context_attention_d512",
+                                "paged_context_attention_page12",
+                                "paged_context_attention_page512"),
+}
+
+
+def last_timing() -> dict:
+    """The kernels at the last shapes, by ``phase_timing``'s protocol
+    (bench_ms; plain versions; byte and operation bounds by its formulas;
+    SDPA beside row 12, K3 and K7): row 12 at B 1, H 32, S 2048, D 256,
+    causal, bf16 (int8 P; its wrapper with the pre-pass); K2 and K5 (int8,
+    pages of 128) at d 512, Hq 8 over 2 KV heads, 8 slots of row 5's
+    lengths 150-550; K3 and K7 at B 1, H 8, S 2048, d 512, causal, bf16 (the
+    wide route); K6 at C 256 after 768, d 512, Hq 8 over 2; and K5 (B 8, H
+    32, d 128, row 5's lengths) and K6 (B 1, H 32, C 256 after 768, d 128)
+    at pages of 12 and 512, int8."""
+    import torch.nn.functional as F
+
+    from qgemm_tpu_torch.ops.cuda.decode_attention import (decode_attention,
+                                                           decode_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
+                                                          flash_attention_plain)
+    from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import (flash_attention_bwd,
+                                                              flash_attention_bwd_plain)
+    from qgemm_tpu_torch.ops.cuda.int8_flash_attention import (KERNEL_KEY_TILE,
+                                                               flash_attention_int8,
+                                                               flash_attention_int8_plain)
+    from qgemm_tpu_torch.ops.cuda.paged_context_attention import paged_context_attention
+    from qgemm_tpu_torch.ops.cuda.paged_decode_attention import paged_decode_attention_ragged
+    from qgemm_tpu_torch.serving.paged_cache import (gather_slot_kv, paged_attention_reference,
+                                                     paged_context_attention_reference)
+    from qgemm_tpu_torch.utils.profiling import bench_ms
+    g = torch.Generator(device="cuda")
+    g.manual_seed(24)
+    bf16, out = torch.bfloat16, {}
+    rnd = lambda shape: torch.randn(shape, generator=g, device="cuda").to(bf16)
+    # row 12 at D 256
+    b, h, s, d = 1, 32, 2048, 256
+    q, k, v = (rnd((b, h, s, d)) for _ in range(3))
+    pairs = b * h * s * (s + 1) // 2
+    r12 = bench_ms(lambda: flash_attention_int8(q, k, v, causal=True))
+    br = bound(3 * b * h * s * d * 2 + b * h * s * d * 2, 4 * d * pairs, INT8_OPS)
+    out["int8_flash_attention_d256"] = {
+        "ms": r12, "plain_ms": bench_queued_or_not(lambda: flash_attention_int8_plain(
+            q, k, v, True, False, block_k=KERNEL_KEY_TILE))[0],
+        "library_ms": bench_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        "bound_ms": br[0], "bound_by": br[1],
+        "shape": f"B={b} H={h} S={s} D={d} causal bf16, int8 P, wrapper with the pre-pass"}
+    del q, k, v
+    # K2 and K5 at d 512
+    lengths = [150, 210, 260, 330, 400, 450, 500, 550]
+    lens = torch.tensor(lengths, device="cuda", dtype=torch.int32)
+    tot = sum(lengths)
+    hq, hkv, d, page, pps = 8, 2, 512, 128, 8
+    cache, _ = random_paged_cache(1300, lengths, hkv, page, 8, pps, d=d)
+    kq, kc, vq, vc = gather_slot_kv(cache)
+    q = rnd((8, hq, 1, d))
+    ops = tot * hq * 4 * d
+    b2 = bound(8 * hq * d * 2 * 2 + tot * hkv * (2 * d + 8), ops, BF16_FLOPS)
+    b5 = bound(2 * 8 * hq * d * 2 + 8 * (pps * 4 + 4)
+               + paged_kv_bytes(lengths, hkv, d, page, 8), ops, BF16_FLOPS)
+    shape = f"B=8 Hq={hq} Hkv={hkv} D={d} lengths={lengths}"
+    out["decode_attention_d512"] = {
+        "ms": bench_ms(lambda: decode_attention(q, kq, vq, lens, kc=kc, vc=vc)),
+        "plain_ms": bench_ms(lambda: decode_attention_plain(q, kq, vq, lens, kc=kc, vc=vc)),
+        "library_ms": None, "bound_ms": b2[0], "bound_by": b2[1],
+        "shape": shape + f" S={kq.shape[2]} int8"}
+    out["paged_decode_attention_d512"] = {
+        "ms": bench_ms(lambda: paged_decode_attention_ragged(q, cache, lens)),
+        "plain_ms": bench_ms(lambda: paged_attention_reference(q, cache, lens,
+                                                               compute_dtype=bf16),
+                             queue_ahead=False),
+        "library_ms": None, "bound_ms": b5[0], "bound_by": b5[1],
+        "shape": shape + " page=128 int8 (ragged)"}
+    del cache, kq, kc, vq, vc
+    # K5 at pages of 12 and 512 (d 128, MHA)
+    hq = hkv = 32
+    d = 128
+    q = rnd((8, hq, 1, d))
+    for page in (12, 512):
+        pps = -(-550 // page)
+        cache, _ = random_paged_cache(1400 + page, lengths, hkv, page, 8, pps, d=d)
+        b5 = bound(2 * 8 * hq * d * 2 + 8 * (pps * 4 + 4)
+                   + paged_kv_bytes(lengths, hkv, d, page, 8), tot * hq * 4 * d, BF16_FLOPS)
+        out[f"paged_decode_attention_page{page}"] = {
+            "ms": bench_ms(lambda: paged_decode_attention_ragged(q, cache, lens)),
+            "plain_ms": bench_ms(lambda: paged_attention_reference(q, cache, lens,
+                                                                   compute_dtype=bf16),
+                                 queue_ahead=False),
+            "library_ms": None, "bound_ms": b5[0], "bound_by": b5[1],
+            "shape": f"B=8 H={hq} D={d} lengths={lengths} page={page} int8 (ragged)"}
+        del cache
+    # K3 and K7 at d 512 (the wide route)
+    b, h, s, d = 1, 8, 2048, 512
+    q, k, v, dout = (rnd((b, h, s, d)) for _ in range(4))
+    flops = 4 * d * b * h * s * (s + 1) // 2
+    b3 = bound(4 * b * h * s * d * 2 + b * h * s * 4, flops, BF16_FLOPS)
+    k3 = bench_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
+    out["flash_attention_d512"] = {
+        "ms": k3, "plain_ms": bench_ms(lambda: flash_attention_plain(q, k, v, causal=True)),
+        "library_ms": bench_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                      is_causal=True)),
+        "bound_ms": b3[0], "bound_by": b3[1], "achieved_tflops": flops / k3 / 1e9,
+        "shape": f"B={b} H={h} S={s} D={d} causal bf16 (wide route)"}
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    k7 = bench_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, True))
+    qg_, kg_, vg_ = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg_, kg_, vg_, is_causal=True)
+    lib, _ = bench_queued_or_not(
+        lambda: torch.autograd.grad(sdpa_out, (qg_, kg_, vg_), dout, retain_graph=True))
+    flops7 = 10 * d * b * h * s * (s + 1) // 2
+    b7 = bound(8 * b * h * s * d * 2 + b * h * s * 4, flops7, BF16_FLOPS)
+    out["flash_attention_bwd_d512"] = {
+        "ms": k7, "plain_ms": bench_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, dout,
+                                                                         True)),
+        "library_ms": lib, "bound_ms": b7[0], "bound_by": b7[1],
+        "achieved_tflops": flops7 / k7 / 1e9,
+        "shape": f"B={b} H={h} S={s} D={d} causal bf16 (wide route)"}
+    del q, k, v, dout, o, lse, qg_, kg_, vg_, sdpa_out
+    torch.cuda.empty_cache()
+    # K6 at d 512 (the wide kernel), and at pages of 12 and 512 (d 128)
+    c, off = 256, 768
+    lens = torch.tensor([off + c], device="cuda", dtype=torch.int32)
+    cpairs = c * off + c * (c + 1) // 2
+    for key, (hq, hkv, d, page) in (("d512", (8, 2, 512, 128)), ("page12", (32, 32, 128, 12)),
+                                    ("page512", (32, 32, 128, 512))):
+        pps = -(-(off + c) // page)
+        q = rnd((1, hq, c, d))
+        cache, _ = random_paged_cache(1500 + page + d, lens.tolist(), hkv, page, 8, pps, d=d)
+        moved = 2 * c * hq * d * 2 + pps * 4 + 8 + paged_kv_bytes(lens.tolist(), hkv, d, page, 8)
+        b6 = bound(moved, hq * cpairs * 4 * d, BF16_FLOPS)
+        out[f"paged_context_attention_{key}"] = {
+            "ms": bench_ms(lambda: paged_context_attention(q, cache, lens, off)),
+            "plain_ms": bench_ms(lambda: paged_context_attention_reference(
+                q, cache, lens, off, compute_dtype=bf16), queue_ahead=False),
+            "library_ms": None, "bound_ms": b6[0], "bound_by": b6[1],
+            "shape": f"B=1 Hq={hq} Hkv={hkv} C={c} D={d} offset={off} page={page} int8"}
+        del cache
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_attn_geometries() -> dict:
@@ -6605,7 +7175,7 @@ def gemv_ab(other: str, rounds: int = 1) -> None:
     bounds = gemv_bounds()
     emit({"phase": "gemv_ab", "order": order, "trees": trees, "median": med,
           "speedup_other_over_this": {k: med["other"][k] / med["this"][k]
-                                      for k in med["this"]},
+                                      for k in med["this"] if med["this"][k]},
           "bound_ms": bounds,
           "share_of_bound": {side: {k: b / med[side][k] for k, b in bounds.items()}
                              for side in med}})
@@ -7267,28 +7837,42 @@ def quant_child(tree: str) -> None:
     its main kernel on a pre-pass's codes, its pre-pass (the pre-pass kernel,
     or in a checkout without one the torch pre-pass) and the whole wrapper.
     The MoE load's K9 total is the model's 24 layers times the two expert
-    weights' times. Prints one JSON line."""
+    weights' times. The outputs' hashes (``sha256``: K9's codes and scales,
+    the dynamic GEMM's output, K8's at a GEMV and a tile shape, row 12's
+    wrapper output), which ``--quant-ab`` holds equal between the two
+    checkouts. Prints one JSON line."""
     root = use_tree(tree)
     from qgemm_tpu_torch.ops.cuda import _build
     from qgemm_tpu_torch.ops.cuda import int8_flash_attention as fa
     from qgemm_tpu_torch.ops.cuda.col_quantize import col_quantize
+    from qgemm_tpu_torch.ops.cuda.expert_matmul import grouped_quantized_matmul
     from qgemm_tpu_torch.ops.quantize import quantized_matmul
     from qgemm_tpu_torch.utils.profiling import bench_ms
     _build.build()
     g = torch.Generator(device="cuda")
     g.manual_seed(12)
-    res = {"tree": str(root), "k9_ms": {}}
+    res = {"tree": str(root), "k9_ms": {}, "sha256": {}}
     for e, k, n, dt in QUANT_AB_K9:
         w = (torch.randn((e, k, n), generator=g, device="cuda") * 0.02).to(getattr(torch, dt))
         w = w[0] if e == 1 else w
         res["k9_ms"][f"{e}x{k}x{n} {dt}"] = bench_ms(lambda: col_quantize(w))
+        res["sha256"][f"k9 {e}x{k}x{n} {dt}"] = sha256_of(*col_quantize(w))
         del w
     up, down = (res["k9_ms"][f"{e}x{k}x{n} {dt}"] for e, k, n, dt in QUANT_AB_K9[:2])
     res["k9_moe_load_ms"] = MOE_CFG["n_layers"] * (up + down)
     x = torch.rand((2048, 2048), generator=g, device="cuda") * 2 - 1
     w = torch.rand((2048, 2048), generator=g, device="cuda") * 2 - 1
     res["int8_dynamic_ms"] = bench_ms(lambda: quantized_matmul(x, w))
+    res["sha256"]["dynamic 2048^3"] = sha256_of(quantized_matmul(x, w))
     del x, w
+    for c_rows in (8, 168):   # K8's GEMV and tile kernel
+        x = torch.randn((8, c_rows, 2048), generator=g, device="cuda").to(torch.bfloat16)
+        wt = torch.randint(-127, 128, (8, 4096, 2048), generator=g, device="cuda",
+                           dtype=torch.int8)
+        cw = torch.rand((8, 1, 4096), generator=g, device="cuda") * 0.01 + 1e-3
+        res["sha256"][f"k8 C{c_rows}"] = sha256_of(grouped_quantized_matmul(x, wt, cw,
+                                                                            relu=True))
+        del x, wt, cw
     b, h, s_, d = ATTN_SHAPE
     q, k, v = (torch.randn((b, h, s_, d), generator=g, device="cuda").to(torch.bfloat16)
                for _ in range(3))
@@ -7302,6 +7886,8 @@ def quant_child(tree: str) -> None:
         res[f"row12_prepass_ms {tag}"] = bench_ms(lambda: prepass(q, k, v, qk_only))
         res[f"row12_wrapper_ms {tag}"] = bench_ms(
             lambda: fa.flash_attention_int8(q, k, v, True, qk_only))
+        res["sha256"][f"row12 {tag}"] = sha256_of(fa.flash_attention_int8(q, k, v, True,
+                                                                          qk_only))
         del prep
     emit(res)
 
@@ -7336,17 +7922,24 @@ def quant_ab(other: str, rounds: int = 1) -> None:
 
     def flat(r: dict) -> dict:
         out = {f"k9_ms {key}": v for key, v in r["k9_ms"].items()}
-        out.update({k: v for k, v in r.items() if k not in ("k9_ms", "tree", "phase", "side")})
+        out.update({k: v for k, v in r.items()
+                    if k not in ("k9_ms", "sha256", "tree", "phase", "side")})
         return out
 
     med = {side: {key: float(np.median([flat(r)[key] for r in rs])) for key in flat(rs[0])}
            for side, rs in runs.items()}
     bounds = quant_bounds()
+    same, hashes = equal_hashes(runs, "sha256")
     emit({"phase": "quant_ab", "card": smi, "order": order, "trees": trees, "median": med,
-          "speedup_other_over_this": {k: med["other"][k] / med["this"][k] for k in med["this"]},
+          "speedup_other_over_this": {k: med["other"][k] / med["this"][k] for k in med["this"]
+                                      if med["this"][k]},
           "bound_ms": bounds,
           "share_of_bound": {side: {k: b / med[side][k] for k, b in bounds.items()}
-                             for side in med}})
+                             for side in med},
+          "outputs_equal_bits": same, "sha256": hashes})
+    if not same:
+        raise AssertionError("K9's, the dynamic GEMM's, K8's or row 12's outputs differ "
+                             "between the two checkouts")
 
 
 def row12_trace() -> None:
@@ -7804,7 +8397,10 @@ def spec_faults() -> None:
 # ------------------------------------------------------ encoder-decoder (A.8)
 # S2S_1_5B (scripts/bench_seq2seq.py's defaults: 12 + 12 layers, d_model 2048)
 # served in int8 by Seq2SeqEngine: 8 slots, sources of 16-64 tokens,
-# decoder budget 128; 16 requests of 32-128 new tokens.
+# decoder budget 128; 16 requests of 32-128 new tokens. The phase runs it at
+# full width and ``S2S_LAYERS`` + ``S2S_LAYERS`` layers (the whole script's
+# time limit); its launch counts follow the layers.
+S2S_LAYERS = 6
 S2S_SLOTS = 8
 S2S_MAX_SRC = 64
 S2S_MAX_NEW = 128
@@ -7940,7 +8536,8 @@ def s2s_cross_read_ms(model, engine_kw: dict) -> dict:
 
 def phase_seq2seq() -> dict:
     """The encoder-decoder family on the main path at full width: S2S_1_5B
-    (int8 weights, ``Transformer.init_quantized`` seed 0, and its W4A8
+    at ``S2S_LAYERS`` + ``S2S_LAYERS`` layers (int8 weights,
+    ``Transformer.init_quantized`` seed 0, and its W4A8
     self-draft from the same float weights) serving the
     ``S2S_REQUESTS`` greedy requests of ``s2s_requests`` through every
     engine of ``S2S_ENGINES`` on each of its routes. Fails unless every
@@ -7960,17 +8557,19 @@ def phase_seq2seq() -> dict:
     from qgemm_tpu_torch.serving.engine import Request
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model = Transformer.init_quantized(S2S_1_5B, seed=0, device="cuda")
-    draft = Transformer.init_quantized(S2S_1_5B, seed=0, device="cuda", bits=4)
+    cfg = dataclasses.replace(S2S_1_5B, n_layers=S2S_LAYERS)
+    model = Transformer.init_quantized(cfg, seed=0, device="cuda")
+    draft = Transformer.init_quantized(cfg, seed=0, device="cuda", bits=4)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    reqs_spec = s2s_requests(S2S_1_5B.vocab_size, np.random.default_rng(15))
+    reqs_spec = s2s_requests(cfg.vocab_size, np.random.default_rng(15))
     make = lambda: [Request(prompt=p, max_new_tokens=n) for p, n in reqs_spec]
     make_short = lambda: [Request(prompt=p, max_new_tokens=min(n, S2S_SHORT_NEW))
                           for p, n in reqs_spec[:S2S_SHORT_REQUESTS]]
-    n_layers = S2S_1_5B.n_layers
+    n_layers = cfg.n_layers
     step_bytes = s2s_step_bytes(model)
-    res = {"phase": "seq2seq", "model": "S2S_1_5B int8 (seed 0), W4A8 self-draft",
+    res = {"phase": "seq2seq", "model": f"S2S_1_5B at {n_layers} + {n_layers} layers, int8 "
+                                        "(seed 0), W4A8 self-draft",
            "params": model.num_params(), "init_s": init_s, "requests": len(reqs_spec),
            "step_bytes": step_bytes, "step_bound_ms": bound(step_bytes, 0, INT8_OPS)[0],
            "engines": {}}
@@ -8437,6 +9036,8 @@ def main() -> None:
         return decode_kernels_ab(sys.argv[2], *map(int, sys.argv[3:4]))
     if sys.argv[1:2] == ["--k6-draws"]:
         return k6_draws(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--build-times"]:
+        return build_times()
     if sys.argv[1:2] == ["--paged-logits"]:
         return paged_logits(int(sys.argv[2]))
     if sys.argv[1:2] == ["--long-copy"]:
@@ -8513,6 +9114,7 @@ def main() -> None:
     phase_outlier_numerics()
     train = phase_train()
     geoms = phase_attn_geometries()
+    pages = phase_wide_pages()
     induction, copy_model = phase_train_induction()
     phase_train_serve(copy_model)
     phase_long_copy()
@@ -8672,6 +9274,12 @@ def main() -> None:
             if name.startswith("flash"):
                 entry["launches_attn_geometries"]["train_gemma2b_widths per step"] = \
                     geoms["train_gemma2b_widths"]["launches_per_step"][name]
+        if name in LAST_TIMING_KEYS:
+            entry["at_last_shapes"] = {k: pages["timing"][k] for k in LAST_TIMING_KEYS[name]}
+        if name in ("paged_decode_attention", "paged_context_attention"):
+            entry["launches_wide_pages"] = {
+                tier: sum(pages[tier]["launches"].get(w, 0) for w in ws)
+                for tier in WIDE_PAGE_TIERS}
         entry["launches_dryrun"] = kernel_launches(dry["launches"], name)
         kernels.append(entry)
     # the int8 flash attention's pre-pass kernel: a second kernel of its

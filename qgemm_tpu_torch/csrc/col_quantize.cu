@@ -76,7 +76,8 @@ __device__ __forceinline__ int quant(float y, int truncate) {
 }
 
 // ------------------------------------------------------------ cluster route
-// grid (strips * cluster, E), cluster (cluster, 1, 1), kThreads threads;
+// grid (strips * cluster * E) (flattened: the strips' clusters, then the
+// expert), cluster (cluster, 1, 1), kThreads threads;
 // dynamic shared memory slab_rows * 128 bytes.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -93,11 +94,12 @@ col_quant_cluster_kernel(const T* __restrict__ w, int8_t* __restrict__ qt, float
   const int rank = static_cast<int>(cluster.block_rank());
   const int cs = static_cast<int>(cluster.num_blocks());
   T* slab = reinterpret_cast<T*>(smem);        // [slab_rows][W]
-  const size_t e = blockIdx.y;
+  const qg::FlatIdx blk = qg::flat_block(((n + W - 1) / W) * cs);   // (strip block, expert)
+  const size_t e = blk.o;
   w += e * k * n;
   qt += e * n * k;
   c += e * n;
-  const int n0 = (blockIdx.x / cs) * W;
+  const int n0 = (blk.i / cs) * W;
   const int k0 = rank * slab_rows;
   const int rows = max(0, min(k, k0 + slab_rows) - k0);
   const int tid = threadIdx.x;
@@ -188,18 +190,21 @@ constexpr int kRowGroups = 4;   // threadIdx.y
 constexpr int kSlabK = 256;     // rows per absmax block
 constexpr int kTileK = 64;      // rows per quantize block
 
-// grid (ceil(n / kCols), ceil(k / kSlabK), E); cmax [E, n] zeroed before.
+// grid (ceil(n / kCols) * ceil(k / kSlabK) * E), flattened in that order;
+// cmax [E, n] zeroed before.
 // Non-negative floats, +NaN included, order as their bits.
 template <typename T>
 __global__ void __launch_bounds__(kCols * kRowGroups)
 col_absmax_kernel(const T* __restrict__ w, unsigned int* __restrict__ cmax, int k, int n) {
   __shared__ float red[kRowGroups][kCols];
-  const size_t e = blockIdx.z;
+  const int nb = (n + kCols - 1) / kCols, ns = (k + kSlabK - 1) / kSlabK;
+  const qg::FlatIdx blk = qg::flat_block(nb * ns);   // (column block, slab; expert)
+  const size_t e = blk.o;
   w += e * k * n;
   cmax += e * n;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = blockIdx.x * kCols + tx;
-  const int k0 = blockIdx.y * kSlabK, k1 = min(k, k0 + kSlabK);
+  const int col = (blk.i % nb) * kCols + tx;
+  const int k0 = (blk.i / nb) * kSlabK, k1 = min(k, k0 + kSlabK);
   float mx = 0.f;
   if (col < n) {
 #pragma unroll 8
@@ -215,25 +220,28 @@ col_absmax_kernel(const T* __restrict__ w, unsigned int* __restrict__ cmax, int 
   }
 }
 
-// grid (ceil(n / kCols), ceil(k / kTileK), E)
+// grid (ceil(n / kCols) * ceil(k / kTileK) * E), flattened in that order
 template <typename T>
 __global__ void __launch_bounds__(kCols * kRowGroups)
 col_quant_kernel(const T* __restrict__ w, const unsigned int* __restrict__ cmax,
                  int8_t* __restrict__ qt, float* __restrict__ c, int k, int n, int truncate) {
   __shared__ float scale[kCols];
   __shared__ int8_t tile[kCols][kTileK + 4];
-  const size_t e = blockIdx.z;
+  const int nb = (n + kCols - 1) / kCols, nt = (k + kTileK - 1) / kTileK;
+  const qg::FlatIdx blk = qg::flat_block(nb * nt);   // (column block, row tile; expert)
+  const size_t e = blk.o;
   w += e * k * n;
   cmax += e * n;
   qt += e * n * k;
   c += e * n;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kCols + tx;
-  const int n0 = blockIdx.x * kCols, k0 = blockIdx.y * kTileK;
+  const int tile_k = blk.i / nb;
+  const int n0 = (blk.i % nb) * kCols, k0 = tile_k * kTileK;
   const int col = n0 + tx;
   if (ty == 0) {
     float m = col < n ? __uint_as_float(cmax[col]) : 1.f;
     m = m != m ? m : fmaxf(m, kEps);
-    if (blockIdx.y == 0 && col < n) c[col] = m;
+    if (tile_k == 0 && col < n) c[col] = m;
     scale[tx] = kQRange / m;
   }
   __syncthreads();
@@ -274,7 +282,7 @@ cudaError_t launch_cluster(const T* w, int8_t* qt, float* c, int e, int k, int n
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((n + W - 1) / W) * p.cluster, e);
+  cfg.gridDim = dim3(((n + W - 1) / W) * p.cluster * e);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = p.smem;
   cfg.stream = s;
@@ -297,8 +305,9 @@ cudaError_t launch_two_pass(const T* w, unsigned int* cmax, int8_t* qt, float* c
   if (err != cudaSuccess) return err;
   const dim3 block(kCols, kRowGroups);
   const int nb = (n + kCols - 1) / kCols;
-  col_absmax_kernel<T><<<dim3(nb, (k + kSlabK - 1) / kSlabK, e), block, 0, s>>>(w, cmax, k, n);
-  col_quant_kernel<T><<<dim3(nb, (k + kTileK - 1) / kTileK, e), block, 0, s>>>(
+  col_absmax_kernel<T><<<dim3(nb * ((k + kSlabK - 1) / kSlabK) * e), block, 0, s>>>(w, cmax, k,
+                                                                                    n);
+  col_quant_kernel<T><<<dim3(nb * ((k + kTileK - 1) / kTileK) * e), block, 0, s>>>(
       w, cmax, qt, c, k, n, truncate);
   return cudaGetLastError();
 }
@@ -307,7 +316,9 @@ template <typename T>
 cudaError_t launch(const T* w, unsigned int* cmax, int8_t* qt, float* c, int e, int k, int n,
                    int truncate, const Plan& p, cudaStream_t s) {
   if (p.route == 0) return launch_cluster(w, qt, c, e, k, n, truncate, p, s);
-  if (cmax == nullptr || (k + kTileK - 1) / kTileK > 65535) return cudaErrorInvalidValue;
+  if (cmax == nullptr ||
+      !qg::flat_grid_ok(static_cast<long long>((n + kCols - 1) / kCols) * ((k + kTileK - 1) / kTileK) * e))
+    return cudaErrorInvalidValue;
   return launch_two_pass(w, cmax, qt, c, e, k, n, truncate, s);
 }
 
@@ -322,7 +333,9 @@ extern "C" int qgemm_col_quantize(const void* w, int w_dtype, void* qt, void* c,
                                   int e, int k, int n, int truncate, int route, int cluster,
                                   int slab_rows, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (e <= 0 || e > 65535 || k <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (e <= 0 || k <= 0 || n <= 0 ||
+      !qg::flat_grid_ok(static_cast<long long>((n + 15) / 16) * kMaxCluster * e))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = make_plan(k);
   if (route != p.route || cluster != p.cluster || slab_rows != p.slab_rows || smem != p.smem)
     return static_cast<int>(cudaErrorInvalidValue);

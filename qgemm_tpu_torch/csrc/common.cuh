@@ -88,6 +88,24 @@ __device__ __forceinline__ int warp_sum_int(int v) {
   return v;
 }
 
+// Flat grids. A grid's y and z stop at 65,535 blocks, x at 2^31 - 1, so a
+// kernel whose batch, head, expert or split count can grow takes a 1-D
+// grid of (inner x outer) blocks and splits blockIdx.x itself. x runs
+// fastest, so the blocks start in the order of the (inner, outer) grid
+// they replace, and no arithmetic changes.
+constexpr long long kMaxGridX = 0x7fffffffLL;
+
+__host__ inline bool flat_grid_ok(long long blocks) { return blocks >= 1 && blocks <= kMaxGridX; }
+
+// blockIdx.x as (i, o): i in [0, inner), the index that ran on grid x
+struct FlatIdx {
+  int i, o;
+};
+__device__ __forceinline__ FlatIdx flat_block(int inner) {
+  return {static_cast<int>(blockIdx.x % static_cast<unsigned>(inner)),
+          static_cast<int>(blockIdx.x / static_cast<unsigned>(inner))};
+}
+
 // Programmatic dependent launch (sm_90). A kernel launched by launch_pdl may
 // start while the kernel ahead of it in the stream still runs:
 // grid_dependency_wait() blocks until that kernel has finished and its

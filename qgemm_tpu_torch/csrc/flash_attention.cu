@@ -65,9 +65,21 @@
 // block, two blocks an SM (FlashAttention-2's hdim-256 forward also takes
 // smaller tiles). The f32 route takes D 256 as it is (O 64 registers, 139
 // KB of shared memory).
+//
+// Past 256 (either width), both dtypes take the "wide" route
+// (flash_fwd_wide_kernel, flash_wide.cuh): widths are runtime multiples of
+// 64 (the wrapper pads q and k to one, v to another, so d and dv may
+// differ), S accumulates over d in 64-column chunks staged in shared
+// memory, and Dv runs in chunks of 256 columns, one block per chunk, each
+// recomputing S. f32 FMAs on the CUDA cores; bf16 rounds P as the mma
+// route does. Slow, and right; it takes any width.
+//
+// Grids are one dimension, (query tile[, Dv chunk], batch*head) with the
+// query tile fastest, so batch*heads may pass 65,535.
 #include <type_traits>
 
 #include "common.cuh"
+#include "flash_wide.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -100,7 +112,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* row_l = row_m + kBQ;
   float* row_a = row_l + kBQ;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBQ, tid = threadIdx.x;
+  const qg::FlatIdx blk = qg::flat_block((sq + kBQ - 1) / kBQ);   // (query tile, batch*head)
+  const int bh = blk.o, q0 = blk.i * kBQ, tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int warp = tid / 32, lane = tid % 32;
   const T* qb = q + static_cast<size_t>(bh) * sq * D;
@@ -242,7 +255,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  const dim3 grid(((sq + kBQ - 1) / kBQ) * bh);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, sq, sk, causal, scale);
@@ -321,7 +334,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + 2 * TK * LD;      // [2][TK][LD]
 
   // the last query blocks, which attend the most keys when causal, first
-  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int nqt = (sq + BQ - 1) / BQ;
+  const qg::FlatIdx blk = qg::flat_block(nqt);   // (query tile, batch*head)
+  const int bh = blk.o, q0 = (nqt - 1 - blk.i) * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int w0 = q0 + warp * 16;                 // the warp's first query row
   const int qi0 = w0 + (lane >> 2), qi1 = qi0 + 8;  // this thread's two rows
@@ -469,10 +484,136 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(want));
   if (e != cudaSuccess) return e;
-  const dim3 grid((sq + kMmaBQ - 1) / kMmaBQ, bh);
+  const dim3 grid(((sq + kMmaBQ - 1) / kMmaBQ) * bh);
   flash_fwd_mma_kernel<D><<<grid, kMmaWarps * 32, want, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, sq, sk, causal, scale);
+  return cudaGetLastError();
+}
+
+
+// ------------------------------------------------------------ wide: SIMT, any width
+namespace wd = qg::wide;
+
+// grid (query tiles * Dv chunks * BH), flattened in that order; q, k [BH,
+// S, dqk], v [BH, Sk, dvp], o [BH, Sq, dvp] (dqk, dvp multiples of 64);
+// lse [BH, Sq] written by the first chunk's blocks.
+template <typename T>
+__global__ void __launch_bounds__(wd::kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, float* __restrict__ lse, int sq, int sk, int dqk,
+                      int dvp, int causal, float scale) {
+  constexpr bool kRound = !std::is_same<T, float>::value;  // P cast to V's dtype
+  constexpr int kBQ = wd::kRows, kBK = wd::kTile, CPT = wd::kOut / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;
+  float* Bs = As + kBQ * wd::kLdC;
+  float* Ps = Bs + kBK * wd::kLdC;
+  float* Vs = Ps + kBQ * wd::kLdS;
+  float* row_m = Vs + kBK * wd::kLdO;
+  float* row_l = row_m + kBQ;
+  float* row_a = row_l + kBQ;
+
+  const int nqt = (sq + kBQ - 1) / kBQ, nvc = (dvp + wd::kOut - 1) / wd::kOut;
+  const int bx = static_cast<int>(blockIdx.x % static_cast<unsigned>(nqt * nvc));
+  const int bh = static_cast<int>(blockIdx.x / static_cast<unsigned>(nqt * nvc));
+  const int q0 = (bx % nqt) * kBQ, vc = bx / nqt;
+  const int c0 = vc * wd::kOut, ncols = min(wd::kOut, dvp - c0);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int warp = tid / 32, lane = tid % 32;
+  const T* qb = q + static_cast<size_t>(bh) * sq * dqk;
+  const T* kb = k + static_cast<size_t>(bh) * sk * dqk;
+  const T* vb = v + static_cast<size_t>(bh) * sk * dvp;
+
+  if (tid < kBQ) {
+    row_m[tid] = -1e30f;
+    row_l[tid] = 0.f;
+  }
+  float acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+
+  int nk = (sk + kBK - 1) / kBK;
+  if (causal) nk = min(nk, (min(q0 + kBQ, sq) - 1) / kBK + 1);
+  __syncthreads();
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kBK;
+    float s[4][2];
+    wd::dot_tile(qb, q0, sq, kb, k0, sk, dqk, As, Bs, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = ty * 4 + i, c = tx * 2 + j;
+        const int gq = q0 + r, gk = k0 + c;
+        const bool ok = gk < sk && (!causal || gk <= gq);
+        Ps[r * wd::kLdS + c] = ok ? s[i][j] * scale : neg_inf();
+      }
+    wd::stage<T, kBK>(Vs, wd::kLdO, vb, dvp, k0, sk, c0, ncols);
+    __syncthreads();
+
+    // online softmax: warp w owns rows 8w..8w+7, lane = column
+    for (int rr = 0; rr < kBQ / (wd::kThreads / 32); ++rr) {
+      const int r = warp * (kBQ / (wd::kThreads / 32)) + rr;
+      const float sv = Ps[r * wd::kLdS + lane];
+      const float m_prev = row_m[r];
+      const float m_new = fmaxf(m_prev, qg::warp_max(sv));
+      const float p = sv == neg_inf() ? 0.f : expf(sv - m_new);
+      const float alpha = expf(m_prev - m_new);
+      const float psum = qg::warp_sum(p);
+      Ps[r * wd::kLdS + lane] = kRound ? qg::bf16_round(p) : p;
+      __syncwarp();
+      if (lane == 0) {
+        row_m[r] = m_new;
+        row_l[r] = row_l[r] * alpha + psum;
+        row_a[r] = alpha;
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = row_a[ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) acc[i][j] *= a;
+    }
+    wd::acc_tile(Ps, Vs, ncols, acc);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i, gq = q0 + r;
+    if (gq < sq) {
+      const float l = fmaxf(row_l[r], 1e-30f);
+      T* orow = o + (static_cast<size_t>(bh) * sq + gq) * dvp + c0;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        if (16 * j < ncols) orow[tx + 16 * j] = qg::from_f32<T>(acc[i][j] / l);
+      if (tx == 0 && vc == 0) lse[static_cast<size_t>(bh) * sq + gq] = row_m[r] + logf(l);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int bh, int sq, int sk, int dqk, int dvp, int causal, float scale,
+                        cudaStream_t s) {
+  constexpr size_t smem = wd::smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wide_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const long long blocks = static_cast<long long>((sq + wd::kRows - 1) / wd::kRows) *
+                           ((dvp + wd::kOut - 1) / wd::kOut) * bh;
+  if (!qg::flat_grid_ok(blocks)) return cudaErrorInvalidValue;
+  flash_fwd_wide_kernel<T><<<dim3(static_cast<unsigned>(blocks)), wd::kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, sq, sk, dqk, dvp, causal, scale);
   return cudaGetLastError();
 }
 
@@ -489,7 +630,9 @@ extern "C" int qgemm_flash_attention_fwd(const void* q, const void* k, const voi
                                          int sk, int D, int causal, float scale, int route,
                                          int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (bh <= 0 || sq <= 0 || sk <= 0 ||
+      !qg::flat_grid_ok(static_cast<long long>((sq + 63) / 64) * bh))
+    return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse);
   if (route == 0 && dtype == 0) {
     if (D == 32 && static_cast<size_t>(smem) == smem_bytes<32>())
@@ -507,5 +650,26 @@ extern "C" int qgemm_flash_attention_fwd(const void* q, const void* k, const voi
     if (D == 128) return launch_mma<128>(q, k, v, o, l, bh, sq, sk, causal, scale, smem, s);
     if (D == 256) return launch_mma<256>(q, k, v, o, l, bh, sq, sk, causal, scale, smem, s);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wide route: q, k [BH, Sq or Sk, dqk], v [BH, Sk, dvp], o [BH, Sq,
+// dvp] in f32 (dtype 0) or bf16 (dtype 1), dqk and dvp multiples of 64 (any
+// size); lse f32 [BH, Sq]; smem the plan's (qg::wide::smem_bytes).
+// Returns cudaGetLastError() (cudaErrorInvalidValue for a plan or shape it
+// does not take).
+extern "C" int qgemm_flash_attention_fwd_wide(const void* q, const void* k, const void* v,
+                                              void* o, void* lse, int dtype, int bh, int sq,
+                                              int sk, int dqk, int dvp, int causal, float scale,
+                                              int smem, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || sq <= 0 || sk <= 0 || dqk <= 0 || dvp <= 0 || dqk % wd::kChunk ||
+      dvp % wd::kChunk || static_cast<size_t>(smem) != wd::smem_bytes())
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0)
+    return static_cast<int>(launch_wide<float>(q, k, v, o, l, bh, sq, sk, dqk, dvp, causal, scale, s));
+  if (dtype == 1)
+    return static_cast<int>(launch_wide<bf16>(q, k, v, o, l, bh, sq, sk, dqk, dvp, causal, scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

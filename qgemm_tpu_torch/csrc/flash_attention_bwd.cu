@@ -77,9 +77,24 @@
 // 8 products per attended pair, not 7. Shared memory stays the D <= 128
 // layout: ~198 KB a block at D 256, one block an SM. The f32 route takes D
 // 256 as it is (204 and 212 KB).
+//
+// Past 256 (either width), both dtypes take the "wide" route
+// (flash_bwd_wide_kernel, flash_wide.cuh; K3's wide route's layout): widths
+// are runtime multiples of 64, the wrapper pads q, k, dQ and dK to one, v,
+// O, dO and dV to another. Four launches: delta over the runtime width,
+// then one kernel three times, for dQ (blocks of 64 query rows), dK and dV
+// (blocks of 64 key rows), each block one 256-column chunk of its output,
+// recomputing S (and, for dQ and dK, dP) over the widths in 64-column
+// chunks staged in shared memory. The same rounding points as the f32 and
+// mma routes. Slow, and right; it takes any width.
+//
+// Grids are one dimension, (row tile[, column chunk], batch*head) with the
+// row tile fastest (the mma route's dK/dV grid keeps z for its two blocks
+// at D 256), so batch*heads may pass 65,535.
 #include <type_traits>
 
 #include "common.cuh"
+#include "flash_wide.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -150,8 +165,9 @@ __device__ __forceinline__ float prob(bool ok, float s, float scale, float lse) 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-             int rows) {
-  const int row = (blockIdx.x * kThreads + threadIdx.x) / 32, lane = threadIdx.x % 32;
+             long long rows) {
+  const long long row = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const T* orow = o + static_cast<size_t>(row) * D;
   const T* grow = dout + static_cast<size_t>(row) * D;
@@ -180,7 +196,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* row_lse = Ds + kBR * (kBC + 1);
   float* row_dlt = row_lse + kBR;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBR, tid = threadIdx.x;
+  const qg::FlatIdx blk = qg::flat_block((sq + kBR - 1) / kBR);   // (query tile, batch*head)
+  const int bh = blk.o, q0 = blk.i * kBR, tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const size_t qoff = static_cast<size_t>(bh) * sq * D, koff = static_cast<size_t>(bh) * sk * D;
 
@@ -269,7 +286,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* col_lse = Ds + kBR * (kBC + 1);
   float* col_dlt = col_lse + kBC;
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * kBR, tid = threadIdx.x;
+  const qg::FlatIdx blk = qg::flat_block((sk + kBR - 1) / kBR);   // (key tile, batch*head)
+  const int bh = blk.o, k0 = blk.i * kBR, tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const size_t qoff = static_cast<size_t>(bh) * sq * D, koff = static_cast<size_t>(bh) * sk * D;
 
@@ -371,14 +389,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const long long rows = static_cast<long long>(bh) * sq;
   const unsigned delta_blocks = static_cast<unsigned>((rows * 32 + kThreads - 1) / kThreads);
   delta_kernel<T, D><<<delta_blocks, kThreads, 0, s>>>(static_cast<const T*>(o), gt, delta,
-                                                      static_cast<int>(rows));
+                                                      rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<T, D><<<dim3((sq + kBR - 1) / kBR, bh), kThreads, smem_q, s>>>(
+  flash_bwd_dq_kernel<T, D><<<dim3(((sq + kBR - 1) / kBR) * bh), kThreads, smem_q, s>>>(
       qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), sq, sk, causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<T, D><<<dim3((sk + kBR - 1) / kBR, bh), kThreads, smem_kv, s>>>(
+  flash_bwd_dkv_kernel<T, D><<<dim3(((sk + kBR - 1) / kBR) * bh), kThreads, smem_kv, s>>>(
       qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, causal,
       scale);
   return cudaGetLastError();
@@ -505,7 +523,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + 2 * kMmaRows * LD;  // [2][kMmaRows][LD]
 
   // the last query blocks, which attend the most keys when causal, first
-  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows;
+  const int nqt = (sq + kMmaRows - 1) / kMmaRows;
+  const qg::FlatIdx blk = qg::flat_block(nqt);   // (query tile, batch*head)
+  const int bh = blk.o, q0 = (nqt - 1 - blk.i) * kMmaRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int w0 = q0 + warp * 16, qi0 = w0 + (lane >> 2), qi1 = qi0 + 8;
   const Lane ln(lane);
@@ -628,7 +648,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* Ls = reinterpret_cast<float*>(dOs + 2 * kMmaRows * LD);  // [2][kMmaRows]
   float* Dl = Ls + 2 * kMmaRows;                                  // [2][kMmaRows]
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * kMmaRows, tid = threadIdx.x;
+  const qg::FlatIdx blk = qg::flat_block((sk + kMmaRows - 1) / kMmaRows);   // (key tile, batch*head)
+  const int bh = blk.o, k0 = blk.i * kMmaRows, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
   const int kw0 = k0 + warp * 16, ki0 = kw0 + (lane >> 2), ki1 = ki0 + 8;
   const Lane ln(lane);
@@ -764,7 +785,8 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   float* Ls = reinterpret_cast<float*>(dOs + 2 * kMmaRows * LD);  // [2][kMmaRows]
   float* Dl = Ls + 2 * kMmaRows;                                  // [2][kMmaRows]
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * kMmaRows, tid = threadIdx.x;
+  const qg::FlatIdx blk = qg::flat_block((sk + kMmaRows - 1) / kMmaRows);   // (key tile, batch*head)
+  const int bh = blk.o, k0 = blk.i * kMmaRows, tid = threadIdx.x;
   const bool want_dk = blockIdx.z == 1;   // block-uniform
   const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
   const int kw0 = k0 + warp * 16, ki0 = kw0 + (lane >> 2), ki1 = ki0 + 8;
@@ -896,18 +918,186 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   const long long rows = static_cast<long long>(bh) * sq;
   const unsigned delta_blocks = static_cast<unsigned>((rows * 32 + kThreads - 1) / kThreads);
   delta_kernel<bf16, D><<<delta_blocks, kThreads, 0, s>>>(static_cast<const bf16*>(o), gt,
-                                                         delta, static_cast<int>(rows));
+                                                         delta, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_mma_kernel<D><<<dim3((sq + kMmaRows - 1) / kMmaRows, bh), kMmaThreads, want_q,
+  flash_bwd_dq_mma_kernel<D><<<dim3(((sq + kMmaRows - 1) / kMmaRows) * bh), kMmaThreads, want_q,
                                s>>>(qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), sq, sk,
                                     causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dkv_kernel<<<dim3((sk + kMmaRows - 1) / kMmaRows, bh, wide ? 2 : 1), kMmaThreads, want_kv,
+  dkv_kernel<<<dim3(((sk + kMmaRows - 1) / kMmaRows) * bh, 1, wide ? 2 : 1), kMmaThreads, want_kv,
                s>>>(qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                     sq, sk, causal, scale);
   return cudaGetLastError();
+}
+
+
+// ------------------------------------------------------------ wide: SIMT, any width
+namespace wd = qg::wide;
+
+// delta = rowsum(dO * O) at a runtime width: one warp per row
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+delta_wide_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+                  long long rows, int width) {
+  const long long row = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const T* orow = o + static_cast<size_t>(row) * width;
+  const T* grow = dout + static_cast<size_t>(row) * width;
+  float acc = 0.f;
+  for (int d = lane; d < width; d += 32) acc = fmaf(qg::to_f32(grow[d]), qg::to_f32(orow[d]), acc);
+  acc = qg::warp_sum(acc);
+  if (lane == 0) delta[row] = acc;
+}
+
+// MODE 0: dQ = dS K (own rows: queries; streamed: keys); 1: dK = dS^T Q
+// (own: keys; streamed: queries); 2: dV = P^T dO. Grid (own tiles *
+// column chunks * BH), flattened in that order; the output's width is dqk
+// (dQ, dK) or dvp (dV), each block 256 columns of it.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(wd::kThreads)
+flash_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ grad, int sq, int sk,
+                      int dqk, int dvp, int causal, float scale) {
+  constexpr bool kRound = !std::is_same<T, float>::value;  // P and dS cast to the input dtype
+  constexpr bool kOwnQ = MODE == 0;
+  constexpr int R = wd::kRows, C = wd::kTile, CPT = wd::kOut / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;
+  float* Bs = As + R * wd::kLdC;
+  float* Ws = Bs + C * wd::kLdC;
+  float* Ms = Ws + R * wd::kLdS;
+  float* st_lse = Ms + C * wd::kLdO;   // the tile's queries' lse and delta (own: 64, streamed: 32)
+  float* st_dlt = st_lse + R;
+
+  const int n_own = kOwnQ ? sq : sk, n_str = kOwnQ ? sk : sq;
+  const int width = MODE == 2 ? dvp : dqk;
+  const int nt = (n_own + R - 1) / R, nc = (width + wd::kOut - 1) / wd::kOut;
+  const int bx = static_cast<int>(blockIdx.x % static_cast<unsigned>(nt * nc));
+  const int bh = static_cast<int>(blockIdx.x / static_cast<unsigned>(nt * nc));
+  const int r0 = (bx % nt) * R, c0 = (bx / nt) * wd::kOut;
+  const int ncols = min(wd::kOut, width - c0);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const size_t qo = static_cast<size_t>(bh) * sq, ko = static_cast<size_t>(bh) * sk;
+  const T* qb = q + qo * dqk;
+  const T* kb = k + ko * dqk;
+  const T* vb = v + ko * dvp;
+  const T* gb = dout + qo * dvp;
+
+  if (kOwnQ && tid < R) {
+    const bool ok = r0 + tid < sq;
+    st_lse[tid] = ok ? lse[qo + r0 + tid] : 0.f;
+    st_dlt[tid] = ok ? delta[qo + r0 + tid] : 0.f;
+  }
+  float acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+
+  // the streamed tiles: keys up to the causal limit (dQ), or queries from
+  // the first that attends the block's keys (dK, dV)
+  const int ntiles = (n_str + C - 1) / C;
+  int t_begin = 0, t_end = ntiles;
+  if (causal && kOwnQ) t_end = min(ntiles, (min(r0 + R, sq) - 1) / C + 1);
+  if (causal && !kOwnQ) t_begin = r0 / C;
+  __syncthreads();
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int s0 = t * C;
+    if (!kOwnQ && tid < C) {
+      const bool ok = s0 + tid < sq;
+      st_lse[tid] = ok ? lse[qo + s0 + tid] : 0.f;
+      st_dlt[tid] = ok ? delta[qo + s0 + tid] : 0.f;
+    }
+    float sc[4][2], dp[4][2];
+    if (kOwnQ) wd::dot_tile(qb, r0, sq, kb, s0, sk, dqk, As, Bs, sc);
+    else wd::dot_tile(kb, r0, sk, qb, s0, sq, dqk, As, Bs, sc);
+    if (MODE == 0) wd::dot_tile(gb, r0, sq, vb, s0, sk, dvp, As, Bs, dp);
+    if (MODE == 1) wd::dot_tile(vb, r0, sk, gb, s0, sq, dvp, As, Bs, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int rr = ty * 4 + i, cc = tx * 2 + j;
+        const int gq = kOwnQ ? r0 + rr : s0 + cc, gk = kOwnQ ? s0 + cc : r0 + rr;
+        const int qi = kOwnQ ? rr : cc;   // the query's slot in st_lse / st_dlt
+        const bool ok = gq < sq && gk < sk && (!causal || gk <= gq);
+        const float p = prob(ok, sc[i][j], scale, st_lse[qi]);
+        float w;
+        if (MODE == 2) {
+          w = kRound ? qg::bf16_round(p) : p;
+        } else {
+          const float ds = p * (dp[i][j] - st_dlt[qi]) * scale;
+          w = kRound ? qg::bf16_round(ds) : ds;
+        }
+        Ws[rr * wd::kLdS + cc] = w;
+      }
+    // the streamed rows' columns [c0, c0 + ncols) of K (dQ), Q (dK), dO (dV)
+    if (MODE == 0) wd::stage<T, C>(Ms, wd::kLdO, kb, dqk, s0, sk, c0, ncols);
+    if (MODE == 1) wd::stage<T, C>(Ms, wd::kLdO, qb, dqk, s0, sq, c0, ncols);
+    if (MODE == 2) wd::stage<T, C>(Ms, wd::kLdO, gb, dvp, s0, sq, c0, ncols);
+    __syncthreads();
+    wd::acc_tile(Ws, Ms, ncols, acc);
+    __syncthreads();
+  }
+
+  T* ob = grad + (kOwnQ ? qo : ko) * width;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gr = r0 + ty * 4 + i;
+    if (gr < n_own) {
+      T* row = ob + static_cast<size_t>(gr) * width + c0;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        if (16 * j < ncols) row[tx + 16 * j] = qg::from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T, int MODE>
+cudaError_t launch_wide_one(const T* q, const T* k, const T* v, const T* g, const float* lse,
+                            const float* delta, void* grad, int bh, int sq, int sk, int dqk,
+                            int dvp, int causal, float scale, cudaStream_t s) {
+  constexpr size_t smem = wd::smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_wide_kernel<T, MODE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int n_own = MODE == 0 ? sq : sk, width = MODE == 2 ? dvp : dqk;
+  const long long blocks = static_cast<long long>((n_own + wd::kRows - 1) / wd::kRows) *
+                           ((width + wd::kOut - 1) / wd::kOut) * bh;
+  if (!qg::flat_grid_ok(blocks)) return cudaErrorInvalidValue;
+  flash_bwd_wide_kernel<T, MODE><<<dim3(static_cast<unsigned>(blocks)), wd::kThreads, smem, s>>>(
+      q, k, v, g, lse, delta, static_cast<T*>(grad), sq, sk, dqk, dvp, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* o,
+                        const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                        float* delta, int bh, int sq, int sk, int dqk, int dvp, int causal,
+                        float scale, cudaStream_t s) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  const long long rows = static_cast<long long>(bh) * sq;
+  const long long delta_blocks = (rows * 32 + kThreads - 1) / kThreads;
+  if (!qg::flat_grid_ok(delta_blocks)) return cudaErrorInvalidValue;
+  delta_wide_kernel<T><<<static_cast<unsigned>(delta_blocks), kThreads, 0, s>>>(
+      static_cast<const T*>(o), gt, delta, rows, dvp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = launch_wide_one<T, 0>(qt, kt, vt, gt, lse, delta, dq, bh, sq, sk, dqk, dvp, causal, scale, s);
+  if (e != cudaSuccess) return e;
+  e = launch_wide_one<T, 1>(qt, kt, vt, gt, lse, delta, dk, bh, sq, sk, dqk, dvp, causal, scale, s);
+  if (e != cudaSuccess) return e;
+  return launch_wide_one<T, 2>(qt, kt, vt, gt, lse, delta, dv, bh, sq, sk, dqk, dvp, causal,
+                               scale, s);
 }
 
 }  // namespace
@@ -925,8 +1115,9 @@ extern "C" int qgemm_flash_attention_bwd(const void* q, const void* k, const voi
                                          int causal, float scale, int route, int smem_dq,
                                          int smem_dkv, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535 ||
-      static_cast<long long>(bh) * sq > 0x7fffffffLL / 32)
+  if (bh <= 0 || sq <= 0 || sk <= 0 ||
+      !qg::flat_grid_ok(static_cast<long long>(((sq > sk ? sq : sk) + 63) / 64) * bh) ||
+      !qg::flat_grid_ok((static_cast<long long>(bh) * sq + 7) / 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
@@ -953,5 +1144,32 @@ extern "C" int qgemm_flash_attention_bwd(const void* q, const void* k, const voi
     if (D == 256) return QG_BWD(256);
 #undef QG_BWD
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wide route: q, dq [BH, Sq, dqk]; k, dk [BH, Sk, dqk]; v, dv [BH, Sk,
+// dvp]; o, dout [BH, Sq, dvp] in f32 (dtype 0) or bf16 (dtype 1), dqk and
+// dvp multiples of 64 (any size); lse f32 [BH, Sq] from the forward; delta
+// f32 [BH, Sq] scratch; smem the plan's (qg::wide::smem_bytes). Four
+// launches. Returns cudaGetLastError() (cudaErrorInvalidValue for a plan or
+// shape it does not take).
+extern "C" int qgemm_flash_attention_bwd_wide(const void* q, const void* k, const void* v,
+                                              const void* o, const void* lse, const void* dout,
+                                              void* dq, void* dk, void* dv, void* delta,
+                                              int dtype, int bh, int sq, int sk, int dqk,
+                                              int dvp, int causal, float scale, int smem,
+                                              void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || sq <= 0 || sk <= 0 || dqk <= 0 || dvp <= 0 || dqk % wd::kChunk ||
+      dvp % wd::kChunk || static_cast<size_t>(smem) != wd::smem_bytes())
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == 0)
+    return static_cast<int>(launch_wide<float>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, sq, sk,
+                                               dqk, dvp, causal, scale, s));
+  if (dtype == 1)
+    return static_cast<int>(launch_wide<bf16>(q, k, v, o, l, dout, dq, dk, dv, dl, bh, sq, sk,
+                                              dqk, dvp, causal, scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

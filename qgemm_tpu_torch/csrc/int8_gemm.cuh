@@ -1,6 +1,9 @@
 // The fused row-quantize -> int8 GEMM -> dequant kernels shared by K1
 // (quantized_matmul.cu, one matrix) and K8 (expert_matmul.cu, a batch of
-// expert matrices, one per blockIdx.y / blockIdx.z).
+// expert matrices, one per blockIdx.y / blockIdx.z). A grid's y and z stop
+// at 65,535, so past that many experts the host launches the kernels once
+// per 65,535 experts, the operands' pointers (and tensor maps) advanced to
+// the chunk's first expert: the kernels' code is the same at every count.
 //
 //   out[e, m, n] = (acc[e, m, n] * (cx[e, m] / 127^2)) * cw[e, n],
 //   acc = sum_k q(x[e, m, k]) * wq[e, k, n]   (exact, int32),
@@ -304,6 +307,9 @@ struct TilePlan {
   int bm, bn, smem;
 };
 
+// the most experts one launch takes: a grid's y and z stop at 65,535
+constexpr int kMaxGridBatches = 65535;
+
 template <int BM, int BN>
 cudaError_t launch_tile(const int8_t* xq, const float* cx, const int8_t* wt, const float* cw,
                         float* out, int batches, int m, int n, int k, int relu, cudaStream_t s) {
@@ -311,13 +317,21 @@ cudaError_t launch_tile(const int8_t* xq, const float* cx, const int8_t* wt, con
   cudaError_t e =
       sm90::allow_smem(reinterpret_cast<const void*>(qmm_wgmma_kernel<BM, BN>), C::kSmem);
   if (e != cudaSuccess) return e;
-  CUtensorMap tx, tw;
-  if (!sm90::int8_map(&tx, xq, k, m, batches, k, sm90::kStepK, BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !sm90::int8_map(&tw, wt, k, n, batches, k, sm90::kStepK, BN, CU_TENSOR_MAP_SWIZZLE_128B))
-    return cudaErrorInvalidValue;
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, batches);
-  return launch_pdl(qmm_wgmma_kernel<BM, BN>, grid, dim3(C::kThreads), C::kSmem, s, tx, tw, cx,
-                    cw, out, m, n, k, relu);
+  for (int e0 = 0; e0 < batches; e0 += kMaxGridBatches) {   // one launch per 65,535 experts
+    const int nb = min(kMaxGridBatches, batches - e0);
+    const size_t b0 = e0;
+    CUtensorMap tx, tw;
+    if (!sm90::int8_map(&tx, xq + b0 * m * k, k, m, nb, k, sm90::kStepK, BM,
+                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !sm90::int8_map(&tw, wt + b0 * n * k, k, n, nb, k, sm90::kStepK, BN,
+                        CU_TENSOR_MAP_SWIZZLE_128B))
+      return cudaErrorInvalidValue;
+    const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, nb);
+    e = launch_pdl(qmm_wgmma_kernel<BM, BN>, grid, dim3(C::kThreads), C::kSmem, s, tx, tw,
+                   cx + b0 * m, cw + b0 * n, out + b0 * m * n, m, n, k, relu);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 #define QG_INT8_TILES(X) X(64, 32) X(64, 64) X(64, 128) X(64, 256) X(128, 128) X(128, 256)
@@ -353,9 +367,15 @@ template <int NR>
 cudaError_t launch_gemv(const int8_t* xq, const float* cx, const int8_t* wt, const float* cw,
                         float* out, int batches, int m, int n, int k, int relu,
                         const GemvPlan& p, cudaStream_t s) {
-  const dim3 grid((n + 15) / 16, batches);
-  return launch_pdl(qmm_gemv_kernel<NR>, grid, dim3(32 * p.warps), p.smem, s, xq, cx, wt, cw,
-                    out, m, n, k, p.k_slice, relu);
+  for (int e0 = 0; e0 < batches; e0 += kMaxGridBatches) {   // one launch per 65,535 experts
+    const size_t b0 = e0;
+    const dim3 grid((n + 15) / 16, min(kMaxGridBatches, batches - e0));
+    const cudaError_t e = launch_pdl(qmm_gemv_kernel<NR>, grid, dim3(32 * p.warps), p.smem, s,
+                                     xq + b0 * m * k, cx + b0 * m, wt + b0 * n * k,
+                                     cw + b0 * n, out + b0 * m * n, m, n, k, p.k_slice, relu);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // E batches of [m, k] x [k, n]; xq [E * m, k] and cx [E * m] are scratch for
@@ -387,7 +407,8 @@ inline cudaError_t launch_any(const void* x, int x_dtype, const void* wt, const 
                               void* xq, void* cx, void* out, int batches, int m, int n, int k,
                               int truncate, int relu, const GemvPlan& p, const TilePlan& tp,
                               cudaStream_t s, const void* given_cx = nullptr) {
-  if (batches <= 0 || batches > 65535 || m <= 0 || n <= 0 || k <= 0 || k % 16 != 0)
+  if (batches <= 0 || m <= 0 || n <= 0 || k <= 0 || k % 16 != 0 ||
+      static_cast<long long>(batches) * m > kMaxGridX)   // the pre-pass: a block a row
     return cudaErrorInvalidValue;
   const auto* w8 = static_cast<const int8_t*>(wt);
   const auto* cwf = static_cast<const float*>(cw);

@@ -37,9 +37,9 @@
 // codes, p * vc/127 after its rounding), so the products are the plain
 // version's and only their f32 sums differ in order. K/V codes arrive in
 // 64-position tiles through each group's two-stage cp.async ring; each
-// 16-position sub-tile lies in one page (pages are multiples of 16), whose
-// physical page is resolved once, so a tile straddles pages at page 16 and
-// 32. One pass turns a tile's codes into padded bf16 tiles (a byte permute
+// 16-position sub-tile lies in one page (pages that are multiples of 16),
+// whose physical page is resolved once, so a tile straddles pages at page
+// 16 and 32. One pass turns a tile's codes into padded bf16 tiles (a byte permute
 // per code, exact; int4 pools: a page's byte row w holds position w in its
 // low nibbles and w + page/2 in its high ones, picked per position), which
 // ldmatrix and ldmatrix.trans read as B operands. Each S column is scaled by
@@ -69,13 +69,29 @@
 // (the ring, the bf16 K and V tiles, q), two blocks an SM. The row blocks,
 // page walk, scales, masks and rounding points are the narrower widths'.
 //
-// Pages: multiples of 8 from 8 to 256. A key tile is walked in sub-tiles of
-// 16 positions (pages that are multiples of 16) or 8 (other pages), each
-// in one page, whose physical page is resolved once.
+// Pages: any size (int4: even). A key tile is walked in sub-tiles of 16
+// positions where pages are multiples of 16, else of 8 where they are
+// multiples of 8, else of 1, each in one page, whose physical page is
+// resolved once: a sub-tile never straddles a page boundary. Large pages
+// need nothing more: a sub-tile's rows are contiguous in its page.
+//
+// Grid: one dimension, (row block, slot * KV head) with row blocks
+// fastest, so slots x KV heads may pass 65,535.
+//
+// Past D 256 a "wide" kernel takes over (paged_context_wide_kernel; the
+// SIMT layout of flash_wide.cuh, which K3's and K7's wide routes share):
+// widths are runtime multiples of 64 (the wrapper pads q), S accumulates
+// over D in 64-column chunks staged in shared memory (q rounded to bf16, K
+// codes read position by position through the page table), and O runs in
+// chunks of 256 columns, one block per chunk. It makes two passes over the
+// keys, the first for each row's max and sum, the second for P V with p
+// normalized before its rounding, as the plain version does (so no row
+// needs the first-tile rule). Slow, and right; it takes any width.
 //
 // The launch plan (row blocks, key tile, shared memory) comes from
 // qgemm_tpu_torch/ops/cuda/paged_plan.py; the entry refuses any other.
 #include "common.cuh"
+#include "flash_wide.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -94,7 +110,8 @@ template <int D> struct Tiling {
 };
 
 template <int D> __host__ __device__ constexpr int ldb() { return D + 8; }  // bf16 row stride (+16 B)
-// SUB: positions per sub-tile, one page each (16, or 8 for other pages)
+// SUB: positions per sub-tile, one page each (16, 8 or 1: the largest
+// that divides the page)
 template <int D, int SUB> constexpr size_t smem_bytes() {
   using T = Tiling<D>;
   return static_cast<size_t>(T::kGroups * 2 * 2 * T::kBK * D)  // code rings: groups x 2 stages x (K, V)
@@ -133,8 +150,10 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
   // fragments are in registers
   bf16* Qs = kWide ? reinterpret_cast<bf16*>(sub_w + kGroups * 2 * NSUB) : Kb;   // [kBQ][LDB]
 
-  const int bh = blockIdx.y, b = bh / hkv, h = bh % hkv;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // the last row blocks first
+  const int nrb = (R + kBQ - 1) / kBQ;
+  const qg::FlatIdx blk = qg::flat_block(nrb);   // (row block, slot * KV head)
+  const int bh = blk.o, b = bh / hkv, h = bh % hkv;
+  const int r0 = (nrb - 1 - blk.i) * kBQ;   // the last row blocks first
   const int tid = threadIdx.x, lane = tid & 31, t = lane & 3;
   const int grp = tid / 128, warp = (tid / 32) % 4;     // warp group, warp in the group
   const int rows_pp = BITS == 8 ? page : page / 2;     // byte rows per page
@@ -161,52 +180,59 @@ paged_context_mma_kernel(const void* __restrict__ q, const int8_t* __restrict__ 
     if (grp == 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
     else asm volatile("bar.sync 2, 128;\n" ::: "memory");
   };
-  const auto issue = [&](int i) {
-    const int sg = grp * 2 + (i & 1), kt = kGroups * i + grp;
+  // sub-tile j of tile kt into stage sg of the ring
+  const auto issue_sub = [&](int sg, int kt, int j) {
     int8_t* rk = ring + sg * TILE;
+    const int p0 = kt * kBK + j * kSub;
+    const bool live = p0 < kv_end;
+    int w0 = 0;
+    size_t ph = 0;
+    if (live) {
+      const int lp = p0 / page;
+      w0 = p0 - lp * page;
+      ph = static_cast<size_t>(pt[lp]) * hkv + h;
+    }
+    if (lt == 0) sub_w[sg * NSUB + j] = w0;
 #pragma unroll
-    for (int j = 0; j < NSUB; ++j) {
-      const int p0 = kt * kBK + j * kSub;
-      const bool live = p0 < kv_end;
-      int w0 = 0;
-      size_t ph = 0;
-      if (live) {
-        const int lp = p0 / page;
-        w0 = p0 - lp * page;
-        ph = static_cast<size_t>(pt[lp]) * hkv + h;
-      }
-      if (lt == 0) sub_w[sg * NSUB + j] = w0;
+    for (int it = 0; it < (2 * kSub * CH + 127) / 128; ++it) {
+      const int c_i = it * 128 + lt;
+      if (c_i < 2 * kSub * CH) {
+        const int which = c_i / (kSub * CH), rem = c_i % (kSub * CH);
+        const int rr = rem / CH, c = (rem % CH) * 16;
+        const int w = w0 + rr;
+        const int br = (BITS == 4 && w >= rows_pp) ? w - rows_pp : w;
+        const bool ok = live && p0 + rr < kv_end;
+        const int8_t* src = (which ? vq : kq) + (ph * rows_pp + br) * dt + c;
+        int8_t* dst = rk + which * kBK * D + (j * kSub + rr) * D + c;
+        if (fast) {
+          const bool in = ok && c < dt;
+          qg::cp_async16(qg::smem_addr(dst), in ? src : kq, in ? 16 : 0);
+        } else {
+          uint32_t wd[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int it = 0; it < (2 * kSub * CH + 127) / 128; ++it) {
-        const int c_i = it * 128 + lt;
-        if (c_i < 2 * kSub * CH) {
-          const int which = c_i / (kSub * CH), rem = c_i % (kSub * CH);
-          const int rr = rem / CH, c = (rem % CH) * 16;
-          const int w = w0 + rr;
-          const int br = (BITS == 4 && w >= rows_pp) ? w - rows_pp : w;
-          const bool ok = live && p0 + rr < kv_end;
-          const int8_t* src = (which ? vq : kq) + (ph * rows_pp + br) * dt + c;
-          int8_t* dst = rk + which * kBK * D + (j * kSub + rr) * D + c;
-          if (fast) {
-            const bool in = ok && c < dt;
-            qg::cp_async16(qg::smem_addr(dst), in ? src : kq, in ? 16 : 0);
-          } else {
-            uint32_t wd[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-            for (int e = 0; e < 16; ++e)
-              if (ok && c + e < dt) wd[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(src[e])) << (8 * (e % 4));
-            *reinterpret_cast<uint4*>(dst) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
-          }
+          for (int e = 0; e < 16; ++e)
+            if (ok && c + e < dt) wd[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(src[e])) << (8 * (e % 4));
+          *reinterpret_cast<uint4*>(dst) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
         }
       }
-      // the sub-tile's scales, one 4-byte copy per position: 32 threads a sub-tile
-      if (lt / (2 * kSub) == j) {
-        const int which = (lt % (2 * kSub)) / kSub, rr = lt % kSub;
-        const bool ok = live && p0 + rr < kv_end;
-        const float* src = (which ? vc : kc) + ph * page + w0 + rr;
-        qg::cp_async4(qg::smem_addr(ring_sc + (sg * 2 + which) * kBK + j * kSub + rr),
-                      ok ? src : kc, ok ? 4 : 0);
-      }
+    }
+    // the sub-tile's scales, one 4-byte copy per position: 32 threads a sub-tile
+    if (lt / (2 * kSub) == j) {
+      const int which = (lt % (2 * kSub)) / kSub, rr = lt % kSub;
+      const bool ok = live && p0 + rr < kv_end;
+      const float* src = (which ? vc : kc) + ph * page + w0 + rr;
+      qg::cp_async4(qg::smem_addr(ring_sc + (sg * 2 + which) * kBK + j * kSub + rr),
+                    ok ? src : kc, ok ? 4 : 0);
+    }
+  };
+  const auto issue = [&](int i) {
+    const int sg = grp * 2 + (i & 1), kt = kGroups * i + grp;
+    if constexpr (NSUB <= 8) {
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j) issue_sub(sg, kt, j);
+    } else {   // sub-tiles of 1 position: a loop, not 64 unrolled copies
+#pragma unroll 1
+      for (int j = 0; j < NSUB; ++j) issue_sub(sg, kt, j);
     }
   };
 
@@ -487,12 +513,218 @@ cudaError_t launch(const void* q, const void* kq, const void* kc, const void* vq
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((R + kBQ - 1) / kBQ, B * hkv);
+  const dim3 grid(((R + kBQ - 1) / kBQ) * B * hkv);
   paged_context_mma_kernel<BITS, D, SUB><<<grid, Tiling<D>::kThreads, smem, s>>>(
       q, static_cast<const int8_t*>(kq), static_cast<const float*>(kc),
       static_cast<const int8_t*>(vq), static_cast<const float*>(vc),
       static_cast<const int*>(pt), static_cast<const int*>(len), static_cast<const int*>(offs),
       offset0, out, q_bf16, hkv, C, R, page, pps, dt, scale);
+  return cudaGetLastError();
+}
+
+
+// ------------------------------------------------------------ wide: SIMT, any width
+namespace wd = qg::wide;
+
+// A key tile's positions through the page table: each position's code row
+// (element offset into a pool), its nibble (int4), and kc / kden and
+// vc / 127, or -1 where the position is at or past kv_end.
+struct TileKeys {
+  long long row[wd::kTile];
+  int hi[wd::kTile];
+  float ks[wd::kTile], vs[wd::kTile];
+};
+
+template <int BITS>
+__device__ __forceinline__ float pool_code(const int8_t* pool, long long row, int hi, int c) {
+  const int8_t b = pool[row + c];
+  if constexpr (BITS == 8) return static_cast<float>(b);
+  const int nib = hi ? (static_cast<int>(b) >> 4) : ((static_cast<int>(b) & 15) ^ 8) - 8;
+  return static_cast<float>(nib);
+}
+
+// the key tile's code rows [kTile][c0, c0 + ncols) of ``pool`` as f32 into
+// dst (row stride ld); columns past dt and positions past kv_end are zeros
+template <int BITS>
+__device__ __forceinline__ void stage_keys(float* dst, int ld, const int8_t* pool,
+                                           const TileKeys& tk, int c0, int ncols, int dt) {
+  for (int i = threadIdx.x; i < wd::kTile * ncols; i += wd::kThreads) {
+    const int r = i / ncols, c = i % ncols;
+    const long long row = tk.row[r];
+    dst[r * ld + c] = row >= 0 && c0 + c < dt ? pool_code<BITS>(pool, row, tk.hi[r], c0 + c) : 0.f;
+  }
+}
+
+// grid (row blocks * output chunks * B * Hkv), flattened in that order;
+// q [B, Hkv, R, Dp] (zero past d), out likewise, Dp a multiple of 64;
+// scale: 127 * sqrt(d), the plain version's divisor of kc.
+template <int BITS>
+__global__ void __launch_bounds__(wd::kThreads)
+paged_context_wide_kernel(const void* __restrict__ q, const int8_t* __restrict__ kq,
+                          const float* __restrict__ kc, const int8_t* __restrict__ vq,
+                          const float* __restrict__ vc, const int* __restrict__ page_table,
+                          const int* __restrict__ lengths, const int* __restrict__ offsets,
+                          int offset0, void* __restrict__ out, int q_bf16, int hkv, int C, int R,
+                          int page, int pps, int dt, int Dp, float kden) {
+  constexpr int kBR = wd::kRows, kBK = wd::kTile, CPT = wd::kOut / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                              // q chunk [64][kLdC]
+  float* Bs = As + kBR * wd::kLdC;               // K chunk [32][kLdC]
+  float* Ws = Bs + kBK * wd::kLdC;               // scores, then weights [64][kLdS]
+  float* Ms = Ws + kBR * wd::kLdS;               // V chunk [32][kLdO]
+  float* row_m = Ms + kBK * wd::kLdO;
+  float* row_l = row_m + kBR;
+  __shared__ TileKeys tk;
+
+  const int nrb = (R + kBR - 1) / kBR, nc = (Dp + wd::kOut - 1) / wd::kOut;
+  const int bx = static_cast<int>(blockIdx.x % static_cast<unsigned>(nrb * nc));
+  const int bh = static_cast<int>(blockIdx.x / static_cast<unsigned>(nrb * nc));
+  const int r0 = (bx % nrb) * kBR, c0 = (bx / nrb) * wd::kOut;
+  const int ncols = min(wd::kOut, Dp - c0);
+  const int b = bh / hkv, h = bh % hkv;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16, warp = tid / 32, lane = tid % 32;
+  const int rows_pp = BITS == 8 ? page : page / 2;
+  const int* pt = page_table + static_cast<size_t>(b) * pps;
+  const int len = min(lengths[b], pps * page);
+  const int off = offsets != nullptr ? offsets[b] : offset0;
+  const int r_last = min(r0 + kBR, R) - 1;
+  const int bound = (r0 / C == r_last / C) ? off + r_last % C : off + C - 1;
+  const int kv_end = max(0, min(bound + 1, len));
+  const int nk = (kv_end + kBK - 1) / kBK;
+  const size_t qb = static_cast<size_t>(bh) * R * Dp;
+
+  // S for key tile kt into s[4][2] (raw dot products), the tile's keys in tk
+  const auto scores = [&](int kt, float s[4][2]) {
+    if (tid < kBK) {
+      const int p = kt * kBK + tid;
+      if (p < kv_end) {
+        const int lp = p / page, w = p - lp * page;
+        const size_t ph = static_cast<size_t>(pt[lp]) * hkv + h;
+        const int hi = BITS == 4 && w >= rows_pp;
+        tk.row[tid] = static_cast<long long>(ph * rows_pp + (hi ? w - rows_pp : w)) * dt;
+        tk.hi[tid] = hi;
+        tk.ks[tid] = kc[ph * page + w] / kden;
+        tk.vs[tid] = vc[ph * page + w] * (1.f / 127.f);
+      } else {
+        tk.row[tid] = -1;
+        tk.hi[tid] = 0;
+        tk.ks[tid] = tk.vs[tid] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
+    __syncthreads();
+    for (int d0 = 0; d0 < Dp; d0 += wd::kChunk) {
+      for (int i = tid; i < kBR * (wd::kChunk / 8); i += wd::kThreads) {   // q, rounded to bf16
+        const int rr = i / (wd::kChunk / 8), c = (i % (wd::kChunk / 8)) * 8;
+        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (r0 + rr < R) {
+          const size_t o = qb + static_cast<size_t>(r0 + rr) * Dp + d0 + c;
+          if (q_bf16) qg::load8(static_cast<const bf16*>(q) + o, v);
+          else qg::load8(static_cast<const float*>(q) + o, v);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) As[rr * wd::kLdC + c + e] = qg::bf16_round(v[e]);
+      }
+      stage_keys<BITS>(Bs, wd::kLdC, kq, tk, d0, wd::kChunk, dt);
+      __syncthreads();
+      wd::dot_chunk(As, Bs, s);
+      __syncthreads();
+    }
+  };
+  const auto live = [&](int rr, int p) {
+    return r0 + rr < R && p < kv_end && p <= off + (r0 + rr) % C;
+  };
+
+  if (tid < kBR) {
+    row_m[tid] = -1e30f;
+    row_l[tid] = 0.f;
+  }
+  // pass 1: each row's max and sum of exp over its keys
+  for (int kt = 0; kt < nk; ++kt) {
+    float s[4][2];
+    scores(kt, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int rr = ty * 4 + i, cc = tx * 2 + j;
+        Ws[rr * wd::kLdS + cc] = live(rr, kt * kBK + cc) ? s[i][j] * tk.ks[cc] : -INFINITY;
+      }
+    __syncthreads();
+    for (int k = 0; k < kBR / (wd::kThreads / 32); ++k) {
+      const int rr = warp * (kBR / (wd::kThreads / 32)) + k;
+      const float sv = Ws[rr * wd::kLdS + lane];
+      const float m_prev = row_m[rr];
+      const float m_new = fmaxf(m_prev, qg::warp_max(sv));
+      const float psum = qg::warp_sum(sv == -INFINITY ? 0.f : expf(sv - m_new));
+      if (lane == 0) {
+        row_l[rr] = row_l[rr] * expf(m_prev - m_new) + psum;
+        row_m[rr] = m_new;
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+
+  // pass 2: P V with p = exp(s - m) / l, times vc / 127, rounded to bf16
+  float acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    float s[4][2];
+    scores(kt, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int rr = ty * 4 + i, cc = tx * 2 + j;
+        float w = 0.f;
+        if (live(rr, kt * kBK + cc))
+          w = qg::bf16_round(expf(s[i][j] * tk.ks[cc] - row_m[rr]) / row_l[rr] * tk.vs[cc]);
+        Ws[rr * wd::kLdS + cc] = w;
+      }
+    stage_keys<BITS>(Ms, wd::kLdO, vq, tk, c0, ncols, dt);
+    __syncthreads();
+    wd::acc_tile(Ws, Ms, ncols, acc);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = r0 + ty * 4 + i;
+    if (rr < R) {
+      const size_t o = qb + static_cast<size_t>(rr) * Dp + c0;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        if (16 * j >= ncols) break;
+        if (q_bf16) static_cast<bf16*>(out)[o + tx + 16 * j] = __float2bfloat16_rn(acc[i][j]);
+        else static_cast<float*>(out)[o + tx + 16 * j] = acc[i][j];
+      }
+    }
+  }
+}
+
+template <int BITS>
+cudaError_t launch_wide(const void* q, const void* kq, const void* kc, const void* vq,
+                        const void* vc, const void* pt, const void* len, const void* offs,
+                        int offset0, void* out, int q_bf16, int B, int hkv, int C, int R,
+                        int page, int pps, int dt, int Dp, float kden, cudaStream_t s) {
+  constexpr size_t smem = wd::smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(paged_context_wide_kernel<BITS>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const long long blocks = static_cast<long long>((R + wd::kRows - 1) / wd::kRows) *
+                           ((Dp + wd::kOut - 1) / wd::kOut) * B * hkv;
+  if (!qg::flat_grid_ok(blocks)) return cudaErrorInvalidValue;
+  paged_context_wide_kernel<BITS><<<dim3(static_cast<unsigned>(blocks)), wd::kThreads, smem, s>>>(
+      q, static_cast<const int8_t*>(kq), static_cast<const float*>(kc),
+      static_cast<const int8_t*>(vq), static_cast<const float*>(vc),
+      static_cast<const int*>(pt), static_cast<const int*>(len), static_cast<const int*>(offs),
+      offset0, out, q_bf16, hkv, C, R, page, pps, dt, Dp, kden);
   return cudaGetLastError();
 }
 
@@ -503,7 +735,7 @@ cudaError_t launch(const void* q, const void* kq, const void* kc, const void* vq
 // [P, Hkv, rows, d], d <= D (rows = page for bits 8, page/2 for bits 4),
 // 16-byte aligned; kc/vc f32 [P, Hkv, 1, page]; page_table int32 [B, pps];
 // lengths int32 [B]; offsets int32 [B], or null for one offset ``offset0``;
-// out [B, Hkv, R, D] in q's dtype. page a multiple of 8 from 8 to 256.
+// out [B, Hkv, R, D] in q's dtype. Any page >= 1 (int4: even).
 // The plan (``paged_plan.k6_plan``): 64 rows per block, 64-position key
 // tiles (32 at D 256), ``smem`` bytes of dynamic shared memory; any other is
 // refused.
@@ -518,8 +750,10 @@ extern "C" int qgemm_paged_context_attention(const void* q, const void* kq, cons
                                              int block_rows, int key_tile, int smem,
                                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || hkv <= 0 || C <= 0 || R <= 0 || R % C || pps <= 0 || page < 8 ||
-      page > 256 || page % 8 || B * hkv > 65535 || d < 1 || d > D ||
+  if (B <= 0 || hkv <= 0 || C <= 0 || R <= 0 || R % C || pps <= 0 || page < 1 ||
+      (bits == 4 && page % 2) ||
+      !qg::flat_grid_ok(static_cast<long long>((R + kBQ - 1) / kBQ) * B * hkv) || d < 1 ||
+      d > D ||
       (dtype != 0 && dtype != 1) || block_rows != kBQ ||
       key_tile != (D > 128 ? Tiling<256>::kBK : Tiling<128>::kBK))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -539,9 +773,40 @@ extern "C" int qgemm_paged_context_attention(const void* q, const void* kq, cons
   if (bits == 4 && D == 256) return go(launch<4, 256, SUB>, smem_bytes<256, SUB>());
   if (page % 16 == 0) {
     QG_K6(16)
-  } else {
+  } else if (page % 8 == 0) {
     QG_K6(8)
+  } else {
+    QG_K6(1)
   }
 #undef QG_K6
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wide kernel: q [B, Hkv, R, Dp] (dtype 0 f32, 1 bf16; Dp a multiple
+// of 64, zero past d), the pools and tables as above at any width d <= Dp,
+// out [B, Hkv, R, Dp] in q's dtype; kden = 127 * sqrt(d) in f32 (the plain
+// version's divisor of kc); smem the plan's (qg::wide::smem_bytes). Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a plan or shape it does not
+// take).
+extern "C" int qgemm_paged_context_attention_wide(const void* q, const void* kq, const void* kc,
+                                                  const void* vq, const void* vc,
+                                                  const void* page_table, const void* lengths,
+                                                  const void* offsets, int offset0, void* out,
+                                                  int dtype, int bits, int B, int hkv, int C,
+                                                  int R, int Dp, int d, int page, int pps,
+                                                  float kden, int smem, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || hkv <= 0 || C <= 0 || R <= 0 || R % C || pps <= 0 || page < 1 ||
+      (bits == 4 && page % 2) || d < 1 || d > Dp || Dp % wd::kChunk ||
+      (dtype != 0 && dtype != 1) || static_cast<size_t>(smem) != wd::smem_bytes())
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bits == 8)
+    return static_cast<int>(launch_wide<8>(q, kq, kc, vq, vc, page_table, lengths, offsets,
+                                           offset0, out, dtype, B, hkv, C, R, page, pps, d, Dp,
+                                           kden, s));
+  if (bits == 4)
+    return static_cast<int>(launch_wide<4>(q, kq, kc, vq, vc, page_table, lengths, offsets,
+                                           offset0, out, dtype, B, hkv, C, R, page, pps, d, Dp,
+                                           kden, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -89,7 +89,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     multiple of Hkv (GQA: query heads i*g..(i+1)*g-1 share KV head i);
     lengths [B] — position j of slot b attends iff j < lengths[b].
     Returns [B, Hq, 1, D] in q's dtype. CPU tensors run the plain version;
-    CUDA tensors launch K2 (D <= 256, any g) or raise. On the
+    CUDA tensors launch K2 (D <= 1024, any g) or raise. On the
     int8 cache K2 reads q in float32 or bfloat16 (other float dtypes
     through float32) and writes q's dtype, on the plan of
     ``decode_plan.k2_plan``, with a scratch tensor for the splits' partial

@@ -19,9 +19,11 @@ from typing import Optional
 import torch
 
 from qgemm_tpu_torch.ops.cuda import _build
-from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import ROUTES, WIDTHS, flash_attention_bwd
+from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import (ROUTES, WIDE_CHUNK, WIDE_SMEM,
+                                                          WIDTHS, flash_attention_bwd,
+                                                          kernel_widths)
 from qgemm_tpu_torch.ops.validation import (check, check_aligned16, check_attention_4d,
-                                            pad_last, padded_head_dim)
+                                            check_grid, pad_last)
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,21 +56,34 @@ _MMA_KEY_TILE = 64
 _MMA_WIDE_KEY_TILE = 32    # D 256: fewer keys a tile, Q's fragments read per k-chunk
 
 
-def flash_fwd_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int) -> dict:
+def flash_fwd_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int,
+                   dv: Optional[int] = None) -> dict:
     """K3's launch plan for ``bh`` batch*heads of ``sq`` queries over ``sk``
-    keys at the kernel width ``d`` (32, 64, 128 or 256): the route ("mma",
-    the bf16 tensor-core kernel; "simt", the f32 kernel), the query rows
-    per block, the keys per streamed tile, threads per block, the grid and
-    the dynamic shared memory in bytes. Both routes take 64 query rows per
-    block: on the H100, 128-row blocks of the mma route (8 warps) were
-    slower at S 512 and at S 2048 (PERF.md §6); at d 256 the mma route's
-    key tiles hold 32 keys (the .cu note says why). Pure: the CPU tests
-    check it, and the C entry refuses a plan that matches no compiled
-    kernel."""
+    keys at the kernel width ``d`` (32, 64, 128 or 256; ``dv`` None), or,
+    on the wide route, q and k of width ``d`` and v of width ``dv`` (both
+    multiples of 64, one past 256: ``kernel_widths``): the route ("mma",
+    the bf16 tensor-core kernel; "simt", the f32 kernel; "wide", either
+    dtype past 256), the query rows per block, the keys per streamed tile,
+    threads per block, the grid (one dimension: query tiles x [Dv chunks
+    x] batch*heads) and the dynamic shared memory in bytes. The tiled
+    routes take 64 query rows per block: on the H100, 128-row blocks of the
+    mma route (8 warps) were slower at S 512 and at S 2048 (PERF.md §6); at
+    d 256 the mma route's key tiles hold 32 keys (the .cu note says why).
+    Pure: the CPU tests check it, and the C entry refuses a plan that
+    matches no compiled kernel."""
     check(dtype in _DTYPES, f"K3 takes float32 or bfloat16, got {dtype}")
-    check(d in WIDTHS, f"K3 is compiled for widths {WIDTHS}, got {d}")
-    check(0 < bh <= 65535, f"K3 takes 1 to 65535 batch*heads, got {bh}")
+    check(bh > 0, f"K3 needs batch*heads > 0, got {bh}")
     check(sq > 0 and sk > 0, f"K3 needs sq and sk > 0, got {sq}, {sk}")
+    if dv is not None:
+        check(d > 0 and dv > 0 and d % WIDE_CHUNK == 0 and dv % WIDE_CHUNK == 0
+              and max(d, dv) > WIDTHS[-1],
+              f"K3's wide route takes widths that are multiples of {WIDE_CHUNK}, one past "
+              f"{WIDTHS[-1]}, got {d}, {dv}")
+        chunks = -(-dv // 256)
+        return {"route": "wide", "block_q": 64, "block_k": 32, "threads": 256,
+                "dv_chunks": chunks, "smem": WIDE_SMEM,
+                "grid": check_grid("K3", (-(-sq // 64) * chunks * bh,))}
+    check(d in WIDTHS, f"K3 is compiled for widths {WIDTHS}, got {d}")
     if dtype == torch.bfloat16:
         tile = _MMA_WIDE_KEY_TILE if d > 128 else _MMA_KEY_TILE
         plan = {"route": "mma", "block_q": 64, "block_k": tile, "threads": 128,
@@ -78,15 +93,17 @@ def flash_fwd_plan(dtype: torch.dtype, bh: int, sq: int, sk: int, d: int) -> dic
         plan = {"route": "simt", "block_q": 64, "block_k": 32, "threads": 256,
                 # Q, K and V tiles in f32 (rows padded by 16 B), scores, row stats
                 "smem": 4 * ((64 + 2 * 32) * (d + 4) + 64 * 33 + 3 * 64)}
-    plan["grid"] = (-(-sq // plan["block_q"]), bh)
+    plan["grid"] = check_grid("K3", (-(-sq // plan["block_q"]) * bh,))
     return plan
 
 
-def _lib():
-    fn = _build.library("flash_attention").qgemm_flash_attention_fwd
+def _lib(wide: bool = False):
+    lib = _build.library("flash_attention")
+    fn = lib.qgemm_flash_attention_fwd_wide if wide else lib.qgemm_flash_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.argtypes = ([p] * 5 + [i] * 7 + [ctypes.c_float, i, p] if wide
+                       else [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p])
         fn.restype = i
     return fn
 
@@ -98,7 +115,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors run the plain version; CUDA tensors launch K3 (bf16 on the
     tensor-core route, f32 on the SIMT route; D and Dv up to 256: q, k and
     v are zero-padded to the kernel's width when D or Dv is not 32, 64, 128
-    or 256, or they differ) or raise."""
+    or 256, or they differ; past 256 both dtypes run the wide route, q and
+    k padded to a multiple of 64 and v to another) or raise."""
     check_attention_4d(q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
@@ -110,19 +128,25 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check(k.is_cuda and v.is_cuda and q.device == k.device == v.device,
           "flash_attention: q, k and v must lie on one CUDA device")
     dv = v.shape[3]
-    dp = padded_head_dim(max(d, dv))
-    plan = flash_fwd_plan(q.dtype, b * h, sq, sk, dp)
-    q, k, v = (pad_last(t, dp) for t in (q, k, v))
-    o = torch.empty_like(q)
+    dqk, dvp = kernel_widths(d, dv)
+    plan = flash_fwd_plan(q.dtype, b * h, sq, sk, dqk, dvp if max(d, dv) > WIDTHS[-1] else None)
+    q, k, v = pad_last(q, dqk), pad_last(k, dqk), pad_last(v, dvp)
+    o = torch.empty(v.shape[:2] + (sq, dvp), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     check_aligned16("K3", q, k, v, o)
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), _DTYPES[q.dtype], b * h, sq, sk, dp, int(causal),
-                1.0 / math.sqrt(d), ROUTES[plan["route"]], plan["smem"],
-                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check_launch("qgemm_flash_attention_fwd", rc)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if plan["route"] == "wide":
+        rc = _lib(True)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        lse.data_ptr(), _DTYPES[q.dtype], b * h, sq, sk, dqk, dvp, int(causal),
+                        1.0 / math.sqrt(d), plan["smem"], stream)
+        _build.check_launch("qgemm_flash_attention_fwd_wide", rc)
+    else:
+        rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), _DTYPES[q.dtype], b * h, sq, sk, dqk, int(causal),
+                    1.0 / math.sqrt(d), ROUTES[plan["route"]], plan["smem"], stream)
+        _build.check_launch("qgemm_flash_attention_fwd", rc)
     flash_attention_fwd.launches += 1
-    return (o if dp == dv else o[..., :dv].contiguous()), lse
+    return (o if dvp == dv else o[..., :dv].contiguous()), lse
 
 
 flash_attention_fwd.launches = 0

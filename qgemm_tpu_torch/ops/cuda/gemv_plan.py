@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import functools
 
-from qgemm_tpu_torch.ops.validation import check
+from qgemm_tpu_torch.ops.validation import check, check_grid
 
 GEMV_MAX_M = 16          # rows the GEMV takes; more go to the mma.sync tile kernels
 COL_TILE = 16            # output columns per tile (the m16 side of m16n8k32)
@@ -34,6 +34,8 @@ GROUP = 128              # W4A8 scale group along K: four k32 mma
 MAX_GROUPS_PER_WARP = 16  # the W4A8 GEMV's largest compiled K slice, in groups
 SMS = 132                # the H100's streaming multiprocessors
 W4_SMEM_CAP = 144 * 1024  # the W4A8 group products a block may hold at once
+MAX_GRID_BATCHES = 65535   # a launch's batches (grid y); the C entries launch once per
+                           # 65,535 batches past it
 SMEM_LIMIT = 232448      # the dynamic shared memory one H100 block may use
 KINDS = ("int8", "w4a8")
 
@@ -63,11 +65,13 @@ def gemv_plan(kind: str, batches: int, m: int, n: int, k: int, kp: int = None,
 
     Returns the kind, ``nr`` (n8 tiles of rows: 1 for m <= 8, else 2),
     ``warps``, ``threads``, ``k_slice``, ``tiles_per_block`` (``ct``),
-    ``grid`` (column blocks, batches), ``smem`` (bytes), and for W4A8
+    ``grid`` (column blocks, batches; past 65,535 batches a launch's:
+    ``launches`` launches of at most 65,535 each), ``smem`` (bytes), and
+    for W4A8
     ``groups_per_warp`` and ``rounds``."""
     check(kind in KINDS, f"gemv_plan: kind must be one of {KINDS}, got {kind!r}")
     check(1 <= m <= GEMV_MAX_M, f"gemv_plan: the GEMV takes 1 to {GEMV_MAX_M} rows, got {m}")
-    check(0 < batches <= 65535, f"gemv_plan: 1 to 65535 batches, got {batches}")
+    check(batches > 0, f"gemv_plan: batches must be positive, got {batches}")
     check(n > 0 and k > 0, f"gemv_plan: n and k must be positive, got {n}, {k}")
     nr = 1 if m <= 8 else 2
     rows = 8 * nr                  # rows of the B operand the warps compute
@@ -106,7 +110,8 @@ def gemv_plan(kind: str, batches: int, m: int, n: int, k: int, kp: int = None,
         plan = {"k_slice": gs * GROUP, "groups_per_warp": gs,
                 "rounds": -(-groups // (warps * gs)), "smem": smem(ct, gs)}
     plan.update(kind=kind, nr=nr, warps=warps, threads=32 * warps, tiles_per_block=ct,
-                grid=(-(-tiles // ct), batches))
+                grid=check_grid("gemv_plan", (-(-tiles // ct), min(batches, MAX_GRID_BATCHES))),
+                launches=-(-batches // MAX_GRID_BATCHES))
     check(plan["smem"] <= SMEM_LIMIT, f"gemv_plan: {plan['smem']} bytes of shared memory")
     return plan
 

@@ -158,8 +158,10 @@ def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 class Int8FlashCodes(NamedTuple):
     """The pre-pass kernel's output, in the layout the main kernel reads:
-    q8 [B, H, Sq, 128] and k8 [B, H, Sk, 128] int8 code rows (zero past d);
-    v: V's codes transposed [B, H, DV, Skp] (DV the padded width, Skp Sk
+    q8 [B, H, Sq, R] and k8 [B, H, Sk, R] int8 code rows (zero past d; R
+    = ``int8_flash_plan.code_row(d)``, 128 up to d 128);
+    v: V's codes transposed [B, H, DV, Skp] (DV the padded width, or dv
+    rounded up to 128 where d or dv passes 128; Skp Sk
     rounded up to the key tile, zero past dv and Sk), each group of 32 keys
     in ``int8_flash_plan.key_of_position``'s order; with ``qk_only``, V in
     bf16 [B, H, Sk, W] in key order (the caller's v where it is bf16 with
@@ -219,8 +221,8 @@ def int8_flash_prepass_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             qk_only: bool = False) -> Int8FlashCodes:
     """The pre-pass kernel on CUDA q [B, H, Sq, d], k [B, H, Sk, d], v [B, H,
     Sk, dv] (one dtype, f32 or bf16): its codes and scales in the main
-    kernel's layout. Two launches, the column pass then the row pass, each
-    counted in ``int8_flash_prepass_cuda.launches``."""
+    kernel's layout. Two launches (per 65,535 batch*heads), the column pass
+    then the row pass, each counted in ``int8_flash_prepass_cuda.launches``."""
     b, h, sq_len, d = q.shape
     sk_len, dv = k.shape[2], v.shape[3]
     check(q.dtype in _OUT_DTYPES and k.dtype == v.dtype == q.dtype,
@@ -231,8 +233,8 @@ def int8_flash_prepass_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = (t.contiguous() if t.contiguous().data_ptr() % 16 == 0 else t.clone()
                for t in (q, k, v))
     dev = q.device
-    q8 = torch.empty((b, h, sq_len, plan.CODE_ROW), dtype=torch.int8, device=dev)
-    k8 = torch.empty((b, h, sk_len, plan.CODE_ROW), dtype=torch.int8, device=dev)
+    q8 = torch.empty((b, h, sq_len, pre["code_row"]), dtype=torch.int8, device=dev)
+    k8 = torch.empty((b, h, sk_len, pre["code_row"]), dtype=torch.int8, device=dev)
     vw = pre["v_width"]
     if not qk_only:
         vt = torch.empty((b, h, vw, pre["skp"]), dtype=torch.int8, device=dev)
@@ -251,7 +253,7 @@ def int8_flash_prepass_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if qk_only else vmax.data_ptr(), b * h, sq_len, sk_len, d, dv, vw,
         pre["skp"], pre["nchunk"], int(qk_only), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("qgemm_int8_flash_prepass", rc)
-    int8_flash_prepass_cuda.launches += 2
+    int8_flash_prepass_cuda.launches += pre["launches"]
     return Int8FlashCodes(q8, k8, vt, sqs, sks, vc, d, dv)
 
 
@@ -262,7 +264,8 @@ def int8_flash_attention_cuda(x: Int8FlashCodes, causal: bool, scale: float,
                               out_dtype: torch.dtype) -> torch.Tensor:
     """Launch the main kernel on a pre-pass's CUDA codes
     (``Int8FlashCodes``); returns its output [B, H, Sq, dv] in
-    ``out_dtype`` (before V's channel scale). Counts each launch in
+    ``out_dtype`` (before V's channel scale; V's channels in chunks of
+    ``dv_pad``, a block each, in one launch). Counts each launch in
     ``int8_flash_attention_cuda.launches``."""
     b, h, sq_len, _ = x.q8.shape
     sk_len, skp = x.k8.shape[2], x.sk.shape[2]
@@ -291,7 +294,7 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, Sq, Dv] in q's dtype: int8 flash attention, causal (key j
     attends query i iff j <= i) or full; ``qk_only`` quantizes only QK^T.
     CPU tensors run the plain version; CUDA tensors run the pre-pass kernel
-    and launch the main kernel (D, Dv up to 128) or raise."""
+    and launch the main kernel (D, Dv up to 1,024) or raise."""
     check_attention_4d(q, k, v)
     if not q.is_cuda:
         return flash_attention_int8_plain(q, k, v, causal, qk_only)

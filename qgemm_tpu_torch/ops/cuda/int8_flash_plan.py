@@ -2,17 +2,23 @@
 (``csrc/int8_flash_attention.cu``): its pre-pass kernels and its wgmma
 kernel.
 
+Head widths. Q and K code rows are ``code_row(d)`` bytes: 128 up to d
+128, else d padded to 256, 512 or 1024 (``MAX_WIDTH``), loaded as boxes of
+128 bytes; V's channels run in chunks of ``dv_pad`` (32, 64 or 128; 128
+where d or dv passes 128), one block per chunk, every chunk recomputing S:
+P's codes do not depend on V, so the chunks' outputs are the whole one's.
+
 Pre-pass (two launches). The column pass takes one block of
-``PREPASS_COL_THREADS`` threads (one per channel) per chunk of
+``PREPASS_COL_THREADS`` threads (a thread per channel, in turns past 128) per chunk of
 ``CHUNK_ROWS`` keys of one batch*head: each thread sums its channel of K
 over the chunk's rows in row order, in f32 from 0, and takes the absmax of
 its channel of V. The row pass then adds the chunks' partial sums in chunk
 order, from 0, and divides by Sk: that is the mean the centered K takes
 (``tests/test_torch_int8_flash_plan.py`` mirrors it). Its blocks are of three kinds, in
 grid order: Q rows and K rows (``ROWS_PER_BLOCK`` a block, one warp a row
-at a time) write int8 codes rows of ``CODE_ROW`` bytes (zero past the head
+at a time) write int8 codes rows of ``code_row(d)`` bytes (zero past the head
 width) and their scales; V blocks of ``KEY_TILE`` keys write V's codes
-transposed, ``[BH, DV, Skp]`` with Skp Sk rounded up to the key tile,
+transposed, ``[BH, v_width, Skp]`` with Skp Sk rounded up to the key tile,
 their keys permuted within each group of 32 (``key_of_position``) so that
 the P codes a warpgroup holds in registers, in the layout of its S
 accumulator, are the A operand of the P V product as they lie. With
@@ -22,10 +28,12 @@ multiple of 8 channels (``v_width`` 0: no V blocks), else the V blocks
 write a bf16 copy with rows of ``v_width`` channels, zero past dv. The last
 K block writes K's scales past Sk as zeros.
 
-Main kernel. One block per (query tile of ``QUERY_TILE`` rows, batch*head):
+Main kernel. One block per (query tile of ``QUERY_TILE`` rows, V chunk,
+batch*head), the grid one dimension in that order (``check_grid``):
 one consumer warpgroup (wgmma m64) and one producer warp that loads the Q
-tile once and keeps a ring of ``STAGES`` stages of K's code tile [128 keys
-x 128 bytes] and V's transposed tile [DV x 128 keys] (``qk_only``: V's bf16
+tile once and keeps a ring of ``stages(d)`` stages (``STAGES``; one at d
+past 512, where two would not fit) of K's code tile [128 keys x code row]
+and V's transposed tile [DV x 128 keys] (``qk_only``: V's bf16
 tile, [128 keys x 64 channels] per 64 channels) full by TMA in the 128-byte
 swizzle, and the tile's K row scales by a bulk copy (the
 pre-pass writes them [BH, Skp], zero past Sk). Two blocks share an SM
@@ -43,43 +51,67 @@ from __future__ import annotations
 
 import numpy as np
 
-from qgemm_tpu_torch.ops.validation import check
+from qgemm_tpu_torch.ops.validation import check, check_grid
 
 QUERY_TILE = 64            # query rows a block: one consumer warpgroup
 KEY_TILE = 128             # keys a ring stage (KERNEL_KEY_TILE)
-CODE_ROW = 128             # bytes of a Q or K code row: one swizzled 128-byte row
+CODE_ROW = 128             # bytes of a swizzled box row: a code row up to d 128
 STAGES = 2                 # the ring's depth (deeper ran no faster, PERF.md §6)
 THREADS = 160              # one consumer warpgroup and one producer warp
 BLOCKS_PER_SM = 2          # the main kernel's __launch_bounds__ minimum
-HEAD_DIMS = (32, 64, 128)  # compiled widths of V (DV); D pads to one of them
+HEAD_DIMS = (32, 64, 128)  # compiled chunks of V's channels (DV); D pads to one of them up to 128
+WIDE_DIMS = (256, 512, 1024)   # the padded head widths past 128
+MAX_WIDTH = WIDE_DIMS[-1]  # the widest d and dv the kernels take
 ALIGN = 1024
 SMEM_LIMIT = 232448
-MAX_GRID_Y = 65535
 CHUNK_ROWS = 64            # the column pass's keys a block
+MAX_PREPASS_BH = 65535     # a pre-pass launch's batch*heads (grid y); past it the C entry
+                           # launches both passes once per 65,535
 PREPASS_COL_THREADS = 128
 ROWS_PER_BLOCK = 32        # the row pass's Q or K rows a block (8 warps x 4)
 PREPASS_ROW_THREADS = 256
 
 
 def padded_width(d: int) -> int:
-    """The compiled width (``HEAD_DIMS``) that holds ``d``."""
-    check(1 <= d <= 128, f"the int8 flash kernel takes head widths 1 to 128, got {d}")
-    return next(w for w in HEAD_DIMS if d <= w)
+    """The compiled width that holds ``d``: 32, 64 or 128 (``HEAD_DIMS``),
+    or past 128 256, 512 or 1024 (``WIDE_DIMS``)."""
+    check(1 <= d <= MAX_WIDTH, f"the int8 flash kernel takes head widths 1 to {MAX_WIDTH}, "
+          f"got {d}")
+    return next(w for w in HEAD_DIMS + WIDE_DIMS if d <= w)
 
 
-def stage_bytes(dv_pad: int, p_int8: bool) -> int:
+def code_row(d: int) -> int:
+    """Bytes of a Q or K code row at head width ``d``: 128 up to 128, else
+    the padded width."""
+    return max(CODE_ROW, padded_width(d))
+
+
+def chunk_width(d: int, dv: int) -> int:
+    """DV, the main kernel's compiled chunk of V's channels: ``dv``'s
+    padded width up to d and dv 128, else 128 (a block a chunk)."""
+    dv_pad = padded_width(dv)
+    return dv_pad if max(padded_width(d), dv_pad) <= CODE_ROW else CODE_ROW
+
+
+def stages(d: int) -> int:
+    """The ring's stages: ``STAGES``, or one at code rows past 512 bytes."""
+    return STAGES if code_row(d) <= 512 else 1
+
+
+def stage_bytes(dv_pad: int, p_int8: bool, d: int = 128) -> int:
     """One ring stage: K's code tile, then V's tile (int8: DV rows of 128
     keys; bf16: a box of 128 keys x 64 channels, 128 bytes a key, per 64
     channels of DV)."""
     v_tile = dv_pad * KEY_TILE if p_int8 else -(-dv_pad // 64) * KEY_TILE * 128
-    return KEY_TILE * CODE_ROW + v_tile
+    return KEY_TILE * code_row(d) + v_tile
 
 
-def flash_smem(dv_pad: int, p_int8: bool) -> int:
+def flash_smem(dv_pad: int, p_int8: bool, d: int = 128) -> int:
     """Dynamic shared memory: the slack to align to a swizzle atom, the Q
     tile, the ring, then each stage's K row scales (f32, by bulk copy)."""
-    return (ALIGN + QUERY_TILE * CODE_ROW + STAGES * stage_bytes(dv_pad, p_int8)
-            + STAGES * KEY_TILE * 4)
+    n = stages(d)
+    return (ALIGN + QUERY_TILE * code_row(d) + n * stage_bytes(dv_pad, p_int8, d)
+            + n * KEY_TILE * 4)
 
 
 def key_of_position(p: int) -> int:
@@ -97,46 +129,53 @@ def v_positions(skp: int) -> np.ndarray:
     return pos // 32 * 32 + np.array([key_of_position(p) for p in range(32)])[pos % 32]
 
 
-def v_width(dv: int, qk_only: bool, f32: bool) -> int:
-    """The rows of V the pre-pass writes: DV (int8 codes transposed);
-    with ``qk_only``, 0 where the main kernel reads the caller's bf16 V
-    (dv a multiple of 8), else the bf16 copy's width, dv rounded up to 8."""
+def v_width(dv: int, qk_only: bool, f32: bool, d: int = 1) -> int:
+    """The rows of V the pre-pass writes: DV (int8 codes transposed), or
+    past d or dv 128 dv rounded up to a whole chunk of 128; with
+    ``qk_only``, 0 where the main kernel reads the caller's bf16 V (dv a
+    multiple of 8), else the bf16 copy's width, dv rounded up to 8."""
     if not qk_only:
-        return padded_width(dv)
+        dv_pad = chunk_width(d, dv)
+        return -(-dv // dv_pad) * dv_pad
     return 0 if not f32 and dv % 8 == 0 else -(-dv // 8) * 8
 
 
 def prepass_plan(bh: int, sq: int, sk: int, d: int, dv: int, qk_only: bool,
                  f32: bool) -> dict:
     """The pre-pass's grids and layout for q/k/v in f32 (``f32``) or bf16:
-    ``nchunk``, ``col_grid``, ``row_grid`` (its Q, K and V blocks
+    ``nchunk``, ``col_grid``, ``row_grid`` (a launch's, of at most 65,535
+    batch*heads; ``launches``: the two passes per 65,535) (its Q, K and V blocks
     ``nq_blocks``, ``nk_blocks``, ``nv_blocks``), ``skp``, ``dv_pad``,
-    ``v_width``, and the scratch floats of the chunks' partial K sums and
-    V maxima."""
-    check(1 <= bh <= MAX_GRID_Y, f"the int8 flash kernel takes 1 to {MAX_GRID_Y} "
-          f"batch*heads, got {bh}")
+    ``code_row``, ``v_width``, and the scratch floats of the chunks'
+    partial K sums and V maxima."""
+    check(bh >= 1, f"the int8 flash kernel needs batch*heads >= 1, got {bh}")
     check(sq >= 1 and sk >= 1, f"the int8 flash kernel takes Sq, Sk >= 1, got {sq}, {sk}")
-    dv_pad = padded_width(dv)
     padded_width(d)
+    dv_pad = chunk_width(d, dv)
     nchunk = -(-sk // CHUNK_ROWS)
-    vw = v_width(dv, qk_only, f32)
+    vw = v_width(dv, qk_only, f32, d)
     nq, nk, ntiles = -(-sq // ROWS_PER_BLOCK), -(-sk // ROWS_PER_BLOCK), -(-sk // KEY_TILE)
     nv = ntiles if vw else 0
-    return {"nchunk": nchunk, "col_grid": (nchunk, bh), "col_threads": PREPASS_COL_THREADS,
-            "nq_blocks": nq, "nk_blocks": nk, "nv_blocks": nv, "row_grid": (nq + nk + nv, bh),
+    per = min(bh, MAX_PREPASS_BH)
+    return {"nchunk": nchunk, "col_grid": check_grid("row 12 columns", (nchunk, per)),
+            "col_threads": PREPASS_COL_THREADS, "nq_blocks": nq, "nk_blocks": nk,
+            "nv_blocks": nv, "row_grid": check_grid("row 12 rows", (nq + nk + nv, per)),
+            "launches": 2 * -(-bh // MAX_PREPASS_BH),
             "row_threads": PREPASS_ROW_THREADS, "skp": ntiles * KEY_TILE, "dv_pad": dv_pad,
-            "v_width": vw, "scratch_floats": bh * nchunk * (d + (0 if qk_only else dv))}
+            "code_row": code_row(d), "v_width": vw,
+            "scratch_floats": bh * nchunk * (d + (0 if qk_only else dv))}
 
 
 def flash_plan(bh: int, sq: int, sk: int, d: int, dv: int, causal: bool, p_int8: bool) -> dict:
-    """The main kernel's plan: ``grid``, ``threads``, ``smem``, ``stages``,
-    ``d_pad``, ``dv_pad`` and ``tile_order``."""
-    check(1 <= bh <= MAX_GRID_Y, f"the int8 flash kernel takes 1 to {MAX_GRID_Y} "
-          f"batch*heads, got {bh}")
+    """The main kernel's plan: ``grid`` (query tiles x V chunks x
+    batch*heads), ``threads``, ``smem``, ``stages``, ``d_pad``, ``dv_pad``
+    (the chunk DV), ``v_chunks`` and ``tile_order``."""
+    check(bh >= 1, f"the int8 flash kernel needs batch*heads >= 1, got {bh}")
     check(sq >= 1 and sk >= 1, f"the int8 flash kernel takes Sq, Sk >= 1, got {sq}, {sk}")
-    d_pad, dv_pad = padded_width(d), padded_width(dv)
-    smem = flash_smem(dv_pad, p_int8)
-    nq = -(-sq // QUERY_TILE)
-    return {"grid": (nq, bh), "threads": THREADS, "smem": smem, "stages": STAGES,
-            "d_pad": d_pad, "dv_pad": dv_pad,
+    d_pad, dv_pad = padded_width(d), chunk_width(d, dv)
+    smem = flash_smem(dv_pad, p_int8, d)
+    check(smem <= SMEM_LIMIT, f"the int8 flash kernel: {smem} bytes of shared memory")
+    nq, nvc = -(-sq // QUERY_TILE), -(-dv // dv_pad)
+    return {"grid": check_grid("row 12", (nq * nvc * bh,)), "threads": THREADS, "smem": smem,
+            "stages": stages(d), "d_pad": d_pad, "dv_pad": dv_pad, "v_chunks": nvc,
             "tile_order": "longest first" if causal else "in order"}

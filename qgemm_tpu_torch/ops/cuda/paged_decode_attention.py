@@ -52,12 +52,10 @@ def check_kernel_args(q: torch.Tensor, cache: PagedKVCache, tensors) -> None:
     """What K5 and K6 take on the card, beyond the shapes: raises on the
     rest rather than running wrong."""
     ps = cache.page_size
-    padded_head_dim(q.shape[3])
     check(q.dtype in Q_DTYPES, f"the paged kernels take float32 or bfloat16 q, got {q.dtype} "
           "(the wrappers pass other float dtypes in float32)")
-    check(ps % 8 == 0 and 8 <= ps <= 256,
-          f"the paged kernels take page sizes that are multiples of 8 from 8 to "
-          f"256, got {ps}")
+    check(ps >= 1 and (cache.kv_bits == 8 or ps % 2 == 0),
+          f"the paged kernels take any page size >= 1 (int4 pools: even), got {ps}")
     check(all(t.is_cuda and t.device == q.device for t in tensors),
           "paged attention: q, pools, scales, page table and lengths must lie on "
           "q's CUDA device")
@@ -126,7 +124,7 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     pool heads (GQA); lengths [B], position j of slot b attends iff j <
     lengths[b]. Returns [B, Hq, 1, D] in q's dtype. CPU tensors run the
     plain version in float32 (the JAX package's CPU path); CUDA tensors
-    launch K5 (D <= 256, any g; float32 or bfloat16 q, other
+    launch K5 (D <= 1024, any g, any page; float32 or bfloat16 q, other
     float dtypes through float32) or raise."""
     _check(q, cache, lengths)
     if not q.is_cuda:

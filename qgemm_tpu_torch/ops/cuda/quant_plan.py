@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import functools
 
-from qgemm_tpu_torch.ops.validation import check
+from qgemm_tpu_torch.ops.validation import check, check_grid
 
 STRIP_BYTES = 128          # a strip's row of w: one 128-byte line
 THREADS = 256
@@ -31,8 +31,9 @@ RESERVE = 2048             # shared bytes kept beside the slab for its static ar
 SMEM_LIMIT = 232448        # the shared memory one H100 block may use
 MAX_SLAB_ROWS = (SMEM_LIMIT - RESERVE) // STRIP_BYTES // ROW_ALIGN * ROW_ALIGN
 CLUSTER_MAX_K = MAX_CLUSTER * MAX_SLAB_ROWS
-MAX_E = 65535              # grid y
-TWO_PASS_TILE_K = 64       # the two_pass quantize blocks' rows (grid y, at most 65,535)
+TWO_PASS_TILE_K = 64       # the two_pass quantize blocks' rows
+TWO_PASS_COLS = 64         # the two_pass blocks' columns
+TWO_PASS_SLAB_K = 256      # the two_pass absmax blocks' rows
 ELEM_BYTES = {"float32": 4, "bfloat16": 2}
 ROUTES = ("cluster", "two_pass")
 
@@ -41,24 +42,28 @@ def col_quantize_plan(e: int, k: int, n: int, dtype: str) -> dict:
     """K9's plan for ``e`` weights [k, n] of ``dtype`` (``"float32"`` or
     ``"bfloat16"``): ``route``; on the cluster route ``strip_cols``,
     ``cluster``, ``slab_rows``, ``smem`` (dynamic bytes), ``grid`` (strips x
-    cluster, e) and ``threads``; on the two_pass route the scratch it needs
-    (``cmax_words``)."""
+    cluster x e, one dimension) and ``threads``; on the two_pass route the
+    scratch it needs (``cmax_words``) and its two grids (one dimension:
+    column blocks x row slabs or tiles x e). Every grid is one dimension,
+    so e and k may pass 65,535 blocks."""
     check(dtype in ELEM_BYTES, f"K9 takes float32 or bfloat16, got {dtype}")
-    check(1 <= e <= MAX_E, f"K9 takes 1 to {MAX_E} weights, got {e}")
+    check(e >= 1, f"K9 needs at least one weight, got {e}")
     check(k >= 1 and n >= 1, f"K9: k and n must be positive, got {k}, {n}")
     cs = 1
     while cs < MAX_CLUSTER and -(-k // cs) > TARGET_ROWS:
         cs *= 2
     rows = -(-(-(-k // cs)) // ROW_ALIGN) * ROW_ALIGN
     if rows > MAX_SLAB_ROWS:
-        check(-(-k // TWO_PASS_TILE_K) <= 65535,
-              f"K9: k {k} is past the two_pass route's {65535 * TWO_PASS_TILE_K} rows")
+        nb = -(-n // TWO_PASS_COLS)
         return {"route": "two_pass", "cluster": 0, "slab_rows": 0, "smem": 0,
-                "cmax_words": e * n}
+                "cmax_words": e * n,
+                "absmax_grid": check_grid("K9 absmax", (nb * -(-k // TWO_PASS_SLAB_K) * e,)),
+                "quant_grid": check_grid("K9 quantize", (nb * -(-k // TWO_PASS_TILE_K) * e,))}
     cols = STRIP_BYTES // ELEM_BYTES[dtype]
     strips = -(-n // cols)
     return {"route": "cluster", "strip_cols": cols, "cluster": cs, "slab_rows": rows,
-            "smem": rows * STRIP_BYTES, "grid": (strips * cs, e), "threads": THREADS,
+            "smem": rows * STRIP_BYTES, "grid": check_grid("K9", (strips * cs * e,)),
+            "threads": THREADS,
             "cmax_words": 0}
 
 

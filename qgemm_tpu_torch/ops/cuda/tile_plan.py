@@ -30,8 +30,9 @@ from __future__ import annotations
 
 import functools
 
-from qgemm_tpu_torch.ops.cuda.gemv_plan import GEMV_MAX_M, GROUP, KINDS, SMEM_LIMIT, SMS
-from qgemm_tpu_torch.ops.validation import check
+from qgemm_tpu_torch.ops.cuda.gemv_plan import (GEMV_MAX_M, GROUP, KINDS, MAX_GRID_BATCHES,
+                                                SMEM_LIMIT, SMS)
+from qgemm_tpu_torch.ops.validation import check, check_grid
 
 K_STEP = 128             # K codes per ring stage (one 128-byte swizzled row); W4A8: one group
 ALIGN = 1024             # a 128-byte swizzle atom: the ring starts on one
@@ -91,12 +92,13 @@ def tile_plan(kind: str, batches: int, m: int, n: int, k: int, kp: int = None,
     columns), ``consumers`` (warpgroups), ``threads``, ``stages``,
     ``stage_bytes``, ``k_steps``, ``grid`` (row blocks, column blocks,
     batches: a column block's row blocks run together and read its weights
-    once), ``smem`` (bytes) and ``tma``: per operand its box (inner
+    once; past 65,535 batches a launch's: ``launches`` launches of at most
+    65,535 each), ``smem`` (bytes) and ``tma``: per operand its box (inner
     bytes, rows) and global pitches (row, batch) in bytes."""
     check(kind in KINDS, f"tile_plan: kind must be one of {KINDS}, got {kind!r}")
     check(m > GEMV_MAX_M, f"tile_plan: the tile kernels take more than {GEMV_MAX_M} rows, "
                           f"got {m}")
-    check(0 < batches <= 65535, f"tile_plan: 1 to 65535 batches, got {batches}")
+    check(batches > 0, f"tile_plan: batches must be positive, got {batches}")
     check(n > 0 and k > 0, f"tile_plan: n and k must be positive, got {n}, {k}")
     if kind == "int8":
         check(k % 16 == 0, f"tile_plan: int8 K must be a multiple of 16, got {k}")
@@ -121,7 +123,10 @@ def tile_plan(kind: str, batches: int, m: int, n: int, k: int, kp: int = None,
     bm, bn = min(fit, key=cost)
     plan = {"kind": kind, "bm": bm, "bn": bn, "consumers": (bn if kind == "w4a8" else bm) // 64,
             "stages": ring_stages(kind, bm, bn), "stage_bytes": stage_bytes(kind, bm, bn),
-            "k_steps": steps, "grid": (-(-m // bm), -(-n // bn), batches),
+            "k_steps": steps,
+            "grid": check_grid("tile_plan", (-(-m // bm), -(-n // bn),
+                                             min(batches, MAX_GRID_BATCHES))),
+            "launches": -(-batches // MAX_GRID_BATCHES),
             "smem": tile_smem(kind, bm, bn),
             "tma": {"x": {"box": (K_STEP, bm), "pitch": (kx, m * kx)},
                     "w": {"box": (K_STEP if kind == "int8" else GROUP // 2, bn),

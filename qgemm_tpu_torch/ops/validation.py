@@ -58,12 +58,28 @@ def check_aligned16(name: str, *tensors: torch.Tensor) -> None:
               f"{name}: tensor data at {t.data_ptr():#x} is not 16-byte aligned")
 
 
+HEAD_DIMS = (32, 64, 128, 256, 512, 1024)   # the decode kernels' compiled head widths
+
+
 def padded_head_dim(d: int) -> int:
-    """The head width an attention kernel is compiled for that holds ``d``:
-    32, 64, 128 or 256 (the kernels take any d up to 256; above it they
-    raise)."""
-    check(1 <= d <= 256, f"the attention kernels take head_dim 1 to 256, got {d}")
-    return 32 if d <= 32 else 64 if d <= 64 else 128 if d <= 128 else 256
+    """The head width a decode kernel (K2, K5) is compiled for that holds
+    ``d``: 32, 64, 128, 256, 512 or 1024 (they take any d up to 1,024;
+    above it they raise). K3, K6 and K7 take their own widths."""
+    check(1 <= d <= HEAD_DIMS[-1],
+          f"the decode attention kernels take head_dim 1 to {HEAD_DIMS[-1]}, got {d}")
+    return next(w for w in HEAD_DIMS if d <= w)
+
+
+# CUDA's grid limits: x up to 2^31 - 1 blocks, y and z up to 65,535
+MAX_GRID = (2 ** 31 - 1, 65535, 65535)
+
+
+def check_grid(name: str, grid: tuple) -> tuple:
+    """``grid`` (x[, y[, z]] blocks) within CUDA's limits, returned as it
+    is; a kernel whose count can grow puts it on x."""
+    check(1 <= len(grid) <= 3 and all(1 <= n <= m for n, m in zip(grid, MAX_GRID)),
+          f"{name}: grid {tuple(grid)} is outside CUDA's limits {MAX_GRID}")
+    return tuple(grid)
 
 
 def pad_last(t: torch.Tensor, width: int) -> torch.Tensor:

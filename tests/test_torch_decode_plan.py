@@ -1,5 +1,5 @@
 """Launch plan of kernel K2's int8 route (qgemm_tpu_torch/ops/cuda/decode_plan.py):
-its 128-position splits cover each live position of a slot once and
+its 128-position splits (64 at D 1024) cover each live position of a slot once and
 nothing past its length; their count follows the cache extent, not the
 lengths; they are K5's splits at pages of at most 128 (so that the two
 kernels, one split body, give equal bits); the shared memory fits the H100
@@ -32,7 +32,7 @@ use_test_threads()
 CSRC = Path(dp.__file__).resolve().parents[2] / "csrc"
 SMEM_LIMIT = 232448        # the dynamic shared memory one H100 block may use
 EXTENTS = (1, 127, 128, 129, 300, 385, 1024, 1025)
-COMPILED = [(D, G) for D in (32, 64, 128, 256) for G in (1, 2, 4, 8)]
+COMPILED = [(D, G) for D in (32, 64, 128, 256, 512, 1024) for G in (1, 2, 4, 8)]
 # GQA groups that are no compiled row tile (passes of 8 rows), or wider
 GROUPS = (3, 7, 16, 32, 71)
 
@@ -43,27 +43,29 @@ def _lengths(S: int) -> list:
                    if n >= 0})
 
 
-def k2_split_range(split: int, length: int, S: int) -> tuple:
+def k2_split_range(split: int, length: int, S: int, D: int = 128) -> tuple:
     """Positions [start, stop) that K2's block ``split`` attends for a slot
     of ``length`` positions (capped at the extent S): empty past the
-    length, where the block exits."""
+    length, where the block exits. Splits hold 128 positions, 64 at D
+    1024."""
     n = min(length, S)
-    start = split * dp.SPLIT_POSITIONS
-    return (start, max(start, min(start + dp.SPLIT_POSITIONS, n)))
+    sp = dp.split_positions(D)
+    start = split * sp
+    return (start, max(start, min(start + sp, n)))
 
 
 @pytest.mark.parametrize("S", EXTENTS)
 @pytest.mark.parametrize("D,G", COMPILED)
 def test_k2_splits_cover_each_live_position_once(D, G, S):
     plan = dp.k2_plan(D, D, G, S, 3, 2)
-    assert plan["grid"] == (6, plan["nsplit"])
-    assert plan["split_positions"] == dp.SPLIT_POSITIONS == 128
+    assert plan["grid"] == (6, plan["nsplit"]) and plan["launches"] == 1
+    assert plan["split_positions"] == dp.split_positions(D) == (128 if D <= 512 else 64)
     assert plan["scratch_floats"] == 6 * plan["nsplit"] * G * (D + 2)
     for n in _lengths(S):
         live = min(n, S)
         covered = np.zeros(S, dtype=np.int64)
         for s in range(plan["nsplit"]):
-            a, z = k2_split_range(s, n, S)
+            a, z = k2_split_range(s, n, S, D)
             covered[a:z] += 1
             if a >= live:
                 assert z == a
@@ -85,35 +87,42 @@ def test_split_count_follows_the_extent_not_the_lengths(S):
             assert small == big
 
 
-@pytest.mark.parametrize("page", [16, 32, 64, 128])
-def test_k2_splits_are_k5_splits_at_pages_up_to_128(page):
-    """At pages of at most 128, K5's split s holds the positions K2's split
-    s holds: the two kernels run one body over the same positions, so the
-    same int8 rows give the same bits."""
-    pps = 1024 // page
+@pytest.mark.parametrize("page,D", [(16, 128), (32, 128), (64, 128), (128, 128), (1, 128),
+                                    (3, 128), (12, 128), (272, 128), (512, 128), (8, 512),
+                                    (512, 1024)])
+def test_k2_splits_are_k5_splits_at_pages_up_to_128(page, D):
+    """At int8 pages that divide the split, and at every int8 page the
+    kernels did not take at first (K5's ``aligned`` splits: any page not
+    a multiple of 8, past 256, or at D past 256), K5's split s holds the
+    positions K2's split s holds: the two kernels run one body over the
+    same positions, so the same int8 rows give the same bits."""
+    sp = dp.split_positions(D)
+    pps = -(-1024 // page)
     S = pps * page
-    assert pp.split_pages(page) * page == dp.SPLIT_POSITIONS
-    k5 = pp.k5_plan(8, 128, 128, 4, page, pps, 2, 8)
-    k2 = dp.k2_plan(128, 128, 4, S, 2, 8)
+    k5 = pp.k5_plan(8, D, D, 4, page, pps, 2, 8)
+    k2 = dp.k2_plan(D, D, 4, S, 2, 8)
     assert (k5["nsplit"], k5["smem"], k5["threads"]) == (k2["nsplit"], k2["smem"],
                                                          k2["threads"])
+    step = sp if k5["aligned"] else k5["split_pages"] * page
+    assert step == sp
     for n in _lengths(S):
         for s in range(k2["nsplit"]):
-            start = s * pp.split_pages(page) * page
-            k5_range = (start, max(start, min(start + pp.split_pages(page) * page, n, S)))
-            assert k2_split_range(s, n, S) == k5_range
+            start = s * step
+            k5_range = (start, max(start, min(start + step, n, S)))
+            assert k2_split_range(s, n, S, D) == k5_range
 
 
 @pytest.mark.parametrize("D,G", COMPILED)
 def test_shared_memory_fits_and_holds_what_the_kernel_stages(D, G):
-    """K2 stages a split's K and V code rows (128 x D bytes each) and their
-    f32 scales, and keeps the G rows' scores, m and l and the P V partial
-    sums: K5's layout at pages of 128. The C entry refuses any other
-    size."""
+    """K2 stages a split's K and V code rows (SP x D bytes each, SP = 128,
+    or 64 at D 1024) and their f32 scales, and keeps the G rows' scores, m
+    and l and the P V partial sums: K5's layout at pages of one split. The
+    C entry refuses any other size."""
     smem = dp.k2_plan(D, D, G, 1024, 1, 1)["smem"]
-    staged = 2 * 128 * D + 2 * 128 * 4
-    assert smem == pp.k5_smem(8, D, G, 128)
-    assert staged + G * 128 * 4 < smem <= SMEM_LIMIT
+    sp, tile = dp.split_positions(D), dp.row_tile(G, D)
+    staged = 2 * sp * D + 2 * sp * 4
+    assert smem == pp.k5_smem(8, D, tile, sp)
+    assert staged + tile * sp * 4 < smem <= SMEM_LIMIT
     assert smem % 16 == 0
 
 
@@ -124,14 +133,16 @@ def test_plan_constants_are_the_kernels():
     body = (CSRC / "split_decode.cuh").read_text()
     k2 = (CSRC / "decode_attention.cu").read_text()
     const = lambda src, name: int(re.search(rf"{name} = (\d+);", src).group(1))
-    assert const(body, "kSplitPositions") == dp.SPLIT_POSITIONS
+    assert re.search(r"return D <= 512 \? (\d+) : (\d+);", body).groups() == (
+        str(dp.SPLIT_POSITIONS), str(dp.SPLIT_POSITIONS // 2))
     assert const(body, "kThreads") == dp.K2_THREADS
     assert '#include "split_decode.cuh"' in k2
-    assert "sd::smem_bytes(8, D, G, sd::kSplitPositions)" in k2
-    assert "smem != sd::smem_bytes(8, D, sd::row_tile(G), sd::kSplitPositions)" in k2
-    assert "default: return launch_split<D, 8, true>" in k2
-    assert "split_positions != sd::kSplitPositions" in k2
-    assert "<<<dim3(B * hkv, nsplit), sd::kThreads, smem, s>>>" in k2
+    assert "sd::smem_bytes(8, D, G, sd::split_positions(D))" in k2
+    assert "smem != sd::smem_bytes(8, D, sd::row_tile(G, D), split_positions)" in k2
+    assert "if (tile != G) return QG_K2(8, true);" in k2
+    assert "split_positions != sd::split_positions(D)" in k2
+    assert "<<<dim3(B * hkv, min(sd::kMaxGridSplits, nsplit - s0)), sd::kThreads, smem, s>>>" \
+        in k2 and dp.MAX_GRID_SPLITS == const(body, "kMaxGridSplits")
 
 
 def test_build_keys_each_library_by_the_headers_it_includes():
@@ -161,16 +172,31 @@ def test_k2_plan_takes_any_group_in_passes_of_8(D, g, S):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(D=512), "head widths"), (dict(D=48), "head widths"), (dict(d=129), "width d"),
+    (dict(D=2048), "head widths"), (dict(D=48), "head widths"), (dict(d=129), "width d"),
     (dict(d=0), "width d"), (dict(G=0), "GQA group"), (dict(D=256, d=257), "width d"),
     (dict(S=0), "positive"), (dict(b=0), "positive"), (dict(hkv=0), "positive"),
-    (dict(S=65536 * 128), "splits"),
+    (dict(D=1024, d=1025), "width d"),
 ])
 def test_k2_plan_refuses_what_the_kernel_refuses(kw, match):
     args = dict(D=128, d=128, G=1, S=1024, b=8, hkv=32)
     args.update(kw)
     with pytest.raises(ValueError, match=match):
         dp.k2_plan(**args)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(D=512), dict(D=512, d=384, G=8), dict(D=1024, d=576, G=71), dict(D=1024, G=8),
+    dict(S=65536 * 128), dict(b=65600, hkv=1, S=128),
+])
+def test_k2_plan_takes_the_shapes_it_refused_before(kw):
+    """Widths past 256 and splits past 65,535: a plan whose shared memory
+    fits and whose grid is one dimension within CUDA's limits."""
+    args = dict(D=128, d=128, G=1, S=1024, b=8, hkv=32)
+    args.update(kw)
+    plan = dp.k2_plan(**args)
+    assert plan["smem"] <= SMEM_LIMIT and plan["grid"][0] <= 2 ** 31 - 1
+    assert plan["grid"] == (args["b"] * args["hkv"], min(plan["nsplit"], 65535))
+    assert plan["launches"] == -(-plan["nsplit"] // 65535)
 
 
 def test_plan_arguments_are_the_plans():

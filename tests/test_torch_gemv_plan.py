@@ -140,7 +140,7 @@ def test_the_square_and_the_tall_decode_shapes_fill_the_card(kind, k, n):
 def test_pinned_plans():
     assert gemv_plan("int8", 1, 8, 4096, 4096) == {
         "kind": "int8", "nr": 1, "warps": 8, "threads": 256, "k_slice": 512,
-        "tiles_per_block": 1, "grid": (256, 1), "smem": 4096}
+        "tiles_per_block": 1, "grid": (256, 1), "smem": 4096, "launches": 1}
     assert gemv_plan("int8", 1, 16, 50272, 4096)["grid"] == (3142, 1)
     assert gemv_plan("int8", 8, 8, 4096, 2048)["grid"] == (256, 8)
     assert [gemv_plan("w4a8", 1, 8, n, 4096, 4096, 2048)["tiles_per_block"]
@@ -167,7 +167,7 @@ def test_gemv_args_are_the_plans_and_zero_past_16_rows():
     (("int8", 1, 0, 64, 64), "1 to 16 rows"),
     (("int8", 1, 17, 64, 64), "1 to 16 rows"),
     (("int8", 0, 8, 64, 64), "batches"),
-    (("int8", 65536, 8, 64, 64), "batches"),
+    (("int8", -1, 8, 64, 64), "batches"),
     (("int8", 1, 8, 0, 64), "positive"),
     (("int8", 1, 8, 64, 24), "multiple of 16"),
     (("int8", 1, 8, 64, 64, 128, 128), "kp and bk are for w4a8"),
@@ -180,6 +180,17 @@ def test_gemv_args_are_the_plans_and_zero_past_16_rows():
 def test_plan_refuses_what_the_kernels_cannot_take(args, match):
     with pytest.raises(ValueError, match=match):
         gemv_plan(*args)
+
+
+@pytest.mark.parametrize("batches", [65535, 65536, 65600, 200000])
+def test_past_65535_batches_the_entry_launches_per_65535(batches):
+    """K8's experts past a grid y's 65,535: a launch takes at most 65,535
+    of them (its grid within CUDA's limits) and the C entry launches
+    ``launches`` times, advancing the operands to each chunk's expert."""
+    p = gemv_plan("int8", batches, 8, 16, 64)
+    assert p["grid"] == (1, min(batches, 65535)) and p["grid"][1] <= 65535
+    assert p["launches"] == -(-batches // 65535)
+    assert (p["launches"] - 1) * 65535 < batches <= p["launches"] * 65535
 
 
 def _rng(seed):

@@ -134,7 +134,14 @@ def test_plan_constants_are_the_kernels():
     src = (CSRC / "int8_flash_attention.cu").read_text()
     const = lambda name: int(re.search(rf"\b{name} = (\d+)[,;]", src).group(1))
     assert const("kBQ") == fp.QUERY_TILE and const("kBK") == fp.KEY_TILE == KERNEL_KEY_TILE
-    assert const("kRow") == fp.CODE_ROW and const("kStages") == fp.STAGES
+    assert const("kRow") == fp.CODE_ROW
+    # two stages, one past code rows of 512 bytes (d 1024)
+    assert "kStages = CR <= 512 ? 2 : 1;" in src and fp.STAGES == 2
+    assert (fp.stages(512), fp.stages(1024)) == (2, 1)
+    assert "inline int code_row_bytes(int d) { return d <= 128 ? 128 : d <= 256 ? 256 : " \
+        "d <= 512 ? 512 : 1024; }" in src
+    assert [fp.code_row(d) for d in (1, 128, 129, 256, 300, 1024)] == [
+        128, 128, 256, 256, 512, 1024]
     assert const("kConsumers") + 32 == fp.THREADS
     assert const("kChunkRows") == fp.CHUNK_ROWS and const("kColThreads") == fp.PREPASS_COL_THREADS
     assert const("kRowsPerBlock") == fp.ROWS_PER_BLOCK
@@ -143,16 +150,20 @@ def test_plan_constants_are_the_kernels():
     assert f"__launch_bounds__(kThreads, {fp.BLOCKS_PER_SM})" in src
     assert "nchunk != (sk + kChunkRows - 1) / kChunkRows" in src
     assert "return in_dtype == 1 && dv % 8 == 0 ? 0 : (dv + 7) / 8 * 8;" in src   # v_width
-    assert "vw != v_width(in_dtype, dv, qk_only)" in src
-    assert "launch_dv<T, P8, 1>" in src and "launch_dv<T, P8, 4>" in src   # S: d_pad / 32 k32 slices
+    assert "vw != v_width(in_dtype, d, dv, qk_only)" in src
+    assert "if (!qk_only) return d <= 128 && dv <= 128 ? padded(dv) : (dv + 127) / 128 * 128;" \
+        in src
+    # S: d_pad / 32 k32 slices
+    assert "launch_dv<T, P8, KS>" in src and "if (D == 32) QG_R12(1);" in src
+    assert "if (D == 1024) QG_R12(32);" in src
     cu_key = re.search(r"int key_of_position\(int p\) \{\n\s+return (.*);", src).group(1)
     assert cu_key == ("16 * (p >> 4) + 8 * ((p & 3) >> 1) + 2 * ((p >> 2) & 3) + (p & 1)")
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(bh=0), "batch\\*heads"), (dict(bh=65536), "batch\\*heads"), (dict(sq=0), "Sq, Sk"),
-    (dict(sk=0), "Sq, Sk"), (dict(d=0), "head widths"), (dict(d=129), "head widths"),
-    (dict(dv=129), "head widths"),
+    (dict(bh=0), "batch\\*heads"), (dict(bh=-1), "batch\\*heads"), (dict(sq=0), "Sq, Sk"),
+    (dict(sk=0), "Sq, Sk"), (dict(d=0), "head widths"), (dict(d=1025), "head widths"),
+    (dict(dv=1025), "head widths"),
 ])
 def test_plan_refuses_what_the_kernels_refuse(kw, match):
     args = dict(bh=32, sq=2048, sk=2048, d=128, dv=128)
@@ -163,10 +174,38 @@ def test_plan_refuses_what_the_kernels_refuse(kw, match):
         fp.prepass_plan(**args, qk_only=False, f32=False)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(bh=65536), dict(bh=65600, sq=16, sk=16), dict(d=129), dict(dv=129), dict(d=160, dv=160),
+    dict(d=256, dv=256), dict(d=256, dv=96), dict(d=576, dv=512), dict(d=1024, dv=1024),
+    dict(d=64, dv=300),
+])
+@pytest.mark.parametrize("p_int8", [True, False])
+def test_plan_takes_what_it_refused_before(kw, p_int8):
+    """Batch*heads past 65,535 and head widths past 128: code rows of the
+    padded width, V in chunks of 128 channels (a block each), shared
+    memory under the limit and grids one dimension within CUDA's."""
+    args = dict(bh=32, sq=2048, sk=2048, d=128, dv=128)
+    args.update(kw)
+    m = fp.flash_plan(**args, causal=True, p_int8=p_int8)
+    pre = fp.prepass_plan(**args, qk_only=not p_int8, f32=False)
+    assert m["smem"] <= SMEM_LIMIT and m["smem"] == fp.flash_smem(m["dv_pad"], p_int8, args["d"])
+    assert m["d_pad"] >= args["d"] and pre["code_row"] == max(128, m["d_pad"])
+    assert m["dv_pad"] == (128 if max(args["d"], args["dv"]) > 128 else fp.padded_width(args["dv"]))
+    assert m["v_chunks"] == -(-args["dv"] // m["dv_pad"])
+    assert m["grid"] == (-(-args["sq"] // 64) * m["v_chunks"] * args["bh"],)
+    assert len(m["grid"]) == 1 and 1 <= m["grid"][0] <= 2 ** 31 - 1
+    for g in (pre["col_grid"], pre["row_grid"]):   # a launch's: y at most 65,535
+        assert g[1] == min(args["bh"], 65535) and g[0] <= 2 ** 31 - 1
+    assert pre["launches"] == 2 * -(-args["bh"] // 65535)
+    if p_int8:
+        assert pre["v_width"] % m["dv_pad"] == 0 and pre["v_width"] >= args["dv"]
+
+
 def test_prepass_plan_numbers():
     p = fp.prepass_plan(32, 2048, 2048, 128, 128, False, False)
     assert p["col_grid"] == (32, 32) and p["skp"] == 2048 and p["dv_pad"] == 128
     assert p["row_grid"] == (64 + 64 + 16, 32) and p["v_width"] == 128
+    assert p["launches"] == 2
     assert p["scratch_floats"] == 32 * 32 * 256
     o = fp.prepass_plan(32, 2048, 2048, 128, 128, True, False)   # qk_only reads bf16 V as it is
     assert o["row_grid"] == (64 + 64, 32) and o["nv_blocks"] == 0 and o["v_width"] == 0
@@ -174,7 +213,7 @@ def test_prepass_plan_numbers():
     assert (r["skp"], r["dv_pad"], r["nchunk"], r["scratch_floats"]) == (256, 64, 3, 8 * 3 * 32)
     assert r["nv_blocks"] == 2 and r["v_width"] == 64
     m = fp.flash_plan(8, 100, 130, 32, 64, False, False)
-    assert (m["grid"], m["d_pad"], m["dv_pad"], m["smem"]) == ((2, 8), 32, 64,
+    assert (m["grid"], m["d_pad"], m["dv_pad"], m["smem"]) == ((2 * 8,), 32, 64,
                                                                fp.flash_smem(64, False))
 
 

@@ -48,8 +48,8 @@ def test_cluster_slabs_cover_each_k_and_column_once(k, dtype):
     assert p["route"] == "cluster"
     cols = p["strip_cols"]
     assert cols * (4 if dtype == "float32" else 2) == qp.STRIP_BYTES
-    strips = p["grid"][0] // p["cluster"]
-    assert p["grid"] == (strips * p["cluster"], 3) and p["threads"] == qp.THREADS
+    strips = p["grid"][0] // (p["cluster"] * 3)   # one dimension: strips' clusters, then e
+    assert p["grid"] == (strips * p["cluster"] * 3,) and p["threads"] == qp.THREADS
     assert p["cluster"] in (1, 2, 4, 8) and p["slab_rows"] % qp.ROW_ALIGN == 0
     covered = np.zeros((k, n), np.int64)
     for s in range(strips):
@@ -105,9 +105,8 @@ def test_plan_constants_are_the_kernels():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(dtype="float16"), "float32 or bfloat16"), (dict(e=0), "1 to 65535"),
-    (dict(e=65536), "1 to 65535"), (dict(k=0), "positive"), (dict(n=0), "positive"),
-    (dict(k=65535 * 64 + 1), "two_pass"),
+    (dict(dtype="float16"), "float32 or bfloat16"), (dict(e=0), "at least one weight"),
+    (dict(e=-1), "at least one weight"), (dict(k=0), "positive"), (dict(n=0), "positive"),
 ])
 def test_plan_refuses_what_the_kernel_refuses(kw, match):
     args = dict(e=8, k=2048, n=4096, dtype="bfloat16")
@@ -116,12 +115,30 @@ def test_plan_refuses_what_the_kernel_refuses(kw, match):
         qp.col_quantize_plan(**args)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(e=65536), dict(e=65600, k=16, n=16), dict(k=65535 * 64 + 1, n=64),
+    dict(e=65600, k=20000, n=16),
+])
+def test_plan_takes_what_it_refused_before(kw):
+    """Past 65,535 weights, or two_pass row tiles past 65,535: every grid
+    one dimension within CUDA's limits."""
+    args = dict(e=8, k=2048, n=4096, dtype="bfloat16")
+    args.update(kw)
+    p = qp.col_quantize_plan(**args)
+    grids = ([p["grid"]] if p["route"] == "cluster"
+             else [p["absmax_grid"], p["quant_grid"]])
+    assert all(len(g) == 1 and 1 <= g[0] <= 2 ** 31 - 1 for g in grids)
+    if p["route"] == "two_pass":
+        nb = -(-args["n"] // qp.TWO_PASS_COLS)
+        assert p["quant_grid"] == (nb * -(-args["k"] // qp.TWO_PASS_TILE_K) * args["e"],)
+
+
 def test_plan_arguments_are_the_plans():
     p = qp.col_quantize_plan(8, 4096, 2048, "bfloat16")
     assert (p["cluster"], p["slab_rows"], p["smem"]) == (8, 512, 65536)
     assert qp.col_quantize_args(8, 4096, 2048, "bfloat16") == (0, 8, 512, 65536, 0)
     assert qp.col_quantize_plan(8, 2048, 4096, "bfloat16")["smem"] == 32768
-    assert qp.col_quantize_plan(1, 2048, 2048, "float32")["grid"] == (64 * 8, 1)
+    assert qp.col_quantize_plan(1, 2048, 2048, "float32")["grid"] == (64 * 8,)
 
 
 def _cluster_emulation(w: np.ndarray, dtype: str, rounding: str):

@@ -8,7 +8,10 @@ only on the card; chip_smoke.py's ``shape_limits`` phase holds them there):
 * Attention at any head width up to 256 (and Dv != D for K3/K7): the
   kernels run at the padded width 32, 64, 128 or 256 with the softmax scale of
   the true width; zero columns add nothing to a score, so the padded plain
-  versions sliced back equal the unpadded ones within 1e-6.
+  versions sliced back equal the unpadded ones within 1e-6. Past 256 the
+  decode kernels (K2, K5) run at 512 or 1024, and K3, K7 and K6 at the
+  width rounded up to a multiple of 64 (q and k to one, v to another for
+  K3 and K7).
 """
 
 import math
@@ -20,7 +23,8 @@ import torch
 from qgemm_tpu_torch.ops.cuda.decode_attention import decode_attention_plain
 from qgemm_tpu_torch.ops.cuda.expert_matmul import grouped_quantized_matmul_plain
 from qgemm_tpu_torch.ops.cuda.flash_attention import flash_attention_plain
-from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd_plain
+from qgemm_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd_plain, kernel_widths
+from qgemm_tpu_torch.ops.cuda.paged_plan import k6_width
 from qgemm_tpu_torch.ops.kv_cache import quantize_kv
 from qgemm_tpu_torch.ops.quantize import (QuantizedWeight, k_tile, quantize_weights,
                                           quantized_matmul, quantized_matmul_plain)
@@ -37,10 +41,16 @@ def _t(shape, seed, scale=1.0):
 
 def test_padded_widths():
     assert [k_tile(k) for k in (1, 3, 16, 17, 784)] == [16, 16, 16, 32, 784]
-    assert [padded_head_dim(d) for d in (1, 2, 32, 33, 64, 65, 100, 128, 129, 160, 256)] == \
-        [32, 32, 32, 64, 64, 128, 128, 128, 256, 256, 256]
+    assert [padded_head_dim(d) for d in (1, 2, 32, 33, 64, 65, 100, 128, 129, 160, 256, 257,
+                                         384, 512, 513, 576, 1024)] == \
+        [32, 32, 32, 64, 64, 128, 128, 128, 256, 256, 256, 512, 512, 512, 1024, 1024, 1024]
     with pytest.raises(ValueError, match="head_dim"):
-        padded_head_dim(257)
+        padded_head_dim(1025)
+    assert [kernel_widths(d, dv) for d, dv in ((100, 20), (130, 256), (257, 64), (576, 512),
+                                                 (2000, 3))] == [
+        (128, 128), (256, 256), (320, 64), (576, 512), (2048, 64)]
+    assert [k6_width(d) for d in (2, 160, 256, 257, 384, 1000)] == [32, 256, 256, 320, 384,
+                                                                    1024]
 
 
 @pytest.mark.parametrize("k", [3, 17, 784])
@@ -79,15 +89,17 @@ def test_k_padding_keeps_k8_bits(k):
 
 
 @pytest.mark.parametrize("d,dv", [(2, 2), (32, 32), (32, 64), (48, 48), (100, 20), (160, 160),
-                                  (256, 160), (130, 256)])
+                                  (256, 160), (130, 256), (300, 300), (576, 512), (64, 320),
+                                  (1000, 40)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_padding_flash_fwd_bwd(d, dv, causal):
     q, k, v = _t((1, 2, 9, d), 1), _t((1, 2, 11, d), 2), _t((1, 2, 11, dv), 3)
     g = _t((1, 2, 9, dv), 4)
     o, lse = flash_attention_plain(q, k, v, causal)
-    dp = padded_head_dim(max(d, dv))
+    dqk, dvp = kernel_widths(d, dv)
     scale = 1.0 / math.sqrt(d)
-    qp, kp, vp, gp = (pad_last(t, dp) for t in (q, k, v, g))
+    qp, kp = pad_last(q, dqk), pad_last(k, dqk)
+    vp, gp = pad_last(v, dvp), pad_last(g, dvp)
     op, lsep = flash_attention_plain(qp, kp, vp, causal, scale=scale)
     assert_allclose(op[..., :dv], o)
     assert float(op[..., dv:].abs().sum()) == 0.0
@@ -99,7 +111,7 @@ def test_head_padding_flash_fwd_bwd(d, dv, causal):
         assert float(got[..., w:].abs().sum()) == 0.0, name
 
 
-@pytest.mark.parametrize("d", [2, 32, 80, 160, 256])
+@pytest.mark.parametrize("d", [2, 32, 80, 160, 256, 384, 576, 1024])
 def test_head_padding_decode(d):
     """K2 reads the cache at its true width and treats the columns past it
     as zeros: the same as a zero-padded cache."""

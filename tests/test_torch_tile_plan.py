@@ -179,7 +179,7 @@ def test_tile_args_are_the_plans_and_zero_at_16_rows_and_fewer():
     (("int8", 1, 16, 64, 64), "more than 16 rows"),
     (("int8", 1, 0, 64, 64), "more than 16 rows"),
     (("int8", 0, 32, 64, 64), "batches"),
-    (("int8", 65536, 32, 64, 64), "batches"),
+    (("int8", -1, 32, 64, 64), "batches"),
     (("int8", 1, 32, 0, 64), "positive"),
     (("int8", 1, 32, 64, 24), "multiple of 16"),
     (("int8", 1, 32, 64, 64, 128, 128), "kp and bk are for w4a8"),
@@ -193,6 +193,16 @@ def test_tile_args_are_the_plans_and_zero_at_16_rows_and_fewer():
 def test_plan_refuses_what_the_kernels_cannot_take(args, match):
     with pytest.raises(ValueError, match=match):
         tile_plan(*args)
+
+
+@pytest.mark.parametrize("batches", [65535, 65536, 65600, 200000])
+def test_past_65535_batches_the_entry_launches_per_65535(batches):
+    """K8's experts past a grid z's 65,535: a launch takes at most 65,535
+    of them (its grid within CUDA's limits) and the C entry launches
+    ``launches`` times, each with tensor maps of its chunk's experts."""
+    p = tile_plan("int8", batches, 32, 16, 64)
+    assert p["grid"][2] == min(batches, 65535) and all(g <= 65535 for g in p["grid"][1:])
+    assert p["launches"] == -(-batches // 65535)
 
 
 def _rng(seed):
